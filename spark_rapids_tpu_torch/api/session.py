@@ -1,8 +1,9 @@
 """User-facing session and DataFrame of the port.
 
 Counterpart of ``spark_rapids_tpu/api/session.py`` (``TpuSession`` :95,
-``create_dataframe`` :129, ``DataFrame`` :583, ``collect`` :767), cut to
-the q6 surface: filter, select, agg, collect and count.
+``create_dataframe`` :129, ``GroupedData`` :368, ``DataFrame`` :583,
+``group_by`` :685, ``collect`` :767), cut to the q6 and q1 surface:
+filter, select, agg, group_by(...).agg, collect and count.
 
 A session runs on the card unless the caller names another device:
 ``GpuSession(device=None)`` takes ``cuda`` and raises where there is none.
@@ -96,6 +97,19 @@ class GpuSession:
         return DataFrame(L.InMemoryRelation(parts, schema), self)
 
 
+class GroupedData:
+    """``df.group_by(keys...)``; ``agg`` builds the grouped Aggregate (no
+    keys: the global one)."""
+
+    def __init__(self, df: "DataFrame", keys):
+        self.df = df
+        self.keys = [_to_expr(k) for k in keys]
+
+    def agg(self, *aggs) -> "DataFrame":
+        return DataFrame(L.Aggregate(self.keys, [_to_expr(a) for a in aggs],
+                                     self.df.plan), self.df.session)
+
+
 class DataFrame:
     def __init__(self, plan: L.LogicalPlan, session: GpuSession):
         self.plan = plan
@@ -113,9 +127,11 @@ class DataFrame:
         return DataFrame(L.Filter(_to_expr(condition), self.plan),
                          self.session)
 
+    def group_by(self, *keys) -> "GroupedData":
+        return GroupedData(self, keys)
+
     def agg(self, *aggs) -> "DataFrame":
-        return DataFrame(L.Aggregate([], [_to_expr(a) for a in aggs],
-                                     self.plan), self.session)
+        return GroupedData(self, ()).agg(*aggs)
 
     def physical_plan(self):
         return plan_query(self.plan, self.session.conf, self.session.device)

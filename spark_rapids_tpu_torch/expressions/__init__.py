@@ -9,7 +9,8 @@ from spark_rapids_tpu_torch.expressions.core import (
     col,
     lit,
 )
-from spark_rapids_tpu_torch.expressions.arithmetic import Multiply
+from spark_rapids_tpu_torch.expressions.arithmetic import (Add, Multiply,
+                                                        Subtract)
 from spark_rapids_tpu_torch.expressions.predicates import (
     And,
     GreaterThanOrEqual,
@@ -17,10 +18,12 @@ from spark_rapids_tpu_torch.expressions.predicates import (
     LessThanOrEqual,
 )
 from spark_rapids_tpu_torch.expressions.casts import Cast
-from spark_rapids_tpu_torch.expressions.aggregates import Count, Sum, count, sum_
+from spark_rapids_tpu_torch.expressions.aggregates import (
+    Average, Count, Sum, avg, count, sum_)
 
 __all__ = [
-    "Alias", "And", "BoundReference", "Cast", "Col", "Count", "EvalContext",
-    "Expression", "GreaterThanOrEqual", "LessThan", "LessThanOrEqual",
-    "Literal", "Multiply", "Sum", "col", "count", "lit", "sum_",
+    "Add", "Alias", "And", "Average", "BoundReference", "Cast", "Col",
+    "Count", "EvalContext", "Expression", "GreaterThanOrEqual", "LessThan",
+    "LessThanOrEqual", "Literal", "Multiply", "Subtract", "Sum", "avg",
+    "col", "count", "lit", "sum_",
 ]

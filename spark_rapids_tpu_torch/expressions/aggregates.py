@@ -1,14 +1,16 @@
-"""Declarative aggregate functions: SUM and COUNT.
+"""Declarative aggregate functions: SUM, COUNT and AVG.
 
 Counterpart of ``spark_rapids_tpu/expressions/aggregates.py`` (``Sum`` :91,
-``Count`` :134).  Each function declares its buffer slots: the slot's
+``Count`` :134, ``Average`` :236, non-decimal inputs).  Each function declares its buffer slots: the slot's
 type, how raw rows fold into it (``update_op``) and how partial buffers
 fold together (``merge_op``; counts update by counting and merge by
 summing), plus a finalize step over the merged buffers.  The exec layer
-(plan/execs/aggregate.py) lowers the ops onto the masked-sum kernel.
+(plan/execs/aggregate.py) lowers the ops onto the masked-sum kernel (no
+keys) or the segmented-sum kernel (grouped).
 
 Type rules follow Spark: sum(integral) -> LONG, sum(double) -> DOUBLE,
-count -> LONG (never null).
+count -> LONG (never null), avg(numeric) -> DOUBLE (null over no valid
+row).
 """
 from __future__ import annotations
 
@@ -106,6 +108,35 @@ class Count(AggregateFunction):
         return n, torch.ones(n.shape, dtype=torch.bool, device=n.device)
 
 
+class Average(AggregateFunction):
+    """avg over a non-decimal numeric input: buffers (DOUBLE SUM, LONG
+    COUNT_VALID merged by SUM), result sum / count, null when the count is
+    0.  Decimal avg (the reference's two-limb SUM128 buffer) is not
+    ported."""
+
+    name = "avg"
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        cdt = self.input.dtype
+        if cdt.is_integral or isinstance(cdt, T.DoubleType):
+            return T.DOUBLE
+        raise NotImplementedError(f"avg({cdt!r}) is not ported")
+
+    @property
+    def buffers(self):
+        return (BufferSlot(self.dtype, SUM, SUM),
+                BufferSlot(T.LONG, COUNT_VALID, SUM))
+
+    def finalize(self, bufs):
+        (s, _), (n, _) = bufs
+        valid = n > 0
+        return s / torch.where(valid, n, 1).to(s.dtype), valid
+
+
 def find_aggregates(e: Expression) -> List[AggregateFunction]:
     """All aggregate calls inside an output expression tree."""
     if isinstance(e, AggregateFunction):
@@ -124,3 +155,7 @@ def count(e=None) -> Count:
     if e is None:
         return Count()
     return Count(col(e) if isinstance(e, str) else e)
+
+
+def avg(e) -> Average:
+    return Average(col(e) if isinstance(e, str) else e)

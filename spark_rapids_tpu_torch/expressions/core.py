@@ -77,6 +77,14 @@ class Expression:
     def _bin(self, other, cls):
         return cls(self, other if isinstance(other, Expression) else lit(other))
 
+    def __add__(self, other):
+        from spark_rapids_tpu_torch.expressions.arithmetic import Add
+        return self._bin(other, Add)
+
+    def __sub__(self, other):
+        from spark_rapids_tpu_torch.expressions.arithmetic import Subtract
+        return self._bin(other, Subtract)
+
     def __mul__(self, other):
         from spark_rapids_tpu_torch.expressions.arithmetic import Multiply
         return self._bin(other, Multiply)
@@ -99,8 +107,6 @@ class Expression:
         from spark_rapids_tpu_torch.expressions.predicates import And
         return self._bin(other, And)
 
-    __add__ = _not_ported("+")
-    __sub__ = _not_ported("-")
     __truediv__ = _not_ported("/")
     __mod__ = _not_ported("%")
     __neg__ = _not_ported("unary -")

@@ -24,7 +24,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("selection.cu", "reduction.cu")
+SOURCES = ("selection.cu", "reduction.cu", "hash.cu", "sort.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -44,6 +44,17 @@ _SIGNATURES = {
     "srt_concat": [_P, _P, _I, _I, _P, _P, _I64, _P],
     "srt_reduction_tile": [],
     "srt_masked_sum": [_I, _P, _P, _I64, _P, _P, _P, _P, _P, _P],
+    "srt_segment_tile": [],
+    "srt_segmented_sum": [_I, _P, _P, _I64, _P, _I, _P, _P, _P, _P, _P, _P,
+                          _P],
+    "srt_max_hash_cols": [],
+    "srt_murmur3": [_I, _P, _P, _P, _I64, ctypes.c_uint32, _P, _I, _P, _P],
+    "srt_sort_tile": [],
+    "srt_max_radix_bits": [],
+    "srt_partition": [_P, _I64, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "srt_null_counts": [_I, _P, _I64, _P, _P],
+    "srt_sort_column": [_I, _P, _P, _I, _I, _I, _P, _I64, _P, _P, _P, _P, _P,
+                        _P, _P],
 }
 
 _lock = threading.Lock()

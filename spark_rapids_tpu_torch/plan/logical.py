@@ -63,7 +63,8 @@ class Filter(LogicalPlan):
 
 
 class Aggregate(LogicalPlan):
-    """Aggregate; agg_exprs are output expressions over aggregate calls."""
+    """Aggregate: group_exprs are the keys (none: a global aggregate);
+    agg_exprs are output expressions over aggregate calls."""
 
     def __init__(self, group_exprs: Sequence[Expression],
                  agg_exprs: Sequence[Expression], child: LogicalPlan):

@@ -1,8 +1,8 @@
-"""TPC-H lineitem generation and q6, without JAX.
+"""TPC-H lineitem generation, q6 and q1, without JAX.
 
 A copy of the pure-Python parts of ``spark_rapids_tpu/testing/tpch.py``
 (``LINEITEM_SCHEMA`` :39, ``ROWS_PER_SF`` :54, ``gen_lineitem`` :57,
-``q6`` :106).  Generation draws the same numpy streams in the same order as
+``q6`` :106, ``q1`` :129).  Generation draws the same numpy streams in the same order as
 the reference, so both packages see identical data for a seed; it returns
 host numpy columns, and ``lineitem_batches`` uploads them.
 """
@@ -126,3 +126,27 @@ def q6_count(df):
     """q6 with count(*) of the qualifying rows beside the revenue."""
     from spark_rapids_tpu_torch.expressions import count
     return _q6_filter(df).agg(_revenue(), count().alias("n"))
+
+
+def q1(df):
+    """TPC-H Q1: pricing summary report (scan + filter + wide group-agg),
+    written as the reference's; l_linenumber stands in for the
+    returnflag/linestatus keys until strings land."""
+    from spark_rapids_tpu_torch.expressions import Cast, avg, col, count, lit, sum_
+    cutoff = _days(1998, 9, 2)
+    qty = Cast(col("l_quantity"), T.DOUBLE)
+    price = Cast(col("l_extendedprice"), T.DOUBLE)
+    disc = Cast(col("l_discount"), T.DOUBLE)
+    tax = Cast(col("l_tax"), T.DOUBLE)
+    disc_price = price * (lit(1.0) - disc)
+    charge = disc_price * (lit(1.0) + tax)
+    return (df.filter(col("l_shipdate") <= lit(cutoff, T.DATE))
+            .group_by("l_linenumber")
+            .agg(sum_(qty).alias("sum_qty"),
+                 sum_(price).alias("sum_base_price"),
+                 sum_(disc_price).alias("sum_disc_price"),
+                 sum_(charge).alias("sum_charge"),
+                 avg(qty).alias("avg_qty"),
+                 avg(price).alias("avg_price"),
+                 avg(disc).alias("avg_disc"),
+                 count().alias("count_order")))

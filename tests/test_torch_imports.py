@@ -1,20 +1,28 @@
 """The port stands alone: no JAX, no import of the JAX package.
 
 The scan reads the sources (an AST walk), because the interpreter may have
-imported jax before any test runs, so sys.modules proves nothing.
+imported jax before any test runs, so sys.modules proves nothing.  Every
+module imports without building or loading the CUDA kernels, and every
+CUDA source is built.
 """
 import ast
+import json
 import pathlib
+import subprocess
+import sys
 
 import pytest
 import torch
 
 from spark_rapids_tpu_torch.api.session import GpuSession
+from spark_rapids_tpu_torch.kernels import _lib
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "spark_rapids_tpu")
 PORT_FILES = sorted((ROOT / "spark_rapids_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+PORT_MODULES = [".".join(p.relative_to(ROOT).with_suffix("").parts)
+                .removesuffix(".__init__") for p in PORT_FILES[:-1]]
 
 
 def _imported_roots(path: pathlib.Path):
@@ -51,3 +59,47 @@ def test_session_defaults_to_the_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             GpuSession()
     assert GpuSession(device="cpu").device == torch.device("cpu")
+
+
+_IMPORT_PROBE = """
+import importlib, json, sys
+from spark_rapids_tpu_torch.kernels import _lib
+loaded = {}
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+    loaded[name] = _lib._lib is not None
+print(json.dumps(loaded))
+"""
+
+
+@pytest.fixture(scope="module")
+def kernels_loaded_by_import():
+    """Import every port module, in order, in a fresh interpreter, and
+    record after each whether the kernel library was loaded.  A fresh
+    process, because a test that called a CUDA wrapper earlier in this one
+    has loaded the library already."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_PROBE,
+                          *PORT_MODULES], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", PORT_MODULES)
+def test_module_imports_without_building_kernels(name,
+                                                 kernels_loaded_by_import):
+    assert name in kernels_loaded_by_import
+    assert not kernels_loaded_by_import[name], \
+        f"importing {name} loaded the kernel library"
+
+
+def test_every_cuda_source_is_built():
+    assert sorted(_lib.SOURCES) == sorted(
+        p.name for p in _lib.CSRC.glob("*.cu"))
+    assert {"hash.cu", "sort.cu"} <= set(_lib.SOURCES)
+    for name in ("spark_rapids_tpu_torch.kernels.hash",
+                 "spark_rapids_tpu_torch.kernels.partition",
+                 "spark_rapids_tpu_torch.kernels.sort",
+                 "spark_rapids_tpu_torch.kernels.groupby",
+                 "spark_rapids_tpu_torch.shuffle.transport"):
+        assert name in PORT_MODULES
