@@ -17,8 +17,16 @@ Phases (any failure raises and the script exits non-zero):
      the group boundaries, the segmented sums, the 7-row partial batch's
      hash and partition, the reduce side's concat); each timed shape
      compared before it is timed, with its time, the plain version's, a
-     library call's and its bound.  A kernel's ``max_abs_err`` is the
-     largest difference over all its comparisons;
+     library call's and its bound.  Then the q3 path's kernels: the
+     string planes of gather and concat, string murmur3, the string sort
+     keys and the string group boundaries at n = 1,048,576 and 1,000,003
+     (10% nulls, lengths 0-64, bytes >= 0x80, shared prefixes, "ab" next
+     to "ab\0"), and the join's build, probe and expand against builds of
+     186, 857 and 100,000 keys with duplicates (int32, int64 and double
+     keys with -0.0 and NaN); each also at the shapes q3 gives it (the
+     first SF10 store_sales batch against the filtered date_dim and item).
+     A kernel's ``max_abs_err`` is the largest difference over all its
+     comparisons;
   4. data: TPC-H lineitem at SF10 (60,012,150 rows, all eleven columns on
      the card, batches of 1,048,576 rows, 4 partitions), with independent
      numpy evaluations of q6 and q1;
@@ -27,7 +35,14 @@ Phases (any failure raises and the script exits non-zero):
      the card's busy time and idle share;
   6. q1 the same way: grouped partial aggregate, hash exchange into 16
      partitions, final aggregate;
-  7. prints the kernels summary line, then the result line last.
+  7. q3 at TPC-DS SF10 (store_sales 28,800,991 rows, all twelve columns on
+     the card, batches of 1,048,576 rows, 4 partitions; item 102,000
+     rows; date_dim 2,190 rows): two broadcast hash joins, the grouped
+     aggregate on (d_year, i_brand_id, i_brand) across the hash exchange,
+     ORDER BY over a single-partition exchange; held against an
+     independent numpy evaluation (same groups, same order), then timed
+     and profiled as q1;
+  8. prints the kernels summary line, then the result line last.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -50,13 +65,15 @@ from spark_rapids_tpu_torch.columnar.column import DeviceColumn  # noqa: E402
 from spark_rapids_tpu_torch.columnar.batch import (  # noqa: E402
     ColumnarBatch, Schema)
 from spark_rapids_tpu_torch.kernels import _lib  # noqa: E402
+from spark_rapids_tpu_torch.kernels import groupby as G  # noqa: E402
 from spark_rapids_tpu_torch.kernels import hash as HK  # noqa: E402
+from spark_rapids_tpu_torch.kernels import join as JK  # noqa: E402
 from spark_rapids_tpu_torch.kernels import partition as PK  # noqa: E402
 from spark_rapids_tpu_torch.kernels import reduction as R  # noqa: E402
 from spark_rapids_tpu_torch.kernels import selection as S  # noqa: E402
 from spark_rapids_tpu_torch.kernels import sort as SK  # noqa: E402
 from spark_rapids_tpu_torch import types as T  # noqa: E402
-from spark_rapids_tpu_torch.testing import tpch  # noqa: E402
+from spark_rapids_tpu_torch.testing import tpcds, tpch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 # no integer peak is published beside the tensor-core rates: the f32 rate
@@ -89,10 +106,29 @@ KERNELS = {
     "sort": ("csrc/sort.cu", "spark_rapids_tpu/kernels/sort.py:200"),
     "segmented_sum": ("csrc/reduction.cu",
                       "spark_rapids_tpu/kernels/groupby.py:166"),
+    "gather_strings": ("csrc/selection.cu",
+                       "spark_rapids_tpu/kernels/selection.py:160"),
+    "concat_strings": ("csrc/selection.cu",
+                       "spark_rapids_tpu/kernels/selection.py:429"),
+    "hash_string": ("csrc/hash.cu", "spark_rapids_tpu/kernels/hash.py:187"),
+    "string_sort_keys": ("csrc/strings.cu",
+                         "spark_rapids_tpu/kernels/sort.py:160"),
+    "string_rows_equal_prev": ("csrc/strings.cu",
+                               "spark_rapids_tpu/kernels/groupby.py:74"),
+    "join_build": ("csrc/join.cu", "spark_rapids_tpu/kernels/join.py:154"),
+    "join_probe": ("csrc/join.cu", "spark_rapids_tpu/kernels/join.py:154"),
+    "join_expand": ("csrc/join.cu", "spark_rapids_tpu/kernels/join.py:226"),
 }
 Q6_KERNELS = ("compaction_map", "gather", "masked_sum", "concat")
 Q1_KERNELS = ("compaction_map", "gather", "concat", "murmur3", "partition",
               "sort", "segmented_sum")
+Q3_KERNELS = ("compaction_map", "gather", "gather_strings", "concat",
+              "concat_strings", "murmur3", "hash_string", "partition", "sort",
+              "string_sort_keys", "string_rows_equal_prev", "segmented_sum",
+              "join_build", "join_probe", "join_expand")
+SS_ROWS = tpcds.SF10_STORE_SALES_ROWS
+ITEM_ROWS = tpcds.SF10_ITEM_ROWS
+F64_RTOL_Q3 = 1e-9               # against numpy's bincount sums
 
 
 def emit(obj) -> None:
@@ -483,10 +519,10 @@ def key_cases(n):
         (T.BOOLEAN, 2)]
 
 
-def hold_murmur3(cols, what: str) -> None:
+def hold_murmur3(cols, what: str, kernel: str = "murmur3") -> None:
     h, part = HK.murmur3_partition(cols, SHUFFLE_PARTITIONS)
     want = HK.murmur3_hash_plain(cols)
-    hold("murmur3", [(h, want), (part, HK.pmod(want, SHUFFLE_PARTITIONS))],
+    hold(kernel, [(h, want), (part, HK.pmod(want, SHUFFLE_PARTITIONS))],
          what)
 
 
@@ -639,7 +675,419 @@ def check_segmented_sum(rng, dev, shapes, summary) -> None:
     summary["segmented_sum"] = summarize(line, nbytes, ops)
 
 
-def phase_kernels(dev) -> dict:
+# -- phase 3: the q3 path's string and join kernels ----------------------------
+
+def string_column(rng, n, dev, null_frac=0.1, lo=0, hi=64,
+                  shared=0.5) -> DeviceColumn:
+    """n strings of lo..hi random bytes (>= 0x80 included), null_frac
+    nulls; a ``shared`` share of the rows starts with one of 16 12-byte
+    prefixes."""
+    lengths = rng.randint(lo, hi + 1, n)
+    valid = rng.rand(n) >= null_frac
+    lengths[~valid] = 0
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(lengths, out=offsets[1:])
+    total = int(offsets[-1])
+    data = rng.randint(0, 256, total).astype(np.uint8)
+    row = np.repeat(np.arange(n), lengths)
+    pos = np.arange(total) - offsets[:-1][row]
+    pool = rng.randint(0, 256, (16, 12)).astype(np.uint8)
+    pick = rng.randint(0, 16, n)
+    m = (pos < 12) & (rng.rand(n) < shared)[row]
+    data[m] = pool[pick[row[m]], pos[m]]
+    return DeviceColumn.from_string_buffers(offsets.astype(np.int32), data,
+                                            valid, dev)
+
+
+#: the edge cases of binaryCompare, hashing and equality, appended to the
+#: random columns
+STRING_EDGES = ["ab", "ab\x00", "ab\x00\x00", "", None, "\xff", "\x80",
+                "ab", "abcdefgh", "abcdefgh\x00", "abcdefghi", "ABC",
+                "é" * 20, None, ""]
+
+
+def with_edges(col: DeviceColumn, dev) -> DeviceColumn:
+    return S.concat_column_plain([col, DeviceColumn.from_strings(STRING_EDGES,
+                                                                 dev)])
+
+
+def string_pairs(got: DeviceColumn, want: DeviceColumn) -> list:
+    """A string column's planes, its offsets rebased to 0."""
+    def rebased(c):
+        o = c.offsets.to(torch.int64)
+        return (o - o[0]).to(torch.int32), c.data[int(o[0]):int(o[-1])]
+    (go, gd), (wo, wd) = rebased(got), rebased(want)
+    return [(go, wo), (gd, wd), (got.validity, want.validity)]
+
+
+def any_pairs(got, want) -> list:
+    out = []
+    for x, y in zip(got, want, strict=True):
+        out += string_pairs(x, y) if y.is_string else column_pairs([x], [y])
+    return out
+
+
+def to_device(b: ColumnarBatch, dev) -> ColumnarBatch:
+    return ColumnarBatch(tuple(
+        DeviceColumn(c.data.to(dev), c.validity.to(dev), c.dtype,
+                     None if c.offsets is None else c.offsets.to(dev))
+        for c in b.columns), b.num_rows, b.schema)
+
+
+def q3_tables():
+    """The dimension tables at SF10, on the host: date_dim's (sk, year,
+    moy) and item's (sk, brand_id, manufact_id, brand) as numpy arrays."""
+    date = tpcds.gen_date_dim("cpu")
+    item = tpcds.gen_item("cpu", ITEM_ROWS)
+    d = {n: date.column(n).to_numpy()[0]
+         for n in ("d_date_sk", "d_year", "d_moy")}
+    i = {n: item.column(n).to_numpy()[0]
+         for n in ("i_item_sk", "i_brand_id", "i_manufact_id")}
+    i["i_brand"] = np.array(item.column("i_brand").to_pylist(), dtype=object)
+    return date, item, d, i
+
+
+def q3_shapes(dev, tables) -> dict:
+    """The shapes q3 gives its kernels, from the first SF10 store_sales
+    batch: the first join (1,048,576 stream keys against date_dim's 186
+    ``d_moy = 11`` keys), the second (its ~89,000 pairs against item's
+    ~857 ``i_manufact_id = 28`` keys), the partial aggregate's keys
+    (d_year, i_brand_id, i_brand) of the ~750 joined rows, and the reduce
+    side's string pieces (28 views of those keys)."""
+    date, item, d, i = tables
+    data, _ = next(tpcds.iter_store_sales(SS_ROWS, ITEM_ROWS, batch_rows=N))
+    keep_d = np.flatnonzero(d["d_moy"] == 11)
+    keep_i = np.flatnonzero(i["i_manufact_id"] == 28)
+    build1 = S.gather_batch(date.select(["d_date_sk", "d_year", "d_moy"]),
+                            torch.from_numpy(keep_d.astype(np.int32)))
+    build2 = S.gather_batch(item.select(["i_item_sk", "i_brand_id", "i_brand",
+                                         "i_manufact_id"]),
+                            torch.from_numpy(keep_i.astype(np.int32)))
+    date_sk = data["ss_sold_date_sk"]
+    li1 = np.flatnonzero(d["d_moy"][date_sk - 2450000] == 11)
+    item_sk = data["ss_item_sk"][li1]
+    li2 = np.flatnonzero(i["i_manufact_id"][item_sk - 1] == 28)
+    # the build rows the second join pairs them with
+    ri2 = np.searchsorted(keep_i, item_sk[li2] - 1).astype(np.int32)
+    rows = li1[li2]
+    brand = i["i_brand"][item_sk[li2] - 1]
+    keys = [DeviceColumn.from_numpy(d["d_year"][date_sk[rows] - 2450000],
+                                    T.INT, None, dev),
+            DeviceColumn.from_numpy(i["i_brand_id"][item_sk[li2] - 1], T.INT,
+                                    None, dev),
+            DeviceColumn.from_strings(list(brand), dev)]
+    order = np.lexsort((brand.astype(str), keys[1].data.cpu().numpy(),
+                        keys[0].data.cpu().numpy()))
+    sorted_brand = DeviceColumn.from_strings(list(brand[order]), dev)
+    rng = np.random.RandomState(7)
+    pieces = [keys[2].slice_rows(s, s + 37)
+              for s in rng.randint(0, max(len(rows) - 37, 1), 28)]
+    return {
+        "stream1": DeviceColumn.from_numpy(date_sk, T.INT, None, dev),
+        "build1": to_device(build1, dev),
+        "stream2": DeviceColumn.from_numpy(item_sk, T.INT, None, dev),
+        "build2": to_device(build2, dev),
+        "ri2": torch.from_numpy(ri2).to(dev),
+        "pairs1": len(li1), "pairs2": len(li2),
+        "partial_keys": keys,
+        "sorted_brand": sorted_brand,
+        "reduce_pieces": pieces,
+    }
+
+
+def gather_bytes(cols, ix: torch.Tensor) -> int:
+    """What a gather of in-range rows must move: the map, then per column
+    its planes read and written once (a string row: its two offsets and
+    validity read, its offset and validity written, its bytes read and
+    written)."""
+    m = ix.shape[0]
+    total = 4 * m
+    for c in cols:
+        if c.is_string:
+            lengths = (c.offsets[1:] - c.offsets[:-1]).to(torch.int64)
+            total += 14 * m + 2 * int(lengths[ix.long()].sum())
+        else:
+            total += 2 * (c.data.element_size() + 1) * m
+    return total
+
+
+def check_string_gather(rng, dev, q3, summary) -> None:
+    for n in (N, RAGGED):
+        for lo, hi in ((0, 8), (0, 64), (64, 128)):   # 1, 8, 32 lanes
+            sc = with_edges(string_column(rng, n, dev, lo=lo, hi=hi), dev)
+            m = sc.num_rows
+            cols = [random_column(rng, m, T.INT, 0.1, dev), sc,
+                    random_column(rng, m, T.DOUBLE, 0.1, dev)]
+            perm = torch.from_numpy(rng.permutation(m).astype(np.int32)).to(dev)
+            rep = torch.from_numpy(rng.randint(-3, m + 3, m // 3).astype(
+                np.int32)).to(dev)
+            for label, ix in (("permutation", perm), ("repeats+oob", rep),
+                              ("empty", perm[:0])):
+                got = S.gather_columns(cols, ix)
+                want = S.gather_columns_plain(cols, ix)
+                hold("gather_strings", string_pairs(got[1], want[1]),
+                     f"n={m} lengths {lo}-{hi} {label}")
+                hold("gather", column_pairs([got[0], got[2]],
+                                            [want[0], want[2]]),
+                     f"beside strings n={m} {label}")
+    # a 1,048,576-row string column by a permutation, and q3's shape: the
+    # second join's build side (item, i_brand a string) by its map
+    big = string_column(rng, N, dev, null_frac=0.1, lo=0, hi=64)
+    perm = torch.from_numpy(rng.permutation(N).astype(np.int32)).to(dev)
+    b2, ri2 = q3["build2"], q3["ri2"]
+    for label, cols, ix in (("n_0-64", [big], perm),
+                            ("q3_join2_build", list(b2.columns), ri2)):
+        hold("gather_strings", any_pairs(S.gather_columns(cols, ix),
+                                         S.gather_columns_plain(cols, ix)),
+             f"the timed {label} gather")
+        nbytes = gather_bytes(cols, ix)
+        m = ix.shape[0]
+        line = {"kernel": "gather_strings", "shape": label, "rows": m,
+                "columns": len(cols), **measure(
+                    lambda: S.gather_columns(cols, ix),
+                    lambda: S.gather_columns_plain(cols, ix), None, nbytes)}
+        emit(line)
+        if label == "q3_join2_build":
+            summary["gather_strings"] = summarize(line, nbytes)
+
+
+def check_string_concat(rng, dev, q3, summary) -> None:
+    big = with_edges(string_column(rng, RAGGED, dev), dev)
+    cuts = sorted(rng.randint(0, big.num_rows, 6))
+    slices = [big.slice_rows(a, b) for a, b in
+              zip([0] + cuts, cuts + [big.num_rows])]
+    cases = [("slices_of_one", slices),
+             ("with_empty", [big.slice_rows(5, 5), slices[1],
+                             DeviceColumn.from_strings([], dev), slices[2]]),
+             ("one_piece", [big]),
+             ("all_empty", [big.slice_rows(3, 3)] * 4),
+             ("ragged", [string_column(rng, int(k), dev)
+                         for k in rng.randint(0, 20_000, 58)])]
+    for label, pieces in cases:
+        got = S.concat_column(pieces)
+        hold("concat_strings", string_pairs(got, S.concat_column_plain(pieces)),
+             label)
+    pieces = q3["reduce_pieces"]
+    hold("concat_strings", string_pairs(S.concat_column(pieces),
+                                        S.concat_column_plain(pieces)),
+         "the timed q3 reduce-side pieces")
+    rows = sum(p.num_rows for p in pieces)
+    nb = sum(int(p.offsets[-1] - p.offsets[0]) for p in pieces)
+    nbytes = 2 * (5 * rows + nb)
+    line = {"kernel": "concat_strings", "shape": "q3_reduce", "pieces":
+            len(pieces), "rows": rows, "bytes": nb, **measure(
+                lambda: S.concat_column(pieces),
+                lambda: S.concat_column_plain(pieces), None, nbytes)}
+    emit(line)
+    summary["concat_strings"] = summarize(line, nbytes)
+
+
+def check_hash_string(rng, dev, q3, summary) -> None:
+    abc = DeviceColumn.from_strings(["ABC", ""], dev)
+    require(HK.murmur3_hash([abc]).tolist() == [-757602832, 142593372],
+            "murmur3 of 'ABC' and '' differ from Spark's")
+    for n in (N, RAGGED):
+        sc = with_edges(string_column(rng, n, dev), dev)
+        hold_murmur3([sc], f"n={sc.num_rows} strings", "hash_string")
+        hold_murmur3([key_column(rng, sc.num_rows, T.INT, 1_000, dev), sc,
+                      key_column(rng, sc.num_rows, T.DOUBLE, 1_000, dev)],
+                     f"n={sc.num_rows} int, string, double chained",
+                     "hash_string")
+    keys = q3["partial_keys"]
+    hold_murmur3(keys, "the timed q3 partial keys", "hash_string")
+    n = keys[0].num_rows
+    nb = int(keys[2].offsets[-1] - keys[2].offsets[0])
+    nbytes, ops = 5 * n * 2 + 9 * n + nb + 8 * n, 28 * n * 2 + 8 * nb
+    line = {"kernel": "hash_string", "shape": "q3_partial", "n": n,
+            "columns": 3, **measure(
+                lambda: HK.murmur3_partition(keys, SHUFFLE_PARTITIONS),
+                lambda: HK.pmod(HK.murmur3_hash_plain(keys),
+                                SHUFFLE_PARTITIONS), None, nbytes, ops)}
+    emit(line)
+    summary["hash_string"] = summarize(line, nbytes, ops)
+
+
+def hold_string_sort_keys(col, what: str) -> None:
+    o = col.offsets.to(torch.int64)
+    lengths = torch.where(col.validity, o[1:] - o[:-1], 0)
+    longest = int(lengths.max()) if col.num_rows else 0
+    hold("string_sort_keys", zip(SK.string_sort_keys(col, longest),
+                                 SK.string_sort_keys_plain(col, longest)),
+         what)
+
+
+def check_string_sort(rng, dev, q3, summary) -> None:
+    for n in (N, RAGGED):
+        sc = with_edges(string_column(rng, n, dev), dev)
+        hold_string_sort_keys(sc, f"n={sc.num_rows}")
+        for o in (SK.SortOrder(True), SK.SortOrder(False),
+                  SK.SortOrder(True, False), SK.SortOrder(False, True)):
+            hold_sort([sc], [o], f"n={sc.num_rows} strings {o}")
+        hold_sort([key_column(rng, sc.num_rows, T.INT, 7, dev), sc],
+                  [SK.SortOrder(), SK.SortOrder(False)],
+                  f"n={sc.num_rows} int then string")
+    # "ab" < "ab\0" < "ab\0\0" < "abc": binaryCompare, checked against the
+    # bytes, not only against the plain version
+    edge = DeviceColumn.from_strings(["ab\x00", "abc", "ab", "ab\x00\x00"], dev)
+    got = SK.sort_indices(ColumnarBatch((edge,), 4, Schema(("s",), (T.STRING,))),
+                          [0], [SK.SortOrder()])
+    require(got.tolist() == [2, 0, 3, 1], f"string order {got.tolist()}")
+    keys = q3["partial_keys"]
+    orders = [SK.SortOrder()] * 3
+    hold_sort(keys, orders, "the timed q3 partial keys")
+    brand = keys[2]
+    hold_string_sort_keys(brand, "the timed q3 brand column")
+    n = brand.num_rows
+    o = brand.offsets.to(torch.int64)
+    longest = int((o[1:] - o[:-1]).max())
+    nb = int(o[-1] - o[0])
+    nchunks = SK.string_chunks(longest)
+    nbytes = 4 * n + n + nb + (8 * nchunks + 4) * n
+    line = {"kernel": "string_sort_keys", "shape": "q3_partial_brand",
+            "n": n, "chunks": nchunks, **measure(
+                lambda: SK.string_sort_keys(brand, longest),
+                lambda: SK.string_sort_keys_plain(brand, longest), None,
+                nbytes)}
+    emit(line)
+    summary["string_sort_keys"] = summarize(line, nbytes)
+    batch = ColumnarBatch(tuple(keys), n, Schema(("y", "b", "s"),
+                                                 (T.INT, T.INT, T.STRING)))
+    big = string_column(rng, N, dev, lo=0, hi=64)
+    big_batch = ColumnarBatch((big,), N, Schema(("s",), (T.STRING,)))
+    for label, b, cols, ords in (
+            ("q3_partial_3keys", batch, keys, orders),
+            ("n_strings_0-64", big_batch, [big], [SK.SortOrder()])):
+        hold_sort(cols, ords, f"the timed {label} sort")
+        emit({"kernel": "sort", "shape": label, "n": b.num_rows, **measure(
+            lambda: SK.sort_indices(b, list(range(len(cols))), ords),
+            lambda: SK.sort_indices_plain(cols, ords), None,
+            sum(c.data.numel() + c.validity.numel() for c in cols)
+            + 4 * b.num_rows)})
+
+
+def check_string_rows_equal(rng, dev, q3, summary) -> None:
+    for n in (N, RAGGED):
+        pool = with_edges(string_column(rng, 1_000, dev, null_frac=0.0), dev)
+        draw = torch.from_numpy(rng.randint(-50, pool.num_rows, n).astype(
+            np.int32)).to(dev)   # -50..-1: null rows
+        col = S.gather_columns_plain([pool], draw)[0]
+        sb = ColumnarBatch((col,), n, Schema(("s",), (T.STRING,)))
+        srt = S.gather_columns_plain([col], SK.sort_indices(
+            sb, [0], [SK.SortOrder()]))[0]
+        for label, c in (("sorted", srt), ("unsorted", col)):
+            hold("string_rows_equal_prev",
+                 [(G.string_rows_equal_prev(c),
+                   G.string_rows_equal_prev_plain(c))], f"n={n} {label}")
+    # grouping end to end: the same groups as the plain path
+    keys = q3["partial_keys"]
+    work = ColumnarBatch(tuple(keys), keys[0].num_rows,
+                         Schema(("y", "b", "s"), (T.INT, T.INT, T.STRING)))
+    lay = G.group_rows(work, [0, 1, 2])
+    hold("string_rows_equal_prev", [(lay.starts, G.group_rows(
+        to_device(work, "cpu"), [0, 1, 2]).starts.to(dev))],
+         "q3's group starts against the CPU")
+    col = q3["sorted_brand"]
+    hold("string_rows_equal_prev", [(G.string_rows_equal_prev(col),
+                                     G.string_rows_equal_prev_plain(col))],
+         "the timed q3 sorted brand")
+    n = col.num_rows
+    nb = int(col.offsets[-1] - col.offsets[0])
+    nbytes = 5 * n + nb + (n - 1)
+    line = {"kernel": "string_rows_equal_prev", "shape": "q3_sorted_brand",
+            "n": n, **measure(lambda: G.string_rows_equal_prev(col),
+                              lambda: G.string_rows_equal_prev_plain(col),
+                              None, nbytes)}
+    emit(line)
+    summary["string_rows_equal_prev"] = summarize(line, nbytes)
+
+
+def build_batch(col: DeviceColumn) -> ColumnarBatch:
+    return ColumnarBatch((col,), col.num_rows, Schema(("k",), (col.dtype,)))
+
+
+def hold_join(stream: DeviceColumn, build_col: DeviceColumn, what: str):
+    """The kernel path (build, probe, expand) against the plain one, step
+    by step on the same tensors; returns the kernel's build."""
+    build = JK.build_side(build_batch(build_col), 0)
+    norm = G.normalize_key_column(build_col)
+    hold("join_build", zip(JK.build_keys(norm, build.perm),
+                           JK.build_keys_plain(norm, build.perm)), what)
+    lo, off, total = JK.join_probe(build_batch(stream), 0, build)
+    plo, poff, ptotal = JK.probe_plain(stream, build)
+    require(total == ptotal, f"join_probe: {total} pairs against {ptotal}: "
+            f"{what}")
+    hold("join_probe", [(lo, plo), (off, poff)], what)
+    hold("join_expand", zip(JK.join_expand(lo, off, total, build),
+                            JK.expand_plain(lo, off, total, build.perm)),
+         what)
+    return build, (lo, off, total)
+
+
+def check_join(rng, dev, q3, summary) -> None:
+    b1 = q3["build1"].columns[0]
+    b2 = q3["build2"].columns[0]
+    wide = key_column(rng, 100_000, T.INT, 60_000, dev)   # duplicates
+    for n in (N, RAGGED):
+        for label, build in (("186", b1), ("857", b2), ("100000", wide)):
+            lo_v = int(build.data.min()) - 5
+            hi_v = int(build.data.max()) + 5
+            vals = rng.randint(lo_v, hi_v, n).astype(np.int32)
+            stream = DeviceColumn.from_numpy(vals, T.INT, rng.rand(n) >= 0.1,
+                                             dev)
+            hold_join(stream, build, f"n={n} int32 against {label} keys")
+        longs = key_column(rng, n, T.LONG, 1_000, dev)
+        hold_join(longs, key_column(rng, 100_000, T.LONG, 1_000, dev),
+                  f"n={n} int64 keys with duplicates")
+        dbl = key_column(rng, n, T.DOUBLE, 1_000, dev)
+        hold_join(dbl, key_column(rng, 100_000, T.DOUBLE, 1_000, dev),
+                  f"n={n} double keys with -0.0 and NaN")
+        hold_join(key_column(rng, n, T.INT, 1_000, dev),
+                  key_column(rng, 5_000, T.LONG, 1_000, dev),
+                  f"n={n} int32 stream, int64 build")
+    hold_join(key_column(rng, N, T.INT, 1_000, dev),
+              DeviceColumn.from_numpy(np.zeros(0, np.int32), T.INT, None, dev),
+              "an empty build")
+    # q3's shapes: the first join, then the second
+    s1, s2 = q3["stream1"], q3["stream2"]
+    build1, (lo, off, total) = hold_join(s1, b1, "the timed q3 first join")
+    require(total == q3["pairs1"], f"q3 join 1: {total} pairs, numpy "
+            f"{q3['pairs1']}")
+    _, (_, _, total2) = hold_join(s2, b2, "q3's second join")
+    require(total2 == q3["pairs2"], f"q3 join 2: {total2} pairs")
+    n, nb = s1.num_rows, build1.num_rows
+    sorted_keys = (build1.keys ^ JK._SIGN64)[:int(build1.key_valid.sum())]
+    probe_keys = JK.order_keys_plain(s1) ^ JK._SIGN64
+    steps = max(nb, 1).bit_length()
+    nbytes, ops = 5 * n + 8 * n + 8 * n + 9 * nb, 2 * steps * 4 * n
+    line = {"kernel": "join_probe", "shape": "q3_join1", "n": n,
+            "build": nb, "pairs": total, **measure(
+                lambda: JK.join_probe(build_batch(s1), 0, build1),
+                lambda: JK.probe_plain(s1, build1),
+                lambda: (torch.searchsorted(sorted_keys, probe_keys),
+                         torch.searchsorted(sorted_keys, probe_keys,
+                                            right=True)),
+                nbytes, ops)}
+    emit(line)
+    summary["join_probe"] = summarize(line, nbytes, ops)
+    nbytes = 8 * total + 8 * n + 4 * nb
+    line = {"kernel": "join_expand", "shape": "q3_join1", "n": n,
+            "pairs": total, **measure(
+                lambda: JK.join_expand(lo, off, total, build1),
+                lambda: JK.expand_plain(lo, off, total, build1.perm), None,
+                nbytes)}
+    emit(line)
+    summary["join_expand"] = summarize(line, nbytes)
+    norm = G.normalize_key_column(b2)
+    perm = JK.build_side(q3["build2"], 0).perm
+    nbytes = (4 + 1 + 4) * b2.num_rows + 9 * b2.num_rows
+    line = {"kernel": "join_build", "shape": "q3_item_857", "n": b2.num_rows,
+            **measure(lambda: JK.build_keys(norm, perm),
+                      lambda: JK.build_keys_plain(norm, perm), None, nbytes)}
+    emit(line)
+    summary["join_build"] = summarize(line, nbytes)
+
+
+def phase_kernels(dev, tables) -> dict:
     # the profiler itself must see the card
     device_profile(lambda: torch.ones(8, device=dev) + 1)
     rng = np.random.RandomState(2024)
@@ -653,6 +1101,13 @@ def phase_kernels(dev) -> dict:
     check_partition(rng, dev, shapes, summary)
     check_sort(rng, dev, shapes, summary)
     check_segmented_sum(rng, dev, shapes, summary)
+    q3 = q3_shapes(dev, tables)
+    check_string_gather(rng, dev, q3, summary)
+    check_string_concat(rng, dev, q3, summary)
+    check_hash_string(rng, dev, q3, summary)
+    check_string_sort(rng, dev, q3, summary)
+    check_string_rows_equal(rng, dev, q3, summary)
+    check_join(rng, dev, q3, summary)
     torch.cuda.synchronize()
     for name in KERNELS:
         summary[name]["max_abs_err"] = ERRS[name]
@@ -736,9 +1191,9 @@ def run_path(name: str, query, df, kernels) -> tuple:
     return rows, launches
 
 
-def time_path(name: str, query, df) -> dict:
+def time_path(name: str, query, df, rows: int = SF10_ROWS) -> dict:
     """Median wall of 3 runs after the main-path run, then one profiled
-    run: the card's busy time and idle share."""
+    run: the card's busy time and idle share; ``rows`` scanned per run."""
     torch.cuda.reset_peak_memory_stats()
     walls = []
     for _ in range(3):
@@ -755,7 +1210,7 @@ def time_path(name: str, query, df) -> dict:
           "idle_share": 1.0 - busy_ms / (wall * 1e3),
           "top_device_ms": top})
     return {"wall_s": wall, "wall_s_runs": walls,
-            "rows_per_s": SF10_ROWS / wall, "device_busy_ms": busy_ms,
+            "rows_per_s": rows / wall, "device_busy_ms": busy_ms,
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
 
@@ -794,13 +1249,117 @@ def phase_q1(df, ref_rows) -> dict:
     return launches
 
 
+# -- phase 7 ------------------------------------------------------------------
+
+class Q3Numpy:
+    """Independent q3 over host arrays: the joins as lookups into the
+    dimension arrays, the groups by (d_year, i_brand_id, i_brand), the sums
+    in integer cents (ss_ext_sales_price has two decimals), so that the
+    order, ties included, is exact."""
+
+    def __init__(self, d, i):
+        self.moy, self.year = d["d_moy"], d["d_year"]
+        keep = i["i_manufact_id"] == 28
+        pairs = sorted({(int(b), s) for b, s in
+                        zip(i["i_brand_id"][keep], i["i_brand"][keep])})
+        index = {p: g for g, p in enumerate(pairs)}
+        self.pairs = pairs
+        self.item_group = np.full(len(keep), -1, np.int64)
+        for k in np.flatnonzero(keep):
+            self.item_group[k] = index[(int(i["i_brand_id"][k]),
+                                        i["i_brand"][k])]
+        self.years = np.unique(self.year)
+        self.cents = np.zeros(len(self.years) * len(pairs), np.int64)
+        self.rows = np.zeros_like(self.cents)
+
+    def add(self, data) -> None:
+        ds = data["ss_sold_date_sk"] - 2450000
+        g = self.item_group[data["ss_item_sk"] - 1]
+        ok = (self.moy[ds] == 11) & (g >= 0)
+        yi = np.searchsorted(self.years, self.year[ds[ok]])
+        gid = yi * len(self.pairs) + g[ok]
+        cents = np.rint(data["ss_ext_sales_price"][ok] * 100).astype(np.int64)
+        size = len(self.cents)
+        self.cents += np.bincount(gid, cents, minlength=size).astype(np.int64)
+        self.rows += np.bincount(gid, minlength=size)
+
+    def result(self) -> list:
+        """(d_year, i_brand_id, i_brand, cents) in q3's order."""
+        out = []
+        for gid in np.flatnonzero(self.rows):
+            y, p = divmod(int(gid), len(self.pairs))
+            out.append((int(self.years[y]), *self.pairs[p],
+                        int(self.cents[gid])))
+        return sorted(out, key=lambda r: (r[0], -r[3], r[1]))
+
+
+def phase_q3_data(dev, tables):
+    date, item, d, i = tables
+    t0 = time.perf_counter()
+    ref = Q3Numpy(d, i)
+    batches = []
+    for data, validity in tpcds.iter_store_sales(SS_ROWS, ITEM_ROWS,
+                                                 batch_rows=N):
+        ref.add(data)
+        batches.append(tpcds.store_sales_batch(data, validity, dev))
+    date_dev, item_dev = to_device(date, dev), to_device(item, dev)
+    torch.cuda.synchronize()
+    resident = sum(t.nbytes for b in batches for c in b.columns
+                   for t in (c.data, c.validity))
+    emit({"phase": "q3_data", "store_sales_rows": SS_ROWS,
+          "batches": len(batches), "resident_bytes": resident,
+          "item_rows": item_dev.num_rows, "date_dim_rows": date_dev.num_rows,
+          "setup_seconds": time.perf_counter() - t0,
+          "numpy_q3_groups": int((ref.rows > 0).sum())})
+    sess = GpuSession()
+    dfs = (sess.create_dataframe(batches, num_partitions=4),
+           sess.create_dataframe([date_dev]),
+           sess.create_dataframe([item_dev]))
+    return dfs, ref.result()
+
+
+def check_q3_rows(rows, want) -> float:
+    """The same groups as numpy, sums within F64_RTOL_Q3, in q3's order;
+    two groups may trade places only where numpy's sums tie to the cent."""
+    require(len(rows) == len(want), f"q3 gave {len(rows)} groups, numpy "
+            f"{len(want)}")
+    max_rel = 0.0
+    by_key = {w[:3]: w[3] for w in want}
+    for r in rows:
+        require(r[:3] in by_key, f"q3 gave a group numpy has not: {r}")
+        w = by_key[r[:3]] / 100
+        max_rel = max(max_rel, abs(r[3] - w) / abs(w))
+    require(max_rel <= F64_RTOL_Q3, f"q3 off numpy by {max_rel} relative")
+    for a, b in zip(rows, rows[1:]):
+        require((a[0], -a[3], a[1]) <= (b[0], -b[3], b[1]),
+                f"q3 rows out of order: {a} before {b}")
+    for g, w in zip(rows, want):
+        require(g[:3] == w[:3] or by_key[g[:3]] == w[3],
+                f"q3 order differs from numpy's: {g} where numpy has {w}")
+    return max_rel
+
+
+def phase_q3(dfs, want) -> dict:
+    query = lambda _: tpcds.q3(*dfs)  # noqa: E731
+    rows, launches = run_path("q3", query, None, Q3_KERNELS)
+    max_rel = check_q3_rows(rows, want)
+    ties = sum(a[0] == b[0] and a[3] == b[3] for a, b in zip(want, want[1:]))
+    timing = time_path("q3", query, None, SS_ROWS)
+    emit({"phase": "q3", "rows": SS_ROWS, "groups": len(rows),
+          "max_rel_err": max_rel, "numpy_sum_ties": ties,
+          "first_rows": rows[:3], **timing})
+    return launches
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", torch.cuda.current_device())
     phase_build()
-    summary = phase_kernels(dev)
+    tables = q3_tables()
+    summary = phase_kernels(dev, tables)
     df, q6_ref, q1_ref = phase_data(dev)
     by_path = {"q6": phase_q6(df, q6_ref), "q1": phase_q1(df, q1_ref)}
+    by_path["q3"] = phase_q3(*phase_q3_data(dev, tables))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         s = summary[name]

@@ -2,8 +2,9 @@
 
 Counterpart of ``spark_rapids_tpu/api/session.py`` (``TpuSession`` :95,
 ``create_dataframe`` :129, ``GroupedData`` :368, ``DataFrame`` :583,
-``group_by`` :685, ``collect`` :767), cut to the q6 and q1 surface:
-filter, select, agg, group_by(...).agg, collect and count.
+``group_by`` :685, ``order_by`` :692, ``join`` :744, ``collect`` :767), cut
+to the q6, q1 and q3 surface: filter, select, agg, group_by(...).agg,
+join, order_by, collect and count.
 
 A session runs on the card unless the caller names another device:
 ``GpuSession(device=None)`` takes ``cuda`` and raises where there is none.
@@ -22,6 +23,7 @@ from spark_rapids_tpu_torch.columnar.arrow import (arrow_to_batch,
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
 from spark_rapids_tpu_torch.config import RapidsConf
 from spark_rapids_tpu_torch.expressions.core import Expression, col, lit
+from spark_rapids_tpu_torch.kernels.sort import SortOrder
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.engine import GpuEngine
 from spark_rapids_tpu_torch.planner.overrides import plan_query
@@ -132,6 +134,31 @@ class DataFrame:
 
     def agg(self, *aggs) -> "DataFrame":
         return GroupedData(self, ()).agg(*aggs)
+
+    def order_by(self, *orders) -> "DataFrame":
+        """ORDER BY: each order is a column (ascending) or an (expression,
+        SortOrder) pair, most significant first."""
+        parsed = [(_to_expr(o[0]), o[1]) if isinstance(o, tuple)
+                  else (_to_expr(o), SortOrder(True)) for o in orders]
+        return DataFrame(L.Sort(parsed, self.plan), self.session)
+
+    sort = order_by
+
+    def join(self, other: "DataFrame", on=None, how: str = "inner",
+             condition=None) -> "DataFrame":
+        """Equi-join on ``on``: a column name, a list of names common to
+        both sides, or a (left keys, right keys) pair of expression
+        lists.  Only the inner join on one fixed-width key runs."""
+        if on is None:
+            lkeys, rkeys = [], []
+        elif isinstance(on, str):
+            lkeys = rkeys = [col(on)]
+        elif isinstance(on, (list, tuple)) and on and isinstance(on[0], str):
+            lkeys = rkeys = [col(k) for k in on]
+        else:
+            lkeys, rkeys = on
+        return DataFrame(L.Join(self.plan, other.plan, lkeys, rkeys, how,
+                                condition), self.session)
 
     def physical_plan(self):
         return plan_query(self.plan, self.session.conf, self.session.device)

@@ -7,7 +7,7 @@ exactly that many rows (see column.py).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -75,6 +75,19 @@ class ColumnarBatch:
     def from_arrow(table, device) -> "ColumnarBatch":
         from spark_rapids_tpu_torch.columnar.arrow import arrow_to_batch
         return arrow_to_batch(table, device)
+
+    @staticmethod
+    def from_pydict(data: Dict[str, list], schema: Schema,
+                    device) -> "ColumnarBatch":
+        """Host Python lists (None is null) -> one device batch; strings as
+        str (``ColumnarBatch.from_pydict`` :110 of the reference)."""
+        import pyarrow as pa
+
+        from spark_rapids_tpu_torch.columnar.arrow import (arrow_to_batch,
+                                                           sql_type_to_arrow)
+        return arrow_to_batch(pa.table(
+            {n: pa.array(data[n], sql_type_to_arrow(d))
+             for n, d in zip(schema.names, schema.dtypes)}), device)
 
     def to_arrow(self):
         from spark_rapids_tpu_torch.columnar.arrow import batch_to_arrow

@@ -1,16 +1,23 @@
 """Device column of the port: exact-size tensors.
 
 Counterpart of ``spark_rapids_tpu/columnar/column.py`` (``DeviceColumn``
-:42), fixed-width layout only.  The reference pads every column to a
-power-of-two capacity and carries a dynamic row count, because XLA needs
-static shapes.  PyTorch runs eagerly, so a column here is exactly
-``data[n]`` plus ``validity[n]`` (bool, True = non-null), and the row count
-is the host int ``n``.  Null slots hold zero, as in the reference.
+:42), fixed-width and string layouts.  The reference pads every column to
+a power-of-two capacity and carries a dynamic row count, because XLA needs
+static shapes.  PyTorch runs eagerly, so a fixed-width column here is
+exactly ``data[n]`` plus ``validity[n]`` (bool, True = non-null), and the
+row count is the host int ``n``.  Null slots hold zero, as in the
+reference.
+
+A STRING column is ``offsets`` (int32 ``[n + 1]``), ``data`` (uint8 bytes)
+and ``validity[n]``: row i is ``data[offsets[i]:offsets[i + 1]]`` and a
+null row has length 0.  The offsets need not start at 0, so a slice of
+rows is a view of the same bytes (``slice_rows``) with no host read; every
+kernel reads a row through its two offsets, and ``to_pylist`` rebases.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,33 +27,68 @@ from spark_rapids_tpu_torch import types as T
 
 @dataclasses.dataclass
 class DeviceColumn:
-    data: torch.Tensor       # [n] of dtype.torch_dtype
+    data: torch.Tensor       # [n] of dtype.torch_dtype; uint8 bytes for strings
     validity: torch.Tensor   # [n] bool
     dtype: T.DataType
+    offsets: Optional[torch.Tensor] = None   # int32 [n + 1], strings only
 
     def __post_init__(self):
         if self.data.dtype != self.dtype.torch_dtype:
             raise TypeError(f"{self.dtype!r} column needs "
                             f"{self.dtype.torch_dtype}, got {self.data.dtype}")
-        if self.validity.dtype != torch.bool:
-            raise TypeError(f"validity must be bool, got {self.validity.dtype}")
-        if self.data.dim() != 1 or self.validity.shape != self.data.shape:
+        if self.validity.dtype != torch.bool or self.validity.dim() != 1:
+            raise TypeError(f"validity must be 1-d bool, got "
+                            f"{self.validity.dtype} {tuple(self.validity.shape)}")
+        if self.data.dim() != 1:
+            raise ValueError(f"data must be 1-d, got {tuple(self.data.shape)}")
+        if self.dtype.variable_width:
+            o = self.offsets
+            if o is None or o.dtype != torch.int32 or \
+                    o.shape != (self.validity.shape[0] + 1,):
+                raise ValueError(f"{self.dtype!r} column needs int32 offsets "
+                                 f"[{self.validity.shape[0] + 1}]")
+        elif self.offsets is not None:
+            raise ValueError(f"{self.dtype!r} column takes no offsets")
+        elif self.validity.shape != self.data.shape:
             raise ValueError(f"data {tuple(self.data.shape)} and validity "
                              f"{tuple(self.validity.shape)} must be [n] and [n]")
 
     @property
     def num_rows(self) -> int:
-        return self.data.shape[0]
+        return self.validity.shape[0]
 
     @property
     def device(self) -> torch.device:
-        return self.data.device
+        return self.validity.device
+
+    @property
+    def is_string(self) -> bool:
+        return self.offsets is not None
+
+    def byte_tile(self, width: int) -> torch.Tensor:
+        """uint8 [n, width] of a STRING column: row i's first ``width``
+        bytes, zero past its end (the plain versions' view of the
+        rows)."""
+        off = self.offsets.to(torch.int64)
+        pos = torch.arange(width, device=off.device)
+        idx = (off[:-1, None] + pos).clamp(max=max(self.data.shape[0] - 1, 0))
+        inside = pos < (off[1:] - off[:-1])[:, None]
+        return torch.where(inside, self.data[idx], 0)
+
+    def slice_rows(self, start: int, end: int) -> "DeviceColumn":
+        """Rows [start, end) as views of this column's tensors."""
+        if self.is_string:
+            return DeviceColumn(self.data, self.validity[start:end],
+                                self.dtype, self.offsets[start:end + 1])
+        return DeviceColumn(self.data[start:end], self.validity[start:end],
+                            self.dtype)
 
     @staticmethod
     def from_numpy(values: np.ndarray, dtype: T.DataType,
                    validity: Optional[np.ndarray] = None,
                    device="cpu") -> "DeviceColumn":
-        """Host -> device upload; null slots are zeroed."""
+        """Host -> device upload of a fixed-width column; null slots are
+        zeroed."""
         vals = np.ascontiguousarray(values, dtype=dtype.np_dtype)
         if validity is None:
             valid = np.ones(vals.shape, np.bool_)
@@ -56,6 +98,59 @@ class DeviceColumn:
         return DeviceColumn(torch.from_numpy(vals).to(device),
                             torch.from_numpy(valid).to(device), dtype)
 
+    @staticmethod
+    def from_string_buffers(offsets: np.ndarray, data: np.ndarray,
+                            validity: np.ndarray,
+                            device="cpu") -> "DeviceColumn":
+        """Host -> device upload of a STRING column from Arrow-style
+        buffers; a null row must already have length 0."""
+        def upload(a, dt):   # a writable contiguous copy where needed
+            return torch.from_numpy(np.require(a, dt, "CW")).to(device)
+        return DeviceColumn(upload(data, np.uint8), upload(validity, np.bool_),
+                            T.STRING, upload(offsets, np.int32))
+
+    @staticmethod
+    def from_strings(values: Sequence[Optional[str]],
+                     device="cpu") -> "DeviceColumn":
+        """Host -> device upload of a STRING column (None is null)."""
+        encoded = [b"" if v is None else
+                   (v if isinstance(v, bytes) else v.encode("utf-8"))
+                   for v in values]
+        lengths = np.fromiter((len(b) for b in encoded), np.int64,
+                              len(encoded))
+        offsets = np.zeros(len(encoded) + 1, np.int64)
+        np.cumsum(lengths, out=offsets[1:])
+        if offsets[-1] >= 2**31:
+            raise ValueError("a string column holds < 2**31 bytes")
+        valid = np.fromiter((v is not None for v in values), np.bool_,
+                            len(encoded))
+        data = np.frombuffer(b"".join(encoded), np.uint8)
+        return DeviceColumn.from_string_buffers(offsets, data, valid, device)
+
     def to_numpy(self) -> Tuple[np.ndarray, np.ndarray]:
-        """Device -> host: owning (values, validity) numpy copies."""
+        """Device -> host: owning (values, validity) numpy copies of a
+        fixed-width column."""
+        if self.is_string:
+            raise TypeError("to_numpy takes a fixed-width column; use "
+                            "string_buffers")
         return self.data.cpu().numpy().copy(), self.validity.cpu().numpy().copy()
+
+    def string_buffers(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Device -> host of a STRING column: (int32 offsets rebased to
+        start at 0, the rows' uint8 bytes, validity)."""
+        off = self.offsets.cpu().numpy().astype(np.int64)
+        base, end = int(off[0]), int(off[-1])
+        data = self.data[base:end].cpu().numpy()
+        return ((off - base).astype(np.int32), data,
+                self.validity.cpu().numpy().copy())
+
+    def to_pylist(self) -> List:
+        """Host values of the column (None for null); strings decode as
+        UTF-8."""
+        if not self.is_string:
+            vals, valid = self.to_numpy()
+            return [v if ok else None for v, ok in zip(vals.tolist(), valid)]
+        off, data, valid = self.string_buffers()
+        raw = data.tobytes()
+        return [raw[off[i]:off[i + 1]].decode("utf-8") if valid[i] else None
+                for i in range(len(valid))]

@@ -1,7 +1,7 @@
 """Session configuration of the port.
 
 Counterpart of ``spark_rapids_tpu/config.py`` (``RapidsConf`` :927), cut to
-the keys the q6 and q1 paths read.  Keys keep the reference's names; a key the
+the keys the q6, q1 and q3 paths read.  Keys keep the reference's names; a key the
 port does not know is kept and ignored, as Spark does with unknown confs.
 """
 from __future__ import annotations
@@ -11,6 +11,7 @@ from typing import Any, Dict, Optional
 SQL_ENABLED = "spark.rapids.sql.enabled"
 BATCH_SIZE_ROWS = "spark.rapids.sql.batchSizeRows"
 SHUFFLE_PARTITIONS = "spark.sql.shuffle.partitions"
+BROADCAST_ROW_THRESHOLD = "spark.rapids.sql.join.broadcastRowThreshold"
 
 _DEFAULTS = {
     SQL_ENABLED: True,
@@ -18,6 +19,8 @@ _DEFAULTS = {
     BATCH_SIZE_ROWS: 1 << 20,
     # config.py:184 of the reference
     SHUFFLE_PARTITIONS: 16,
+    # config.py:258 of the reference
+    BROADCAST_ROW_THRESHOLD: 500_000,
 }
 
 
@@ -56,3 +59,9 @@ class RapidsConf:
     def shuffle_partitions(self) -> int:
         """Reduce partitions of a hash exchange (a grouped aggregate's)."""
         return int(self._get(SHUFFLE_PARTITIONS))
+
+    @property
+    def broadcast_row_threshold(self) -> int:
+        """Estimated build-side rows at or below which a join plans as a
+        broadcast hash join."""
+        return int(self._get(BROADCAST_ROW_THRESHOLD))

@@ -17,6 +17,16 @@
 //   high word, length 8; doubles turn -0.0 into 0.0 and every NaN into
 //   0x7FF8000000000000 before taking their bits; a null row passes the
 //   running seed through.  All arithmetic is uint32_t.
+//
+// string columns <- spark_rapids_tpu/kernels/hash.py:187 hash_string
+//   One more column kind in the same chain: Spark's hashUnsafeBytes over
+//   the row's bytes data[offsets[r]:offsets[r + 1]] (the offsets need not
+//   start at 0): each 4-byte little-endian word is mixed, then each tail
+//   byte as a sign-extended int, then fmix with the byte length.  The row
+//   reads its bytes itself, one at a time (the strings of the q3 path are
+//   8-9 bytes), so no byte tile is built: the reference pads every row to
+//   a power-of-two bucket of bytes because XLA needs static shapes.
+//   Bound: bytes: 8 bytes of offsets and each string byte read once.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -30,10 +40,12 @@ constexpr int kInt32 = 0;   // int, date: hashInt of the value
 constexpr int kInt64 = 1;   // long, Decimal64: hashLong
 constexpr int kF64 = 2;     // double: hashLong of the normalized bits
 constexpr int kBool = 3;    // bool (one byte): hashInt of 0 or 1
+constexpr int kString = 4;  // string: hashUnsafeBytes of the row's bytes
 
 struct HashCols {
   const void* data[kMaxHashCols];
   const uint8_t* valid[kMaxHashCols];
+  const int32_t* offsets[kMaxHashCols];   // strings only
   int kind[kMaxHashCols];
 };
 
@@ -70,6 +82,25 @@ __device__ __forceinline__ uint32_t hash_long(uint64_t v, uint32_t seed) {
   return fmix(h1, 8u);
 }
 
+// Spark Murmur3_x86_32.hashUnsafeBytes
+__device__ __forceinline__ uint32_t hash_bytes(const uint8_t* p, int32_t len,
+                                               uint32_t seed) {
+  uint32_t h1 = seed;
+  const int32_t aligned = len & ~3;
+  for (int32_t i = 0; i < aligned; i += 4) {
+    const uint32_t w = static_cast<uint32_t>(p[i]) |
+                       (static_cast<uint32_t>(p[i + 1]) << 8) |
+                       (static_cast<uint32_t>(p[i + 2]) << 16) |
+                       (static_cast<uint32_t>(p[i + 3]) << 24);
+    h1 = mix_h1(h1, w);
+  }
+  for (int32_t i = aligned; i < len; ++i) {
+    const int32_t sb = static_cast<int8_t>(p[i]);   // sign-extended byte
+    h1 = mix_h1(h1, static_cast<uint32_t>(sb));
+  }
+  return fmix(h1, static_cast<uint32_t>(len));
+}
+
 __global__ void __launch_bounds__(kThreads)
 murmur3_kernel(HashCols cols, int ncols, int64_t n, uint32_t seed,
                int32_t* __restrict__ hashes, int32_t num_partitions,
@@ -98,6 +129,12 @@ murmur3_kernel(HashCols cols, int ncols, int64_t n, uint32_t seed,
         h = hash_long(bits, h);
         break;
       }
+      case kString: {
+        const int32_t b = cols.offsets[c][r];
+        h = hash_bytes(static_cast<const uint8_t*>(cols.data[c]) + b,
+                       cols.offsets[c][r + 1] - b, h);
+        break;
+      }
       default:
         h = hash_int(static_cast<const uint8_t*>(cols.data[c])[r] != 0, h);
         break;
@@ -118,11 +155,12 @@ extern "C" {
 int srt_max_hash_cols() { return kMaxHashCols; }
 
 // Host arrays of ncols (1..kMaxHashCols) column data pointers, validity
-// pointers and kinds.  part may be null (no pmod); else num_partitions > 0.
+// pointers, offsets pointers (null for a fixed-width column) and kinds.
+// part may be null (no pmod); else num_partitions > 0.
 int srt_murmur3(int ncols, const void* const* data,
-                const uint8_t* const* valid, const int* kinds, int64_t n,
-                uint32_t seed, int32_t* hashes, int32_t num_partitions,
-                int32_t* part, cudaStream_t stream) {
+                const uint8_t* const* valid, const int32_t* const* offsets,
+                const int* kinds, int64_t n, uint32_t seed, int32_t* hashes,
+                int32_t num_partitions, int32_t* part, cudaStream_t stream) {
   if (ncols < 1 || ncols > kMaxHashCols ||
       (part != nullptr && num_partitions < 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -131,7 +169,11 @@ int srt_murmur3(int ncols, const void* const* data,
   for (int c = 0; c < ncols; ++c) {
     cols.data[c] = data[c];
     cols.valid[c] = valid[c];
+    cols.offsets[c] = offsets[c];
     cols.kind[c] = kinds[c];
+    if (kinds[c] == kString && offsets[c] == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   if (n > 0) {
     murmur3_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads),

@@ -1,5 +1,5 @@
-// Row-selection kernels of the port: stream compaction, fixed-width gather
-// and concat.  Built for sm_90a by kernels/_lib.py and called through ctypes
+// Row-selection kernels of the port: stream compaction, gather and concat,
+// fixed-width and string.  Built for sm_90a by kernels/_lib.py and called through ctypes
 // from kernels/selection.py.  Every entry point launches on the caller's
 // stream, allocates nothing, and returns the cudaError_t of its launches.
 //
@@ -25,6 +25,19 @@
 //   sectors at high selectivity and scattered ones at low).  An index out
 //   of [0, n_src) gives a null row with zero data, as at selection.py:110.
 //
+// gather of string planes <- spark_rapids_tpu/kernels/selection.py:84
+//                gather_column, string branch :160-186
+//   Count, then allocate.  In the same launch as the fixed-width columns, a
+//   string column (width 0) writes each output row's length (0 for a null
+//   or out-of-range row) into its new offsets plane; a multi-column
+//   exclusive scan (csrc/scan.cuh) turns the lengths into offsets and the
+//   byte totals; the wrapper reads the totals back once, allocates the
+//   bytes, and gather_bytes_kernel copies each row's bytes with L threads
+//   per row (L = 1, 8 or 32 from the average length, so short strings do
+//   not idle a warp and long ones are read by neighbouring lanes).
+//   Bound: bytes: per row 4 bytes of index, 8 of source offsets, 4 + 1
+//   written, plus each gathered byte read and written once.
+//
 // concat      <- spark_rapids_tpu/kernels/selection.py:429
 //                concat_batches_device (fixed-width planes)
 //   Bound: bytes: (width + 1) bytes read and written per row.  Design: one
@@ -32,10 +45,24 @@
 //   data and validity pointers and their row offsets, and each output row
 //   finds its piece by binary search over the k + 1 offsets (k is ~58 on
 //   the q6 path, so the search stays in L1).
+//
+// concat of string planes <- spark_rapids_tpu/kernels/selection.py:429
+//                concat_batches_device (string planes)
+//   A piece's offsets need not start at 0 (a shuffle block is a view), so
+//   each piece is rebased.  One block scans the pieces' byte counts
+//   (offsets[n_p] - offsets[0]) into byte bases and the total, which the
+//   wrapper reads back once to allocate the bytes; then one thread per
+//   output row writes validity and the rebased offset, and one thread per
+//   output byte copies it from its piece (found by binary search over the
+//   byte bases; each piece's bytes are contiguous).
+//   Bound: bytes: per row 4 + 1 read and written, per byte 1 read and 1
+//   written.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <cub/block/block_reduce.cuh>
 #include <cub/block/block_scan.cuh>
+
+#include "scan.cuh"
 
 namespace {
 
@@ -148,8 +175,37 @@ gather_kernel(GatherCols cols, int ncols, const int32_t* __restrict__ idx,
   for (int c = 0; c < ncols; ++c) {
     const bool v = inb && cols.src_valid[c][s] != 0;  // no read when !inb
     cols.dst_valid[c][r] = v;
-    move_row_width(cols.width[c], cols.src[c], cols.dst[c], s, r, v);
+    if (cols.width[c] == 0) {   // string: the row's length, scanned later
+      const int32_t* so = static_cast<const int32_t*>(cols.src[c]);
+      static_cast<int32_t*>(cols.dst[c])[r] = v ? so[s + 1] - so[s] : 0;
+    } else {
+      move_row_width(cols.width[c], cols.src[c], cols.dst[c], s, r, v);
+    }
   }
+}
+
+struct StringCols {
+  const int32_t* src_off[kMaxGatherCols];
+  const uint8_t* src[kMaxGatherCols];
+  const int32_t* dst_off[kMaxGatherCols];
+  uint8_t* dst[kMaxGatherCols];
+};
+
+// grid (ceil(m * L / kRowThreads), string columns): L threads per row
+template <int L>
+__global__ void __launch_bounds__(kRowThreads)
+gather_bytes_kernel(StringCols cols, const int32_t* __restrict__ idx,
+                    int64_t m) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kRowThreads + threadIdx.x;
+  const int64_t r = t / L;
+  const int lane = static_cast<int>(t % L);
+  if (r >= m) return;
+  const int c = blockIdx.y;
+  const int32_t d0 = cols.dst_off[c][r];
+  const int32_t len = cols.dst_off[c][r + 1] - d0;
+  if (len == 0) return;   // null, empty or out of range: nothing to read
+  const int32_t s0 = cols.src_off[c][idx[r]];
+  for (int32_t b = lane; b < len; b += L) cols.dst[c][d0 + b] = cols.src[c][s0 + b];
 }
 
 // desc: [k] data pointers then [k] validity pointers; offsets: [k + 1].
@@ -173,6 +229,75 @@ concat_kernel(const uint64_t* __restrict__ desc,
   move_row_width(width, src, dst, within, r, v);
 }
 
+// desc: [k] offsets pointers, [k] validity pointers, [k] data pointers;
+// rows: [k + 1] row offsets.  One block: bases[p] = the bytes of pieces
+// before p, bases[k] = the total.
+__global__ void __launch_bounds__(kRowThreads)
+concat_string_bases_kernel(const uint64_t* __restrict__ desc,
+                           const int64_t* __restrict__ rows, int k,
+                           int64_t* __restrict__ bases) {
+  using Scan = cub::BlockScan<int64_t, kRowThreads>;
+  __shared__ typename Scan::TempStorage tmp;
+  __shared__ int64_t carry;
+  if (threadIdx.x == 0) carry = 0;
+  __syncthreads();
+  for (int start = 0; start < k; start += kRowThreads) {
+    const int p = start + threadIdx.x;
+    int64_t bytes = 0;
+    if (p < k) {
+      const int32_t* so = reinterpret_cast<const int32_t*>(desc[p]);
+      bytes = so[rows[p + 1] - rows[p]] - so[0];
+    }
+    int64_t excl, chunk_total;
+    Scan(tmp).ExclusiveSum(bytes, excl, chunk_total);
+    if (p < k) bases[p] = carry + excl;
+    __syncthreads();
+    if (threadIdx.x == 0) carry += chunk_total;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) bases[k] = carry;
+}
+
+// the largest p in [0, k) with bounds[p] <= x
+__device__ __forceinline__ int piece_of(const int64_t* bounds, int k,
+                                        int64_t x) {
+  int lo = 0, hi = k - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (bounds[mid] <= x) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kRowThreads)
+concat_string_rows_kernel(const uint64_t* __restrict__ desc,
+                          const int64_t* __restrict__ rows,
+                          const int64_t* __restrict__ bases, int k,
+                          int32_t* __restrict__ dst_off,
+                          uint8_t* __restrict__ dst_valid, int64_t total) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kRowThreads + threadIdx.x;
+  if (r >= total) return;
+  const int p = piece_of(rows, k, r);
+  const int64_t within = r - rows[p];
+  const int32_t* so = reinterpret_cast<const int32_t*>(desc[p]);
+  const uint8_t* sv = reinterpret_cast<const uint8_t*>(desc[k + p]);
+  dst_valid[r] = sv[within] != 0;
+  dst_off[r] = static_cast<int32_t>(bases[p] + so[within] - so[0]);
+  if (r == 0) dst_off[total] = static_cast<int32_t>(bases[k]);
+}
+
+__global__ void __launch_bounds__(kRowThreads)
+concat_string_bytes_kernel(const uint64_t* __restrict__ desc,
+                           const int64_t* __restrict__ bases, int k,
+                           uint8_t* __restrict__ dst, int64_t total_bytes) {
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kRowThreads + threadIdx.x;
+  if (b >= total_bytes) return;
+  const int p = piece_of(bases, k, b);
+  const int32_t* so = reinterpret_cast<const int32_t*>(desc[p]);
+  const uint8_t* sd = reinterpret_cast<const uint8_t*>(desc[2 * k + p]);
+  dst[b] = sd[so[0] + (b - bases[p])];
+}
+
 int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 }  // namespace
@@ -182,6 +307,8 @@ extern "C" {
 int srt_compaction_tile() { return kCompactTile; }
 
 int srt_max_gather_cols() { return kMaxGatherCols; }
+
+int srt_scan_tile() { return scan::kScanTile; }
 
 // Steps (1) and (2): tile_counts[ntiles], tile_offsets[ntiles + 1].
 int srt_compaction_count(const uint8_t* mask, int64_t n, int32_t* tile_counts,
@@ -208,25 +335,78 @@ int srt_compaction_scatter(const uint8_t* mask, int64_t n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Host arrays of ncols (<= kMaxGatherCols) column pointers and widths.
+// Host arrays of ncols (<= kMaxGatherCols) column pointers and widths.  A
+// string column has width 0, its source offsets in src and its new offsets
+// plane (m + 1 int32) in dst: those planes are scanned in place after the
+// row pass, and totals[j] (int64) receives the byte count of the j-th
+// string column; tile_sums holds (string columns) * ceil(m /
+// srt_scan_tile()) int64, at least one.  Without string columns both may
+// be null.
 int srt_gather(int ncols, const void* const* src,
                const uint8_t* const* src_valid, void* const* dst,
                uint8_t* const* dst_valid, const int* widths, int64_t n_src,
-               const int32_t* idx, int64_t m, cudaStream_t stream) {
+               const int32_t* idx, int64_t m, int64_t* tile_sums,
+               int64_t* totals, cudaStream_t stream) {
   if (ncols < 1 || ncols > kMaxGatherCols) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   GatherCols cols{};
+  scan::ScanCols strings{};
+  int nstr = 0;
   for (int c = 0; c < ncols; ++c) {
     cols.src[c] = src[c];
     cols.src_valid[c] = src_valid[c];
     cols.dst[c] = dst[c];
     cols.dst_valid[c] = dst_valid[c];
     cols.width[c] = widths[c];
+    if (widths[c] == 0) strings.v[nstr++] = static_cast<int32_t*>(dst[c]);
+  }
+  if (nstr > 0 && (tile_sums == nullptr || totals == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (m > 0) {
     gather_kernel<<<static_cast<unsigned>(cdiv(m, kRowThreads)), kRowThreads,
                     0, stream>>>(cols, ncols, idx, m, n_src);
+  }
+  int err = static_cast<int>(cudaGetLastError());
+  if (err == 0 && nstr > 0) {
+    err = scan::scan_columns(strings, nstr, m, tile_sums, totals, stream);
+  }
+  return err;
+}
+
+// The bytes of nstr gathered string columns, after srt_gather: host arrays
+// of source offsets, source bytes, new offsets and new bytes; lanes (1, 8
+// or 32) threads copy one row.
+int srt_gather_bytes(int nstr, const int32_t* const* src_off,
+                     const uint8_t* const* src, const int32_t* const* dst_off,
+                     uint8_t* const* dst, const int32_t* idx, int64_t m,
+                     int lanes, cudaStream_t stream) {
+  if (nstr < 1 || nstr > kMaxGatherCols) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  StringCols cols{};
+  for (int c = 0; c < nstr; ++c) {
+    cols.src_off[c] = src_off[c];
+    cols.src[c] = src[c];
+    cols.dst_off[c] = dst_off[c];
+    cols.dst[c] = dst[c];
+  }
+  if (m <= 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid(static_cast<unsigned>(cdiv(m * lanes, kRowThreads)),
+                  static_cast<unsigned>(nstr));
+  switch (lanes) {
+    case 1:
+      gather_bytes_kernel<1><<<grid, kRowThreads, 0, stream>>>(cols, idx, m);
+      break;
+    case 8:
+      gather_bytes_kernel<8><<<grid, kRowThreads, 0, stream>>>(cols, idx, m);
+      break;
+    case 32:
+      gather_bytes_kernel<32><<<grid, kRowThreads, 0, stream>>>(cols, idx, m);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -238,6 +418,38 @@ int srt_concat(const uint64_t* desc, const int64_t* offsets, int k, int width,
   if (total > 0) {
     concat_kernel<<<static_cast<unsigned>(cdiv(total, kRowThreads)), kRowThreads,
                     0, stream>>>(desc, offsets, k, width, dst, dst_valid, total);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Step 1 of a string concat: bases[k + 1] (int64), the byte base of each
+// piece and the total.  desc: [k] offsets, [k] validity and [k] data
+// pointers; rows: [k + 1] row offsets (int64), both on the device.
+int srt_concat_string_bases(const uint64_t* desc, const int64_t* rows, int k,
+                            int64_t* bases, cudaStream_t stream) {
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  concat_string_bases_kernel<<<1, kRowThreads, 0, stream>>>(desc, rows, k,
+                                                             bases);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Step 2: the rebased offsets (total + 1), validity (total) and bytes
+// (total_bytes, read back from bases[k]).
+int srt_concat_strings(const uint64_t* desc, const int64_t* rows,
+                       const int64_t* bases, int k, int32_t* dst_off,
+                       uint8_t* dst_valid, uint8_t* dst, int64_t total,
+                       int64_t total_bytes, cudaStream_t stream) {
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (total > 0) {
+    concat_string_rows_kernel<<<static_cast<unsigned>(cdiv(total, kRowThreads)),
+                                kRowThreads, 0, stream>>>(
+        desc, rows, bases, k, dst_off, dst_valid, total);
+  }
+  if (total_bytes > 0) {
+    concat_string_bytes_kernel<<<static_cast<unsigned>(
+                                     cdiv(total_bytes, kRowThreads)),
+                                 kRowThreads, 0, stream>>>(desc, bases, k, dst,
+                                                           total_bytes);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,6 +43,13 @@
 //   significant than its data and less than every earlier key column.
 //   Bound: bytes: per pass the key and the row id are read and written
 //   once (the histogram reads the key again).
+//
+// string keys <- spark_rapids_tpu/kernels/sort.py:160 _string_data_keys
+//   csrc/strings.cu writes each string's big-endian 8-byte chunks and its
+//   length as ready unsigned keys (kinds kRawU64, kRawU32 here); a string
+//   column is then the length (least significant, on only as many bytes as
+//   the longest length needs), then the chunks from last to first, then
+//   its null pass: UTF8String.binaryCompare order.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <cub/block/block_reduce.cuh>
@@ -63,6 +70,8 @@ constexpr int kInt32 = 0;   // int, date
 constexpr int kInt64 = 1;   // long, Decimal64
 constexpr int kF64 = 2;     // double
 constexpr int kBool = 3;    // bool
+constexpr int kRawU32 = 4;  // a ready order-preserving uint32 key
+constexpr int kRawU64 = 5;  // a ready order-preserving uint64 key
 
 template <typename K>
 __device__ __forceinline__ uint32_t digit_of(K key, int shift, uint32_t mask) {
@@ -222,6 +231,12 @@ sort_key_kernel(const void* __restrict__ data, const uint8_t* __restrict__ valid
         u = (bits >> 63) ? ~bits : (bits | (1ull << 63));
         break;
       }
+      case kRawU32:
+        u = static_cast<const uint32_t*>(data)[r];
+        break;
+      case kRawU64:
+        u = static_cast<const uint64_t*>(data)[r];
+        break;
       default:
         u = static_cast<const uint8_t*>(data)[r] != 0;
         break;
@@ -292,16 +307,18 @@ unsigned grid_rows(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
-// The data passes of one key column, then its null pass; the row ids end in
-// ids_out.  The passes alternate between ids_out and ids_tmp so that the
-// last one writes ids_out; ids_in (nullptr: the identity) aliases neither.
+// The data passes of one key column (its low key_bytes bytes; 0: all), then
+// its null pass; the row ids end in ids_out.  The passes alternate between
+// ids_out and ids_tmp so that the last one writes ids_out; ids_in
+// (nullptr: the identity) aliases neither.
 template <typename K>
 int sort_column(int kind, const void* data, const uint8_t* valid,
                 int descending, int nulls_first, int has_nulls,
-                const int32_t* ids_in, int64_t n, void* key_a, void* key_b,
-                int32_t* ids_out, int32_t* ids_tmp, int32_t* hist,
+                int key_bytes, const int32_t* ids_in, int64_t n, void* key_a,
+                void* key_b, int32_t* ids_out, int32_t* ids_tmp, int32_t* hist,
                 int32_t* totals, cudaStream_t stream) {
-  const int data_passes = static_cast<int>(sizeof(K));
+  const int data_passes = key_bytes > 0 && key_bytes < static_cast<int>(sizeof(K))
+                              ? key_bytes : static_cast<int>(sizeof(K));
   const int passes = data_passes + (has_nulls ? 1 : 0);
   K* ka = static_cast<K*>(key_a);
   K* kb = static_cast<K*>(key_b);
@@ -410,26 +427,34 @@ int srt_null_counts(int ncols, const uint8_t* const* valid, int64_t n,
 
 // One key column of an LSD argsort (see sort_column).  key_a and key_b hold
 // n keys of the column's width; hist and totals are sized for 8-bit passes.
+// key_bytes (0: the key's width) bounds the data passes to the low bytes:
+// the caller knows the high bytes are equal in every valid row.
 int srt_sort_column(int kind, const void* data, const uint8_t* valid,
                     int descending, int nulls_first, int has_nulls,
-                    const int32_t* ids_in, int64_t n, void* key_a, void* key_b,
-                    int32_t* ids_out, int32_t* ids_tmp, int32_t* hist,
-                    int32_t* totals, cudaStream_t stream) {
+                    int key_bytes, const int32_t* ids_in, int64_t n,
+                    void* key_a, void* key_b, int32_t* ids_out,
+                    int32_t* ids_tmp, int32_t* hist, int32_t* totals,
+                    cudaStream_t stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   switch (kind) {
     case kInt32:
+    case kRawU32:
       return sort_column<uint32_t>(kind, data, valid, descending, nulls_first,
-                                   has_nulls, ids_in, n, key_a, key_b, ids_out,
-                                   ids_tmp, hist, totals, stream);
+                                   has_nulls, key_bytes, ids_in, n, key_a,
+                                   key_b, ids_out, ids_tmp, hist, totals,
+                                   stream);
     case kInt64:
     case kF64:
+    case kRawU64:
       return sort_column<uint64_t>(kind, data, valid, descending, nulls_first,
-                                   has_nulls, ids_in, n, key_a, key_b, ids_out,
-                                   ids_tmp, hist, totals, stream);
+                                   has_nulls, key_bytes, ids_in, n, key_a,
+                                   key_b, ids_out, ids_tmp, hist, totals,
+                                   stream);
     case kBool:
       return sort_column<uint8_t>(kind, data, valid, descending, nulls_first,
-                                  has_nulls, ids_in, n, key_a, key_b, ids_out,
-                                  ids_tmp, hist, totals, stream);
+                                  has_nulls, key_bytes, ids_in, n, key_a,
+                                  key_b, ids_out, ids_tmp, hist, totals,
+                                  stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

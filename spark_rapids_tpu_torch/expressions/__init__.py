@@ -13,6 +13,7 @@ from spark_rapids_tpu_torch.expressions.arithmetic import (Add, Multiply,
                                                         Subtract)
 from spark_rapids_tpu_torch.expressions.predicates import (
     And,
+    EqualTo,
     GreaterThanOrEqual,
     LessThan,
     LessThanOrEqual,
@@ -23,7 +24,7 @@ from spark_rapids_tpu_torch.expressions.aggregates import (
 
 __all__ = [
     "Add", "Alias", "And", "Average", "BoundReference", "Cast", "Col",
-    "Count", "EvalContext", "Expression", "GreaterThanOrEqual", "LessThan",
+    "Count", "EqualTo", "EvalContext", "Expression", "GreaterThanOrEqual", "LessThan",
     "LessThanOrEqual", "Literal", "Multiply", "Subtract", "Sum", "avg",
     "col", "count", "lit", "sum_",
 ]

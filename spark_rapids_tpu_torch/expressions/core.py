@@ -107,10 +107,15 @@ class Expression:
         from spark_rapids_tpu_torch.expressions.predicates import And
         return self._bin(other, And)
 
+    def __eq__(self, other):
+        # a DSL operator, as in the reference: builds EqualTo (hash stays
+        # the identity's, above)
+        from spark_rapids_tpu_torch.expressions.predicates import EqualTo
+        return self._bin(other, EqualTo)
+
     __truediv__ = _not_ported("/")
     __mod__ = _not_ported("%")
     __neg__ = _not_ported("unary -")
-    __eq__ = _not_ported("=")
     __ne__ = _not_ported("!=")
     __gt__ = _not_ported(">")
     __or__ = _not_ported("OR")

@@ -1,8 +1,9 @@
 """Comparison and boolean predicates.
 
 Counterpart of ``spark_rapids_tpu/expressions/predicates.py``
-(``LessThan`` :174, ``LessThanOrEqual`` :201, ``GreaterThanOrEqual`` :213,
-``And`` :262), numeric, date and Decimal64 operands.  Spark semantics:
+(``EqualTo`` :160, ``LessThan`` :174, ``LessThanOrEqual`` :201,
+``GreaterThanOrEqual`` :213, ``And`` :262), numeric, date and Decimal64
+operands; a comparison of strings is not ported.  Spark semantics:
 NaN equals NaN and is larger than every other double; a comparison with a
 null operand is null; AND is three-valued (FALSE AND null = FALSE).
 """
@@ -44,6 +45,9 @@ class BinaryComparison(BinaryExpression):
     def eval(self, ctx: EvalContext):
         lc = self.left.eval(ctx)
         rc = self.right.eval(ctx)
+        if lc.is_string or rc.is_string:
+            raise NotImplementedError(f"string comparison {self.symbol} is "
+                                      "not ported")
         cdt = _cmp_dtype(lc.dtype, rc.dtype)
         validity = null_propagating([lc.validity, rc.validity])
         if isinstance(cdt, T.DecimalType):
@@ -72,6 +76,13 @@ def _eq(lhs, rhs, is_float):
     if is_float:
         eq = eq | (torch.isnan(lhs) & torch.isnan(rhs))
     return eq
+
+
+class EqualTo(BinaryComparison):
+    symbol = "="
+
+    def _compare(self, lhs, rhs, is_float):
+        return _eq(lhs, rhs, is_float)
 
 
 class LessThan(BinaryComparison):

@@ -3,8 +3,9 @@
 The sources in ``spark_rapids_tpu_torch/csrc/*.cu`` have a plain C
 interface.  At first use, one ``nvcc`` per source compiles them in parallel
 for ``sm_90a``, one more links the objects into a shared library under
-``spark_rapids_tpu_torch/_build/`` (named by a hash of the sources and
-flags, so an edit rebuilds), and ``ctypes`` loads it.  Nothing is built or
+``spark_rapids_tpu_torch/_build/`` (named by a hash of the sources, the
+headers they share and the flags, so an edit rebuilds), and ``ctypes``
+loads it.  Nothing is built or
 imported when this module is imported: the CPU tests import every module
 and have no CUDA toolkit.
 """
@@ -24,7 +25,9 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("selection.cu", "reduction.cu", "hash.cu", "sort.cu")
+SOURCES = ("selection.cu", "reduction.cu", "hash.cu", "sort.cu",
+           "strings.cu", "join.cu")
+HEADERS = ("scan.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -40,21 +43,33 @@ _SIGNATURES = {
     "srt_max_gather_cols": [],
     "srt_compaction_count": [_P, _I64, _P, _P, _P],
     "srt_compaction_scatter": [_P, _I64, _P, _P, _P],
-    "srt_gather": [_I, _P, _P, _P, _P, _P, _I64, _P, _I64, _P],
+    "srt_scan_tile": [],
+    "srt_gather": [_I, _P, _P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P],
+    "srt_gather_bytes": [_I, _P, _P, _P, _P, _P, _I64, _I, _P],
     "srt_concat": [_P, _P, _I, _I, _P, _P, _I64, _P],
+    "srt_concat_string_bases": [_P, _P, _I, _P, _P],
+    "srt_concat_strings": [_P, _P, _P, _I, _P, _P, _P, _I64, _I64, _P],
     "srt_reduction_tile": [],
     "srt_masked_sum": [_I, _P, _P, _I64, _P, _P, _P, _P, _P, _P],
     "srt_segment_tile": [],
     "srt_segmented_sum": [_I, _P, _P, _I64, _P, _I, _P, _P, _P, _P, _P, _P,
                           _P],
     "srt_max_hash_cols": [],
-    "srt_murmur3": [_I, _P, _P, _P, _I64, ctypes.c_uint32, _P, _I, _P, _P],
+    "srt_murmur3": [_I, _P, _P, _P, _P, _I64, ctypes.c_uint32, _P, _I, _P,
+                    _P],
     "srt_sort_tile": [],
     "srt_max_radix_bits": [],
     "srt_partition": [_P, _I64, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "srt_null_counts": [_I, _P, _I64, _P, _P],
-    "srt_sort_column": [_I, _P, _P, _I, _I, _I, _P, _I64, _P, _P, _P, _P, _P,
-                        _P, _P],
+    "srt_sort_column": [_I, _P, _P, _I, _I, _I, _I, _P, _I64, _P, _P, _P, _P,
+                        _P, _P, _P],
+    "srt_string_sort_keys": [_P, _P, _P, _I64, _I, _P, _P, _P],
+    "srt_string_max_length": [_P, _P, _I64, _P, _P],
+    "srt_string_rows_equal_prev": [_P, _P, _P, _I64, _P, _P],
+    "srt_join_scan_tile": [],
+    "srt_join_build_keys": [_I, _P, _P, _P, _I64, _P, _P, _P],
+    "srt_join_probe": [_I, _P, _P, _I64, _P, _P, _I64, _P, _P, _P, _P, _P],
+    "srt_join_expand": [_P, _P, _P, _I64, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -78,7 +93,7 @@ def _nvcc() -> str:
 
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libsrt_kernels-{h.hexdigest()[:16]}.so"

@@ -1,8 +1,9 @@
 """Group-by: sort-based grouping, then segmented reductions.
 
-Counterpart of ``spark_rapids_tpu/kernels/groupby.py`` for fixed-width
-keys: ``normalize_key_column`` :33, ``group_rows`` :97 with
-``_rows_equal_prev`` :47, ``seg_sum`` :166, ``seg_count_valid`` :151,
+Counterpart of ``spark_rapids_tpu/kernels/groupby.py`` for fixed-width and
+string keys: ``normalize_key_column`` :33, ``group_rows`` :97 with
+``_rows_equal_prev`` :47 and ``_string_rows_equal_prev`` :74, ``seg_sum``
+:166, ``seg_count_valid`` :151,
 ``seg_count_star`` :159, ``group_keys_output`` :284 and
 ``finalize_agg_column`` :293.  Spark's grouping rules hold: null keys form
 one group, -0.0 groups with 0.0, and all NaNs group together (keys are
@@ -14,8 +15,12 @@ ported ``compaction_map`` of the boundary flags, whose count is the one
 device->host read of a grouping) instead of per-row segment ids over a
 padded capacity.  The sort (``kernels/sort.py``), the gather and the
 compaction (``kernels/selection.py``) and the segmented sum
-(``kernels/reduction.py``) are the kernels; the boundary flags are plain
-elementwise PyTorch.
+(``kernels/reduction.py``) are the kernels.  A fixed-width key's boundary
+flags are plain elementwise PyTorch; a string key's come from the
+adjacent-row compare of ``csrc/strings.cu`` (``string_rows_equal_prev``).
+The split-tolerant one-pass string grouping key of the reference
+(``_string_hash_key``, kernels/sort.py:183) is not ported: a string key
+sorts on all its chunks.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import torch
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.kernels import _lib
 from spark_rapids_tpu_torch.kernels.reduction import segmented_sum
 from spark_rapids_tpu_torch.kernels.selection import (compaction_map,
                                                       gather_batch,
@@ -35,7 +41,8 @@ from spark_rapids_tpu_torch.kernels.sort import SortOrder, sort_indices
 
 
 def normalize_key_column(col: DeviceColumn) -> DeviceColumn:
-    """Normalize double keys so a bit compare is Spark's group equality."""
+    """Normalize double keys so a bit compare is Spark's group equality;
+    other keys, strings too, pass through."""
     if not isinstance(col.dtype, T.DoubleType):
         return col
     d = col.data
@@ -47,10 +54,43 @@ def normalize_key_column(col: DeviceColumn) -> DeviceColumn:
     return DeviceColumn(d, col.validity, col.dtype)
 
 
+def string_rows_equal_prev_plain(col: DeviceColumn) -> torch.Tensor:
+    """Lengths, then the bytes in a [n, longest] tile (zero past the end);
+    a null row has length 0."""
+    lengths = col.offsets[1:] - col.offsets[:-1]
+    tile = col.byte_tile(int(lengths.max()) if col.num_rows else 0)
+    v = col.validity
+    same = (lengths[1:] == lengths[:-1]) & (tile[1:] == tile[:-1]).all(1)
+    return (v[1:] == v[:-1]) & (~v[1:] | same)
+
+
+def _string_rows_equal_prev_cuda(col: DeviceColumn) -> torch.Tensor:
+    _lib.require_cuda("string_rows_equal_prev", col.offsets, col.data,
+                      col.validity)
+    n = col.num_rows
+    eq = torch.empty(max(n - 1, 0), dtype=torch.bool, device=col.device)
+    _lib.check(_lib.lib().srt_string_rows_equal_prev(
+        _lib.ptr(col.offsets), _lib.ptr(col.data), _lib.ptr(col.validity), n,
+        _lib.ptr(eq), _lib.stream(col.device)), "string_rows_equal_prev")
+    if n > 1:
+        _lib.LAUNCHES["string_rows_equal_prev"] += 1
+    return eq
+
+
+def string_rows_equal_prev(col: DeviceColumn) -> torch.Tensor:
+    """bool [n - 1]: row i + 1 equals row i of a string column (same
+    length and bytes; null == null)."""
+    if col.device.type == "cpu":
+        return string_rows_equal_prev_plain(col)
+    return _string_rows_equal_prev_cuda(col)
+
+
 def _rows_equal_prev(col: DeviceColumn) -> torch.Tensor:
     """bool [n - 1]: row i + 1 equals row i in this column (null == null).
     Null slots hold zero and double keys are normalized, so comparing the
     bits is exact."""
+    if col.is_string:
+        return string_rows_equal_prev(col)
     data = col.data
     if isinstance(col.dtype, T.DoubleType):
         data = data.view(torch.int64)

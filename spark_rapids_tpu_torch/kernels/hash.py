@@ -1,11 +1,13 @@
 """Spark-exact Murmur3 row hashes and partition ids.
 
 Counterpart of ``spark_rapids_tpu/kernels/hash.py`` (``hash_fixed_width``
-:99, ``murmur3_hash`` :237, ``pmod`` :258), fixed-width columns.  Spark's
+:99, ``hash_string`` :187, ``murmur3_hash`` :237, ``pmod`` :258).  Spark's
 Murmur3_x86_32 with seed 42: int/date/bool hash as hashInt, long and
-Decimal64 (the unscaled long) as hashLong (low word, then high word), and
+Decimal64 (the unscaled long) as hashLong (low word, then high word),
 doubles as hashLong of their bits after -0.0 -> 0.0 and NaN -> canonical
-NaN.  Columns chain left to right; a null row passes the running hash
+NaN, and strings as hashUnsafeBytes (4-byte little-endian words, then each
+tail byte as a sign-extended int, then fmix with the byte length).
+Columns chain left to right; a null row passes the running hash
 through.  Routing must be bit-exact: a CPU Spark stage and the card must
 send a key to the same reduce partition.
 
@@ -14,8 +16,7 @@ kernel of ``csrc/hash.cu`` (all key columns in one launch, pmod fused) and
 count the launch; on CPU tensors they run the plain PyTorch version.  The
 plain version computes in int64 with 32-bit masks, because PyTorch on the
 CPU has no uint32 add or shift; int64 multiplies wrap, and the low 32 bits
-of a wrapped product are the uint32 product.  String hashing
-(``hash_string`` :187) is not ported.
+of a wrapped product are the uint32 product.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ _C1, _C2, _M5 = 0xCC9E2D51, 0x1B873593, 0xE6546B64
 _CANONICAL_NAN_BITS = 0x7FF8000000000000
 
 # column kinds of csrc/hash.cu
-_INT32, _INT64, _F64, _BOOL = 0, 1, 2, 3
+_INT32, _INT64, _F64, _BOOL, _STRING = 0, 1, 2, 3, 4
 
 
 def _kind(dtype: T.DataType) -> int:
@@ -47,6 +48,8 @@ def _kind(dtype: T.DataType) -> int:
         return _F64
     if isinstance(dtype, T.BooleanType):
         return _BOOL
+    if isinstance(dtype, T.StringType):
+        return _STRING
     raise NotImplementedError(f"murmur3 of {dtype!r} is not ported")
 
 # ---------------------------------------------------------------------------
@@ -107,13 +110,37 @@ def hash_fixed_width(col: DeviceColumn, seeds: torch.Tensor) -> torch.Tensor:
     return torch.where(col.validity, h, seeds)
 
 
+def hash_string(col: DeviceColumn, seeds: torch.Tensor) -> torch.Tensor:
+    """Chain a string column into running hashes (int64 lanes, uint32
+    values); null rows keep their seed.  The plain version of the string
+    step: the rows' bytes in a [n, longest] tile, words then tail bytes,
+    each applied where the row is long enough."""
+    lengths = (col.offsets[1:] - col.offsets[:-1]).to(torch.int64)
+    longest = int(lengths.max()) if col.num_rows else 0
+    h = seeds
+    if longest:
+        tile = col.byte_tile(longest).to(torch.int64)
+        words = lengths // 4
+        for i in range(longest // 4):
+            w = (tile[:, 4 * i] | (tile[:, 4 * i + 1] << 8)
+                 | (tile[:, 4 * i + 2] << 16) | (tile[:, 4 * i + 3] << 24))
+            h = torch.where(i < words, _mix_h1(h, w), h)
+        for i in range(longest):
+            b = tile[:, i]
+            signed = torch.where(b >= 128, b - 256, b) & _M32
+            h = torch.where((i >= 4 * words) & (i < lengths),
+                            _mix_h1(h, signed), h)
+    h = _fmix(h, lengths)
+    return torch.where(col.validity, h, seeds)
+
+
 def murmur3_hash_plain(columns: Sequence[DeviceColumn],
                        seed: int = DEFAULT_SEED) -> torch.Tensor:
     n = columns[0].num_rows
     h = torch.full((n,), seed & _M32, dtype=torch.int64,
                    device=columns[0].device)
     for c in columns:
-        h = hash_fixed_width(c, h)
+        h = hash_string(c, h) if c.is_string else hash_fixed_width(c, h)
     # uint32 bits -> int32
     return torch.where(h >= 2**31, h - 2**32, h).to(torch.int32)
 
@@ -129,8 +156,9 @@ def pmod(hashes: torch.Tensor, num_partitions: int) -> torch.Tensor:
 
 def _murmur3_cuda(columns: Sequence[DeviceColumn], seed: int,
                   num_partitions: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    _lib.require_cuda("murmur3", *(t for c in columns
-                                   for t in (c.data, c.validity)))
+    _lib.require_cuda("murmur3", *(
+        t for c in columns for t in (c.data, c.validity)
+        + ((c.offsets,) if c.is_string else ())))
     lib = _lib.lib()
     if len(columns) > lib.srt_max_hash_cols():
         raise NotImplementedError(
@@ -144,16 +172,21 @@ def _murmur3_cuda(columns: Sequence[DeviceColumn], seed: int,
     k = len(columns)
     data = (ctypes.c_void_p * k)(*(c.data.data_ptr() for c in columns))
     valid = (ctypes.c_void_p * k)(*(c.validity.data_ptr() for c in columns))
+    offsets = (ctypes.c_void_p * k)(*(c.offsets.data_ptr() if c.is_string
+                                      else None for c in columns))
     kinds = (ctypes.c_int * k)(*(_kind(c.dtype) for c in columns))
     _lib.check(lib.srt_murmur3(
         k, ctypes.cast(data, ctypes.c_void_p),
         ctypes.cast(valid, ctypes.c_void_p),
+        ctypes.cast(offsets, ctypes.c_void_p),
         ctypes.cast(kinds, ctypes.c_void_p), n, seed & _M32,
         _lib.ptr(hashes), num_partitions,
         _lib.ptr(part) if part is not None else None, _lib.stream(dev)),
         "murmur3")
     if n:
         _lib.LAUNCHES["murmur3"] += 1
+        if any(c.is_string for c in columns):
+            _lib.LAUNCHES["hash_string"] += 1
     return hashes, part
 
 

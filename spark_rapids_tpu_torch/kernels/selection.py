@@ -1,24 +1,28 @@
 """Row-selection kernels: stream compaction, gather and concat.
 
 Counterpart of ``spark_rapids_tpu/kernels/selection.py`` (``compaction_map``
-:65, ``gather_column`` :84, ``gather_batch`` :191,
-``concat_batches_device`` :429), fixed-width columns only.  Each function
-here is a wrapper: on CUDA tensors it launches the hand-written kernel in
-``csrc/selection.cu`` and counts the launch; on CPU tensors it runs the
-plain PyTorch version beside it, which the tests hold against the
-reference.  Outputs have exact sizes: a compaction returns ``count`` row
-ids, not a padded map.
+:65, ``gather_column`` :84 with its string branch :160-186,
+``gather_batch`` :191, ``concat_batches_device`` :429), fixed-width and
+string columns.  Each function here is a wrapper: on CUDA tensors it
+launches the hand-written kernel in ``csrc/selection.cu`` and counts the
+launch; on CPU tensors it runs the plain PyTorch version beside it, which
+the tests hold against the reference.  Outputs have exact sizes: a
+compaction returns ``count`` row ids, not a padded map, and a string
+gather or concat counts its bytes, reads the total back once and then
+allocates them.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.kernels import _lib
+
+_INT32_BYTES = 2**31
 
 # ---------------------------------------------------------------------------
 # compaction
@@ -78,10 +82,39 @@ def compaction_map(mask: torch.Tensor) -> Tuple[torch.Tensor, int]:
 # gather
 
 
+def gather_string_plain(c: DeviceColumn,
+                        indices: torch.Tensor) -> DeviceColumn:
+    inb = (indices >= 0) & (indices < c.num_rows)
+    if c.num_rows == 0:
+        valid = torch.zeros_like(inb)
+        safe = torch.zeros_like(indices, dtype=torch.int64)
+        lengths = torch.zeros_like(safe)
+    else:
+        safe = torch.where(inb, indices, 0).long()
+        valid = inb & c.validity[safe]
+        lengths = (c.offsets[1:] - c.offsets[:-1]).to(torch.int64)[safe]
+        lengths = torch.where(valid, lengths, 0)
+    offsets = torch.zeros(indices.shape[0] + 1, dtype=torch.int64,
+                          device=indices.device)
+    torch.cumsum(lengths, 0, out=offsets[1:])
+    total = int(offsets[-1])
+    if total >= _INT32_BYTES:
+        raise ValueError("a string column holds < 2**31 bytes")
+    # each output byte's row, and its place in the row's source bytes
+    row = torch.repeat_interleave(
+        torch.arange(indices.shape[0], device=indices.device), lengths)
+    src = (c.offsets[safe[row]].to(torch.int64)
+           + torch.arange(total, device=indices.device) - offsets[row])
+    return DeviceColumn(c.data[src], valid, c.dtype, offsets.to(torch.int32))
+
+
 def gather_columns_plain(cols: Sequence[DeviceColumn],
                          indices: torch.Tensor) -> List[DeviceColumn]:
     out = []
     for c in cols:
+        if c.is_string:
+            out.append(gather_string_plain(c, indices))
+            continue
         inb = (indices >= 0) & (indices < c.num_rows)
         if c.num_rows == 0:
             valid = torch.zeros_like(inb)
@@ -97,33 +130,80 @@ def gather_columns_plain(cols: Sequence[DeviceColumn],
     return out
 
 
-def _gather_columns_cuda(cols: Sequence[DeviceColumn],
-                         indices: torch.Tensor) -> List[DeviceColumn]:
-    _lib.require_cuda("gather", indices,
-                      *(t for c in cols for t in (c.data, c.validity)))
-    lib = _lib.lib()
+def _ptr_array(tensors: Sequence[torch.Tensor]) -> ctypes.c_void_p:
+    """A host array of the tensors' device pointers, for a C entry point."""
+    arr = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    return ctypes.cast(arr, ctypes.c_void_p), arr   # keep arr alive
+
+
+def _string_lanes(total_bytes: int, rows: int) -> int:
+    """Threads per row of the byte copy, from the average length."""
+    avg = total_bytes / max(rows, 1)
+    return 1 if avg <= 16 else (8 if avg <= 64 else 32)
+
+
+def _gather_group_cuda(src: Sequence[DeviceColumn], indices: torch.Tensor,
+                       lib, s) -> List[DeviceColumn]:
+    """One gather launch over up to 16 columns; string columns then take
+    the scan of their lengths, one read of their byte totals and the byte
+    copy."""
     m = indices.shape[0]
     dev = indices.device
-    out = [DeviceColumn(torch.empty(m, dtype=c.data.dtype, device=dev),
-                        torch.empty(m, dtype=torch.bool, device=dev), c.dtype)
-           for c in cols]
+    # a string column's first plane is its offsets (lengths, then scanned)
+    planes = [c.offsets if c.is_string else c.data for c in src]
+    dst = [torch.empty(m + 1, dtype=torch.int32, device=dev) if c.is_string
+           else torch.empty(m, dtype=c.data.dtype, device=dev) for c in src]
+    dst_valid = [torch.empty(m, dtype=torch.bool, device=dev) for _ in src]
+    strings = [i for i, c in enumerate(src) if c.is_string]
+    k = len(src)
+    keep = [_ptr_array(ts) for ts in (planes, [c.validity for c in src], dst,
+                                      dst_valid)]
+    widths = (ctypes.c_int * k)(*(0 if c.is_string else c.data.element_size()
+                                  for c in src))
+    ntiles = max(-(-m // lib.srt_scan_tile()), 1)
+    tile_sums = torch.empty(len(strings) * ntiles if strings else 0,
+                            dtype=torch.int64, device=dev)
+    totals = torch.empty(len(strings), dtype=torch.int64, device=dev)
+    _lib.check(lib.srt_gather(
+        k, *(p for p, _ in keep), ctypes.cast(widths, ctypes.c_void_p),
+        src[0].num_rows, _lib.ptr(indices), m,
+        _lib.ptr(tile_sums) if strings else None,
+        _lib.ptr(totals) if strings else None, s), "gather")
+    if m:
+        _lib.LAUNCHES["gather"] += 1
+    out = [DeviceColumn(d, v, c.dtype) if not c.is_string else None
+           for c, d, v in zip(src, dst, dst_valid)]
+    if not strings:
+        return out
+    # the one device->host read of a string gather: the byte totals
+    nbytes = totals.tolist()
+    if max(nbytes) >= _INT32_BYTES:
+        raise ValueError("a string column holds < 2**31 bytes")
+    data = [torch.empty(b, dtype=torch.uint8, device=dev) for b in nbytes]
+    arrays = [_ptr_array(ts) for ts in (
+        [src[i].offsets for i in strings], [src[i].data for i in strings],
+        [dst[i] for i in strings], data)]
+    _lib.check(lib.srt_gather_bytes(
+        len(strings), *(p for p, _ in arrays), _lib.ptr(indices), m,
+        _string_lanes(max(nbytes), m), s), "gather")
+    if m:
+        _lib.LAUNCHES["gather_strings"] += 1
+    for i, d in zip(strings, data):
+        out[i] = DeviceColumn(d, dst_valid[i], src[i].dtype, dst[i])
+    return out
+
+
+def _gather_columns_cuda(cols: Sequence[DeviceColumn],
+                         indices: torch.Tensor) -> List[DeviceColumn]:
+    _lib.require_cuda("gather", indices, *(
+        t for c in cols for t in (c.data, c.validity)
+        + ((c.offsets,) if c.is_string else ())))
+    lib = _lib.lib()
     step = lib.srt_max_gather_cols()
-    s = _lib.stream(dev)
+    s = _lib.stream(indices.device)
+    out: List[DeviceColumn] = []
     for lo in range(0, len(cols), step):
-        src, dst = cols[lo:lo + step], out[lo:lo + step]
-        k = len(src)
-        arrays = [(ctypes.c_void_p * k)(*(getattr(c, f).data_ptr()
-                                          for c in group))
-                  for group, f in ((src, "data"), (src, "validity"),
-                                   (dst, "data"), (dst, "validity"))]
-        widths = (ctypes.c_int * k)(*(c.data.element_size() for c in src))
-        _lib.check(lib.srt_gather(k, *(ctypes.cast(a, ctypes.c_void_p)
-                                       for a in arrays),
-                                  ctypes.cast(widths, ctypes.c_void_p),
-                                  src[0].num_rows, _lib.ptr(indices), m, s),
-                   "gather")
-        if m:
-            _lib.LAUNCHES["gather"] += 1
+        out += _gather_group_cuda(cols[lo:lo + step], indices, lib, s)
     return out
 
 
@@ -153,7 +233,25 @@ def gather_batch(batch: ColumnarBatch,
 # concat
 
 
+def concat_string_plain(pieces: Sequence[DeviceColumn]) -> DeviceColumn:
+    """Each piece's bytes, and its offsets rebased onto the running byte
+    count."""
+    valid = torch.cat([p.validity for p in pieces])
+    data = torch.cat([p.data[int(p.offsets[0]):int(p.offsets[-1])]
+                      for p in pieces])
+    lengths = torch.cat([(p.offsets[1:] - p.offsets[:-1]).to(torch.int64)
+                         for p in pieces])
+    offsets = torch.zeros(lengths.shape[0] + 1, dtype=torch.int64,
+                          device=valid.device)
+    torch.cumsum(lengths, 0, out=offsets[1:])
+    if int(offsets[-1]) >= _INT32_BYTES:
+        raise ValueError("a string column holds < 2**31 bytes")
+    return DeviceColumn(data, valid, pieces[0].dtype, offsets.to(torch.int32))
+
+
 def concat_column_plain(pieces: Sequence[DeviceColumn]) -> DeviceColumn:
+    if pieces[0].is_string:
+        return concat_string_plain(pieces)
     valid = torch.cat([p.validity for p in pieces])
     data = torch.cat([p.data for p in pieces])
     data = torch.where(valid, data, torch.zeros((), dtype=data.dtype,
@@ -188,14 +286,55 @@ def _concat_column_cuda(pieces: Sequence[DeviceColumn]) -> DeviceColumn:
     return DeviceColumn(data, valid, pieces[0].dtype)
 
 
+def _concat_string_cuda(pieces: Sequence[DeviceColumn]) -> DeviceColumn:
+    _lib.require_cuda("concat", *(t for p in pieces
+                                  for t in (p.data, p.validity, p.offsets)))
+    lib = _lib.lib()
+    dev = pieces[0].device
+    k = len(pieces)
+    rows = [0]
+    for p in pieces:
+        rows.append(rows[-1] + p.num_rows)
+    total = rows[-1]
+    # one host->device copy: [k] offsets, [k] validity and [k] data
+    # pointers, then the k + 1 row offsets
+    desc = torch.tensor([p.offsets.data_ptr() for p in pieces]
+                        + [p.validity.data_ptr() for p in pieces]
+                        + [p.data.data_ptr() for p in pieces] + rows,
+                        dtype=torch.int64).to(dev)
+    rows_ptr = ctypes.c_void_p(desc.data_ptr() + 24 * k)
+    bases = torch.empty(k + 1, dtype=torch.int64, device=dev)
+    s = _lib.stream(dev)
+    _lib.check(lib.srt_concat_string_bases(_lib.ptr(desc), rows_ptr, k,
+                                           _lib.ptr(bases), s), "concat")
+    # the one device->host read of a string concat: its byte count
+    nbytes = int(bases[k].item())
+    if nbytes >= _INT32_BYTES:
+        raise ValueError("a string column holds < 2**31 bytes")
+    offsets = (torch.empty(total + 1, dtype=torch.int32, device=dev) if total
+               else torch.zeros(1, dtype=torch.int32, device=dev))
+    valid = torch.empty(total, dtype=torch.bool, device=dev)
+    data = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    _lib.check(lib.srt_concat_strings(
+        _lib.ptr(desc), rows_ptr, _lib.ptr(bases), k, _lib.ptr(offsets),
+        _lib.ptr(valid), _lib.ptr(data), total, nbytes, s), "concat")
+    if total:
+        _lib.LAUNCHES["concat_strings"] += 1
+    return DeviceColumn(data, valid, pieces[0].dtype, offsets)
+
+
 def concat_column(pieces: Sequence[DeviceColumn]) -> DeviceColumn:
-    """Concatenate k pieces of one column into one, in one launch."""
+    """Concatenate k pieces of one column into one, in one launch (a string
+    column: one read of its byte count, then its offsets, validity and
+    bytes)."""
     if not pieces:
         raise ValueError("concat needs at least one piece")
     if len({p.dtype for p in pieces}) != 1:
         raise TypeError("concat: pieces differ in type")
     if pieces[0].device.type == "cpu":
         return concat_column_plain(pieces)
+    if pieces[0].is_string:
+        return _concat_string_cuda(pieces)
     return _concat_column_cuda(pieces)
 
 
@@ -209,3 +348,13 @@ def concat_batches_device(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
     cols = tuple(concat_column([b.columns[i] for b in batches])
                  for i in range(len(schema)))
     return ColumnarBatch(cols, sum(b.num_rows for b in batches), schema)
+
+
+def coalesce_to_one(batches: Sequence[ColumnarBatch]
+                    ) -> Optional[ColumnarBatch]:
+    """One batch of all the given ones: the batch itself when there is one,
+    None when there is none (``coalesce_to_one``, plan/execs/coalesce.py:198
+    of the reference)."""
+    if not batches:
+        return None
+    return batches[0] if len(batches) == 1 else concat_batches_device(batches)

@@ -1,25 +1,34 @@
 """Sort kernels: stable multi-key lexicographic argsort, Spark ordering.
 
 Counterpart of ``spark_rapids_tpu/kernels/sort.py`` (``SortOrder`` :32,
-``sort_indices`` :200, ``sort_batch`` :241) for fixed-width keys, with the
-key builders ``_data_key_fixed`` :101, ``_null_key`` :117 and
-``f64_total_order_u64`` :52 (its non-TPU branch).  Ordering follows Spark's
+``sort_indices`` :200, ``sort_batch`` :241) for fixed-width and string
+keys, with the key builders ``_data_key_fixed`` :101, ``_null_key`` :117,
+``f64_total_order_u64`` :52 (its non-TPU branch) and, in place of
+``_string_data_keys`` :160, big-endian 8-byte chunks plus the length.  Ordering follows Spark's
 SortExec: ASC NULLS FIRST by default (DESC NULLS LAST), NULLS FIRST/LAST
 absolute, doubles in Java's total order (-0.0 < 0.0, NaN above +Inf), and
-the sort is stable.  Columns hold exactly ``num_rows`` rows, so the
-reference's liveness key for padding rows has no counterpart.
+the sort is stable.  Strings sort in Spark's ``UTF8String.binaryCompare``
+order: unsigned bytes, a proper prefix first ("ab" before "ab\0").
+Columns hold exactly ``num_rows`` rows, so the reference's liveness key for
+padding rows has no counterpart.
+
+A string key is ceil(longest live length / 8) big-endian 8-byte chunks,
+zero past the end, and the length as the least significant key: equal
+chunks leave only "one string is the other plus zero bytes", which the
+length orders.  The longest length is read back once per sort, with the
+null counts.
 
 On CUDA tensors ``sort_indices`` runs the LSD radix passes of
-``csrc/sort.cu`` and counts one launch per call; on CPU tensors it runs
-the plain version: the same keys, as order-preserving signed int64 (the
-CPU has no uint64 compare), each applied with a stable ``torch.sort``
-from the least significant key up.  String, struct and decimal128 keys
-are not ported.
+``csrc/sort.cu`` (a string column's keys written by ``csrc/strings.cu``)
+and counts one launch per call; on CPU tensors it runs the plain version:
+the same keys, as order-preserving signed int64 (the CPU has no uint64
+compare), each applied with a stable ``torch.sort`` from the least
+significant key up.  Struct and decimal128 keys are not ported.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,10 +38,14 @@ from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.kernels import _lib
 from spark_rapids_tpu_torch.kernels.selection import gather_batch
 
-# key kinds of csrc/sort.cu, and their key widths in bytes
-_INT32, _INT64, _F64, _BOOL = 0, 1, 2, 3
-_KEY_BYTES = {_INT32: 4, _INT64: 8, _F64: 8, _BOOL: 1}
+# key kinds of csrc/sort.cu, and their key widths in bytes (a string column
+# is -1 here: its keys are _RAW_U32 lengths and _RAW_U64 chunks)
+_INT32, _INT64, _F64, _BOOL, _RAW_U32, _RAW_U64 = 0, 1, 2, 3, 4, 5
+_STRING = -1
+_KEY_BYTES = {_INT32: 4, _INT64: 8, _F64: 8, _BOOL: 1, _STRING: 8}
 _F64_MAGNITUDE = 0x7FFFFFFFFFFFFFFF
+_SIGN64 = -2**63
+CHUNK_BYTES = 8
 
 
 class SortOrder:
@@ -58,7 +71,14 @@ def _kind(dtype: T.DataType) -> int:
         return _F64
     if isinstance(dtype, T.BooleanType):
         return _BOOL
+    if isinstance(dtype, T.StringType):
+        return _STRING
     raise NotImplementedError(f"sort key of {dtype!r} is not ported")
+
+
+def string_chunks(longest: int) -> int:
+    """Chunks of a string key whose longest live string has this length."""
+    return -(-longest // CHUNK_BYTES)
 
 # ---------------------------------------------------------------------------
 # plain version
@@ -80,6 +100,62 @@ def data_key_plain(col: DeviceColumn, order: SortOrder) -> torch.Tensor:
                                                     device=k.device))
 
 
+def string_sort_keys_plain(col: DeviceColumn, longest: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``string_sort_keys``: int64 tensors holding the
+    chunks' uint64 bits (int64 shifts wrap as uint64 ones do)."""
+    nchunks = string_chunks(longest)
+    tile = col.byte_tile(CHUNK_BYTES * nchunks).to(torch.int64)
+    chunks = torch.zeros((nchunks, col.num_rows), dtype=torch.int64,
+                         device=tile.device)
+    for c in range(nchunks):
+        for j in range(CHUNK_BYTES):
+            chunks[c] = (chunks[c] << 8) | tile[:, CHUNK_BYTES * c + j]
+    return chunks, (col.offsets[1:] - col.offsets[:-1]).to(torch.int32)
+
+
+def _string_sort_keys_cuda(col: DeviceColumn, longest: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    _lib.require_cuda("string_sort_keys", col.offsets, col.data,
+                      col.validity)
+    n = col.num_rows
+    nchunks = string_chunks(longest)
+    chunks = torch.empty((nchunks, n), dtype=torch.int64, device=col.device)
+    lengths = torch.empty(n, dtype=torch.int32, device=col.device)
+    _lib.check(_lib.lib().srt_string_sort_keys(
+        _lib.ptr(col.offsets), _lib.ptr(col.data), _lib.ptr(col.validity), n,
+        nchunks, _lib.ptr(chunks), _lib.ptr(lengths),
+        _lib.stream(col.device)), "string_sort_keys")
+    if n:
+        _lib.LAUNCHES["string_sort_keys"] += 1
+    return chunks, lengths
+
+
+def string_sort_keys(col: DeviceColumn, longest: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A string column's sort keys: ([ceil(longest / 8), n] big-endian
+    8-byte chunks, zero past the end, as uint64 bits in int64; int32
+    lengths); a null row's are 0.  ``longest`` covers the longest valid
+    row."""
+    if col.device.type == "cpu":
+        return string_sort_keys_plain(col, longest)
+    return _string_sort_keys_cuda(col, longest)
+
+
+def string_keys_plain(col: DeviceColumn, order: SortOrder
+                      ) -> List[torch.Tensor]:
+    """int64 keys of a string column, most significant first: the chunks,
+    then the length (signed order = the kernel's unsigned order)."""
+    off = col.offsets.to(torch.int64)
+    lengths = torch.where(col.validity, off[1:] - off[:-1], 0)
+    longest = int(lengths.max()) if col.num_rows else 0
+    chunks, lengths = string_sort_keys_plain(col, longest)
+    keys = [k ^ _SIGN64 for k in chunks] + [lengths.to(torch.int64)]
+    if not order.ascending:
+        keys = [~k for k in keys]
+    return [torch.where(col.validity, k, 0) for k in keys]
+
+
 def null_key_plain(col: DeviceColumn, order: SortOrder) -> torch.Tensor:
     return col.validity if order.nulls_first else ~col.validity
 
@@ -90,7 +166,9 @@ def sort_indices_plain(columns: Sequence[DeviceColumn],
     perm = torch.arange(n, dtype=torch.int64, device=columns[0].device)
     keys: List[torch.Tensor] = []   # least significant first
     for c, o in zip(reversed(list(columns)), reversed(list(orders))):
-        keys += [data_key_plain(c, o), null_key_plain(c, o).to(torch.int8)]
+        data = (string_keys_plain(c, o)[::-1] if c.is_string
+                else [data_key_plain(c, o)])
+        keys += data + [null_key_plain(c, o).to(torch.int8)]
     for k in keys:
         perm = perm[torch.sort(k[perm], stable=True).indices]
     return perm.to(torch.int32)
@@ -99,10 +177,21 @@ def sort_indices_plain(columns: Sequence[DeviceColumn],
 # kernel
 
 
+def _string_key_planes(c: DeviceColumn, longest: int) -> List[tuple]:
+    """A string column's passes as (kind, plane, key bytes), least
+    significant first: the length on as many bytes as the longest needs,
+    then the chunks from last to first."""
+    chunks, lengths = string_sort_keys(c, longest)
+    passes = [(_RAW_U32, lengths, max(-(-longest.bit_length() // 8), 1))]
+    return passes + [(_RAW_U64, chunks[j], 0)
+                     for j in reversed(range(chunks.shape[0]))]
+
+
 def _sort_indices_cuda(columns: Sequence[DeviceColumn],
                        orders: Sequence[SortOrder]) -> torch.Tensor:
-    _lib.require_cuda("sort", *(t for c in columns
-                                for t in (c.data, c.validity)))
+    _lib.require_cuda("sort", *(
+        t for c in columns for t in (c.data, c.validity)
+        + ((c.offsets,) if c.is_string else ())))
     lib = _lib.lib()
     n = columns[0].num_rows
     dev = columns[0].device
@@ -110,12 +199,19 @@ def _sort_indices_cuda(columns: Sequence[DeviceColumn],
         return torch.empty(0, dtype=torch.int32, device=dev)
     s = _lib.stream(dev)
     k = len(columns)
-    nulls = torch.empty(k, dtype=torch.int64, device=dev)
+    strings = [i for i, c in enumerate(columns) if c.is_string]
+    stats = torch.empty(k + len(strings), dtype=torch.int64, device=dev)
     valid = (ctypes.c_void_p * k)(*(c.validity.data_ptr() for c in columns))
     _lib.check(lib.srt_null_counts(k, ctypes.cast(valid, ctypes.c_void_p), n,
-                                   _lib.ptr(nulls), s), "sort")
-    # the one device->host read of a sort: which columns take a null pass
-    has_nulls = nulls.tolist()
+                                   _lib.ptr(stats), s), "sort")
+    for j, i in enumerate(strings):
+        _lib.check(lib.srt_string_max_length(
+            _lib.ptr(columns[i].offsets), _lib.ptr(columns[i].validity), n,
+            _lib.ptr(stats[k + j:]), s), "sort")
+    # the one device->host read of a sort: which columns take a null pass,
+    # and how many chunks each string key needs
+    host = stats.tolist()
+    has_nulls, longest = host[:k], dict(zip(strings, host[k:]))
     ntiles = -(-n // lib.srt_sort_tile())
     nb = 1 << lib.srt_max_radix_bits()
     width = max(_KEY_BYTES[_kind(c.dtype)] for c in columns)
@@ -126,15 +222,20 @@ def _sort_indices_cuda(columns: Sequence[DeviceColumn],
     ids = None
     for i in reversed(range(k)):
         c, o = columns[i], orders[i]
-        out = torch.empty(n, dtype=torch.int32, device=dev)
-        tmp = torch.empty(n, dtype=torch.int32, device=dev)
-        _lib.check(lib.srt_sort_column(
-            _kind(c.dtype), _lib.ptr(c.data), _lib.ptr(c.validity),
-            int(not o.ascending), int(o.nulls_first), int(has_nulls[i] > 0),
-            _lib.ptr(ids) if ids is not None else None, n, _lib.ptr(key_a),
-            _lib.ptr(key_b), _lib.ptr(out), _lib.ptr(tmp), _lib.ptr(hist),
-            _lib.ptr(totals), s), "sort")
-        ids = out
+        passes = (_string_key_planes(c, longest[i]) if c.is_string
+                  else [(_kind(c.dtype), c.data, 0)])
+        for p, (kind, plane, key_bytes) in enumerate(passes):
+            # the column's null pass follows its most significant key
+            null_pass = p == len(passes) - 1 and has_nulls[i] > 0
+            out = torch.empty(n, dtype=torch.int32, device=dev)
+            tmp = torch.empty(n, dtype=torch.int32, device=dev)
+            _lib.check(lib.srt_sort_column(
+                kind, _lib.ptr(plane), _lib.ptr(c.validity),
+                int(not o.ascending), int(o.nulls_first), int(null_pass),
+                key_bytes, _lib.ptr(ids) if ids is not None else None, n,
+                _lib.ptr(key_a), _lib.ptr(key_b), _lib.ptr(out),
+                _lib.ptr(tmp), _lib.ptr(hist), _lib.ptr(totals), s), "sort")
+            ids = out
     _lib.LAUNCHES["sort"] += 1
     return ids
 

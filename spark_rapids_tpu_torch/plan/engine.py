@@ -15,9 +15,13 @@ from spark_rapids_tpu_torch.plan.execs.base import GpuExec
 
 class GpuEngine:
     def execute(self, plan: GpuExec) -> List[List[ColumnarBatch]]:
-        """Materialize all partitions (list of batches per partition)."""
-        return [list(plan.execute_partition(p))
-                for p in range(plan.num_partitions())]
+        """Materialize all partitions (list of batches per partition), then
+        let the execs release what they held for the query."""
+        try:
+            return [list(plan.execute_partition(p))
+                    for p in range(plan.num_partitions())]
+        finally:
+            plan.cleanup()
 
     def collect(self, plan: GpuExec) -> List[tuple]:
         return [row for part in self.execute(plan) for batch in part

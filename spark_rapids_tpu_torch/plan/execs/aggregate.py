@@ -34,7 +34,7 @@ from spark_rapids_tpu_torch.expressions.core import (
     EvalContext, Expression, make_column)
 from spark_rapids_tpu_torch.kernels import groupby as G
 from spark_rapids_tpu_torch.kernels.reduction import masked_sum
-from spark_rapids_tpu_torch.kernels.selection import concat_batches_device
+from spark_rapids_tpu_torch.kernels.selection import coalesce_to_one
 from spark_rapids_tpu_torch.plan.execs.base import GpuExec, timed
 
 
@@ -227,8 +227,7 @@ class GpuHashAggregateExec(GpuExec):
             if self.mode == "partial":
                 out = partials
             else:
-                merged_in = (partials[0] if len(partials) == 1
-                             else concat_batches_device(partials))
+                merged_in = coalesce_to_one(partials)
                 out = [self._finalize(self._merge_step(merged_in))]
         for b in out:
             yield self._count_out(b)

@@ -62,6 +62,12 @@ class GpuExec:
     def execute_partition(self, idx: int) -> Iterator[ColumnarBatch]:
         raise NotImplementedError(type(self).__name__)
 
+    def cleanup(self) -> None:
+        """Release what the exec holds for the query (a join's build side),
+        and its children's."""
+        for c in self.children:
+            c.cleanup()
+
     def describe(self) -> str:
         return type(self).__name__
 

@@ -1,17 +1,20 @@
 """Logical plan: what the user asked for, engine-agnostic.
 
 Counterpart of ``spark_rapids_tpu/plan/logical.py`` (``InMemoryRelation``
-:45, ``Project`` :189, ``Filter`` :205, ``Aggregate`` :222).  Schemas
-resolve eagerly, so binding errors surface when the plan is built.
+:45, ``Project`` :189, ``Filter`` :205, ``Aggregate`` :222, ``Sort`` :251,
+``Join`` :287).  Schemas resolve eagerly, so binding errors surface when
+the plan is built.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
 from spark_rapids_tpu_torch.expressions.aggregates import find_aggregates
 from spark_rapids_tpu_torch.expressions.core import Expression, output_name
+from spark_rapids_tpu_torch.kernels.join import JOIN_TYPES
+from spark_rapids_tpu_torch.kernels.sort import SortOrder
 
 
 class LogicalPlan:
@@ -84,3 +87,56 @@ class Aggregate(LogicalPlan):
     def schema(self):
         return self._schema
 
+
+class Sort(LogicalPlan):
+    """ORDER BY: (expression, SortOrder) pairs, most significant first; a
+    global sort orders all partitions as one."""
+
+    def __init__(self, orders: Sequence[Tuple[Expression, SortOrder]],
+                 child: LogicalPlan, global_sort: bool = True):
+        self.orders = tuple((e.bind(child.schema), o) for e, o in orders)
+        self.global_sort = global_sort
+        self.child = child
+        self.children = (child,)
+
+    @property
+    def schema(self):
+        return self.child.schema
+
+
+class Join(LogicalPlan):
+    """Equi-join on key expression pairs; the output is the left columns,
+    then the right ones (only the left ones for semi and anti joins).  A
+    residual condition is not ported."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression],
+                 join_type: str = "inner",
+                 condition: Optional[Expression] = None):
+        if join_type not in JOIN_TYPES:
+            raise ValueError(f"unknown join type {join_type!r}")
+        if condition is not None:
+            raise NotImplementedError(
+                "a join with a residual condition is not ported")
+        if len(left_keys) != len(right_keys):
+            raise ValueError("a join needs as many left keys as right keys")
+        self.left = left
+        self.right = right
+        self.left_keys = tuple(e.bind(left.schema) for e in left_keys)
+        self.right_keys = tuple(e.bind(right.schema) for e in right_keys)
+        self.join_type = join_type
+        self.condition = None
+        self.children = (left, right)
+        if join_type in ("left_semi", "left_anti"):
+            self._schema = left.schema
+        elif join_type == "existence":
+            self._schema = Schema(left.schema.names + ("exists",),
+                                  left.schema.dtypes + (T.BOOLEAN,))
+        else:
+            self._schema = Schema(left.schema.names + right.schema.names,
+                                  left.schema.dtypes + right.schema.dtypes)
+
+    @property
+    def schema(self):
+        return self._schema

@@ -1,15 +1,21 @@
-"""Logical optimization applied before planning: column pruning.
+"""Logical optimizations applied before planning: predicate pushdown, then
+column pruning.
 
-Counterpart of ``spark_rapids_tpu/planner/optimizer.py`` (``prune_columns``
-:38) for InMemoryRelation, Project, Filter and Aggregate: a scan carries
-only the columns some ancestor references, through a Project of column
-references on top of the relation (a zero-copy select in the exec).
-Expressions are bound by ordinal, so pruning rebuilds the tree through
-name-based unbinding; a plan with duplicate column names is left as is.
+Counterpart of ``spark_rapids_tpu/planner/optimizer.py`` (``push_filters``
+:67-191, ``prune_columns`` :38) for InMemoryRelation, Project, Filter,
+Aggregate, Join and Sort.  ``push_filters`` moves each conjunct of a
+filter over an inner join into the side whose columns it references (so
+q3's ``i_manufact_id = 28`` and ``d_moy = 11`` filter the dimension tables
+before the joins), below a Project of pass-through columns, and merges
+adjacent filters.  ``prune_columns`` makes a scan carry only the columns
+some ancestor references, through a Project of column references on top
+of the relation (a zero-copy select in the exec).  Expressions are bound
+by ordinal, so both passes rebuild the tree through name-based
+unbinding; a plan with duplicate column names is left as is.
 """
 from __future__ import annotations
 
-from typing import Set
+from typing import List, Set
 
 from spark_rapids_tpu_torch.expressions.core import (
     Alias, BoundReference, Col, Expression)
@@ -30,6 +36,119 @@ def _names_unique(plan: L.LogicalPlan) -> bool:
         return False
     return all(_names_unique(c) for c in plan.children)
 
+
+# -- predicate pushdown -------------------------------------------------------
+
+def _split_conjuncts(e: Expression) -> List[Expression]:
+    from spark_rapids_tpu_torch.expressions.predicates import And
+    if isinstance(e, And):
+        return _split_conjuncts(e.children[0]) + _split_conjuncts(
+            e.children[1])
+    return [e]
+
+
+def _and_all(conjuncts: List[Expression]) -> Expression:
+    from spark_rapids_tpu_torch.expressions.predicates import And
+    out = conjuncts[0]
+    for c in conjuncts[1:]:
+        out = And(out, c)
+    return out
+
+
+def push_filters(plan: L.LogicalPlan) -> L.LogicalPlan:
+    """Push filter conjuncts below inner joins, pass-through projects and
+    other filters, toward the scans."""
+    if not _names_unique(plan):
+        return plan
+    return _push(plan)
+
+
+def _rename(e: Expression, mapping) -> Expression:
+    if isinstance(e, (Col, BoundReference)):
+        return Col(mapping.get(e.name, e.name))
+    if not e.children:
+        return e
+    return e.with_children(tuple(_rename(c, mapping) for c in e.children))
+
+
+def _push(plan: L.LogicalPlan) -> L.LogicalPlan:
+    if isinstance(plan, L.Filter):
+        child = plan.child
+        conjuncts = [_unbind(c) for c in _split_conjuncts(plan.condition)]
+        if isinstance(child, L.Join) and child.join_type == "inner":
+            lnames = set(child.left.schema.names)
+            rnames = set(child.right.schema.names)
+            lpush, rpush, keep = [], [], []
+            for c in conjuncts:
+                refs = c.references()
+                if refs and refs <= lnames:
+                    lpush.append(c)
+                elif refs and refs <= rnames:
+                    rpush.append(c)
+                else:
+                    keep.append(c)
+            if lpush or rpush:
+                left = L.Filter(_and_all(lpush), child.left) if lpush \
+                    else child.left
+                right = L.Filter(_and_all(rpush), child.right) if rpush \
+                    else child.right
+                joined = L.Join(_push(left), _push(right),
+                                [_unbind(k) for k in child.left_keys],
+                                [_unbind(k) for k in child.right_keys],
+                                child.join_type)
+                return L.Filter(_and_all(keep), joined) if keep else joined
+        if isinstance(child, L.Project):
+            # conjuncts over pass-through columns (a column or an alias of
+            # one) go below the project
+            passthrough = {}
+            for e, n in zip(child.exprs, child.schema.names):
+                inner = e.child if isinstance(e, Alias) else e
+                if isinstance(inner, (BoundReference, Col)):
+                    passthrough[n] = inner.name
+            push, keep = [], []
+            for c in conjuncts:
+                refs = c.references()
+                if refs and refs <= set(passthrough):
+                    push.append(_rename(c, passthrough))
+                else:
+                    keep.append(c)
+            if push:
+                proj = L.Project([_unbind(e) for e in child.exprs],
+                                 _push(L.Filter(_and_all(push),
+                                                child.child)))
+                return L.Filter(_and_all(keep), proj) if keep else proj
+        if isinstance(child, L.Filter):
+            merged = L.Filter(_and_all(conjuncts + [
+                _unbind(c) for c in _split_conjuncts(child.condition)]),
+                child.child)
+            if not isinstance(child.child, (L.Filter, L.Join, L.Project)):
+                return L.Filter(merged.condition, _push(child.child))
+            return _push(merged)
+    return _rebuild(plan, [_push(c) for c in plan.children])
+
+
+def _rebuild(plan: L.LogicalPlan, children) -> L.LogicalPlan:
+    if all(n is o for n, o in zip(children, plan.children)):
+        return plan
+    if isinstance(plan, L.Filter):
+        return L.Filter(_unbind(plan.condition), children[0])
+    if isinstance(plan, L.Project):
+        return L.Project([_unbind(e) for e in plan.exprs], children[0])
+    if isinstance(plan, L.Join):
+        return L.Join(children[0], children[1],
+                      [_unbind(k) for k in plan.left_keys],
+                      [_unbind(k) for k in plan.right_keys], plan.join_type)
+    if isinstance(plan, L.Aggregate):
+        return L.Aggregate([_unbind(e) for e in plan.group_exprs],
+                           [_unbind(e) for e in plan.agg_exprs], children[0])
+    if isinstance(plan, L.Sort):
+        return L.Sort([(_unbind(e), o) for e, o in plan.orders], children[0],
+                      plan.global_sort)
+    raise NotImplementedError(f"logical node {type(plan).__name__} is not "
+                              "ported")
+
+
+# -- column pruning -----------------------------------------------------------
 
 def _exprs_refs(exprs) -> Set[str]:
     out: Set[str] = set()
@@ -72,4 +191,17 @@ def _prune(p: L.LogicalPlan, required: Set[str]) -> L.LogicalPlan:
              else _unbind(e).alias(names[nkeys + i])
              for i, e in enumerate(p.agg_exprs)],
             child)
+    if isinstance(p, L.Sort):
+        child = _prune(p.child, set(required)
+                       | _exprs_refs(e for e, _ in p.orders))
+        return L.Sort([(_unbind(e), o) for e, o in p.orders], child,
+                      p.global_sort)
+    if isinstance(p, L.Join):
+        lnames, rnames = set(p.left.schema.names), set(p.right.schema.names)
+        left = _prune(p.left, (set(required) & lnames)
+                      | _exprs_refs(p.left_keys))
+        right = _prune(p.right, (set(required) & rnames)
+                       | _exprs_refs(p.right_keys))
+        return L.Join(left, right, [_unbind(k) for k in p.left_keys],
+                      [_unbind(k) for k in p.right_keys], p.join_type)
     raise NotImplementedError(f"logical node {type(p).__name__} is not ported")

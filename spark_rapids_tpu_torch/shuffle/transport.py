@@ -5,7 +5,9 @@ Counterpart of ``spark_rapids_tpu/shuffle/transport.py``
 batch is kept once, reordered by partition, with its host row counts, and
 each partition's block is a plain ``(batch, start, count)`` view that is
 sliced when it is read.  Slices of a 1-d tensor are views, so a read
-copies nothing.  The reference's spillable handles, ``RangeView`` pytrees
+copies nothing: a string column's block is ``offsets[start:end + 1]`` over
+the same bytes (its offsets then do not start at 0, which every kernel
+allows).  The reference's spillable handles, ``RangeView`` pytrees
 and wire transports are not ported: spilling belongs to the memory
 runtime.
 """
@@ -14,16 +16,14 @@ from __future__ import annotations
 from typing import Iterator, List, Sequence, Tuple
 
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
-from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 
 
 def slice_batch(batch: ColumnarBatch, start: int, count: int
                 ) -> ColumnarBatch:
     """Rows [start, start + count) of a batch, as views of its tensors."""
     end = start + count
-    return ColumnarBatch(
-        tuple(DeviceColumn(c.data[start:end], c.validity[start:end], c.dtype)
-              for c in batch.columns), count, batch.schema)
+    return ColumnarBatch(tuple(c.slice_rows(start, end)
+                               for c in batch.columns), count, batch.schema)
 
 
 class DeviceShuffleStore:

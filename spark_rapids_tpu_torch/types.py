@@ -1,8 +1,9 @@
 """Spark SQL data types of the port, each mapped to a torch dtype.
 
 Counterpart of ``spark_rapids_tpu/types.py:72-188``, cut to the types the
-TPC-H lineitem table and q6 use: BOOLEAN, INT, LONG, DOUBLE, DATE and
-Decimal64 (precision <= 18, held as its int64 unscaled value).  Every type
+TPC-H lineitem table, q6, q1 and TPC-DS q3 use: BOOLEAN, INT, LONG, DOUBLE,
+DATE, Decimal64 (precision <= 18, held as its int64 unscaled value) and
+STRING (UTF-8 bytes, variable width; ``StringType`` :138).  Every type
 carries the torch dtype of its device buffer and the numpy dtype used for
 host staging.
 """
@@ -15,12 +16,13 @@ import torch
 
 
 class DataType:
-    """Base of the SQL type lattice (fixed-width types only in this port)."""
+    """Base of the SQL type lattice."""
 
     torch_dtype: torch.dtype = None
     np_dtype = None
     sql_name = "unknown"
     byte_width = 0
+    variable_width = False
 
     def __repr__(self) -> str:
         return self.sql_name
@@ -89,6 +91,17 @@ class DateType(DataType):
     byte_width = 4
 
 
+class StringType(DataType):
+    """UTF-8 bytes in the Arrow layout: int32 offsets[n + 1] + uint8 data
+    (see columnar/column.py)."""
+
+    torch_dtype = torch.uint8
+    np_dtype = np.uint8
+    sql_name = "string"
+    byte_width = 1
+    variable_width = True
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class DecimalType(FractionalType):
     """Decimal(precision, scale) held as an int64 unscaled value.
@@ -131,6 +144,7 @@ INT = IntegerType()
 LONG = LongType()
 DOUBLE = DoubleType()
 DATE = DateType()
+STRING = StringType()
 
 _NUMERIC_WIDEN_ORDER = [INT, LONG, DOUBLE]
 

@@ -99,7 +99,8 @@ def test_null_slots_hold_zero_and_types_map_to_torch():
 def test_unported_types_and_conf_raise():
     with pytest.raises(NotImplementedError, match="decimal"):
         PT.DecimalType(20, 2)
-    with pytest.raises(NotImplementedError, match="string"):
-        arrow_to_batch(pa.table({"s": ["a"]}), "cpu")
+    # strings are ported (tests/test_torch_strings.py); binary is not
+    with pytest.raises(NotImplementedError, match="binary"):
+        arrow_to_batch(pa.table({"b": pa.array([b"a"], pa.binary())}), "cpu")
     assert RapidsConf().batch_size_rows == 1 << 20
     assert not RapidsConf({"spark.rapids.sql.enabled": "false"}).sql_enabled

@@ -103,3 +103,16 @@ def test_every_cuda_source_is_built():
                  "spark_rapids_tpu_torch.kernels.groupby",
                  "spark_rapids_tpu_torch.shuffle.transport"):
         assert name in PORT_MODULES
+
+
+def test_q3_modules_and_sources_are_covered():
+    """The q3 slice's modules are in the scans above, its CUDA sources are
+    built, and the headers they share are in the library's content hash."""
+    assert {"strings.cu", "join.cu"} <= set(_lib.SOURCES)
+    assert sorted(_lib.HEADERS) == sorted(
+        p.name for p in _lib.CSRC.glob("*.cuh"))
+    for name in ("spark_rapids_tpu_torch.kernels.join",
+                 "spark_rapids_tpu_torch.plan.execs.join",
+                 "spark_rapids_tpu_torch.plan.execs.sort",
+                 "spark_rapids_tpu_torch.testing.tpcds"):
+        assert name in PORT_MODULES

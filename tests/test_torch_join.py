@@ -1,0 +1,183 @@
+"""The port's inner join against the JAX package's, on the CPU.
+
+``join_gather_maps`` must give the same (left, right) pairs as the
+reference's, in the same order: stream rows in order, each row's matches
+in build order.  Null keys never match, duplicated build keys fan out, NaN
+matches NaN and -0.0 matches 0.0.  ``apply_gather_maps`` then gives the
+same rows, string columns included.  On CPU tensors the wrappers run their
+plain versions; chip_smoke.py holds the CUDA kernels against them on the
+card.  What the port leaves out raises NotImplementedError.
+"""
+import numpy as np
+import pyarrow as pa
+import pytest
+import torch
+
+from spark_rapids_tpu.columnar.batch import ColumnarBatch as JaxBatch
+from spark_rapids_tpu.columnar.batch import Schema as JaxSchema
+from spark_rapids_tpu.kernels import join as jjoin
+
+from spark_rapids_tpu_torch.columnar.arrow import arrow_to_batch
+from spark_rapids_tpu_torch.columnar.batch import Schema
+from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.kernels import _lib
+from spark_rapids_tpu_torch.kernels import join as J
+
+SPECIAL_DOUBLES = [0.0, -0.0, float("nan"), -float("nan"), 1.5, -2.25,
+                   float("inf")]
+
+
+def _keys(kind: str, rng, n: int, distinct: int, null_frac: float):
+    mask = rng.rand(n) < null_frac
+    if kind == "double":
+        return pa.array(rng.choice(SPECIAL_DOUBLES, n), mask=mask)
+    v = rng.randint(0, distinct, n)
+    if kind == "int":
+        return pa.array(v.astype(np.int32), mask=mask)
+    return pa.array(v.astype(np.int64) * (2**35 + 1), mask=mask)
+
+
+def _sides(kind: str, seed: int, n_left: int, n_right: int,
+           distinct: int, null_frac: float = 0.1, offset: int = 0):
+    """A stream table (key, an int payload, a string payload) and a build
+    table (key, a string payload); ``offset`` shifts the build keys so
+    that few or none match."""
+    rng = np.random.RandomState(seed)
+    left = pa.table({"lk": _keys(kind, rng, n_left, distinct, null_frac),
+                     "lp": pa.array(np.arange(n_left, dtype=np.int32)),
+                     "ls": pa.array([f"l{i % 7}é" for i in range(n_left)])})
+    rk = _keys(kind, rng, n_right, distinct, null_frac)
+    if offset:
+        rk = pa.compute.add(rk, pa.scalar(offset, rk.type))
+    right = pa.table({"rk": rk,
+                      "rs": pa.array([None if i % 5 == 0 else f"Brand#{i}"
+                                      for i in range(n_right)], pa.string())})
+    return left, right
+
+
+def _reference_maps(left, right):
+    jl, jr = JaxBatch.from_arrow(left), JaxBatch.from_arrow(right)
+    cap = max(left.num_rows * right.num_rows, 1)
+    li, ri, count, _ = jjoin.join_gather_maps(jl, [0], jr, [0], "inner", cap)
+    c = int(count)
+    return jl, jr, np.asarray(li)[:c], np.asarray(ri)[:c]
+
+
+CASES = {
+    # kind, seed, left rows, right rows, distinct keys, build key offset
+    "int_duplicates_and_nulls": ("int", 1, 700, 300, 60, 0),
+    "long_duplicates_and_nulls": ("long", 2, 500, 400, 90, 0),
+    "double_nan_and_signed_zero": ("double", 3, 300, 120, 0, 0),
+    "no_match_at_all": ("int", 4, 400, 200, 50, 1_000),
+    "one_build_row": ("int", 5, 300, 1, 3, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_join_gather_maps_match_reference(case):
+    kind, seed, nl, nr, distinct, offset = CASES[case]
+    left, right = _sides(kind, seed, nl, nr, distinct, offset=offset)
+    _, _, ref_li, ref_ri = _reference_maps(left, right)
+    pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
+    li, ri, count = J.join_gather_maps(pl, [0], pr, [0], "inner")
+    assert li.dtype == ri.dtype == torch.int32
+    assert count == len(ref_li) == li.shape[0]
+    np.testing.assert_array_equal(li.numpy(), ref_li)
+    np.testing.assert_array_equal(ri.numpy(), ref_ri)
+    if case == "no_match_at_all":
+        assert count == 0
+    if kind == "double":   # NaN = NaN and -0.0 = 0.0 did match
+        lk = left.column("lk").to_numpy(zero_copy_only=False)
+        assert np.isnan(lk[li.numpy()]).any()
+        assert (np.signbit(lk[li.numpy()]) & (lk[li.numpy()] == 0)).any()
+
+
+def test_apply_gather_maps_matches_reference():
+    """The joined rows, left columns then right ones, string payloads
+    gathered through both maps."""
+    left, right = _sides("int", 6, 400, 150, 40)
+    jl, jr, ref_li, ref_ri = _reference_maps(left, right)
+    c = len(ref_li)
+    names = ("lk", "lp", "ls", "rk", "rs")
+    jschema = JaxSchema(names, tuple(jl.schema.dtypes) + tuple(jr.schema.dtypes))
+    ref, _ = jjoin.apply_gather_maps(jl, jr, np.asarray(ref_li, np.int32),
+                                     np.asarray(ref_ri, np.int32),
+                                     np.int32(c), jschema, "inner",
+                                     max(c, 1), {2: 64 * c, 4: 64 * c})
+    pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
+    li, ri, _ = J.join_gather_maps(pl, [0], pr, [0], "inner")
+    schema = Schema(names, pl.schema.dtypes + pr.schema.dtypes)
+    got = J.apply_gather_maps(pl, pr, li, ri, schema)
+    assert got.num_rows == c
+    assert got.rows() == list(zip(*ref.to_pydict().values()))
+
+
+def test_int_stream_joins_long_build_by_value():
+    pl = arrow_to_batch(pa.table({"k": pa.array([1, -5, 7, None],
+                                                pa.int32())}), "cpu")
+    pr = arrow_to_batch(pa.table({"k": pa.array([7, -5, 2**40, -5, None],
+                                                pa.int64())}), "cpu")
+    li, ri, count = J.join_gather_maps(pl, [0], pr, [0], "inner")
+    assert (li.tolist(), ri.tolist(), count) == ([1, 1, 2], [1, 3, 0], 3)
+
+
+def test_build_side_sorts_nulls_last():
+    col = DeviceColumn.from_numpy(np.array([3, 1, 2, 1], np.int32),
+                                  arrow_to_batch(pa.table({"k": pa.array(
+                                      [0], pa.int32())}), "cpu").schema
+                                  .dtypes[0],
+                                  np.array([True, True, False, True]))
+    b = arrow_to_batch(pa.table({"k": pa.array([3, 1, None, 1],
+                                               pa.int32())}), "cpu")
+    build = J.build_side(b, 0)
+    assert build.perm.tolist() == [1, 3, 0, 2]
+    assert build.key_valid.tolist() == [True, True, True, False]
+    assert (build.keys[:3] ^ J._SIGN64).tolist() == [1, 1, 3]
+    assert torch.equal(J.build_keys(col, build.perm)[0], build.keys)
+
+
+@pytest.mark.parametrize("how", ["left", "left_semi", "left_anti", "full"])
+def test_other_join_types_raise(how):
+    left, right = _sides("int", 7, 20, 10, 5)
+    pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
+    with pytest.raises(NotImplementedError, match=how):
+        J.join_gather_maps(pl, [0], pr, [0], how)
+
+
+def test_multi_key_string_key_cross_and_condition_raise():
+    left, right = _sides("int", 8, 20, 10, 5)
+    pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
+    with pytest.raises(NotImplementedError, match="multi-key"):
+        J.join_gather_maps(pl, [0, 1], pr, [0, 0], "inner")
+    with pytest.raises(NotImplementedError, match="string-key"):
+        J.join_gather_maps(pl, [2], pr, [1], "inner")
+    with pytest.raises(NotImplementedError, match="cross"):
+        J.join_gather_maps(pl, [], pr, [], "cross")
+    with pytest.raises(NotImplementedError, match="conditional_join_maps"):
+        J.conditional_join_maps()
+    with pytest.raises(ValueError, match="unknown join type"):
+        J.join_gather_maps(pl, [0], pr, [0], "outer")
+
+
+def test_join_wrappers_never_fall_back_off_the_cpu():
+    """Off the CPU the join steps take their CUDA kernels, which raise for
+    anything but a CUDA tensor; only CUDA launches count."""
+    left, right = _sides("int", 9, 20, 10, 5)
+    pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
+    build = J.build_side(pr, 0)
+    meta = lambda t: t.to("meta")   # noqa: E731
+    col = pl.columns[0]
+    meta_col = DeviceColumn(meta(col.data), meta(col.validity), col.dtype)
+    with pytest.raises(ValueError, match="expected cuda"):
+        J.build_keys(meta_col, meta(build.perm))
+    meta_build = J.JoinBuild(build.batch, 0, meta(build.perm),
+                             meta(build.keys), meta(build.key_valid))
+    with pytest.raises(ValueError, match="expected cuda"):
+        J.join_probe(type(pl)((meta_col,), pl.num_rows, Schema(
+            ("k",), (col.dtype,))), 0, meta_build)
+    lo = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="expected cuda"):
+        J.join_expand(lo, torch.zeros(5, dtype=torch.int32, device="meta"),
+                      3, meta_build)
+    assert not any(_lib.LAUNCHES.get(k) for k in
+                   ("join_build", "join_probe", "join_expand"))
