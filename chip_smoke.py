@@ -25,8 +25,13 @@ Phases (any failure raises and the script exits non-zero):
      186, 857 and 100,000 keys with duplicates (int32, int64 and double
      keys with -0.0 and NaN); each also at the shapes q3 gives it (the
      first SF10 store_sales batch against the filtered date_dim and item).
-     A kernel's ``max_abs_err`` is the largest difference over all its
-     comparisons;
+     Then the q25 path's several-key join (build words, probe, and the
+     shared expand) bit for bit at n = 1,048,576 and 1,000,003 over two
+     int32 keys, int32 with int64, two doubles with -0.0 and NaN, and
+     (int, string) with 10% nulls, against builds of 186, 180,000 and
+     900,000 rows with duplicates, and timed at q25's two shuffled-join
+     shapes.  A kernel's ``max_abs_err`` is the largest difference over
+     all its comparisons;
   4. data: TPC-H lineitem at SF10 (60,012,150 rows, all eleven columns on
      the card, batches of 1,048,576 rows, 4 partitions), with independent
      numpy evaluations of q6 and q1;
@@ -42,7 +47,19 @@ Phases (any failure raises and the script exits non-zero):
      ORDER BY over a single-partition exchange; held against an
      independent numpy evaluation (same groups, same order), then timed
      and profiled as q1;
-  8. prints the kernels summary line, then the result line last.
+  8. q25 at TPC-DS SF10 (store_sales as in phase 7; store_returns
+     2,875,432 rows, 90% copied from sales; catalog_sales 14,401,261 rows,
+     70% copied from the returns' (customer, item) pairs; all on the card,
+     4 partitions each; item 102,000 rows, store 50, date_dim 2,190): the
+     adaptive join of store_sales with store_returns (it must go
+     shuffled), the planned shuffled join with catalog_sales through
+     coalesced readers sharing one spec (every shuffled join must take the
+     streamed probe; the largest build partition of each is printed), five
+     broadcast dimension joins, the grouped sums on four keys (three
+     strings) across the hash exchange, ORDER BY and LIMIT 100; held
+     against an independent numpy evaluation (packed int64 keys, sort and
+     searchsorted joins, integer-cent sums), then timed and profiled;
+  9. prints the kernels summary line, then the result line last.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -72,6 +89,11 @@ from spark_rapids_tpu_torch.kernels import partition as PK  # noqa: E402
 from spark_rapids_tpu_torch.kernels import reduction as R  # noqa: E402
 from spark_rapids_tpu_torch.kernels import selection as S  # noqa: E402
 from spark_rapids_tpu_torch.kernels import sort as SK  # noqa: E402
+from spark_rapids_tpu_torch.plan.engine import GpuEngine  # noqa: E402
+from spark_rapids_tpu_torch.plan.execs.exchange import (  # noqa: E402
+    GpuCoalescedShuffleReaderExec)
+from spark_rapids_tpu_torch.plan.execs.join import (  # noqa: E402
+    GpuAdaptiveJoinExec, GpuShuffledHashJoinExec)
 from spark_rapids_tpu_torch import types as T  # noqa: E402
 from spark_rapids_tpu_torch.testing import tpcds, tpch  # noqa: E402
 
@@ -118,6 +140,10 @@ KERNELS = {
     "join_build": ("csrc/join.cu", "spark_rapids_tpu/kernels/join.py:154"),
     "join_probe": ("csrc/join.cu", "spark_rapids_tpu/kernels/join.py:154"),
     "join_expand": ("csrc/join.cu", "spark_rapids_tpu/kernels/join.py:226"),
+    "join_multi_build": ("csrc/join.cu",
+                         "spark_rapids_tpu/kernels/join.py:275"),
+    "join_multi_probe": ("csrc/join.cu",
+                         "spark_rapids_tpu/kernels/join.py:275"),
 }
 Q6_KERNELS = ("compaction_map", "gather", "masked_sum", "concat")
 Q1_KERNELS = ("compaction_map", "gather", "concat", "murmur3", "partition",
@@ -126,9 +152,16 @@ Q3_KERNELS = ("compaction_map", "gather", "gather_strings", "concat",
               "concat_strings", "murmur3", "hash_string", "partition", "sort",
               "string_sort_keys", "string_rows_equal_prev", "segmented_sum",
               "join_build", "join_probe", "join_expand")
+Q25_KERNELS = Q3_KERNELS + ("join_multi_build", "join_multi_probe")
 SS_ROWS = tpcds.SF10_STORE_SALES_ROWS
+SR_ROWS = tpcds.SF10_STORE_RETURNS_ROWS
+CS_ROWS = tpcds.SF10_CATALOG_SALES_ROWS
 ITEM_ROWS = tpcds.SF10_ITEM_ROWS
 F64_RTOL_Q3 = 1e-9               # against numpy's bincount sums
+F64_RTOL_Q25 = 1e-9              # against numpy's integer-cent sums
+SS_POOL = ["ss_ticket_number", "ss_item_sk", "ss_customer_sk",
+           "ss_sold_date_sk"]
+SR_POOL = ["sr_customer_sk", "sr_item_sk", "sr_returned_date_sk"]
 
 
 def emit(obj) -> None:
@@ -1087,6 +1120,217 @@ def check_join(rng, dev, q3, summary) -> None:
     summary["join_build"] = summarize(line, nbytes)
 
 
+# -- phase 3: the q25 path's several-key join ---------------------------------
+
+def multi_column(rng, n, kind: str, distinct: int, dev, null_frac=0.1,
+                 pool=None) -> DeviceColumn:
+    """n keys of about ``distinct`` values with nulls: int32 and int64 over
+    the same range (an int64 key also takes values outside int32's, 5%),
+    doubles (-0.0, 0.0 and NaNs of both signs at 5%), or strings drawn
+    from ``pool``."""
+    valid = rng.rand(n) >= null_frac
+    if kind == "string":
+        pick = rng.randint(0, len(pool), n)
+        return DeviceColumn.from_strings(
+            [pool[i] if ok else None for i, ok in zip(pick, valid)], dev)
+    v = rng.randint(0, distinct, n).astype(np.int64) - distinct // 2
+    if kind == "double":
+        vals = v / 4.0
+        special = rng.rand(n) < 0.05
+        vals[special] = rng.choice(SPECIAL_KEYS, int(special.sum()))
+        return DeviceColumn.from_numpy(vals, T.DOUBLE, valid, dev)
+    if kind == "long":
+        wide = rng.rand(n) < 0.05
+        v[wide] += 2**33
+        return DeviceColumn.from_numpy(v, T.LONG, valid, dev)
+    return DeviceColumn.from_numpy(v.astype(np.int32), T.INT, valid, dev)
+
+
+def string_pool(rng, size: int, longest: int) -> list:
+    """``size`` distinct strings of 0..longest bytes beside the edge
+    cases, many sharing a prefix."""
+    out = {s for s in STRING_EDGES if s is not None}
+    while len(out) < size:
+        k = int(rng.randint(0, longest + 1))
+        out.add("pfx-"[:min(k, 4)] + "".join(
+            chr(c) for c in rng.randint(0x20, 0x7f, max(k - 4, 0))))
+    return sorted(out)
+
+
+def keys_batch(cols) -> ColumnarBatch:
+    return ColumnarBatch(tuple(cols), cols[0].num_rows, Schema(
+        tuple(f"k{i}" for i in range(len(cols))),
+        tuple(c.dtype for c in cols)))
+
+
+def numpy_pairs(stream_cols, build_cols) -> int:
+    """The pairs of a join on two int keys (both within int32), counted on
+    the host over int64 packings of the keys: the independent check."""
+    def packed(cols):
+        (a, va), (b, vb) = (c.to_numpy() for c in cols)
+        k = (a.astype(np.int64) << 32) | (b.astype(np.int64) & 0xFFFFFFFF)
+        return k[va & vb]
+    sk, bk = packed(stream_cols), np.sort(packed(build_cols))
+    return int((np.searchsorted(bk, sk, "right")
+                - np.searchsorted(bk, sk, "left")).sum())
+
+
+def hold_multi_join(stream_cols, build_cols, what: str):
+    """The several-key kernel path (build words, probe, expand) against the
+    plain one, step by step on the same tensors; returns the build and the
+    probe's (lo, offsets, pairs)."""
+    keys = list(range(len(build_cols)))
+    build = JK.build_side(keys_batch(build_cols), keys)
+    require(build.multi, f"{what}: the build is not the several-key one")
+    norm = [G.normalize_key_column(c) for c in build_cols]
+    chunks = tuple(SK.string_chunks(JK._longest_plain(c)) if c.is_string
+                   else None for c in norm)
+    require(build.chunks == chunks, f"join_multi_build: chunks "
+            f"{build.chunks} against {chunks}: {what}")
+    hold("join_multi_build", zip((build.keys, build.key_valid),
+                                 JK.key_words_plain(norm, chunks,
+                                                    build.perm)), what)
+    # the words the sort ordered are in order, the rows with a null last
+    nv = int(build.key_valid.sum())
+    require(bool(build.key_valid[:nv].all()) and
+            not bool(build.key_valid[nv:].any()), f"null tail: {what}")
+    if nv > 1:
+        _, rank = torch.unique(build.keys[:nv] ^ JK._SIGN64, dim=0,
+                               return_inverse=True)
+        require(bool((rank[1:] >= rank[:-1]).all()),
+                f"join_multi_build: words out of order: {what}")
+    lo, off, total = JK.join_probe(keys_batch(stream_cols), keys, build)
+    plo, poff, ptotal = JK.probe_multi_plain(
+        *JK.key_words_plain(stream_cols, build.chunks), build)
+    require(total == ptotal, f"join_multi_probe: {total} pairs against "
+            f"{ptotal}: {what}")
+    hold("join_multi_probe", [(lo, plo), (off, poff)], what)
+    hold("join_expand", zip(JK.join_expand(lo, off, total, build),
+                            JK.expand_plain(lo, off, total, build.perm)),
+         what)
+    return build, (lo, off, total)
+
+
+MULTI_CASES = (("int32_int32", ("int", "int"), ("int", "int")),
+               ("int32_int64", ("int", "long"), ("long", "int")),
+               ("double_double", ("double", "double"), ("double", "double")),
+               ("int_string", ("int", "string"), ("int", "string")))
+
+
+def q25_join_shapes(rng, dev) -> dict:
+    """q25's two shuffled joins as one partition sees them at SF10, with
+    keys drawn as the generators draw them: store_sales (ticket, item)
+    1,048,576 stream rows against 180,000 store_returns rows, 90% of them
+    copied from a sale; then 162,000 (customer, item) pairs against
+    900,000 catalog_sales rows, 70% copied from a pool of 180,000 pairs
+    that holds the stream's."""
+    def col(v):
+        return DeviceColumn.from_numpy(v.astype(np.int32), T.INT, None, dev)
+    n1, nb1 = N, 180_000
+    ticket = 1 + rng.randint(0, SS_ROWS // 4, n1)
+    item = 1 + rng.randint(0, ITEM_ROWS, n1)
+    take = rng.rand(nb1) < 0.9
+    src = rng.randint(0, n1, nb1)
+    bt = np.where(take, ticket[src], 1 + rng.randint(0, 500_000, nb1))
+    bi = np.where(take, item[src], 1 + rng.randint(0, ITEM_ROWS, nb1))
+    n2, nb2, npool = 162_000, 900_000, 180_000
+    cust = 1 + rng.randint(0, 50_000, npool)
+    pitem = 1 + rng.randint(0, ITEM_ROWS, npool)
+    take = rng.rand(nb2) < 0.7
+    src = rng.randint(0, npool, nb2)
+    bc = np.where(take, cust[src], 1 + rng.randint(0, 50_000, nb2))
+    bi2 = np.where(take, pitem[src], 1 + rng.randint(0, ITEM_ROWS, nb2))
+    return {"ss_sr": ([col(ticket), col(item)], [col(bt), col(bi)]),
+            "cs": ([col(cust[:n2]), col(pitem[:n2])], [col(bc), col(bi2)])}
+
+
+def check_string_chunks_reuploaded(rng, dev, pool) -> None:
+    """The string sort keys of one column of short strings and up to 20
+    bytes (3 chunks), uploaded anew into reused memory four times: a
+    chunk loop that selected on a loaded byte once wrote a wrong top byte
+    into the last chunk of some rows here, which depended on what the
+    memory held before."""
+    strs = [pool[i] for i in rng.randint(0, 30, 5_000)]
+    for trial in range(4):
+        col = DeviceColumn.from_strings(strs, dev)
+        hold_string_sort_keys(col, f"reuploaded short strings, trial {trial}")
+        hold_sort([col], [SK.SortOrder()],
+                  f"reuploaded strings, trial {trial}")
+
+
+def check_multi_join(rng, dev, summary) -> None:
+    pool = string_pool(rng, 300, 20)
+    check_string_chunks_reuploaded(rng, dev, pool)
+    long_pool = pool + ["pfx-" + "z" * k for k in (21, 40, 64)] + [
+        p + "\x00" * 9 for p in pool[:20]]   # longer than any build string
+    for n in (N, RAGGED):
+        for nb in (186, 180_000, 900_000):
+            d = int(np.sqrt(nb / 2)) + 2    # about two build rows a tuple
+            for label, skinds, bkinds in MULTI_CASES:
+                spool = long_pool if "string" in skinds else None
+                stream = [multi_column(rng, n, k, d, dev, pool=spool)
+                          for k in skinds]
+                build = [multi_column(rng, nb, k, d, dev,
+                                      pool=pool[:max(d, 8)])
+                         for k in bkinds]
+                what = f"n={n} {label} against {nb} build rows"
+                _, (_, _, total) = hold_multi_join(stream, build, what)
+                if label == "int32_int32":
+                    want = numpy_pairs(stream, build)
+                    require(total == want, f"{what}: {total} pairs, numpy "
+                            f"{want}")
+    shapes = q25_join_shapes(rng, dev)
+    for label, (scols, bcols) in shapes.items():
+        build, (lo, off, total) = hold_multi_join(scols, bcols,
+                                                  f"the timed q25 {label}")
+        want = numpy_pairs(scols, bcols)
+        require(total == want, f"q25 {label}: {total} pairs, numpy {want}")
+        n, nb, nw = scols[0].num_rows, build.num_rows, build.keys.shape[1]
+        sb = keys_batch(scols)
+        # the library call: two searches over one int64 key packing the
+        # two int32 keys (non-negative here, so the packing keeps order)
+        (sa, _), (sb_, _) = (c.to_numpy() for c in scols)
+        (ba, _), (bb, _) = (c.to_numpy() for c in bcols)
+        lib_probe = torch.from_numpy(
+            (sa.astype(np.int64) << 32) | sb_.astype(np.int64)).to(dev)
+        lib_build = torch.from_numpy(np.sort(
+            (ba.astype(np.int64) << 32) | bb.astype(np.int64))).to(dev)
+        steps = max(nb, 1).bit_length()
+        # the words of each stream row, (lo, count) written and scanned, the
+        # build's words read once; 2 binary searches of nw-word compares
+        nbytes = 8 * nw * n + 16 * n + (8 * nw + 1) * nb
+        ops = 2 * steps * 2 * nw * n
+        line = {"kernel": "join_multi_probe", "shape": f"q25_{label}",
+                "n": n, "build": nb, "words": nw, "pairs": total, **measure(
+                    lambda: JK.join_probe(sb, [0, 1], build),
+                    lambda: JK.probe_multi_plain(
+                        *JK.key_words_plain(scols, build.chunks), build),
+                    lambda: (torch.searchsorted(lib_build, lib_probe),
+                             torch.searchsorted(lib_build, lib_probe,
+                                                right=True)),
+                    nbytes, ops)}
+        emit(line)
+        if label == "ss_sr":
+            summary["join_multi_probe"] = summarize(line, nbytes, ops)
+        norm = [G.normalize_key_column(c) for c in bcols]
+        perm = build.perm
+        nbytes = (4 + 5 * len(norm)) * nb + (8 * nw + 1) * nb
+        line = {"kernel": "join_multi_build", "shape": f"q25_{label}",
+                "n": nb, "words": nw, **measure(
+                    lambda: JK.build_words(norm, perm),
+                    lambda: JK.key_words_plain(norm, build.chunks, perm),
+                    None, nbytes)}
+        emit(line)
+        if label == "cs":
+            summary["join_multi_build"] = summarize(line, nbytes)
+        nbytes = 8 * total + 8 * n + 4 * total
+        emit({"kernel": "join_expand", "shape": f"q25_{label}", "n": n,
+              "pairs": total, **measure(
+                  lambda: JK.join_expand(lo, off, total, build),
+                  lambda: JK.expand_plain(lo, off, total, build.perm), None,
+                  nbytes)})
+
+
 def phase_kernels(dev, tables) -> dict:
     # the profiler itself must see the card
     device_profile(lambda: torch.ones(8, device=dev) + 1)
@@ -1108,6 +1352,7 @@ def phase_kernels(dev, tables) -> dict:
     check_string_sort(rng, dev, q3, summary)
     check_string_rows_equal(rng, dev, q3, summary)
     check_join(rng, dev, q3, summary)
+    check_multi_join(rng, dev, summary)
     torch.cuda.synchronize()
     for name in KERNELS:
         summary[name]["max_abs_err"] = ERRS[name]
@@ -1293,14 +1538,18 @@ class Q3Numpy:
         return sorted(out, key=lambda r: (r[0], -r[3], r[1]))
 
 
-def phase_q3_data(dev, tables):
+def phase_q3_data(dev, tables, q25_ref):
+    """store_sales on the card and q3's numpy result; on the way, the pool
+    store_returns draws from and q25's store_sales rows (``q25_ref``)."""
     date, item, d, i = tables
     t0 = time.perf_counter()
     ref = Q3Numpy(d, i)
-    batches = []
+    batches, pool_chunks = [], []
     for data, validity in tpcds.iter_store_sales(SS_ROWS, ITEM_ROWS,
                                                  batch_rows=N):
         ref.add(data)
+        q25_ref.add_store_sales(data)
+        pool_chunks.append(({n: data[n] for n in SS_POOL}, validity))
         batches.append(tpcds.store_sales_batch(data, validity, dev))
     date_dev, item_dev = to_device(date, dev), to_device(item, dev)
     torch.cuda.synchronize()
@@ -1315,7 +1564,7 @@ def phase_q3_data(dev, tables):
     dfs = (sess.create_dataframe(batches, num_partitions=4),
            sess.create_dataframe([date_dev]),
            sess.create_dataframe([item_dev]))
-    return dfs, ref.result()
+    return dfs, ref.result(), tpcds.host_pool(pool_chunks, SS_POOL)
 
 
 def check_q3_rows(rows, want) -> float:
@@ -1351,6 +1600,212 @@ def phase_q3(dfs, want) -> dict:
     return launches
 
 
+# -- phase 8 ------------------------------------------------------------------
+
+def cents(x: np.ndarray) -> np.ndarray:
+    return np.rint(x * 100).astype(np.int64)
+
+
+class Q25Numpy:
+    """Independent q25 over host arrays.  Each fact keeps only the rows in
+    its date window (the inner joins commute with those filters); the
+    composite keys pack into int64 ((ticket, item) and (customer, item),
+    all within int32) and join by sort and searchsorted; every store_sales
+    store and item exists, and (item, store) decides the four group keys,
+    so the groups are (item, store) and sort by them; the sums are integer
+    cents."""
+
+    def __init__(self, d):
+        self.year, self.moy = d["d_year"], d["d_moy"]
+        self.ss, self.sr, self.cs = [], [], []
+
+    def window(self, date_sk, lo: int, hi: int) -> np.ndarray:
+        i = date_sk.astype(np.int64) - 2450000
+        ok = (i >= 0) & (i < len(self.year))
+        j = np.where(ok, i, 0)
+        return ok & (self.year[j] == 2000) & (self.moy[j] >= lo) & \
+            (self.moy[j] <= hi)
+
+    def add_store_sales(self, data) -> None:
+        ok = self.window(data["ss_sold_date_sk"], 4, 4)
+        self.ss.append({k: data[k][ok] for k in (
+            "ss_ticket_number", "ss_item_sk", "ss_store_sk",
+            "ss_net_profit")})
+
+    def add_store_returns(self, data) -> None:
+        ok = self.window(data["sr_returned_date_sk"], 4, 10)
+        self.sr.append({k: data[k][ok] for k in (
+            "sr_ticket_number", "sr_item_sk", "sr_customer_sk",
+            "sr_net_loss")})
+
+    def add_catalog_sales(self, data) -> None:
+        ok = self.window(data["cs_sold_date_sk"], 4, 10)
+        self.cs.append({k: data[k][ok] for k in (
+            "cs_bill_customer_sk", "cs_item_sk", "cs_net_profit")})
+
+    @staticmethod
+    def _cat(parts):
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+    @staticmethod
+    def _pack(a, b) -> np.ndarray:
+        return (a.astype(np.int64) << 32) | b.astype(np.int64)
+
+    @staticmethod
+    def _join(probe: np.ndarray, build: np.ndarray):
+        """(probe row, build row) of every equal pair."""
+        order = np.argsort(build, kind="stable")
+        keys = build[order]
+        lo = np.searchsorted(keys, probe, "left")
+        cnt = np.searchsorted(keys, probe, "right") - lo
+        li = np.repeat(np.arange(len(probe)), cnt)
+        start = np.repeat(np.cumsum(cnt) - cnt, cnt)
+        return li, order[lo[li] + np.arange(len(li)) - start]
+
+    def result(self, limit: int = 100):
+        """((item, store, ss cents, sr cents, cs cents) of the first
+        ``limit`` groups in q25's order, the number of groups)."""
+        ss, sr, cs = (self._cat(x) for x in (self.ss, self.sr, self.cs))
+        a, b = self._join(self._pack(ss["ss_ticket_number"], ss["ss_item_sk"]),
+                          self._pack(sr["sr_ticket_number"], sr["sr_item_sk"]))
+        b2, c = self._join(self._pack(sr["sr_customer_sk"][b],
+                                      sr["sr_item_sk"][b]),
+                           self._pack(cs["cs_bill_customer_sk"],
+                                      cs["cs_item_sk"]))
+        a, b = a[b2], b[b2]
+        group = self._pack(ss["ss_item_sk"][a], ss["ss_store_sk"][a])
+        keys, inv = np.unique(group, return_inverse=True)
+        sums = [np.bincount(inv, cents(v), len(keys)).astype(np.int64)
+                for v in (ss["ss_net_profit"][a], sr["sr_net_loss"][b],
+                          cs["cs_net_profit"][c])]
+        rows = [(int(k >> 32), int(k & 0xFFFFFFFF), *map(int, t))
+                for k, t in zip(keys[:limit], zip(*(x[:limit]
+                                                    for x in sums)))]
+        return rows, len(keys)
+
+
+def phase_q25_data(dev, q3_dfs, ss_pool, ref: "Q25Numpy", tables):
+    """store_returns and catalog_sales on the card, drawn from the pools;
+    the dataframes of q25; the numpy result."""
+    t0 = time.perf_counter()
+    sr_batches, sr_chunks = [], []
+    for data, validity in tpcds.iter_store_returns(
+            SR_ROWS, ITEM_ROWS, pool=ss_pool, match_frac=0.9, batch_rows=N):
+        ref.add_store_returns(data)
+        sr_chunks.append(({n: data[n] for n in SR_POOL}, validity))
+        sr_batches.append(tpcds.fact_batch(data, validity,
+                                           tpcds.STORE_RETURNS_SCHEMA, dev))
+    sr_pool = tpcds.host_pool(sr_chunks, SR_POOL)
+    cs_batches = []
+    for data, validity in tpcds.iter_catalog_sales(
+            CS_ROWS, ITEM_ROWS, pair_pool=sr_pool, match_frac=0.7,
+            batch_rows=N):
+        ref.add_catalog_sales(data)
+        cs_batches.append(tpcds.fact_batch(data, validity,
+                                           tpcds.CATALOG_SALES_SCHEMA, dev))
+    store = tpcds.gen_store(dev)
+    torch.cuda.synchronize()
+    want, groups = ref.result()
+    resident = sum(t.nbytes for b in sr_batches + cs_batches
+                   for c in b.columns for t in (c.data, c.validity))
+    emit({"phase": "q25_data", "store_returns_rows": SR_ROWS,
+          "catalog_sales_rows": CS_ROWS, "store_rows": store.num_rows,
+          "resident_bytes_added": resident, "numpy_q25_groups": groups,
+          "setup_seconds": time.perf_counter() - t0})
+    ss_df, dd_df, item_df = q3_dfs
+    sess = ss_df.session
+    dfs = (ss_df, sess.create_dataframe(sr_batches, num_partitions=4),
+           sess.create_dataframe(cs_batches, num_partitions=4), dd_df,
+           sess.create_dataframe([store]), item_df)
+    _, item, _, _ = tables
+    names = {"item_id": item.column("i_item_id").to_pylist(),
+             "item_desc": item.column("i_item_desc").to_pylist(),
+             "store": list(zip(store.column("s_store_id").to_pylist(),
+                               store.column("s_store_name").to_pylist()))}
+    return dfs, [(names["item_id"][it - 1], names["item_desc"][it - 1],
+                  *names["store"][st - 1], s1, s2, s3)
+                 for it, st, s1, s2, s3 in want]
+
+
+def plan_nodes(node, seen=None):
+    """Every exec of a tree once, with the exec each adaptive join built."""
+    seen = set() if seen is None else seen
+    if id(node) in seen:
+        return
+    seen.add(id(node))
+    yield node
+    kids = list(node.children)
+    if isinstance(node, GpuAdaptiveJoinExec) and node.inner is not None:
+        kids.append(node.inner)
+    for k in kids:
+        yield from plan_nodes(k, seen)
+
+
+def check_q25_plan(plan) -> dict:
+    """The adaptive store_sales x store_returns join went shuffled; every
+    shuffled join took the streamed probe; the largest build partition and
+    the coalesced groups of each shuffled join."""
+    nodes = list(plan_nodes(plan))
+    decisions = {}
+    for n in nodes:
+        if isinstance(n, GpuAdaptiveJoinExec):
+            names = n.children[1].schema.names
+            decisions[names[0]] = n.chosen
+    require(any(k.startswith("sr_") and v == "shuffled"
+                for k, v in decisions.items()),
+            f"the store_returns join did not go shuffled: {decisions}")
+    joins = []
+    for n in nodes:
+        if not isinstance(n, GpuShuffledHashJoinExec):
+            continue
+        reader = n.children[1]
+        groups = (reader.spec._groups
+                  if isinstance(reader, GpuCoalescedShuffleReaderExec)
+                  else None)
+        joins.append({"build": n.children[1].schema.names[0],
+                      "largest_build_rows": n.largest_build_rows,
+                      "target_rows": n.target_rows,
+                      "branches": dict(n.branches), "groups": groups})
+        require(set(n.branches) == {"streamed"},
+                f"a shuffled join left the streamed probe: {joins[-1]}")
+    require(len(joins) == 2, f"q25 ran {len(joins)} shuffled joins, not 2")
+    return {"adaptive": decisions, "shuffled_joins": joins}
+
+
+def check_q25_rows(rows, want) -> float:
+    require(len(rows) == len(want) == 100,
+            f"q25 gave {len(rows)} rows, numpy {len(want)}")
+    max_rel = 0.0
+    for g, w in zip(rows, want):
+        require(g[:4] == w[:4], f"q25 row {g[:4]} where numpy has {w[:4]}")
+        for got, c in zip(g[4:], w[4:]):
+            require(got is not None and np.isfinite(got), f"q25 gave {g}")
+            err = abs(got - c / 100)
+            max_rel = max(max_rel, err / abs(c / 100) if c else err)
+    require(max_rel <= F64_RTOL_Q25, f"q25 off numpy by {max_rel} relative")
+    return max_rel
+
+
+def phase_q25(dfs, want) -> dict:
+    query = lambda _: tpcds.q25(*dfs)  # noqa: E731
+    _lib.reset_launch_counts()
+    plan = query(None).physical_plan()
+    rows = GpuEngine().collect(plan)
+    torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    emit({"phase": "q25_launches", "launches": launches})
+    for k in Q25_KERNELS:
+        require(launches.get(k, 0) > 0, f"q25 never launched {k}")
+    shape = check_q25_plan(plan)
+    emit({"phase": "q25_plan", **shape})
+    max_rel = check_q25_rows(rows, want)
+    scanned = SS_ROWS + SR_ROWS + CS_ROWS
+    timing = time_path("q25", query, None, scanned)
+    emit({"phase": "q25", "fact_rows": scanned, "rows": len(rows),
+          "max_rel_err": max_rel, "first_rows": rows[:3], **timing})
+    return launches
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -1359,7 +1814,11 @@ def main() -> None:
     summary = phase_kernels(dev, tables)
     df, q6_ref, q1_ref = phase_data(dev)
     by_path = {"q6": phase_q6(df, q6_ref), "q1": phase_q1(df, q1_ref)}
-    by_path["q3"] = phase_q3(*phase_q3_data(dev, tables))
+    q25_ref = Q25Numpy(tables[2])
+    q3_dfs, q3_want, ss_pool = phase_q3_data(dev, tables, q25_ref)
+    by_path["q3"] = phase_q3(q3_dfs, q3_want)
+    by_path["q25"] = phase_q25(*phase_q25_data(dev, q3_dfs, ss_pool, q25_ref,
+                                               tables))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         s = summary[name]

@@ -2,9 +2,9 @@
 
 Counterpart of ``spark_rapids_tpu/api/session.py`` (``TpuSession`` :95,
 ``create_dataframe`` :129, ``GroupedData`` :368, ``DataFrame`` :583,
-``group_by`` :685, ``order_by`` :692, ``join`` :744, ``collect`` :767), cut
-to the q6, q1 and q3 surface: filter, select, agg, group_by(...).agg,
-join, order_by, collect and count.
+``group_by`` :685, ``order_by`` :692, ``limit`` :704, ``join`` :744,
+``collect`` :767), cut to the q6, q1, q3 and q25 surface: filter, select,
+agg, group_by(...).agg, join, order_by, limit, collect and count.
 
 A session runs on the card unless the caller names another device:
 ``GpuSession(device=None)`` takes ``cuda`` and raises where there is none.
@@ -144,11 +144,14 @@ class DataFrame:
 
     sort = order_by
 
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(L.Limit(n, self.plan), self.session)
+
     def join(self, other: "DataFrame", on=None, how: str = "inner",
              condition=None) -> "DataFrame":
         """Equi-join on ``on``: a column name, a list of names common to
         both sides, or a (left keys, right keys) pair of expression
-        lists.  Only the inner join on one fixed-width key runs."""
+        lists.  Only the inner join runs."""
         if on is None:
             lkeys, rkeys = [], []
         elif isinstance(on, str):

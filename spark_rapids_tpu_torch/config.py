@@ -1,8 +1,9 @@
 """Session configuration of the port.
 
 Counterpart of ``spark_rapids_tpu/config.py`` (``RapidsConf`` :927), cut to
-the keys the q6, q1 and q3 paths read.  Keys keep the reference's names; a key the
-port does not know is kept and ignored, as Spark does with unknown confs.
+the keys the q6, q1, q3 and q25 paths read.  Keys keep the reference's
+names; a key the port does not know is kept and ignored, as Spark does
+with unknown confs.
 """
 from __future__ import annotations
 
@@ -12,6 +13,9 @@ SQL_ENABLED = "spark.rapids.sql.enabled"
 BATCH_SIZE_ROWS = "spark.rapids.sql.batchSizeRows"
 SHUFFLE_PARTITIONS = "spark.sql.shuffle.partitions"
 BROADCAST_ROW_THRESHOLD = "spark.rapids.sql.join.broadcastRowThreshold"
+JOIN_ADAPTIVE = "spark.rapids.sql.join.adaptive.enabled"
+AQE_COALESCE = "spark.rapids.sql.adaptive.coalescePartitions.enabled"
+BATCH_SIZE_BYTES = "spark.rapids.sql.batchSizeBytes"
 
 _DEFAULTS = {
     SQL_ENABLED: True,
@@ -21,6 +25,10 @@ _DEFAULTS = {
     SHUFFLE_PARTITIONS: 16,
     # config.py:258 of the reference
     BROADCAST_ROW_THRESHOLD: 500_000,
+    # config.py:265, :200 and :140 of the reference
+    JOIN_ADAPTIVE: True,
+    AQE_COALESCE: True,
+    BATCH_SIZE_BYTES: 1 << 28,
 }
 
 
@@ -38,6 +46,9 @@ class RapidsConf:
         if self.batch_size_rows < 1:
             raise ValueError(
                 f"{BATCH_SIZE_ROWS} must be >= 1, got {self.batch_size_rows}")
+        if self.batch_size_bytes < 1:
+            raise ValueError(
+                f"{BATCH_SIZE_BYTES} must be >= 1, got {self.batch_size_bytes}")
         if self.shuffle_partitions < 1:
             raise ValueError(f"{SHUFFLE_PARTITIONS} must be >= 1, got "
                              f"{self.shuffle_partitions}")
@@ -65,3 +76,21 @@ class RapidsConf:
         """Estimated build-side rows at or below which a join plans as a
         broadcast hash join."""
         return int(self._get(BROADCAST_ROW_THRESHOLD))
+
+    @property
+    def join_adaptive_enabled(self) -> bool:
+        """A join whose build estimate lies above the broadcast threshold
+        but within 8x of it decides broadcast or shuffled at run time."""
+        return _to_bool(self._get(JOIN_ADAPTIVE))
+
+    @property
+    def aqe_coalesce_partitions(self) -> bool:
+        """Hash exchanges under a final aggregate or a shuffled join are
+        read through a coalesced reader."""
+        return _to_bool(self._get(AQE_COALESCE))
+
+    @property
+    def batch_size_bytes(self) -> int:
+        """The coalesced reader's byte goal, turned into a row cap from
+        the estimated row width."""
+        return int(self._get(BATCH_SIZE_BYTES))

@@ -1,12 +1,13 @@
-// Single fixed-width-key inner equi-join of the port: a sorted build side,
-// a binary-search probe and the expansion into gather maps.  Built for
-// sm_90a by kernels/_lib.py and called through ctypes from kernels/join.py.
-// Every entry point launches on the caller's stream, allocates nothing, and
-// returns the cudaError_t of its launches.
+// Inner equi-join of the port, on one fixed-width key or on several keys
+// (strings among them): a sorted build side, a binary-search probe and
+// the expansion into gather maps.  Built for sm_90a by kernels/_lib.py and
+// called through ctypes from kernels/join.py.  Every entry point launches
+// on the caller's stream, allocates nothing, and returns the cudaError_t of
+// its launches.
 //
 // <- spark_rapids_tpu/kernels/join.py:154 _probe_single, :226
-//    _expand_single (behind join_probe :457, join_expand :484,
-//    join_gather_maps :496)
+//    _expand_single, :275 _probe_multi, :420 _expand_multi (behind
+//    join_probe :457, join_expand :484, join_gather_maps :496)
 //
 // Keys.  Every key becomes the order-preserving uint64 of csrc/sort.cu:
 // integers (int, date, long, Decimal64) sign-extend to 64 bits and flip
@@ -38,10 +39,35 @@
 // matches in build order (the radix sort is stable), as the reference's.
 //   Bound: bytes: 8 bytes per output pair, plus each matched row's lo,
 //   count and offset.
+// Several keys.  The reference sorts both sides together once
+// (_probe_multi); here the build side alone is sorted once per join, and
+// each key tuple becomes a row of order words, compared
+// lexicographically.  A fixed-width key is its one uint64 order key (as
+// above); a string key is nchunks big-endian 8-byte chunks (zero past
+// the end, csrc/strings.cuh, as the sort's keys) and then its
+// length, the least significant word.  The wrapper sorts the build rows by
+// (any key null, the keys) with the ported radix sort, reads back the
+// longest build string of each string key (nchunks = ceil(longest / 8)),
+// and join_key_words_kernel writes each sorted row's words and whether all
+// its keys are valid.  A stream row's words are written by the same
+// kernel at the build's chunk counts, so a stream string longer than every
+// build string keeps its full length as its last word: it compares greater
+// than every build row that shares its chunks and matches none of them,
+// and the order the binary search relies on is the build's own.  One
+// thread per stream row then runs a lexicographic lower and upper bound
+// over the build's word rows (a build row with a null key is greater than
+// every tuple), the scan of csrc/scan.cuh makes the offsets, and the
+// expand above turns (lo, count) into pairs through perm: _expand_multi
+// shares join_expand_kernel.
+//   Bound (words): bytes: each key column read once, 8 bytes a word
+//   written.  Bound (probe): bytes: the stream's words read once, 8 bytes
+//   of (lo, count) written and read by the scan, the build's words read
+//   once.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "scan.cuh"
+#include "strings.cuh"
 
 namespace {
 
@@ -52,6 +78,18 @@ constexpr int kInt32 = 0;   // int, date
 constexpr int kInt64 = 1;   // long, Decimal64
 constexpr int kF64 = 2;     // double
 constexpr int kBool = 3;    // bool
+constexpr int kString = 4;  // string (several-key path only)
+constexpr int kMaxKeys = 16;
+
+// the key columns of one side, passed by value to the words kernel
+struct KeyCols {
+  int nkeys;
+  int kinds[kMaxKeys];
+  int nchunks[kMaxKeys];                // string keys: chunks written
+  const void* data[kMaxKeys];
+  const uint8_t* valid[kMaxKeys];
+  const int32_t* offsets[kMaxKeys];     // string keys only
+};
 
 __device__ __forceinline__ uint64_t order_key(const void* data, int kind,
                                               int64_t r) {
@@ -139,6 +177,105 @@ join_expand_kernel(const int32_t* __restrict__ lo,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+join_key_words_kernel(KeyCols cols, const int32_t* __restrict__ perm,
+                      int64_t n, int nwords, uint64_t* __restrict__ words,
+                      uint8_t* __restrict__ valid_out) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const int64_t r = perm != nullptr ? perm[i] : i;
+  bool v = true;
+  for (int k = 0; k < cols.nkeys; ++k) v = v && cols.valid[k][r] != 0;
+  valid_out[i] = v;
+  uint64_t* w = words + i * nwords;
+  if (!v) {
+    for (int j = 0; j < nwords; ++j) w[j] = 0ull;
+    return;
+  }
+  int j = 0;
+  for (int k = 0; k < cols.nkeys; ++k) {
+    if (cols.kinds[k] != kString) {
+      w[j++] = order_key(cols.data[k], cols.kinds[k], r);
+      continue;
+    }
+    const int32_t b = cols.offsets[k][r];
+    const int32_t len = cols.offsets[k][r + 1] - b;
+    const uint8_t* p = static_cast<const uint8_t*>(cols.data[k]) + b;
+    for (int c = 0; c < cols.nchunks[k]; ++c) w[j++] = string_chunk(p, len, c);
+    w[j++] = static_cast<uint64_t>(len);
+  }
+}
+
+// -1, 0 or 1 as the word row a orders before, with or after b
+__device__ __forceinline__ int compare_words(const uint64_t* a,
+                                             const uint64_t* b, int nwords) {
+  for (int j = 0; j < nwords; ++j) {
+    if (a[j] != b[j]) return a[j] < b[j] ? -1 : 1;
+  }
+  return 0;
+}
+
+__global__ void __launch_bounds__(kThreads)
+join_multi_probe_kernel(const uint64_t* __restrict__ swords,
+                        const uint8_t* __restrict__ svalid, int64_t n,
+                        const uint64_t* __restrict__ bwords,
+                        const uint8_t* __restrict__ bvalid, int64_t nb,
+                        int nwords, int32_t* __restrict__ lo_out,
+                        int32_t* __restrict__ count) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (r >= n) return;
+  if (svalid[r] == 0) {     // a null in any key matches nothing
+    lo_out[r] = 0;
+    count[r] = 0;
+    return;
+  }
+  const uint64_t* s = swords + r * nwords;
+  // lower bound: the first build row not less than s (a build row with a
+  // null key is greater than every tuple)
+  int64_t lo = 0, hi = nb;
+  while (lo < hi) {
+    const int64_t mid = lo + (hi - lo) / 2;
+    const uint64_t* b = bwords + mid * nwords;
+    if (bvalid[mid] != 0 && compare_words(b, s, nwords) < 0)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  const int64_t first = lo;
+  hi = nb;   // upper bound: the first build row greater than s
+  while (lo < hi) {
+    const int64_t mid = lo + (hi - lo) / 2;
+    const uint64_t* b = bwords + mid * nwords;
+    if (bvalid[mid] != 0 && compare_words(b, s, nwords) <= 0)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  lo_out[r] = static_cast<int32_t>(first);
+  count[r] = static_cast<int32_t>(lo - first);
+}
+
+// The key columns from the ctypes arrays; false if one is out of range.
+bool key_cols(int nkeys, const int* kinds, const int* nchunks,
+              const void* const* data, const void* const* valid,
+              const void* const* offsets, int nwords, KeyCols* out) {
+  if (nkeys < 1 || nkeys > kMaxKeys) return false;
+  int words = 0;
+  out->nkeys = nkeys;
+  for (int k = 0; k < nkeys; ++k) {
+    if (kinds[k] < kInt32 || kinds[k] > kString) return false;
+    if (kinds[k] == kString && (nchunks[k] < 0 || offsets[k] == nullptr))
+      return false;
+    out->kinds[k] = kinds[k];
+    out->nchunks[k] = kinds[k] == kString ? nchunks[k] : 0;
+    out->data[k] = data[k];
+    out->valid[k] = static_cast<const uint8_t*>(valid[k]);
+    out->offsets[k] = static_cast<const int32_t*>(offsets[k]);
+    words += kinds[k] == kString ? nchunks[k] + 1 : 1;
+  }
+  return words == nwords;
+}
+
 unsigned grid_rows(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
@@ -194,6 +331,53 @@ int srt_join_expand(const int32_t* lo, const int32_t* offsets,
                                                               perm, n, li, ri);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+int srt_join_max_keys() { return kMaxKeys; }
+
+// words[n * nwords] (uint64, row-major) and valid[n] of the key tuples of
+// rows perm[0..n) (perm null: rows 0..n); each string key takes
+// nchunks[k] chunks and its length.  Host arrays: kinds, nchunks and the
+// column pointers (offsets null for a fixed-width key).
+int srt_join_key_words(int nkeys, const int* kinds, const int* nchunks,
+                       const void* const* data, const void* const* valid,
+                       const void* const* offsets, const int32_t* perm,
+                       int64_t n, int nwords, uint64_t* words,
+                       uint8_t* valid_out, cudaStream_t stream) {
+  KeyCols cols;
+  if (!key_cols(nkeys, kinds, nchunks, data, valid, offsets, nwords, &cols)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n > 0) {
+    join_key_words_kernel<<<grid_rows(n), kThreads, 0, stream>>>(
+        cols, perm, n, nwords, words, valid_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// For n stream rows (their key columns as above; swords[n * nwords] and
+// svalid[n] are scratch) against nb build word rows: lo[n], offsets[n + 1]
+// and total[0], as srt_join_probe gives them.
+int srt_join_multi_probe(int nkeys, const int* kinds, const int* nchunks,
+                         const void* const* data, const void* const* valid,
+                         const void* const* offsets, int64_t n, int nwords,
+                         uint64_t* swords, uint8_t* svalid,
+                         const uint64_t* bwords, const uint8_t* bvalid,
+                         int64_t nb, int32_t* lo, int32_t* offsets_out,
+                         int64_t* tile_sums, int64_t* total,
+                         cudaStream_t stream) {
+  int err = srt_join_key_words(nkeys, kinds, nchunks, data, valid, offsets,
+                               nullptr, n, nwords, swords, svalid, stream);
+  if (err != 0) return err;
+  if (n > 0) {
+    join_multi_probe_kernel<<<grid_rows(n), kThreads, 0, stream>>>(
+        swords, svalid, n, bwords, bvalid, nb, nwords, lo, offsets_out);
+  }
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  scan::ScanCols cols{};
+  cols.v[0] = offsets_out;
+  return scan::scan_columns(cols, 1, n, tile_sums, total, stream);
 }
 
 }  // extern "C"

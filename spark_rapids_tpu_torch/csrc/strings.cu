@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <cub/block/block_reduce.cuh>
 
+#include "strings.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -55,14 +57,7 @@ string_sort_keys_kernel(const int32_t* __restrict__ offsets,
   const int32_t len = v ? offsets[r + 1] - b : 0;
   const uint8_t* p = data + b;
   for (int c = 0; c < nchunks; ++c) {
-    uint64_t k = 0;
-    const int32_t c0 = 8 * c;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int32_t i = c0 + j;
-      k = (k << 8) | (i < len ? static_cast<uint64_t>(p[i]) : 0ull);
-    }
-    chunks[static_cast<int64_t>(c) * n + r] = k;
+    chunks[static_cast<int64_t>(c) * n + r] = string_chunk(p, len, c);
   }
   lengths[r] = static_cast<uint32_t>(len);
 }

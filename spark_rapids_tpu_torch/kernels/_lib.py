@@ -27,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("selection.cu", "reduction.cu", "hash.cu", "sort.cu",
            "strings.cu", "join.cu")
-HEADERS = ("scan.cuh",)
+HEADERS = ("scan.cuh", "strings.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -70,6 +70,10 @@ _SIGNATURES = {
     "srt_join_build_keys": [_I, _P, _P, _P, _I64, _P, _P, _P],
     "srt_join_probe": [_I, _P, _P, _I64, _P, _P, _I64, _P, _P, _P, _P, _P],
     "srt_join_expand": [_P, _P, _P, _I64, _P, _P, _P],
+    "srt_join_max_keys": [],
+    "srt_join_key_words": [_I, _P, _P, _P, _P, _P, _P, _I64, _I, _P, _P, _P],
+    "srt_join_multi_probe": [_I, _P, _P, _P, _P, _P, _I64, _I, _P, _P, _P, _P,
+                             _I64, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -1,20 +1,34 @@
-"""Exchange execs: single-partition and hash shuffle.
+"""Exchange execs: single-partition and hash shuffle, and the AQE
+coalesced reader.
 
 Counterpart of ``spark_rapids_tpu/plan/execs/exchange.py``
 (``TpuSinglePartitionExec`` :524, ``TpuShuffleExchangeExec`` :57 with
-``append_key_columns`` :42).  The single-partition exchange hands every
-child partition, in order, to one partition; the batches stay where they
-are on the device.  The hash exchange runs its map side once, at the first
-read: each child batch gets its key columns appended, is reordered by
-``hash_partition`` (Spark's murmur3 and pmod, so the routing is Spark's),
-loses the key columns again and goes, with its host row counts (one
-device->host read per map batch), into a device-resident store.  A reduce
-partition yields its blocks as views of the stored batches.  The AQE
-coalesced reader (``TpuCoalescedShuffleReaderExec`` :485) is not ported.
+``append_key_columns`` :42 and ``partition_row_counts`` :225,
+``SharedCoalesceSpec`` :398 with ``_estimated_row_bytes`` :380,
+``TpuCoalescedShuffleReaderExec`` :485). The single-partition exchange
+hands every child partition, in order, to one partition; the batches stay
+where they are on the device. The hash exchange runs its map side once, at
+the first read: each child batch gets its key columns appended, is
+reordered by ``hash_partition`` (Spark's murmur3 and pmod, so the routing
+is Spark's), loses the key columns again and goes, with its host row
+counts (one device->host read per map batch), into a device-resident
+store. A reduce partition yields its blocks as views of the stored
+batches; ``cleanup`` drops the store.
+
+The coalesced reader presents an exchange's reduce partitions regrouped by
+a ``SharedCoalesceSpec``: adjacent partitions merge until their combined
+rows (over every exchange registered with the spec, so that the two sides
+of a join stay co-partitioned) reach the target, then the group closes.
+The target is ``batchSizeRows``, or fewer where ``batchSizeBytes`` over
+the estimated row width is smaller.  Asking a reader for its partition
+count runs the map side of its exchanges: that is the point where AQE's
+statistics exist, so the planner never asks it.
 """
 from __future__ import annotations
 
 from typing import Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
 from spark_rapids_tpu_torch.expressions.core import EvalContext, Expression
@@ -84,11 +98,104 @@ class GpuShuffleExchangeExec(GpuExec):
         self._store = store
         return store
 
+    def partition_row_counts(self) -> List[int]:
+        """Rows per reduce partition, after the map side (AQE's runtime
+        statistics)."""
+        return self._materialize().partition_rows()
+
     def execute_partition(self, idx: int) -> Iterator[ColumnarBatch]:
         store = self._materialize()
         for piece in store.read(idx):
             yield self._count_out(piece)
 
+    def cleanup(self) -> None:
+        self._store = None
+        super().cleanup()
+
     def describe(self):
         return (f"GpuShuffleExchange[hash, {self.out_partitions}, "
                 f"{', '.join(map(repr, self.keys))}]")
+
+
+def _estimated_row_bytes(schema: Schema) -> int:
+    """A row's bytes for the byte goal: each fixed-width column its width,
+    a string 32, and one validity byte each."""
+    return sum((32 if dt.variable_width else np.dtype(dt.np_dtype).itemsize)
+               + 1 for dt in schema.dtypes)
+
+
+class SharedCoalesceSpec:
+    """One grouping of adjacent reduce partitions, from the combined row
+    counts of every exchange registered with it."""
+
+    def __init__(self, target_rows: int, target_bytes: int = 0):
+        self.target_rows = max(int(target_rows), 1)
+        self.target_bytes = max(int(target_bytes), 0)
+        self.exchanges: List[GpuShuffleExchangeExec] = []
+        #: the last grouping, kept after ``reset`` for explain
+        self._groups: Optional[List[List[int]]] = None
+        self._stale = True
+
+    def register(self, exchange: GpuShuffleExchangeExec) -> None:
+        self.exchanges.append(exchange)
+
+    def target(self) -> int:
+        if not self.target_bytes:
+            return self.target_rows
+        row_bytes = max(_estimated_row_bytes(self.exchanges[0].schema), 1)
+        return min(self.target_rows, max(self.target_bytes // row_bytes, 1))
+
+    def groups(self) -> List[List[int]]:
+        """Partitions merge in order until their rows reach the target;
+        the map side of every exchange runs first."""
+        if not self._stale:
+            return self._groups
+        if not self.exchanges:
+            raise ValueError("a coalesce spec with no exchange")
+        counts = [sum(c) for c in zip(*(ex.partition_row_counts()
+                                        for ex in self.exchanges))]
+        target = self.target()
+        groups: List[List[int]] = []
+        cur: List[int] = []
+        acc = 0
+        for p, n in enumerate(counts):
+            cur.append(p)
+            acc += n
+            if acc >= target:
+                groups.append(cur)
+                cur, acc = [], 0
+        if cur:
+            groups.append(cur)
+        self._groups, self._stale = groups, False
+        return groups
+
+    def reset(self) -> None:
+        """The next ``groups`` reads the statistics again."""
+        self._stale = True
+
+
+class GpuCoalescedShuffleReaderExec(GpuExec):
+    """An exchange's reduce partitions, regrouped by a shared spec."""
+
+    def __init__(self, exchange: GpuShuffleExchangeExec,
+                 spec: SharedCoalesceSpec):
+        super().__init__((exchange,), exchange.schema)
+        self.spec = spec
+        spec.register(exchange)
+
+    def num_partitions(self) -> int:
+        return len(self.spec.groups())
+
+    def execute_partition(self, idx: int) -> Iterator[ColumnarBatch]:
+        for p in self.spec.groups()[idx]:
+            for batch in self.children[0].execute_partition(p):
+                yield self._count_out(batch)
+
+    def cleanup(self) -> None:
+        self.spec.reset()
+        super().cleanup()
+
+    def describe(self):
+        n = len(self.spec._groups) if self.spec._groups is not None else "?"
+        return (f"GpuCoalescedShuffleReader[{n} of "
+                f"{self.children[0].num_partitions()} partitions]")

@@ -1,21 +1,37 @@
-"""Broadcast hash join exec.
+"""Join execs: broadcast, shuffled and adaptive hash joins.
 
 Counterpart of ``spark_rapids_tpu/plan/execs/join.py``
-(``TpuBroadcastHashJoinExec`` :627, ``_build_side`` :660, the stream
-chunking of :672-700, ``cleanup`` :702) for the inner join on one
-fixed-width key.  The build (right) side is materialized whole once per
-query, under a lock: every right partition's batches are concatenated and
-sorted by key (``kernels/join.py`` ``build_side``).  Each stream (left)
-partition is joined against it a chunk at a time: consecutive stream
-batches are concatenated while their rows stay within
-``spark.rapids.sql.batchSizeRows``, then probed, expanded into gather maps
-(one blocking read of the pair count per chunk) and gathered on both
-sides.  ``cleanup`` drops the build when the query ends.  The other join
-types, several keys, string keys and a residual condition raise
-NotImplementedError.
+(``TpuShuffledHashJoinExec`` :387 with its streamed probe :449-528,
+``TpuBroadcastHashJoinExec`` :627, ``TpuAdaptiveJoinExec`` :713) for the
+inner join on one or several keys, strings among them.
+
+- The broadcast join materializes its build (right) side whole once per
+  query, under a lock: every right partition's batches are concatenated
+  and sorted by key (``kernels/join.py`` ``build_side``).  Each stream
+  (left) partition is joined against it a chunk at a time: consecutive
+  stream batches are concatenated while their rows stay within
+  ``spark.rapids.sql.batchSizeRows``, then probed, expanded into gather
+  maps (one blocking read of the pair count per chunk) and gathered on
+  both sides.  ``cleanup`` drops the build when the query ends.
+- The shuffled join joins co-partitioned sides partition by partition.
+  Where a partition's build side holds at most ``batchSizeRows`` rows it
+  is built whole once and the probe side streams against it in groups of
+  at most ``batchSizeRows`` rows.  A larger build partition takes the
+  reference's out-of-core branch, which sub-partitions both sides into
+  spillable buckets (``_execute_out_of_core`` :530,
+  ``plan/execs/out_of_core.py``); that needs the spill framework of the
+  memory runtime and raises NotImplementedError here.
+- The adaptive join materializes its build side first and counts its rows:
+  at most ``spark.rapids.sql.join.broadcastRowThreshold`` rows make a
+  broadcast join over an in-memory scan of them; more make two hash
+  exchanges read through coalesced readers that share one spec, under a
+  shuffled join.  The reference's cluster-stats branch is not ported.
+
+The other join types and a residual condition raise NotImplementedError.
 """
 from __future__ import annotations
 
+import collections
 import threading
 from typing import Iterator, List, Optional, Sequence
 
@@ -24,6 +40,10 @@ from spark_rapids_tpu_torch.expressions.core import BoundReference, Expression
 from spark_rapids_tpu_torch.kernels import join as J
 from spark_rapids_tpu_torch.kernels.selection import coalesce_to_one
 from spark_rapids_tpu_torch.plan.execs.base import GpuExec, timed
+from spark_rapids_tpu_torch.plan.execs.exchange import (
+    GpuCoalescedShuffleReaderExec, GpuShuffleExchangeExec,
+    SharedCoalesceSpec)
+from spark_rapids_tpu_torch.plan.execs.scan import GpuInMemoryScanExec
 
 
 def _ordinal(key: Expression) -> int:
@@ -33,7 +53,64 @@ def _ordinal(key: Expression) -> int:
     return key.ordinal
 
 
-class GpuBroadcastHashJoinExec(GpuExec):
+def _require_inner(join_type: str) -> None:
+    if join_type != "inner":
+        raise NotImplementedError(
+            f"the {join_type} join is not ported; only inner")
+
+
+class _HashJoin(GpuExec):
+    """What the broadcast and the shuffled join share: the key ordinals,
+    their type check, and the join of one stream chunk against a build."""
+
+    def __init__(self, left: GpuExec, right: GpuExec,
+                 left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression], join_type: str,
+                 schema: Schema, target_rows: int):
+        _require_inner(join_type)
+        if not left_keys or len(left_keys) != len(right_keys):
+            raise NotImplementedError(
+                "a hash join needs as many left keys as right keys, and at "
+                "least one (the cross join is not ported)")
+        super().__init__((left, right), schema)
+        self.join_type = join_type
+        self.left_keys = [_ordinal(k) for k in left_keys]
+        self.right_keys = [_ordinal(k) for k in right_keys]
+        for lk, rk in zip(self.left_keys, self.right_keys):
+            J._check_key_types(left.schema.dtypes[lk], right.schema.dtypes[rk])
+        self.target_rows = max(int(target_rows), 1)
+
+    def num_partitions(self) -> int:
+        return self.children[0].num_partitions()
+
+    def _chunks(self, stream) -> Iterator[List[ColumnarBatch]]:
+        """Consecutive stream batches grouped while their rows stay within
+        ``target_rows`` (a larger batch is a group of its own)."""
+        group: List[ColumnarBatch] = []
+        rows = 0
+        for b in stream:
+            if group and rows + b.num_rows > self.target_rows:
+                yield group
+                group, rows = [], 0
+            group.append(b)
+            rows += b.num_rows
+        if group:
+            yield group
+
+    def _join(self, group: List[ColumnarBatch],
+              build: J.JoinBuild) -> ColumnarBatch:
+        with timed(self.op_time):
+            left = coalesce_to_one(group)
+            lo, offsets, total = J.join_probe(left, self.left_keys, build)
+            li, ri = J.join_expand(lo, offsets, total, build)
+            out = J.apply_gather_maps(left, build.batch, li, ri, self.schema)
+        return self._count_out(out)
+
+    def _keys_string(self) -> str:
+        return f"lkeys={self.left_keys}, rkeys={self.right_keys}"
+
+
+class GpuBroadcastHashJoinExec(_HashJoin):
     """Streams the left side; the right (build) side is built whole once
     and joined against every stream partition."""
 
@@ -41,29 +118,11 @@ class GpuBroadcastHashJoinExec(GpuExec):
                  left_keys: Sequence[Expression],
                  right_keys: Sequence[Expression], join_type: str,
                  schema: Schema, target_rows: int = 1 << 20):
-        if join_type != "inner":
-            raise NotImplementedError(
-                f"the {join_type} join is not ported; only inner")
-        if len(left_keys) != 1:
-            raise NotImplementedError(
-                "the multi-key join (_probe_multi) is not ported")
-        super().__init__((left, right), schema)
-        self.join_type = join_type
-        self.left_key = _ordinal(left_keys[0])
-        self.right_key = _ordinal(right_keys[0])
-        for side, k in ((left, self.left_key), (right, self.right_key)):
-            if side.schema.dtypes[k].variable_width:
-                raise NotImplementedError(
-                    "the string-key join (_probe_multi) is not ported")
-        J._check_key_types(left.schema.dtypes[self.left_key],
-                           right.schema.dtypes[self.right_key])
-        self.target_rows = max(int(target_rows), 1)
+        super().__init__(left, right, left_keys, right_keys, join_type,
+                         schema, target_rows)
         self._lock = threading.Lock()
         self._build: Optional[J.JoinBuild] = None
         self._build_done = False
-
-    def num_partitions(self) -> int:
-        return self.children[0].num_partitions()
 
     def _build_side(self) -> Optional[J.JoinBuild]:
         with self._lock:
@@ -73,22 +132,10 @@ class GpuBroadcastHashJoinExec(GpuExec):
                            for b in right.execute_partition(p)]
                 with timed(self.op_time):
                     whole = coalesce_to_one(batches)
-                    self._build = (J.build_side(whole, self.right_key)
+                    self._build = (J.build_side(whole, self.right_keys)
                                    if whole is not None else None)
                 self._build_done = True
             return self._build
-
-    def _chunks(self, stream: List[ColumnarBatch]
-                ) -> List[List[ColumnarBatch]]:
-        chunks: List[List[ColumnarBatch]] = [[]]
-        rows = 0
-        for b in stream:
-            if chunks[-1] and rows + b.num_rows > self.target_rows:
-                chunks.append([])
-                rows = 0
-            chunks[-1].append(b)
-            rows += b.num_rows
-        return chunks
 
     def execute_partition(self, idx: int) -> Iterator[ColumnarBatch]:
         build = self._build_side()
@@ -96,13 +143,7 @@ class GpuBroadcastHashJoinExec(GpuExec):
         if build is None or not stream:
             return    # an inner join with an empty side has no rows
         for group in self._chunks(stream):
-            with timed(self.op_time):
-                left = coalesce_to_one(group)
-                lo, offsets, total = J.join_probe(left, self.left_key, build)
-                li, ri = J.join_expand(lo, offsets, total, build)
-                out = J.apply_gather_maps(left, build.batch, li, ri,
-                                          self.schema)
-            yield self._count_out(out)
+            yield self._join(group, build)
 
     def cleanup(self) -> None:
         with self._lock:
@@ -111,5 +152,132 @@ class GpuBroadcastHashJoinExec(GpuExec):
         super().cleanup()
 
     def describe(self):
-        return (f"GpuBroadcastHashJoin[{self.join_type}, "
-                f"lkey={self.left_key}, rkey={self.right_key}]")
+        return f"GpuBroadcastHashJoin[{self.join_type}, {self._keys_string()}]"
+
+
+class GpuShuffledHashJoinExec(_HashJoin):
+    """Joins co-partitioned sides partition by partition; the build (right)
+    partition is built whole and the probe (left) side streams against it
+    in groups of at most ``target_rows`` rows."""
+
+    def __init__(self, left: GpuExec, right: GpuExec,
+                 left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression], join_type: str,
+                 schema: Schema, target_rows: int = 1 << 20):
+        super().__init__(left, right, left_keys, right_keys, join_type,
+                         schema, target_rows)
+        for lk, rk in zip(self.left_keys, self.right_keys):
+            lt, rt = left.schema.dtypes[lk], right.schema.dtypes[rk]
+            if lt != rt:
+                # each side's exchange hashes its keys as their own type
+                raise NotImplementedError(
+                    f"a shuffled join of a {lt!r} key with a {rt!r} key is "
+                    "not ported: the sides would hash apart")
+        #: partitions that took each branch ("streamed", "out_of_core"),
+        #: and the rows of the largest build partition seen
+        self.branches: "collections.Counter[str]" = collections.Counter()
+        self.largest_build_rows = 0
+
+    def execute_partition(self, idx: int) -> Iterator[ColumnarBatch]:
+        right_batches = list(self.children[1].execute_partition(idx))
+        right_rows = sum(b.num_rows for b in right_batches)
+        self.largest_build_rows = max(self.largest_build_rows, right_rows)
+        if right_rows > self.target_rows:
+            # an inner join's sides then hold more than target_rows rows
+            # together: the reference's out-of-core branch
+            self.branches["out_of_core"] += 1
+            raise NotImplementedError(
+                f"a shuffled join's build partition of {right_rows} rows is "
+                f"above spark.rapids.sql.batchSizeRows={self.target_rows}: "
+                "the out-of-core join (plan/execs/out_of_core.py) needs the "
+                "spill framework of the memory runtime and is not ported")
+        self.branches["streamed"] += 1
+        with timed(self.op_time):
+            whole = coalesce_to_one(right_batches)
+            build = (J.build_side(whole, self.right_keys)
+                     if whole is not None and whole.num_rows else None)
+        # an empty build still drains the probe side, as the reference's
+        # does
+        for group in self._chunks(self.children[0].execute_partition(idx)):
+            if build is not None:
+                yield self._join(group, build)
+
+    def describe(self):
+        return f"GpuShuffledHashJoin[{self.join_type}, {self._keys_string()}]"
+
+
+class GpuAdaptiveJoinExec(GpuExec):
+    """Decides broadcast or shuffled at run time from the materialized
+    build side's row count, then runs the chosen join."""
+
+    def __init__(self, left: GpuExec, right: GpuExec,
+                 left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression], join_type: str,
+                 schema: Schema, broadcast_threshold: int,
+                 shuffle_partitions: int, target_rows: int = 1 << 20,
+                 aqe_coalesce: bool = True):
+        _require_inner(join_type)
+        super().__init__((left, right), schema)
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        self.join_type = join_type
+        self.broadcast_threshold = broadcast_threshold
+        self.shuffle_partitions = shuffle_partitions
+        self.target_rows = target_rows
+        self.aqe_coalesce = aqe_coalesce
+        self._lock = threading.Lock()
+        #: the decision ("broadcast" or "shuffled") and the exec it built
+        #: over the materialized build side; a later run reuses both
+        self.chosen: Optional[str] = None
+        self.inner: Optional[GpuExec] = None
+
+    def _decide(self) -> GpuExec:
+        with self._lock:
+            if self.inner is not None:
+                return self.inner
+            left, right = self.children
+            right_parts = [list(right.execute_partition(p))
+                           for p in range(right.num_partitions())]
+            build_rows = sum(b.num_rows for part in right_parts
+                             for b in part)
+            right_scan = GpuInMemoryScanExec(right_parts, right.schema)
+            if build_rows <= self.broadcast_threshold:
+                self.chosen = "broadcast"
+                inner: GpuExec = GpuBroadcastHashJoinExec(
+                    left, right_scan, self.left_keys, self.right_keys,
+                    self.join_type, self.schema,
+                    target_rows=self.target_rows)
+            else:
+                self.chosen = "shuffled"
+                jl: GpuExec = GpuShuffleExchangeExec(
+                    self.shuffle_partitions, self.left_keys, left)
+                jr: GpuExec = GpuShuffleExchangeExec(
+                    self.shuffle_partitions, self.right_keys, right_scan)
+                if self.aqe_coalesce:
+                    # one spec for both sides keeps them co-partitioned
+                    spec = SharedCoalesceSpec(self.target_rows)
+                    jl = GpuCoalescedShuffleReaderExec(jl, spec)
+                    jr = GpuCoalescedShuffleReaderExec(jr, spec)
+                inner = GpuShuffledHashJoinExec(
+                    jl, jr, self.left_keys, self.right_keys, self.join_type,
+                    self.schema, target_rows=self.target_rows)
+            self.inner = inner
+            return inner
+
+    def num_partitions(self) -> int:
+        return self._decide().num_partitions()
+
+    def execute_partition(self, idx: int) -> Iterator[ColumnarBatch]:
+        for batch in self._decide().execute_partition(idx):
+            yield self._count_out(batch)
+
+    def cleanup(self) -> None:
+        with self._lock:
+            if self.inner is not None:
+                self.inner.cleanup()
+        super().cleanup()
+
+    def describe(self):
+        return (f"GpuAdaptiveJoin[{self.join_type}, "
+                f"threshold={self.broadcast_threshold}"
+                + (f", chosen={self.chosen}" if self.chosen else "") + "]")

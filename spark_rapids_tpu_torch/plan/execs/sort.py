@@ -1,12 +1,14 @@
-"""Sort exec.
+"""Sort and limit execs.
 
 Counterpart of ``spark_rapids_tpu/plan/execs/sort.py`` (``sort_step``
-:23-41, ``TpuSortExec`` :44) for a partition that fits on the card: its
-batches are concatenated into one and sorted by the key expressions (the
-ported radix ``sort_indices``, strings included), then gathered.  The
-planner puts a single-partition exchange under a global sort.  The
-reference's out-of-core range-bucketed sort and ``TpuRangeSortExec`` are
-not ported.
+:23-41, ``TpuSortExec`` :44, ``TpuLimitExec`` :137) for a partition that
+fits on the card: its batches are concatenated into one and sorted by the
+key expressions (the ported radix ``sort_indices``, strings included),
+then gathered.  The planner puts a single-partition exchange under a
+global sort.  The limit takes the first n rows across partitions in order;
+the last batch it needs is cut as a view of its rows, so it launches
+nothing.  The reference's out-of-core range-bucketed sort and
+``TpuRangeSortExec`` are not ported.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from spark_rapids_tpu_torch.kernels.selection import (coalesce_to_one,
                                                       gather_columns)
 from spark_rapids_tpu_torch.kernels.sort import SortOrder, sort_indices
 from spark_rapids_tpu_torch.plan.execs.base import GpuExec, timed
+from spark_rapids_tpu_torch.shuffle.transport import slice_batch
 
 
 def sort_step(orders: Sequence[Tuple[Expression, SortOrder]],
@@ -53,3 +56,33 @@ class GpuSortExec(GpuExec):
     def describe(self):
         keys = ", ".join(f"{e!r} {o!r}" for e, o in self.orders)
         return f"GpuSort[{keys}]"
+
+
+class GpuLimitExec(GpuExec):
+    """Global limit: the first n rows across partitions, in order."""
+
+    def __init__(self, n: int, child: GpuExec):
+        super().__init__((child,), child.schema)
+        self.n = n
+
+    def num_partitions(self) -> int:
+        return 1
+
+    def execute_partition(self, idx: int) -> Iterator[ColumnarBatch]:
+        remaining = self.n
+        child = self.children[0]
+        for p in range(child.num_partitions()):
+            if remaining <= 0:
+                return
+            for batch in child.execute_partition(p):
+                if remaining <= 0:
+                    return
+                if batch.num_rows <= remaining:
+                    remaining -= batch.num_rows
+                    yield self._count_out(batch)
+                else:
+                    yield self._count_out(slice_batch(batch, 0, remaining))
+                    return
+
+    def describe(self):
+        return f"GpuLimit[{self.n}]"

@@ -2,8 +2,8 @@
 
 Counterpart of ``spark_rapids_tpu/plan/logical.py`` (``InMemoryRelation``
 :45, ``Project`` :189, ``Filter`` :205, ``Aggregate`` :222, ``Sort`` :251,
-``Join`` :287).  Schemas resolve eagerly, so binding errors surface when
-the plan is built.
+``Limit`` :269, ``Join`` :287).  Schemas resolve eagerly, so binding
+errors surface when the plan is built.
 """
 from __future__ import annotations
 
@@ -96,6 +96,21 @@ class Sort(LogicalPlan):
                  child: LogicalPlan, global_sort: bool = True):
         self.orders = tuple((e.bind(child.schema), o) for e, o in orders)
         self.global_sort = global_sort
+        self.child = child
+        self.children = (child,)
+
+    @property
+    def schema(self):
+        return self.child.schema
+
+
+class Limit(LogicalPlan):
+    """The first ``n`` rows, across partitions in order."""
+
+    def __init__(self, n: int, child: LogicalPlan):
+        if n < 0:
+            raise ValueError(f"a limit needs n >= 0, got {n}")
+        self.n = int(n)
         self.child = child
         self.children = (child,)
 

@@ -144,6 +144,8 @@ def _rebuild(plan: L.LogicalPlan, children) -> L.LogicalPlan:
     if isinstance(plan, L.Sort):
         return L.Sort([(_unbind(e), o) for e, o in plan.orders], children[0],
                       plan.global_sort)
+    if isinstance(plan, L.Limit):
+        return L.Limit(plan.n, children[0])
     raise NotImplementedError(f"logical node {type(plan).__name__} is not "
                               "ported")
 
@@ -196,6 +198,8 @@ def _prune(p: L.LogicalPlan, required: Set[str]) -> L.LogicalPlan:
                        | _exprs_refs(e for e, _ in p.orders))
         return L.Sort([(_unbind(e), o) for e, o in p.orders], child,
                       p.global_sort)
+    if isinstance(p, L.Limit):
+        return L.Limit(p.n, _prune(p.child, required))
     if isinstance(p, L.Join):
         lnames, rnames = set(p.left.schema.names), set(p.right.schema.names)
         left = _prune(p.left, (set(required) & lnames)

@@ -1,21 +1,38 @@
 """Planner: logical plan -> physical exec tree.
 
 Counterpart of ``spark_rapids_tpu/planner/overrides.py`` (``plan_query``
-:1147, ``PlanMeta.convert`` :753, ``_convert_join`` :945,
-``_convert_aggregate`` :1022-1042, ``_exchange`` :1044, ``_estimate_rows``
-:1063) for InMemoryRelation, Project, Filter, Aggregate, Join and Sort.
-Over more than one partition an aggregate is split in two: a partial
-aggregate, an exchange (one partition for a global aggregate; a hash
-exchange on the group keys into ``spark.sql.shuffle.partitions`` for a
-grouped one), then the final aggregate.  A join whose build (right) side
-is estimated at no more than ``spark.rapids.sql.join.broadcastRowThreshold``
-rows, over a multi-partition stream side, is a broadcast hash join; the
-reference's adaptive and shuffled joins are not ported and raise.  A
-global sort over more than one partition is a single-partition exchange
-under the sort (the shape of the reference's ``TpuSortExec`` docstring,
-plan/execs/sort.py:43; its ``TpuRangeSortExec`` is not ported).  A plan
-node the port has no exec for raises NotImplementedError naming it: there
-is no CPU fallback.
+:1147, ``PlanMeta.convert`` :753 with ``Limit`` :826, ``_convert_join``
+:945-1020, ``_convert_aggregate`` :1022-1042, ``_exchange`` :1044,
+``_estimate_rows`` :1063, ``_plan_partitions`` :1090-1135,
+``_insert_aqe_readers`` :1218) for InMemoryRelation, Project, Filter,
+Aggregate, Join, Sort and Limit.
+
+- Over more than one partition an aggregate is split in two: a partial
+  aggregate, an exchange (one partition for a global aggregate; a hash
+  exchange on the group keys into ``spark.sql.shuffle.partitions`` for a
+  grouped one), then the final aggregate.
+- A join picks its strategy from the build (right) side's estimated rows,
+  as the reference does.  Over a multi-partition stream side, a build of
+  at most ``spark.rapids.sql.join.broadcastRowThreshold`` rows is a
+  broadcast hash join, and one within 8x of it (with
+  ``spark.rapids.sql.join.adaptive.enabled``) an adaptive join that
+  decides at run time.  Any other join is a shuffled hash join, with a
+  hash exchange on the keys under each side where either side has more
+  than one partition.
+- A global sort over more than one partition is a single-partition
+  exchange under the sort (the shape of the reference's ``TpuSortExec``
+  docstring, plan/execs/sort.py:43; its ``TpuRangeSortExec`` is not
+  ported).  A limit takes the first rows across partitions.
+- After conversion, with
+  ``spark.rapids.sql.adaptive.coalescePartitions.enabled``, the hash
+  exchange under a final aggregate is read through a coalesced reader, and
+  the two under a shuffled join through two readers that share one spec.
+
+Planning never asks an adaptive join or a coalesced reader for its
+partition count: that would run the build side or the map side.  The
+partition counts it needs come from ``_plan_partitions``, which answers
+from the plan's shape.  A plan node the port has no exec for raises
+NotImplementedError naming it: there is no CPU fallback.
 """
 from __future__ import annotations
 
@@ -29,12 +46,17 @@ from spark_rapids_tpu_torch.plan.execs.base import GpuExec
 from spark_rapids_tpu_torch.plan.execs.basic import (GpuFilterExec,
                                                      GpuProjectExec)
 from spark_rapids_tpu_torch.plan.execs.exchange import (
-    GpuShuffleExchangeExec, GpuSinglePartitionExec)
-from spark_rapids_tpu_torch.plan.execs.join import GpuBroadcastHashJoinExec
+    GpuCoalescedShuffleReaderExec, GpuShuffleExchangeExec,
+    GpuSinglePartitionExec, SharedCoalesceSpec)
+from spark_rapids_tpu_torch.plan.execs.join import (
+    GpuAdaptiveJoinExec, GpuBroadcastHashJoinExec, GpuShuffledHashJoinExec)
 from spark_rapids_tpu_torch.plan.execs.scan import GpuInMemoryScanExec
-from spark_rapids_tpu_torch.plan.execs.sort import GpuSortExec
+from spark_rapids_tpu_torch.plan.execs.sort import GpuLimitExec, GpuSortExec
 from spark_rapids_tpu_torch.planner.optimizer import (prune_columns,
                                                       push_filters)
+
+_BROADCASTABLE = ("inner", "left", "left_semi", "left_anti", "cross",
+                  "existence")
 
 
 def _convert(p: L.LogicalPlan, conf: RapidsConf,
@@ -52,22 +74,26 @@ def _convert(p: L.LogicalPlan, conf: RapidsConf,
         return _convert_join(p, conf, device)
     if isinstance(p, L.Sort):
         child = _convert(p.child, conf, device)
-        if p.global_sort and child.num_partitions() > 1:
+        if p.global_sort and _plan_partitions(child) > 1:
             child = GpuSinglePartitionExec(child)
         return GpuSortExec(p.orders, child)
+    if isinstance(p, L.Limit):
+        return GpuLimitExec(p.n, _convert(p.child, conf, device))
     raise NotImplementedError(f"no exec for {type(p).__name__} in the port")
 
 
 def _estimate_rows(p: L.LogicalPlan) -> int:
-    """The reference's crude cardinality estimate for the broadcast
-    choice: a filter halves, an aggregate thirds, a join takes its larger
-    side."""
+    """The reference's crude cardinality estimate for the join choice: a
+    filter halves, an aggregate thirds, a limit caps, a join takes its
+    larger side."""
     if isinstance(p, L.InMemoryRelation):
         return sum(b.num_rows for part in p.partitions for b in part)
     if isinstance(p, L.Filter):
         return max(_estimate_rows(p.child) // 2, 1)
     if isinstance(p, L.Aggregate):
         return max(_estimate_rows(p.child) // 3, 1)
+    if isinstance(p, L.Limit):
+        return min(p.n, _estimate_rows(p.child))
     if isinstance(p, L.Join):
         return max(_estimate_rows(p.left), _estimate_rows(p.right))
     if p.children:
@@ -75,35 +101,59 @@ def _estimate_rows(p: L.LogicalPlan) -> int:
     return 1 << 62
 
 
+def _plan_partitions(node: GpuExec) -> int:
+    """A node's partition count from the plan's shape alone: an adaptive
+    join keeps at least its shuffle partitions whichever way it decides,
+    a reader or a join delegates to its first child, and only a node that
+    owns its partitioning (a scan, an exchange, a limit) is asked."""
+    if isinstance(node, GpuAdaptiveJoinExec):
+        return max(_plan_partitions(node.children[0]),
+                   node.shuffle_partitions)
+    if isinstance(node, (GpuCoalescedShuffleReaderExec,
+                         GpuShuffledHashJoinExec, GpuBroadcastHashJoinExec)):
+        return _plan_partitions(node.children[0])
+    if node.children and \
+            type(node).num_partitions is GpuExec.num_partitions:
+        return _plan_partitions(node.children[0])
+    return node.num_partitions()
+
+
 def _convert_join(p: L.Join, conf: RapidsConf,
                   device: torch.device) -> GpuExec:
     left = _convert(p.left, conf, device)
     right = _convert(p.right, conf, device)
-    broadcastable = p.join_type in ("inner", "left", "left_semi",
-                                    "left_anti", "cross", "existence")
+    nparts = conf.shuffle_partitions
     est = _estimate_rows(p.right)
     thr = conf.broadcast_row_threshold
-    multi = left.num_partitions() > 1
+    multi = _plan_partitions(left) > 1
+    broadcastable = p.join_type in _BROADCASTABLE
     if broadcastable and multi and est <= thr:
         return GpuBroadcastHashJoinExec(left, right, p.left_keys,
                                         p.right_keys, p.join_type, p.schema,
                                         target_rows=conf.batch_size_rows)
     if (broadcastable and multi and p.left_keys and p.join_type != "cross"
-            and est <= thr * 8):
+            and est <= thr * 8 and conf.join_adaptive_enabled):
+        return GpuAdaptiveJoinExec(
+            left, right, p.left_keys, p.right_keys, p.join_type, p.schema,
+            broadcast_threshold=thr, shuffle_partitions=nparts,
+            target_rows=conf.batch_size_rows,
+            aqe_coalesce=conf.aqe_coalesce_partitions)
+    if p.join_type == "cross" or not p.left_keys:
         raise NotImplementedError(
-            f"the adaptive join (TpuAdaptiveJoinExec) is not ported: the "
-            f"build side's estimate of {est} rows is above "
-            f"spark.rapids.sql.join.broadcastRowThreshold={thr}")
-    raise NotImplementedError(
-        "the shuffled hash join (TpuShuffledHashJoinExec) is not ported: "
-        "a join broadcasts only over a multi-partition stream side and a "
-        f"build side of at most {thr} estimated rows")
+            "the cross and nested-loop joins are not ported")
+    # co-partition both sides on the join keys
+    if _plan_partitions(left) > 1 or _plan_partitions(right) > 1:
+        left = GpuShuffleExchangeExec(nparts, p.left_keys, left)
+        right = GpuShuffleExchangeExec(nparts, p.right_keys, right)
+    return GpuShuffledHashJoinExec(left, right, p.left_keys, p.right_keys,
+                                   p.join_type, p.schema,
+                                   target_rows=conf.batch_size_rows)
 
 
 def _convert_aggregate(p: L.Aggregate, conf: RapidsConf,
                        device: torch.device) -> GpuExec:
     child = _convert(p.child, conf, device)
-    if child.num_partitions() == 1:
+    if _plan_partitions(child) == 1:
         return GpuHashAggregateExec(p.group_exprs, p.agg_exprs, p.aggregates,
                                     child, p.schema, device, mode="complete")
     partial = GpuHashAggregateExec(p.group_exprs, p.agg_exprs, p.aggregates,
@@ -120,12 +170,40 @@ def _convert_aggregate(p: L.Aggregate, conf: RapidsConf,
                                 exchange, p.schema, device, mode="final")
 
 
+def _insert_aqe_readers(root: GpuExec, conf: RapidsConf) -> GpuExec:
+    """Wrap the hash exchange under each final aggregate in a coalesced
+    reader, and the two under each shuffled join in two readers sharing
+    one spec; runs after every structural decision of the planner."""
+    if not conf.aqe_coalesce_partitions:
+        return root
+
+    def spec() -> SharedCoalesceSpec:
+        return SharedCoalesceSpec(conf.batch_size_rows, conf.batch_size_bytes)
+
+    def visit(node: GpuExec) -> None:
+        kids = list(node.children)
+        if (isinstance(node, GpuHashAggregateExec) and node.mode == "final"
+                and isinstance(kids[0], GpuShuffleExchangeExec)):
+            kids[0] = GpuCoalescedShuffleReaderExec(kids[0], spec())
+        elif (isinstance(node, GpuShuffledHashJoinExec)
+              and all(isinstance(k, GpuShuffleExchangeExec) for k in kids)):
+            shared = spec()
+            kids = [GpuCoalescedShuffleReaderExec(k, shared) for k in kids]
+        node.children = tuple(kids)
+        for k in node.children:
+            visit(k)
+
+    visit(root)
+    return root
+
+
 def plan_query(plan: L.LogicalPlan, conf: RapidsConf,
                device: torch.device) -> GpuExec:
-    """Push filters down and prune columns, then convert every node to its
-    exec."""
+    """Push filters down and prune columns, convert every node to its
+    exec, then insert the AQE readers."""
     if not conf.sql_enabled:
         raise NotImplementedError(
             "spark.rapids.sql.enabled=false runs the CPU oracle engine, "
             "which is not ported")
-    return _convert(prune_columns(push_filters(plan)), conf, device)
+    root = _convert(prune_columns(push_filters(plan)), conf, device)
+    return _insert_aqe_readers(root, conf)

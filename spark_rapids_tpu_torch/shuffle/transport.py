@@ -4,7 +4,9 @@ Counterpart of ``spark_rapids_tpu/shuffle/transport.py``
 ``CacheOnlyTransport`` (:362) in its range-view write shape: each map
 batch is kept once, reordered by partition, with its host row counts, and
 each partition's block is a plain ``(batch, start, count)`` view that is
-sliced when it is read.  Slices of a 1-d tensor are views, so a read
+sliced when it is read.  The store keeps each partition's row count from
+the host counts it is given, the statistics the coalesced reader reads,
+so they cost no device read.  Slices of a 1-d tensor are views, so a read
 copies nothing: a string column's block is ``offsets[start:end + 1]`` over
 the same bytes (its offsets then do not start at 0, which every kernel
 allows).  The reference's spillable handles, ``RangeView`` pytrees
@@ -32,6 +34,7 @@ class DeviceShuffleStore:
         #: per partition: (map batch, start row, row count), in write order
         self._blocks: List[List[Tuple[ColumnarBatch, int, int]]] = [
             [] for _ in range(num_partitions)]
+        self._rows = [0] * num_partitions
 
     def write_partitioned(self, reordered: ColumnarBatch,
                           host_counts: Sequence[int]) -> None:
@@ -47,7 +50,12 @@ class DeviceShuffleStore:
         for p, cnt in enumerate(host_counts):
             if cnt:
                 self._blocks[p].append((reordered, start, cnt))
+                self._rows[p] += cnt
             start += cnt
+
+    def partition_rows(self) -> List[int]:
+        """Rows written to each partition so far."""
+        return list(self._rows)
 
     def read(self, partition: int) -> Iterator[ColumnarBatch]:
         """The partition's blocks in write order, sliced now."""

@@ -1,19 +1,32 @@
-"""TPC-DS store_sales, date_dim and item generation, and q3, without JAX.
+"""TPC-DS generation (store_sales, store_returns, catalog_sales, date_dim,
+item, store) and q3 and q25, without JAX.
 
 A copy of the pure-Python parts of ``spark_rapids_tpu/testing/tpcds.py``
 (``STORE_SALES_SCHEMA`` :21, ``DATE_DIM_SCHEMA`` :38, ``ITEM_SCHEMA`` :48,
-``gen_date_dim`` :61, ``gen_item`` :79, ``gen_store_sales`` :102 with
-``_gen_channel_fact`` :206, ``q3`` :134).  Generation draws the same numpy
-streams in the same order as the reference, so both packages see the same
-tables for a seed.  The fact table is made in chunks of ``batch_rows``
-rows and chunk c reseeds with ``seed + 31 * c``, so its data depends on
-``batch_rows``.  ``iter_store_sales`` yields host numpy columns and
-``store_sales_batches`` uploads them; the dimensions come as one device
-batch each.
+``STORE_RETURNS_SCHEMA`` :381, ``CATALOG_SALES_SCHEMA`` :391,
+``STORE_SCHEMA`` :423, ``gen_date_dim`` :61, ``gen_item`` :79,
+``gen_store_sales`` :102 with ``_gen_channel_fact`` :206, ``host_pool``
+:468, ``gen_store_returns`` :483, ``gen_catalog_sales`` :525,
+``gen_store`` :625, ``_aliased`` :701, ``q3`` :134, ``q25`` :758).
+Generation draws the same numpy streams in the same order as the
+reference, so both packages see the same tables for a seed.  A fact table
+is made in chunks of ``batch_rows`` rows and chunk c reseeds with ``seed +
+stride * c`` (stride 31 for store_sales, 43 for store_returns, 53 for
+catalog_sales), so its data depends on ``batch_rows``.  The ``iter_*``
+functions yield host numpy columns and the ``*_batches`` ones upload them;
+the dimensions come as one device batch each.
+
+The correlated facts draw from a pool of an earlier fact's rows
+(``host_pool``): store_returns copies (ticket, item, customer, sale date)
+from store_sales, catalog_sales copies (customer, item, return date) from
+store_returns.  The reference reads its pool back from the device, where
+a null slot holds 0, so ``host_pool`` zeroes the null slots of the host
+chunks it is given: about 2% of the matched returns carry
+``sr_customer_sk = 0``.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -58,8 +71,41 @@ ITEM_SCHEMA = Schema.of(
     i_item_desc=T.STRING,
 )
 
+STORE_RETURNS_SCHEMA = Schema.of(
+    sr_returned_date_sk=T.INT,
+    sr_item_sk=T.INT,
+    sr_customer_sk=T.INT,
+    sr_ticket_number=T.INT,
+    sr_return_quantity=T.INT,
+    sr_return_amt=T.DOUBLE,
+    sr_net_loss=T.DOUBLE,
+)
+
+CATALOG_SALES_SCHEMA = Schema.of(
+    cs_sold_date_sk=T.INT,
+    cs_ship_date_sk=T.INT,
+    cs_item_sk=T.INT,
+    cs_bill_customer_sk=T.INT,
+    cs_bill_cdemo_sk=T.INT,
+    cs_bill_hdemo_sk=T.INT,
+    cs_promo_sk=T.INT,
+    cs_order_number=T.INT,
+    cs_quantity=T.INT,
+    cs_ext_sales_price=T.DOUBLE,
+    cs_net_profit=T.DOUBLE,
+)
+
+STORE_SCHEMA = Schema.of(
+    s_store_sk=T.INT,
+    s_store_id=T.STRING,
+    s_store_name=T.STRING,
+    s_zip=T.STRING,
+)
+
 # TPC-DS row counts at scale factor 10 (the specification's table 3-2)
 SF10_STORE_SALES_ROWS = 28_800_991
+SF10_STORE_RETURNS_ROWS = 2_875_432
+SF10_CATALOG_SALES_ROWS = 14_401_261
 SF10_ITEM_ROWS = 102_000
 
 Columns = Dict[str, np.ndarray]
@@ -131,27 +177,42 @@ def _store_sales_spec(rng, n: int, n_rows: int, n_items: int
     return data, validity
 
 
-def iter_store_sales(n_rows: int, n_items: int = 2000, seed: int = 13,
-                     batch_rows: int = 1 << 19
-                     ) -> Iterator[Tuple[Columns, Columns]]:
-    """store_sales chunks of at most batch_rows rows: (numpy columns,
-    {column: validity} of the columns with nulls); chunk c draws from
-    ``RandomState(seed + 31 * c)``, as ``_gen_channel_fact`` does."""
+def _iter_fact(spec, n_rows: int, seed: int, stride: int, batch_rows: int
+               ) -> Iterator[Tuple[Columns, Columns]]:
+    """Chunks of at most batch_rows rows: (numpy columns, {column:
+    validity} of the columns with nulls); chunk c draws ``spec(rng, n)``
+    from ``RandomState(seed + stride * c)``, as ``_gen_channel_fact``
+    does."""
     remaining = n_rows
     chunk = 0
     while remaining > 0:
         n = min(batch_rows, remaining)
-        rng = np.random.RandomState(seed + 31 * chunk)
-        yield _store_sales_spec(rng, n, n_rows, n_items)
+        out = spec(np.random.RandomState(seed + stride * chunk), n)
+        yield out if isinstance(out, tuple) else (out, {})
         remaining -= n
         chunk += 1
 
 
+def iter_store_sales(n_rows: int, n_items: int = 2000, seed: int = 13,
+                     batch_rows: int = 1 << 19
+                     ) -> Iterator[Tuple[Columns, Columns]]:
+    """store_sales chunks (stride 31)."""
+    return _iter_fact(lambda rng, n: _store_sales_spec(rng, n, n_rows,
+                                                       n_items),
+                      n_rows, seed, 31, batch_rows)
+
+
+def fact_batch(data: Columns, validity: Columns, schema: Schema,
+               device) -> ColumnarBatch:
+    """One host chunk uploaded; null slots are zeroed."""
+    return batch_from_numpy(
+        {k: (data[k], validity[k]) if k in validity else data[k]
+         for k in schema.names}, schema, device)
+
+
 def store_sales_batch(data: Columns, validity: Columns,
                       device) -> ColumnarBatch:
-    return batch_from_numpy(
-        {k: (v, validity[k]) if k in validity else v for k, v in data.items()},
-        STORE_SALES_SCHEMA, device)
+    return fact_batch(data, validity, STORE_SALES_SCHEMA, device)
 
 
 def store_sales_batches(n_rows: int, device, n_items: int = 2000,
@@ -159,6 +220,143 @@ def store_sales_batches(n_rows: int, device, n_items: int = 2000,
                         ) -> List[ColumnarBatch]:
     return [store_sales_batch(d, v, device)
             for d, v in iter_store_sales(n_rows, n_items, seed, batch_rows)]
+
+
+def host_pool(chunks: Iterable[Tuple[Columns, Columns]], names
+              ) -> List[np.ndarray]:
+    """The named columns of host chunks, concatenated, each null slot 0 as
+    on the device: the pool a correlated fact draws from."""
+    cols: Dict[str, List[np.ndarray]] = {n: [] for n in names}
+    for data, validity in chunks:
+        for n in names:
+            v = data[n]
+            cols[n].append(np.where(validity[n], v, np.zeros((), v.dtype))
+                           if n in validity else v)
+    return [np.concatenate(cols[n]) for n in names]
+
+
+def iter_store_returns(n_rows: int, n_items: int = 2000, seed: int = 41,
+                       n_tickets: int = 500_000,
+                       pool: Optional[List[np.ndarray]] = None,
+                       match_frac: float = 0.8, batch_rows: int = 1 << 19
+                       ) -> Iterator[Tuple[Columns, Columns]]:
+    """store_returns chunks (stride 43).  ``pool`` is ``host_pool`` of
+    store_sales over (ss_ticket_number, ss_item_sk, ss_customer_sk,
+    ss_sold_date_sk): match_frac of the rows copy (ticket, item, customer)
+    from a sale and are returned 1-59 days after it."""
+    def spec(rng, n):
+        data = {
+            "sr_returned_date_sk": (2450000 + rng.randint(0, 6 * 365, n)
+                                    ).astype(np.int32),
+            "sr_item_sk": (1 + rng.randint(0, n_items, n)).astype(np.int32),
+            "sr_customer_sk": (1 + rng.randint(0, 50_000, n)
+                               ).astype(np.int32),
+            "sr_ticket_number": (1 + rng.randint(0, n_tickets, n)
+                                 ).astype(np.int32),
+            "sr_return_quantity": rng.randint(1, 20, n).astype(np.int32),
+            "sr_return_amt": np.round(rng.uniform(1.0, 150.0, n), 2),
+            "sr_net_loss": np.round(rng.uniform(0.5, 80.0, n), 2),
+        }
+        if pool is not None and len(pool[0]):
+            take = rng.rand(n) < match_frac
+            idx = rng.randint(0, len(pool[0]), n)
+            for dst, src in (("sr_ticket_number", 0), ("sr_item_sk", 1),
+                             ("sr_customer_sk", 2)):
+                data[dst] = np.where(take, pool[src][idx],
+                                     data[dst]).astype(np.int32)
+            data["sr_returned_date_sk"] = np.where(
+                take, pool[3][idx] + rng.randint(1, 60, n),
+                data["sr_returned_date_sk"]).astype(np.int32)
+        return data
+    return _iter_fact(spec, n_rows, seed, 43, batch_rows)
+
+
+def gen_store_returns(n_rows: int, device, n_items: int = 2000,
+                      seed: int = 41, n_tickets: int = 500_000,
+                      pool: Optional[List[np.ndarray]] = None,
+                      match_frac: float = 0.8, batch_rows: int = 1 << 19
+                      ) -> List[ColumnarBatch]:
+    return [fact_batch(d, v, STORE_RETURNS_SCHEMA, device)
+            for d, v in iter_store_returns(n_rows, n_items, seed, n_tickets,
+                                           pool, match_frac, batch_rows)]
+
+
+def iter_catalog_sales(n_rows: int, n_items: int = 2000, seed: int = 47,
+                       pair_pool: Optional[List[np.ndarray]] = None,
+                       match_frac: float = 0.5, batch_rows: int = 1 << 19
+                       ) -> Iterator[Tuple[Columns, Columns]]:
+    """catalog_sales chunks (stride 53).  ``pair_pool`` is [customer_sks,
+    item_sks] and optionally a date_sk: match_frac of the rows copy a
+    (customer, item) pair and are sold 1-59 days after that date."""
+    def spec(rng, n):
+        sold = 2450000 + rng.randint(0, 6 * 365, n)
+        data = {
+            "cs_sold_date_sk": sold.astype(np.int32),
+            "cs_ship_date_sk": (sold + rng.randint(1, 30, n)
+                                ).astype(np.int32),
+            "cs_item_sk": (1 + rng.randint(0, n_items, n)).astype(np.int32),
+            "cs_bill_customer_sk": (1 + rng.randint(0, 50_000, n)
+                                    ).astype(np.int32),
+            "cs_bill_cdemo_sk": (1 + rng.randint(0, 1000, n)
+                                 ).astype(np.int32),
+            "cs_bill_hdemo_sk": (1 + rng.randint(0, 100, n)
+                                 ).astype(np.int32),
+            "cs_promo_sk": (1 + rng.randint(0, 300, n)).astype(np.int32),
+            "cs_order_number": (1 + rng.randint(0, max(n_rows // 3, 1), n)
+                                ).astype(np.int32),
+            "cs_quantity": rng.randint(1, 100, n).astype(np.int32),
+            "cs_ext_sales_price": np.round(rng.uniform(1.0, 300.0, n), 2),
+            "cs_net_profit": np.round(rng.uniform(-100.0, 200.0, n), 2),
+        }
+        validity = {"cs_promo_sk": rng.rand(n) >= 0.15}
+        if pair_pool is not None and len(pair_pool[0]):
+            take = rng.rand(n) < match_frac
+            idx = rng.randint(0, len(pair_pool[0]), n)
+            data["cs_bill_customer_sk"] = np.where(
+                take, pair_pool[0][idx],
+                data["cs_bill_customer_sk"]).astype(np.int32)
+            data["cs_item_sk"] = np.where(
+                take, pair_pool[1][idx], data["cs_item_sk"]).astype(np.int32)
+            if len(pair_pool) > 2:
+                new_sold = pair_pool[2][idx] + rng.randint(1, 60, n)
+                data["cs_sold_date_sk"] = np.where(
+                    take, new_sold,
+                    data["cs_sold_date_sk"]).astype(np.int32)
+                data["cs_ship_date_sk"] = np.where(
+                    take, new_sold + rng.randint(1, 30, n),
+                    data["cs_ship_date_sk"]).astype(np.int32)
+        return data, validity
+    return _iter_fact(spec, n_rows, seed, 53, batch_rows)
+
+
+def gen_catalog_sales(n_rows: int, device, n_items: int = 2000,
+                      seed: int = 47,
+                      pair_pool: Optional[List[np.ndarray]] = None,
+                      match_frac: float = 0.5, batch_rows: int = 1 << 19
+                      ) -> List[ColumnarBatch]:
+    return [fact_batch(d, v, CATALOG_SALES_SCHEMA, device)
+            for d, v in iter_catalog_sales(n_rows, n_items, seed, pair_pool,
+                                           match_frac, batch_rows)]
+
+
+def gen_store(device, n: int = 50, seed: int = 73) -> ColumnarBatch:
+    rng = np.random.RandomState(seed)
+    return ColumnarBatch.from_pydict(
+        {"s_store_sk": list(range(1, n + 1)),
+         "s_store_id": [f"AAAAAAAA{i:04d}" for i in range(1, n + 1)],
+         "s_store_name": [["ought", "able", "pri", "ese", "anti"][i % 5]
+                          for i in range(n)],
+         "s_zip": [f"{10000 + int(z):05d}"
+                   for z in rng.randint(0, 400, n)]},
+        STORE_SCHEMA, device)
+
+
+def _aliased(df, prefix: str):
+    """date_dim appears up to three times per query; rename its columns so
+    the repeated joins do not collide."""
+    from spark_rapids_tpu_torch.expressions import col
+    return df.select(*[col(n).alias(f"{prefix}_{n[2:]}")
+                       for n in df.schema.names])
 
 
 def q3(store_sales_df, date_dim_df, item_df):
@@ -185,3 +383,49 @@ def q3(store_sales_df, date_dim_df, item_df):
             .order_by(("d_year", SortOrder(True)),
                       ("sum_agg", SortOrder(False)),
                       ("i_brand_id", SortOrder(True))))
+
+
+def q25(ss_df, sr_df, cs_df, dd_df, store_df, item_df):
+    """TPC-DS Q25: the three-fact chain: a store sale, its return, and a
+    later catalog purchase of the same item by the same customer, each in
+    its own date window.
+
+    select i_item_id, i_item_desc, s_store_id, s_store_name,
+           sum(ss_net_profit), sum(sr_net_loss), sum(cs_net_profit)
+    from store_sales, store_returns, catalog_sales, date_dim d1, d2, d3,
+         store, item
+    where d1.d_moy = 4 and d1.d_year = 2000 and d2.d_moy between 4 and 10
+      and d2.d_year = 2000 and d3.d_moy between 4 and 10
+      and d3.d_year = 2000 and the chain's keys match
+    group by the four keys order by the four keys limit 100
+    """
+    from spark_rapids_tpu_torch.expressions import col, lit, sum_
+    from spark_rapids_tpu_torch.kernels.sort import SortOrder
+    d1 = _aliased(dd_df.filter((col("d_moy") == lit(4))
+                               & (col("d_year") == lit(2000))), "d1")
+    d2 = _aliased(dd_df.filter((col("d_moy") >= lit(4))
+                               & (col("d_moy") <= lit(10))
+                               & (col("d_year") == lit(2000))), "d2")
+    d3 = _aliased(dd_df.filter((col("d_moy") >= lit(4))
+                               & (col("d_moy") <= lit(10))
+                               & (col("d_year") == lit(2000))), "d3")
+    j = (ss_df
+         .join(sr_df, on=([col("ss_ticket_number"), col("ss_item_sk")],
+                          [col("sr_ticket_number"), col("sr_item_sk")]))
+         .join(cs_df, on=([col("sr_customer_sk"), col("sr_item_sk")],
+                          [col("cs_bill_customer_sk"), col("cs_item_sk")]))
+         .join(d1, on=([col("ss_sold_date_sk")], [col("d1_date_sk")]))
+         .join(d2, on=([col("sr_returned_date_sk")], [col("d2_date_sk")]))
+         .join(d3, on=([col("cs_sold_date_sk")], [col("d3_date_sk")]))
+         .join(store_df, on=([col("ss_store_sk")], [col("s_store_sk")]))
+         .join(item_df, on=([col("ss_item_sk")], [col("i_item_sk")])))
+    return (j.group_by("i_item_id", "i_item_desc", "s_store_id",
+                       "s_store_name")
+            .agg(sum_("ss_net_profit").alias("store_sales_profit"),
+                 sum_("sr_net_loss").alias("store_returns_loss"),
+                 sum_("cs_net_profit").alias("catalog_sales_profit"))
+            .order_by(("i_item_id", SortOrder(True)),
+                      ("i_item_desc", SortOrder(True)),
+                      ("s_store_id", SortOrder(True)),
+                      ("s_store_name", SortOrder(True)))
+            .limit(100))

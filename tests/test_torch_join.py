@@ -3,7 +3,10 @@
 ``join_gather_maps`` must give the same (left, right) pairs as the
 reference's, in the same order: stream rows in order, each row's matches
 in build order.  Null keys never match, duplicated build keys fan out, NaN
-matches NaN and -0.0 matches 0.0.  ``apply_gather_maps`` then gives the
+matches NaN and -0.0 matches 0.0; on several keys (the reference's
+``_probe_multi``) a null in any key matches nothing, an int key matches a
+long one by value and strings match byte for byte, a stream string longer
+than every build string included.  ``apply_gather_maps`` then gives the
 same rows, string columns included.  On CPU tensors the wrappers run their
 plain versions; chip_smoke.py holds the CUDA kernels against them on the
 card.  What the port leaves out raises NotImplementedError.
@@ -144,13 +147,128 @@ def test_other_join_types_raise(how):
         J.join_gather_maps(pl, [0], pr, [0], how)
 
 
+STRING_POOL = ["", "ab", "ab\x00", "abcdefgh", "abcdefghi", "é" * 5,
+               "\xff", "Brand#12", "a"]
+
+
+def _multi_column(kind: str, rng, n: int, distinct: int, null_frac: float,
+                  pool=STRING_POOL):
+    mask = rng.rand(n) < null_frac
+    if kind == "string":
+        return pa.array([None if m else pool[i] for m, i in
+                         zip(mask, rng.randint(0, len(pool), n))],
+                        pa.string())
+    if kind == "double":
+        return pa.array(rng.choice(SPECIAL_DOUBLES, n), mask=mask)
+    v = rng.randint(0, distinct, n)
+    if kind == "int":
+        return pa.array(v.astype(np.int32), mask=mask)
+    return pa.array(v.astype(np.int64), mask=mask)
+
+
+def _multi_reference(left, right, nkeys):
+    jl, jr = JaxBatch.from_arrow(left), JaxBatch.from_arrow(right)
+    cap = max(left.num_rows * right.num_rows, 1)
+    longest = max([len(v.encode()) for t in (left, right)
+                   for c in t.columns if pa.types.is_string(c.type)
+                   for v in c.to_pylist() if v is not None] + [1])
+    keys = list(range(nkeys))
+    li, ri, count, _ = jjoin.join_gather_maps(jl, keys, jr, keys, "inner",
+                                              cap, string_max_bytes=longest)
+    c = int(count)
+    return np.asarray(li)[:c], np.asarray(ri)[:c]
+
+
+MULTI_CASES = {
+    # (left kinds, right kinds), seed, left rows, right rows, distinct
+    "int_int": (("int", "int"), ("int", "int"), 11, 600, 300, 12),
+    "int_long": (("int", "long"), ("long", "long"), 12, 500, 250, 10),
+    "double_nan_and_signed_zero": (("double", "int"), ("double", "int"), 13,
+                                   300, 150, 3),
+    "string_alone": (("string",), ("string",), 14, 400, 120, 0),
+    "int_string": (("int", "string"), ("int", "string"), 15, 500, 200, 4),
+}
+
+
+@pytest.mark.parametrize("case", list(MULTI_CASES))
+def test_multi_key_join_gather_maps_match_reference(case):
+    lkinds, rkinds, seed, nl, nr, distinct = MULTI_CASES[case]
+    rng = np.random.RandomState(seed)
+    left = pa.table({f"k{i}": _multi_column(k, rng, nl, distinct, 0.1)
+                     for i, k in enumerate(lkinds)})
+    right = pa.table({f"k{i}": _multi_column(k, rng, nr, distinct, 0.1)
+                      for i, k in enumerate(rkinds)})
+    ref_li, ref_ri = _multi_reference(left, right, len(lkinds))
+    pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
+    keys = list(range(len(lkinds)))
+    assert J.join_path(pl, keys, pr, keys, "inner") == "multi"
+    li, ri, count = J.join_gather_maps(pl, keys, pr, keys, "inner")
+    assert li.dtype == ri.dtype == torch.int32
+    assert count == len(ref_li) == li.shape[0] > 0
+    np.testing.assert_array_equal(li.numpy(), ref_li)
+    np.testing.assert_array_equal(ri.numpy(), ref_ri)
+    # a null in either key of a pair never matched
+    for t, ix in ((left, li), (right, ri)):
+        for c in t.columns:
+            assert c.take(pa.array(ix.numpy())).null_count == 0
+
+
+def _edge_tables(case: str):
+    """Two-key (int, string) sides for the edge cases."""
+    if case == "longer_stream_strings":
+        lk = [1, 1, 1, 1, 2, 2, 1]
+        ls = ["abc", "abc\x00\x00\x00\x00\x00\x00\x00\x00", "abc" + "x" * 20,
+              "abd", "", "\x00", "ab"]
+        rk, rs = [1, 1, 2, 1], ["abc", "ab", "", "abc"]
+    elif case == "no_match":
+        lk, ls = [1, 2, 3, None], ["a", "b", "c", "a"]
+        rk, rs = [1, 2, 3, 1], ["b", "c", "a", None]
+    elif case == "one_build_row":
+        lk, ls = [5, 5, 4, 5, None], ["x", "x", "x", "y", "x"]
+        rk, rs = [5], ["x"]
+    else:   # empty build
+        lk, ls = [1, 2], ["a", "b"]
+        rk, rs = [], []
+    left = pa.table({"k": pa.array(lk, pa.int32()), "s": pa.array(ls)})
+    right = pa.table({"k": pa.array(rk, pa.int32()),
+                      "s": pa.array(rs, pa.string())})
+    return left, right
+
+
+@pytest.mark.parametrize("case", ["longer_stream_strings", "no_match",
+                                  "one_build_row", "empty_build"])
+def test_multi_key_join_edges_match_reference(case):
+    left, right = _edge_tables(case)
+    pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
+    li, ri, count = J.join_gather_maps(pl, [0, 1], pr, [0, 1], "inner")
+    want = {"longer_stream_strings": ([0, 0, 4, 6], [0, 3, 2, 1]),
+            "no_match": ([], []),
+            "one_build_row": ([0, 1], [0, 0]), "empty_build": ([], [])}[case]
+    assert (li.tolist(), ri.tolist(), count) == (*want, len(want[0]))
+    if right.num_rows:
+        ref_li, ref_ri = _multi_reference(left, right, 2)
+        np.testing.assert_array_equal(li.numpy(), ref_li)
+        np.testing.assert_array_equal(ri.numpy(), ref_ri)
+
+
 def test_multi_key_string_key_cross_and_condition_raise():
+    """Several keys and a string key now join (as the reference does);
+    the cross join, a residual condition and an unknown type raise."""
     left, right = _sides("int", 8, 20, 10, 5)
     pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
-    with pytest.raises(NotImplementedError, match="multi-key"):
-        J.join_gather_maps(pl, [0, 1], pr, [0, 0], "inner")
-    with pytest.raises(NotImplementedError, match="string-key"):
-        J.join_gather_maps(pl, [2], pr, [1], "inner")
+    li, ri, count = J.join_gather_maps(pl, [0, 0], pr, [0, 0], "inner")
+    want_li, want_ri, want = J.join_gather_maps(pl, [0], pr, [0], "inner")
+    assert count == want
+    assert torch.equal(li, want_li) and torch.equal(ri, want_ri)
+    strings = pa.table({"rs": pa.array(["l1é", None, "l3é", "l1é"])})
+    ps = arrow_to_batch(strings, "cpu")
+    li, ri, count = J.join_gather_maps(pl, [2], ps, [0], "inner")
+    ls = left.column("ls").to_pylist()
+    assert [(ls[a], b) for a, b in zip(li.tolist(), ri.tolist())] == [
+        (ls[a], b) for a in range(len(ls)) for b in (0, 3, 2)
+        if ls[a] == strings.column("rs")[b].as_py()]
+    with pytest.raises(NotImplementedError, match="int.*string|string.*int"):
+        J.join_gather_maps(pl, [0], ps, [0], "inner")
     with pytest.raises(NotImplementedError, match="cross"):
         J.join_gather_maps(pl, [], pr, [], "cross")
     with pytest.raises(NotImplementedError, match="conditional_join_maps"):

@@ -23,7 +23,8 @@ from spark_rapids_tpu_torch import expressions as PE
 from spark_rapids_tpu_torch.api.session import GpuSession
 from spark_rapids_tpu_torch.columnar.arrow import arrow_to_batch
 from spark_rapids_tpu_torch.plan.execs.aggregate import GpuHashAggregateExec
-from spark_rapids_tpu_torch.plan.execs.exchange import GpuShuffleExchangeExec
+from spark_rapids_tpu_torch.plan.execs.exchange import (
+    GpuCoalescedShuffleReaderExec, GpuShuffleExchangeExec)
 from spark_rapids_tpu_torch.testing import tpch as port_tpch
 
 F64_RTOL = 1e-12
@@ -116,7 +117,10 @@ def test_q1_plan_shapes_give_the_same_rows(reference, conf, num_partitions):
         assert plan.mode == "complete"
     else:
         assert plan.mode == "final"
-        exchange = plan.children[0]
+        # the final aggregate reads its partitions through the AQE reader
+        reader = plan.children[0]
+        assert isinstance(reader, GpuCoalescedShuffleReaderExec)
+        exchange = reader.children[0]
         assert isinstance(exchange, GpuShuffleExchangeExec)
         assert exchange.num_partitions() == int(
             (conf or {}).get("spark.sql.shuffle.partitions", 16))

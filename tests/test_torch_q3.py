@@ -25,8 +25,10 @@ from spark_rapids_tpu_torch.columnar.arrow import arrow_to_batch
 from spark_rapids_tpu_torch.kernels.sort import SortOrder
 from spark_rapids_tpu_torch.plan.execs.basic import GpuFilterExec
 from spark_rapids_tpu_torch.plan.execs.exchange import (
-    GpuShuffleExchangeExec, GpuSinglePartitionExec)
-from spark_rapids_tpu_torch.plan.execs.join import GpuBroadcastHashJoinExec
+    GpuCoalescedShuffleReaderExec, GpuShuffleExchangeExec,
+    GpuSinglePartitionExec)
+from spark_rapids_tpu_torch.plan.execs.join import (
+    GpuAdaptiveJoinExec, GpuBroadcastHashJoinExec, GpuShuffledHashJoinExec)
 from spark_rapids_tpu_torch.plan.execs.sort import GpuSortExec
 from spark_rapids_tpu_torch.testing import tpcds as port_tpcds
 
@@ -99,8 +101,9 @@ def test_q3_matches_reference_in_order(reference):
 
 def test_q3_plan_shape(reference):
     """Both joins broadcast, their filters pushed into the dimension
-    tables; the grouped aggregate goes through the hash exchange; the
-    global sort sits over a single-partition exchange."""
+    tables; the grouped aggregate goes through the hash exchange, read
+    through the AQE coalesced reader; the global sort sits over a
+    single-partition exchange."""
     tables, ref = reference
     plan = port_tpcds.q3(*_port_dfs(tables)).physical_plan()
     assert isinstance(plan, GpuSortExec)
@@ -108,8 +111,10 @@ def test_q3_plan_shape(reference):
     assert isinstance(single, GpuSinglePartitionExec)
     final = single.children[0]
     assert final.mode == "final"
-    assert isinstance(final.children[0], GpuShuffleExchangeExec)
-    partial = final.children[0].children[0]
+    reader = final.children[0]
+    assert isinstance(reader, GpuCoalescedShuffleReaderExec)
+    assert isinstance(reader.children[0], GpuShuffleExchangeExec)
+    partial = reader.children[0].children[0]
     join2 = partial.children[0]
     assert isinstance(join2, GpuBroadcastHashJoinExec)
     join1 = join2.children[0]
@@ -134,31 +139,59 @@ def test_q3_plan_variants_give_the_same_rows(reference, conf,
     _assert_rows_in_order(got, ref)
 
 
-def test_joins_that_do_not_broadcast_raise(reference):
+JOIN_COLUMNS = ("ss_ticket_number", "ss_item_sk", "ss_customer_sk",
+                "i_brand", "i_item_id")
+
+
+@pytest.fixture(scope="module")
+def reference_join(reference):
+    """The JAX package's rows of store_sales joined with item on the item
+    key (the columns JOIN_COLUMNS), sorted."""
+    from spark_rapids_tpu.expressions import col as jcol
+    (ss, _, it), _ = reference
+    sess = TpuSession(JAX_CONF)
+    rows = (sess.create_dataframe([JaxBatch.from_arrow(t) for t in ss],
+                                  num_partitions=3)
+            .join(sess.create_dataframe([JaxBatch.from_arrow(it)]),
+                  on=([jcol("ss_item_sk")], [jcol("i_item_sk")]))
+            .select(*JOIN_COLUMNS).collect())
+    return sorted(rows, key=repr)
+
+
+def test_joins_that_do_not_broadcast_raise(reference, reference_join):
+    """A join that does not broadcast is adaptive (build estimate within
+    8x of the threshold) or shuffled, on one partition too, and gives the
+    reference's rows; a string key joins.  What is still not ported
+    raises: the left join, a residual condition."""
     tables, _ = reference
     ss, dd, it = _port_dfs(tables)
     on = ([PE.col("ss_item_sk")], [PE.col("i_item_sk")])
     with pytest.raises(NotImplementedError, match="the left join"):
         ss.join(it, on=on, how="left").physical_plan()
     thr = "spark.rapids.sql.join.broadcastRowThreshold"
-    for conf, what in (({thr: "1000"}, "adaptive join"),
-                       ({thr: "100"}, "shuffled hash join"),
-                       ({thr: "0"}, "shuffled hash join")):
-        s2, _, i2 = _port_dfs(tables, conf)
-        with pytest.raises(NotImplementedError, match=what):
-            s2.join(i2, on=on).physical_plan()
-    one, _, i1 = _port_dfs(tables, num_partitions=1)   # no stream partitions
-    with pytest.raises(NotImplementedError, match="shuffled hash join"):
-        one.join(i1, on=on).physical_plan()
+    for conf, parts, what in (({thr: "1000"}, 3, GpuAdaptiveJoinExec),
+                              ({thr: "100"}, 3, GpuShuffledHashJoinExec),
+                              ({thr: "0"}, 3, GpuShuffledHashJoinExec),
+                              (None, 1, GpuShuffledHashJoinExec)):
+        s2, _, i2 = _port_dfs(tables, conf, parts)
+        df = s2.join(i2, on=on).select(*JOIN_COLUMNS)
+        assert isinstance(df.physical_plan().children[0], what)
+        assert sorted(df.collect(), key=repr) == reference_join
     with pytest.raises(NotImplementedError, match="residual condition"):
         ss.join(it, on=on, condition=PE.col("ss_item_sk") < 3)
     items = GpuSession({"spark.rapids.sql.batchSizeRows": "500"},
                        device="cpu").create_dataframe(tables[2],
                                                       num_partitions=2)
-    brands = it.select(PE.col("i_brand").alias("b"))
-    with pytest.raises(NotImplementedError, match="string-key"):
-        items.join(brands, on=([PE.col("i_brand")],
-                               [PE.col("b")])).physical_plan()
+    brands = it.select(PE.col("i_brand").alias("b"),
+                       PE.col("i_item_sk").alias("sk"))
+    got = items.join(brands, on=([PE.col("i_brand")], [PE.col("b")])
+                     ).select("i_item_sk", "sk").collect()
+    brand = tables[2].column("i_brand").to_pylist()
+    by_brand = {}
+    for sk, b in enumerate(brand, 1):
+        by_brand.setdefault(b, []).append(sk)
+    assert sorted(got) == sorted((a, b) for a, br in enumerate(brand, 1)
+                                 for b in by_brand[br])
 
 
 def test_order_by_and_join_surface():
