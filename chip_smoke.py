@@ -30,8 +30,17 @@ Phases (any failure raises and the script exits non-zero):
      int32 keys, int32 with int64, two doubles with -0.0 and NaN, and
      (int, string) with 10% nulls, against builds of 186, 180,000 and
      900,000 rows with duplicates, and timed at q25's two shuffled-join
-     shapes.  A kernel's ``max_abs_err`` is the largest difference over
-     all its comparisons;
+     shapes.  Then the q72 path's: ``conditional_join_maps`` for all
+     seven join types at n = 1,048,576 and 1,000,003 candidates, pass
+     rates 0%, 10% and 100%, with left rows that have no candidate and
+     dead rows, timed at q72's shape (one of 200 partitions: 72,000 sales
+     against 665,550 inventory rows, ~94M candidates, 10% passing); the
+     left single-key probe (null stream keys, promotion's 300 keys, double
+     keys, an empty build) and the left several-key probe ((int32, int32)
+     and (int, string) keys with nulls, an empty build), with the shared
+     expand; the gather with -1 indices on int, double and string columns
+     and from an empty source.  A kernel's ``max_abs_err`` is the largest
+     difference over all its comparisons;
   4. data: TPC-H lineitem at SF10 (60,012,150 rows, all eleven columns on
      the card, batches of 1,048,576 rows, 4 partitions), with independent
      numpy evaluations of q6 and q1;
@@ -59,7 +68,20 @@ Phases (any failure raises and the script exits non-zero):
      strings) across the hash exchange, ORDER BY and LIMIT 100; held
      against an independent numpy evaluation (packed int64 keys, sort and
      searchsorted joins, integer-cent sums), then timed and profiled;
-  9. prints the kernels summary line, then the result line last.
+  9. q72 at TPC-DS SF10 in a session of 200 shuffle partitions with the
+     coalesced reader off: catalog_sales as in phase 8; inventory
+     133,110,000 rows (102,000 items, 10 warehouses), catalog_returns
+     1,439,749 (60% copied from the sales' (item, order) pairs), 4
+     partitions each, all on the card; item 102,000 rows, date_dim 2,190,
+     warehouse 10, promotion 300, customer_demographics 1,000,
+     household_demographics 100.  The inventory join must be a shuffled
+     join with its condition that took the streamed probe in all 200
+     partitions, the catalog_returns join an adaptive left join that went
+     shuffled, promotion a broadcast left join; the 100 rows must equal
+     an independent numpy evaluation exactly and in order (the filters
+     first, an (item, week) join of packed int64 keys by sort and
+     searchsorted, the return counts); then timed and profiled;
+ 10. prints the kernels summary line, then the result line last.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -93,7 +115,7 @@ from spark_rapids_tpu_torch.plan.engine import GpuEngine  # noqa: E402
 from spark_rapids_tpu_torch.plan.execs.exchange import (  # noqa: E402
     GpuCoalescedShuffleReaderExec)
 from spark_rapids_tpu_torch.plan.execs.join import (  # noqa: E402
-    GpuAdaptiveJoinExec, GpuShuffledHashJoinExec)
+    GpuAdaptiveJoinExec, GpuBroadcastHashJoinExec, GpuShuffledHashJoinExec)
 from spark_rapids_tpu_torch import types as T  # noqa: E402
 from spark_rapids_tpu_torch.testing import tpcds, tpch  # noqa: E402
 
@@ -144,6 +166,14 @@ KERNELS = {
                          "spark_rapids_tpu/kernels/join.py:275"),
     "join_multi_probe": ("csrc/join.cu",
                          "spark_rapids_tpu/kernels/join.py:275"),
+    "conditional_join_maps": ("csrc/join.cu",
+                              "spark_rapids_tpu/kernels/join.py:44"),
+    "join_probe_left": ("csrc/join.cu",
+                        "spark_rapids_tpu/kernels/join.py:203"),
+    "join_multi_probe_left": ("csrc/join.cu",
+                              "spark_rapids_tpu/kernels/join.py:395"),
+    "gather_null_extend": ("csrc/selection.cu",
+                           "spark_rapids_tpu/kernels/selection.py:308"),
 }
 Q6_KERNELS = ("compaction_map", "gather", "masked_sum", "concat")
 Q1_KERNELS = ("compaction_map", "gather", "concat", "murmur3", "partition",
@@ -164,7 +194,13 @@ SS_POOL = ["ss_ticket_number", "ss_item_sk", "ss_customer_sk",
 SR_POOL = ["sr_customer_sk", "sr_item_sk", "sr_returned_date_sk"]
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase line carries the script's elapsed seconds."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -204,16 +240,33 @@ def device_profile(fn, calls: int = ITERS, idle_ok: bool = False):
             torch.cuda.synchronize()
         by_name = {}
         count = 0
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + \
-                    e.time_range.elapsed_us() / 1e3 / calls
-                count += 1
+        for name, ms in device_events(prof):
+            by_name[name] = by_name.get(name, 0.0) + ms / calls
+            count += 1
         if count:
             break
     require(count > 0 or idle_ok, "torch.profiler recorded no device "
             "activity for a call that launches work")
     return sum(by_name.values()), count / calls, by_name
+
+
+def device_events(prof):
+    """(name, ms) of each device activity of a finished trace, read from
+    the raw CUPTI records: building the profiler's Python event tree
+    takes minutes for a query of ~200,000 kernels (q72)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    raw = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if raw is None:
+        return [(e.name, e.time_range.elapsed_us() / 1e3)
+                for e in prof.events() if e.device_type == cuda]
+    out = []
+    for e in raw.events():
+        if e.device_type() != cuda:
+            continue
+        ms = (e.duration_ns() / 1e6 if hasattr(e, "duration_ns")
+              else e.duration_us() / 1e3)
+        out.append((e.name(), ms))
+    return out
 
 
 def measure(kernel, plain, library, nbytes: int, ops: int = 0,
@@ -1038,21 +1091,34 @@ def build_batch(col: DeviceColumn) -> ColumnarBatch:
     return ColumnarBatch((col,), col.num_rows, Schema(("k",), (col.dtype,)))
 
 
-def hold_join(stream: DeviceColumn, build_col: DeviceColumn, what: str):
+def hold_expand(lo, off, total: int, build, n: int, join_type: str,
+                what: str) -> None:
+    """The expand against the plain one; a left join's maps hold every
+    one of the n stream rows."""
+    li, ri = JK.join_expand(lo, off, total, build)
+    hold("join_expand", zip((li, ri), JK.expand_plain(lo, off, total,
+                                                      build.perm)), what)
+    if join_type == "left":
+        require(int(torch.unique(li).shape[0]) == n,
+                f"a left join lost a stream row: {what}")
+
+
+def hold_join(stream: DeviceColumn, build_col: DeviceColumn, what: str,
+              join_type: str = "inner"):
     """The kernel path (build, probe, expand) against the plain one, step
     by step on the same tensors; returns the kernel's build."""
+    left = join_type == "left"
+    probe = "join_probe_left" if left else "join_probe"
     build = JK.build_side(build_batch(build_col), 0)
     norm = G.normalize_key_column(build_col)
     hold("join_build", zip(JK.build_keys(norm, build.perm),
                            JK.build_keys_plain(norm, build.perm)), what)
-    lo, off, total = JK.join_probe(build_batch(stream), 0, build)
-    plo, poff, ptotal = JK.probe_plain(stream, build)
-    require(total == ptotal, f"join_probe: {total} pairs against {ptotal}: "
+    lo, off, total = JK.join_probe(build_batch(stream), 0, build, join_type)
+    plo, poff, ptotal = JK.probe_plain(stream, build, left=left)
+    require(total == ptotal, f"{probe}: {total} pairs against {ptotal}: "
             f"{what}")
-    hold("join_probe", [(lo, plo), (off, poff)], what)
-    hold("join_expand", zip(JK.join_expand(lo, off, total, build),
-                            JK.expand_plain(lo, off, total, build.perm)),
-         what)
+    hold(probe, [(lo, plo), (off, poff)], what)
+    hold_expand(lo, off, total, build, stream.num_rows, join_type, what)
     return build, (lo, off, total)
 
 
@@ -1175,7 +1241,8 @@ def numpy_pairs(stream_cols, build_cols) -> int:
                 - np.searchsorted(bk, sk, "left")).sum())
 
 
-def hold_multi_join(stream_cols, build_cols, what: str):
+def hold_multi_join(stream_cols, build_cols, what: str,
+                    join_type: str = "inner"):
     """The several-key kernel path (build words, probe, expand) against the
     plain one, step by step on the same tensors; returns the build and the
     probe's (lo, offsets, pairs)."""
@@ -1183,7 +1250,7 @@ def hold_multi_join(stream_cols, build_cols, what: str):
     build = JK.build_side(keys_batch(build_cols), keys)
     require(build.multi, f"{what}: the build is not the several-key one")
     norm = [G.normalize_key_column(c) for c in build_cols]
-    chunks = tuple(SK.string_chunks(JK._longest_plain(c)) if c.is_string
+    chunks = tuple(SK.string_chunks(SK._longest_plain(c)) if c.is_string
                    else None for c in norm)
     require(build.chunks == chunks, f"join_multi_build: chunks "
             f"{build.chunks} against {chunks}: {what}")
@@ -1199,15 +1266,17 @@ def hold_multi_join(stream_cols, build_cols, what: str):
                                return_inverse=True)
         require(bool((rank[1:] >= rank[:-1]).all()),
                 f"join_multi_build: words out of order: {what}")
-    lo, off, total = JK.join_probe(keys_batch(stream_cols), keys, build)
+    left = join_type == "left"
+    probe = "join_multi_probe_left" if left else "join_multi_probe"
+    lo, off, total = JK.join_probe(keys_batch(stream_cols), keys, build,
+                                   join_type)
     plo, poff, ptotal = JK.probe_multi_plain(
-        *JK.key_words_plain(stream_cols, build.chunks), build)
-    require(total == ptotal, f"join_multi_probe: {total} pairs against "
-            f"{ptotal}: {what}")
-    hold("join_multi_probe", [(lo, plo), (off, poff)], what)
-    hold("join_expand", zip(JK.join_expand(lo, off, total, build),
-                            JK.expand_plain(lo, off, total, build.perm)),
-         what)
+        *JK.key_words_plain(stream_cols, build.chunks), build, left=left)
+    require(total == ptotal, f"{probe}: {total} pairs against {ptotal}: "
+            f"{what}")
+    hold(probe, [(lo, plo), (off, poff)], what)
+    hold_expand(lo, off, total, build, stream_cols[0].num_rows, join_type,
+                what)
     return build, (lo, off, total)
 
 
@@ -1331,6 +1400,248 @@ def check_multi_join(rng, dev, summary) -> None:
                   nbytes)})
 
 
+# -- phase 3: the q72 path's conditional and left joins -----------------------
+
+COND_TYPES = ("inner", "left", "right", "full", "left_semi", "left_anti",
+              "existence")
+# q72 at SF10 in 200 shuffle partitions: a partition's catalog_sales and
+# inventory rows, and the rows a partition's left joins see after the
+# week and ship-date filters (~28,000 over 200 partitions)
+Q72_STREAM, Q72_BUILD, Q72_LEFT_ROWS = 72_000, 665_550, 140
+
+
+def candidates(rng, n: int, nl: int, nr: int, rate: float, dev):
+    """n candidate pairs as an inner expansion gives them (left rows in
+    order, each with a Poisson count of right rows, so that some have
+    none), live masks with 3% dead rows, and a pass mask of ``rate`` over
+    the pairs of live rows."""
+    li = np.sort(rng.randint(0, nl, n)).astype(np.int32)
+    ri = rng.randint(0, nr, n).astype(np.int32)
+    llive, rlive = rng.rand(nl) >= 0.03, rng.rand(nr) >= 0.03
+    passed = (rng.rand(n) < rate) & llive[li] & rlive[ri]
+    return [torch.from_numpy(a).to(dev) for a in (li, ri, passed, llive,
+                                                  rlive)]
+
+
+def hold_cond(args, join_type: str, what: str):
+    got = JK.conditional_join_maps(*args, join_type)
+    want = JK.conditional_join_maps_plain(*args, join_type)
+    hold("conditional_join_maps", zip(got, want), f"{join_type} {what}")
+    return got
+
+
+def q72_candidates(dev):
+    """One partition of q72's inventory join at SF10: 72,000 sales against
+    665,550 inventory rows, each sale with ~1,305 candidates (the
+    snapshots of its item), 10% of them passing (on hand 0-499 below a
+    quantity of 1-99)."""
+    g = torch.Generator(device=dev).manual_seed(72)
+    counts = torch.randint(1_200, 1_411, (Q72_STREAM,), generator=g,
+                           device=dev)
+    li = torch.repeat_interleave(
+        torch.arange(Q72_STREAM, dtype=torch.int32, device=dev), counts)
+    n = li.shape[0]
+    ri = torch.randint(0, Q72_BUILD, (n,), generator=g, device=dev,
+                       dtype=torch.int32)
+    qty = torch.randint(1, 100, (Q72_STREAM,), generator=g, device=dev)
+    on_hand = torch.randint(0, 500, (Q72_BUILD,), generator=g, device=dev)
+    passed = on_hand[ri.long()] < qty[li.long()]
+    ones = torch.ones(Q72_STREAM, dtype=torch.bool, device=dev)
+    return [li, ri, passed, ones,
+            torch.ones(Q72_BUILD, dtype=torch.bool, device=dev)]
+
+
+def check_conditional_join(rng, dev, summary) -> None:
+    for n in (N, RAGGED):
+        for rate in (0.0, 0.1, 1.0):
+            args = candidates(rng, n, n // 3, 50_000, rate, dev)
+            for jt in COND_TYPES:
+                li2, ri2, _ = hold_cond(args, jt, f"n={n} rate={rate}")
+                if jt == "inner":
+                    require(li2.shape[0] == int(args[2].sum()),
+                            f"conditional inner: {li2.shape[0]} rows")
+    args = q72_candidates(dev)
+    li2, ri2, _ = hold_cond(args, "inner", "q72's inventory join")
+    n, count = args[0].shape[0], li2.shape[0]
+    li, ri, passed = args[:3]
+
+    def library():
+        idx = torch.nonzero(passed).squeeze(1)
+        return li.index_select(0, idx), ri.index_select(0, idx)
+    # the candidates and the mask read, the flags written, the maps written
+    nbytes = 9 * n + 2 * (Q72_STREAM + Q72_BUILD) + 8 * count
+    line = {"kernel": "conditional_join_maps", "shape": "q72_inventory",
+            "candidates": n, "passed": count, **measure(
+                lambda: JK.conditional_join_maps(*args, "inner"),
+                lambda: JK.conditional_join_maps_plain(*args, "inner"),
+                library, nbytes)}
+    emit(line)
+    summary["conditional_join_maps"] = summarize(line, nbytes)
+    del args, li, ri, passed, li2, ri2
+
+
+def check_left_join(rng, dev, summary) -> None:
+    promo = DeviceColumn.from_numpy(np.arange(1, 301, dtype=np.int32), T.INT,
+                                    None, dev)
+    empty = DeviceColumn.from_numpy(np.zeros(0, np.int32), T.INT, None, dev)
+    for n in (N, RAGGED):
+        keys = DeviceColumn.from_numpy(
+            rng.randint(1, 400, n).astype(np.int32), T.INT,
+            rng.rand(n) >= 0.15, dev)
+        hold_join(keys, promo, f"n={n} against promotion's 300 keys, "
+                  "15% null", "left")
+        hold_join(keys, key_column(rng, 50_000, T.INT, 600, dev),
+                  f"n={n} against 50,000 keys with duplicates", "left")
+        hold_join(key_column(rng, n, T.DOUBLE, 1_000, dev),
+                  key_column(rng, 5_000, T.DOUBLE, 1_000, dev),
+                  f"n={n} double keys with -0.0 and NaN", "left")
+        hold_join(keys, empty, f"n={n} against an empty build", "left")
+    stream = DeviceColumn.from_numpy(
+        rng.randint(1, 301, Q72_LEFT_ROWS).astype(np.int32), T.INT,
+        rng.rand(Q72_LEFT_ROWS) >= 0.15, dev)
+    build, (lo, off, total) = hold_join(stream, promo,
+                                        "q72's promotion join", "left")
+    sorted_keys = (build.keys ^ JK._SIGN64)[:int(build.key_valid.sum())]
+    probe_keys = JK.order_keys_plain(stream) ^ JK._SIGN64
+    n, nb = Q72_LEFT_ROWS, promo.num_rows
+    steps = nb.bit_length()
+    nbytes, ops = 5 * n + 16 * n + 9 * nb, 2 * steps * 4 * n
+    line = {"kernel": "join_probe_left", "shape": "q72_promotion", "n": n,
+            "build": nb, "pairs": total, **measure(
+                lambda: JK.join_probe(build_batch(stream), 0, build, "left"),
+                lambda: JK.probe_plain(stream, build, left=True),
+                lambda: (torch.searchsorted(sorted_keys, probe_keys),
+                         torch.searchsorted(sorted_keys, probe_keys,
+                                            right=True)),
+                nbytes, ops)}
+    emit(line)
+    summary["join_probe_left"] = summarize(line, nbytes, ops)
+
+
+def returns_like(rng, item, order, n: int, dev, null_frac=0.0):
+    """n catalog_returns keys, 60% copied from the given sales' (item,
+    order) pairs, as the generator draws them."""
+    take = rng.rand(n) < 0.6
+    src = rng.randint(0, len(item), n)
+    ri = np.where(take, item[src], 1 + rng.randint(0, ITEM_ROWS, n))
+    ro = np.where(take, order[src], 1 + rng.randint(0, 100_000, n))
+    valid = rng.rand(n) >= null_frac
+    return [DeviceColumn.from_numpy(v.astype(np.int32), T.INT, valid, dev)
+            for v in (ri, ro)]
+
+
+def check_left_multi_join(rng, dev, summary) -> None:
+    pool = string_pool(rng, 300, 20)
+    for n in (N, RAGGED):
+        item = 1 + rng.randint(0, ITEM_ROWS, n)
+        order = 1 + rng.randint(0, CS_ROWS // 3, n)
+        valid = rng.rand(n) >= 0.1
+        stream = [DeviceColumn.from_numpy(v.astype(np.int32), T.INT, valid,
+                                          dev) for v in (item, order)]
+        for nb in (7_200, 180_000):
+            hold_multi_join(stream, returns_like(rng, item, order, nb,
+                                                 dev, 0.05),
+                            f"n={n} (int32, int32) against {nb} rows",
+                            "left")
+        d = 300
+        sstr = [multi_column(rng, n, k, d, dev, pool=pool)
+                for k in ("int", "string")]
+        bstr = [multi_column(rng, 20_000, k, d, dev, pool=pool[:100])
+                for k in ("int", "string")]
+        hold_multi_join(sstr, bstr, f"n={n} (int, string) with nulls",
+                        "left")
+        for cols, label in ((stream, "(int32, int32)"),
+                            (sstr, "(int, string)")):
+            empty = [DeviceColumn.from_numpy(np.zeros(0, np.int32), T.INT,
+                                             None, dev)
+                     if not c.is_string else DeviceColumn.from_strings([], dev)
+                     for c in cols]
+            build, (lo, off, total) = hold_multi_join(
+                cols, empty, f"n={n} {label} against an empty build", "left")
+            require(total == n, f"an empty build gave {total} rows, not {n}")
+    # q72's shape: a partition's ~140 filtered sales against its ~7,200
+    # catalog_returns rows
+    item = 1 + rng.randint(0, ITEM_ROWS, Q72_LEFT_ROWS)
+    order = 1 + rng.randint(0, CS_ROWS // 3, Q72_LEFT_ROWS)
+    scols = [DeviceColumn.from_numpy(v.astype(np.int32), T.INT, None, dev)
+             for v in (item, order)]
+    bcols = returns_like(rng, item, order, 7_200, dev)
+    build, (lo, off, total) = hold_multi_join(scols, bcols,
+                                              "q72's returns join", "left")
+    sb = keys_batch(scols)
+    n, nb, nw = Q72_LEFT_ROWS, build.num_rows, build.keys.shape[1]
+    (sa, _), (sb_, _) = (c.to_numpy() for c in scols)
+    (ba, _), (bb, _) = (c.to_numpy() for c in bcols)
+    lib_probe = torch.from_numpy(
+        (sa.astype(np.int64) << 32) | sb_.astype(np.int64)).to(dev)
+    lib_build = torch.from_numpy(np.sort(
+        (ba.astype(np.int64) << 32) | bb.astype(np.int64))).to(dev)
+    steps = max(nb, 1).bit_length()
+    nbytes = 8 * nw * n + 16 * n + (8 * nw + 1) * nb
+    ops = 2 * steps * 2 * nw * n
+    line = {"kernel": "join_multi_probe_left", "shape": "q72_returns",
+            "n": n, "build": nb, "words": nw, "pairs": total, **measure(
+                lambda: JK.join_probe(sb, [0, 1], build, "left"),
+                lambda: JK.probe_multi_plain(
+                    *JK.key_words_plain(scols, build.chunks), build,
+                    left=True),
+                lambda: (torch.searchsorted(lib_build, lib_probe),
+                         torch.searchsorted(lib_build, lib_probe,
+                                            right=True)),
+                nbytes, ops)}
+    emit(line)
+    summary["join_multi_probe_left"] = summarize(line, nbytes, ops)
+
+
+def hold_null_extend(cols, ix: torch.Tensor, what: str) -> None:
+    got = S.gather_columns(cols, ix, null_extend=True)
+    want = S.gather_columns_plain(cols, ix)
+    pairs = []
+    for g, w in zip(got, want, strict=True):
+        pairs += (string_pairs(g, w) if g.is_string
+                  else [(g.data, w.data), (g.validity, w.validity)])
+    hold("gather_null_extend", pairs, what)
+    missing = (ix < 0) | (ix >= cols[0].num_rows)
+    for g in got:
+        require(not bool(g.validity[missing].any()),
+                f"gather_null_extend: a -1 row is not null: {what}")
+
+
+def check_null_extend(rng, dev, summary) -> None:
+    for n in (N, RAGGED):
+        strings = with_edges(string_column(rng, 200_000, dev, lo=0, hi=40),
+                             dev)
+        m = strings.num_rows
+        src = [random_column(rng, m, T.INT, 0.1, dev),
+               random_column(rng, m, T.DOUBLE, 0.1, dev), strings]
+        ix = rng.randint(0, m, n).astype(np.int32)
+        ix[rng.rand(n) < 0.3] = -1
+        ix = torch.from_numpy(ix).to(dev)
+        hold_null_extend(src, ix, f"n={n}, 30% -1 indices")
+        empty = [S.gather_columns_plain([c], ix[:0])[0] for c in src]
+        hold_null_extend(empty, torch.full((n,), -1, dtype=torch.int32,
+                                           device=dev),
+                         f"n={n} from an empty source")
+    # q72's shape: the returns join's right columns (the two keys) for a
+    # partition's ~140 rows, about 60% without a return
+    cols = [random_column(rng, 7_200, T.INT, 0.0, dev) for _ in range(2)]
+    ix = rng.randint(0, 7_200, Q72_LEFT_ROWS).astype(np.int32)
+    ix[rng.rand(Q72_LEFT_ROWS) < 0.6] = -1
+    ix = torch.from_numpy(ix).to(dev)
+    hold_null_extend(cols, ix, "q72's returns join")
+    nbytes = gather_bytes(cols, ix.clamp(min=0))
+
+    def library():
+        safe = ix.clamp(min=0).long()
+        return [c.data.index_select(0, safe) for c in cols]
+    line = {"kernel": "gather_null_extend", "shape": "q72_returns",
+            "n": Q72_LEFT_ROWS, **measure(
+                lambda: S.gather_columns(cols, ix, null_extend=True),
+                lambda: S.gather_columns_plain(cols, ix), library, nbytes)}
+    emit(line)
+    summary["gather_null_extend"] = summarize(line, nbytes)
+
+
 def phase_kernels(dev, tables) -> dict:
     # the profiler itself must see the card
     device_profile(lambda: torch.ones(8, device=dev) + 1)
@@ -1353,6 +1664,10 @@ def phase_kernels(dev, tables) -> dict:
     check_string_rows_equal(rng, dev, q3, summary)
     check_join(rng, dev, q3, summary)
     check_multi_join(rng, dev, summary)
+    check_conditional_join(rng, dev, summary)
+    check_left_join(rng, dev, summary)
+    check_left_multi_join(rng, dev, summary)
+    check_null_extend(rng, dev, summary)
     torch.cuda.synchronize()
     for name in KERNELS:
         summary[name]["max_abs_err"] = ERRS[name]
@@ -1438,7 +1753,10 @@ def run_path(name: str, query, df, kernels) -> tuple:
 
 def time_path(name: str, query, df, rows: int = SF10_ROWS) -> dict:
     """Median wall of 3 runs after the main-path run, then one profiled
-    run: the card's busy time and idle share; ``rows`` scanned per run."""
+    run: the card's busy time and idle share; ``rows`` scanned per run;
+    the peak memory the runs allocate above what was resident before."""
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     walls = []
     for _ in range(3):
@@ -1456,7 +1774,10 @@ def time_path(name: str, query, df, rows: int = SF10_ROWS) -> dict:
           "top_device_ms": top})
     return {"wall_s": wall, "wall_s_runs": walls,
             "rows_per_s": rows / wall, "device_busy_ms": busy_ms,
-            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "resident_bytes": resident,
+            "peak_above_resident_bytes":
+                torch.cuda.max_memory_allocated() - resident}
 
 
 def phase_q6(df, ref) -> dict:
@@ -1684,9 +2005,12 @@ class Q25Numpy:
         return rows, len(keys)
 
 
-def phase_q25_data(dev, q3_dfs, ss_pool, ref: "Q25Numpy", tables):
+def phase_q25_data(dev, q3_dfs, ss_pool, ref: "Q25Numpy", tables,
+                   q72_ref: "Q72Numpy"):
     """store_returns and catalog_sales on the card, drawn from the pools;
-    the dataframes of q25; the numpy result."""
+    the dataframes of q25; the numpy result; on the way, q72's sales
+    (``q72_ref``) and the (item, order) pool catalog_returns draws from,
+    with the catalog_sales batches q72 reuses."""
     t0 = time.perf_counter()
     sr_batches, sr_chunks = [], []
     for data, validity in tpcds.iter_store_returns(
@@ -1696,11 +2020,13 @@ def phase_q25_data(dev, q3_dfs, ss_pool, ref: "Q25Numpy", tables):
         sr_batches.append(tpcds.fact_batch(data, validity,
                                            tpcds.STORE_RETURNS_SCHEMA, dev))
     sr_pool = tpcds.host_pool(sr_chunks, SR_POOL)
-    cs_batches = []
+    cs_batches, order_chunks = [], []
     for data, validity in tpcds.iter_catalog_sales(
             CS_ROWS, ITEM_ROWS, pair_pool=sr_pool, match_frac=0.7,
             batch_rows=N):
         ref.add_catalog_sales(data)
+        q72_ref.add_catalog_sales(data, validity)
+        order_chunks.append(({n: data[n] for n in CS_ORDER_POOL}, {}))
         cs_batches.append(tpcds.fact_batch(data, validity,
                                            tpcds.CATALOG_SALES_SCHEMA, dev))
     store = tpcds.gen_store(dev)
@@ -1724,7 +2050,8 @@ def phase_q25_data(dev, q3_dfs, ss_pool, ref: "Q25Numpy", tables):
                                store.column("s_store_name").to_pylist()))}
     return dfs, [(names["item_id"][it - 1], names["item_desc"][it - 1],
                   *names["store"][st - 1], s1, s2, s3)
-                 for it, st, s1, s2, s3 in want]
+                 for it, st, s1, s2, s3 in want], cs_batches, \
+        tpcds.host_pool(order_chunks, CS_ORDER_POOL)
 
 
 def plan_nodes(node, seen=None):
@@ -1806,6 +2133,254 @@ def phase_q25(dfs, want) -> dict:
     return launches
 
 
+# -- phase 9 ------------------------------------------------------------------
+
+Q72_CONF = {"spark.sql.shuffle.partitions": "200",
+            "spark.rapids.sql.adaptive.coalescePartitions.enabled": "false"}
+Q72_PARTITIONS = 200
+Q72_KERNELS = ("compaction_map", "gather", "gather_strings", "concat",
+               "murmur3", "hash_string", "partition", "sort",
+               "string_sort_keys", "string_rows_equal_prev",
+               "segmented_sum", "join_build", "join_probe", "join_expand",
+               "join_multi_build", "conditional_join_maps",
+               "join_probe_left", "join_multi_probe_left",
+               "gather_null_extend")
+INV_ROWS = tpcds.SF10_INVENTORY_ROWS
+CR_ROWS = tpcds.SF10_CATALOG_RETURNS_ROWS
+WAREHOUSES = tpcds.SF10_WAREHOUSE_ROWS
+CS_ORDER_POOL = ["cs_item_sk", "cs_order_number"]
+
+
+def q72_dims():
+    """q72's small dimension tables on the host, cut as the generators'
+    key ranges force: warehouse 10 rows (SF10's count), promotion 300
+    (SF10: 500), customer_demographics 1,000 (SF10: 1,920,800),
+    household_demographics 100 (SF10: 7,200)."""
+    return {"warehouse": tpcds.gen_warehouse("cpu", WAREHOUSES),
+            "promo": tpcds.gen_promotion("cpu"),
+            "cd": tpcds.gen_customer_demographics("cpu"),
+            "hd": tpcds.gen_household_demographics("cpu")}
+
+
+def lookup(batch: ColumnarBatch, key: str, value: str) -> dict:
+    return dict(zip(batch.column(key).to_pylist(),
+                    batch.column(value).to_pylist()))
+
+
+class Q72Numpy:
+    """Independent q72 over host arrays.  The inner joins commute with the
+    filters, so each sale is kept only where its sale date is in 1999, its
+    ship date more than 5 days later, its customer demographics 'D' and
+    its household '>10000' (each looked up in its dimension table); the
+    inventory rows only where their week holds a 1999 day.  The
+    inventory join then pairs (item, week) through packed int64 keys, sort
+    and searchsorted, and keeps on hand < quantity; the promotion left
+    join is a lookup, the returns left join a count per (item, order)
+    (a sale with k returns is k rows, with none one row); the groups are
+    (item, warehouse, week), which decide q72's three group keys."""
+
+    def __init__(self, date: ColumnarBatch, item: ColumnarBatch, dims):
+        self.year = date.column("d_year").to_numpy()[0]
+        self.week = date.column("d_week_seq").to_numpy()[0]
+        self.ord = date.column("d_date_ord").to_numpy()[0]
+        self.weeks = np.unique(self.week[self.year == 1999])
+        self.item_desc = lookup(item, "i_item_sk", "i_item_desc")
+        self.wh_name = lookup(dims["warehouse"], "w_warehouse_sk",
+                              "w_warehouse_name")
+        self.cd_ok = self._flags(lookup(dims["cd"], "cd_demo_sk",
+                                        "cd_marital_status"), "D")
+        self.hd_ok = self._flags(lookup(dims["hd"], "hd_demo_sk",
+                                        "hd_buy_potential"), ">10000")
+        promo = dims["promo"].column("p_promo_sk").to_numpy()[0]
+        self.promo = np.zeros(int(promo.max()) + 1, bool)
+        self.promo[promo] = True
+        self.sales, self.inv, self.returns = [], [], []
+
+    @staticmethod
+    def _flags(values: dict, want: str) -> np.ndarray:
+        out = np.zeros(max(values) + 1, bool)
+        for k, v in values.items():
+            out[k] = v == want
+        return out
+
+    def _date(self, sk):
+        i = sk.astype(np.int64) - 2450000
+        ok = (i >= 0) & (i < len(self.year))
+        return ok, np.where(ok, i, 0)
+
+    @staticmethod
+    def _in(flags, keys, valid=None):
+        ok = (keys >= 0) & (keys < len(flags))
+        ok &= flags[np.where(ok, keys, 0)]
+        return ok if valid is None else ok & valid
+
+    def add_catalog_sales(self, data, validity) -> None:
+        sold_ok, sold = self._date(data["cs_sold_date_sk"])
+        ship_ok, ship = self._date(data["cs_ship_date_sk"])
+        ok = sold_ok & ship_ok & (self.year[sold] == 1999)
+        ok &= self.ord[ship] > self.ord[sold] + 5
+        ok &= self._in(self.cd_ok, data["cs_bill_cdemo_sk"])
+        ok &= self._in(self.hd_ok, data["cs_bill_hdemo_sk"])
+        promo = self._in(self.promo, data["cs_promo_sk"],
+                         validity.get("cs_promo_sk"))
+        self.sales.append({
+            "item": data["cs_item_sk"][ok],
+            "order": data["cs_order_number"][ok],
+            "qty": data["cs_quantity"][ok], "week": self.week[sold[ok]],
+            "promo": promo[ok]})
+
+    def add_inventory(self, data) -> None:
+        ok, day = self._date(data["inv_date_sk"])
+        week = self.week[day]
+        ok &= np.isin(week, self.weeks)
+        self.inv.append({"item": data["inv_item_sk"][ok], "week": week[ok],
+                         "wh": data["inv_warehouse_sk"][ok],
+                         "on_hand": data["inv_quantity_on_hand"][ok]})
+
+    def add_catalog_returns(self, data) -> None:
+        self.returns.append(Q25Numpy._pack(data["cr_item_sk"],
+                                           data["cr_order_number"]))
+
+    def result(self, limit: int = 100):
+        """(the first ``limit`` rows in q72's order, the groups, the
+        inventory join's rows)."""
+        s, v = Q25Numpy._cat(self.sales), Q25Numpy._cat(self.inv)
+        li, ri = Q25Numpy._join(Q25Numpy._pack(s["item"], s["week"]),
+                                Q25Numpy._pack(v["item"], v["week"]))
+        keep = v["on_hand"][ri] < s["qty"][li]
+        li, ri = li[keep], ri[keep]
+        ret = np.sort(np.concatenate(self.returns))
+        sk = Q25Numpy._pack(s["item"][li], s["order"][li])
+        mult = np.maximum(np.searchsorted(ret, sk, "right")
+                          - np.searchsorted(ret, sk, "left"), 1)
+        wh_ok = np.isin(v["wh"][ri], list(self.wh_name))
+        item_ok = np.isin(s["item"][li], list(self.item_desc))
+        li, ri, mult = li[wh_ok & item_ok], ri[wh_ok & item_ok], \
+            mult[wh_ok & item_ok]
+        group = ((s["item"][li].astype(np.int64) << 24)
+                 | (v["wh"][ri].astype(np.int64) << 12)
+                 | s["week"][li].astype(np.int64))
+        keys, inv = np.unique(group, return_inverse=True)
+        total = np.bincount(inv, mult, len(keys)).astype(np.int64)
+        promo = np.bincount(inv, mult * s["promo"][li],
+                            len(keys)).astype(np.int64)
+        rows = [(self.item_desc[int(k >> 24)],
+                 self.wh_name[int((k >> 12) & 0xFFF)], int(k & 0xFFF),
+                 int(t - p), int(p), int(t))
+                for k, t, p in zip(keys, total, promo)]
+        rows.sort(key=lambda r: (-r[5], r[0], r[1], r[2]))
+        return rows[:limit], len(keys), len(li)
+
+
+def phase_q72_data(dev, cs_batches, order_pool, ref: "Q72Numpy", dims,
+                   q3_dfs):
+    """inventory and catalog_returns on the card; the dataframes of q72,
+    in a session of 200 shuffle partitions with the coalesced reader off;
+    the numpy result."""
+    t0 = time.perf_counter()
+    inv_batches = []
+    for data, _ in tpcds.iter_inventory(INV_ROWS, ITEM_ROWS, WAREHOUSES,
+                                        batch_rows=N):
+        ref.add_inventory(data)
+        inv_batches.append(tpcds.fact_batch(data, {}, tpcds.INVENTORY_SCHEMA,
+                                            dev))
+    cr_batches = []
+    for data, validity in tpcds.iter_catalog_returns(
+            CR_ROWS, ITEM_ROWS, order_pool=order_pool, match_frac=0.6,
+            batch_rows=N):
+        ref.add_catalog_returns(data)
+        cr_batches.append(tpcds.fact_batch(
+            data, validity, tpcds.CATALOG_RETURNS_SCHEMA, dev))
+    torch.cuda.synchronize()
+    want, groups, pairs = ref.result()
+    resident = sum(t.nbytes for b in inv_batches + cr_batches
+                   for c in b.columns for t in (c.data, c.validity))
+    emit({"phase": "q72_data", "inventory_rows": INV_ROWS,
+          "inventory_batches": len(inv_batches),
+          "catalog_returns_rows": CR_ROWS,
+          "dims": {k: b.num_rows for k, b in dims.items()},
+          "resident_bytes_added": resident, "numpy_q72_groups": groups,
+          "numpy_inventory_join_rows": pairs,
+          "setup_seconds": time.perf_counter() - t0})
+    sess = GpuSession(Q72_CONF)
+    _, dd_df, item_df = q3_dfs
+    one = lambda b: sess.create_dataframe([to_device(b, dev)])  # noqa: E731
+    dfs = (sess.create_dataframe(cs_batches, num_partitions=4),
+           sess.create_dataframe(inv_batches, num_partitions=4),
+           one(dims["warehouse"]), item_df, one(dims["cd"]), one(dims["hd"]),
+           dd_df, one(dims["promo"]),
+           sess.create_dataframe(cr_batches, num_partitions=4))
+    return dfs, want
+
+
+def check_q72_plan(plan) -> dict:
+    """The inventory join is a shuffled join with the condition that took
+    the streamed probe in all 200 partitions; the returns join went
+    shuffled as a left join; promotion broadcasts as a left join."""
+    nodes = list(plan_nodes(plan))
+
+    def right(n):
+        return n.children[1].schema.names
+
+    inv = [n for n in nodes if isinstance(n, GpuShuffledHashJoinExec)
+           and "inv_item_sk" in right(n)]
+    require(len(inv) == 1 and inv[0].condition is not None,
+            "the inventory join is not one shuffled join with a condition")
+    inv = inv[0]
+    require(inv.branches == {"streamed": Q72_PARTITIONS},
+            f"the inventory join's branches: {dict(inv.branches)}")
+    cr = [n for n in nodes if isinstance(n, GpuAdaptiveJoinExec)
+          and "cr_item_sk" in right(n)]
+    require(len(cr) == 1 and cr[0].chosen == "shuffled"
+            and cr[0].join_type == "left"
+            and isinstance(cr[0].inner, GpuShuffledHashJoinExec)
+            and cr[0].inner.join_type == "left",
+            "the catalog_returns join did not go shuffled as a left join")
+    promo = [n for n in nodes if isinstance(n, GpuBroadcastHashJoinExec)
+             and "p_promo_sk" in right(n)]
+    require(len(promo) == 1 and promo[0].join_type == "left",
+            "the promotion join is not a broadcast left join")
+    return {"inventory_join": {
+                "partitions": inv.branches["streamed"],
+                "largest_build_rows": inv.largest_build_rows,
+                "target_rows": inv.target_rows,
+                "condition": repr(inv.condition),
+                "output_rows": inv.output_rows.value},
+            "returns_join": {"chosen": cr[0].chosen,
+                             "largest_build_rows":
+                                 cr[0].inner.largest_build_rows,
+                             "branches": dict(cr[0].inner.branches)}}
+
+
+def check_q72_rows(rows, want) -> None:
+    require(len(rows) == len(want) == 100,
+            f"q72 gave {len(rows)} rows, numpy {len(want)}")
+    for g, w in zip(rows, want):
+        require(tuple(g) == w, f"q72 row {g} where numpy has {w}")
+
+
+def phase_q72(dfs, want) -> dict:
+    query = lambda _: tpcds.q72(*dfs)  # noqa: E731
+    _lib.reset_launch_counts()
+    plan = query(None).physical_plan()
+    t = time.perf_counter()
+    rows = GpuEngine().collect(plan)
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t
+    launches = dict(_lib.LAUNCHES)
+    emit({"phase": "q72_launches", "launches": launches})
+    for k in Q72_KERNELS:
+        require(launches.get(k, 0) > 0, f"q72 never launched {k}")
+    emit({"phase": "q72_plan", "first_run_s": first_wall,
+          **check_q72_plan(plan)})
+    check_q72_rows(rows, want)
+    scanned = CS_ROWS + INV_ROWS + CR_ROWS
+    timing = time_path("q72", query, None, scanned)
+    emit({"phase": "q72", "fact_rows": scanned, "rows": len(rows),
+          "first_rows": rows[:3], **timing})
+    return launches
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -1817,8 +2392,13 @@ def main() -> None:
     q25_ref = Q25Numpy(tables[2])
     q3_dfs, q3_want, ss_pool = phase_q3_data(dev, tables, q25_ref)
     by_path["q3"] = phase_q3(q3_dfs, q3_want)
-    by_path["q25"] = phase_q25(*phase_q25_data(dev, q3_dfs, ss_pool, q25_ref,
-                                               tables))
+    dims = q72_dims()
+    q72_ref = Q72Numpy(tables[0], tables[1], dims)
+    q25_dfs, q25_want, cs_batches, order_pool = phase_q25_data(
+        dev, q3_dfs, ss_pool, q25_ref, tables, q72_ref)
+    by_path["q25"] = phase_q25(q25_dfs, q25_want)
+    by_path["q72"] = phase_q72(*phase_q72_data(
+        dev, cs_batches, order_pool, q72_ref, dims, q3_dfs))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         s = summary[name]

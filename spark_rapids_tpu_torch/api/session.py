@@ -3,8 +3,9 @@
 Counterpart of ``spark_rapids_tpu/api/session.py`` (``TpuSession`` :95,
 ``create_dataframe`` :129, ``GroupedData`` :368, ``DataFrame`` :583,
 ``group_by`` :685, ``order_by`` :692, ``limit`` :704, ``join`` :744,
-``collect`` :767), cut to the q6, q1, q3 and q25 surface: filter, select,
-agg, group_by(...).agg, join, order_by, limit, collect and count.
+``collect`` :767), cut to the q6, q1, q3, q25 and q72 surface: filter,
+select, agg, group_by(...).agg, join (inner and left, with a residual
+condition), order_by, limit, collect and count.
 
 A session runs on the card unless the caller names another device:
 ``GpuSession(device=None)`` takes ``cuda`` and raises where there is none.
@@ -150,8 +151,9 @@ class DataFrame:
     def join(self, other: "DataFrame", on=None, how: str = "inner",
              condition=None) -> "DataFrame":
         """Equi-join on ``on``: a column name, a list of names common to
-        both sides, or a (left keys, right keys) pair of expression
-        lists.  Only the inner join runs."""
+        both sides, or a (left keys, right keys) pair of expression lists;
+        ``condition``, a residual predicate over the left columns and the
+        right ones.  The inner and the left join run."""
         if on is None:
             lkeys, rkeys = [], []
         elif isinstance(on, str):

@@ -1,13 +1,21 @@
-// Inner equi-join of the port, on one fixed-width key or on several keys
-// (strings among them): a sorted build side, a binary-search probe and
-// the expansion into gather maps.  Built for sm_90a by kernels/_lib.py and
+// Equi-join of the port, inner and left, on one fixed-width key or on
+// several keys (strings among them): a sorted build side, a binary-search
+// probe and the expansion into gather maps; and the final maps of a join
+// with a residual condition.  Built for sm_90a by kernels/_lib.py and
 // called through ctypes from kernels/join.py.  Every entry point launches
 // on the caller's stream, allocates nothing, and returns the cudaError_t of
 // its launches.
 //
 // <- spark_rapids_tpu/kernels/join.py:154 _probe_single, :226
 //    _expand_single, :275 _probe_multi, :420 _expand_multi (behind
-//    join_probe :457, join_expand :484, join_gather_maps :496)
+//    join_probe :457, join_expand :484, join_gather_maps :496), their left
+//    branches (:203-206, :237-246; :395), and :44 conditional_join_maps
+//
+// Left join.  Under the left flag a probe writes max(matches, 1) as a
+// stream row's count, so a row with no match (a null key included) gets
+// one output row, and writes lo = -1 for it; the shared expand writes
+// ri = -1 where lo < 0, which the gather turns into a null row.  The
+// inner probe never writes a negative lo.
 //
 // Keys.  Every key becomes the order-preserving uint64 of csrc/sort.cu:
 // integers (int, date, long, Decimal64) sign-extend to 64 bits and flip
@@ -65,6 +73,8 @@
 //   once.
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <cub/block/block_reduce.cuh>
+#include <cub/block/block_scan.cuh>
 
 #include "scan.cuh"
 #include "strings.cuh"
@@ -130,17 +140,30 @@ join_build_keys_kernel(const void* __restrict__ data,
   keys[i] = v ? order_key(data, kind, r) : 0ull;
 }
 
+// A stream row's (first match, count): under the left flag a row with no
+// match gets (-1, 1), one null-extended output row.
+__device__ __forceinline__ void write_match(int64_t r, int64_t first,
+                                            int64_t matches, int left,
+                                            int32_t* lo_out, int32_t* count) {
+  if (left && matches == 0) {
+    lo_out[r] = -1;
+    count[r] = 1;
+    return;
+  }
+  lo_out[r] = static_cast<int32_t>(first);
+  count[r] = static_cast<int32_t>(matches);
+}
+
 __global__ void __launch_bounds__(kThreads)
 join_probe_kernel(const void* __restrict__ data,
                   const uint8_t* __restrict__ valid, int kind, int64_t n,
                   const uint64_t* __restrict__ keys,
-                  const uint8_t* __restrict__ key_valid, int64_t nb,
+                  const uint8_t* __restrict__ key_valid, int64_t nb, int left,
                   int32_t* __restrict__ lo_out, int32_t* __restrict__ count) {
   const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (r >= n) return;
   if (valid[r] == 0) {     // a null key matches nothing
-    lo_out[r] = 0;
-    count[r] = 0;
+    write_match(r, 0, 0, left, lo_out, count);
     return;
   }
   const uint64_t k = order_key(data, kind, r);
@@ -157,8 +180,7 @@ join_probe_kernel(const void* __restrict__ data,
     const int64_t mid = lo + (hi - lo) / 2;
     if (key_valid[mid] != 0 && keys[mid] <= k) lo = mid + 1; else hi = mid;
   }
-  lo_out[r] = static_cast<int32_t>(first);
-  count[r] = static_cast<int32_t>(lo - first);
+  write_match(r, first, lo - first, left, lo_out, count);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -171,6 +193,11 @@ join_expand_kernel(const int32_t* __restrict__ lo,
   const int32_t base = offsets[r];
   const int32_t m = offsets[r + 1] - base;
   const int32_t first = lo[r];
+  if (first < 0) {   // a left join's row with no match: null-extended
+    li[base] = static_cast<int32_t>(r);
+    ri[base] = -1;
+    return;
+  }
   for (int32_t j = 0; j < m; ++j) {
     li[base + j] = static_cast<int32_t>(r);
     ri[base + j] = perm[first + j];
@@ -220,13 +247,12 @@ join_multi_probe_kernel(const uint64_t* __restrict__ swords,
                         const uint8_t* __restrict__ svalid, int64_t n,
                         const uint64_t* __restrict__ bwords,
                         const uint8_t* __restrict__ bvalid, int64_t nb,
-                        int nwords, int32_t* __restrict__ lo_out,
+                        int nwords, int left, int32_t* __restrict__ lo_out,
                         int32_t* __restrict__ count) {
   const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (r >= n) return;
   if (svalid[r] == 0) {     // a null in any key matches nothing
-    lo_out[r] = 0;
-    count[r] = 0;
+    write_match(r, 0, 0, left, lo_out, count);
     return;
   }
   const uint64_t* s = swords + r * nwords;
@@ -251,8 +277,156 @@ join_multi_probe_kernel(const uint64_t* __restrict__ swords,
     else
       hi = mid;
   }
-  lo_out[r] = static_cast<int32_t>(first);
-  count[r] = static_cast<int32_t>(lo - first);
+  write_match(r, first, lo - first, left, lo_out, count);
+}
+
+// Conditional join maps.  Three segments of candidates make the output,
+// in its order: 0, the candidate pairs (a pair is selected where it
+// passed the condition); 1, the left rows (selected where live and, by
+// join type, unmatched, matched or either); 2, the right rows (live and
+// unmatched).  A join type turns segments on or off (inner: 0; left: 0
+// and 1; right: 0 and 2; full: all; semi, anti and existence: 1 alone).
+// cond_mark_kernel first stores a byte flag for every row a passing pair
+// touches, lmatched and rmatched (many threads may store the same 1: no
+// atomics are needed).  Then the compaction of csrc/selection.cu runs over
+// the segments laid end to end as tiles of kCjTile elements: a count per
+// tile, the exclusive scan of csrc/scan.cuh over all tiles, whose offsets
+// are then the output positions themselves and whose total the wrapper
+// reads back once, and a scatter in which each tile ranks its selected
+// elements with cub::BlockScan and writes (li, ri) directly: the pair, or
+// (row, -1), or (-1, row).  Deterministic and stable: the output order is
+// the reference's (passing pairs in candidate order, then the unmatched
+// left rows in row order, then the unmatched right rows).
+//   Bound: bytes: the pass mask, li and ri read once, lmatched and
+//   rmatched written, the live flags read, 8 bytes per output row written.
+constexpr int kCjThreads = 256;
+constexpr int kCjItems = 8;
+constexpr int kCjTile = kCjThreads * kCjItems;
+
+struct CondSegs {
+  int64_t n[3];           // elements of each segment (0: segment off)
+  int64_t tile_base[4];   // first tile of each segment, then the total
+  const uint8_t* pass;
+  const int32_t* li;
+  const int32_t* ri;
+  const uint8_t* left_live;
+  const uint8_t* right_live;
+  const uint8_t* lmatched;
+  const uint8_t* rmatched;
+  int left_want;          // 0 unmatched left rows, 1 matched, -1 every one
+};
+
+__device__ __forceinline__ bool cond_selected(const CondSegs& s, int seg,
+                                              int64_t i) {
+  if (seg == 0) return s.pass[i] != 0;
+  if (seg == 1) {
+    return s.left_live[i] != 0 &&
+           (s.left_want < 0 || (s.lmatched[i] != 0) == (s.left_want == 1));
+  }
+  return s.right_live[i] != 0 && s.rmatched[i] == 0;
+}
+
+__device__ __forceinline__ int cond_segment(const CondSegs& s, int64_t t) {
+  return t < s.tile_base[1] ? 0 : (t < s.tile_base[2] ? 1 : 2);
+}
+
+__global__ void __launch_bounds__(kThreads)
+cond_mark_kernel(const uint8_t* __restrict__ pass,
+                 const int32_t* __restrict__ li,
+                 const int32_t* __restrict__ ri, int64_t npairs, int64_t nl,
+                 int64_t nr, uint8_t* __restrict__ lmatched,
+                 uint8_t* __restrict__ rmatched) {
+  const int64_t k = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (k >= npairs || pass[k] == 0) return;
+  const int32_t l = li[k], r = ri[k];
+  if (l >= 0 && l < nl) lmatched[l] = 1;
+  if (r >= 0 && r < nr) rmatched[r] = 1;
+}
+
+__global__ void __launch_bounds__(kCjThreads)
+cond_count_kernel(CondSegs s, int32_t* __restrict__ tile_counts) {
+  using Reduce = cub::BlockReduce<int, kCjThreads>;
+  __shared__ typename Reduce::TempStorage tmp;
+  const int64_t t = blockIdx.x;
+  const int seg = cond_segment(s, t);
+  const int64_t base = (t - s.tile_base[seg]) * kCjTile;
+  int c = 0;
+#pragma unroll
+  for (int i = 0; i < kCjItems; ++i) {
+    // striped: neighbouring threads read neighbouring bytes
+    const int64_t j = base + static_cast<int64_t>(i) * kCjThreads + threadIdx.x;
+    if (j < s.n[seg]) c += cond_selected(s, seg, j);
+  }
+  const int total = Reduce(tmp).Sum(c);
+  if (threadIdx.x == 0) tile_counts[t] = total;
+}
+
+__global__ void __launch_bounds__(kCjThreads)
+cond_scatter_kernel(CondSegs s, const int32_t* __restrict__ tile_offsets,
+                    int32_t* __restrict__ li_out,
+                    int32_t* __restrict__ ri_out) {
+  using Scan = cub::BlockScan<int, kCjThreads>;
+  __shared__ typename Scan::TempStorage tmp;
+  const int64_t t = blockIdx.x;
+  const int seg = cond_segment(s, t);
+  // blocked: thread u owns elements [u * items, (u + 1) * items) of the
+  // tile, so an exclusive scan of per-thread counts gives stable ranks
+  const int64_t base = (t - s.tile_base[seg]) * kCjTile +
+                       static_cast<int64_t>(threadIdx.x) * kCjItems;
+  bool keep[kCjItems];
+  int c = 0;
+#pragma unroll
+  for (int i = 0; i < kCjItems; ++i) {
+    const int64_t j = base + i;
+    keep[i] = j < s.n[seg] && cond_selected(s, seg, j);
+    c += keep[i];
+  }
+  int rank;
+  Scan(tmp).ExclusiveSum(c, rank);
+  int64_t pos = static_cast<int64_t>(tile_offsets[t]) + rank;
+#pragma unroll
+  for (int i = 0; i < kCjItems; ++i) {
+    if (!keep[i]) continue;
+    const int64_t j = base + i;
+    if (seg == 0) {
+      li_out[pos] = s.li[j];
+      ri_out[pos] = s.ri[j];
+    } else if (seg == 1) {
+      li_out[pos] = static_cast<int32_t>(j);
+      ri_out[pos] = -1;
+    } else {
+      li_out[pos] = -1;
+      ri_out[pos] = static_cast<int32_t>(j);
+    }
+    ++pos;
+  }
+}
+
+// The segments of a join type: bit 1 pairs, 2 left rows, 4 right rows.
+bool cond_segs(int segments, int left_want, const uint8_t* pass,
+               const int32_t* li, const int32_t* ri, int64_t npairs,
+               const uint8_t* left_live, int64_t nl, const uint8_t* right_live,
+               int64_t nr, const uint8_t* lmatched, const uint8_t* rmatched,
+               CondSegs* s) {
+  if (segments < 1 || segments > 7 || left_want < -1 || left_want > 1) {
+    return false;
+  }
+  s->n[0] = (segments & 1) ? npairs : 0;
+  s->n[1] = (segments & 2) ? nl : 0;
+  s->n[2] = (segments & 4) ? nr : 0;
+  s->tile_base[0] = 0;
+  for (int k = 0; k < 3; ++k) {
+    s->tile_base[k + 1] = s->tile_base[k] + (s->n[k] + kCjTile - 1) / kCjTile;
+  }
+  s->pass = pass;
+  s->li = li;
+  s->ri = ri;
+  s->left_live = left_live;
+  s->right_live = right_live;
+  s->lmatched = lmatched;
+  s->rmatched = rmatched;
+  s->left_want = left_want;
+  return true;
 }
 
 // The key columns from the ctypes arrays; false if one is out of range.
@@ -302,18 +476,19 @@ int srt_join_build_keys(int kind, const void* data, const uint8_t* valid,
 
 // For n stream rows against nb sorted build keys: lo[n], the first match,
 // and offsets[n + 1], the exclusive scan of the match counts (int32), with
-// total[0] (int64) the number of pairs.  tile_sums holds ceil(n /
-// srt_join_scan_tile()) int64, at least one.
+// total[0] (int64) the number of pairs; left != 0 gives a row with no
+// match one pair (lo = -1).  tile_sums holds ceil(n / srt_join_scan_tile())
+// int64, at least one.
 int srt_join_probe(int kind, const void* data, const uint8_t* valid,
                    int64_t n, const uint64_t* keys, const uint8_t* key_valid,
-                   int64_t nb, int32_t* lo, int32_t* offsets,
+                   int64_t nb, int left, int32_t* lo, int32_t* offsets,
                    int64_t* tile_sums, int64_t* total, cudaStream_t stream) {
   if (kind < kInt32 || kind > kBool) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {
     join_probe_kernel<<<grid_rows(n), kThreads, 0, stream>>>(
-        data, valid, kind, n, keys, key_valid, nb, lo, offsets);
+        data, valid, kind, n, keys, key_valid, nb, left, lo, offsets);
   }
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
@@ -357,27 +532,91 @@ int srt_join_key_words(int nkeys, const int* kinds, const int* nchunks,
 
 // For n stream rows (their key columns as above; swords[n * nwords] and
 // svalid[n] are scratch) against nb build word rows: lo[n], offsets[n + 1]
-// and total[0], as srt_join_probe gives them.
+// and total[0], as srt_join_probe gives them (left as there).
 int srt_join_multi_probe(int nkeys, const int* kinds, const int* nchunks,
                          const void* const* data, const void* const* valid,
                          const void* const* offsets, int64_t n, int nwords,
                          uint64_t* swords, uint8_t* svalid,
                          const uint64_t* bwords, const uint8_t* bvalid,
-                         int64_t nb, int32_t* lo, int32_t* offsets_out,
-                         int64_t* tile_sums, int64_t* total,
-                         cudaStream_t stream) {
+                         int64_t nb, int left, int32_t* lo,
+                         int32_t* offsets_out, int64_t* tile_sums,
+                         int64_t* total, cudaStream_t stream) {
   int err = srt_join_key_words(nkeys, kinds, nchunks, data, valid, offsets,
                                nullptr, n, nwords, swords, svalid, stream);
   if (err != 0) return err;
   if (n > 0) {
     join_multi_probe_kernel<<<grid_rows(n), kThreads, 0, stream>>>(
-        swords, svalid, n, bwords, bvalid, nb, nwords, lo, offsets_out);
+        swords, svalid, n, bwords, bvalid, nb, nwords, left, lo,
+        offsets_out);
   }
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   scan::ScanCols cols{};
   cols.v[0] = offsets_out;
   return scan::scan_columns(cols, 1, n, tile_sums, total, stream);
+}
+
+int srt_cond_join_tile() { return kCjTile; }
+
+// Step 1 of conditional_join_maps over npairs candidates (li, ri, pass)
+// against nl left and nr right rows: lmatched[nl] and rmatched[nr] (bool),
+// the rows a passing pair touches; then tile_counts[tiles + 1] (int32),
+// the output offset of every tile of the enabled segments, and total[0]
+// (int64), the output rows.  tiles is the sum over the enabled segments
+// of ceil(rows / srt_cond_join_tile()); tile_sums holds ceil(tiles /
+// srt_join_scan_tile()) int64, at least one.
+int srt_cond_join_count(int segments, int left_want, const uint8_t* pass,
+                        const int32_t* li, const int32_t* ri, int64_t npairs,
+                        const uint8_t* left_live, int64_t nl,
+                        const uint8_t* right_live, int64_t nr,
+                        uint8_t* lmatched, uint8_t* rmatched,
+                        int32_t* tile_counts, int64_t* tile_sums,
+                        int64_t* total, cudaStream_t stream) {
+  CondSegs s;
+  if (!cond_segs(segments, left_want, pass, li, ri, npairs, left_live, nl,
+                 right_live, nr, lmatched, rmatched, &s)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = cudaMemsetAsync(lmatched, 0, nl > 0 ? nl : 0, stream);
+  if (e == cudaSuccess) e = cudaMemsetAsync(rmatched, 0, nr > 0 ? nr : 0,
+                                            stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (npairs > 0) {
+    cond_mark_kernel<<<grid_rows(npairs), kThreads, 0, stream>>>(
+        pass, li, ri, npairs, nl, nr, lmatched, rmatched);
+  }
+  const int64_t tiles = s.tile_base[3];
+  if (tiles > 0) {
+    cond_count_kernel<<<static_cast<unsigned>(tiles), kCjThreads, 0,
+                        stream>>>(s, tile_counts);
+  }
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  scan::ScanCols cols{};
+  cols.v[0] = tile_counts;
+  return scan::scan_columns(cols, 1, tiles, tile_sums, total, stream);
+}
+
+// Step 2, after the wrapper has read total back: li_out[total] and
+// ri_out[total] (int32, -1 for the side a row null-extends).
+int srt_cond_join_scatter(int segments, int left_want, const uint8_t* pass,
+                          const int32_t* li, const int32_t* ri,
+                          int64_t npairs, const uint8_t* left_live,
+                          int64_t nl, const uint8_t* right_live, int64_t nr,
+                          const uint8_t* lmatched, const uint8_t* rmatched,
+                          const int32_t* tile_counts, int32_t* li_out,
+                          int32_t* ri_out, cudaStream_t stream) {
+  CondSegs s;
+  if (!cond_segs(segments, left_want, pass, li, ri, npairs, left_live, nl,
+                 right_live, nr, lmatched, rmatched, &s)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t tiles = s.tile_base[3];
+  if (tiles > 0) {
+    cond_scatter_kernel<<<static_cast<unsigned>(tiles), kCjThreads, 0,
+                          stream>>>(s, tile_counts, li_out, ri_out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -24,6 +24,10 @@
 //   map's rows are sorted, so neighbouring threads mostly hit neighbouring
 //   sectors at high selectivity and scattered ones at low).  An index out
 //   of [0, n_src) gives a null row with zero data, as at selection.py:110.
+//   That makes it the join's null-extending gather too (selection.py:308
+//   gather_batch_checked): a left join's -1 gives a null row, a string
+//   row of length 0 whose bytes are never read, and a source of no rows
+//   (an empty build) is never read at all.
 //
 // gather of string planes <- spark_rapids_tpu/kernels/selection.py:84
 //                gather_column, string branch :160-186

@@ -14,17 +14,21 @@ from spark_rapids_tpu_torch.expressions.arithmetic import (Add, Multiply,
 from spark_rapids_tpu_torch.expressions.predicates import (
     And,
     EqualTo,
+    GreaterThan,
     GreaterThanOrEqual,
+    IsNull,
     LessThan,
     LessThanOrEqual,
 )
 from spark_rapids_tpu_torch.expressions.casts import Cast
+from spark_rapids_tpu_torch.expressions.conditional import If
 from spark_rapids_tpu_torch.expressions.aggregates import (
     Average, Count, Sum, avg, count, sum_)
 
 __all__ = [
     "Add", "Alias", "And", "Average", "BoundReference", "Cast", "Col",
-    "Count", "EqualTo", "EvalContext", "Expression", "GreaterThanOrEqual", "LessThan",
-    "LessThanOrEqual", "Literal", "Multiply", "Subtract", "Sum", "avg",
-    "col", "count", "lit", "sum_",
+    "Count", "EqualTo", "EvalContext", "Expression", "GreaterThan",
+    "GreaterThanOrEqual", "If", "IsNull", "LessThan", "LessThanOrEqual",
+    "Literal", "Multiply", "Subtract", "Sum", "avg", "col", "count", "lit",
+    "sum_",
 ]

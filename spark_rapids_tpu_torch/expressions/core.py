@@ -98,6 +98,10 @@ class Expression:
             LessThanOrEqual)
         return self._bin(other, LessThanOrEqual)
 
+    def __gt__(self, other):
+        from spark_rapids_tpu_torch.expressions.predicates import GreaterThan
+        return self._bin(other, GreaterThan)
+
     def __ge__(self, other):
         from spark_rapids_tpu_torch.expressions.predicates import (
             GreaterThanOrEqual)
@@ -117,7 +121,6 @@ class Expression:
     __mod__ = _not_ported("%")
     __neg__ = _not_ported("unary -")
     __ne__ = _not_ported("!=")
-    __gt__ = _not_ported(">")
     __or__ = _not_ported("OR")
     __invert__ = _not_ported("NOT")
 
@@ -188,12 +191,15 @@ def _infer_literal_type(value) -> T.DataType:
         return T.INT if -(2**31) <= value < 2**31 else T.LONG
     if isinstance(value, float):
         return T.DOUBLE
+    if isinstance(value, str):
+        return T.STRING
     raise NotImplementedError(f"literal {value!r} of type "
                               f"{type(value).__name__} is not ported")
 
 
 class Literal(Expression):
-    """A non-null constant; a decimal literal is its unscaled int."""
+    """A non-null constant; a decimal literal is its unscaled int, a string
+    literal its UTF-8 bytes in every row."""
 
     def __init__(self, value, dtype: Optional[T.DataType] = None):
         if value is None:
@@ -207,6 +213,15 @@ class Literal(Expression):
 
     def eval(self, ctx: EvalContext) -> DeviceColumn:
         n, dev = ctx.num_rows, ctx.device
+        if self._dtype.variable_width:
+            raw = self.value.encode("utf-8")
+            if n * len(raw) >= 2**31:
+                raise ValueError("a string column holds < 2**31 bytes")
+            one = torch.tensor(list(raw), dtype=torch.uint8, device=dev)
+            return DeviceColumn(
+                one.repeat(n), torch.ones(n, dtype=torch.bool, device=dev),
+                self._dtype, torch.arange(n + 1, dtype=torch.int32,
+                                          device=dev) * len(raw))
         return DeviceColumn(
             torch.full((n,), self.value, dtype=self._dtype.torch_dtype,
                        device=dev),

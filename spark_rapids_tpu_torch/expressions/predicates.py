@@ -1,11 +1,18 @@
-"""Comparison and boolean predicates.
+"""Comparison and boolean predicates, and the null test.
 
 Counterpart of ``spark_rapids_tpu/expressions/predicates.py``
-(``EqualTo`` :160, ``LessThan`` :174, ``LessThanOrEqual`` :201,
-``GreaterThanOrEqual`` :213, ``And`` :262), numeric, date and Decimal64
-operands; a comparison of strings is not ported.  Spark semantics:
-NaN equals NaN and is larger than every other double; a comparison with a
-null operand is null; AND is three-valued (FALSE AND null = FALSE).
+(``EqualTo`` :160, ``LessThan`` :174, ``GreaterThan`` :190,
+``LessThanOrEqual`` :201, ``GreaterThanOrEqual`` :213, ``And`` :262,
+``IsNull`` :328), numeric, date, Decimal64 and string operands.  Spark
+semantics: NaN equals NaN and is larger than every other double; strings
+compare by their UTF-8 bytes (``UTF8String.binaryCompare``, a proper
+prefix first); a comparison with a null operand is null; AND is
+three-valued (FALSE AND null = FALSE); IS NULL is never null.
+
+Two strings compare as the reference's ``_string_cmp_rank`` (:423) does:
+through the sort's string keys (``kernels/sort.py`` ``string_sort_keys``,
+a kernel on the card) at the chunk count of the longer column, most
+significant chunk first, then the lengths.
 """
 from __future__ import annotations
 
@@ -13,7 +20,9 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expressions.core import (
-    BinaryExpression, EvalContext, make_column, null_propagating)
+    BinaryExpression, EvalContext, Expression, make_column, null_propagating)
+
+_SIGN64 = -2**63
 
 
 def _cmp_dtype(l: T.DataType, r: T.DataType) -> T.DataType:
@@ -34,7 +43,32 @@ def _rescale(unscaled, from_scale: int, to_scale: int):
     return unscaled * (10 ** (to_scale - from_scale))
 
 
+def string_rank(lc, rc) -> torch.Tensor:
+    """Per row, int8 0, 1 or 2 as string ``lc`` orders before, equal to or
+    after ``rc`` (a null row's rank is meaningless)."""
+    from spark_rapids_tpu_torch.kernels.sort import (string_longest,
+                                                     string_sort_keys)
+    longest = max(string_longest([lc, rc]))
+    lch, llen = string_sort_keys(lc, longest)
+    rch, rlen = string_sort_keys(rc, longest)
+    # the chunks are uint64 bits: flipping the sign bit makes the signed
+    # order the unsigned one
+    keys = [(a ^ _SIGN64, b ^ _SIGN64) for a, b in zip(lch, rch)]
+    keys.append((llen, rlen))
+    rank = torch.ones(lc.num_rows, dtype=torch.int8, device=lc.device)
+    decided = torch.zeros(lc.num_rows, dtype=torch.bool, device=lc.device)
+    for a, b in keys:
+        ne = (a != b) & ~decided
+        rank = torch.where(ne & (a < b), 0, rank)
+        rank = torch.where(ne & (a > b), 2, rank)
+        decided = decided | ne
+    return rank.to(torch.int8)
+
+
 class BinaryComparison(BinaryExpression):
+    #: the string ranks (0 less, 1 equal, 2 greater) that make it true
+    string_ranks: tuple = ()
+
     @property
     def dtype(self):
         return T.BOOLEAN
@@ -46,8 +80,16 @@ class BinaryComparison(BinaryExpression):
         lc = self.left.eval(ctx)
         rc = self.right.eval(ctx)
         if lc.is_string or rc.is_string:
-            raise NotImplementedError(f"string comparison {self.symbol} is "
-                                      "not ported")
+            if not (lc.is_string and rc.is_string):
+                raise TypeError(f"{self.symbol} compares a string with a "
+                                "string only")
+            rank = string_rank(lc, rc)
+            vals = torch.zeros(lc.num_rows, dtype=torch.bool,
+                               device=lc.device)
+            for r in self.string_ranks:
+                vals = vals | (rank == r)
+            return make_column(vals, null_propagating(
+                [lc.validity, rc.validity]), T.BOOLEAN)
         cdt = _cmp_dtype(lc.dtype, rc.dtype)
         validity = null_propagating([lc.validity, rc.validity])
         if isinstance(cdt, T.DecimalType):
@@ -80,6 +122,7 @@ def _eq(lhs, rhs, is_float):
 
 class EqualTo(BinaryComparison):
     symbol = "="
+    string_ranks = (1,)
 
     def _compare(self, lhs, rhs, is_float):
         return _eq(lhs, rhs, is_float)
@@ -87,6 +130,7 @@ class EqualTo(BinaryComparison):
 
 class LessThan(BinaryComparison):
     symbol = "<"
+    string_ranks = (0,)
 
     def _compare(self, lhs, rhs, is_float):
         return _lt(lhs, rhs, is_float)
@@ -94,13 +138,23 @@ class LessThan(BinaryComparison):
 
 class LessThanOrEqual(BinaryComparison):
     symbol = "<="
+    string_ranks = (0, 1)
 
     def _compare(self, lhs, rhs, is_float):
         return _lt(lhs, rhs, is_float) | _eq(lhs, rhs, is_float)
 
 
+class GreaterThan(BinaryComparison):
+    symbol = ">"
+    string_ranks = (2,)
+
+    def _compare(self, lhs, rhs, is_float):
+        return _lt(rhs, lhs, is_float)
+
+
 class GreaterThanOrEqual(BinaryComparison):
     symbol = ">="
+    string_ranks = (1, 2)
 
     def _compare(self, lhs, rhs, is_float):
         return _lt(rhs, lhs, is_float) | _eq(lhs, rhs, is_float)
@@ -122,3 +176,26 @@ class And(BinaryExpression):
         rf = ~rc.data & rc.validity
         validity = (lc.validity & rc.validity) | lf | rf
         return make_column(lt & rt, validity, T.BOOLEAN)
+
+
+class IsNull(Expression):
+    """True where the child is null; never null itself."""
+
+    def __init__(self, child: Expression):
+        self.child = child
+        self.children = (child,)
+
+    def with_children(self, children):
+        return IsNull(children[0])
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+    def eval(self, ctx: EvalContext):
+        c = self.child.eval(ctx)
+        return make_column(~c.validity, torch.ones_like(c.validity),
+                           T.BOOLEAN)
+
+    def __repr__(self):
+        return f"isnull({self.child!r})"

@@ -68,12 +68,18 @@ _SIGNATURES = {
     "srt_string_rows_equal_prev": [_P, _P, _P, _I64, _P, _P],
     "srt_join_scan_tile": [],
     "srt_join_build_keys": [_I, _P, _P, _P, _I64, _P, _P, _P],
-    "srt_join_probe": [_I, _P, _P, _I64, _P, _P, _I64, _P, _P, _P, _P, _P],
+    "srt_join_probe": [_I, _P, _P, _I64, _P, _P, _I64, _I, _P, _P, _P, _P,
+                       _P],
     "srt_join_expand": [_P, _P, _P, _I64, _P, _P, _P],
     "srt_join_max_keys": [],
     "srt_join_key_words": [_I, _P, _P, _P, _P, _P, _P, _I64, _I, _P, _P, _P],
     "srt_join_multi_probe": [_I, _P, _P, _P, _P, _P, _I64, _I, _P, _P, _P, _P,
-                             _I64, _P, _P, _P, _P, _P],
+                             _I64, _I, _P, _P, _P, _P, _P],
+    "srt_cond_join_tile": [],
+    "srt_cond_join_count": [_I, _I, _P, _P, _P, _I64, _P, _I64, _P, _I64, _P,
+                            _P, _P, _P, _P, _P],
+    "srt_cond_join_scatter": [_I, _I, _P, _P, _P, _I64, _P, _I64, _P, _I64,
+                              _P, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -1,11 +1,13 @@
-"""Equi-join kernels: the inner join on one fixed-width key or on several
-keys, strings among them.
+"""Equi-join kernels: the inner and the left join on one fixed-width key or
+on several keys, strings among them, and the final maps of a join with a
+residual condition.
 
-Counterpart of ``spark_rapids_tpu/kernels/join.py`` (``join_path`` :134,
-``_probe_single`` :154, ``_expand_single`` :226, ``_probe_multi`` :275,
-``_expand_multi`` :420, ``join_probe`` :457, ``join_expand`` :484,
-``join_gather_maps`` :496, ``apply_gather_maps`` :521) for the inner
-join.  Spark's semantics hold: a null in any key never matches, NaN
+Counterpart of ``spark_rapids_tpu/kernels/join.py``
+(``conditional_join_maps`` :44, ``join_path`` :134, ``_probe_single``
+:154, ``_expand_single`` :226, ``_probe_multi`` :275, ``_expand_multi``
+:420, ``join_probe`` :457, ``join_expand`` :484, ``join_gather_maps``
+:496, ``apply_gather_maps`` :521) for the inner and the left join.
+Spark's semantics hold: a null in any key never matches, NaN
 matches NaN and -0.0 matches 0.0 (keys are normalized), an int key matches
 a long key by value, strings match byte for byte, and the pairs come out
 in stream-row order, each row's matches in build-row order, as the
@@ -25,11 +27,22 @@ of the number of pairs) and expanded (``join_expand``: each row writes its
 exactly as many pairs as the join outputs, so there is no capacity retry;
 ``apply_gather_maps`` is the ported gather on each side.
 
+The left join (the reference's left branches, :203-206 and :237-246 of
+the single-key path, :395 of the several-key one) probes with a left flag:
+a stream row with no match, a null key included, gets one output row whose
+right index is -1, and the gather makes that row's right columns null.
+
+A join with a residual condition takes its candidates from the inner
+probe and expand, evaluates the condition over them (in the exec), and
+``conditional_join_maps`` turns the candidates and their pass mask into
+the final maps of any join type: the passing pairs in candidate order,
+then the unmatched live left rows (left, full), then the unmatched live
+right rows (right, full); semi, anti and existence keep left rows only.
+
 On CUDA tensors each step launches its kernel of ``csrc/join.cu`` and
 counts the launch; on CPU tensors it runs the plain PyTorch version
-beside it.  The other join types (left, semi, anti, outer, existence),
-the cross join and ``conditional_join_maps`` (:44) raise
-NotImplementedError.
+beside it.  The probe's semi, anti, right and full branches and the cross
+join raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -47,6 +60,7 @@ from spark_rapids_tpu_torch.kernels.groupby import normalize_key_column
 from spark_rapids_tpu_torch.kernels.selection import gather_columns
 from spark_rapids_tpu_torch.kernels.sort import (SortOrder, sort_indices,
                                                  string_chunks,
+                                                 string_longest,
                                                  string_sort_keys_plain)
 
 JOIN_TYPES = ("inner", "left", "right", "full", "left_semi", "left_anti",
@@ -81,11 +95,16 @@ def _check_key_types(lt: T.DataType, rt: T.DataType) -> None:
     _kind(lt)
 
 
+#: the join types whose probe and expand are ported
+PROBE_TYPES = ("inner", "left")
+
+
 def join_path(left: ColumnarBatch, left_keys: Sequence[int],
               right: ColumnarBatch, right_keys: Sequence[int],
               join_type: str) -> str:
     """The reference's kernel-path dispatch ('cross' | 'single' |
-    'multi'); the inner join of both 'single' and 'multi' is ported."""
+    'multi'); the inner and left joins of both 'single' and 'multi' are
+    ported."""
     if join_type == "cross":
         return "cross"
     if (join_type in ("inner", "left", "left_semi", "left_anti")
@@ -99,15 +118,130 @@ def join_path(left: ColumnarBatch, left_keys: Sequence[int],
 def _require_ported(path: str, join_type: str) -> None:
     if path == "cross":
         raise NotImplementedError("the cross join is not ported")
-    if join_type != "inner":
+    require_probe_type(join_type)
+
+
+def require_probe_type(join_type: str) -> None:
+    if join_type not in PROBE_TYPES:
         raise NotImplementedError(f"the {join_type} join is not ported; "
-                                  "only inner")
+                                  "only inner and left")
+
+# ---------------------------------------------------------------------------
+# conditional join maps
+
+# per join type: (segments: 1 pairs, 2 left rows, 4 right rows; which left
+# rows: 0 unmatched, 1 matched, -1 every live one)
+_COND_SEGMENTS = {"inner": (1, 0), "left": (3, 0), "right": (5, 0),
+                  "full": (7, 0), "left_semi": (2, 1), "left_anti": (2, 0),
+                  "existence": (2, -1)}
 
 
-def conditional_join_maps(*args, **kwargs):
-    """The residual-condition join of the reference (join.py:44)."""
-    raise NotImplementedError("conditional_join_maps (a join with a residual "
-                              "condition) is not ported")
+def _check_cond_inputs(li, ri, pass_mask, left_live, right_live,
+                       join_type) -> None:
+    if join_type not in _COND_SEGMENTS:
+        raise ValueError(f"conditional_join_maps: join type {join_type!r} "
+                         f"is none of {sorted(_COND_SEGMENTS)}")
+    for name, t, dt in (("li", li, torch.int32), ("ri", ri, torch.int32),
+                        ("pass_mask", pass_mask, torch.bool),
+                        ("left_live", left_live, torch.bool),
+                        ("right_live", right_live, torch.bool)):
+        if t.dtype != dt or t.dim() != 1:
+            raise TypeError(f"conditional_join_maps: {name} must be 1-d "
+                            f"{dt}, got {t.dtype} {tuple(t.shape)}")
+    if not li.shape == ri.shape == pass_mask.shape:
+        raise ValueError("conditional_join_maps: li, ri and pass_mask "
+                         "differ in length")
+
+
+def conditional_join_maps_plain(li: torch.Tensor, ri: torch.Tensor,
+                                pass_mask: torch.Tensor,
+                                left_live: torch.Tensor,
+                                right_live: torch.Tensor, join_type: str
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """Flags set through the passing pairs, then the segments selected by
+    boolean-mask indexing and concatenated."""
+    segments, want = _COND_SEGMENTS[join_type]
+    dev = li.device
+    lmatched = torch.zeros_like(left_live)
+    rmatched = torch.zeros_like(right_live)
+    lmatched[li[pass_mask].long()] = True
+    rmatched[ri[pass_mask].long()] = True
+    lis: List[torch.Tensor] = []
+    ris: List[torch.Tensor] = []
+    if segments & 1:
+        lis.append(li[pass_mask])
+        ris.append(ri[pass_mask])
+    if segments & 2:
+        mask = left_live if want < 0 else left_live & (lmatched == bool(want))
+        rows = torch.arange(left_live.shape[0], dtype=torch.int32,
+                            device=dev)[mask]
+        lis.append(rows)
+        ris.append(torch.full_like(rows, -1))
+    if segments & 4:
+        rows = torch.arange(right_live.shape[0], dtype=torch.int32,
+                            device=dev)[right_live & ~rmatched]
+        lis.append(torch.full_like(rows, -1))
+        ris.append(rows)
+    return torch.cat(lis), torch.cat(ris), lmatched
+
+
+def _conditional_join_maps_cuda(li, ri, pass_mask, left_live, right_live,
+                                join_type):
+    _lib.require_cuda("conditional_join_maps", li, ri, pass_mask, left_live,
+                      right_live)
+    lib = _lib.lib()
+    segments, want = _COND_SEGMENTS[join_type]
+    dev = li.device
+    npairs, nl, nr = li.shape[0], left_live.shape[0], right_live.shape[0]
+    tile = lib.srt_cond_join_tile()
+    tiles = sum(-(-n // tile) for bit, n in ((1, npairs), (2, nl), (4, nr))
+                if segments & bit)
+    lmatched = torch.empty(nl, dtype=torch.bool, device=dev)
+    rmatched = torch.empty(nr, dtype=torch.bool, device=dev)
+    tile_counts = torch.empty(tiles + 1, dtype=torch.int32, device=dev)
+    tile_sums = torch.empty(max(-(-tiles // lib.srt_join_scan_tile()), 1),
+                            dtype=torch.int64, device=dev)
+    total = torch.empty(1, dtype=torch.int64, device=dev)
+    s = _lib.stream(dev)
+    args = (segments, want, _lib.ptr(pass_mask), _lib.ptr(li), _lib.ptr(ri),
+            npairs, _lib.ptr(left_live), nl, _lib.ptr(right_live), nr,
+            _lib.ptr(lmatched), _lib.ptr(rmatched), _lib.ptr(tile_counts))
+    _lib.check(lib.srt_cond_join_count(*args, _lib.ptr(tile_sums),
+                                       _lib.ptr(total), s),
+               "conditional_join_maps")
+    _lib.LAUNCHES["conditional_join_maps"] += 1
+    # the one device->host read: the number of output rows
+    count = int(total.item())
+    if count >= 2**31:
+        raise ValueError(f"a join batch of {count} rows: int32 row ids need "
+                         "fewer than 2**31")
+    li2 = torch.empty(count, dtype=torch.int32, device=dev)
+    ri2 = torch.empty(count, dtype=torch.int32, device=dev)
+    if count:
+        _lib.check(lib.srt_cond_join_scatter(*args, _lib.ptr(li2),
+                                             _lib.ptr(ri2), s),
+                   "conditional_join_maps")
+    return li2, ri2, lmatched
+
+
+def conditional_join_maps(li: torch.Tensor, ri: torch.Tensor,
+                          pass_mask: torch.Tensor, left_live: torch.Tensor,
+                          right_live: torch.Tensor, join_type: str
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """The final maps of a join with a residual condition: from candidate
+    pairs ``(li, ri)`` (int32) and ``pass_mask`` (the pair is live and its
+    condition is true), over ``left_live`` [nl] and ``right_live`` [nr]
+    rows, the int32 ``(li2, ri2)`` of the join's rows (-1: null-extend that
+    side) and the bool ``lmatched`` [nl], whether a left row has a passing
+    pair (the existence join's flag)."""
+    _check_cond_inputs(li, ri, pass_mask, left_live, right_live, join_type)
+    if li.device.type == "cpu":
+        return conditional_join_maps_plain(li, ri, pass_mask, left_live,
+                                           right_live, join_type)
+    return _conditional_join_maps_cuda(li, ri, pass_mask, left_live,
+                                       right_live, join_type)
 
 
 @dataclasses.dataclass
@@ -159,7 +293,23 @@ def build_keys_plain(col: DeviceColumn, perm: torch.Tensor
     return order_keys_plain(col)[p], col.validity[p]
 
 
-def probe_plain(col: DeviceColumn, build: JoinBuild
+def _counts_plain(lo: torch.Tensor, hi: torch.Tensor, valid: torch.Tensor,
+                  left: bool) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """(int32 first match, int32 offsets, pairs) from the bounds: a null
+    row matches nothing; under ``left`` a row with no match gets one pair
+    and first match -1."""
+    counts = torch.where(valid, hi - lo, 0)
+    lo = torch.where(valid, lo, 0)
+    if left:
+        lo = torch.where(counts > 0, lo, -1)
+        counts = counts.clamp(min=1)
+    offsets = torch.zeros(lo.shape[0] + 1, dtype=torch.int64,
+                          device=lo.device)
+    torch.cumsum(counts, 0, out=offsets[1:])
+    return lo.to(torch.int32), offsets.to(torch.int32), int(offsets[-1])
+
+
+def probe_plain(col: DeviceColumn, build: JoinBuild, left: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """(int32 first match, int32 offsets [n + 1], pairs): a search of the
     valid prefix of the sorted build keys (signed order of key ^ sign bit
@@ -168,22 +318,22 @@ def probe_plain(col: DeviceColumn, build: JoinBuild
     k = order_keys_plain(col) ^ _SIGN64
     lo = torch.searchsorted(valid_keys, k, side="left")
     hi = torch.searchsorted(valid_keys, k, side="right")
-    counts = torch.where(col.validity, hi - lo, 0)
-    offsets = torch.zeros(col.num_rows + 1, dtype=torch.int64,
-                          device=col.device)
-    torch.cumsum(counts, 0, out=offsets[1:])
-    total = int(offsets[-1])
-    lo = torch.where(col.validity, lo, 0)
-    return lo.to(torch.int32), offsets.to(torch.int32), total
+    return _counts_plain(lo, hi, col.validity, left)
 
 
 def expand_plain(lo: torch.Tensor, offsets: torch.Tensor, total: int,
                  perm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A row's pairs; a row whose first match is -1 (a left join's row
+    with no match) gets right index -1."""
     counts = (offsets[1:] - offsets[:-1]).long()
     row = torch.repeat_interleave(
         torch.arange(lo.shape[0], device=lo.device), counts)
     within = torch.arange(total, device=lo.device) - offsets[row].long()
-    ri = perm.long()[lo.long()[row] + within]
+    first = lo.long()[row]
+    pos = (first + within).clamp(0, max(perm.shape[0] - 1, 0))
+    ri = (perm.long()[pos] if perm.shape[0]
+          else torch.zeros_like(pos))
+    ri = torch.where(first < 0, -1, ri)
     return row.to(torch.int32), ri.to(torch.int32)
 
 
@@ -218,7 +368,7 @@ def key_words_plain(cols: Sequence[DeviceColumn],
 
 
 def probe_multi_plain(swords: torch.Tensor, svalid: torch.Tensor,
-                      build: JoinBuild
+                      build: JoinBuild, left: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """``probe_plain`` over word rows: every row, build and stream, gets
     its rank in the lexicographic order of the word rows (signed order of
@@ -230,12 +380,7 @@ def probe_multi_plain(swords: torch.Tensor, svalid: torch.Tensor,
     brank, srank = rank[:nvalid].contiguous(), rank[nvalid:].contiguous()
     lo = torch.searchsorted(brank, srank, side="left")
     hi = torch.searchsorted(brank, srank, side="right")
-    counts = torch.where(svalid, hi - lo, 0)
-    offsets = torch.zeros(swords.shape[0] + 1, dtype=torch.int64,
-                          device=swords.device)
-    torch.cumsum(counts, 0, out=offsets[1:])
-    lo = torch.where(svalid, lo, 0)
-    return lo.to(torch.int32), offsets.to(torch.int32), int(offsets[-1])
+    return _counts_plain(lo, hi, svalid, left)
 
 # ---------------------------------------------------------------------------
 # kernels
@@ -256,7 +401,7 @@ def _build_keys_cuda(col: DeviceColumn, perm: torch.Tensor
     return keys, key_valid
 
 
-def _probe_cuda(col: DeviceColumn, build: JoinBuild
+def _probe_cuda(col: DeviceColumn, build: JoinBuild, left: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     _lib.require_cuda("join_probe", col.data, col.validity, build.keys,
                       build.key_valid)
@@ -271,10 +416,10 @@ def _probe_cuda(col: DeviceColumn, build: JoinBuild
     _lib.check(lib.srt_join_probe(
         _kind(col.dtype), _lib.ptr(col.data), _lib.ptr(col.validity), n,
         _lib.ptr(build.keys), _lib.ptr(build.key_valid), build.num_rows,
-        _lib.ptr(lo), _lib.ptr(offsets), _lib.ptr(tile_sums),
+        int(left), _lib.ptr(lo), _lib.ptr(offsets), _lib.ptr(tile_sums),
         _lib.ptr(total), _lib.stream(dev)), "join_probe")
     if n:
-        _lib.LAUNCHES["join_probe"] += 1
+        _lib.LAUNCHES["join_probe_left" if left else "join_probe"] += 1
     # the one device->host read of a probe: the number of pairs
     return lo, offsets, int(total.item())
 
@@ -302,18 +447,6 @@ def _words(chunks: Sequence[Optional[int]]) -> int:
     return sum(1 if n is None else n + 1 for n in chunks)
 
 
-def _string_longest_cuda(cols: Sequence[DeviceColumn]) -> List[int]:
-    """The longest valid length of each string column: one blocking read
-    for all of them."""
-    dev = cols[0].device
-    out = torch.empty(len(cols), dtype=torch.int64, device=dev)
-    for j, c in enumerate(cols):
-        _lib.check(_lib.lib().srt_string_max_length(
-            _lib.ptr(c.offsets), _lib.ptr(c.validity), c.num_rows,
-            _lib.ptr(out[j:]), _lib.stream(dev)), "join_multi_build")
-    return out.tolist()
-
-
 def _multi_build_cuda(cols: Sequence[DeviceColumn], perm: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor,
                                  Tuple[Optional[int], ...]]:
@@ -321,7 +454,7 @@ def _multi_build_cuda(cols: Sequence[DeviceColumn], perm: torch.Tensor
         t for c in cols for t in (c.data, c.validity)
         + ((c.offsets,) if c.is_string else ())))
     strings = [c for c in cols if c.is_string]
-    longest = iter(_string_longest_cuda(strings) if strings else [])
+    longest = iter(string_longest(strings))
     chunks = tuple(string_chunks(next(longest)) if c.is_string else None
                    for c in cols)
     n, nw = perm.shape[0], _words(chunks)
@@ -336,7 +469,8 @@ def _multi_build_cuda(cols: Sequence[DeviceColumn], perm: torch.Tensor
     return words, valid, chunks
 
 
-def _multi_probe_cuda(cols: Sequence[DeviceColumn], build: JoinBuild
+def _multi_probe_cuda(cols: Sequence[DeviceColumn], build: JoinBuild,
+                      left: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     _lib.require_cuda("join_multi_probe", build.keys, build.key_valid, *(
         t for c in cols for t in (c.data, c.validity)
@@ -355,10 +489,11 @@ def _multi_probe_cuda(cols: Sequence[DeviceColumn], build: JoinBuild
     _lib.check(lib.srt_join_multi_probe(
         len(cols), *arrays, n, nw, _lib.ptr(swords), _lib.ptr(svalid),
         _lib.ptr(build.keys), _lib.ptr(build.key_valid), build.num_rows,
-        _lib.ptr(lo), _lib.ptr(offsets), _lib.ptr(tile_sums),
+        int(left), _lib.ptr(lo), _lib.ptr(offsets), _lib.ptr(tile_sums),
         _lib.ptr(total), _lib.stream(dev)), "join_multi_probe")
     if n:
-        _lib.LAUNCHES["join_multi_probe"] += 1
+        _lib.LAUNCHES["join_multi_probe_left" if left
+                      else "join_multi_probe"] += 1
     # the one device->host read of a probe: the number of pairs
     return lo, offsets, int(total.item())
 
@@ -433,15 +568,11 @@ def build_words(cols: Sequence[DeviceColumn], perm: torch.Tensor
     counts) of the build rows in the order ``perm``; a string key takes as
     many chunks as its longest valid row needs."""
     if cols[0].device.type == "cpu":
-        chunks = tuple(string_chunks(_longest_plain(c)) if c.is_string
+        longest = iter(string_longest([c for c in cols if c.is_string]))
+        chunks = tuple(string_chunks(next(longest)) if c.is_string
                        else None for c in cols)
         return (*key_words_plain(cols, chunks, perm), chunks)
     return _multi_build_cuda(cols, perm)
-
-
-def _longest_plain(col: DeviceColumn) -> int:
-    lengths = torch.where(col.validity, col.offsets[1:] - col.offsets[:-1], 0)
-    return int(lengths.max()) if col.num_rows else 0
 
 
 def build_keys(col: DeviceColumn, perm: torch.Tensor
@@ -454,9 +585,13 @@ def build_keys(col: DeviceColumn, perm: torch.Tensor
 
 
 def join_probe(left: ColumnarBatch, left_keys: Union[int, Sequence[int]],
-               build: JoinBuild) -> Tuple[torch.Tensor, torch.Tensor, int]:
+               build: JoinBuild, join_type: str = "inner"
+               ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """(int32 first match per stream row, int32 offsets [n + 1] of its
-    pairs, the number of pairs)."""
+    pairs, the number of pairs); a left join gives a row with no match one
+    pair and first match -1."""
+    require_probe_type(join_type)
+    is_left = join_type == "left"
     keys = _ordinals(left_keys)
     bkeys = _ordinals(build.key)
     if len(keys) != len(bkeys):
@@ -468,12 +603,12 @@ def join_probe(left: ColumnarBatch, left_keys: Union[int, Sequence[int]],
     cols = [left.columns[k] for k in keys]
     if not build.multi:
         probe = probe_plain if cols[0].device.type == "cpu" else _probe_cuda
-        lo, offsets, total = probe(cols[0], build)
+        lo, offsets, total = probe(cols[0], build, is_left)
     elif cols[0].device.type == "cpu":
         lo, offsets, total = probe_multi_plain(
-            *key_words_plain(cols, build.chunks), build)
+            *key_words_plain(cols, build.chunks), build, is_left)
     else:
-        lo, offsets, total = _multi_probe_cuda(cols, build)
+        lo, offsets, total = _multi_probe_cuda(cols, build, is_left)
     if total >= 2**31:
         raise ValueError(f"a join batch of {total} pairs: int32 row ids "
                          "need fewer than 2**31")
@@ -482,7 +617,8 @@ def join_probe(left: ColumnarBatch, left_keys: Union[int, Sequence[int]],
 
 def join_expand(lo: torch.Tensor, offsets: torch.Tensor, total: int,
                 build: JoinBuild) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The (left, right) int32 row-id maps of the pairs."""
+    """The (left, right) int32 row-id maps of the pairs (right -1 for a
+    left join's row with no match)."""
     if lo.device.type == "cpu":
         return expand_plain(lo, offsets, total, build.perm)
     return _expand_cuda(lo, offsets, total, build.perm)
@@ -499,7 +635,7 @@ def join_gather_maps(left: ColumnarBatch, left_keys: Sequence[int],
     _require_ported(join_path(left, left_keys, right, right_keys, join_type),
                     join_type)
     build = build_side(right, right_keys)
-    lo, offsets, total = join_probe(left, left_keys, build)
+    lo, offsets, total = join_probe(left, left_keys, build, join_type)
     li, ri = join_expand(lo, offsets, total, build)
     return li, ri, total
 
@@ -507,11 +643,16 @@ def join_gather_maps(left: ColumnarBatch, left_keys: Sequence[int],
 def apply_gather_maps(left: ColumnarBatch, right: ColumnarBatch,
                       li: torch.Tensor, ri: torch.Tensor, schema: Schema,
                       join_type: str = "inner") -> ColumnarBatch:
-    """The joined batch: the left columns gathered by ``li``, then the
-    right columns by ``ri`` (the ported gather, strings included)."""
-    if join_type != "inner":
-        raise NotImplementedError(f"the {join_type} join is not ported; "
-                                  "only inner")
-    cols = (gather_columns(left.columns, li)
-            + gather_columns(right.columns, ri))
+    """The joined batch: the left columns gathered by ``li``, then (but for
+    the semi, anti and existence joins) the right columns by ``ri`` (the
+    ported gather, strings included).  An index of -1 gives a null row:
+    the gather of a side that a join type null-extends counts as the
+    null-extending gather."""
+    if join_type not in JOIN_TYPES or join_type == "cross":
+        raise ValueError(f"apply_gather_maps: join type {join_type!r}")
+    cols = gather_columns(left.columns, li,
+                          null_extend=join_type in ("right", "full"))
+    if join_type not in ("left_semi", "left_anti", "existence"):
+        cols += gather_columns(right.columns, ri,
+                               null_extend=join_type in ("left", "full"))
     return ColumnarBatch(tuple(cols), li.shape[0], schema)

@@ -2,7 +2,8 @@
 
 Counterpart of ``spark_rapids_tpu/kernels/selection.py`` (``compaction_map``
 :65, ``gather_column`` :84 with its string branch :160-186,
-``gather_batch`` :191, ``concat_batches_device`` :429), fixed-width and
+``gather_batch`` :191, ``gather_batch_checked`` :308 as a join's
+null-extending gather, ``concat_batches_device`` :429), fixed-width and
 string columns.  Each function here is a wrapper: on CUDA tensors it
 launches the hand-written kernel in ``csrc/selection.cu`` and counts the
 launch; on CPU tensors it runs the plain PyTorch version beside it, which
@@ -143,7 +144,7 @@ def _string_lanes(total_bytes: int, rows: int) -> int:
 
 
 def _gather_group_cuda(src: Sequence[DeviceColumn], indices: torch.Tensor,
-                       lib, s) -> List[DeviceColumn]:
+                       lib, s, counter: str) -> List[DeviceColumn]:
     """One gather launch over up to 16 columns; string columns then take
     the scan of their lengths, one read of their byte totals and the byte
     copy."""
@@ -170,7 +171,7 @@ def _gather_group_cuda(src: Sequence[DeviceColumn], indices: torch.Tensor,
         _lib.ptr(tile_sums) if strings else None,
         _lib.ptr(totals) if strings else None, s), "gather")
     if m:
-        _lib.LAUNCHES["gather"] += 1
+        _lib.LAUNCHES[counter] += 1
     out = [DeviceColumn(d, v, c.dtype) if not c.is_string else None
            for c, d, v in zip(src, dst, dst_valid)]
     if not strings:
@@ -194,7 +195,8 @@ def _gather_group_cuda(src: Sequence[DeviceColumn], indices: torch.Tensor,
 
 
 def _gather_columns_cuda(cols: Sequence[DeviceColumn],
-                         indices: torch.Tensor) -> List[DeviceColumn]:
+                         indices: torch.Tensor,
+                         counter: str) -> List[DeviceColumn]:
     _lib.require_cuda("gather", indices, *(
         t for c in cols for t in (c.data, c.validity)
         + ((c.offsets,) if c.is_string else ())))
@@ -203,14 +205,18 @@ def _gather_columns_cuda(cols: Sequence[DeviceColumn],
     s = _lib.stream(indices.device)
     out: List[DeviceColumn] = []
     for lo in range(0, len(cols), step):
-        out += _gather_group_cuda(cols[lo:lo + step], indices, lib, s)
+        out += _gather_group_cuda(cols[lo:lo + step], indices, lib, s,
+                                  counter)
     return out
 
 
-def gather_columns(cols: Sequence[DeviceColumn],
-                   indices: torch.Tensor) -> List[DeviceColumn]:
+def gather_columns(cols: Sequence[DeviceColumn], indices: torch.Tensor,
+                   null_extend: bool = False) -> List[DeviceColumn]:
     """Gather rows of same-length columns by an int32 row-id map; a row id
-    outside [0, n) gives a null row with zero data."""
+    outside [0, n) gives a null row with zero data (a string row: length 0,
+    null), and so does every row id when there are no source rows.
+    ``null_extend`` marks a join's null-extending gather (``gather_batch_
+    checked`` :308 of the reference): the same kernel, counted apart."""
     if indices.dtype != torch.int32 or indices.dim() != 1:
         raise TypeError(f"gather needs 1-d int32 indices, got "
                         f"{indices.dtype} {tuple(indices.shape)}")
@@ -220,7 +226,8 @@ def gather_columns(cols: Sequence[DeviceColumn],
         raise ValueError("gather: columns differ in length")
     if indices.device.type == "cpu":
         return gather_columns_plain(cols, indices)
-    return _gather_columns_cuda(cols, indices)
+    return _gather_columns_cuda(cols, indices, "gather_null_extend"
+                                if null_extend else "gather")
 
 
 def gather_batch(batch: ColumnarBatch,

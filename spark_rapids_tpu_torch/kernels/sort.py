@@ -142,6 +142,32 @@ def string_sort_keys(col: DeviceColumn, longest: int
     return _string_sort_keys_cuda(col, longest)
 
 
+def _longest_plain(col: DeviceColumn) -> int:
+    lengths = torch.where(col.validity, col.offsets[1:] - col.offsets[:-1], 0)
+    return int(lengths.max()) if col.num_rows else 0
+
+
+def _string_longest_cuda(cols: Sequence[DeviceColumn]) -> List[int]:
+    dev = cols[0].device
+    out = torch.empty(len(cols), dtype=torch.int64, device=dev)
+    for j, c in enumerate(cols):
+        _lib.require_cuda("string_longest", c.offsets, c.validity)
+        _lib.check(_lib.lib().srt_string_max_length(
+            _lib.ptr(c.offsets), _lib.ptr(c.validity), c.num_rows,
+            _lib.ptr(out[j:]), _lib.stream(dev)), "string_longest")
+    return out.tolist()
+
+
+def string_longest(cols: Sequence[DeviceColumn]) -> List[int]:
+    """The longest valid length of each string column (0 where none is
+    valid): on the card one blocking read for all of them."""
+    if not cols:
+        return []
+    if cols[0].device.type == "cpu":
+        return [_longest_plain(c) for c in cols]
+    return _string_longest_cuda(cols)
+
+
 def string_keys_plain(col: DeviceColumn, order: SortOrder
                       ) -> List[torch.Tensor]:
     """int64 keys of a string column, most significant first: the chunks,

@@ -1,9 +1,24 @@
 """Join execs: broadcast, shuffled and adaptive hash joins.
 
 Counterpart of ``spark_rapids_tpu/plan/execs/join.py``
-(``TpuShuffledHashJoinExec`` :387 with its streamed probe :449-528,
-``TpuBroadcastHashJoinExec`` :627, ``TpuAdaptiveJoinExec`` :713) for the
-inner join on one or several keys, strings among them.
+(``_JoinKernel`` :52 with its conditional program ``_call_conditional``
+:244-323, ``TpuShuffledHashJoinExec`` :387 with ``_join_pair`` :430 and its
+streamed probe :449-528, ``TpuBroadcastHashJoinExec`` :627,
+``TpuAdaptiveJoinExec`` :713) for the inner and the left join on one or
+several keys, strings among them, each with an optional residual
+condition.
+
+- A join without a condition probes, expands and gathers (the left join
+  null-extends a stream row with no match).  A join with one runs the
+  reference's conditional program: the inner probe and expand give the
+  candidate pairs at their exact count (no capacity retry), only the
+  condition's input columns are gathered for them, the condition is
+  evaluated over that pair batch, and ``conditional_join_maps`` turns the
+  candidates and the pass mask into the join type's maps, which the
+  gather then applies to every column.
+- Empty sides follow the reference: an inner join with an empty or
+  missing build emits nothing (its stream is still drained), a left join
+  emits its stream rows null-extended against an empty build.
 
 - The broadcast join materializes its build (right) side whole once per
   query, under a lock: every right partition's batches are concatenated
@@ -27,7 +42,7 @@ inner join on one or several keys, strings among them.
   exchanges read through coalesced readers that share one spec, under a
   shuffled join.  The reference's cluster-stats branch is not ported.
 
-The other join types and a residual condition raise NotImplementedError.
+The other join types raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -35,10 +50,15 @@ import collections
 import threading
 from typing import Iterator, List, Optional, Sequence
 
+import torch
+
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
-from spark_rapids_tpu_torch.expressions.core import BoundReference, Expression
+from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.expressions.core import (BoundReference,
+                                                     EvalContext, Expression)
 from spark_rapids_tpu_torch.kernels import join as J
-from spark_rapids_tpu_torch.kernels.selection import coalesce_to_one
+from spark_rapids_tpu_torch.kernels.selection import (coalesce_to_one,
+                                                      gather_columns)
 from spark_rapids_tpu_torch.plan.execs.base import GpuExec, timed
 from spark_rapids_tpu_torch.plan.execs.exchange import (
     GpuCoalescedShuffleReaderExec, GpuShuffleExchangeExec,
@@ -53,21 +73,45 @@ def _ordinal(key: Expression) -> int:
     return key.ordinal
 
 
-def _require_inner(join_type: str) -> None:
-    if join_type != "inner":
-        raise NotImplementedError(
-            f"the {join_type} join is not ported; only inner")
+def _bound_ordinals(e: Expression) -> set:
+    out = {e.ordinal} if isinstance(e, BoundReference) else set()
+    for c in e.children:
+        out |= _bound_ordinals(c)
+    return out
+
+
+def _remap_ordinals(e: Expression, mapping: dict) -> Expression:
+    if isinstance(e, BoundReference):
+        return BoundReference(mapping[e.ordinal], e.dtype, e.name)
+    if not e.children:
+        return e
+    return e.with_children(tuple(_remap_ordinals(c, mapping)
+                                 for c in e.children))
+
+
+def empty_batch(schema: Schema, device: torch.device) -> ColumnarBatch:
+    """A batch of no rows (``ColumnarBatch.empty`` of the reference)."""
+    cols = []
+    for dt in schema.dtypes:
+        valid = torch.empty(0, dtype=torch.bool, device=device)
+        data = torch.empty(0, dtype=dt.torch_dtype, device=device)
+        offsets = (torch.zeros(1, dtype=torch.int32, device=device)
+                   if dt.variable_width else None)
+        cols.append(DeviceColumn(data, valid, dt, offsets))
+    return ColumnarBatch(tuple(cols), 0, schema)
 
 
 class _HashJoin(GpuExec):
     """What the broadcast and the shuffled join share: the key ordinals,
-    their type check, and the join of one stream chunk against a build."""
+    their type check, the condition's inputs, and the join of one stream
+    chunk against a build."""
 
     def __init__(self, left: GpuExec, right: GpuExec,
                  left_keys: Sequence[Expression],
                  right_keys: Sequence[Expression], join_type: str,
-                 schema: Schema, target_rows: int):
-        _require_inner(join_type)
+                 schema: Schema, target_rows: int,
+                 condition: Optional[Expression] = None):
+        J.require_probe_type(join_type)
         if not left_keys or len(left_keys) != len(right_keys):
             raise NotImplementedError(
                 "a hash join needs as many left keys as right keys, and at "
@@ -79,6 +123,24 @@ class _HashJoin(GpuExec):
         for lk, rk in zip(self.left_keys, self.right_keys):
             J._check_key_types(left.schema.dtypes[lk], right.schema.dtypes[rk])
         self.target_rows = max(int(target_rows), 1)
+        self.condition = condition
+        if condition is not None:
+            # the condition binds against (left columns, right columns);
+            # its inputs are gathered for the candidate pairs, in pair
+            # ordinal order, and it is evaluated over them
+            nl = len(left.schema)
+            ords = sorted(_bound_ordinals(condition))
+            if not ords:
+                raise NotImplementedError(
+                    "a join condition that reads no column is not ported")
+            self.cond_inputs = [(0, o) if o < nl else (1, o - nl)
+                                for o in ords]
+            names = left.schema.names + right.schema.names
+            dtypes = left.schema.dtypes + right.schema.dtypes
+            self.cond_schema = Schema(tuple(names[o] for o in ords),
+                                      tuple(dtypes[o] for o in ords))
+            self.cond_remapped = _remap_ordinals(
+                condition, {o: j for j, o in enumerate(ords)})
 
     def num_partitions(self) -> int:
         return self.children[0].num_partitions()
@@ -101,13 +163,50 @@ class _HashJoin(GpuExec):
               build: J.JoinBuild) -> ColumnarBatch:
         with timed(self.op_time):
             left = coalesce_to_one(group)
-            lo, offsets, total = J.join_probe(left, self.left_keys, build)
-            li, ri = J.join_expand(lo, offsets, total, build)
-            out = J.apply_gather_maps(left, build.batch, li, ri, self.schema)
+            if self.condition is None:
+                lo, offsets, total = J.join_probe(left, self.left_keys, build,
+                                                  self.join_type)
+                li, ri = J.join_expand(lo, offsets, total, build)
+            else:
+                li, ri = self._conditional_maps(left, build)
+            out = J.apply_gather_maps(left, build.batch, li, ri, self.schema,
+                                      self.join_type)
         return self._count_out(out)
 
+    def _conditional_maps(self, left: ColumnarBatch, build: J.JoinBuild):
+        """The reference's conditional program: candidates from the inner
+        probe and expand, the condition's inputs gathered for them, the
+        condition evaluated, then ``conditional_join_maps``."""
+        right = build.batch
+        lo, offsets, total = J.join_probe(left, self.left_keys, build)
+        li, ri = J.join_expand(lo, offsets, total, build)
+        gathered = {}
+        for side, batch, idx in ((0, left, li), (1, right, ri)):
+            ords = [o for s, o in self.cond_inputs if s == side]
+            if ords:
+                cols = gather_columns([batch.columns[o] for o in ords], idx)
+                gathered.update({(side, o): c for o, c in zip(ords, cols)})
+        pairs = ColumnarBatch(tuple(gathered[k] for k in self.cond_inputs),
+                              total, self.cond_schema)
+        cond = self.cond_remapped.eval(EvalContext(pairs))
+        passed = cond.data & cond.validity
+        dev = li.device
+        li2, ri2, _ = J.conditional_join_maps(
+            li, ri, passed,
+            torch.ones(left.num_rows, dtype=torch.bool, device=dev),
+            torch.ones(right.num_rows, dtype=torch.bool, device=dev),
+            self.join_type)
+        return li2, ri2
+
+    def _empty_build(self, device: torch.device) -> J.JoinBuild:
+        """The build of no rows a left join runs against."""
+        return J.build_side(empty_batch(self.children[1].schema, device),
+                            self.right_keys)
+
     def _keys_string(self) -> str:
-        return f"lkeys={self.left_keys}, rkeys={self.right_keys}"
+        cond = (f", condition={self.condition!r}"
+                if self.condition is not None else "")
+        return f"lkeys={self.left_keys}, rkeys={self.right_keys}{cond}"
 
 
 class GpuBroadcastHashJoinExec(_HashJoin):
@@ -117,9 +216,10 @@ class GpuBroadcastHashJoinExec(_HashJoin):
     def __init__(self, left: GpuExec, right: GpuExec,
                  left_keys: Sequence[Expression],
                  right_keys: Sequence[Expression], join_type: str,
-                 schema: Schema, target_rows: int = 1 << 20):
+                 schema: Schema, target_rows: int = 1 << 20,
+                 condition: Optional[Expression] = None):
         super().__init__(left, right, left_keys, right_keys, join_type,
-                         schema, target_rows)
+                         schema, target_rows, condition)
         self._lock = threading.Lock()
         self._build: Optional[J.JoinBuild] = None
         self._build_done = False
@@ -140,8 +240,12 @@ class GpuBroadcastHashJoinExec(_HashJoin):
     def execute_partition(self, idx: int) -> Iterator[ColumnarBatch]:
         build = self._build_side()
         stream = list(self.children[0].execute_partition(idx))
-        if build is None or not stream:
-            return    # an inner join with an empty side has no rows
+        if not stream:
+            return
+        if build is None:
+            if self.join_type == "inner":
+                return    # an inner join with an empty side has no rows
+            build = self._empty_build(stream[0].device)
         for group in self._chunks(stream):
             yield self._join(group, build)
 
@@ -163,9 +267,10 @@ class GpuShuffledHashJoinExec(_HashJoin):
     def __init__(self, left: GpuExec, right: GpuExec,
                  left_keys: Sequence[Expression],
                  right_keys: Sequence[Expression], join_type: str,
-                 schema: Schema, target_rows: int = 1 << 20):
+                 schema: Schema, target_rows: int = 1 << 20,
+                 condition: Optional[Expression] = None):
         super().__init__(left, right, left_keys, right_keys, join_type,
-                         schema, target_rows)
+                         schema, target_rows, condition)
         for lk, rk in zip(self.left_keys, self.right_keys):
             lt, rt = left.schema.dtypes[lk], right.schema.dtypes[rk]
             if lt != rt:
@@ -183,7 +288,7 @@ class GpuShuffledHashJoinExec(_HashJoin):
         right_rows = sum(b.num_rows for b in right_batches)
         self.largest_build_rows = max(self.largest_build_rows, right_rows)
         if right_rows > self.target_rows:
-            # an inner join's sides then hold more than target_rows rows
+            # the join's sides then hold more than target_rows rows
             # together: the reference's out-of-core branch
             self.branches["out_of_core"] += 1
             raise NotImplementedError(
@@ -197,10 +302,13 @@ class GpuShuffledHashJoinExec(_HashJoin):
             build = (J.build_side(whole, self.right_keys)
                      if whole is not None and whole.num_rows else None)
         # an empty build still drains the probe side, as the reference's
-        # does
+        # does; a left join emits the stream null-extended against it
         for group in self._chunks(self.children[0].execute_partition(idx)):
-            if build is not None:
-                yield self._join(group, build)
+            if build is None:
+                if self.join_type == "inner":
+                    continue
+                build = self._empty_build(group[0].device)
+            yield self._join(group, build)
 
     def describe(self):
         return f"GpuShuffledHashJoin[{self.join_type}, {self._keys_string()}]"
@@ -215,12 +323,14 @@ class GpuAdaptiveJoinExec(GpuExec):
                  right_keys: Sequence[Expression], join_type: str,
                  schema: Schema, broadcast_threshold: int,
                  shuffle_partitions: int, target_rows: int = 1 << 20,
-                 aqe_coalesce: bool = True):
-        _require_inner(join_type)
+                 aqe_coalesce: bool = True,
+                 condition: Optional[Expression] = None):
+        J.require_probe_type(join_type)
         super().__init__((left, right), schema)
         self.left_keys = list(left_keys)
         self.right_keys = list(right_keys)
         self.join_type = join_type
+        self.condition = condition
         self.broadcast_threshold = broadcast_threshold
         self.shuffle_partitions = shuffle_partitions
         self.target_rows = target_rows
@@ -246,7 +356,7 @@ class GpuAdaptiveJoinExec(GpuExec):
                 inner: GpuExec = GpuBroadcastHashJoinExec(
                     left, right_scan, self.left_keys, self.right_keys,
                     self.join_type, self.schema,
-                    target_rows=self.target_rows)
+                    target_rows=self.target_rows, condition=self.condition)
             else:
                 self.chosen = "shuffled"
                 jl: GpuExec = GpuShuffleExchangeExec(
@@ -260,7 +370,8 @@ class GpuAdaptiveJoinExec(GpuExec):
                     jr = GpuCoalescedShuffleReaderExec(jr, spec)
                 inner = GpuShuffledHashJoinExec(
                     jl, jr, self.left_keys, self.right_keys, self.join_type,
-                    self.schema, target_rows=self.target_rows)
+                    self.schema, target_rows=self.target_rows,
+                    condition=self.condition)
             self.inner = inner
             return inner
 

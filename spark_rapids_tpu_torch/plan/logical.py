@@ -120,9 +120,11 @@ class Limit(LogicalPlan):
 
 
 class Join(LogicalPlan):
-    """Equi-join on key expression pairs; the output is the left columns,
-    then the right ones (only the left ones for semi and anti joins).  A
-    residual condition is not ported."""
+    """Equi-join on key expression pairs plus an optional residual
+    condition; the output is the left columns, then the right ones (only
+    the left ones for semi and anti joins, and an ``exists`` column for the
+    existence join).  The condition binds against the pair schema, the
+    left columns then the right ones, whatever the join type."""
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  left_keys: Sequence[Expression],
@@ -131,9 +133,6 @@ class Join(LogicalPlan):
                  condition: Optional[Expression] = None):
         if join_type not in JOIN_TYPES:
             raise ValueError(f"unknown join type {join_type!r}")
-        if condition is not None:
-            raise NotImplementedError(
-                "a join with a residual condition is not ported")
         if len(left_keys) != len(right_keys):
             raise ValueError("a join needs as many left keys as right keys")
         self.left = left
@@ -141,7 +140,6 @@ class Join(LogicalPlan):
         self.left_keys = tuple(e.bind(left.schema) for e in left_keys)
         self.right_keys = tuple(e.bind(right.schema) for e in right_keys)
         self.join_type = join_type
-        self.condition = None
         self.children = (left, right)
         if join_type in ("left_semi", "left_anti"):
             self._schema = left.schema
@@ -149,8 +147,20 @@ class Join(LogicalPlan):
             self._schema = Schema(left.schema.names + ("exists",),
                                   left.schema.dtypes + (T.BOOLEAN,))
         else:
-            self._schema = Schema(left.schema.names + right.schema.names,
-                                  left.schema.dtypes + right.schema.dtypes)
+            self._schema = self.pair_schema
+        self.condition = (condition.bind(self.pair_schema)
+                          if condition is not None else None)
+        if self.condition is not None and \
+                not isinstance(self.condition.dtype, T.BooleanType):
+            raise TypeError(f"join condition must be boolean, got "
+                            f"{self.condition.dtype!r}")
+
+    @property
+    def pair_schema(self) -> Schema:
+        """The left columns, then the right ones: the schema a candidate
+        pair presents to the condition."""
+        return Schema(self.left.schema.names + self.right.schema.names,
+                      self.left.schema.dtypes + self.right.schema.dtypes)
 
     @property
     def schema(self):

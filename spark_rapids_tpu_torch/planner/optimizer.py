@@ -3,13 +3,15 @@ column pruning.
 
 Counterpart of ``spark_rapids_tpu/planner/optimizer.py`` (``push_filters``
 :67-191, ``prune_columns`` :38) for InMemoryRelation, Project, Filter,
-Aggregate, Join and Sort.  ``push_filters`` moves each conjunct of a
-filter over an inner join into the side whose columns it references (so
+Aggregate, Join, Sort and Limit.  ``push_filters`` moves each conjunct of
+a filter over an inner join into the side whose columns it references (so
 q3's ``i_manufact_id = 28`` and ``d_moy = 11`` filter the dimension tables
 before the joins), below a Project of pass-through columns, and merges
-adjacent filters.  ``prune_columns`` makes a scan carry only the columns
-some ancestor references, through a Project of column references on top
-of the relation (a zero-copy select in the exec).  Expressions are bound
+adjacent filters; a filter over any other join stays where it is, so none
+crosses a left join's null side.  ``prune_columns`` makes a scan carry
+only the columns some ancestor, a join's residual condition included,
+references, through a Project of column references on top of the relation
+(a zero-copy select in the exec).  Expressions are bound
 by ordinal, so both passes rebuild the tree through name-based
 unbinding; a plan with duplicate column names is left as is.
 """
@@ -63,6 +65,13 @@ def push_filters(plan: L.LogicalPlan) -> L.LogicalPlan:
     return _push(plan)
 
 
+def _join(p: L.Join, left: L.LogicalPlan, right: L.LogicalPlan) -> L.Join:
+    """``p`` over new children, its keys and condition unbound."""
+    return L.Join(left, right, [_unbind(k) for k in p.left_keys],
+                  [_unbind(k) for k in p.right_keys], p.join_type,
+                  _unbind(p.condition) if p.condition is not None else None)
+
+
 def _rename(e: Expression, mapping) -> Expression:
     if isinstance(e, (Col, BoundReference)):
         return Col(mapping.get(e.name, e.name))
@@ -92,10 +101,7 @@ def _push(plan: L.LogicalPlan) -> L.LogicalPlan:
                     else child.left
                 right = L.Filter(_and_all(rpush), child.right) if rpush \
                     else child.right
-                joined = L.Join(_push(left), _push(right),
-                                [_unbind(k) for k in child.left_keys],
-                                [_unbind(k) for k in child.right_keys],
-                                child.join_type)
+                joined = _join(child, _push(left), _push(right))
                 return L.Filter(_and_all(keep), joined) if keep else joined
         if isinstance(child, L.Project):
             # conjuncts over pass-through columns (a column or an alias of
@@ -135,9 +141,7 @@ def _rebuild(plan: L.LogicalPlan, children) -> L.LogicalPlan:
     if isinstance(plan, L.Project):
         return L.Project([_unbind(e) for e in plan.exprs], children[0])
     if isinstance(plan, L.Join):
-        return L.Join(children[0], children[1],
-                      [_unbind(k) for k in plan.left_keys],
-                      [_unbind(k) for k in plan.right_keys], plan.join_type)
+        return _join(plan, children[0], children[1])
     if isinstance(plan, L.Aggregate):
         return L.Aggregate([_unbind(e) for e in plan.group_exprs],
                            [_unbind(e) for e in plan.agg_exprs], children[0])
@@ -202,10 +206,11 @@ def _prune(p: L.LogicalPlan, required: Set[str]) -> L.LogicalPlan:
         return L.Limit(p.n, _prune(p.child, required))
     if isinstance(p, L.Join):
         lnames, rnames = set(p.left.schema.names), set(p.right.schema.names)
-        left = _prune(p.left, (set(required) & lnames)
+        crefs = (p.condition.references() if p.condition is not None
+                 else set())
+        left = _prune(p.left, ((set(required) | crefs) & lnames)
                       | _exprs_refs(p.left_keys))
-        right = _prune(p.right, (set(required) & rnames)
+        right = _prune(p.right, ((set(required) | crefs) & rnames)
                        | _exprs_refs(p.right_keys))
-        return L.Join(left, right, [_unbind(k) for k in p.left_keys],
-                      [_unbind(k) for k in p.right_keys], p.join_type)
+        return _join(p, left, right)
     raise NotImplementedError(f"logical node {type(p).__name__} is not ported")

@@ -12,7 +12,8 @@ Aggregate, Join, Sort and Limit.
   exchange on the group keys into ``spark.sql.shuffle.partitions`` for a
   grouped one), then the final aggregate.
 - A join picks its strategy from the build (right) side's estimated rows,
-  as the reference does.  Over a multi-partition stream side, a build of
+  as the reference does, and carries its residual condition into whichever
+  join it becomes.  Over a multi-partition stream side, a build of
   at most ``spark.rapids.sql.join.broadcastRowThreshold`` rows is a
   broadcast hash join, and one within 8x of it (with
   ``spark.rapids.sql.join.adaptive.enabled``) an adaptive join that
@@ -130,14 +131,15 @@ def _convert_join(p: L.Join, conf: RapidsConf,
     if broadcastable and multi and est <= thr:
         return GpuBroadcastHashJoinExec(left, right, p.left_keys,
                                         p.right_keys, p.join_type, p.schema,
-                                        target_rows=conf.batch_size_rows)
+                                        target_rows=conf.batch_size_rows,
+                                        condition=p.condition)
     if (broadcastable and multi and p.left_keys and p.join_type != "cross"
             and est <= thr * 8 and conf.join_adaptive_enabled):
         return GpuAdaptiveJoinExec(
             left, right, p.left_keys, p.right_keys, p.join_type, p.schema,
             broadcast_threshold=thr, shuffle_partitions=nparts,
             target_rows=conf.batch_size_rows,
-            aqe_coalesce=conf.aqe_coalesce_partitions)
+            aqe_coalesce=conf.aqe_coalesce_partitions, condition=p.condition)
     if p.join_type == "cross" or not p.left_keys:
         raise NotImplementedError(
             "the cross and nested-loop joins are not ported")
@@ -147,7 +149,8 @@ def _convert_join(p: L.Join, conf: RapidsConf,
         right = GpuShuffleExchangeExec(nparts, p.right_keys, right)
     return GpuShuffledHashJoinExec(left, right, p.left_keys, p.right_keys,
                                    p.join_type, p.schema,
-                                   target_rows=conf.batch_size_rows)
+                                   target_rows=conf.batch_size_rows,
+                                   condition=p.condition)
 
 
 def _convert_aggregate(p: L.Aggregate, conf: RapidsConf,

@@ -1,18 +1,27 @@
-"""TPC-DS generation (store_sales, store_returns, catalog_sales, date_dim,
-item, store) and q3 and q25, without JAX.
+"""TPC-DS generation (store_sales, store_returns, catalog_sales,
+catalog_returns, inventory, date_dim, item, store, warehouse, promotion,
+customer_demographics, household_demographics) and q3, q25 and q72,
+without JAX.
 
 A copy of the pure-Python parts of ``spark_rapids_tpu/testing/tpcds.py``
 (``STORE_SALES_SCHEMA`` :21, ``DATE_DIM_SCHEMA`` :38, ``ITEM_SCHEMA`` :48,
 ``STORE_RETURNS_SCHEMA`` :381, ``CATALOG_SALES_SCHEMA`` :391,
-``STORE_SCHEMA`` :423, ``gen_date_dim`` :61, ``gen_item`` :79,
-``gen_store_sales`` :102 with ``_gen_channel_fact`` :206, ``host_pool``
-:468, ``gen_store_returns`` :483, ``gen_catalog_sales`` :525,
-``gen_store`` :625, ``_aliased`` :701, ``q3`` :134, ``q25`` :758).
-Generation draws the same numpy streams in the same order as the
-reference, so both packages see the same tables for a seed.  A fact table
-is made in chunks of ``batch_rows`` rows and chunk c reseeds with ``seed +
-stride * c`` (stride 31 for store_sales, 43 for store_returns, 53 for
-catalog_sales), so its data depends on ``batch_rows``.  The ``iter_*``
+``CATALOG_RETURNS_SCHEMA`` :405, ``INVENTORY_SCHEMA`` :411,
+``WAREHOUSE_SCHEMA`` :418, ``STORE_SCHEMA`` :423, ``PROMOTION_SCHEMA``
+:430, ``CUSTOMER_DEMOGRAPHICS_SCHEMA`` :448,
+``HOUSEHOLD_DEMOGRAPHICS_SCHEMA`` :455, ``gen_date_dim`` :61,
+``gen_item`` :79, ``gen_store_sales`` :102 with ``_gen_channel_fact``
+:206, ``host_pool`` :468, ``gen_store_returns`` :483,
+``gen_catalog_sales`` :525, ``gen_catalog_returns`` :575,
+``gen_inventory`` :601, ``gen_warehouse`` :618, ``gen_store`` :625,
+``gen_promotion`` :637, ``gen_customer_demographics`` :669,
+``gen_household_demographics`` :681, ``_aliased`` :701, ``q3`` :134,
+``q25`` :758, ``q72`` :868).  Generation draws the same numpy streams in
+the same order as the reference, so both packages see the same tables for
+a seed.  A fact table is made in chunks of ``batch_rows`` rows and chunk c
+reseeds with ``seed + stride * c`` (stride 31 for store_sales, 43 for
+store_returns, 53 for catalog_sales, 61 for catalog_returns, 71 for
+inventory), so its data depends on ``batch_rows``.  The ``iter_*``
 functions yield host numpy columns and the ``*_batches`` ones upload them;
 the dimensions come as one device batch each.
 
@@ -95,6 +104,24 @@ CATALOG_SALES_SCHEMA = Schema.of(
     cs_net_profit=T.DOUBLE,
 )
 
+CATALOG_RETURNS_SCHEMA = Schema.of(
+    cr_item_sk=T.INT,
+    cr_order_number=T.INT,
+    cr_return_quantity=T.INT,
+)
+
+INVENTORY_SCHEMA = Schema.of(
+    inv_date_sk=T.INT,
+    inv_item_sk=T.INT,
+    inv_warehouse_sk=T.INT,
+    inv_quantity_on_hand=T.INT,
+)
+
+WAREHOUSE_SCHEMA = Schema.of(
+    w_warehouse_sk=T.INT,
+    w_warehouse_name=T.STRING,
+)
+
 STORE_SCHEMA = Schema.of(
     s_store_sk=T.INT,
     s_store_id=T.STRING,
@@ -102,11 +129,33 @@ STORE_SCHEMA = Schema.of(
     s_zip=T.STRING,
 )
 
+PROMOTION_SCHEMA = Schema.of(
+    p_promo_sk=T.INT,
+    p_channel_email=T.STRING,
+    p_channel_event=T.STRING,
+)
+
+CUSTOMER_DEMOGRAPHICS_SCHEMA = Schema.of(
+    cd_demo_sk=T.INT,
+    cd_gender=T.STRING,
+    cd_marital_status=T.STRING,
+    cd_education_status=T.STRING,
+)
+
+HOUSEHOLD_DEMOGRAPHICS_SCHEMA = Schema.of(
+    hd_demo_sk=T.INT,
+    hd_buy_potential=T.STRING,
+    hd_dep_count=T.INT,
+)
+
 # TPC-DS row counts at scale factor 10 (the specification's table 3-2)
 SF10_STORE_SALES_ROWS = 28_800_991
 SF10_STORE_RETURNS_ROWS = 2_875_432
 SF10_CATALOG_SALES_ROWS = 14_401_261
+SF10_CATALOG_RETURNS_ROWS = 1_439_749
+SF10_INVENTORY_ROWS = 133_110_000
 SF10_ITEM_ROWS = 102_000
+SF10_WAREHOUSE_ROWS = 10
 
 Columns = Dict[str, np.ndarray]
 
@@ -339,6 +388,110 @@ def gen_catalog_sales(n_rows: int, device, n_items: int = 2000,
                                            match_frac, batch_rows)]
 
 
+def iter_catalog_returns(n_rows: int, n_items: int = 2000, seed: int = 59,
+                         n_orders: int = 100_000,
+                         order_pool: Optional[List[np.ndarray]] = None,
+                         match_frac: float = 0.5, batch_rows: int = 1 << 19
+                         ) -> Iterator[Tuple[Columns, Columns]]:
+    """catalog_returns chunks (stride 61).  ``order_pool`` is ``host_pool``
+    of catalog_sales over (cs_item_sk, cs_order_number): match_frac of the
+    rows copy an (item, order) pair."""
+    def spec(rng, n):
+        data = {
+            "cr_item_sk": (1 + rng.randint(0, n_items, n)).astype(np.int32),
+            "cr_order_number": (1 + rng.randint(0, n_orders, n)
+                                ).astype(np.int32),
+            "cr_return_quantity": rng.randint(1, 20, n).astype(np.int32),
+        }
+        if order_pool is not None and len(order_pool[0]):
+            take = rng.rand(n) < match_frac
+            idx = rng.randint(0, len(order_pool[0]), n)
+            data["cr_item_sk"] = np.where(
+                take, order_pool[0][idx], data["cr_item_sk"]).astype(np.int32)
+            data["cr_order_number"] = np.where(
+                take, order_pool[1][idx],
+                data["cr_order_number"]).astype(np.int32)
+        return data
+    return _iter_fact(spec, n_rows, seed, 61, batch_rows)
+
+
+def gen_catalog_returns(n_rows: int, device, n_items: int = 2000,
+                        seed: int = 59, n_orders: int = 100_000,
+                        order_pool: Optional[List[np.ndarray]] = None,
+                        match_frac: float = 0.5, batch_rows: int = 1 << 19
+                        ) -> List[ColumnarBatch]:
+    return [fact_batch(d, v, CATALOG_RETURNS_SCHEMA, device)
+            for d, v in iter_catalog_returns(n_rows, n_items, seed, n_orders,
+                                             order_pool, match_frac,
+                                             batch_rows)]
+
+
+def iter_inventory(n_rows: int, n_items: int = 2000, n_warehouses: int = 10,
+                   seed: int = 67, batch_rows: int = 1 << 19
+                   ) -> Iterator[Tuple[Columns, Columns]]:
+    """inventory chunks (stride 71): weekly snapshots of (item,
+    warehouse) stock, the largest TPC-DS table by rows."""
+    def spec(rng, n):
+        return {
+            "inv_date_sk": (2450000 + 7 * rng.randint(0, 312, n)
+                            ).astype(np.int32),
+            "inv_item_sk": (1 + rng.randint(0, n_items, n)).astype(np.int32),
+            "inv_warehouse_sk": (1 + rng.randint(0, n_warehouses, n)
+                                 ).astype(np.int32),
+            "inv_quantity_on_hand": rng.randint(0, 500, n).astype(np.int32),
+        }
+    return _iter_fact(spec, n_rows, seed, 71, batch_rows)
+
+
+def gen_inventory(n_rows: int, device, n_items: int = 2000,
+                  n_warehouses: int = 10, seed: int = 67,
+                  batch_rows: int = 1 << 19) -> List[ColumnarBatch]:
+    return [fact_batch(d, v, INVENTORY_SCHEMA, device)
+            for d, v in iter_inventory(n_rows, n_items, n_warehouses, seed,
+                                       batch_rows)]
+
+
+def gen_warehouse(device, n: int = 10) -> ColumnarBatch:
+    return ColumnarBatch.from_pydict(
+        {"w_warehouse_sk": list(range(1, n + 1)),
+         "w_warehouse_name": [f"Warehouse no {i}" for i in range(1, n + 1)]},
+        WAREHOUSE_SCHEMA, device)
+
+
+def gen_promotion(device, n: int = 300, seed: int = 79) -> ColumnarBatch:
+    rng = np.random.RandomState(seed)
+
+    def yn(p):
+        return ["Y" if x < p else "N" for x in rng.rand(n)]
+    return ColumnarBatch.from_pydict(
+        {"p_promo_sk": list(range(1, n + 1)),
+         "p_channel_email": yn(0.5),
+         "p_channel_event": yn(0.5)},
+        PROMOTION_SCHEMA, device)
+
+
+def gen_customer_demographics(device, n: int = 1000) -> ColumnarBatch:
+    ms = ["M", "S", "D", "W", "U"]
+    ed = ["Primary", "Secondary", "College", "2 yr Degree", "4 yr Degree",
+          "Advanced Degree", "Unknown"]
+    return ColumnarBatch.from_pydict(
+        {"cd_demo_sk": list(range(1, n + 1)),
+         "cd_gender": ["M" if i % 2 else "F" for i in range(n)],
+         "cd_marital_status": [ms[i % 5] for i in range(n)],
+         "cd_education_status": [ed[i % 7] for i in range(n)]},
+        CUSTOMER_DEMOGRAPHICS_SCHEMA, device)
+
+
+def gen_household_demographics(device, n: int = 100) -> ColumnarBatch:
+    pots = [">10000", "5001-10000", "1001-5000", "501-1000", "0-500",
+            "Unknown"]
+    return ColumnarBatch.from_pydict(
+        {"hd_demo_sk": list(range(1, n + 1)),
+         "hd_buy_potential": [pots[i % 6] for i in range(n)],
+         "hd_dep_count": [i % 10 for i in range(n)]},
+        HOUSEHOLD_DEMOGRAPHICS_SCHEMA, device)
+
+
 def gen_store(device, n: int = 50, seed: int = 73) -> ColumnarBatch:
     rng = np.random.RandomState(seed)
     return ColumnarBatch.from_pydict(
@@ -428,4 +581,70 @@ def q25(ss_df, sr_df, cs_df, dd_df, store_df, item_df):
                       ("i_item_desc", SortOrder(True)),
                       ("s_store_id", SortOrder(True)),
                       ("s_store_name", SortOrder(True)))
+            .limit(100))
+
+
+def q72(cs_df, inv_df, warehouse_df, item_df, cd_df, hd_df, dd_df,
+        promo_df, cr_df):
+    """TPC-DS Q72, the join-heavy stress query: catalog sales against the
+    inventory snapshots of their item with less stock on hand than the
+    quantity sold, in the week of the sale, filtered by demographics, with
+    left joins to promotion and catalog_returns and the promo / no-promo
+    counts.
+
+    select i_item_desc, w_warehouse_name, d1.d_week_seq,
+           sum(case when p_promo_sk is null then 1 else 0 end) no_promo,
+           sum(case when p_promo_sk is not null then 1 else 0 end) promo,
+           count(*) total_cnt
+    from catalog_sales
+    join inventory on cs_item_sk = inv_item_sk
+                  and inv_quantity_on_hand < cs_quantity
+    join warehouse, item, customer_demographics, household_demographics,
+         date_dim d1, d2, d3 on their keys
+    left join promotion on cs_promo_sk = p_promo_sk
+    left join catalog_returns on cr_item_sk = cs_item_sk
+                             and cr_order_number = cs_order_number
+    where d1.d_week_seq = d2.d_week_seq and d3.d_date > d1.d_date + 5
+      and hd_buy_potential = '>10000' and d1.d_year = 1999
+      and cd_marital_status = 'D'
+    group by i_item_desc, w_warehouse_name, d1.d_week_seq
+    order by total_cnt desc, i_item_desc, w_warehouse_name, d_week_seq
+    limit 100
+    """
+    from spark_rapids_tpu_torch.expressions import (If, IsNull, col, count,
+                                                    lit, sum_)
+    from spark_rapids_tpu_torch.kernels.sort import SortOrder
+    d1 = _aliased(dd_df.filter(col("d_year") == lit(1999)), "d1")
+    d2 = _aliased(dd_df, "d2")
+    d3 = _aliased(dd_df, "d3")
+    cd = cd_df.filter(col("cd_marital_status") == lit("D"))
+    hd = hd_df.filter(col("hd_buy_potential") == lit(">10000"))
+    j = (cs_df
+         .join(inv_df, on=([col("cs_item_sk")], [col("inv_item_sk")]),
+               condition=(col("inv_quantity_on_hand") < col("cs_quantity")))
+         .join(warehouse_df, on=([col("inv_warehouse_sk")],
+                                 [col("w_warehouse_sk")]))
+         .join(item_df, on=([col("cs_item_sk")], [col("i_item_sk")]))
+         .join(cd, on=([col("cs_bill_cdemo_sk")], [col("cd_demo_sk")]))
+         .join(hd, on=([col("cs_bill_hdemo_sk")], [col("hd_demo_sk")]))
+         .join(d1, on=([col("cs_sold_date_sk")], [col("d1_date_sk")]))
+         .join(d2, on=([col("inv_date_sk")], [col("d2_date_sk")]))
+         .filter(col("d1_week_seq") == col("d2_week_seq"))
+         .join(d3, on=([col("cs_ship_date_sk")], [col("d3_date_sk")]))
+         .filter(col("d3_date_ord") > (col("d1_date_ord") + lit(5)))
+         .join(promo_df, on=([col("cs_promo_sk")], [col("p_promo_sk")]),
+               how="left")
+         .join(cr_df, on=([col("cs_item_sk"), col("cs_order_number")],
+                          [col("cr_item_sk"), col("cr_order_number")]),
+               how="left"))
+    return (j.group_by("i_item_desc", "w_warehouse_name", "d1_week_seq")
+            .agg(sum_(If(IsNull(col("p_promo_sk")), lit(1), lit(0))
+                      ).alias("no_promo"),
+                 sum_(If(IsNull(col("p_promo_sk")), lit(0), lit(1))
+                      ).alias("promo"),
+                 count().alias("total_cnt"))
+            .order_by(("total_cnt", SortOrder(False)),
+                      ("i_item_desc", SortOrder(True)),
+                      ("w_warehouse_name", SortOrder(True)),
+                      ("d1_week_seq", SortOrder(True)))
             .limit(100))

@@ -116,3 +116,25 @@ def test_q3_modules_and_sources_are_covered():
                  "spark_rapids_tpu_torch.plan.execs.sort",
                  "spark_rapids_tpu_torch.testing.tpcds"):
         assert name in PORT_MODULES
+
+
+def test_q72_modules_are_covered():
+    """The q72 slice's modules (the conditional expression, the
+    predicates, the join kernels and execs, the generators) are in the
+    scans above and import nothing of JAX, and the conditional join's
+    kernels are in a built source."""
+    names = ("spark_rapids_tpu_torch.expressions.conditional",
+             "spark_rapids_tpu_torch.expressions.predicates",
+             "spark_rapids_tpu_torch.kernels.join",
+             "spark_rapids_tpu_torch.kernels.selection",
+             "spark_rapids_tpu_torch.plan.execs.join",
+             "spark_rapids_tpu_torch.planner.optimizer",
+             "spark_rapids_tpu_torch.testing.tpcds")
+    for name in names:
+        assert name in PORT_MODULES
+        path = ROOT / (name.replace(".", "/") + ".py")
+        assert not {m for m in _imported_roots(path) if m in FORBIDDEN}
+    source = (_lib.CSRC / "join.cu").read_text()
+    assert "join.cu" in _lib.SOURCES
+    for entry in ("srt_cond_join_count", "srt_cond_join_scatter"):
+        assert entry in source and entry in _lib._SIGNATURES

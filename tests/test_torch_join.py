@@ -58,6 +58,22 @@ def _sides(kind: str, seed: int, n_left: int, n_right: int,
     return left, right
 
 
+def _left_reference(left, right, keys):
+    """The reference's left-join maps, its out-of-range right index (OOB)
+    written as -1."""
+    jl, jr = JaxBatch.from_arrow(left), JaxBatch.from_arrow(right)
+    cap = max(left.num_rows * max(right.num_rows, 1), 1)
+    longest = max([len(v.encode()) for t in (left, right)
+                   for c in t.columns if pa.types.is_string(c.type)
+                   for v in c.to_pylist() if v is not None] + [1])
+    li, ri, count, _ = jjoin.join_gather_maps(jl, keys, jr, keys, "left",
+                                              cap, string_max_bytes=longest)
+    c = int(count)
+    ri = np.asarray(ri)[:c].astype(np.int64)
+    return np.asarray(li)[:c], np.where((ri < 0) | (ri >= right.num_rows),
+                                        -1, ri)
+
+
 def _reference_maps(left, right):
     jl, jr = JaxBatch.from_arrow(left), JaxBatch.from_arrow(right)
     cap = max(left.num_rows * right.num_rows, 1)
@@ -141,8 +157,17 @@ def test_build_side_sorts_nulls_last():
 
 @pytest.mark.parametrize("how", ["left", "left_semi", "left_anti", "full"])
 def test_other_join_types_raise(how):
+    """The left join is ported and gives the reference's maps; the other
+    join types' probes still raise."""
     left, right = _sides("int", 7, 20, 10, 5)
     pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
+    if how == "left":
+        li, ri, count = J.join_gather_maps(pl, [0], pr, [0], how)
+        ref_li, ref_ri = _left_reference(left, right, [0])
+        np.testing.assert_array_equal(li.numpy(), ref_li)
+        np.testing.assert_array_equal(ri.numpy(), ref_ri)
+        assert (ri == -1).any() and count == len(ref_li)
+        return
     with pytest.raises(NotImplementedError, match=how):
         J.join_gather_maps(pl, [0], pr, [0], how)
 
@@ -271,8 +296,14 @@ def test_multi_key_string_key_cross_and_condition_raise():
         J.join_gather_maps(pl, [0], ps, [0], "inner")
     with pytest.raises(NotImplementedError, match="cross"):
         J.join_gather_maps(pl, [], pr, [], "cross")
-    with pytest.raises(NotImplementedError, match="conditional_join_maps"):
-        J.conditional_join_maps()
+    # conditional_join_maps is ported; it raises for a join type it has no
+    # branch for and for maps that do not line up
+    i32 = torch.zeros(3, dtype=torch.int32)
+    ok = torch.ones(3, dtype=torch.bool)
+    with pytest.raises(ValueError, match="cross"):
+        J.conditional_join_maps(i32, i32, ok, ok, ok, "cross")
+    with pytest.raises(ValueError, match="differ in length"):
+        J.conditional_join_maps(i32, i32[:2], ok, ok, ok, "inner")
     with pytest.raises(ValueError, match="unknown join type"):
         J.join_gather_maps(pl, [0], pr, [0], "outer")
 
@@ -299,3 +330,169 @@ def test_join_wrappers_never_fall_back_off_the_cpu():
                       3, meta_build)
     assert not any(_lib.LAUNCHES.get(k) for k in
                    ("join_build", "join_probe", "join_expand"))
+
+
+# -- the left join and the conditional join maps --------------------------
+
+COND_TYPES = ("inner", "left", "right", "full", "left_semi", "left_anti",
+              "existence")
+
+
+def _candidates(seed: int, nl: int, nr: int, pass_rate: float):
+    """Candidate pairs as an inner expansion gives them (left rows in
+    order, each with 0-4 right rows; a fifth of the left rows have none),
+    a pass mask over the pairs of live rows, and live masks with a few
+    dead rows."""
+    rng = np.random.RandomState(seed)
+    per = np.where(rng.rand(nl) < 0.2, 0, rng.randint(1, 5, nl))
+    li = np.repeat(np.arange(nl, dtype=np.int32), per)
+    ri = rng.randint(0, nr, li.shape[0]).astype(np.int32)
+    left_live = rng.rand(nl) >= 0.05
+    right_live = rng.rand(nr) >= 0.05
+    passed = ((rng.rand(li.shape[0]) < pass_rate) & left_live[li]
+              & right_live[ri])
+    return li, ri, passed, left_live, right_live
+
+
+@pytest.mark.parametrize("join_type", COND_TYPES)
+def test_conditional_join_maps_match_reference(join_type):
+    """Every branch of the reference's conditional_join_maps, at pass
+    rates 0, 40% and 100%, with left rows that have no candidate and dead
+    rows on both sides: the same (li, ri) in the same order (the
+    reference's OOB written -1) and the same lmatched flags."""
+    for seed, (nl, nr, rate) in enumerate(((300, 120, 0.4), (257, 64, 0.0),
+                                           (190, 300, 1.0), (40, 1, 0.4))):
+        li, ri, passed, llive, rlive = _candidates(seed, nl, nr, rate)
+        cap = li.shape[0] + nl + nr
+        rli, rri, rcount, _, rlm = jjoin.conditional_join_maps(
+            li, ri, passed, llive, rlive, join_type, cap)
+        c = int(rcount)
+        oob = lambda a: np.where(np.asarray(a)[:c] == 2**31 - 1, -1,  # noqa
+                                 np.asarray(a)[:c])
+        got_li, got_ri, got_lm = J.conditional_join_maps(
+            *(torch.from_numpy(a) for a in (li, ri, passed, llive, rlive)),
+            join_type)
+        assert got_li.dtype == got_ri.dtype == torch.int32
+        np.testing.assert_array_equal(got_li.numpy(), oob(rli))
+        np.testing.assert_array_equal(got_ri.numpy(), oob(rri))
+        np.testing.assert_array_equal(got_lm.numpy(), np.asarray(rlm))
+        if rate == 0.0 and join_type in ("inner", "left_semi"):
+            assert got_li.shape[0] == 0
+
+
+LEFT_CASES = {
+    # kind, seed, left rows, right rows, distinct keys, build key offset
+    "int_nulls_and_duplicates": ("int", 21, 400, 150, 60, 0),
+    "double_nan_and_signed_zero": ("double", 22, 300, 90, 0, 0),
+    "no_match_at_all": ("int", 23, 200, 80, 30, 1_000),
+}
+
+
+@pytest.mark.parametrize("case", list(LEFT_CASES))
+def test_left_join_one_key_matches_reference(case):
+    """The single-key left probe and expand: every stream row at least
+    once, a row with no match (a null key included) null-extended."""
+    kind, seed, nl, nr, distinct, offset = LEFT_CASES[case]
+    left, right = _sides(kind, seed, nl, nr, distinct, offset=offset)
+    ref_li, ref_ri = _left_reference(left, right, [0])
+    pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
+    li, ri, count = J.join_gather_maps(pl, [0], pr, [0], "left")
+    np.testing.assert_array_equal(li.numpy(), ref_li)
+    np.testing.assert_array_equal(ri.numpy(), ref_ri)
+    assert count == len(ref_li) >= nl
+    nulls = np.flatnonzero(pa.compute.is_null(left.column("lk")).to_numpy(
+        zero_copy_only=False))
+    assert set(nulls) <= set(li[ri == -1].tolist())
+
+
+@pytest.mark.parametrize("case", ["int_int", "int_string", "no_match"])
+def test_left_join_two_keys_matches_reference(case):
+    """The several-key left probe: (int, int) and (int, string) keys with
+    nulls in either key."""
+    kinds = {"int_int": ("int", "int"), "int_string": ("int", "string"),
+             "no_match": ("int", "int")}[case]
+    rng = np.random.RandomState(31)
+    left = pa.table({f"k{i}": _multi_column(k, rng, 500, 8, 0.1)
+                     for i, k in enumerate(kinds)})
+    right = pa.table({f"k{i}": _multi_column(k, rng, 200, 8, 0.1)
+                      for i, k in enumerate(kinds)})
+    if case == "no_match":
+        right = right.set_column(0, "k0", pa.compute.add(
+            right.column("k0"), pa.scalar(100, pa.int32())))
+    ref_li, ref_ri = _left_reference(left, right, [0, 1])
+    pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
+    li, ri, count = J.join_gather_maps(pl, [0, 1], pr, [0, 1], "left")
+    np.testing.assert_array_equal(li.numpy(), ref_li)
+    np.testing.assert_array_equal(ri.numpy(), ref_ri)
+    assert (ri == -1).any() and count == len(ref_li)
+    if case == "no_match":
+        assert li.tolist() == list(range(500)) and (ri == -1).all()
+
+
+@pytest.mark.parametrize("keys", [[0], [0, 2]])
+def test_left_join_against_an_empty_build(keys):
+    """An empty build side: every stream row once, null-extended, on one
+    key and on two (an int and a string)."""
+    left, right = _sides("int", 24, 50, 10, 5)
+    right = right.append_column("rs2", right.column("rs")).select(
+        ["rk", "rs", "rs2"]).slice(0, 0)
+    pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
+    lkeys = [0, 2] if len(keys) == 2 else [0]
+    rkeys = [0, 2] if len(keys) == 2 else [0]
+    li, ri, count = J.join_gather_maps(pl, lkeys, pr, rkeys, "left")
+    assert (li.tolist(), ri.tolist(), count) == (list(range(50)),
+                                                 [-1] * 50, 50)
+    names = ("lk", "lp", "ls", "rk", "rs", "rs2")
+    schema = Schema(names, pl.schema.dtypes + pr.schema.dtypes)
+    got = J.apply_gather_maps(pl, pr, li, ri, schema, "left")
+    assert got.rows() == [r + (None, None, None)
+                          for r in zip(*left.to_pydict().values())]
+
+
+def test_apply_gather_maps_left_matches_reference():
+    """The left join's rows: the right columns (a string among them) null
+    where the stream row had no match, as the reference's gather of an
+    out-of-range index gives them."""
+    left, right = _sides("int", 25, 300, 60, 80)
+    jl, jr = JaxBatch.from_arrow(left), JaxBatch.from_arrow(right)
+    cap = left.num_rows * right.num_rows
+    rli, rri, rcount, _ = jjoin.join_gather_maps(jl, [0], jr, [0], "left",
+                                                 cap)
+    c = int(rcount)
+    names = ("lk", "lp", "ls", "rk", "rs")
+    jschema = JaxSchema(names, tuple(jl.schema.dtypes)
+                        + tuple(jr.schema.dtypes))
+    ref, _ = jjoin.apply_gather_maps(jl, jr, rli, rri, rcount, jschema,
+                                     "left", cap, {2: 64 * c, 4: 64 * c})
+    pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
+    li, ri, _ = J.join_gather_maps(pl, [0], pr, [0], "left")
+    got = J.apply_gather_maps(pl, pr, li, ri,
+                              Schema(names, pl.schema.dtypes
+                                     + pr.schema.dtypes), "left")
+    want = list(zip(*ref.to_pydict().values()))
+    assert got.rows() == want
+    assert any(r[3] is None and r[4] is None for r in want)
+
+
+def test_conditional_and_left_wrappers_never_fall_back_off_the_cpu():
+    """Off the CPU the conditional join maps and the left probe take their
+    CUDA kernels, which raise for anything but a CUDA tensor."""
+    meta = lambda n, dt: torch.zeros(n, dtype=dt, device="meta")  # noqa
+    i32, ok = meta(4, torch.int32), meta(4, torch.bool)
+    with pytest.raises(ValueError, match="expected cuda"):
+        J.conditional_join_maps(i32, i32, ok, meta(3, torch.bool),
+                                meta(2, torch.bool), "left")
+    left, right = _sides("int", 10, 20, 10, 5)
+    pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
+    build = J.build_side(pr, 0)
+    col = pl.columns[0]
+    meta_col = DeviceColumn(col.data.to("meta"), col.validity.to("meta"),
+                            col.dtype)
+    meta_build = J.JoinBuild(build.batch, 0, build.perm.to("meta"),
+                             build.keys.to("meta"),
+                             build.key_valid.to("meta"))
+    with pytest.raises(ValueError, match="expected cuda"):
+        J.join_probe(type(pl)((meta_col,), pl.num_rows, Schema(
+            ("k",), (col.dtype,))), 0, meta_build, "left")
+    assert not any(_lib.LAUNCHES.get(k) for k in
+                   ("conditional_join_maps", "join_probe_left"))

@@ -161,13 +161,18 @@ def reference_join(reference):
 def test_joins_that_do_not_broadcast_raise(reference, reference_join):
     """A join that does not broadcast is adaptive (build estimate within
     8x of the threshold) or shuffled, on one partition too, and gives the
-    reference's rows; a string key joins.  What is still not ported
-    raises: the left join, a residual condition."""
+    reference's rows; a string key joins.  The left join and a residual
+    condition run (every sale's item exists, so the left join gives the
+    inner join's rows); what is still not ported raises: the full join."""
     tables, _ = reference
     ss, dd, it = _port_dfs(tables)
     on = ([PE.col("ss_item_sk")], [PE.col("i_item_sk")])
-    with pytest.raises(NotImplementedError, match="the left join"):
-        ss.join(it, on=on, how="left").physical_plan()
+    with pytest.raises(NotImplementedError, match="the full join"):
+        ss.join(it, on=on, how="full").physical_plan()
+    left = ss.join(it, on=on, how="left").select(*JOIN_COLUMNS)
+    assert isinstance(left.physical_plan().children[0],
+                      GpuBroadcastHashJoinExec)
+    assert sorted(left.collect(), key=repr) == reference_join
     thr = "spark.rapids.sql.join.broadcastRowThreshold"
     for conf, parts, what in (({thr: "1000"}, 3, GpuAdaptiveJoinExec),
                               ({thr: "100"}, 3, GpuShuffledHashJoinExec),
@@ -177,8 +182,9 @@ def test_joins_that_do_not_broadcast_raise(reference, reference_join):
         df = s2.join(i2, on=on).select(*JOIN_COLUMNS)
         assert isinstance(df.physical_plan().children[0], what)
         assert sorted(df.collect(), key=repr) == reference_join
-    with pytest.raises(NotImplementedError, match="residual condition"):
-        ss.join(it, on=on, condition=PE.col("ss_item_sk") < 3)
+    cond = ss.join(it, on=on, condition=PE.col("i_item_sk") < 3)
+    assert sorted(cond.select(*JOIN_COLUMNS).collect(), key=repr) == [
+        r for r in reference_join if r[1] < 3]
     items = GpuSession({"spark.rapids.sql.batchSizeRows": "500"},
                        device="cpu").create_dataframe(tables[2],
                                                       num_partitions=2)
