@@ -39,16 +39,28 @@ Phases (any failure raises and the script exits non-zero):
      keys, an empty build) and the left several-key probe ((int32, int32)
      and (int, string) keys with nulls, an empty build), with the shared
      expand; the gather with -1 indices on int, double and string columns
-     and from an empty source.  A kernel's ``max_abs_err`` is the largest
-     difference over all its comparisons;
+     and from an empty source.  Then the fused segment's interpreter
+     (``fused_segment``) in both modes against its plain version: a
+     program of every instruction over int32 and int64 near their limits,
+     doubles with NaN, -0.0 and infinities, bools, decimals at scales 0, 2
+     and 4 and dates (10% nulls) at n = 1,048,576, 1,000,003 and 0, with
+     filters keeping 0%, 1.8%, 50% and 100% and with none: outputs, maps,
+     counts and int64 sums bit for bit, f64 sums within 1e-12; then q6's
+     program (global) and q1's (compact) on the first SF10 batch, timed.
+     A kernel's ``max_abs_err`` is the largest difference over all its
+     comparisons;
   4. data: TPC-H lineitem at SF10 (60,012,150 rows, all eleven columns on
      the card, batches of 1,048,576 rows, 4 partitions), with independent
      numpy evaluations of q6 and q1;
   5. q6 through GpuSession, held against numpy, with every q6 kernel's
      launch count checked over that run, then timed, then profiled for
-     the card's busy time and idle share;
-  6. q1 the same way: grouped partial aggregate, hash exchange into 16
-     partitions, final aggregate;
+     the card's busy time and idle share: fused (the default; the fused
+     kernel once a batch, no compaction or gather) and with
+     ``spark.rapids.sql.tpu.fuseStages=false`` (the filter's compaction,
+     gather and masked sum), each with its launches and device
+     activities a batch;
+  6. q1 the same two ways: grouped partial aggregate, hash exchange into
+     16 partitions, final aggregate;
   7. q3 at TPC-DS SF10 (store_sales 28,800,991 rows, all twelve columns on
      the card, batches of 1,048,576 rows, 4 partitions; item 102,000
      rows; date_dim 2,190 rows): two broadcast hash joins, the grouped
@@ -68,6 +80,8 @@ Phases (any failure raises and the script exits non-zero):
      strings) across the hash exchange, ORDER BY and LIMIT 100; held
      against an independent numpy evaluation (packed int64 keys, sort and
      searchsorted joins, integer-cent sums), then timed and profiled;
+     then q6, q1, q3 and q25 fused against ``fuseStages=false`` in 10
+     alternating pairs each (medians, quartiles, pairs won);
   9. q72 at TPC-DS SF10 in a session of 200 shuffle partitions with the
      coalesced reader off: catalog_sales as in phase 8; inventory
      133,110,000 rows (102,000 items, 10 warehouses), catalog_returns
@@ -98,12 +112,17 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from spark_rapids_tpu_torch.api.session import GpuSession  # noqa: E402
+from spark_rapids_tpu_torch.api.session import (  # noqa: E402
+    DataFrame, GpuSession)
 from spark_rapids_tpu_torch.columnar.arrow import batch_from_numpy  # noqa: E402
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn  # noqa: E402
 from spark_rapids_tpu_torch.columnar.batch import (  # noqa: E402
     ColumnarBatch, Schema)
+from spark_rapids_tpu_torch.expressions.core import EvalContext  # noqa: E402
+from spark_rapids_tpu_torch import expressions as E  # noqa: E402
+from spark_rapids_tpu_torch.expressions import program as P  # noqa: E402
 from spark_rapids_tpu_torch.kernels import _lib  # noqa: E402
+from spark_rapids_tpu_torch.kernels import fused as FK  # noqa: E402
 from spark_rapids_tpu_torch.kernels import groupby as G  # noqa: E402
 from spark_rapids_tpu_torch.kernels import hash as HK  # noqa: E402
 from spark_rapids_tpu_torch.kernels import join as JK  # noqa: E402
@@ -116,6 +135,8 @@ from spark_rapids_tpu_torch.plan.execs.exchange import (  # noqa: E402
     GpuCoalescedShuffleReaderExec)
 from spark_rapids_tpu_torch.plan.execs.join import (  # noqa: E402
     GpuAdaptiveJoinExec, GpuBroadcastHashJoinExec, GpuShuffledHashJoinExec)
+from spark_rapids_tpu_torch.plan.fused import (  # noqa: E402
+    GpuFusedSegmentExec)
 from spark_rapids_tpu_torch import types as T  # noqa: E402
 from spark_rapids_tpu_torch.testing import tpcds, tpch  # noqa: E402
 
@@ -134,6 +155,7 @@ F64_RTOL_Q1 = 1e-9               # against numpy's bincount sums
 Q1_CUTOFF = tpch._days(1998, 9, 2)
 SHUFFLE_PARTITIONS = 16
 ITERS, WARMUP = 20, 3
+AB_PAIRS = 10
 
 KERNELS = {
     "compaction_map": ("csrc/selection.cu",
@@ -174,12 +196,19 @@ KERNELS = {
                               "spark_rapids_tpu/kernels/join.py:395"),
     "gather_null_extend": ("csrc/selection.cu",
                            "spark_rapids_tpu/kernels/selection.py:308"),
+    "fused_segment": ("csrc/fused.cu", "spark_rapids_tpu/plan/fused.py:943"),
 }
-Q6_KERNELS = ("compaction_map", "gather", "masked_sum", "concat")
-Q1_KERNELS = ("compaction_map", "gather", "concat", "murmur3", "partition",
-              "sort", "segmented_sum")
-Q3_KERNELS = ("compaction_map", "gather", "gather_strings", "concat",
-              "concat_strings", "murmur3", "hash_string", "partition", "sort",
+FUSE_OFF = {"spark.rapids.sql.tpu.fuseStages": "false"}
+# fused (the default), q6's filter and partial sum are one kernel a batch:
+# the final aggregate's concat and masked sum remain
+Q6_KERNELS = ("fused_segment", "masked_sum", "concat")
+Q6_UNFUSED_KERNELS = ("compaction_map", "gather", "masked_sum", "concat")
+Q1_UNFUSED_KERNELS = ("compaction_map", "gather", "concat", "murmur3",
+                      "partition", "sort", "segmented_sum")
+Q1_KERNELS = Q1_UNFUSED_KERNELS + ("fused_segment",)
+Q3_KERNELS = ("fused_segment", "compaction_map", "gather", "gather_strings",
+              "concat", "concat_strings", "murmur3", "hash_string",
+              "partition", "sort",
               "string_sort_keys", "string_rows_equal_prev", "segmented_sum",
               "join_build", "join_probe", "join_expand")
 Q25_KERNELS = Q3_KERNELS + ("join_multi_build", "join_multi_probe")
@@ -1642,6 +1671,235 @@ def check_null_extend(rng, dev, summary) -> None:
     summary["gather_null_extend"] = summarize(line, nbytes)
 
 
+# -- phase 3: the fused segment ---------------------------------------------
+
+FUSED_SELECTIVITIES = (0.0, SEL_Q6, 0.5, 1.0)
+
+
+def fused_table(rng, n: int, dev) -> ColumnarBatch:
+    """Columns for every instruction, 10% nulls each: int32 and int64 near
+    their limits (sums and products wrap), doubles with NaN, -0.0 and
+    infinities, bools, decimals at scales 0, 2 and 4 whose rescaled
+    compares tie, dates; and ``u`` uniform in [0, 1) with no nulls, which
+    a filter ``u < p`` keeps at selectivity p."""
+    i32, i64 = np.iinfo(np.int32), np.iinfo(np.int64)
+
+    def ints(edge, dtype):
+        v = rng.randint(-9, 9, n).astype(dtype)
+        pick = rng.rand(n) < 0.2
+        v[pick] = rng.choice(np.array(edge, dtype=dtype), pick.sum())
+        return v
+
+    def doubles():
+        v = np.round(rng.uniform(-4, 4, n), 1)
+        pick = rng.rand(n) < 0.25
+        v[pick] = rng.choice(np.array([np.nan, -0.0, 0.0, np.inf, -np.inf]),
+                             pick.sum())
+        return v
+    d2 = rng.randint(-500, 500, n).astype(np.int64)
+    cols = {"i": ints([i32.max, i32.min, 46341], np.int32),
+            "j": ints([i32.max, 1, 46341], np.int32),
+            "l": ints([i64.max, i64.min, 3037000500], np.int64),
+            "m": ints([i64.max, 2, 3037000500], np.int64),
+            "x": doubles(), "y": doubles(),
+            "b": rng.rand(n) < 0.5, "c": rng.rand(n) < 0.5,
+            "d0": rng.randint(-5, 5, n).astype(np.int64), "d2": d2,
+            "d4": np.where(rng.rand(n) < 0.5, d2 * 100,
+                           rng.randint(-50_000, 50_000, n)),
+            "dt": rng.randint(8000, 8010, n).astype(np.int32)}
+    types = {"i": T.INT, "j": T.INT, "l": T.LONG, "m": T.LONG,
+             "x": T.DOUBLE, "y": T.DOUBLE, "b": T.BOOLEAN, "c": T.BOOLEAN,
+             "d0": T.DecimalType(10, 0), "d2": T.DecimalType(12, 2),
+             "d4": T.DecimalType(14, 4), "dt": T.DATE, "u": T.DOUBLE}
+    arrays = {k: (v, rng.rand(n) >= 0.1) for k, v in cols.items()}
+    arrays["u"] = rng.rand(n)
+    return batch_from_numpy(arrays, Schema(tuple(types),
+                                           tuple(types.values())), dev)
+
+
+def every_instruction() -> list:
+    """Expressions whose programs hold every instruction."""
+    c, lit = E.col, E.lit
+    dbl = [E.Cast(c(d), T.DOUBLE) for d in ("d0", "d2", "d4")]
+    return [c("i") + c("j"), c("i") - lit(7), c("i") * c("j"),
+            c("l") * c("m"), c("i") + c("l"), c("dt") - c("dt"),
+            c("i") + c("x"), c("l") * c("y"), c("x") * c("y") + c("x"),
+            lit(1.0) - c("x"), *dbl,
+            dbl[1] * (lit(1.0) - dbl[2]) * (lit(1.0) + dbl[0]),
+            c("i") < c("j"), c("i") <= c("l"), E.GreaterThan(c("x"), c("y")),
+            c("x") >= c("y"), c("x") == c("y"), c("i") < c("x"),
+            c("dt") == lit(8004, T.DATE), c("b") < c("c"),
+            c("d2") < c("d4"), c("d2") == c("d4"),
+            c("d0") >= lit(150, T.DecimalType(12, 2)), c("b") & c("c"),
+            (c("i") < c("j")) & (c("x") > c("y")), E.IsNull(c("x")),
+            E.If(c("b"), c("i"), c("j")),
+            E.If(c("i") < c("j"), c("x"), c("l")),
+            E.If(E.IsNull(c("x")), lit(1), lit(0))]
+
+
+def fused_programs(schema, p) -> tuple:
+    """(compact program, global program) over ``schema``; the filter is
+    ``u < p`` (None: no filter)."""
+    out = []
+    for mode in ("compact", "global"):
+        b = P.ProgramBuilder(schema.dtypes)
+        cols = [P.Column(dt, ordinal=i) for i, dt in enumerate(schema.dtypes)]
+
+        def value(e):
+            return b.value(e.bind(schema), cols)
+        keep = None if p is None else value(E.col("u") < E.lit(float(p)))
+        if mode == "compact":
+            out.append(b.finish(keep, [value(e) for e in every_instruction()],
+                                []))
+            continue
+        sq = E.Cast(E.col("d2"), T.DOUBLE)
+        slots = [(value(sq * sq), P.SUM_F64),
+                 (value(E.col("i") + E.col("j")), P.SUM_I64),
+                 (value(E.col("x")), P.SUM_NONE),
+                 (value(E.If(E.IsNull(E.col("x")), E.lit(0.0), E.col("u"))),
+                  P.SUM_F64),
+                 (value(E.col("dt")), P.SUM_F64)]
+        out.append(b.finish(keep, [], slots))
+    return tuple(out)
+
+
+def hold_compact(prog, batch, need_map: bool, what: str) -> int:
+    """The kernel's compact mode against the plain version: every output's
+    data and validity, the map and the count, bit for bit."""
+    words = prog.words().to(batch.device)
+    n = batch.num_rows
+    outs, idx, count = FK.fused_compact(prog, words, batch.columns, n,
+                                        need_map)
+    w_outs, w_idx, w_count = FK.fused_compact_plain(
+        prog, batch.columns, n, need_map, batch.device)
+    require(count == w_count, f"fused_segment count {count} != {w_count}: "
+            f"{what}")
+    require((idx is None) == (w_idx is None), f"fused_segment map: {what}")
+    pairs = [p for (x, v), (wx, wv) in zip(outs, w_outs, strict=True)
+             for p in ((x, wx), (v, wv))]
+    if idx is not None:
+        pairs.append((idx, w_idx))
+    hold("fused_segment", pairs, what)
+    return count
+
+
+def hold_global(prog, batch, what: str) -> None:
+    """Global mode against the plain version: counts, flags and int64 sums
+    bit for bit; f64 sums within F64_RTOL_KERNEL (the kernel adds per
+    thread, per block and over the tiles, the plain version in torch.sum's
+    order)."""
+    words = prog.words().to(batch.device)
+    n = batch.num_rows
+    got = FK.fused_global(prog, words, batch.columns, n)
+    want = FK.fused_global_plain(prog, batch.columns, n, batch.device)
+    exact = [(got.kept, want.kept), (got.one, want.one)]
+    f64 = []
+    for g, w, (_, _, sum_kind) in zip(got.slots, want.slots, prog.slots,
+                                      strict=True):
+        exact += [(g.ok, w.ok), (g.count, w.count)]
+        (f64 if sum_kind == P.SUM_F64 else exact).append((g.value, w.value))
+    hold("fused_segment", exact, what)
+    if f64:
+        hold("fused_segment", f64, what, F64_RTOL_KERNEL)
+
+
+def query_segment(query, batch):
+    """The fused segment the planner makes of a query over one batch (in
+    two partitions, so that the aggregate splits)."""
+    df = GpuSession().create_dataframe([batch], num_partitions=2)
+    segs = [n for n in plan_nodes(query(df).physical_plan())
+            if isinstance(n, GpuFusedSegmentExec)]
+    require(len(segs) == 1, f"{len(segs)} fused segments, not 1")
+    return segs[0].segment
+
+
+def fused_bytes(prog, batch, count: int, need_map: bool) -> int:
+    """What a call must move: each loaded column's data and validity once,
+    each output (and the map) once for the kept rows."""
+    n = batch.num_rows
+    read = sum((batch.columns[o].data.element_size() + 1) * n
+               for o in prog.loads)
+    width = sum(torch.tensor([], dtype=P.KIND_DTYPE[k]).element_size() + 1
+                for _, k in prog.outputs) + (4 if need_map else 0)
+    return read + count * width + 17 * len(prog.slots) + 9
+
+
+def check_decimal_cast(rng, dev) -> None:
+    """Decimal -> double divides by 10**scale: the per-op ``Cast`` and the
+    fused kernel's CAST_DEC_F64 on the card both equal numpy's division
+    bit for bit at scales 0, 2 and 4 (0.05 and 0.07 among the values),
+    where a multiply by the reciprocal, which PyTorch's CUDA division by a
+    host scalar does, differs in the last bit; that count is printed."""
+    vals = np.concatenate([np.arange(-1000, 1000),
+                           rng.randint(-10**12, 10**12, N)]).astype(np.int64)
+    for scale in (0, 2, 4):
+        dt = T.DecimalType(18, scale)
+        batch = batch_from_numpy({"d": vals}, Schema(("d",), (dt,)), dev)
+        want = torch.from_numpy(vals / 10.0 ** scale).to(dev)
+        e = E.Cast(E.col("d"), T.DOUBLE).bind(batch.schema)
+        b = P.ProgramBuilder(batch.schema.dtypes)
+        prog = b.finish(None, [b.value(e, [P.Column(dt, ordinal=0)])], [])
+        (got, _), = FK.fused_compact(prog, prog.words().to(dev),
+                                     batch.columns, len(vals), False)[0]
+        per_op = e.eval(EvalContext(batch)).data
+        require(torch.equal(bits(got), bits(want)),
+                f"fused CAST_DEC_F64 at scale {scale} is not a division")
+        require(torch.equal(bits(per_op), bits(want)),
+                f"Cast at scale {scale} is not a division")
+        by_scalar = batch.columns[0].data.to(torch.float64) / 10 ** scale
+        emit({"check": "decimal_cast", "scale": scale, "values": len(vals),
+              "host_scalar_divisor_differs":
+                  int((bits(by_scalar) != bits(want)).sum())})
+
+
+def check_fused(rng, dev, summary) -> None:
+    """Both modes on every instruction at n = 1,048,576 and 1,000,003 at
+    selectivities 0%, 1.8%, 50% and 100% and with no filter, on an empty
+    batch, then q6's program (global) and q1's (compact, with the gather
+    map) on the first SF10 batch, which are timed."""
+    check_decimal_cast(rng, dev)
+    for n in (N, RAGGED, 0):
+        batch = fused_table(rng, n, dev)
+        for p in FUSED_SELECTIVITIES + (None,):
+            compact, glob = fused_programs(batch.schema, p)
+            what = f"n={n} p={p}"
+            count = hold_compact(compact, batch, True, what + " compact")
+            want = int((batch.column("u").data < p).sum()) if p is not None \
+                else n
+            require(count == want, f"fused_segment kept {count} of {want}")
+            hold_global(glob, batch, what + " global")
+    chunk = next(tpch.iter_lineitem(SF10_ROWS, seed=42, batch_rows=N))
+    batch = batch_from_numpy(chunk, tpch.LINEITEM_SCHEMA, dev)
+    for name, query, is_global in (("q6", tpch.q6, True),
+                                   ("q1", tpch.q1, False)):
+        seg = query_segment(query, batch)
+        prog = seg.program
+        require(seg.is_global == is_global, f"{name}'s segment mode")
+        words = prog.words().to(dev)
+        cols = batch.columns
+        if is_global:
+            hold_global(prog, batch, f"{name} program")
+            count = N
+            kernel = lambda: FK.fused_global(prog, words, cols, N)  # noqa
+            plain = lambda: FK.fused_global_plain(prog, cols, N, dev)  # noqa
+        else:
+            count = hold_compact(prog, batch, True, f"{name} program")
+            kernel = lambda: FK.fused_compact(  # noqa: E731
+                prog, words, cols, N, True)
+            plain = lambda: FK.fused_compact_plain(  # noqa: E731
+                prog, cols, N, True, dev)
+        nbytes = fused_bytes(prog, batch, 0 if is_global else count,
+                             not is_global)
+        line = {"kernel": "fused_segment", "shape": f"{name}_batch",
+                "mode": "global" if is_global else "compact", "n": N,
+                "kept": count, "instructions": len(prog.code),
+                "registers": prog.n_regs, "loads": len(prog.loads),
+                **measure(kernel, plain, None, nbytes)}
+        emit(line)
+        if is_global:
+            summary["fused_segment"] = summarize(line, nbytes)
+
+
 def phase_kernels(dev, tables) -> dict:
     # the profiler itself must see the card
     device_profile(lambda: torch.ones(8, device=dev) + 1)
@@ -1668,6 +1926,7 @@ def phase_kernels(dev, tables) -> dict:
     check_left_join(rng, dev, summary)
     check_left_multi_join(rng, dev, summary)
     check_null_extend(rng, dev, summary)
+    check_fused(rng, dev, summary)
     torch.cuda.synchronize()
     for name in KERNELS:
         summary[name]["max_abs_err"] = ERRS[name]
@@ -1730,12 +1989,16 @@ def phase_data(dev):
           "resident_bytes": resident,
           "setup_seconds": time.perf_counter() - t0,
           "numpy_q6_revenue": revenue, "numpy_q6_count": count})
-    sess = GpuSession()
-    require(sess.device.type == "cuda", "session is not on the card")
-    require(sess.conf.shuffle_partitions == SHUFFLE_PARTITIONS,
-            "q1 runs with spark.sql.shuffle.partitions = 16")
-    df = sess.create_dataframe(batches, num_partitions=4)
-    return df, (revenue, count), q1_rows_numpy(q1_acc)
+    dfs = {}
+    for name, conf in (("fused", None), ("unfused", FUSE_OFF)):
+        sess = GpuSession(conf)
+        require(sess.device.type == "cuda", "session is not on the card")
+        require(sess.conf.shuffle_partitions == SHUFFLE_PARTITIONS,
+                "q1 runs with spark.sql.shuffle.partitions = 16")
+        require(sess.conf.fuse_stages == (conf is None),
+                "spark.rapids.sql.tpu.fuseStages is on by default")
+        dfs[name] = sess.create_dataframe(batches, num_partitions=4)
+    return dfs, (revenue, count), q1_rows_numpy(q1_acc), len(batches)
 
 
 def run_path(name: str, query, df, kernels) -> tuple:
@@ -1753,8 +2016,9 @@ def run_path(name: str, query, df, kernels) -> tuple:
 
 def time_path(name: str, query, df, rows: int = SF10_ROWS) -> dict:
     """Median wall of 3 runs after the main-path run, then one profiled
-    run: the card's busy time and idle share; ``rows`` scanned per run;
-    the peak memory the runs allocate above what was resident before."""
+    run: the card's busy time, its activities and idle share; ``rows``
+    scanned per run; the peak memory the runs allocate above what was
+    resident before."""
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1774,45 +2038,89 @@ def time_path(name: str, query, df, rows: int = SF10_ROWS) -> dict:
           "top_device_ms": top})
     return {"wall_s": wall, "wall_s_runs": walls,
             "rows_per_s": rows / wall, "device_busy_ms": busy_ms,
+            "device_activities": activities,
+            "idle_share": 1.0 - busy_ms / (wall * 1e3),
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
             "resident_bytes": resident,
             "peak_above_resident_bytes":
                 torch.cuda.max_memory_allocated() - resident}
 
 
-def phase_q6(df, ref) -> dict:
+def check_fusion(name: str, query, df, launches, fused: bool,
+                 nbatches: int) -> dict:
+    """Fused, the plan holds a segment and its kernel ran once a batch, and
+    the filter's compaction never ran (q6's gather neither); unfused,
+    neither the segment nor its kernel.  Launches and device activities
+    per batch beside."""
+    plan = query(df).explain()
+    require(("GpuFusedSegment" in plan) == fused,
+            f"{name}: the plan's segments: {plan}")
+    fk = launches.get("fused_segment", 0)
+    if fused:
+        require(fk == nbatches, f"{name}: fused_segment launched {fk} "
+                f"times over {nbatches} batches")
+        if name == "q6":
+            require(not launches.get("compaction_map")
+                    and not launches.get("gather"),
+                    f"q6 fused still compacts: {launches}")
+    else:
+        require(fk == 0, f"{name}: fused_segment launched unfused")
+    return {"fused": fused,
+            "launches_per_batch": sum(launches.values()) / nbatches}
+
+
+def phase_q6(dfs, ref, nbatches) -> dict:
     revenue, count = ref
-    rows, launches = run_path("q6", tpch.q6, df, Q6_KERNELS)
-    require(len(rows) == 1 and rows[0][0] is not None, f"q6 gave {rows}")
-    rel = abs(rows[0][0] - revenue) / abs(revenue)
-    require(rel <= F64_RTOL_Q6, f"q6 revenue {rows[0][0]} vs numpy {revenue}")
-    timing = time_path("q6", tpch.q6, df)
-    rows_c = tpch.q6_count(df).collect()
-    require(rows_c[0][1] == count, f"q6 count {rows_c[0][1]} vs numpy {count}")
-    rel_c = abs(rows_c[0][0] - revenue) / abs(revenue)
-    require(rel_c <= F64_RTOL_Q6, f"q6_count revenue {rows_c[0][0]}")
-    emit({"phase": "q6", "rows": SF10_ROWS, "revenue": rows[0][0],
-          "rel_err": rel, "count": rows_c[0][1], **timing})
-    return launches
+    by_path = {}
+    for fused, kernels in ((True, Q6_KERNELS), (False, Q6_UNFUSED_KERNELS)):
+        name = "q6" if fused else "q6_unfused"
+        df = dfs["fused" if fused else "unfused"]
+        rows, launches = run_path(name, tpch.q6, df, kernels)
+        fusion = check_fusion("q6", tpch.q6, df, launches, fused, nbatches)
+        require(len(rows) == 1 and rows[0][0] is not None, f"q6 gave {rows}")
+        rel = abs(rows[0][0] - revenue) / abs(revenue)
+        require(rel <= F64_RTOL_Q6,
+                f"{name} revenue {rows[0][0]} vs numpy {revenue}")
+        timing = time_path(name, tpch.q6, df)
+        rows_c = tpch.q6_count(df).collect()
+        require(rows_c[0][1] == count,
+                f"{name} count {rows_c[0][1]} vs numpy {count}")
+        rel_c = abs(rows_c[0][0] - revenue) / abs(revenue)
+        require(rel_c <= F64_RTOL_Q6, f"{name} q6_count revenue {rows_c[0][0]}")
+        emit({"phase": name, "rows": SF10_ROWS, "revenue": rows[0][0],
+              "rel_err": rel, "count": rows_c[0][1], **fusion,
+              "activities_per_batch": timing["device_activities"] / nbatches,
+              **timing})
+        by_path[name] = launches
+    return by_path
 
 
-def phase_q1(df, ref_rows) -> dict:
-    rows, launches = run_path("q1", tpch.q1, df, Q1_KERNELS)
-    rows = sorted(rows, key=lambda r: (r[0] is not None, r[0]))
-    require(len(rows) == 7 and [r[0] for r in rows] == list(range(1, 8)),
-            f"q1 gave keys {[r[0] for r in rows]}")
-    max_rel = 0.0
-    for got, want in zip(rows, ref_rows):
-        require(got[8] == want[8], f"q1 count {got[8]} vs numpy {want[8]}")
-        for g, w in zip(got[1:8], want[1:8]):
-            require(g is not None and np.isfinite(g), f"q1 gave {got}")
-            max_rel = max(max_rel, abs(g - w) / abs(w))
-    require(max_rel <= F64_RTOL_Q1, f"q1 off numpy by {max_rel} relative")
-    timing = time_path("q1", tpch.q1, df)
-    emit({"phase": "q1", "rows": SF10_ROWS, "groups": len(rows),
-          "max_rel_err": max_rel, "count_order": [r[8] for r in rows],
-          "shuffle_partitions": SHUFFLE_PARTITIONS, **timing})
-    return launches
+def phase_q1(dfs, ref_rows, nbatches) -> dict:
+    by_path = {}
+    for fused, kernels in ((True, Q1_KERNELS), (False, Q1_UNFUSED_KERNELS)):
+        name = "q1" if fused else "q1_unfused"
+        df = dfs["fused" if fused else "unfused"]
+        rows, launches = run_path(name, tpch.q1, df, kernels)
+        fusion = check_fusion("q1", tpch.q1, df, launches, fused, nbatches)
+        rows = sorted(rows, key=lambda r: (r[0] is not None, r[0]))
+        require(len(rows) == 7 and [r[0] for r in rows] == list(range(1, 8)),
+                f"{name} gave keys {[r[0] for r in rows]}")
+        max_rel = 0.0
+        for got, want in zip(rows, ref_rows):
+            require(got[8] == want[8], f"q1 count {got[8]} vs numpy {want[8]}")
+            for g, w in zip(got[1:8], want[1:8]):
+                require(g is not None and np.isfinite(g), f"q1 gave {got}")
+                max_rel = max(max_rel, abs(g - w) / abs(w))
+        require(max_rel <= F64_RTOL_Q1,
+                f"{name} off numpy by {max_rel} relative")
+        timing = time_path(name, tpch.q1, df)
+        emit({"phase": name, "rows": SF10_ROWS, "groups": len(rows),
+              "max_rel_err": max_rel, "count_order": [r[8] for r in rows],
+              "shuffle_partitions": SHUFFLE_PARTITIONS, **fusion,
+              "activities_per_batch": timing["device_activities"] / nbatches,
+              **timing})
+        by_path[name] = launches
+    return by_path
 
 
 # -- phase 7 ------------------------------------------------------------------
@@ -2133,13 +2441,49 @@ def phase_q25(dfs, want) -> dict:
     return launches
 
 
+def phase_fusion_ab(dfs, q3_dfs, q25_dfs) -> None:
+    """Fused against ``fuseStages=false`` on this card, in turns: AB_PAIRS
+    pairs of each of q6, q1, q3 and q25 (wall of ``collect()``, planning
+    included), the side that runs first alternating; the medians, the
+    quartiles and the pairs the fused side won."""
+    off = GpuSession(FUSE_OFF)
+    q3_off = tuple(DataFrame(d.plan, off) for d in q3_dfs)
+    q25_off = tuple(DataFrame(d.plan, off) for d in q25_dfs)
+    cases = {"q6": (lambda: tpch.q6(dfs["fused"]),
+                    lambda: tpch.q6(dfs["unfused"])),
+             "q1": (lambda: tpch.q1(dfs["fused"]),
+                    lambda: tpch.q1(dfs["unfused"])),
+             "q3": (lambda: tpcds.q3(*q3_dfs), lambda: tpcds.q3(*q3_off)),
+             "q25": (lambda: tpcds.q25(*q25_dfs),
+                     lambda: tpcds.q25(*q25_off))}
+    for name, sides in cases.items():
+        for side in sides:
+            side().collect()
+        runs = ([], [])
+        for i in range(AB_PAIRS):
+            for k in ((0, 1) if i % 2 == 0 else (1, 0)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                sides[k]().collect()
+                torch.cuda.synchronize()
+                runs[k].append(time.perf_counter() - t)
+        emit({"phase": f"{name}_fusion_ab", "fused_s": runs[0],
+              "unfused_s": runs[1],
+              "fused_median": statistics.median(runs[0]),
+              "unfused_median": statistics.median(runs[1]),
+              "fused_quartiles": statistics.quantiles(runs[0], n=4),
+              "unfused_quartiles": statistics.quantiles(runs[1], n=4),
+              "fused_wins": sum(a < b for a, b in zip(*runs))})
+
+
 # -- phase 9 ------------------------------------------------------------------
 
 Q72_CONF = {"spark.sql.shuffle.partitions": "200",
             "spark.rapids.sql.adaptive.coalescePartitions.enabled": "false"}
 Q72_PARTITIONS = 200
-Q72_KERNELS = ("compaction_map", "gather", "gather_strings", "concat",
-               "murmur3", "hash_string", "partition", "sort",
+Q72_KERNELS = ("fused_segment", "compaction_map", "gather",
+               "gather_strings", "concat", "murmur3", "hash_string",
+               "partition", "sort",
                "string_sort_keys", "string_rows_equal_prev",
                "segmented_sum", "join_build", "join_probe", "join_expand",
                "join_multi_build", "conditional_join_maps",
@@ -2387,8 +2731,9 @@ def main() -> None:
     phase_build()
     tables = q3_tables()
     summary = phase_kernels(dev, tables)
-    df, q6_ref, q1_ref = phase_data(dev)
-    by_path = {"q6": phase_q6(df, q6_ref), "q1": phase_q1(df, q1_ref)}
+    dfs, q6_ref, q1_ref, nbatches = phase_data(dev)
+    by_path = {**phase_q6(dfs, q6_ref, nbatches),
+               **phase_q1(dfs, q1_ref, nbatches)}
     q25_ref = Q25Numpy(tables[2])
     q3_dfs, q3_want, ss_pool = phase_q3_data(dev, tables, q25_ref)
     by_path["q3"] = phase_q3(q3_dfs, q3_want)
@@ -2397,6 +2742,7 @@ def main() -> None:
     q25_dfs, q25_want, cs_batches, order_pool = phase_q25_data(
         dev, q3_dfs, ss_pool, q25_ref, tables, q72_ref)
     by_path["q25"] = phase_q25(q25_dfs, q25_want)
+    phase_fusion_ab(dfs, q3_dfs, q25_dfs)
     by_path["q72"] = phase_q72(*phase_q72_data(
         dev, cs_batches, order_pool, q72_ref, dims, q3_dfs))
     kernels = []

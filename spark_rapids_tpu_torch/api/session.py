@@ -3,9 +3,10 @@
 Counterpart of ``spark_rapids_tpu/api/session.py`` (``TpuSession`` :95,
 ``create_dataframe`` :129, ``GroupedData`` :368, ``DataFrame`` :583,
 ``group_by`` :685, ``order_by`` :692, ``limit`` :704, ``join`` :744,
-``collect`` :767), cut to the q6, q1, q3, q25 and q72 surface: filter,
-select, agg, group_by(...).agg, join (inner and left, with a residual
-condition), order_by, limit, collect and count.
+``collect`` :767, ``explain`` :824), cut to the q6, q1, q3, q25 and q72
+surface: filter, select, agg, group_by(...).agg, join (inner and left,
+with a residual condition), order_by, limit, collect, count and explain
+(the physical plan's tree).
 
 A session runs on the card unless the caller names another device:
 ``GpuSession(device=None)`` takes ``cuda`` and raises where there is none.
@@ -167,6 +168,11 @@ class DataFrame:
 
     def physical_plan(self):
         return plan_query(self.plan, self.session.conf, self.session.device)
+
+    def explain(self) -> str:
+        """The physical plan as a tree, one exec a line; a fused segment
+        shows as ``GpuFusedSegment[...]`` with its chain under it."""
+        return self.physical_plan().tree_string()
 
     def collect(self) -> List[tuple]:
         return GpuEngine().collect(self.physical_plan())

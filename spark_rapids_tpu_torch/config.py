@@ -1,9 +1,10 @@
 """Session configuration of the port.
 
 Counterpart of ``spark_rapids_tpu/config.py`` (``RapidsConf`` :927), cut to
-the keys the q6, q1, q3 and q25 paths read.  Keys keep the reference's
-names; a key the port does not know is kept and ignored, as Spark does
-with unknown confs.
+the keys the q6, q1, q3, q25 and q72 paths read, and ``fuseStages``
+(``STAGE_FUSION`` :150-156, ``fuse_stages`` :1109).  Keys keep the
+reference's names; a key the port does not know is kept and ignored, as
+Spark does with unknown confs.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ BROADCAST_ROW_THRESHOLD = "spark.rapids.sql.join.broadcastRowThreshold"
 JOIN_ADAPTIVE = "spark.rapids.sql.join.adaptive.enabled"
 AQE_COALESCE = "spark.rapids.sql.adaptive.coalescePartitions.enabled"
 BATCH_SIZE_BYTES = "spark.rapids.sql.batchSizeBytes"
+STAGE_FUSION = "spark.rapids.sql.tpu.fuseStages"
 
 _DEFAULTS = {
     SQL_ENABLED: True,
@@ -29,6 +31,8 @@ _DEFAULTS = {
     JOIN_ADAPTIVE: True,
     AQE_COALESCE: True,
     BATCH_SIZE_BYTES: 1 << 28,
+    # config.py:150-156 of the reference
+    STAGE_FUSION: True,
 }
 
 
@@ -94,3 +98,9 @@ class RapidsConf:
         """The coalesced reader's byte goal, turned into a row cap from
         the estimated row width."""
         return int(self._get(BATCH_SIZE_BYTES))
+
+    @property
+    def fuse_stages(self) -> bool:
+        """Run each exchange-free chain of Project / Filter / partial
+        aggregate as one fused-segment kernel per batch (plan/fused.py)."""
+        return _to_bool(self._get(STAGE_FUSION))

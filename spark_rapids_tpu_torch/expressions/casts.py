@@ -14,6 +14,14 @@ from spark_rapids_tpu_torch.expressions.core import (
     EvalContext, Expression, make_column)
 
 
+def decimal_divisor(scale: int, device) -> torch.Tensor:
+    """10**scale as a 0-d double tensor on the device.  Dividing by it is an
+    IEEE division on the CPU and the card alike; a Python number would not
+    do: PyTorch's CUDA division by a host scalar multiplies by its
+    reciprocal (7 * 0.01 is not 7 / 100.0)."""
+    return torch.full((), 10.0 ** scale, dtype=torch.float64, device=device)
+
+
 class Cast(Expression):
     def __init__(self, child: Expression, dtype: T.DataType):
         self.child = child
@@ -36,6 +44,8 @@ class Cast(Expression):
         if src == dst:
             return c
         if isinstance(src, T.DecimalType) and isinstance(dst, T.DoubleType):
-            out = c.data.to(torch.float64) / (10 ** src.scale)
-            return make_column(out, c.validity, dst)
+            return make_column(
+                c.data.to(torch.float64) / decimal_divisor(src.scale,
+                                                           c.device),
+                c.validity, dst)
         raise NotImplementedError(f"cast {src!r} -> {dst!r} is not ported")

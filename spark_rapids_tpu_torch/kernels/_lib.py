@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("selection.cu", "reduction.cu", "hash.cu", "sort.cu",
-           "strings.cu", "join.cu")
+           "strings.cu", "join.cu", "fused.cu")
 HEADERS = ("scan.cuh", "strings.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -80,6 +80,13 @@ _SIGNATURES = {
                             _P, _P, _P, _P, _P],
     "srt_cond_join_scatter": [_I, _I, _P, _P, _P, _I64, _P, _I64, _P, _I64,
                               _P, _P, _P, _P, _P, _P],
+    "srt_fused_tile": [],
+    "srt_fused_count": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _I64, _P, _P, _P,
+                        _P],
+    "srt_fused_write": [_P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P,
+                        _I64, _P, _P, _P],
+    "srt_fused_global": [_P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _I64,
+                         _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -77,6 +77,13 @@ def _seg_update(op: str, col: DeviceColumn, out_dtype: T.DataType,
     return G.finalize_agg_column(v, valid, out_dtype)
 
 
+def work_batch(cols: Sequence[DeviceColumn], num_rows: int) -> ColumnarBatch:
+    """A grouped partial step's work batch of these columns."""
+    return ColumnarBatch(tuple(cols), num_rows, Schema(
+        tuple(f"c{i}" for i in range(len(cols))),
+        tuple(c.dtype for c in cols)))
+
+
 class _DeviceAggResult(Expression):
     """Leaf standing for a finalized aggregate inside an output expression."""
 
@@ -128,11 +135,11 @@ class GpuHashAggregateExec(GpuExec):
     def _partial_step(self, batch: ColumnarBatch) -> ColumnarBatch:
         """Raw rows -> one partial batch."""
         ctx = EvalContext(batch)
-        nkeys = len(self.group_exprs)
-        inputs: Dict[int, DeviceColumn] = {
-            ai: agg.input.eval(ctx) for ai, agg in enumerate(self.aggregates)
-            if agg.input is not None}
-        if nkeys == 0:
+        if not self.group_exprs:
+            inputs: Dict[int, DeviceColumn] = {
+                ai: agg.input.eval(ctx)
+                for ai, agg in enumerate(self.aggregates)
+                if agg.input is not None}
             sums = _Sums()
             cols = tuple(_global_update(slot.update_op, inputs.get(ai),
                                         batch.num_rows, slot.dtype,
@@ -140,17 +147,45 @@ class GpuHashAggregateExec(GpuExec):
                          for ai, slot in self.slot_specs)
             return ColumnarBatch(cols, 1, self.partial_schema)
         # grouped: keys + inputs in one work batch, sorted and grouped once
-        work_cols = [e.eval(ctx) for e in self.group_exprs]
+        work_cols = tuple(e.eval(ctx) for e in self.work_exprs())
+        return self.grouped_partial(work_batch(work_cols, batch.num_rows))
+
+    def work_exprs(self) -> List[Expression]:
+        """The columns of a grouped partial step's work batch: the keys,
+        then the input of each aggregate that has one."""
+        return list(self.group_exprs) + [agg.input for agg in self.aggregates
+                                         if agg.input is not None]
+
+    def grouped_partial(self, work: ColumnarBatch) -> ColumnarBatch:
+        """A work batch (``work_exprs``' columns, evaluated here or by a
+        fused segment's kernel) -> its partial batch."""
         col_of_agg = {}
-        for ai, c in inputs.items():
-            col_of_agg[ai] = len(work_cols)
-            work_cols.append(c)
-        work = ColumnarBatch(tuple(work_cols), batch.num_rows, Schema(
-            tuple(f"c{i}" for i in range(len(work_cols))),
-            tuple(c.dtype for c in work_cols)))
+        for ai, agg in enumerate(self.aggregates):
+            if agg.input is not None:
+                col_of_agg[ai] = len(self.group_exprs) + len(col_of_agg)
         return self._grouped_step(
             work, [col_of_agg.get(ai) for ai, _ in self.slot_specs],
             [slot.update_op for _, slot in self.slot_specs])
+
+    def global_partial(self, sums: Dict[int, tuple], rows: torch.Tensor,
+                       one: torch.Tensor) -> ColumnarBatch:
+        """The one-row partial of a batch from reductions taken elsewhere
+        (a fused segment's kernel): ``sums[ai]`` is (sum at the SUM slot's
+        type, nvalid > 0, nvalid) of aggregate ai's input, ``rows`` the
+        batch's row count, ``one`` a true flag (each [1] on the device)."""
+        cols = []
+        for ai, slot in self.slot_specs:
+            if slot.update_op == COUNT_STAR:
+                cols.append(DeviceColumn(rows, one, T.LONG))
+            elif slot.update_op == COUNT_VALID:
+                cols.append(DeviceColumn(sums[ai][2], one, T.LONG))
+            elif slot.update_op == SUM:
+                cols.append(DeviceColumn(sums[ai][0], sums[ai][1],
+                                         slot.dtype))
+            else:
+                raise NotImplementedError(
+                    f"aggregate op {slot.update_op!r} is not ported")
+        return ColumnarBatch(tuple(cols), 1, self.partial_schema)
 
     def _merge_step(self, partial: ColumnarBatch) -> ColumnarBatch:
         """Concatenated partial batches -> one merged partial batch."""

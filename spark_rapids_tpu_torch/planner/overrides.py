@@ -28,6 +28,10 @@ Aggregate, Join, Sort and Limit.
   ``spark.rapids.sql.adaptive.coalescePartitions.enabled``, the hash
   exchange under a final aggregate is read through a coalesced reader, and
   the two under a shuffled join through two readers that share one spec.
+- Then, with ``spark.rapids.sql.tpu.fuseStages`` (the default), each
+  fusable chain of Project / Filter / partial aggregate becomes one fused
+  segment (``plan/fused.py``, the reference's ``fuse_segments`` pass at
+  :1163-1172).
 
 Planning never asks an adaptive join or a coalesced reader for its
 partition count: that would run the build side or the map side.  The
@@ -53,6 +57,7 @@ from spark_rapids_tpu_torch.plan.execs.join import (
     GpuAdaptiveJoinExec, GpuBroadcastHashJoinExec, GpuShuffledHashJoinExec)
 from spark_rapids_tpu_torch.plan.execs.scan import GpuInMemoryScanExec
 from spark_rapids_tpu_torch.plan.execs.sort import GpuLimitExec, GpuSortExec
+from spark_rapids_tpu_torch.plan.fused import fuse_segments
 from spark_rapids_tpu_torch.planner.optimizer import (prune_columns,
                                                       push_filters)
 
@@ -203,10 +208,11 @@ def _insert_aqe_readers(root: GpuExec, conf: RapidsConf) -> GpuExec:
 def plan_query(plan: L.LogicalPlan, conf: RapidsConf,
                device: torch.device) -> GpuExec:
     """Push filters down and prune columns, convert every node to its
-    exec, then insert the AQE readers."""
+    exec, insert the AQE readers, then fuse the stage segments."""
     if not conf.sql_enabled:
         raise NotImplementedError(
             "spark.rapids.sql.enabled=false runs the CPU oracle engine, "
             "which is not ported")
     root = _convert(prune_columns(push_filters(plan)), conf, device)
-    return _insert_aqe_readers(root, conf)
+    root = _insert_aqe_readers(root, conf)
+    return fuse_segments(root) if conf.fuse_stages else root

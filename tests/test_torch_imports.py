@@ -138,3 +138,24 @@ def test_q72_modules_are_covered():
     assert "join.cu" in _lib.SOURCES
     for entry in ("srt_cond_join_count", "srt_cond_join_scatter"):
         assert entry in source and entry in _lib._SIGNATURES
+
+
+def test_fused_segment_modules_are_covered():
+    """The fused segment's modules (the lowering, the kernel's wrapper,
+    the pass and its exec) are in the scans above and import nothing of
+    JAX, and its kernel is in a built source with every entry point
+    bound."""
+    names = ("spark_rapids_tpu_torch.expressions.program",
+             "spark_rapids_tpu_torch.kernels.fused",
+             "spark_rapids_tpu_torch.plan.fused",
+             "spark_rapids_tpu_torch.planner.overrides",
+             "spark_rapids_tpu_torch.config")
+    for name in names:
+        assert name in PORT_MODULES
+        path = ROOT / (name.replace(".", "/") + ".py")
+        assert not {m for m in _imported_roots(path) if m in FORBIDDEN}
+    source = (_lib.CSRC / "fused.cu").read_text()
+    assert "fused.cu" in _lib.SOURCES
+    for entry in ("srt_fused_tile", "srt_fused_count", "srt_fused_write",
+                  "srt_fused_global"):
+        assert entry in source and entry in _lib._SIGNATURES

@@ -23,8 +23,11 @@ from spark_rapids_tpu_torch import expressions as PE
 from spark_rapids_tpu_torch.api.session import GpuSession
 from spark_rapids_tpu_torch.columnar.arrow import arrow_to_batch
 from spark_rapids_tpu_torch.plan.execs.aggregate import GpuHashAggregateExec
+from spark_rapids_tpu_torch.plan.execs.basic import (GpuFilterExec,
+                                                     GpuProjectExec)
 from spark_rapids_tpu_torch.plan.execs.exchange import (
     GpuCoalescedShuffleReaderExec, GpuShuffleExchangeExec)
+from spark_rapids_tpu_torch.plan.fused import GpuFusedSegmentExec
 from spark_rapids_tpu_torch.testing import tpch as port_tpch
 
 F64_RTOL = 1e-12
@@ -124,7 +127,13 @@ def test_q1_plan_shapes_give_the_same_rows(reference, conf, num_partitions):
         assert isinstance(exchange, GpuShuffleExchangeExec)
         assert exchange.num_partitions() == int(
             (conf or {}).get("spark.sql.shuffle.partitions", 16))
-        assert exchange.children[0].mode == "partial"
+        # with spark.rapids.sql.tpu.fuseStages (the default) the partial
+        # aggregate heads a fused segment with the filter and projection
+        segment = exchange.children[0]
+        assert isinstance(segment, GpuFusedSegmentExec)
+        assert [type(n) for n in segment.chain] == [
+            GpuHashAggregateExec, GpuFilterExec, GpuProjectExec]
+        assert segment.chain[0].mode == "partial"
     _assert_rows_close(_by_key(df.collect()), ref)
 
 

@@ -30,6 +30,7 @@ from spark_rapids_tpu_torch.plan.execs.exchange import (
 from spark_rapids_tpu_torch.plan.execs.join import (
     GpuAdaptiveJoinExec, GpuBroadcastHashJoinExec, GpuShuffledHashJoinExec)
 from spark_rapids_tpu_torch.plan.execs.sort import GpuSortExec
+from spark_rapids_tpu_torch.plan.fused import GpuFusedSegmentExec
 from spark_rapids_tpu_torch.testing import tpcds as port_tpcds
 
 F64_RTOL = 1e-12
@@ -114,14 +115,21 @@ def test_q3_plan_shape(reference):
     reader = final.children[0]
     assert isinstance(reader, GpuCoalescedShuffleReaderExec)
     assert isinstance(reader.children[0], GpuShuffleExchangeExec)
+    # with spark.rapids.sql.tpu.fuseStages (the default) the partial
+    # aggregate under the exchange is a fused segment of its own, and each
+    # dimension's filter heads one with its projection
     partial = reader.children[0].children[0]
+    assert isinstance(partial, GpuFusedSegmentExec)
+    assert partial.chain[0].mode == "partial"
     join2 = partial.children[0]
     assert isinstance(join2, GpuBroadcastHashJoinExec)
     join1 = join2.children[0]
     assert isinstance(join1, GpuBroadcastHashJoinExec)
     for join, cond in ((join1, "d_moy"), (join2, "i_manufact_id")):
-        assert isinstance(join.children[1], GpuFilterExec)
-        assert cond in repr(join.children[1].condition)
+        build = join.children[1]
+        assert isinstance(build, GpuFusedSegmentExec)
+        assert isinstance(build.chain[0], GpuFilterExec)
+        assert cond in repr(build.chain[0].condition)
     lines = plan.tree_string().splitlines()
     assert sum("GpuFilter" in ln for ln in lines) == 2
     assert sum("GpuSort" in ln for ln in lines) == 1

@@ -24,6 +24,7 @@ from spark_rapids_tpu_torch.api.session import GpuSession
 from spark_rapids_tpu_torch.columnar.arrow import arrow_to_batch
 from spark_rapids_tpu_torch.plan.execs.aggregate import GpuHashAggregateExec
 from spark_rapids_tpu_torch.plan.execs.basic import GpuProjectExec
+from spark_rapids_tpu_torch.plan.fused import GpuFusedSegmentExec
 from spark_rapids_tpu_torch.testing import tpch as port_tpch
 
 N_ROWS = 50_000
@@ -110,19 +111,31 @@ def test_q6_variants_match_reference(variant):
         assert got[0][1] == ref[0][1] > 0
 
 
-def test_q6_plan_prunes_to_four_columns_and_splits_the_aggregate():
-    sess = GpuSession(device="cpu")
+@pytest.mark.parametrize("fuse", ["true", "false"])
+def test_q6_plan_prunes_to_four_columns_and_splits_the_aggregate(fuse):
+    """With spark.rapids.sql.tpu.fuseStages (the default) the partial
+    aggregate, the filter and the projection form one fused segment, as
+    the reference's fuse_segments places them; without, they run op by
+    op."""
+    sess = GpuSession({"spark.rapids.sql.tpu.fuseStages": fuse},
+                      device="cpu")
     batches = port_tpch.lineitem_batches(2_000, "cpu", batch_rows=500)
     plan = port_tpch.q6(sess.create_dataframe(batches, num_partitions=4)
                         ).physical_plan()
     assert isinstance(plan, GpuHashAggregateExec) and plan.mode == "final"
+    chain = ["GpuHashAggregate", "GpuFilter", "GpuProject"]
+    shape = (["GpuFusedSegment"] + ["* " + n for n in chain]
+             if fuse == "true" else chain)
     assert [line.split("[")[0].split("Schema")[0].strip()
             for line in plan.tree_string().splitlines()] == [
-        "GpuHashAggregate", "GpuSinglePartition", "GpuHashAggregate",
-        "GpuFilter", "GpuProject", "GpuInMemoryScan"]
+        "GpuHashAggregate", "GpuSinglePartition"] + shape + [
+        "GpuInMemoryScan"]
     node = plan
-    while not isinstance(node, GpuProjectExec):
+    while not isinstance(node, (GpuProjectExec, GpuFusedSegmentExec)):
         node = node.children[0]
+    if fuse == "true":
+        node = node.chain[-1]
+    assert isinstance(node, GpuProjectExec)
     assert set(node.schema.names) == {"l_quantity", "l_extendedprice",
                                       "l_discount", "l_shipdate"}
 
