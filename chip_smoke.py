@@ -39,7 +39,18 @@ Phases (any failure raises and the script exits non-zero):
      keys, an empty build) and the left several-key probe ((int32, int32)
      and (int, string) keys with nulls, an empty build), with the shared
      expand; the gather with -1 indices on int, double and string columns
-     and from an empty source.  Then the fused segment's interpreter
+     and from an empty source.  Then the q14a path's semi and anti
+     joins: the one-key probes (int32, int64 with Long.MAX_VALUE and
+     Long.MIN_VALUE, doubles with -0.0 and NaN, 10% nulls; builds of 186
+     and 100,000 keys, an empty build, keys all null) and the several-key
+     probes (q14a's item triples with 5% nulls a key, against 72,006 and
+     186 rows; (int, string) with nulls; an empty build; triples all
+     null) at n = 1,048,576 and 1,000,003 and on an empty stream, each
+     with the left-only expand: offsets, counts and the kept rows bit for
+     bit, the int cases also against numpy's np.isin; timed at q14a's
+     first cross-channel join (144,004 store triples against 72,006
+     catalog triples, one of 200 partitions) and at the semi_anti path's
+     one-key joins.  Then the fused segment's interpreter
      (``fused_segment``) in both modes against its plain version: a
      program of every instruction over int32 and int64 near their limits,
      doubles with NaN, -0.0 and infinities, bools, decimals at scales 0, 2
@@ -80,7 +91,7 @@ Phases (any failure raises and the script exits non-zero):
      strings) across the hash exchange, ORDER BY and LIMIT 100; held
      against an independent numpy evaluation (packed int64 keys, sort and
      searchsorted joins, integer-cent sums), then timed and profiled;
-     then q6, q1, q3 and q25 fused against ``fuseStages=false`` in 10
+     then q6, q1, q3 and q25 fused against ``fuseStages=false`` in 6
      alternating pairs each (medians, quartiles, pairs won);
   9. q72 at TPC-DS SF10 in a session of 200 shuffle partitions with the
      coalesced reader off: catalog_sales as in phase 8; inventory
@@ -94,8 +105,28 @@ Phases (any failure raises and the script exits non-zero):
      shuffled, promotion a broadcast left join; the 100 rows must equal
      an independent numpy evaluation exactly and in order (the filters
      first, an (item, week) join of packed int64 keys by sort and
-     searchsorted, the return counts); then timed and profiled;
- 10. prints the kernels summary line, then the result line last.
+     searchsorted, the return counts); the main-path run is traced for
+     the card's busy time (no run of its own: q72 takes ~25 s), then
+     timed (median of 3);
+ 10. q14a, q5 and the semi_anti path at TPC-DS SF10 in the session of
+     phase 9: the channel sales (store 28,800,991 rows, catalog
+     14,401,261, web 7,197,566) and returns (2,875,432, 1,439,749 and
+     719,217), six and five columns, 4 partitions each, all on the card;
+     item 102,000 rows, date_dim 2,190.  q14a runs with its scalar
+     subquery live: the card's mean price must agree with numpy's within
+     1e-12 relative with no price between the two; its nine semi joins
+     must be shuffled joins that took the streamed probe in all 200
+     partitions; its rows must equal an independent numpy evaluation
+     (item triples packed into int64, the semi joins as np.isin, the
+     rollup in integer cents) in order, counts exact, sums within 1e-9.
+     q5 (the unions of each channel's sales and returns, the date join,
+     the rollup on (channel, id)) the same way.  The semi_anti path (the
+     store sales of a hot item by a one-key semi join, not sold in 2000 by
+     a one-key anti join, whose item triple the web did not sell in
+     January 2000 by an adaptive three-key anti join that broadcasts)
+     against numpy's count and cents.  Each with its launches, then timed
+     and profiled as q72;
+ 11. prints the kernels summary line, then the result line last.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -155,7 +186,7 @@ F64_RTOL_Q1 = 1e-9               # against numpy's bincount sums
 Q1_CUTOFF = tpch._days(1998, 9, 2)
 SHUFFLE_PARTITIONS = 16
 ITERS, WARMUP = 20, 3
-AB_PAIRS = 10
+AB_PAIRS = 6
 
 KERNELS = {
     "compaction_map": ("csrc/selection.cu",
@@ -197,6 +228,16 @@ KERNELS = {
     "gather_null_extend": ("csrc/selection.cu",
                            "spark_rapids_tpu/kernels/selection.py:308"),
     "fused_segment": ("csrc/fused.cu", "spark_rapids_tpu/plan/fused.py:943"),
+    "join_probe_semi": ("csrc/join.cu",
+                        "spark_rapids_tpu/kernels/join.py:197"),
+    "join_probe_anti": ("csrc/join.cu",
+                        "spark_rapids_tpu/kernels/join.py:197"),
+    "join_multi_probe_semi": ("csrc/join.cu",
+                              "spark_rapids_tpu/kernels/join.py:397"),
+    "join_multi_probe_anti": ("csrc/join.cu",
+                              "spark_rapids_tpu/kernels/join.py:397"),
+    "join_expand_left_only": ("csrc/join.cu",
+                              "spark_rapids_tpu/kernels/join.py:212"),
 }
 FUSE_OFF = {"spark.rapids.sql.tpu.fuseStages": "false"}
 # fused (the default), q6's filter and partial sum are one kernel a batch:
@@ -250,15 +291,18 @@ def cuda_ms(fn) -> float:
     return statistics.median(times)
 
 
-def device_profile(fn, calls: int = ITERS, idle_ok: bool = False):
+def device_profile(fn, calls: int = ITERS, idle_ok: bool = False,
+                   warm: bool = True):
     """Device activity of ``calls`` calls of fn under torch.profiler (CUPTI):
     (device ms per call, device activities per call, device ms by name).
     Device activities are kernels, copies and memsets; their summed
     durations are the time the card worked, whatever the host did.  A
     trace with no device activity is taken again, twice at most; then it
     fails, unless the caller declares (``idle_ok``) that fn may launch
-    nothing, as an empty gather does."""
-    fn()
+    nothing, as an empty gather does.  ``warm``: one call first, outside
+    the trace (a caller that has just run fn passes False)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     for _ in range(3):   # a trace now and then comes back without the card
         with torch.profiler.profile(
@@ -851,13 +895,15 @@ def to_device(b: ColumnarBatch, dev) -> ColumnarBatch:
 
 def q3_tables():
     """The dimension tables at SF10, on the host: date_dim's (sk, year,
-    moy) and item's (sk, brand_id, manufact_id, brand) as numpy arrays."""
+    moy) and item's (sk, brand_id, manufact_id, category_id, brand) as
+    numpy arrays."""
     date = tpcds.gen_date_dim("cpu")
     item = tpcds.gen_item("cpu", ITEM_ROWS)
     d = {n: date.column(n).to_numpy()[0]
          for n in ("d_date_sk", "d_year", "d_moy")}
     i = {n: item.column(n).to_numpy()[0]
-         for n in ("i_item_sk", "i_brand_id", "i_manufact_id")}
+         for n in ("i_item_sk", "i_brand_id", "i_manufact_id",
+                   "i_category_id")}
     i["i_brand"] = np.array(item.column("i_brand").to_pylist(), dtype=object)
     return date, item, d, i
 
@@ -1143,7 +1189,7 @@ def hold_join(stream: DeviceColumn, build_col: DeviceColumn, what: str,
     hold("join_build", zip(JK.build_keys(norm, build.perm),
                            JK.build_keys_plain(norm, build.perm)), what)
     lo, off, total = JK.join_probe(build_batch(stream), 0, build, join_type)
-    plo, poff, ptotal = JK.probe_plain(stream, build, left=left)
+    plo, poff, ptotal = JK.probe_plain(stream, build, join_type)
     require(total == ptotal, f"{probe}: {total} pairs against {ptotal}: "
             f"{what}")
     hold(probe, [(lo, plo), (off, poff)], what)
@@ -1300,7 +1346,8 @@ def hold_multi_join(stream_cols, build_cols, what: str,
     lo, off, total = JK.join_probe(keys_batch(stream_cols), keys, build,
                                    join_type)
     plo, poff, ptotal = JK.probe_multi_plain(
-        *JK.key_words_plain(stream_cols, build.chunks), build, left=left)
+        *JK.key_words_plain(stream_cols, build.chunks), build,
+        join_type)
     require(total == ptotal, f"{probe}: {total} pairs against {ptotal}: "
             f"{what}")
     hold(probe, [(lo, plo), (off, poff)], what)
@@ -1538,7 +1585,7 @@ def check_left_join(rng, dev, summary) -> None:
     line = {"kernel": "join_probe_left", "shape": "q72_promotion", "n": n,
             "build": nb, "pairs": total, **measure(
                 lambda: JK.join_probe(build_batch(stream), 0, build, "left"),
-                lambda: JK.probe_plain(stream, build, left=True),
+                lambda: JK.probe_plain(stream, build, "left"),
                 lambda: (torch.searchsorted(sorted_keys, probe_keys),
                          torch.searchsorted(sorted_keys, probe_keys,
                                             right=True)),
@@ -1613,7 +1660,7 @@ def check_left_multi_join(rng, dev, summary) -> None:
                 lambda: JK.join_probe(sb, [0, 1], build, "left"),
                 lambda: JK.probe_multi_plain(
                     *JK.key_words_plain(scols, build.chunks), build,
-                    left=True),
+                    "left"),
                 lambda: (torch.searchsorted(lib_build, lib_probe),
                          torch.searchsorted(lib_build, lib_probe,
                                             right=True)),
@@ -1669,6 +1716,262 @@ def check_null_extend(rng, dev, summary) -> None:
                 lambda: S.gather_columns_plain(cols, ix), library, nbytes)}
     emit(line)
     summary["gather_null_extend"] = summarize(line, nbytes)
+
+
+# -- phase 3: the q14a path's semi and anti joins -----------------------------
+
+SEMI_TYPES = ("left_semi", "left_anti")
+MAXL = 2**63 - 1
+# q14a at SF10 in 200 shuffle partitions: one partition of the first
+# cross-channel semi join, the store channel's (brand, manufacturer,
+# category) triples against the catalog channel's
+Q14A_STREAM, Q14A_BUILD = SS_ROWS // 200, CS_ROWS // 200
+
+
+def pack3(a, b, c) -> np.ndarray:
+    """Three non-negative keys below 2**21 as one order-keeping int64."""
+    return (a.astype(np.int64) << 42) | (b.astype(np.int64) << 21) | \
+        c.astype(np.int64)
+
+
+def probe_name(multi: bool, join_type: str) -> str:
+    return (("join_multi_probe" if multi else "join_probe")
+            + ("_semi" if join_type == "left_semi" else "_anti"))
+
+
+def hold_left_only(cols, build, join_type: str, what: str):
+    """The semi or anti probe and the left-only expand against their plain
+    twins on the same tensors: offsets and counts, the kept rows, the
+    empty right map, no first match; returns (offsets, rows kept, li)."""
+    name = probe_name(build.multi, join_type)
+    keys = list(range(len(cols)))
+    lo, off, total = JK.join_probe(keys_batch(cols), keys, build, join_type)
+    if build.multi:
+        plo, poff, ptotal = JK.probe_multi_plain(
+            *JK.key_words_plain(cols, build.chunks), build, join_type)
+    else:
+        plo, poff, ptotal = JK.probe_plain(cols[0], build, join_type)
+    require(total == ptotal, f"{name}: {total} rows against {ptotal}: "
+            f"{what}")
+    require(lo.numel() == 0 and plo.numel() == 0,
+            f"{name} wrote a first match: {what}")
+    hold(name, [(off, poff)], what)
+    li, ri = JK.join_expand(lo, off, total, build, join_type)
+    hold("join_expand_left_only",
+         zip((li, ri), JK.expand_left_only_plain(poff, ptotal)), what)
+    return off, total, li
+
+
+def numpy_kept(stream_cols, build_cols, join_type: str) -> np.ndarray:
+    """The rows a semi or anti join keeps, on the host: np.isin over the
+    valid rows' keys, one int key as it is, several packed into int64
+    (keys of either sign below 2**20): the independent check."""
+    def packed(cols):
+        arrays = [c.to_numpy() for c in cols]
+        valid = np.logical_and.reduce([v for _, v in arrays])
+        if len(cols) == 1:
+            return arrays[0][0].astype(np.int64), valid
+        vals = [a.astype(np.int64) + 2**20 for a, _ in arrays]
+        for a in vals:
+            require(bool(((a >= 0) & (a < 2**21)).all()), "keys past 2**20")
+        while len(vals) < 3:
+            vals.insert(0, np.zeros_like(vals[0]))
+        return pack3(*vals), valid
+    sk, sv = packed(stream_cols)
+    bk, bv = packed(build_cols)
+    hit = sv & np.isin(sk, bk[bv])
+    return np.flatnonzero(hit if join_type == "left_semi" else ~hit)
+
+
+def hold_semi_case(stream_cols, build_cols, what: str,
+                   independent: bool = False) -> None:
+    """Both join types on one build, with the numpy check where asked."""
+    keys = list(range(len(build_cols)))
+    build = JK.build_side(keys_batch(build_cols), keys)
+    for join_type in SEMI_TYPES:
+        _, total, li = hold_left_only(stream_cols, build, join_type,
+                                      f"{join_type} {what}")
+        if independent:
+            want = numpy_kept(stream_cols, build_cols, join_type)
+            require(total == len(want) and np.array_equal(
+                li.cpu().numpy(), want), f"{join_type} {what}: {total} "
+                f"rows kept, numpy {len(want)}")
+
+
+def with_long_extremes(rng, col: DeviceColumn, dev) -> DeviceColumn:
+    """An int64 key column with Long.MAX_VALUE and Long.MIN_VALUE at 1%
+    of its rows each."""
+    vals, valid = col.to_numpy()
+    pick = rng.rand(len(vals))
+    vals[pick < 0.01] = MAXL
+    vals[(pick >= 0.01) & (pick < 0.02)] = -MAXL - 1
+    return DeviceColumn.from_numpy(vals, T.LONG, valid, dev)
+
+
+def item_triples(tables, item_sk: np.ndarray) -> list:
+    """The (brand, manufacturer, category) of each item, as q14a's branded
+    join gives them."""
+    i = tables[3]
+    return [i[k][item_sk - 1] for k in ("i_brand_id", "i_manufact_id",
+                                        "i_category_id")]
+
+
+def int_cols(arrays, dev, null_frac: float = 0.0, rng=None) -> list:
+    """int32 key columns, each with its own ``null_frac`` of nulls."""
+    return [DeviceColumn.from_numpy(
+        a.astype(np.int32), T.INT,
+        None if not null_frac else rng.rand(len(a)) >= null_frac, dev)
+        for a in arrays]
+
+
+def check_semi_join(rng, dev, tables, summary) -> None:
+    empty_int = DeviceColumn.from_numpy(np.zeros(0, np.int32), T.INT, None,
+                                        dev)
+    pool = string_pool(rng, 300, 20)
+    for n in (N, RAGGED):
+        ints = key_column(rng, n, T.INT, 1_000, dev)
+        for nb, d in ((186, 1_000), (100_000, 60_000)):
+            hold_semi_case([ints], [key_column(rng, nb, T.INT, d, dev)],
+                           f"n={n} int32 against {nb} keys", True)
+        longs = with_long_extremes(rng, key_column(rng, n, T.LONG, 1_000,
+                                                   dev), dev)
+        hold_semi_case([longs], [with_long_extremes(rng, key_column(
+            rng, 50_000, T.LONG, 1_000, dev), dev)],
+            f"n={n} int64 with Long.MAX_VALUE and MIN_VALUE")
+        hold_semi_case([key_column(rng, n, T.DOUBLE, 1_000, dev)],
+                       [key_column(rng, 50_000, T.DOUBLE, 1_000, dev)],
+                       f"n={n} double keys with -0.0 and NaN")
+        hold_semi_case([ints], [empty_int], f"n={n} against an empty build",
+                       True)
+        hold_semi_case([key_column(rng, n, T.INT, 1_000, dev,
+                                   null_frac=1.0)],
+                       [key_column(rng, 5_000, T.INT, 1_000, dev)],
+                       f"n={n} all-null stream keys", True)
+        # several keys: q14a's item triples, 5% nulls a key; (int, string)
+        triples = int_cols(item_triples(tables, 1 + rng.randint(
+            0, ITEM_ROWS, n)), dev, 0.05, rng)
+        for nb in (Q14A_BUILD, 186):
+            hold_semi_case(triples, int_cols(item_triples(
+                tables, 1 + rng.randint(0, ITEM_ROWS, nb)), dev, 0.05, rng),
+                f"n={n} item triples against {nb}", True)
+        sstr = [multi_column(rng, n, "int", 30, dev, pool=pool),
+                multi_column(rng, n, "string", 30, dev, pool=pool)]
+        bstr = [multi_column(rng, 20_000, "int", 30, dev, pool=pool),
+                multi_column(rng, 20_000, "string", 30, dev,
+                             pool=pool[:100])]
+        hold_semi_case(sstr, bstr, f"n={n} (int, string) with nulls")
+        empty = [empty_int, DeviceColumn.from_strings([], dev)]
+        hold_semi_case(sstr, empty, f"n={n} (int, string) against an "
+                       "empty build")
+        nulls = int_cols(item_triples(tables, 1 + rng.randint(
+            0, ITEM_ROWS, n)), dev, 1.0, rng)
+        hold_semi_case(nulls, triples[:], f"n={n} all-null triples", True)
+    hold_semi_case([empty_int], [key_column(rng, 186, T.INT, 1_000, dev)],
+                   "an empty stream")
+    hold_semi_case([empty_int] * 3, int_cols(item_triples(
+        tables, 1 + rng.randint(0, ITEM_ROWS, 500)), dev),
+        "an empty stream of triples")
+    time_semi_join(rng, dev, tables, summary)
+
+
+def library_left_only(sorted_build: torch.Tensor, probe: torch.Tensor,
+                      valid: torch.Tensor, join_type: str):
+    """One-key semi or anti join from PyTorch calls: torch.searchsorted of
+    the (packed) stream keys in the sorted valid build keys, the hit read
+    back, torch.nonzero of the kept rows."""
+    def run():
+        if sorted_build.numel() == 0:
+            hit = torch.zeros_like(valid)
+        else:
+            pos = torch.searchsorted(sorted_build, probe).clamp(
+                max=sorted_build.numel() - 1)
+            hit = (sorted_build[pos] == probe) & valid
+        return torch.nonzero(hit if join_type == "left_semi" else ~hit)
+    return run
+
+
+def time_semi_join(rng, dev, tables, summary) -> None:
+    """The timed shapes: q14a's first cross-channel semi join (and the
+    anti join at the same shape) with the left-only expand; the one-key
+    semi and anti joins of the semi_anti path on one SF10 batch."""
+    scols = int_cols(item_triples(tables, 1 + rng.randint(
+        0, ITEM_ROWS, Q14A_STREAM)), dev)
+    bcols = int_cols(item_triples(tables, 1 + rng.randint(
+        0, ITEM_ROWS, Q14A_BUILD)), dev)
+    build = JK.build_side(keys_batch(bcols), [0, 1, 2])
+    sb = keys_batch(scols)
+    packed = [torch.from_numpy(pack3(*[c.to_numpy()[0] for c in cols])
+                               ).to(dev) for cols in (scols, bcols)]
+    lib_build = torch.sort(packed[1])[0]
+    ones = torch.ones(Q14A_STREAM, dtype=torch.bool, device=dev)
+    n, nb, nw = Q14A_STREAM, build.num_rows, build.keys.shape[1]
+    steps = max(nb, 1).bit_length()
+    for join_type in SEMI_TYPES:
+        off, total, li = hold_left_only(scols, build, join_type,
+                                        f"the timed q14a {join_type}")
+        name = probe_name(True, join_type)
+        # the stream's key columns read, the build's words read once, the
+        # 0/1 counts written; one binary search and one compare of nw words
+        nbytes = 15 * n + (8 * nw + 1) * nb + 4 * (n + 1)
+        ops = (steps + 1) * 2 * nw * n
+        line = {"kernel": name, "shape": "q14a_cross_items", "n": n,
+                "build": nb, "words": nw, "kept": total, **measure(
+                    lambda: JK.join_probe(sb, [0, 1, 2], build, join_type),
+                    lambda: JK.probe_multi_plain(
+                        *JK.key_words_plain(scols, build.chunks), build,
+                        join_type),
+                    library_left_only(lib_build, packed[0], ones, join_type),
+                    nbytes, ops)}
+        emit(line)
+        summary[name] = summarize(line, nbytes, ops)
+        if join_type == "left_semi":
+            nbytes = 4 * (n + 1) + 4 * total
+            line = {"kernel": "join_expand_left_only",
+                    "shape": "q14a_cross_items", "n": n, "kept": total,
+                    **measure(
+                        lambda: JK.join_expand(off[:0], off, total, build,
+                                               join_type),
+                        lambda: JK.expand_left_only_plain(off, total),
+                        lambda: torch.nonzero(off[1:] != off[:-1]),
+                        nbytes)}
+            emit(line)
+            summary["join_expand_left_only"] = summarize(line, nbytes)
+    # one-key: store item keys against the hot items (category <= 3), store
+    # date keys against the dates of 2000
+    i, d = tables[3], tables[2]
+    shapes = {
+        "left_semi": ("semi_anti_hot_items",
+                      1 + rng.randint(0, ITEM_ROWS, N),
+                      i["i_item_sk"][i["i_category_id"] <= 3]),
+        "left_anti": ("semi_anti_year_2000",
+                      2450000 + rng.randint(0, 6 * 365, N),
+                      d["d_date_sk"][d["d_year"] == 2000])}
+    for join_type, (shape, skeys, bkeys) in shapes.items():
+        stream = DeviceColumn.from_numpy(skeys.astype(np.int32), T.INT, None,
+                                         dev)
+        bcol = DeviceColumn.from_numpy(bkeys.astype(np.int32), T.INT, None,
+                                       dev)
+        build = JK.build_side(build_batch(bcol), 0)
+        _, total, li = hold_left_only([stream], build, join_type, shape)
+        want = numpy_kept([stream], [bcol], join_type)
+        require(total == len(want), f"{shape}: {total} kept, numpy "
+                f"{len(want)}")
+        nb = build.num_rows
+        steps = max(nb, 1).bit_length()
+        nbytes, ops = 5 * N + 9 * nb + 4 * (N + 1), (steps + 1) * 4 * N
+        name = probe_name(False, join_type)
+        sorted_keys = torch.from_numpy(np.sort(bkeys.astype(np.int64))
+                                       ).to(dev)
+        line = {"kernel": name, "shape": shape, "n": N, "build": nb,
+                "kept": total, **measure(
+                    lambda: JK.join_probe(build_batch(stream), 0, build,
+                                          join_type),
+                    lambda: JK.probe_plain(stream, build, join_type),
+                    library_left_only(sorted_keys, stream.data.long(),
+                                      stream.validity, join_type),
+                    nbytes, ops)}
+        emit(line)
+        summary[name] = summarize(line, nbytes, ops)
 
 
 # -- phase 3: the fused segment ---------------------------------------------
@@ -1926,6 +2229,7 @@ def phase_kernels(dev, tables) -> dict:
     check_left_join(rng, dev, summary)
     check_left_multi_join(rng, dev, summary)
     check_null_extend(rng, dev, summary)
+    check_semi_join(rng, dev, tables, summary)
     check_fused(rng, dev, summary)
     torch.cuda.synchronize()
     for name in KERNELS:
@@ -2014,11 +2318,42 @@ def run_path(name: str, query, df, kernels) -> tuple:
     return rows, launches
 
 
-def time_path(name: str, query, df, rows: int = SF10_ROWS) -> dict:
+def run_phase_path(name: str, query, kernels) -> tuple:
+    """The main path of one query, traced by torch.profiler: the counts
+    set to 0 just before, read just after; each of ``kernels`` must have
+    launched.  Returns the rows, the plan, the launches, the run's wall
+    (the trace's cost in it) and its device profile for ``time_path``
+    (None where the trace saw no device activity)."""
+    _lib.reset_launch_counts()
+    t = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        df = query(None)
+        plan = df.physical_plan()
+        rows = GpuEngine().collect(plan)
+        torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t
+    launches = dict(_lib.LAUNCHES)
+    emit({"phase": f"{name}_launches", "launches": launches})
+    for k in kernels:
+        require(launches.get(k, 0) > 0, f"{name} never launched {k}")
+    events = device_events(prof)
+    by_name: dict = {}
+    for event, ms in events:
+        by_name[event] = by_name.get(event, 0.0) + ms
+    profile = (sum(by_name.values()), len(events), by_name) if events \
+        else None
+    return rows, plan, launches, first_wall, profile
+
+
+def time_path(name: str, query, df, rows: int = SF10_ROWS,
+              profile=None) -> dict:
     """Median wall of 3 runs after the main-path run, then one profiled
-    run: the card's busy time, its activities and idle share; ``rows``
-    scanned per run; the peak memory the runs allocate above what was
-    resident before."""
+    run (``profile``: the (busy ms, activities, ms by name) of the
+    main-path run instead, traced already): the card's busy time, its
+    activities and idle share; ``rows`` scanned per run; the peak memory
+    the runs allocate above what was resident before."""
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2029,8 +2364,8 @@ def time_path(name: str, query, df, rows: int = SF10_ROWS) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
     wall = statistics.median(walls)
-    busy_ms, activities, by_name = device_profile(lambda: query(df).collect(),
-                                                  calls=1)
+    busy_ms, activities, by_name = profile or device_profile(
+        lambda: query(df).collect(), calls=1, warm=False)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     emit({"phase": f"{name}_profile", "device_busy_ms": busy_ms,
           "device_activities": activities,
@@ -2705,23 +3040,341 @@ def check_q72_rows(rows, want) -> None:
 
 def phase_q72(dfs, want) -> dict:
     query = lambda _: tpcds.q72(*dfs)  # noqa: E731
-    _lib.reset_launch_counts()
-    plan = query(None).physical_plan()
-    t = time.perf_counter()
-    rows = GpuEngine().collect(plan)
-    torch.cuda.synchronize()
-    first_wall = time.perf_counter() - t
-    launches = dict(_lib.LAUNCHES)
-    emit({"phase": "q72_launches", "launches": launches})
-    for k in Q72_KERNELS:
-        require(launches.get(k, 0) > 0, f"q72 never launched {k}")
-    emit({"phase": "q72_plan", "first_run_s": first_wall,
+    rows, plan, launches, first, prof = run_phase_path("q72", query,
+                                                       Q72_KERNELS)
+    emit({"phase": "q72_plan", "first_run_s": first,
           **check_q72_plan(plan)})
     check_q72_rows(rows, want)
     scanned = CS_ROWS + INV_ROWS + CR_ROWS
-    timing = time_path("q72", query, None, scanned)
+    timing = time_path("q72", query, None, scanned, prof)
     emit({"phase": "q72", "fact_rows": scanned, "rows": len(rows),
           "first_rows": rows[:3], **timing})
+    return launches
+
+
+# -- phase 10 -----------------------------------------------------------------
+
+CHANNELS = ("catalog", "store", "web")     # q14a's and q5's channel order
+CHANNEL_SALES_ROWS = {"store": SS_ROWS, "catalog": CS_ROWS,
+                      "web": tpcds.SF10_WEB_SALES_ROWS}
+CHANNEL_RETURNS_ROWS = {"store": SR_ROWS, "catalog": CR_ROWS,
+                        "web": tpcds.SF10_WEB_RETURNS_ROWS}
+CHANNEL_SEEDS = {"store": (41, 19), "catalog": (43, 20), "web": (47, 21)}
+Q14A_CONF = Q72_CONF
+Q14A_KERNELS = ("join_multi_probe_semi", "join_expand_left_only",
+                "join_multi_build", "join_build", "join_probe",
+                "join_expand", "murmur3", "hash_string", "partition", "sort",
+                "string_sort_keys", "segmented_sum", "gather", "concat",
+                "masked_sum")
+Q5_KERNELS = ("join_build", "join_probe", "join_expand", "murmur3",
+              "hash_string", "partition", "sort", "string_sort_keys",
+              "segmented_sum", "gather", "concat")
+SEMI_ANTI_KERNELS = ("join_probe_semi", "join_probe_anti",
+                     "join_multi_probe_anti", "join_expand_left_only")
+F64_RTOL_Q14A = 1e-9             # against numpy's integer-cent sums
+F64_RTOL_THRESHOLD = 1e-12       # the card's mean against numpy's
+
+
+class ChannelNumpy:
+    """Independent q14a, q5 and semi_anti over host arrays.  Every sale's
+    item triple comes from the item table by its key (the branded join
+    keeps every row: every item exists); a price and a profit are exact
+    integer cents (``np.round(x, 2)`` is ``rint(x * 100) / 100``).  q14a:
+    the cross items are the intersection of the three channels' triple
+    sets, a semi join is ``np.isin``, the threshold the mean of all the
+    prices in cents, the rollup sums and counts by np.unique and bincount.
+    q5: each channel's sales and returns in January 2000, by (channel, id)
+    and rolled up.  semi_anti: the store rows of a hot item (category <=
+    3), not sold in 2000, whose triple the web did not sell in January
+    2000."""
+
+    def __init__(self, tables):
+        date, _, d, i = tables
+        self.year, self.moy = d["d_year"], d["d_moy"]
+        self.triple = np.zeros(ITEM_ROWS + 1, np.int64)
+        self.triple[i["i_item_sk"]] = pack3(
+            i["i_brand_id"], i["i_manufact_id"], i["i_category_id"])
+        self.hot = np.zeros(ITEM_ROWS + 1, bool)
+        self.hot[i["i_item_sk"]] = i["i_category_id"] <= 3
+        self.sales = {c: [] for c in CHANNELS}
+        self.returns = {c: [] for c in CHANNELS}
+
+    def _day(self, date_sk):
+        return date_sk.astype(np.int64) - 2450000
+
+    def january_2000(self, date_sk) -> np.ndarray:
+        day = self._day(date_sk)
+        return (self.year[day] == 2000) & (self.moy[day] == 1)
+
+    def add_sales(self, ch: str, data) -> None:
+        self.sales[ch].append({
+            "triple": self.triple[data["cs_item_sk"]],
+            "item": data["cs_item_sk"], "date": data["cs_sold_date_sk"],
+            "id": data["cs_channel_sk"],
+            "price": cents(data["cs_ext_sales_price"]),
+            "profit": cents(data["cs_net_profit"])})
+
+    def add_returns(self, ch: str, data) -> None:
+        ok = self.january_2000(data["cr_returned_date_sk"])
+        self.returns[ch].append({
+            "id": data["cr_channel_sk"][ok],
+            "amount": cents(data["cr_return_amount"][ok]),
+            "loss": cents(data["cr_net_loss"][ok])})
+
+    def finish(self) -> None:
+        self.sales = {c: Q25Numpy._cat(v) for c, v in self.sales.items()}
+        self.returns = {c: Q25Numpy._cat(v) for c, v in self.returns.items()}
+
+    def threshold(self) -> tuple:
+        """(the mean price in cents as an exact (sum, count), the mean)."""
+        total = sum(int(s["price"].sum()) for s in self.sales.values())
+        count = sum(len(s["price"]) for s in self.sales.values())
+        return total, count, total / count / 100
+
+    def prices_between(self, a: float, b: float) -> int:
+        """The prices that one threshold keeps and the other drops."""
+        return sum(int(((s["price"] / 100 > a) != (s["price"] / 100 > b))
+                       .sum()) for s in self.sales.values())
+
+    def q14a(self, thr: float) -> list:
+        """q14a's rows: (channel, brand, category, sales cents, n), in
+        q14a's order (keys ascending with nulls first; they are unique)."""
+        sets = [np.unique(self.sales[c]["triple"]) for c in
+                ("store", "catalog", "web")]
+        cross = np.intersect1d(np.intersect1d(sets[0], sets[1]), sets[2])
+        mask = 2**21 - 1
+        rows = []
+        grand = [0, 0]
+        for ch in CHANNELS:
+            s = self.sales[ch]
+            keep = (s["price"] / 100 > thr) & np.isin(s["triple"], cross)
+            t, p = s["triple"][keep], s["price"][keep]
+            if not len(p):
+                continue
+            brand, cat = t >> 42, t & mask
+            for key, unpack in (((brand << 21) | cat,
+                                 lambda k: (k >> 21, k & mask)),
+                                (brand, lambda k: (k, None))):
+                keys, inv = np.unique(key, return_inverse=True)
+                sums = np.bincount(inv, p, len(keys)).astype(np.int64)
+                ns = np.bincount(inv, None, len(keys)).astype(np.int64)
+                for k, sm, nn in zip(keys.tolist(), sums.tolist(),
+                                     ns.tolist()):
+                    rows.append((ch, *unpack(k), sm, nn))
+            rows.append((ch, None, None, int(p.sum()), len(p)))
+            grand = [grand[0] + int(p.sum()), grand[1] + len(p)]
+        rows.append((None, None, None, *grand))
+        return sorted(rows, key=lambda r: (
+            r[0] is not None, r[0] or "", r[1] is not None, r[1] or 0,
+            r[2] is not None, r[2] or 0))
+
+    def q5(self) -> list:
+        """q5's rows: (channel, id, sales, returns, profit) in cents."""
+        rows = []
+        grand = np.zeros(3, np.int64)
+        for ch in CHANNELS:
+            s, r = self.sales[ch], self.returns[ch]
+            ok = self.january_2000(s["date"])
+            ids = np.concatenate([s["id"][ok], r["id"]])
+            vals = [np.concatenate([s["price"][ok],
+                                    np.zeros(len(r["id"]), np.int64)]),
+                    np.concatenate([np.zeros(int(ok.sum()), np.int64),
+                                    r["amount"]]),
+                    np.concatenate([s["profit"][ok], -r["loss"]])]
+            keys, inv = np.unique(ids, return_inverse=True)
+            sums = [np.bincount(inv, v, len(keys)).astype(np.int64)
+                    for v in vals]
+            for j, k in enumerate(keys.tolist()):
+                rows.append((ch, k, *(int(x[j]) for x in sums)))
+            sub = np.array([int(v.sum()) for v in vals], np.int64)
+            rows.append((ch, None, *sub.tolist()))
+            grand += sub
+        rows.append((None, None, *grand.tolist()))
+        return sorted(rows, key=lambda r: (r[0] is not None, r[0] or "",
+                                           r[1] is not None, r[1] or 0))
+
+    def semi_anti(self) -> tuple:
+        """(rows, price cents) of the semi_anti path's store rows."""
+        web = self.sales["web"]
+        month = np.unique(web["triple"][self.january_2000(web["date"])])
+        s = self.sales["store"]
+        keep = self.hot[s["item"]] & (self.year[self._day(s["date"])]
+                                      != 2000)
+        keep &= ~np.isin(s["triple"], month)
+        return int(keep.sum()), int(s["price"][keep].sum())
+
+
+def semi_anti_query(ss, ws, item, dd, month):
+    """The semi_anti path: the store sales of a hot item (category <= 3,
+    a one-key semi join), not sold in 2000 (a one-key anti join), whose
+    (brand, manufacturer, category) the web did not sell in January 2000
+    (a three-key anti join), counted and summed."""
+    col, lit = E.col, E.lit
+    keys = ["i_brand_id", "i_manufact_id", "i_category_id"]
+    hot = item.filter(col("i_category_id") <= lit(3)).select("i_item_sk")
+    y2000 = dd.filter(col("d_year") == lit(2000)).select("d_date_sk")
+    tri = item.select("i_item_sk", *keys)
+    web_month = (ws.filter((col("cs_sold_date_sk") >= lit(month[0]))
+                           & (col("cs_sold_date_sk") < lit(month[1])))
+                 .join(tri, on=([col("cs_item_sk")], [col("i_item_sk")]))
+                 .select(*keys))
+    return (ss.join(hot, on=([col("cs_item_sk")], [col("i_item_sk")]),
+                    how="left_semi")
+            .join(y2000, on=([col("cs_sold_date_sk")], [col("d_date_sk")]),
+                  how="left_anti")
+            .join(tri, on=([col("cs_item_sk")], [col("i_item_sk")]))
+            .join(web_month, on=([col(k) for k in keys],
+                                 [col(k) for k in keys]), how="left_anti")
+            .agg(E.count().alias("n"),
+                 E.sum_("cs_ext_sales_price").alias("sales")))
+
+
+def phase_channel_data(dev, tables):
+    """The three channels' sales and returns on the card, 4 partitions of
+    1,048,576-row batches each, in a session of 200 shuffle partitions
+    with the coalesced reader off; item and date_dim; the numpy
+    results."""
+    t0 = time.perf_counter()
+    ref = ChannelNumpy(tables)
+    sales, returns = {}, {}
+    for ch in CHANNELS:
+        sseed, rseed = CHANNEL_SEEDS[ch]
+        sales[ch] = []
+        for data, validity in tpcds.iter_channel_sales(
+                CHANNEL_SALES_ROWS[ch], ITEM_ROWS, sseed, batch_rows=N):
+            ref.add_sales(ch, data)
+            sales[ch].append(tpcds.fact_batch(
+                data, validity, tpcds.CHANNEL_SALES_SCHEMA, dev))
+        returns[ch] = []
+        for data, validity in tpcds.iter_channel_returns(
+                CHANNEL_RETURNS_ROWS[ch], ITEM_ROWS, rseed, batch_rows=N):
+            ref.add_returns(ch, data)
+            returns[ch].append(tpcds.fact_batch(
+                data, validity, tpcds.CHANNEL_RETURNS_SCHEMA, dev))
+    ref.finish()
+    torch.cuda.synchronize()
+    resident = sum(t.nbytes for bs in (*sales.values(), *returns.values())
+                   for b in bs for c in b.columns
+                   for t in (c.data, c.validity))
+    sess = GpuSession(Q14A_CONF, device=dev)
+    dfs = {ch: (sess.create_dataframe(sales[ch], num_partitions=4),
+                sess.create_dataframe(returns[ch], num_partitions=4))
+           for ch in CHANNELS}
+    item_df = sess.create_dataframe([to_device(tables[1], dev)])
+    dd_df = sess.create_dataframe([to_device(tables[0], dev)])
+    emit({"phase": "channel_data",
+          "sales_rows": {c: CHANNEL_SALES_ROWS[c] for c in CHANNELS},
+          "returns_rows": {c: CHANNEL_RETURNS_ROWS[c] for c in CHANNELS},
+          "item_rows": tables[1].num_rows, "resident_bytes_added": resident,
+          "setup_seconds": time.perf_counter() - t0})
+    return dfs, item_df, dd_df, ref
+
+
+def check_q14a_plan(plan) -> dict:
+    """Every semi join is a shuffled join that took the streamed probe in
+    all 200 partitions; the largest build partition of each."""
+    semi = [n for n in plan_nodes(plan)
+            if getattr(n, "join_type", None) == "left_semi"]
+    require(len(semi) == 9 and all(
+        isinstance(n, GpuShuffledHashJoinExec) for n in semi),
+        f"q14a's semi joins: {[type(n).__name__ for n in semi]}")
+    for n in semi:
+        require(n.branches == {"streamed": Q72_PARTITIONS},
+                f"a q14a semi join's branches: {dict(n.branches)}")
+    return {"semi_joins": [{"largest_build_rows": n.largest_build_rows,
+                            "output_rows": n.output_rows.value}
+                           for n in semi]}
+
+
+def check_float_rows(name: str, rows, want, nkeys: int) -> float:
+    """Keys and counts exact, in order; every sum within F64_RTOL_Q14A of
+    numpy's integer cents (at least that much of one unit absolute);
+    returns the largest relative error."""
+    require(len(rows) == len(want), f"{name} gave {len(rows)} rows, numpy "
+            f"{len(want)}")
+    worst = 0.0
+    for g, w in zip(rows, want):
+        require(tuple(g[:nkeys]) == tuple(w[:nkeys]),
+                f"{name} row {g} where numpy has {w}")
+        for a, b in zip(g[nkeys:], w[nkeys:]):
+            if isinstance(a, float):
+                b = b / 100
+                err = abs(a - b) / max(abs(b), 1.0)
+                require(err <= F64_RTOL_Q14A, f"{name} sum {a} against "
+                        f"numpy {b} in {g}")
+                worst = max(worst, err)
+            else:
+                require(a == b, f"{name} count {a} against {b} in {g}")
+    return worst
+
+
+def phase_q14a(dfs, item_df, ref: ChannelNumpy) -> dict:
+    ss, cs, ws = (dfs[c][0] for c in ("store", "catalog", "web"))
+    query = lambda _: tpcds.q14a(ss, cs, ws, item_df)  # noqa: E731
+    rows, plan, launches, first, prof = run_phase_path("q14a", query,
+                                                       Q14A_KERNELS)
+    emit({"phase": "q14a_plan", "first_run_s": first,
+          **check_q14a_plan(plan)})
+    # the scalar subquery once more, held against numpy's mean
+    thr = tpcds.q14a_threshold(ss, cs, ws)
+    total, count, mean = ref.threshold()
+    require(abs(thr - mean) <= F64_RTOL_THRESHOLD * abs(mean),
+            f"q14a's threshold {thr} against numpy's {mean}")
+    between = ref.prices_between(thr, mean)
+    require(between == 0, f"{between} prices lie between the card's "
+            f"threshold {thr} and numpy's {mean}")
+    want = ref.q14a(mean)
+    worst = check_float_rows("q14a", rows, want, 3)
+    scanned = sum(CHANNEL_SALES_ROWS.values())
+    timing = time_path("q14a", query, None, scanned, prof)
+    emit({"phase": "q14a", "fact_rows": scanned, "rows": len(rows),
+          "threshold": thr, "numpy_threshold": mean,
+          "numpy_price_cents": [total, count], "max_rel_err": worst,
+          "first_rows": rows[:3], **timing})
+    return launches
+
+
+def phase_q5(dfs, dd_df, ref: ChannelNumpy) -> dict:
+    query = lambda _: tpcds.q5(  # noqa: E731
+        {c: dfs[c] for c in CHANNELS}, dd_df)
+    rows, plan, launches, first, prof = run_phase_path("q5", query,
+                                                       Q5_KERNELS)
+    worst = check_float_rows("q5", rows, ref.q5(), 2)
+    scanned = sum(CHANNEL_SALES_ROWS.values()) + sum(
+        CHANNEL_RETURNS_ROWS.values())
+    timing = time_path("q5", query, None, scanned, prof)
+    emit({"phase": "q5", "fact_rows": scanned, "rows": len(rows),
+          "first_run_s": first, "max_rel_err": worst,
+          "first_rows": rows[:3], **timing})
+    return launches
+
+
+def phase_semi_anti(dfs, item_df, dd_df, tables, ref: ChannelNumpy) -> dict:
+    d = tables[2]
+    days = d["d_date_sk"][(d["d_year"] == 2000) & (d["d_moy"] == 1)]
+    month = (int(days.min()), int(days.max()) + 1)
+    query = lambda _: semi_anti_query(  # noqa: E731
+        dfs["store"][0], dfs["web"][0], item_df, dd_df, month)
+    rows, plan, launches, first, prof = run_phase_path(
+        "semi_anti", query, SEMI_ANTI_KERNELS)
+    n, price = ref.semi_anti()
+    require(len(rows) == 1 and rows[0][0] == n,
+            f"semi_anti counted {rows}, numpy {n}")
+    err = abs(rows[0][1] - price / 100) / max(price / 100, 1.0)
+    require(err <= F64_RTOL_Q14A, f"semi_anti summed {rows[0][1]}, numpy "
+            f"{price / 100}")
+    joins = [(n.join_type, type(n).__name__) for n in plan_nodes(plan)
+             if getattr(n, "join_type", None) in SEMI_TYPES]
+    adaptive = [n for n in plan_nodes(plan)
+                if isinstance(n, GpuAdaptiveJoinExec)
+                and n.join_type == "left_anti"]
+    require(len(adaptive) == 1 and len(adaptive[0].left_keys) == 3
+            and adaptive[0].chosen == "broadcast",
+            "the three-key anti join is not an adaptive join that "
+            "broadcast")
+    timing = time_path("semi_anti", query, None, SS_ROWS, prof)
+    emit({"phase": "semi_anti", "rows": rows, "numpy": [n, price],
+          "first_run_s": first, "joins": joins, **timing})
     return launches
 
 
@@ -2745,6 +3398,11 @@ def main() -> None:
     phase_fusion_ab(dfs, q3_dfs, q25_dfs)
     by_path["q72"] = phase_q72(*phase_q72_data(
         dev, cs_batches, order_pool, q72_ref, dims, q3_dfs))
+    chan_dfs, item_df, dd_df, chan_ref = phase_channel_data(dev, tables)
+    by_path["q14a"] = phase_q14a(chan_dfs, item_df, chan_ref)
+    by_path["q5"] = phase_q5(chan_dfs, dd_df, chan_ref)
+    by_path["semi_anti"] = phase_semi_anti(chan_dfs, item_df, dd_df, tables,
+                                           chan_ref)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         s = summary[name]

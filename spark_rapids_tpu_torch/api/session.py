@@ -1,12 +1,15 @@
 """User-facing session and DataFrame of the port.
 
 Counterpart of ``spark_rapids_tpu/api/session.py`` (``TpuSession`` :95,
-``create_dataframe`` :129, ``GroupedData`` :368, ``DataFrame`` :583,
-``group_by`` :685, ``order_by`` :692, ``limit`` :704, ``join`` :744,
-``collect`` :767, ``explain`` :824), cut to the q6, q1, q3, q25 and q72
-surface: filter, select, agg, group_by(...).agg, join (inner and left,
-with a residual condition), order_by, limit, collect, count and explain
-(the physical plan's tree).
+``create_dataframe`` :129, ``GroupedData`` :368 with
+``_grouping_sets_agg`` :395-462, ``DataFrame`` :583, ``with_column`` :604,
+``rollup`` :610, ``group_by`` :685, ``order_by`` :692, ``limit`` :704,
+``union`` :707, ``join`` :744, ``collect`` :767, ``explain`` :824), cut to
+the q6, q1, q3, q25, q72, q14a and q5 surface: filter, select,
+with_column, agg, group_by(...).agg, rollup(...).agg, join (inner, left,
+left semi and left anti, with a residual condition), union, order_by,
+limit, collect, count and explain (the physical plan's tree).  ``cube``
+and ``grouping_id()`` are not ported.
 
 A session runs on the card unless the caller names another device:
 ``GpuSession(device=None)`` takes ``cuda`` and raises where there is none.
@@ -20,11 +23,13 @@ import numpy as np
 import pyarrow as pa
 import torch
 
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.arrow import (arrow_to_batch,
                                                    batch_from_numpy)
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
 from spark_rapids_tpu_torch.config import RapidsConf
-from spark_rapids_tpu_torch.expressions.core import Expression, col, lit
+from spark_rapids_tpu_torch.expressions.core import (Alias, Col, Expression,
+                                                     Literal, col, lit)
 from spark_rapids_tpu_torch.kernels.sort import SortOrder
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.engine import GpuEngine
@@ -103,15 +108,54 @@ class GpuSession:
 
 class GroupedData:
     """``df.group_by(keys...)``; ``agg`` builds the grouped Aggregate (no
-    keys: the global one)."""
+    keys: the global one).  ``grouping_sets``, from ``rollup``, lists the
+    key ordinals each grouping set keeps."""
 
-    def __init__(self, df: "DataFrame", keys):
+    def __init__(self, df: "DataFrame", keys, grouping_sets=None):
         self.df = df
         self.keys = [_to_expr(k) for k in keys]
+        self.grouping_sets = grouping_sets
 
     def agg(self, *aggs) -> "DataFrame":
+        if self.grouping_sets is not None:
+            return self._grouping_sets_agg([_to_expr(a) for a in aggs])
         return DataFrame(L.Aggregate(self.keys, [_to_expr(a) for a in aggs],
                                      self.df.plan), self.df.session)
+
+    def _grouping_sets_agg(self, aggs) -> "DataFrame":
+        """Spark's plan of grouping sets: an Expand keeps the original
+        columns (the aggregates read them un-nulled) and adds a copy
+        ``_gk<i>`` of each key, null where the set leaves the key out, and
+        the grouping id ``_gid`` (LONG, a bit set for each key left out,
+        the first key the most significant); the Aggregate groups on the
+        copies, named as the keys, and ``_gid``, which keeps a subtotal row
+        apart from a group whose key is null in the data; a projection
+        drops ``_gid``."""
+        child = self.df.plan
+        names = []
+        for k in self.keys:
+            if not isinstance(k, Col):
+                raise NotImplementedError("rollup keys must be columns")
+            names.append(k.name)
+        nkeys = len(names)
+        out_names = (list(child.schema.names)
+                     + [f"_gk{i}" for i in range(nkeys)] + ["_gid"])
+        projections = []
+        for included in self.grouping_sets:
+            gid = sum(1 << (nkeys - 1 - i) for i in range(nkeys)
+                      if i not in included)
+            proj = [col(n) for n in child.schema.names]
+            proj += [col(n) if i in included
+                     else Literal(None, child.schema.dtype_of(n))
+                     for i, n in enumerate(names)]
+            proj.append(Literal(gid, T.LONG))
+            projections.append(proj)
+        expanded = L.Expand(projections, out_names, child)
+        group_keys = ([Alias(col(f"_gk{i}"), n) for i, n in enumerate(names)]
+                      + [col("_gid")])
+        agg = L.Aggregate(group_keys, aggs, expanded)
+        keep = [col(n) for n in agg.schema.names if n != "_gid"]
+        return DataFrame(L.Project(keep, agg), self.df.session)
 
 
 class DataFrame:
@@ -130,6 +174,20 @@ class DataFrame:
     def filter(self, condition) -> "DataFrame":
         return DataFrame(L.Filter(_to_expr(condition), self.plan),
                          self.session)
+
+    def with_column(self, name: str, expr) -> "DataFrame":
+        """Every column but ``name``, then ``expr`` as ``name``, last."""
+        exprs = [col(n) for n in self.schema.names if n != name]
+        return self.select(*exprs, _to_expr(expr).alias(name))
+
+    def rollup(self, *keys) -> "GroupedData":
+        """ROLLUP: the grouping sets (k1..kn), (k1..kn-1), ..., ()."""
+        sets = [frozenset(range(i)) for i in range(len(keys), -1, -1)]
+        return GroupedData(self, keys, grouping_sets=sets)
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """UNION ALL, by position; the names are this frame's."""
+        return DataFrame(L.Union([self.plan, other.plan]), self.session)
 
     def group_by(self, *keys) -> "GroupedData":
         return GroupedData(self, keys)
@@ -154,7 +212,8 @@ class DataFrame:
         """Equi-join on ``on``: a column name, a list of names common to
         both sides, or a (left keys, right keys) pair of expression lists;
         ``condition``, a residual predicate over the left columns and the
-        right ones.  The inner and the left join run."""
+        right ones.  The inner, left, left semi and left anti joins
+        run."""
         if on is None:
             lkeys, rkeys = [], []
         elif isinstance(on, str):

@@ -1,7 +1,7 @@
-// Equi-join of the port, inner and left, on one fixed-width key or on
-// several keys (strings among them): a sorted build side, a binary-search
-// probe and the expansion into gather maps; and the final maps of a join
-// with a residual condition.  Built for sm_90a by kernels/_lib.py and
+// Equi-join of the port, inner, left, semi and anti, on one fixed-width
+// key or on several keys (strings among them): a sorted build side, a
+// binary-search probe and the expansion into gather maps; and the final
+// maps of a join with a residual condition.  Built for sm_90a by kernels/_lib.py and
 // called through ctypes from kernels/join.py.  Every entry point launches
 // on the caller's stream, allocates nothing, and returns the cudaError_t of
 // its launches.
@@ -9,13 +9,33 @@
 // <- spark_rapids_tpu/kernels/join.py:154 _probe_single, :226
 //    _expand_single, :275 _probe_multi, :420 _expand_multi (behind
 //    join_probe :457, join_expand :484, join_gather_maps :496), their left
-//    branches (:203-206, :237-246; :395), and :44 conditional_join_maps
+//    branches (:203-206, :237-246; :395), their semi and anti branches
+//    (:197-201, :212, :231-233; :397-400, :440-441), and :44
+//    conditional_join_maps
 //
-// Left join.  Under the left flag a probe writes max(matches, 1) as a
-// stream row's count, so a row with no match (a null key included) gets
-// one output row, and writes lo = -1 for it; the shared expand writes
-// ri = -1 where lo < 0, which the gather turns into a null row.  The
-// inner probe never writes a negative lo.
+// Modes.  A probe runs in one of four modes, one per join type it serves
+// (kernels/join.py _MODES): inner, left, left semi, left anti.
+//
+// Left join.  In left mode a probe writes max(matches, 1) as a stream
+// row's count, so a row with no match (a null key included) gets one
+// output row, and writes lo = -1 for it; the shared expand writes ri = -1
+// where lo < 0, which the gather turns into a null row.  The inner probe
+// never writes a negative lo.
+//
+// Semi and anti joins (<- spark_rapids_tpu/kernels/join.py:197-201
+// _probe_single, :212 _expand_left_only_mask, :231-233 _expand_single;
+// :397-400 _probe_multi, :440-441 _expand_multi).  A row needs only to
+// know whether it has a match: the lower bound and one comparison, no
+// upper bound.  In semi mode a row writes a count of 1 where it has a
+// match, in anti mode where it has none (a null key included: it matches
+// nothing); it writes no lo.  The scan turns the 0/1 counts into output
+// positions and the number of rows, which the wrapper reads back once, as
+// for the other modes; join_expand_left_only_kernel then writes each kept
+// row's index at its position.  Rows come out in stream order, each once,
+// and there is no right map: the gather takes the left columns alone.
+//   Bound (probe): bytes: per stream row its key (or words) and validity
+//   read, the 4-byte count written and read by the scan.  Bound (expand):
+//   bytes: the n + 1 offsets read, 4 bytes per kept row written.
 //
 // Keys.  Every key becomes the order-preserving uint64 of csrc/sort.cu:
 // integers (int, date, long, Decimal64) sign-extend to 64 bits and flip
@@ -91,6 +111,12 @@ constexpr int kBool = 3;    // bool
 constexpr int kString = 4;  // string (several-key path only)
 constexpr int kMaxKeys = 16;
 
+// probe modes (kernels/join.py _MODES)
+constexpr int kInner = 0;
+constexpr int kLeft = 1;
+constexpr int kSemi = 2;
+constexpr int kAnti = 3;
+
 // the key columns of one side, passed by value to the words kernel
 struct KeyCols {
   int nkeys;
@@ -140,12 +166,17 @@ join_build_keys_kernel(const void* __restrict__ data,
   keys[i] = v ? order_key(data, kind, r) : 0ull;
 }
 
-// A stream row's (first match, count): under the left flag a row with no
-// match gets (-1, 1), one null-extended output row.
+// A stream row's (first match, count): in left mode a row with no match
+// gets (-1, 1), one null-extended output row; in semi and anti mode only
+// the 0/1 count is written.
 __device__ __forceinline__ void write_match(int64_t r, int64_t first,
-                                            int64_t matches, int left,
+                                            int64_t matches, int mode,
                                             int32_t* lo_out, int32_t* count) {
-  if (left && matches == 0) {
+  if (mode >= kSemi) {
+    count[r] = (matches > 0) == (mode == kSemi);
+    return;
+  }
+  if (mode == kLeft && matches == 0) {
     lo_out[r] = -1;
     count[r] = 1;
     return;
@@ -158,12 +189,12 @@ __global__ void __launch_bounds__(kThreads)
 join_probe_kernel(const void* __restrict__ data,
                   const uint8_t* __restrict__ valid, int kind, int64_t n,
                   const uint64_t* __restrict__ keys,
-                  const uint8_t* __restrict__ key_valid, int64_t nb, int left,
+                  const uint8_t* __restrict__ key_valid, int64_t nb, int mode,
                   int32_t* __restrict__ lo_out, int32_t* __restrict__ count) {
   const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (r >= n) return;
   if (valid[r] == 0) {     // a null key matches nothing
-    write_match(r, 0, 0, left, lo_out, count);
+    write_match(r, 0, 0, mode, lo_out, count);
     return;
   }
   const uint64_t k = order_key(data, kind, r);
@@ -175,12 +206,17 @@ join_probe_kernel(const void* __restrict__ data,
     if (key_valid[mid] != 0 && keys[mid] < k) lo = mid + 1; else hi = mid;
   }
   const int64_t first = lo;
+  if (mode >= kSemi) {     // one comparison: is the lower bound a match
+    const bool hit = first < nb && key_valid[first] != 0 && keys[first] == k;
+    write_match(r, first, hit, mode, lo_out, count);
+    return;
+  }
   hi = nb;   // upper bound: the first position greater than k
   while (lo < hi) {
     const int64_t mid = lo + (hi - lo) / 2;
     if (key_valid[mid] != 0 && keys[mid] <= k) lo = mid + 1; else hi = mid;
   }
-  write_match(r, first, lo - first, left, lo_out, count);
+  write_match(r, first, lo - first, mode, lo_out, count);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -202,6 +238,17 @@ join_expand_kernel(const int32_t* __restrict__ lo,
     li[base + j] = static_cast<int32_t>(r);
     ri[base + j] = perm[first + j];
   }
+}
+
+// A semi or anti join's map: a kept row (count 1) writes its index at its
+// offset; there is no right map.
+__global__ void __launch_bounds__(kThreads)
+join_expand_left_only_kernel(const int32_t* __restrict__ offsets, int64_t n,
+                             int32_t* __restrict__ li) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (r >= n) return;
+  const int32_t base = offsets[r];
+  if (offsets[r + 1] != base) li[base] = static_cast<int32_t>(r);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -247,12 +294,12 @@ join_multi_probe_kernel(const uint64_t* __restrict__ swords,
                         const uint8_t* __restrict__ svalid, int64_t n,
                         const uint64_t* __restrict__ bwords,
                         const uint8_t* __restrict__ bvalid, int64_t nb,
-                        int nwords, int left, int32_t* __restrict__ lo_out,
+                        int nwords, int mode, int32_t* __restrict__ lo_out,
                         int32_t* __restrict__ count) {
   const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (r >= n) return;
   if (svalid[r] == 0) {     // a null in any key matches nothing
-    write_match(r, 0, 0, left, lo_out, count);
+    write_match(r, 0, 0, mode, lo_out, count);
     return;
   }
   const uint64_t* s = swords + r * nwords;
@@ -268,6 +315,12 @@ join_multi_probe_kernel(const uint64_t* __restrict__ swords,
       hi = mid;
   }
   const int64_t first = lo;
+  if (mode >= kSemi) {     // one comparison: is the lower bound a match
+    const bool hit = first < nb && bvalid[first] != 0 &&
+                     compare_words(bwords + first * nwords, s, nwords) == 0;
+    write_match(r, first, hit, mode, lo_out, count);
+    return;
+  }
   hi = nb;   // upper bound: the first build row greater than s
   while (lo < hi) {
     const int64_t mid = lo + (hi - lo) / 2;
@@ -277,7 +330,7 @@ join_multi_probe_kernel(const uint64_t* __restrict__ swords,
     else
       hi = mid;
   }
-  write_match(r, first, lo - first, left, lo_out, count);
+  write_match(r, first, lo - first, mode, lo_out, count);
 }
 
 // Conditional join maps.  Three segments of candidates make the output,
@@ -476,19 +529,20 @@ int srt_join_build_keys(int kind, const void* data, const uint8_t* valid,
 
 // For n stream rows against nb sorted build keys: lo[n], the first match,
 // and offsets[n + 1], the exclusive scan of the match counts (int32), with
-// total[0] (int64) the number of pairs; left != 0 gives a row with no
-// match one pair (lo = -1).  tile_sums holds ceil(n / srt_join_scan_tile())
-// int64, at least one.
+// total[0] (int64) the number of pairs.  mode: 0 inner; 1 left, a row with
+// no match gets one pair (lo = -1); 2 semi and 3 anti, a row's count is 1
+// where it is kept and lo is not written (it may be null).  tile_sums
+// holds ceil(n / srt_join_scan_tile()) int64, at least one.
 int srt_join_probe(int kind, const void* data, const uint8_t* valid,
                    int64_t n, const uint64_t* keys, const uint8_t* key_valid,
-                   int64_t nb, int left, int32_t* lo, int32_t* offsets,
+                   int64_t nb, int mode, int32_t* lo, int32_t* offsets,
                    int64_t* tile_sums, int64_t* total, cudaStream_t stream) {
-  if (kind < kInt32 || kind > kBool) {
+  if (kind < kInt32 || kind > kBool || mode < kInner || mode > kAnti) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {
     join_probe_kernel<<<grid_rows(n), kThreads, 0, stream>>>(
-        data, valid, kind, n, keys, key_valid, nb, left, lo, offsets);
+        data, valid, kind, n, keys, key_valid, nb, mode, lo, offsets);
   }
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
@@ -504,6 +558,16 @@ int srt_join_expand(const int32_t* lo, const int32_t* offsets,
   if (n > 0) {
     join_expand_kernel<<<grid_rows(n), kThreads, 0, stream>>>(lo, offsets,
                                                               perm, n, li, ri);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// li[total]: the kept rows of a semi or anti probe, from its offsets[n + 1].
+int srt_join_expand_left_only(const int32_t* offsets, int64_t n, int32_t* li,
+                              cudaStream_t stream) {
+  if (n > 0) {
+    join_expand_left_only_kernel<<<grid_rows(n), kThreads, 0, stream>>>(
+        offsets, n, li);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -532,21 +596,24 @@ int srt_join_key_words(int nkeys, const int* kinds, const int* nchunks,
 
 // For n stream rows (their key columns as above; swords[n * nwords] and
 // svalid[n] are scratch) against nb build word rows: lo[n], offsets[n + 1]
-// and total[0], as srt_join_probe gives them (left as there).
+// and total[0], as srt_join_probe gives them (mode as there).
 int srt_join_multi_probe(int nkeys, const int* kinds, const int* nchunks,
                          const void* const* data, const void* const* valid,
                          const void* const* offsets, int64_t n, int nwords,
                          uint64_t* swords, uint8_t* svalid,
                          const uint64_t* bwords, const uint8_t* bvalid,
-                         int64_t nb, int left, int32_t* lo,
+                         int64_t nb, int mode, int32_t* lo,
                          int32_t* offsets_out, int64_t* tile_sums,
                          int64_t* total, cudaStream_t stream) {
+  if (mode < kInner || mode > kAnti) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   int err = srt_join_key_words(nkeys, kinds, nchunks, data, valid, offsets,
                                nullptr, n, nwords, swords, svalid, stream);
   if (err != 0) return err;
   if (n > 0) {
     join_multi_probe_kernel<<<grid_rows(n), kThreads, 0, stream>>>(
-        swords, svalid, n, bwords, bvalid, nb, nwords, left, lo,
+        swords, svalid, n, bwords, bvalid, nb, nwords, mode, lo,
         offsets_out);
   }
   err = static_cast<int>(cudaGetLastError());

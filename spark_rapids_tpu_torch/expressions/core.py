@@ -198,12 +198,17 @@ def _infer_literal_type(value) -> T.DataType:
 
 
 class Literal(Expression):
-    """A non-null constant; a decimal literal is its unscaled int, a string
-    literal its UTF-8 bytes in every row."""
+    """A constant; a decimal literal is its unscaled int, a string literal
+    its UTF-8 bytes in every row.  ``Literal(None, dtype)`` is a typed null:
+    an all-invalid column of that type (null slots zero; a string's offsets
+    all zero and no bytes), as the reference's ``Literal`` (:346) with its
+    expand's ``_coerce`` (``plan/execs/misc.py:72-82``) gives it.  A null
+    needs its type: the null type is not ported."""
 
     def __init__(self, value, dtype: Optional[T.DataType] = None):
-        if value is None:
-            raise NotImplementedError("null literals are not ported")
+        if value is None and dtype is None:
+            raise NotImplementedError("a null literal needs its type: the "
+                                      "null type is not ported")
         self._dtype = dtype if dtype is not None else _infer_literal_type(value)
         self.value = value
 
@@ -213,6 +218,16 @@ class Literal(Expression):
 
     def eval(self, ctx: EvalContext) -> DeviceColumn:
         n, dev = ctx.num_rows, ctx.device
+        if self.value is None:
+            invalid = torch.zeros(n, dtype=torch.bool, device=dev)
+            if self._dtype.variable_width:
+                return DeviceColumn(
+                    torch.empty(0, dtype=torch.uint8, device=dev), invalid,
+                    self._dtype, torch.zeros(n + 1, dtype=torch.int32,
+                                             device=dev))
+            return DeviceColumn(
+                torch.zeros(n, dtype=self._dtype.torch_dtype, device=dev),
+                invalid, self._dtype)
         if self._dtype.variable_width:
             raw = self.value.encode("utf-8")
             if n * len(raw) >= 2**31:

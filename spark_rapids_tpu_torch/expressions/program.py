@@ -187,6 +187,8 @@ class ProgramBuilder:
         if isinstance(e, BoundReference):
             return self._materialize(cols[e.ordinal])
         if isinstance(e, Literal):
+            if e.value is None:
+                raise NotLowerable("a null literal")
             kind = kind_of(e.dtype)
             return self._emit(CONST, kind,
                               self._literal(_literal_bits(e.value, e.dtype)))

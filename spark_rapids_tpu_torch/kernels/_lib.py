@@ -71,6 +71,7 @@ _SIGNATURES = {
     "srt_join_probe": [_I, _P, _P, _I64, _P, _P, _I64, _I, _P, _P, _P, _P,
                        _P],
     "srt_join_expand": [_P, _P, _P, _I64, _P, _P, _P],
+    "srt_join_expand_left_only": [_P, _I64, _P, _P],
     "srt_join_max_keys": [],
     "srt_join_key_words": [_I, _P, _P, _P, _P, _P, _P, _I64, _I, _P, _P, _P],
     "srt_join_multi_probe": [_I, _P, _P, _P, _P, _P, _I64, _I, _P, _P, _P, _P,

@@ -1,12 +1,13 @@
-"""Equi-join kernels: the inner and the left join on one fixed-width key or
-on several keys, strings among them, and the final maps of a join with a
-residual condition.
+"""Equi-join kernels: the inner, left, left semi and left anti joins on one
+fixed-width key or on several keys, strings among them, and the final maps
+of a join with a residual condition.
 
 Counterpart of ``spark_rapids_tpu/kernels/join.py``
 (``conditional_join_maps`` :44, ``join_path`` :134, ``_probe_single``
 :154, ``_expand_single`` :226, ``_probe_multi`` :275, ``_expand_multi``
 :420, ``join_probe`` :457, ``join_expand`` :484, ``join_gather_maps``
-:496, ``apply_gather_maps`` :521) for the inner and the left join.
+:496, ``apply_gather_maps`` :521) for the inner, left, semi and anti
+joins.
 Spark's semantics hold: a null in any key never matches, NaN
 matches NaN and -0.0 matches 0.0 (keys are normalized), an int key matches
 a long key by value, strings match byte for byte, and the pairs come out
@@ -32,6 +33,16 @@ the single-key path, :395 of the several-key one) probes with a left flag:
 a stream row with no match, a null key included, gets one output row whose
 right index is -1, and the gather makes that row's right columns null.
 
+The semi and anti joins (the reference's :197-201, :212 and :231-233 of
+the single-key path, :397-400 and :440-441 of the several-key one) probe
+in a mode of their own: a stream row needs only the lower bound and one
+comparison, and its count is 1 where it is kept (semi: it has a match;
+anti: it has none, a null key included) and 0 elsewhere.  The scan makes
+the offsets, and the left-only expand (``join_expand`` of a semi or anti
+join) writes each kept row's index at its offset: the rows in stream
+order, each once, and no right map (an empty ``ri``); the gather takes
+the left columns alone.
+
 A join with a residual condition takes its candidates from the inner
 probe and expand, evaluates the condition over them (in the exec), and
 ``conditional_join_maps`` turns the candidates and their pass mask into
@@ -41,8 +52,8 @@ right rows (right, full); semi, anti and existence keep left rows only.
 
 On CUDA tensors each step launches its kernel of ``csrc/join.cu`` and
 counts the launch; on CPU tensors it runs the plain PyTorch version
-beside it.  The probe's semi, anti, right and full branches and the cross
-join raise NotImplementedError.
+beside it.  The probe's right and full branches and the cross join raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -95,16 +106,23 @@ def _check_key_types(lt: T.DataType, rt: T.DataType) -> None:
     _kind(lt)
 
 
-#: the join types whose probe and expand are ported
-PROBE_TYPES = ("inner", "left")
+#: the join types whose probe and expand are ported, and the probe's mode
+#: for each (csrc/join.cu)
+PROBE_TYPES = ("inner", "left", "left_semi", "left_anti")
+_MODES = {"inner": 0, "left": 1, "left_semi": 2, "left_anti": 3}
+#: the join types whose output is the stream rows alone
+LEFT_ONLY = ("left_semi", "left_anti")
+# the launch counter of each probe mode, after the kernel's name
+_MODE_SUFFIX = {"inner": "", "left": "_left", "left_semi": "_semi",
+                "left_anti": "_anti"}
 
 
 def join_path(left: ColumnarBatch, left_keys: Sequence[int],
               right: ColumnarBatch, right_keys: Sequence[int],
               join_type: str) -> str:
     """The reference's kernel-path dispatch ('cross' | 'single' |
-    'multi'); the inner and left joins of both 'single' and 'multi' are
-    ported."""
+    'multi'); the inner, left, semi and anti joins of both 'single' and
+    'multi' are ported."""
     if join_type == "cross":
         return "cross"
     if (join_type in ("inner", "left", "left_semi", "left_anti")
@@ -124,7 +142,7 @@ def _require_ported(path: str, join_type: str) -> None:
 def require_probe_type(join_type: str) -> None:
     if join_type not in PROBE_TYPES:
         raise NotImplementedError(f"the {join_type} join is not ported; "
-                                  "only inner and left")
+                                  f"only {', '.join(PROBE_TYPES)}")
 
 # ---------------------------------------------------------------------------
 # conditional join maps
@@ -294,22 +312,27 @@ def build_keys_plain(col: DeviceColumn, perm: torch.Tensor
 
 
 def _counts_plain(lo: torch.Tensor, hi: torch.Tensor, valid: torch.Tensor,
-                  left: bool) -> Tuple[torch.Tensor, torch.Tensor, int]:
+                  join_type: str) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """(int32 first match, int32 offsets, pairs) from the bounds: a null
-    row matches nothing; under ``left`` a row with no match gets one pair
-    and first match -1."""
+    row matches nothing; in a left join a row with no match gets one pair
+    and first match -1; in a semi or anti join a row counts 1 where it is
+    kept and there is no first match (an empty tensor)."""
     counts = torch.where(valid, hi - lo, 0)
     lo = torch.where(valid, lo, 0)
-    if left:
+    if join_type in LEFT_ONLY:
+        counts = ((counts > 0) == (join_type == "left_semi")).to(counts.dtype)
+        lo = lo[:0]
+    elif join_type == "left":
         lo = torch.where(counts > 0, lo, -1)
         counts = counts.clamp(min=1)
-    offsets = torch.zeros(lo.shape[0] + 1, dtype=torch.int64,
+    offsets = torch.zeros(counts.shape[0] + 1, dtype=torch.int64,
                           device=lo.device)
     torch.cumsum(counts, 0, out=offsets[1:])
     return lo.to(torch.int32), offsets.to(torch.int32), int(offsets[-1])
 
 
-def probe_plain(col: DeviceColumn, build: JoinBuild, left: bool = False
+def probe_plain(col: DeviceColumn, build: JoinBuild,
+                join_type: str = "inner"
                 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """(int32 first match, int32 offsets [n + 1], pairs): a search of the
     valid prefix of the sorted build keys (signed order of key ^ sign bit
@@ -318,7 +341,7 @@ def probe_plain(col: DeviceColumn, build: JoinBuild, left: bool = False
     k = order_keys_plain(col) ^ _SIGN64
     lo = torch.searchsorted(valid_keys, k, side="left")
     hi = torch.searchsorted(valid_keys, k, side="right")
-    return _counts_plain(lo, hi, col.validity, left)
+    return _counts_plain(lo, hi, col.validity, join_type)
 
 
 def expand_plain(lo: torch.Tensor, offsets: torch.Tensor, total: int,
@@ -335,6 +358,16 @@ def expand_plain(lo: torch.Tensor, offsets: torch.Tensor, total: int,
           else torch.zeros_like(pos))
     ri = torch.where(first < 0, -1, ri)
     return row.to(torch.int32), ri.to(torch.int32)
+
+
+def expand_left_only_plain(offsets: torch.Tensor, total: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A semi or anti join's map: the rows whose count is 1, in order; no
+    right map."""
+    kept = offsets[1:] != offsets[:-1]
+    li = torch.arange(kept.shape[0], dtype=torch.int32,
+                      device=offsets.device)[kept]
+    return li, li[:0]
 
 
 def _all_valid(cols: Sequence[DeviceColumn]) -> torch.Tensor:
@@ -368,7 +401,7 @@ def key_words_plain(cols: Sequence[DeviceColumn],
 
 
 def probe_multi_plain(swords: torch.Tensor, svalid: torch.Tensor,
-                      build: JoinBuild, left: bool = False
+                      build: JoinBuild, join_type: str = "inner"
                       ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """``probe_plain`` over word rows: every row, build and stream, gets
     its rank in the lexicographic order of the word rows (signed order of
@@ -380,7 +413,7 @@ def probe_multi_plain(swords: torch.Tensor, svalid: torch.Tensor,
     brank, srank = rank[:nvalid].contiguous(), rank[nvalid:].contiguous()
     lo = torch.searchsorted(brank, srank, side="left")
     hi = torch.searchsorted(brank, srank, side="right")
-    return _counts_plain(lo, hi, svalid, left)
+    return _counts_plain(lo, hi, svalid, join_type)
 
 # ---------------------------------------------------------------------------
 # kernels
@@ -401,14 +434,17 @@ def _build_keys_cuda(col: DeviceColumn, perm: torch.Tensor
     return keys, key_valid
 
 
-def _probe_cuda(col: DeviceColumn, build: JoinBuild, left: bool = False
+def _probe_cuda(col: DeviceColumn, build: JoinBuild,
+                join_type: str = "inner"
                 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     _lib.require_cuda("join_probe", col.data, col.validity, build.keys,
                       build.key_valid)
     lib = _lib.lib()
     n = col.num_rows
     dev = col.device
-    lo = torch.empty(n, dtype=torch.int32, device=dev)
+    # a semi or anti probe writes no first match
+    lo = torch.empty(0 if join_type in LEFT_ONLY else n, dtype=torch.int32,
+                     device=dev)
     offsets = torch.empty(n + 1, dtype=torch.int32, device=dev)
     tile_sums = torch.empty(max(-(-n // lib.srt_join_scan_tile()), 1),
                             dtype=torch.int64, device=dev)
@@ -416,10 +452,10 @@ def _probe_cuda(col: DeviceColumn, build: JoinBuild, left: bool = False
     _lib.check(lib.srt_join_probe(
         _kind(col.dtype), _lib.ptr(col.data), _lib.ptr(col.validity), n,
         _lib.ptr(build.keys), _lib.ptr(build.key_valid), build.num_rows,
-        int(left), _lib.ptr(lo), _lib.ptr(offsets), _lib.ptr(tile_sums),
-        _lib.ptr(total), _lib.stream(dev)), "join_probe")
+        _MODES[join_type], _lib.ptr(lo), _lib.ptr(offsets),
+        _lib.ptr(tile_sums), _lib.ptr(total), _lib.stream(dev)), "join_probe")
     if n:
-        _lib.LAUNCHES["join_probe_left" if left else "join_probe"] += 1
+        _lib.LAUNCHES["join_probe" + _MODE_SUFFIX[join_type]] += 1
     # the one device->host read of a probe: the number of pairs
     return lo, offsets, int(total.item())
 
@@ -470,7 +506,7 @@ def _multi_build_cuda(cols: Sequence[DeviceColumn], perm: torch.Tensor
 
 
 def _multi_probe_cuda(cols: Sequence[DeviceColumn], build: JoinBuild,
-                      left: bool = False
+                      join_type: str = "inner"
                       ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     _lib.require_cuda("join_multi_probe", build.keys, build.key_valid, *(
         t for c in cols for t in (c.data, c.validity)
@@ -480,7 +516,8 @@ def _multi_probe_cuda(cols: Sequence[DeviceColumn], build: JoinBuild,
     nw = build.keys.shape[1]
     swords = torch.empty((n, nw), dtype=torch.int64, device=dev)
     svalid = torch.empty(n, dtype=torch.bool, device=dev)
-    lo = torch.empty(n, dtype=torch.int32, device=dev)
+    lo = torch.empty(0 if join_type in LEFT_ONLY else n, dtype=torch.int32,
+                     device=dev)
     offsets = torch.empty(n + 1, dtype=torch.int32, device=dev)
     tile_sums = torch.empty(max(-(-n // lib.srt_join_scan_tile()), 1),
                             dtype=torch.int64, device=dev)
@@ -489,11 +526,11 @@ def _multi_probe_cuda(cols: Sequence[DeviceColumn], build: JoinBuild,
     _lib.check(lib.srt_join_multi_probe(
         len(cols), *arrays, n, nw, _lib.ptr(swords), _lib.ptr(svalid),
         _lib.ptr(build.keys), _lib.ptr(build.key_valid), build.num_rows,
-        int(left), _lib.ptr(lo), _lib.ptr(offsets), _lib.ptr(tile_sums),
-        _lib.ptr(total), _lib.stream(dev)), "join_multi_probe")
+        _MODES[join_type], _lib.ptr(lo), _lib.ptr(offsets),
+        _lib.ptr(tile_sums), _lib.ptr(total), _lib.stream(dev)),
+        "join_multi_probe")
     if n:
-        _lib.LAUNCHES["join_multi_probe_left" if left
-                      else "join_multi_probe"] += 1
+        _lib.LAUNCHES["join_multi_probe" + _MODE_SUFFIX[join_type]] += 1
     # the one device->host read of a probe: the number of pairs
     return lo, offsets, int(total.item())
 
@@ -510,6 +547,19 @@ def _expand_cuda(lo: torch.Tensor, offsets: torch.Tensor, total: int,
             _lib.ptr(li), _lib.ptr(ri), _lib.stream(dev)), "join_expand")
         _lib.LAUNCHES["join_expand"] += 1
     return li, ri
+
+
+def _expand_left_only_cuda(offsets: torch.Tensor, total: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    _lib.require_cuda("join_expand_left_only", offsets)
+    dev = offsets.device
+    li = torch.empty(total, dtype=torch.int32, device=dev)
+    if total:
+        _lib.check(_lib.lib().srt_join_expand_left_only(
+            _lib.ptr(offsets), offsets.shape[0] - 1, _lib.ptr(li),
+            _lib.stream(dev)), "join_expand_left_only")
+        _lib.LAUNCHES["join_expand_left_only"] += 1
+    return li, li[:0]
 
 # ---------------------------------------------------------------------------
 # the join
@@ -589,9 +639,9 @@ def join_probe(left: ColumnarBatch, left_keys: Union[int, Sequence[int]],
                ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """(int32 first match per stream row, int32 offsets [n + 1] of its
     pairs, the number of pairs); a left join gives a row with no match one
-    pair and first match -1."""
+    pair and first match -1; a semi or anti join gives a kept row one
+    pair and no first match (an empty tensor)."""
     require_probe_type(join_type)
-    is_left = join_type == "left"
     keys = _ordinals(left_keys)
     bkeys = _ordinals(build.key)
     if len(keys) != len(bkeys):
@@ -603,12 +653,12 @@ def join_probe(left: ColumnarBatch, left_keys: Union[int, Sequence[int]],
     cols = [left.columns[k] for k in keys]
     if not build.multi:
         probe = probe_plain if cols[0].device.type == "cpu" else _probe_cuda
-        lo, offsets, total = probe(cols[0], build, is_left)
+        lo, offsets, total = probe(cols[0], build, join_type)
     elif cols[0].device.type == "cpu":
         lo, offsets, total = probe_multi_plain(
-            *key_words_plain(cols, build.chunks), build, is_left)
+            *key_words_plain(cols, build.chunks), build, join_type)
     else:
-        lo, offsets, total = _multi_probe_cuda(cols, build, is_left)
+        lo, offsets, total = _multi_probe_cuda(cols, build, join_type)
     if total >= 2**31:
         raise ValueError(f"a join batch of {total} pairs: int32 row ids "
                          "need fewer than 2**31")
@@ -616,9 +666,15 @@ def join_probe(left: ColumnarBatch, left_keys: Union[int, Sequence[int]],
 
 
 def join_expand(lo: torch.Tensor, offsets: torch.Tensor, total: int,
-                build: JoinBuild) -> Tuple[torch.Tensor, torch.Tensor]:
+                build: JoinBuild, join_type: str = "inner"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The (left, right) int32 row-id maps of the pairs (right -1 for a
-    left join's row with no match)."""
+    left join's row with no match); a semi or anti join's kept rows and an
+    empty right map."""
+    if join_type in LEFT_ONLY:
+        if offsets.device.type == "cpu":
+            return expand_left_only_plain(offsets, total)
+        return _expand_left_only_cuda(offsets, total)
     if lo.device.type == "cpu":
         return expand_plain(lo, offsets, total, build.perm)
     return _expand_cuda(lo, offsets, total, build.perm)
@@ -636,7 +692,7 @@ def join_gather_maps(left: ColumnarBatch, left_keys: Sequence[int],
                     join_type)
     build = build_side(right, right_keys)
     lo, offsets, total = join_probe(left, left_keys, build, join_type)
-    li, ri = join_expand(lo, offsets, total, build)
+    li, ri = join_expand(lo, offsets, total, build, join_type)
     return li, ri, total
 
 

@@ -1,14 +1,16 @@
-"""Project and Filter execs.
+"""Project, Filter and Union execs.
 
 Counterpart of ``spark_rapids_tpu/plan/execs/basic.py`` (``TpuProjectExec``
-:32, ``TpuFilterExec`` :66).  A filter evaluates its predicate, compacts the
-rows where it is true (a null predicate drops the row) and gathers them:
-the compaction reads its count back to the host once, so the gather
-writes columns of exactly that many rows.
+:32, ``TpuFilterExec`` :66, ``TpuUnionExec`` :107-130).  A filter evaluates
+its predicate, compacts the rows where it is true (a null predicate drops
+the row) and gathers them: the compaction reads its count back to the host
+once, so the gather writes columns of exactly that many rows.  A union's
+partitions are its children's, one child after another; its batches take
+the first child's column names.
 """
 from __future__ import annotations
 
-from typing import Iterator, Sequence
+from typing import Iterator, Sequence, Tuple
 
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
 from spark_rapids_tpu_torch.expressions.core import EvalContext, Expression
@@ -50,3 +52,27 @@ class GpuFilterExec(GpuExec):
 
     def describe(self):
         return f"GpuFilter[{self.condition!r}]"
+
+
+class GpuUnionExec(GpuExec):
+    """The children's partitions concatenated: partition ``idx`` is the
+    child's partition it falls on, counting the children in order."""
+
+    def __init__(self, children: Tuple[GpuExec, ...], schema: Schema):
+        super().__init__(tuple(children), schema)
+
+    def num_partitions(self) -> int:
+        return sum(c.num_partitions() for c in self.children)
+
+    def execute_partition(self, idx: int) -> Iterator[ColumnarBatch]:
+        for c in self.children:
+            n = c.num_partitions()
+            if idx < n:
+                for batch in c.execute_partition(idx):
+                    yield self._count_out(ColumnarBatch(
+                        batch.columns, batch.num_rows, self.schema))
+                return
+            idx -= n
+
+    def describe(self):
+        return f"GpuUnion[{len(self.children)}]"

@@ -4,21 +4,25 @@ Counterpart of ``spark_rapids_tpu/plan/execs/join.py``
 (``_JoinKernel`` :52 with its conditional program ``_call_conditional``
 :244-323, ``TpuShuffledHashJoinExec`` :387 with ``_join_pair`` :430 and its
 streamed probe :449-528, ``TpuBroadcastHashJoinExec`` :627,
-``TpuAdaptiveJoinExec`` :713) for the inner and the left join on one or
-several keys, strings among them, each with an optional residual
-condition.
+``TpuAdaptiveJoinExec`` :713) for the inner, left, left semi and left
+anti joins on one or several keys, strings among them, each with an
+optional residual condition.
 
 - A join without a condition probes, expands and gathers (the left join
-  null-extends a stream row with no match).  A join with one runs the
+  null-extends a stream row with no match; the semi and anti joins keep
+  a stream row once where it has a match or none, and gather the left
+  columns alone).  A join with one runs the
   reference's conditional program: the inner probe and expand give the
   candidate pairs at their exact count (no capacity retry), only the
   condition's input columns are gathered for them, the condition is
   evaluated over that pair batch, and ``conditional_join_maps`` turns the
   candidates and the pass mask into the join type's maps, which the
   gather then applies to every column.
-- Empty sides follow the reference: an inner join with an empty or
-  missing build emits nothing (its stream is still drained), a left join
-  emits its stream rows null-extended against an empty build.
+- Empty sides follow the reference (``_join_pair`` :430-447, the
+  broadcast exec's :672-680): an inner or a semi join with an empty or
+  missing build emits nothing (its stream is still drained); a left join
+  emits its stream rows null-extended against an empty build, and an anti
+  join every stream row, null keys included.
 
 - The broadcast join materializes its build (right) side whole once per
   query, under a lock: every right partition's batches are concatenated
@@ -64,6 +68,9 @@ from spark_rapids_tpu_torch.plan.execs.exchange import (
     GpuCoalescedShuffleReaderExec, GpuShuffleExchangeExec,
     SharedCoalesceSpec)
 from spark_rapids_tpu_torch.plan.execs.scan import GpuInMemoryScanExec
+
+# the join types that emit nothing where the build side has no row
+_NOTHING_WITHOUT_BUILD = ("inner", "left_semi")
 
 
 def _ordinal(key: Expression) -> int:
@@ -166,7 +173,8 @@ class _HashJoin(GpuExec):
             if self.condition is None:
                 lo, offsets, total = J.join_probe(left, self.left_keys, build,
                                                   self.join_type)
-                li, ri = J.join_expand(lo, offsets, total, build)
+                li, ri = J.join_expand(lo, offsets, total, build,
+                                       self.join_type)
             else:
                 li, ri = self._conditional_maps(left, build)
             out = J.apply_gather_maps(left, build.batch, li, ri, self.schema,
@@ -199,7 +207,7 @@ class _HashJoin(GpuExec):
         return li2, ri2
 
     def _empty_build(self, device: torch.device) -> J.JoinBuild:
-        """The build of no rows a left join runs against."""
+        """The build of no rows a left or an anti join runs against."""
         return J.build_side(empty_batch(self.children[1].schema, device),
                             self.right_keys)
 
@@ -243,8 +251,8 @@ class GpuBroadcastHashJoinExec(_HashJoin):
         if not stream:
             return
         if build is None:
-            if self.join_type == "inner":
-                return    # an inner join with an empty side has no rows
+            if self.join_type in _NOTHING_WITHOUT_BUILD:
+                return    # no build row: no output row
             build = self._empty_build(stream[0].device)
         for group in self._chunks(stream):
             yield self._join(group, build)
@@ -302,10 +310,11 @@ class GpuShuffledHashJoinExec(_HashJoin):
             build = (J.build_side(whole, self.right_keys)
                      if whole is not None and whole.num_rows else None)
         # an empty build still drains the probe side, as the reference's
-        # does; a left join emits the stream null-extended against it
+        # does; a left join emits the stream null-extended against it, an
+        # anti join every stream row
         for group in self._chunks(self.children[0].execute_partition(idx)):
             if build is None:
-                if self.join_type == "inner":
+                if self.join_type in _NOTHING_WITHOUT_BUILD:
                     continue
                 build = self._empty_build(group[0].device)
             yield self._join(group, build)

@@ -2,7 +2,7 @@
 
 Counterpart of ``spark_rapids_tpu/plan/logical.py`` (``InMemoryRelation``
 :45, ``Project`` :189, ``Filter`` :205, ``Aggregate`` :222, ``Sort`` :251,
-``Limit`` :269, ``Join`` :287).  Schemas resolve eagerly, so binding
+``Limit`` :269, ``Join`` :287, ``Expand`` :387, ``Union`` :464).  Schemas resolve eagerly, so binding
 errors surface when the plan is built.
 """
 from __future__ import annotations
@@ -165,3 +165,51 @@ class Join(LogicalPlan):
     @property
     def schema(self):
         return self._schema
+
+
+class Expand(LogicalPlan):
+    """Each input row emitted once per projection (Spark's ExpandExec), the
+    substrate of ROLLUP.  Every projection gives one expression per output
+    name, each output column of one type across the projections (a slot
+    that is null in one projection is a typed null literal there)."""
+
+    def __init__(self, projections: Sequence[Sequence[Expression]],
+                 names: Sequence[str], child: LogicalPlan):
+        if not projections or any(len(p) != len(names) for p in projections):
+            raise ValueError("an expand needs projections of one expression "
+                             "per output name")
+        self.projections = tuple(tuple(e.bind(child.schema) for e in p)
+                                 for p in projections)
+        self.child = child
+        self.children = (child,)
+        dtypes = []
+        for i, name in enumerate(names):
+            dt = self.projections[0][i].dtype
+            for p in self.projections[1:]:
+                if p[i].dtype != dt:
+                    raise TypeError(f"expand column {name}: {p[i].dtype!r} "
+                                    f"against {dt!r}")
+            dtypes.append(dt)
+        self._schema = Schema(tuple(names), tuple(dtypes))
+
+    @property
+    def schema(self):
+        return self._schema
+
+
+class Union(LogicalPlan):
+    """UNION ALL: the children's rows, the first child's column names; the
+    children's column types must be equal, position by position."""
+
+    def __init__(self, plans: Sequence[LogicalPlan]):
+        if not plans:
+            raise ValueError("a union needs at least one child")
+        first = plans[0].schema
+        for p in plans[1:]:
+            if tuple(p.schema.dtypes) != tuple(first.dtypes):
+                raise TypeError("UNION inputs must have identical schemas")
+        self.children = tuple(plans)
+
+    @property
+    def schema(self):
+        return self.children[0].schema

@@ -2,16 +2,23 @@
 column pruning.
 
 Counterpart of ``spark_rapids_tpu/planner/optimizer.py`` (``push_filters``
-:67-191, ``prune_columns`` :38) for InMemoryRelation, Project, Filter,
-Aggregate, Join, Sort and Limit.  ``push_filters`` moves each conjunct of
-a filter over an inner join into the side whose columns it references (so
-q3's ``i_manufact_id = 28`` and ``d_moy = 11`` filter the dimension tables
-before the joins), below a Project of pass-through columns, and merges
+:67-191 with the union branch :142-154, ``_rebuild`` :189, ``prune_columns``
+:38 with the union at :271) for InMemoryRelation, Project, Filter,
+Aggregate, Join, Sort, Limit, Expand and Union.  ``push_filters`` moves
+each conjunct of a filter over an inner join into the side whose columns
+it references (so q3's ``i_manufact_id = 28`` and ``d_moy = 11`` filter
+the dimension tables before the joins), below a Project of pass-through
+columns, and into every child of a Union (renamed by position), and merges
 adjacent filters; a filter over any other join stays where it is, so none
-crosses a left join's null side.  ``prune_columns`` makes a scan carry
-only the columns some ancestor, a join's residual condition included,
-references, through a Project of column references on top of the relation
-(a zero-copy select in the exec).  Expressions are bound
+crosses a left join's null side or reaches a semi or anti join's build.
+``prune_columns`` makes a scan carry only the columns some ancestor, a
+join's residual condition included, references, through a Project of
+column references on top of the relation (a zero-copy select in the
+exec).  It goes further than the reference in two places: a Union keeps
+only the positions its parent needs (a Project of column references over
+each child keeps the positions aligned), an Expand only the output columns
+its parent needs; and the build side of a semi or anti join keeps only its
+keys and what the condition reads.  Expressions are bound
 by ordinal, so both passes rebuild the tree through name-based
 unbinding; a plan with duplicate column names is left as is.
 """
@@ -21,6 +28,7 @@ from typing import List, Set
 
 from spark_rapids_tpu_torch.expressions.core import (
     Alias, BoundReference, Col, Expression)
+from spark_rapids_tpu_torch.kernels.join import LEFT_ONLY
 from spark_rapids_tpu_torch.plan import logical as L
 
 
@@ -127,9 +135,19 @@ def _push(plan: L.LogicalPlan) -> L.LogicalPlan:
             merged = L.Filter(_and_all(conjuncts + [
                 _unbind(c) for c in _split_conjuncts(child.condition)]),
                 child.child)
-            if not isinstance(child.child, (L.Filter, L.Join, L.Project)):
+            if not isinstance(child.child, (L.Filter, L.Join, L.Project,
+                                            L.Union)):
                 return L.Filter(merged.condition, _push(child.child))
             return _push(merged)
+        if isinstance(child, L.Union):
+            # a union's children name their columns their own way: each
+            # conjunct is renamed by position for each child
+            pushed = []
+            for u in child.children:
+                mapping = dict(zip(child.schema.names, u.schema.names))
+                pushed.append(_push(L.Filter(_and_all(
+                    [_rename(c, mapping) for c in conjuncts]), u)))
+            return L.Union(pushed)
     return _rebuild(plan, [_push(c) for c in plan.children])
 
 
@@ -150,8 +168,17 @@ def _rebuild(plan: L.LogicalPlan, children) -> L.LogicalPlan:
                       plan.global_sort)
     if isinstance(plan, L.Limit):
         return L.Limit(plan.n, children[0])
+    if isinstance(plan, L.Union):
+        return L.Union(children)
+    if isinstance(plan, L.Expand):
+        return _expand(plan.projections, plan.schema.names, children[0])
     raise NotImplementedError(f"logical node {type(plan).__name__} is not "
                               "ported")
+
+
+def _expand(projections, names, child) -> L.Expand:
+    return L.Expand([[_unbind(e) for e in proj] for proj in projections],
+                    names, child)
 
 
 # -- column pruning -----------------------------------------------------------
@@ -208,9 +235,30 @@ def _prune(p: L.LogicalPlan, required: Set[str]) -> L.LogicalPlan:
         lnames, rnames = set(p.left.schema.names), set(p.right.schema.names)
         crefs = (p.condition.references() if p.condition is not None
                  else set())
+        # a semi or anti join outputs the left columns alone: whatever the
+        # parent needs by a right column's name is a left column
+        rout = set() if p.join_type in LEFT_ONLY else set(required)
         left = _prune(p.left, ((set(required) | crefs) & lnames)
                       | _exprs_refs(p.left_keys))
-        right = _prune(p.right, ((set(required) | crefs) & rnames)
+        right = _prune(p.right, ((rout | crefs) & rnames)
                        | _exprs_refs(p.right_keys))
         return _join(p, left, right)
+    if isinstance(p, L.Union):
+        keep = [i for i, n in enumerate(p.schema.names)
+                if n in required] or [0]
+        children = []
+        for c in p.children:
+            want = tuple(c.schema.names[i] for i in keep)
+            pc = _prune(c, set(want))
+            if pc.schema.names != want:
+                pc = L.Project([Col(n) for n in want], pc)
+            children.append(pc)
+        return L.Union(children)
+    if isinstance(p, L.Expand):
+        keep = [i for i, n in enumerate(p.schema.names)
+                if n in required] or [0]
+        projections = [[proj[i] for i in keep] for proj in p.projections]
+        child = _prune(p.child, _exprs_refs(e for proj in projections
+                                            for e in proj))
+        return _expand(projections, [p.schema.names[i] for i in keep], child)
     raise NotImplementedError(f"logical node {type(p).__name__} is not ported")

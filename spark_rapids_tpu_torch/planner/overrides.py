@@ -1,11 +1,12 @@
 """Planner: logical plan -> physical exec tree.
 
 Counterpart of ``spark_rapids_tpu/planner/overrides.py`` (``plan_query``
-:1147, ``PlanMeta.convert`` :753 with ``Limit`` :826, ``_convert_join``
-:945-1020, ``_convert_aggregate`` :1022-1042, ``_exchange`` :1044,
-``_estimate_rows`` :1063, ``_plan_partitions`` :1090-1135,
-``_insert_aqe_readers`` :1218) for InMemoryRelation, Project, Filter,
-Aggregate, Join, Sort and Limit.
+:1147, ``PlanMeta.convert`` :753 with ``Expand`` :808, ``Union`` :823 and
+``Limit`` :826, ``_convert_join`` :945-1020, ``_convert_aggregate``
+:1022-1042, ``_exchange`` :1044, ``_estimate_rows`` :1063,
+``_plan_partitions`` :1090-1135, ``_insert_aqe_readers`` :1218) for
+InMemoryRelation, Project, Filter, Aggregate, Join, Sort, Limit, Expand
+and Union.
 
 - Over more than one partition an aggregate is split in two: a partial
   aggregate, an exchange (one partition for a global aggregate; a hash
@@ -20,6 +21,9 @@ Aggregate, Join, Sort and Limit.
   decides at run time.  Any other join is a shuffled hash join, with a
   hash exchange on the keys under each side where either side has more
   than one partition.
+- A union's partitions are its children's, one after another (its
+  partition count is their sum); an expand runs each batch once per
+  projection, and neither is a stage of a fused segment.
 - A global sort over more than one partition is a single-partition
   exchange under the sort (the shape of the reference's ``TpuSortExec``
   docstring, plan/execs/sort.py:43; its ``TpuRangeSortExec`` is not
@@ -49,12 +53,14 @@ from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.execs.aggregate import GpuHashAggregateExec
 from spark_rapids_tpu_torch.plan.execs.base import GpuExec
 from spark_rapids_tpu_torch.plan.execs.basic import (GpuFilterExec,
-                                                     GpuProjectExec)
+                                                     GpuProjectExec,
+                                                     GpuUnionExec)
 from spark_rapids_tpu_torch.plan.execs.exchange import (
     GpuCoalescedShuffleReaderExec, GpuShuffleExchangeExec,
     GpuSinglePartitionExec, SharedCoalesceSpec)
 from spark_rapids_tpu_torch.plan.execs.join import (
     GpuAdaptiveJoinExec, GpuBroadcastHashJoinExec, GpuShuffledHashJoinExec)
+from spark_rapids_tpu_torch.plan.execs.misc import GpuExpandExec
 from spark_rapids_tpu_torch.plan.execs.scan import GpuInMemoryScanExec
 from spark_rapids_tpu_torch.plan.execs.sort import GpuLimitExec, GpuSortExec
 from spark_rapids_tpu_torch.plan.fused import fuse_segments
@@ -85,13 +91,19 @@ def _convert(p: L.LogicalPlan, conf: RapidsConf,
         return GpuSortExec(p.orders, child)
     if isinstance(p, L.Limit):
         return GpuLimitExec(p.n, _convert(p.child, conf, device))
+    if isinstance(p, L.Expand):
+        return GpuExpandExec(p.projections, _convert(p.child, conf, device),
+                             p.schema)
+    if isinstance(p, L.Union):
+        return GpuUnionExec(tuple(_convert(c, conf, device)
+                                  for c in p.children), p.schema)
     raise NotImplementedError(f"no exec for {type(p).__name__} in the port")
 
 
 def _estimate_rows(p: L.LogicalPlan) -> int:
     """The reference's crude cardinality estimate for the join choice: a
     filter halves, an aggregate thirds, a limit caps, a join takes its
-    larger side."""
+    larger side, a union sums its children."""
     if isinstance(p, L.InMemoryRelation):
         return sum(b.num_rows for part in p.partitions for b in part)
     if isinstance(p, L.Filter):
@@ -102,6 +114,8 @@ def _estimate_rows(p: L.LogicalPlan) -> int:
         return min(p.n, _estimate_rows(p.child))
     if isinstance(p, L.Join):
         return max(_estimate_rows(p.left), _estimate_rows(p.right))
+    if isinstance(p, L.Union):
+        return sum(_estimate_rows(c) for c in p.children)
     if p.children:
         return _estimate_rows(p.children[0])
     return 1 << 62
@@ -110,11 +124,14 @@ def _estimate_rows(p: L.LogicalPlan) -> int:
 def _plan_partitions(node: GpuExec) -> int:
     """A node's partition count from the plan's shape alone: an adaptive
     join keeps at least its shuffle partitions whichever way it decides,
-    a reader or a join delegates to its first child, and only a node that
-    owns its partitioning (a scan, an exchange, a limit) is asked."""
+    a union sums its children's, a reader or a join delegates to its first
+    child, and only a node that owns its partitioning (a scan, an
+    exchange, a limit) is asked."""
     if isinstance(node, GpuAdaptiveJoinExec):
         return max(_plan_partitions(node.children[0]),
                    node.shuffle_partitions)
+    if isinstance(node, GpuUnionExec):
+        return sum(_plan_partitions(c) for c in node.children)
     if isinstance(node, (GpuCoalescedShuffleReaderExec,
                          GpuShuffledHashJoinExec, GpuBroadcastHashJoinExec)):
         return _plan_partitions(node.children[0])

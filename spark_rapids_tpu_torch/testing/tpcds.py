@@ -1,7 +1,8 @@
 """TPC-DS generation (store_sales, store_returns, catalog_sales,
 catalog_returns, inventory, date_dim, item, store, warehouse, promotion,
-customer_demographics, household_demographics) and q3, q25 and q72,
-without JAX.
+customer_demographics, household_demographics, and the channel sales and
+returns of q5 and q14a) and q3, q5, q14a, q25 and q72 (with the q5 and
+q14a subsets), without JAX.
 
 A copy of the pure-Python parts of ``spark_rapids_tpu/testing/tpcds.py``
 (``STORE_SALES_SCHEMA`` :21, ``DATE_DIM_SCHEMA`` :38, ``ITEM_SCHEMA`` :48,
@@ -15,13 +16,17 @@ A copy of the pure-Python parts of ``spark_rapids_tpu/testing/tpcds.py``
 ``gen_catalog_sales`` :525, ``gen_catalog_returns`` :575,
 ``gen_inventory`` :601, ``gen_warehouse`` :618, ``gen_store`` :625,
 ``gen_promotion`` :637, ``gen_customer_demographics`` :669,
-``gen_household_demographics`` :681, ``_aliased`` :701, ``q3`` :134,
+``gen_household_demographics`` :681, ``CHANNEL_SALES_SCHEMA`` :188,
+``CHANNEL_RETURNS_SCHEMA`` :197, ``gen_channel_sales`` :232,
+``gen_channel_returns`` :251, ``_aliased`` :701, ``q3`` :134,
+``q5_subset`` :158, ``q14a_subset`` :171, ``q5`` :268, ``q14a`` :315,
 ``q25`` :758, ``q72`` :868).  Generation draws the same numpy streams in
 the same order as the reference, so both packages see the same tables for
 a seed.  A fact table is made in chunks of ``batch_rows`` rows and chunk c
 reseeds with ``seed + stride * c`` (stride 31 for store_sales, 43 for
 store_returns, 53 for catalog_sales, 61 for catalog_returns, 71 for
-inventory), so its data depends on ``batch_rows``.  The ``iter_*``
+inventory, 131 for channel sales, 137 for channel returns), so its data
+depends on ``batch_rows``.  The ``iter_*``
 functions yield host numpy columns and the ``*_batches`` ones upload them;
 the dimensions come as one device batch each.
 
@@ -154,6 +159,8 @@ SF10_STORE_RETURNS_ROWS = 2_875_432
 SF10_CATALOG_SALES_ROWS = 14_401_261
 SF10_CATALOG_RETURNS_ROWS = 1_439_749
 SF10_INVENTORY_ROWS = 133_110_000
+SF10_WEB_SALES_ROWS = 7_197_566
+SF10_WEB_RETURNS_ROWS = 719_217
 SF10_ITEM_ROWS = 102_000
 SF10_WAREHOUSE_ROWS = 10
 
@@ -504,6 +511,78 @@ def gen_store(device, n: int = 50, seed: int = 73) -> ColumnarBatch:
         STORE_SCHEMA, device)
 
 
+# -- multi-channel tables (q5 and q14a) ------------------------------------
+
+CHANNEL_SALES_SCHEMA = Schema.of(
+    cs_sold_date_sk=T.INT,
+    cs_item_sk=T.INT,
+    cs_channel_sk=T.INT,       # store_sk / catalog_page_sk / web_site_sk
+    cs_quantity=T.INT,
+    cs_ext_sales_price=T.DOUBLE,
+    cs_net_profit=T.DOUBLE,
+)
+
+CHANNEL_RETURNS_SCHEMA = Schema.of(
+    cr_returned_date_sk=T.INT,
+    cr_item_sk=T.INT,
+    cr_channel_sk=T.INT,
+    cr_return_amount=T.DOUBLE,
+    cr_net_loss=T.DOUBLE,
+)
+
+
+def iter_channel_sales(n_rows: int, n_items: int = 2000, seed: int = 17,
+                       n_channel: int = 50, batch_rows: int = 1 << 19
+                       ) -> Iterator[Tuple[Columns, Columns]]:
+    """Sales chunks of one channel (stride 131); catalog and web have the
+    store channel's shape."""
+    def spec(rng, n):
+        return {
+            "cs_sold_date_sk": (2450000 + rng.randint(0, 6 * 365, n)
+                                ).astype(np.int32),
+            "cs_item_sk": (1 + rng.randint(0, n_items, n)).astype(np.int32),
+            "cs_channel_sk": (1 + rng.randint(0, n_channel, n)
+                              ).astype(np.int32),
+            "cs_quantity": rng.randint(1, 100, n).astype(np.int32),
+            "cs_ext_sales_price": np.round(rng.uniform(1.0, 300.0, n), 2),
+            "cs_net_profit": np.round(rng.uniform(-100.0, 200.0, n), 2),
+        }
+    return _iter_fact(spec, n_rows, seed, 131, batch_rows)
+
+
+def gen_channel_sales(n_rows: int, device, n_items: int = 2000,
+                      seed: int = 17, n_channel: int = 50,
+                      batch_rows: int = 1 << 19) -> List[ColumnarBatch]:
+    return [fact_batch(d, v, CHANNEL_SALES_SCHEMA, device)
+            for d, v in iter_channel_sales(n_rows, n_items, seed, n_channel,
+                                           batch_rows)]
+
+
+def iter_channel_returns(n_rows: int, n_items: int = 2000, seed: int = 19,
+                         n_channel: int = 50, batch_rows: int = 1 << 19
+                         ) -> Iterator[Tuple[Columns, Columns]]:
+    """Returns chunks of one channel (stride 137)."""
+    def spec(rng, n):
+        return {
+            "cr_returned_date_sk": (2450000 + rng.randint(0, 6 * 365, n)
+                                    ).astype(np.int32),
+            "cr_item_sk": (1 + rng.randint(0, n_items, n)).astype(np.int32),
+            "cr_channel_sk": (1 + rng.randint(0, n_channel, n)
+                              ).astype(np.int32),
+            "cr_return_amount": np.round(rng.uniform(1.0, 150.0, n), 2),
+            "cr_net_loss": np.round(rng.uniform(0.5, 80.0, n), 2),
+        }
+    return _iter_fact(spec, n_rows, seed, 137, batch_rows)
+
+
+def gen_channel_returns(n_rows: int, device, n_items: int = 2000,
+                        seed: int = 19, n_channel: int = 50,
+                        batch_rows: int = 1 << 19) -> List[ColumnarBatch]:
+    return [fact_batch(d, v, CHANNEL_RETURNS_SCHEMA, device)
+            for d, v in iter_channel_returns(n_rows, n_items, seed,
+                                             n_channel, batch_rows)]
+
+
 def _aliased(df, prefix: str):
     """date_dim appears up to three times per query; rename its columns so
     the repeated joins do not collide."""
@@ -536,6 +615,148 @@ def q3(store_sales_df, date_dim_df, item_df):
             .order_by(("d_year", SortOrder(True)),
                       ("sum_agg", SortOrder(False)),
                       ("i_brand_id", SortOrder(True))))
+
+
+def q5_subset(store_sales_df, date_dim_df):
+    """The store-channel leg of TPC-DS Q5: per-store rollup of sales and
+    profit over a date window."""
+    from spark_rapids_tpu_torch.expressions import col, lit, sum_
+    return (store_sales_df
+            .join(date_dim_df, on=([col("ss_sold_date_sk")],
+                                   [col("d_date_sk")]))
+            .filter((col("d_year") == lit(2000)) & (col("d_moy") <= lit(2)))
+            .group_by("ss_store_sk")
+            .agg(sum_("ss_ext_sales_price").alias("sales"),
+                 sum_("ss_net_profit").alias("profit")))
+
+
+def q14a_subset(store_sales_df, item_df):
+    """Q14a's cross-channel core: per (brand, category) sales with an item
+    filter."""
+    from spark_rapids_tpu_torch.expressions import avg, col, count, lit, sum_
+    hot_items = (item_df.filter(col("i_category_id") <= lit(3))
+                 .select("i_item_sk", "i_brand_id", "i_category",
+                         "i_category_id"))
+    return (store_sales_df
+            .join(hot_items, on=([col("ss_item_sk")], [col("i_item_sk")]))
+            .group_by("i_brand_id", "i_category")
+            .agg(sum_(col("ss_ext_sales_price")).alias("sales"),
+                 count().alias("n"),
+                 avg("ss_quantity").alias("avg_qty")))
+
+
+def q5(channels, date_dim_df):
+    """TPC-DS Q5 (full shape): per-channel sales, returns and profit,
+    rolled up.
+
+    channels: {name: (sales_df, returns_df)} for the store, catalog and
+    web legs.  Each leg unions its sales rows (+price, +profit) with its
+    returns rows (the return amount, -net loss as profit) and names its
+    channel; the legs are unioned, joined to a one-month date window,
+    then ``group by rollup(channel, id)`` and sorted (union -> join ->
+    expand -> aggregate -> sort, the reference query's plan shape).
+    """
+    from spark_rapids_tpu_torch.expressions import col, lit, sum_
+    from spark_rapids_tpu_torch.kernels.sort import SortOrder
+    legs = []
+    for name, (sales_df, returns_df) in channels.items():
+        s = sales_df.select(
+            col("cs_sold_date_sk").alias("date_sk"),
+            col("cs_channel_sk").alias("id"),
+            col("cs_ext_sales_price").alias("sales_price"),
+            lit(0.0).alias("return_amt"),
+            col("cs_net_profit").alias("profit"),
+            lit(0.0).alias("net_loss"))
+        r = returns_df.select(
+            col("cr_returned_date_sk").alias("date_sk"),
+            col("cr_channel_sk").alias("id"),
+            lit(0.0).alias("sales_price"),
+            col("cr_return_amount").alias("return_amt"),
+            lit(0.0).alias("profit"),
+            col("cr_net_loss").alias("net_loss"))
+        legs.append(s.union(r).with_column("channel", lit(name)))
+    all_rows = legs[0]
+    for leg in legs[1:]:
+        all_rows = all_rows.union(leg)
+    dated = all_rows.join(
+        date_dim_df.filter((col("d_year") == lit(2000))
+                           & (col("d_moy") == lit(1))),
+        on=([col("date_sk")], [col("d_date_sk")]))
+    return (dated.rollup("channel", "id")
+            .agg(sum_("sales_price").alias("sales"),
+                 sum_("return_amt").alias("returns_"),
+                 (sum_("profit") - sum_("net_loss")).alias("profit"))
+            .order_by(("channel", SortOrder(True, True)),
+                      ("id", SortOrder(True, True))))
+
+
+def q14a(store_sales_df, catalog_sales_df, web_sales_df, item_df,
+         avg_threshold=None):
+    """TPC-DS Q14a (full shape): cross-channel items and the average-sales
+    gate.
+
+    cross_items: the (brand, manufacturer, category) triples sold in all
+    three channels, as two left semi joins (the intersect).
+    ``avg_threshold`` plays the avg_sales scalar subquery: where None it
+    is computed from the union of the three channels' prices and read back
+    to the host, as Spark's subquery broadcast is.  Then each channel's
+    sales above the average whose triple is a cross item (a left semi
+    join), unioned, rolled up by channel, brand and category, and sorted.
+    """
+    from spark_rapids_tpu_torch.expressions import col, count, lit, sum_
+    from spark_rapids_tpu_torch.kernels.sort import SortOrder
+
+    def branded(sales_df):
+        return sales_df.join(
+            item_df.select("i_item_sk", "i_brand_id", "i_manufact_id",
+                           "i_category_id"),
+            on=([col("cs_item_sk")], [col("i_item_sk")]))
+
+    ss_b = branded(store_sales_df)
+    cs_b = branded(catalog_sales_df)
+    ws_b = branded(web_sales_df)
+
+    keys = ["i_brand_id", "i_manufact_id", "i_category_id"]
+
+    def kcols():
+        return [col(k) for k in keys], [col(k) for k in keys]
+    cross_items = (ss_b.select(*keys)
+                   .join(cs_b.select(*keys), on=kcols(), how="left_semi")
+                   .join(ws_b.select(*keys), on=kcols(), how="left_semi"))
+
+    if avg_threshold is None:
+        avg_threshold = q14a_threshold(store_sales_df, catalog_sales_df,
+                                       web_sales_df)
+
+    legs = []
+    for name, df in (("store", ss_b), ("catalog", cs_b), ("web", ws_b)):
+        leg = (df.filter(col("cs_ext_sales_price") > lit(avg_threshold))
+               .join(cross_items, on=kcols(), how="left_semi")
+               .with_column("channel", lit(name)))
+        legs.append(leg.select("channel", "i_brand_id", "i_category_id",
+                               "cs_ext_sales_price"))
+    all_rows = legs[0]
+    for leg in legs[1:]:
+        all_rows = all_rows.union(leg)
+    return (all_rows.rollup("channel", "i_brand_id", "i_category_id")
+            .agg(sum_("cs_ext_sales_price").alias("sales"),
+                 count().alias("n"))
+            .order_by(("channel", SortOrder(True, True)),
+                      ("i_brand_id", SortOrder(True, True)),
+                      ("i_category_id", SortOrder(True, True)),
+                      ("sales", SortOrder(False))))
+
+
+def q14a_threshold(store_sales_df, catalog_sales_df, web_sales_df):
+    """q14a's scalar subquery: the average extended sales price over the
+    union of the three channels, run as its own query and read back to the
+    host."""
+    from spark_rapids_tpu_torch.expressions import avg
+    union_prices = (store_sales_df.select("cs_ext_sales_price")
+                    .union(catalog_sales_df.select("cs_ext_sales_price"))
+                    .union(web_sales_df.select("cs_ext_sales_price")))
+    rows = union_prices.agg(avg("cs_ext_sales_price").alias("a")).collect()
+    return rows[0][0]
 
 
 def q25(ss_df, sr_df, cs_df, dd_df, store_df, item_df):

@@ -159,3 +159,30 @@ def test_fused_segment_modules_are_covered():
     for entry in ("srt_fused_tile", "srt_fused_count", "srt_fused_write",
                   "srt_fused_global"):
         assert entry in source and entry in _lib._SIGNATURES
+
+
+def test_q14a_q5_modules_are_covered():
+    """The q14a and q5 slice's modules (the expand exec, the union and its
+    planning, the session's union and rollup, the null literal, the semi
+    and anti probes, the channel generators) are in the scans above and
+    import nothing of JAX, and the semi and anti kernels' entry points are
+    in a built source and bound."""
+    names = ("spark_rapids_tpu_torch.plan.execs.misc",
+             "spark_rapids_tpu_torch.plan.execs.basic",
+             "spark_rapids_tpu_torch.plan.logical",
+             "spark_rapids_tpu_torch.api.session",
+             "spark_rapids_tpu_torch.expressions.core",
+             "spark_rapids_tpu_torch.kernels.join",
+             "spark_rapids_tpu_torch.planner.optimizer",
+             "spark_rapids_tpu_torch.planner.overrides",
+             "spark_rapids_tpu_torch.testing.tpcds")
+    for name in names:
+        assert name in PORT_MODULES
+        path = ROOT / (name.replace(".", "/") + ".py")
+        assert not {m for m in _imported_roots(path) if m in FORBIDDEN}
+    source = (_lib.CSRC / "join.cu").read_text()
+    for entry in ("srt_join_probe", "srt_join_multi_probe",
+                  "srt_join_expand_left_only"):
+        assert entry in source and entry in _lib._SIGNATURES
+    for kernel in ("join_expand_left_only_kernel", "kSemi", "kAnti"):
+        assert kernel in source

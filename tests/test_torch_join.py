@@ -157,8 +157,9 @@ def test_build_side_sorts_nulls_last():
 
 @pytest.mark.parametrize("how", ["left", "left_semi", "left_anti", "full"])
 def test_other_join_types_raise(how):
-    """The left join is ported and gives the reference's maps; the other
-    join types' probes still raise."""
+    """The left, semi and anti joins are ported and give the reference's
+    maps (the semi and anti joins: the kept stream rows, no right map);
+    the full join's probe still raises."""
     left, right = _sides("int", 7, 20, 10, 5)
     pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
     if how == "left":
@@ -168,8 +169,163 @@ def test_other_join_types_raise(how):
         np.testing.assert_array_equal(ri.numpy(), ref_ri)
         assert (ri == -1).any() and count == len(ref_li)
         return
+    if how in ("left_semi", "left_anti"):
+        li, ri, count = J.join_gather_maps(pl, [0], pr, [0], how)
+        ref_li = _left_only_reference(left, right, [0], how)
+        np.testing.assert_array_equal(li.numpy(), ref_li)
+        assert count == len(ref_li) == li.shape[0] > 0
+        assert ri.shape == (0,)
+        return
     with pytest.raises(NotImplementedError, match=how):
         J.join_gather_maps(pl, [0], pr, [0], how)
+
+
+def _left_only_reference(left, right, keys, how):
+    """The reference's semi or anti map: its kept left rows (its right map
+    is all out of range)."""
+    jl, jr = JaxBatch.from_arrow(left), JaxBatch.from_arrow(right)
+    longest = max([len(v.encode()) for t in (left, right)
+                   for c in t.columns if pa.types.is_string(c.type)
+                   for v in c.to_pylist() if v is not None] + [1])
+    li, ri, count, _ = jjoin.join_gather_maps(
+        jl, keys, jr, keys, how, max(left.num_rows, 1),
+        string_max_bytes=longest)
+    c = int(count)
+    ri = np.asarray(ri)[:c].astype(np.int64)
+    assert ((ri < 0) | (ri >= right.num_rows)).all()
+    return np.asarray(li)[:c]
+
+
+MAXL = 2**63 - 1
+SEMI_CASES = {
+    # kind, seed, left rows, right rows, distinct keys, build key offset
+    "int_duplicates_and_nulls": ("int", 41, 600, 200, 80, 0),
+    "double_nan_and_signed_zero": ("double", 42, 300, 60, 0, 0),
+    "no_match_at_all": ("int", 43, 200, 80, 30, 1_000),
+}
+
+
+@pytest.mark.parametrize("how", ["left_semi", "left_anti"])
+@pytest.mark.parametrize("case", list(SEMI_CASES))
+def test_semi_anti_one_key_match_reference(case, how):
+    """The single-key semi and anti probes and the left-only expand: each
+    kept stream row once, in order; a null key is dropped by the semi join
+    and kept by the anti join."""
+    kind, seed, nl, nr, distinct, offset = SEMI_CASES[case]
+    left, right = _sides(kind, seed, nl, nr, distinct, offset=offset)
+    ref_li = _left_only_reference(left, right, [0], how)
+    pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
+    assert J.join_path(pl, [0], pr, [0], how) == "single"
+    li, ri, count = J.join_gather_maps(pl, [0], pr, [0], how)
+    assert li.dtype == torch.int32 and ri.shape == (0,)
+    np.testing.assert_array_equal(li.numpy(), ref_li)
+    assert count == len(ref_li)
+    nulls = set(np.flatnonzero(pa.compute.is_null(left.column(
+        "lk")).to_numpy(zero_copy_only=False)).tolist())
+    assert nulls and (nulls <= set(li.tolist()) if how == "left_anti"
+                      else not nulls & set(li.tolist()))
+    if case == "no_match_at_all":
+        assert count == (0 if how == "left_semi" else nl)
+
+
+@pytest.mark.parametrize("how", ["left_semi", "left_anti"])
+def test_semi_anti_long_max_key_match_reference(how):
+    """Long.MAX_VALUE keys (tests/test_joins.py:138): no sentinel
+    collides with a real key."""
+    left = pa.table({"k": pa.array([MAXL, 5, None, MAXL - 1, -MAXL - 1],
+                                   pa.int64())})
+    right = pa.table({"k": pa.array([MAXL, None, 7, -MAXL - 1],
+                                    pa.int64())})
+    pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
+    li, _, _ = J.join_gather_maps(pl, [0], pr, [0], how)
+    np.testing.assert_array_equal(li.numpy(), _left_only_reference(
+        left, right, [0], how))
+    assert li.tolist() == ([0, 4] if how == "left_semi" else [1, 2, 3])
+
+
+SEMI_MULTI_CASES = {
+    # left kinds, right kinds, seed, left rows, right rows, distinct
+    "three_ints": (("int", "int", "int"), ("int", "int", "int"), 51, 600,
+                   250, 4),
+    "int_string": (("int", "string"), ("int", "string"), 52, 500, 200, 4),
+    "string_alone": (("string",), ("string",), 53, 300, 40, 0),
+    "int_long_double": (("int", "long", "double"), ("long", "long",
+                                                    "double"), 54, 400,
+                        300, 3),
+}
+
+
+@pytest.mark.parametrize("how", ["left_semi", "left_anti"])
+@pytest.mark.parametrize("case", list(SEMI_MULTI_CASES))
+def test_semi_anti_several_keys_match_reference(case, how):
+    """The several-key semi and anti probes (q14a's three int keys, string
+    keys, an int key against a long one, doubles with NaN and -0.0): a
+    null in any key matches nothing."""
+    lkinds, rkinds, seed, nl, nr, distinct = SEMI_MULTI_CASES[case]
+    rng = np.random.RandomState(seed)
+    left = pa.table({f"k{i}": _multi_column(k, rng, nl, distinct, 0.1)
+                     for i, k in enumerate(lkinds)})
+    right = pa.table({f"k{i}": _multi_column(k, rng, nr, distinct, 0.1)
+                      for i, k in enumerate(rkinds)})
+    keys = list(range(len(lkinds)))
+    ref_li = _left_only_reference(left, right, keys, how)
+    pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
+    assert J.join_path(pl, keys, pr, keys, how) == "multi"
+    li, ri, count = J.join_gather_maps(pl, keys, pr, keys, how)
+    assert ri.shape == (0,) and count == len(ref_li) > 0
+    np.testing.assert_array_equal(li.numpy(), ref_li)
+    any_null = np.zeros(nl, bool)
+    for c in left.columns:
+        any_null |= pa.compute.is_null(c).to_numpy(zero_copy_only=False)
+    kept = np.zeros(nl, bool)
+    kept[li.numpy()] = True
+    assert (kept[any_null] if how == "left_anti"
+            else ~kept[any_null]).all()
+
+
+def _edge_sides(case: str):
+    """(int, string) sides of the semi / anti edge cases."""
+    lk, ls = [1, 2, None, 4, 1], ["a", "b", "a", None, "a"]
+    rk, rs = [1, 4, 2, None], ["a", None, "c", "b"]
+    if case == "empty_build":
+        rk, rs = [], []
+    elif case == "empty_stream":
+        lk, ls = [], []
+    elif case == "all_null_keys":
+        lk, ls = [None] * 5, [None, "a", None, "b", None]
+        rk, rs = [None, None, 1], ["a", None, "a"]
+    left = pa.table({"k": pa.array(lk, pa.int32()),
+                     "s": pa.array(ls, pa.string())})
+    right = pa.table({"k": pa.array(rk, pa.int32()),
+                      "s": pa.array(rs, pa.string())})
+    return left, right
+
+
+SEMI_EDGES = {
+    # case: (semi rows, anti rows) on the int key, then on (int, string)
+    "both_sides": (([0, 1, 3, 4], [2]), ([0, 4], [1, 2, 3])),
+    "empty_build": (([], [0, 1, 2, 3, 4]), ([], [0, 1, 2, 3, 4])),
+    "empty_stream": (([], []), ([], [])),
+    "all_null_keys": (([], [0, 1, 2, 3, 4]), ([], [0, 1, 2, 3, 4])),
+}
+
+
+@pytest.mark.parametrize("how", ["left_semi", "left_anti"])
+@pytest.mark.parametrize("case", list(SEMI_EDGES))
+def test_semi_anti_edges_match_reference(case, how):
+    """An empty build (the semi join keeps nothing, the anti join every
+    row, null keys included), an empty stream and keys that are all null,
+    on one key and on two."""
+    left, right = _edge_sides(case)
+    pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
+    for keys, want in zip(([0], [0, 1]), SEMI_EDGES[case]):
+        li, ri, count = J.join_gather_maps(pl, keys, pr, keys, how)
+        expect = want[0] if how == "left_semi" else want[1]
+        assert (li.tolist(), ri.tolist(), count) == (expect, [],
+                                                     len(expect))
+        if left.num_rows and right.num_rows:
+            np.testing.assert_array_equal(li.numpy(), _left_only_reference(
+                left, right, keys, how))
 
 
 STRING_POOL = ["", "ab", "ab\x00", "abcdefgh", "abcdefghi", "é" * 5,
@@ -496,3 +652,137 @@ def test_conditional_and_left_wrappers_never_fall_back_off_the_cpu():
             ("k",), (col.dtype,))), 0, meta_build, "left")
     assert not any(_lib.LAUNCHES.get(k) for k in
                    ("conditional_join_maps", "join_probe_left"))
+
+
+# -- the semi and anti joins in the three execs --------------------------
+
+EXEC_THR = "spark.rapids.sql.join.broadcastRowThreshold"
+EXEC_CONFS = {
+    # the exec each configuration must pick for the 150-row build side
+    "broadcast": ({}, "broadcast"),
+    "shuffled": ({EXEC_THR: "10", "spark.sql.shuffle.partitions": "4"},
+                 "shuffled"),
+    "adaptive": ({EXEC_THR: "100", "spark.sql.shuffle.partitions": "4"},
+                 "adaptive"),
+}
+
+
+def _exec_tables():
+    """A stream table of 300 rows in 3 batches and a build table of 150 in
+    2, two int keys each with 12% nulls, payloads of every kind."""
+    rng = np.random.RandomState(61)
+    n, m = 300, 150
+
+    def key(size, hi):
+        return pa.array(rng.randint(0, hi, size).astype(np.int32),
+                        mask=rng.rand(size) < 0.12)
+    left = pa.table({"k": key(n, 20), "k2": key(n, 3),
+                     "lv": pa.array(np.arange(n, dtype=np.int64)),
+                     "ls": pa.array([f"s{i % 9}é" for i in range(n)])})
+    right = pa.table({"rk": key(m, 25), "rk2": key(m, 3),
+                      "rv": pa.array(np.arange(m, dtype=np.int64))})
+    return ([left.slice(o, 100) for o in range(0, n, 100)],
+            [right.slice(o, 75) for o in range(0, m, 75)])
+
+
+def _exec_query(E, sess, make, how, nkeys, empty):
+    lt, rt = _exec_tables()
+    left = sess.create_dataframe([make(b) for b in lt], num_partitions=3)
+    right = sess.create_dataframe([make(b) for b in rt], num_partitions=2)
+    if empty:
+        right = right.filter(E.col("rv") < E.lit(0))
+    lk, rk = ["k", "k2"][:nkeys], ["rk", "rk2"][:nkeys]
+    return left.join(right, on=([E.col(k) for k in lk],
+                                [E.col(k) for k in rk]), how=how)
+
+
+_EXEC_REF = {}
+
+
+def _exec_reference(how, nkeys, empty):
+    """The JAX session's rows of the join, sorted (once per case)."""
+    import spark_rapids_tpu.expressions as RE
+    from spark_rapids_tpu.api.session import TpuSession
+    key = (how, nkeys, empty)
+    if key not in _EXEC_REF:
+        df = _exec_query(RE, TpuSession(), JaxBatch.from_arrow, how, nkeys,
+                         empty)
+        _EXEC_REF[key] = sorted(df.collect(), key=repr)
+    return _EXEC_REF[key]
+
+
+def _join_execs(node):
+    from spark_rapids_tpu_torch.plan.execs.join import (
+        GpuAdaptiveJoinExec, GpuBroadcastHashJoinExec,
+        GpuShuffledHashJoinExec)
+    kinds = {GpuAdaptiveJoinExec: "adaptive",
+             GpuBroadcastHashJoinExec: "broadcast",
+             GpuShuffledHashJoinExec: "shuffled"}
+    out = [kinds[type(node)]] if type(node) in kinds else []
+    for c in node.children:
+        out += _join_execs(c)
+    return out
+
+
+@pytest.mark.parametrize("exec_kind", list(EXEC_CONFS))
+@pytest.mark.parametrize("nkeys", [1, 2])
+@pytest.mark.parametrize("how", ["left_semi", "left_anti"])
+def test_semi_anti_execs_match_jax_session(how, nkeys, exec_kind):
+    """The broadcast, shuffled and adaptive execs give the JAX session's
+    rows (the left columns alone, strings among them) on one key and on
+    two, null keys in both."""
+    import spark_rapids_tpu_torch.expressions as PE
+    from spark_rapids_tpu_torch.api.session import GpuSession
+    conf, kind = EXEC_CONFS[exec_kind]
+    df = _exec_query(PE, GpuSession(conf, device="cpu"),
+                     lambda b: arrow_to_batch(b, "cpu"), how, nkeys, False)
+    plan = df.physical_plan()
+    assert _join_execs(plan) == [kind]
+    assert df.schema.names == ("k", "k2", "lv", "ls")
+    from spark_rapids_tpu_torch.plan.engine import GpuEngine
+    rows = sorted(GpuEngine().collect(plan), key=repr)
+    assert rows == _exec_reference(how, nkeys, False)
+    assert rows and len(rows) < 300
+
+
+@pytest.mark.parametrize("exec_kind", list(EXEC_CONFS))
+@pytest.mark.parametrize("how", ["left_semi", "left_anti"])
+def test_semi_anti_execs_against_an_empty_build(how, exec_kind):
+    """A build side filtered to nothing: the semi join emits no row, the
+    anti join every stream row, null keys included, in every exec."""
+    import spark_rapids_tpu_torch.expressions as PE
+    from spark_rapids_tpu_torch.api.session import GpuSession
+    conf, _ = EXEC_CONFS[exec_kind]
+    df = _exec_query(PE, GpuSession(conf, device="cpu"),
+                     lambda b: arrow_to_batch(b, "cpu"), how, 2, True)
+    rows = sorted(df.collect(), key=repr)
+    assert rows == _exec_reference(how, 2, True)
+    assert len(rows) == (0 if how == "left_semi" else 300)
+
+
+@pytest.mark.parametrize("how", ["left_semi", "left_anti"])
+def test_semi_anti_wrappers_never_fall_back_off_the_cpu(how):
+    """Off the CPU the semi and anti probes (one key and several) and the
+    left-only expand take their CUDA kernels, which raise for anything but
+    a CUDA tensor; nothing counts as launched."""
+    left, right = _sides("int", 11, 20, 10, 5)
+    pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
+    meta = lambda t: t.to("meta")   # noqa: E731
+    col = pl.columns[0]
+    meta_col = DeviceColumn(meta(col.data), meta(col.validity), col.dtype)
+    stream = type(pl)((meta_col, meta_col), pl.num_rows, Schema(
+        ("k", "k2"), (col.dtype, col.dtype)))
+    one = J.build_side(pr, 0)
+    two = J.build_side(pr, [0, 0])
+    for build, keys in ((one, [0]), (two, [0, 1])):
+        meta_build = J.JoinBuild(build.batch, build.key, meta(build.perm),
+                                 meta(build.keys), meta(build.key_valid),
+                                 build.chunks)
+        with pytest.raises(ValueError, match="expected cuda"):
+            J.join_probe(stream, keys, meta_build, how)
+    offsets = torch.zeros(5, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="expected cuda"):
+        J.join_expand(offsets[:0], offsets, 3, one, how)
+    assert not any(_lib.LAUNCHES.get(k) for k in (
+        "join_probe_semi", "join_probe_anti", "join_multi_probe_semi",
+        "join_multi_probe_anti", "join_expand_left_only"))
