@@ -50,12 +50,22 @@ Phases (any failure raises and the script exits non-zero):
      bit, the int cases also against numpy's np.isin; timed at q14a's
      first cross-channel join (144,004 store triples against 72,006
      catalog triples, one of 200 partitions) and at the semi_anti path's
-     one-key joins.  Then the fused segment's interpreter
+     one-key joins.  Then the q19 path's ``substring`` (UTF-8 characters)
+     bit for bit (offsets, bytes, validity) at n = 1,048,576, 1,000,003
+     and 0: strings of 0-16 characters of 1-4 bytes (at most 64 bytes),
+     10% nulls, 2% of the characters a lone continuation byte, and edge
+     rows; every pos in {-70, -3, -1, 0, 1, 2, 5, 100} against every len
+     in {-1, 0, 1, 3, 5, 2**30, 2**31 - 1, absent} as literals, and both
+     as per-row columns; the same on a slice whose offsets start past 0;
+     timed at 1,048,576 five-byte zips (and at q19's shape once phase 7
+     has drawn store_sales).  Then the fused
+     segment's interpreter
      (``fused_segment``) in both modes against its plain version: a
      program of every instruction over int32 and int64 near their limits,
      doubles with NaN, -0.0 and infinities, bools, decimals at scales 0, 2
      and 4 and dates (10% nulls) at n = 1,048,576, 1,000,003 and 0, with
-     filters keeping 0%, 1.8%, 50% and 100% and with none: outputs, maps,
+     filters keeping 0%, 1.8%, 50% and 100% and with none, and a program
+     of OR and NOT over bools with nulls: outputs, maps,
      counts and int64 sums bit for bit, f64 sums within 1e-12; then q6's
      program (global) and q1's (compact) on the first SF10 batch, timed.
      A kernel's ``max_abs_err`` is the largest difference over all its
@@ -78,7 +88,10 @@ Phases (any failure raises and the script exits non-zero):
      aggregate on (d_year, i_brand_id, i_brand) across the hash exchange,
      ORDER BY over a single-partition exchange; held against an
      independent numpy evaluation (same groups, same order), then timed
-     and profiled as q1;
+     and profiled as q1.  Its pass over store_sales also collects the
+     zips of the rows of store_sales' first partition that reach q19's
+     filter (one call of q19's main path), at which ``substring`` is held
+     against its plain version and timed for the kernels line;
   8. q25 at TPC-DS SF10 (store_sales as in phase 7; store_returns
      2,875,432 rows, 90% copied from sales; catalog_sales 14,401,261 rows,
      70% copied from the returns' (customer, item) pairs; all on the card,
@@ -126,7 +139,22 @@ Phases (any failure raises and the script exits non-zero):
      January 2000 by an adaptive three-key anti join that broadcasts)
      against numpy's count and cents.  Each with its launches, then timed
      and profiled as q72;
- 11. prints the kernels summary line, then the result line last.
+ 11. q42, q52, q55, q96, q7, q26 and q19 at TPC-DS SF10 in the session
+     of phase 7 (16 shuffle partitions, every join broadcast):
+     store_sales and catalog_sales as phases 7 and 8 left them on the
+     card; item 102,000 rows, date_dim 2,190, time_dim 86,400; the
+     dimensions the fact generators draw keys for at the reference
+     generators' sizes, cut from real SF10 (in brackets): customer 50,000
+     (500,000), customer_address 25,000 (250,000), store 50 (102),
+     customer_demographics 1,000 (1,920,800), household_demographics 100
+     (7,200), promotion 300 (500).  Each query against an independent
+     numpy evaluation (dimensions as arrays by key, the filters as boolean
+     arrays, sums in integer cents): its groups, its counts exact, its
+     sums and averages within 1e-9, in its order (groups numpy's exact
+     sums tie may trade places); q19 must launch ``substring`` and never
+     call ``substring_plain``.  Each with its launches, timed (median of
+     3 after the traced main-path run) and profiled;
+ 12. prints the kernels summary line, then the result line last.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -161,6 +189,7 @@ from spark_rapids_tpu_torch.kernels import partition as PK  # noqa: E402
 from spark_rapids_tpu_torch.kernels import reduction as R  # noqa: E402
 from spark_rapids_tpu_torch.kernels import selection as S  # noqa: E402
 from spark_rapids_tpu_torch.kernels import sort as SK  # noqa: E402
+from spark_rapids_tpu_torch.kernels import strings as SS  # noqa: E402
 from spark_rapids_tpu_torch.plan.engine import GpuEngine  # noqa: E402
 from spark_rapids_tpu_torch.plan.execs.exchange import (  # noqa: E402
     GpuCoalescedShuffleReaderExec)
@@ -238,6 +267,8 @@ KERNELS = {
                               "spark_rapids_tpu/kernels/join.py:397"),
     "join_expand_left_only": ("csrc/join.cu",
                               "spark_rapids_tpu/kernels/join.py:212"),
+    "substring": ("csrc/strings.cu",
+                  "spark_rapids_tpu/kernels/strings.py:161"),
 }
 FUSE_OFF = {"spark.rapids.sql.tpu.fuseStages": "false"}
 # fused (the default), q6's filter and partial sum are one kernel a batch:
@@ -364,7 +395,7 @@ def measure(kernel, plain, library, nbytes: int, ops: int = 0,
 
 def summarize(line: dict, nbytes: int, ops: int = 0) -> dict:
     """The kernels-line entry: device times, beside the bound.  Its
-    ``max_abs_err`` is filled in at the end of phase 3, from ERRS."""
+    ``max_abs_err`` comes from ERRS when the line is printed."""
     return dict(ms=line["kernel_device_ms"],
                 call_ms=line["kernel_ms"],
                 plain_ms=line["plain_device_ms"],
@@ -1974,6 +2005,123 @@ def time_semi_join(rng, dev, tables, summary) -> None:
         summary[name] = summarize(line, nbytes, ops)
 
 
+# -- phase 3: the q19 path's substring -----------------------------------------
+
+SUB_POSITIONS = (-70, -3, -1, 0, 1, 2, 5, 100)
+SUB_LENGTHS = (-1, 0, 1, 3, 5, 2**30, 2**31 - 1, None)   # None: absent
+SUB_EDGES = [b"", b"\x80", b"\x80a", "\u00e9\u00e9".encode(), None,
+             b"hello", "h\u00e9llo".encode(), "\U0001f600".encode()]
+
+
+def utf8_column(rng, n: int, dev, null_frac=0.1, max_chars=16,
+                lone=0.02) -> DeviceColumn:
+    """n strings of 0..max_chars characters of 1-4 UTF-8 bytes (at most 64
+    bytes a row), null_frac nulls; a ``lone`` share of the characters is
+    a lone continuation byte (0x80-0xBF, no character start)."""
+    chars = rng.randint(0, max_chars + 1, n)
+    valid = rng.rand(n) >= null_frac
+    chars[~valid] = 0
+    total = int(chars.sum())
+    width = rng.randint(1, 5, total)
+    lone_char = rng.rand(total) < lone
+    width[lone_char] = 1
+    starts = np.zeros(total + 1, np.int64)
+    np.cumsum(width, out=starts[1:])
+    data = rng.randint(0x80, 0xC0, int(starts[-1])).astype(np.uint8)
+    lo = np.array([0, 0x20, 0xC2, 0xE1, 0xF0])
+    hi = np.array([0, 0x7F, 0xE0, 0xED, 0xF4])
+    lead = rng.randint(lo[width], hi[width]) if total else width
+    data[starts[:-1]] = np.where(lone_char, rng.randint(0x80, 0xC0, total),
+                                 lead)
+    bounds = np.zeros(n + 1, np.int64)
+    np.cumsum(chars, out=bounds[1:])
+    return DeviceColumn.from_string_buffers(starts[bounds].astype(np.int32),
+                                            data, valid, dev)
+
+
+def one_value(v, dev) -> torch.Tensor:
+    return torch.full((1,), SS.NO_LENGTH if v is None else v,
+                      dtype=torch.int32, device=dev)
+
+
+def hold_substring(col, pos, length, what: str) -> None:
+    got = SS.substring(col, pos, length)
+    want = SS.substring_plain(col, pos, length)
+    require(int(got.offsets[0]) == 0, f"substring offsets start at "
+            f"{int(got.offsets[0])}: {what}")
+    hold("substring", string_pairs(got, want), what)
+
+
+def substring_bytes(col, out, per_row: bool) -> int:
+    """What a substring must move: the offsets, the input bytes and the
+    validity read once, the new offsets and bytes written once (pos and
+    len as columns: 4 bytes a row each)."""
+    n = col.num_rows
+    nin = int(col.offsets[-1] - col.offsets[0]) if n else 0
+    return (4 * (n + 1) + nin + n + 4 * (n + 1) + int(out.offsets[-1])
+            + (8 * n if per_row else 0))
+
+
+def time_substring(c, label: str) -> tuple:
+    """SUBSTRING(c, 1, 5) held against its plain version and timed: the
+    phase line and the bytes of its bound."""
+    one, five = one_value(1, c.device), one_value(5, c.device)
+    hold_substring(c, one, five, f"the timed {label}")
+    nbytes = substring_bytes(c, SS.substring(c, one, five), False)
+    line = {"kernel": "substring", "shape": label, "n": c.num_rows,
+            "pos": 1, "len": 5, **measure(
+                lambda: SS.substring(c, one, five),
+                lambda: SS.substring_plain(c, one, five), None, nbytes)}
+    emit(line)
+    return line, nbytes
+
+
+def time_substring_q19(dev, gauntlet, summary) -> None:
+    """SUBSTRING timed at q19's shape: the ca_zip strings its filter gets
+    in one call at SF10, which the numpy side of phase 7 collected (the
+    rows of store_sales' first partition that q19's date, item and
+    customer joins keep, as the joins' gather lays them out)."""
+    zips = np.concatenate(gauntlet.q19_zips)
+    line, nbytes = time_substring(DeviceColumn.from_strings(
+        [f"{z:05d}" for z in zips.tolist()], dev), "q19_filter")
+    summary["substring"] = summarize(line, nbytes)
+
+
+def check_substring(rng, dev) -> None:
+    """Bit for bit against the plain version (offsets, bytes, validity):
+    n = 1,048,576, 1,000,003 and 0 of utf8_column (and the edges), every
+    literal pos against every literal len, pos and len as per-row columns,
+    the same on a slice whose offsets start past 0; then timed at
+    1,048,576 five-byte zips (at q19's shape after phase 7)."""
+    lengths = [SS.NO_LENGTH if v is None else v for v in SUB_LENGTHS]
+    for n in (N, RAGGED, 0):
+        col = utf8_column(rng, n, dev)
+        if n == N:
+            col = S.concat_column_plain([col, DeviceColumn.from_strings(
+                SUB_EDGES, dev)])
+        m = col.num_rows
+        parts = [("whole", col)]
+        if m:
+            parts.append(("slice", col.slice_rows(1_000, m - 777)))
+            require(int(parts[1][1].offsets[0]) > 0, "the slice starts at 0")
+        for label, c in parts:
+            k = c.num_rows
+            for pos in SUB_POSITIONS:
+                for ln in SUB_LENGTHS:
+                    hold_substring(c, one_value(pos, dev), one_value(ln, dev),
+                                   f"n={k} {label} pos={pos} len={ln}")
+            pos = torch.from_numpy(rng.choice(SUB_POSITIONS, k).astype(
+                np.int32)).to(dev)
+            ln = torch.from_numpy(rng.choice(lengths, k).astype(
+                np.int32)).to(dev)
+            hold_substring(c, pos, ln, f"n={k} {label} per-row pos and len")
+    zips = DeviceColumn.from_string_buffers(
+        np.arange(0, 5 * N + 1, 5, dtype=np.int32),
+        rng.randint(0x30, 0x3A, 5 * N).astype(np.uint8),
+        rng.rand(N) >= 0.02, dev)
+    time_substring(zips, "zip_5_bytes")
+
+
 # -- phase 3: the fused segment ---------------------------------------------
 
 FUSED_SELECTIVITIES = (0.0, SEL_Q6, 0.5, 1.0)
@@ -2038,6 +2186,26 @@ def every_instruction() -> list:
             E.If(c("b"), c("i"), c("j")),
             E.If(c("i") < c("j"), c("x"), c("l")),
             E.If(E.IsNull(c("x")), lit(1), lit(0))]
+
+
+def bool_instructions() -> list:
+    """Expressions whose programs hold OR and NOT over bools with nulls
+    (every_instruction's program is at the kernel's 32 outputs)."""
+    c = E.col
+    return [c("b") | c("c"), ~c("b"), c("x") != c("y"),
+            ~((c("i") < c("j")) | E.IsNull(c("x"))),
+            (c("b") | E.IsNull(c("c"))) & ~c("c")]
+
+
+def bool_program(schema, p):
+    """The compact program of bool_instructions; the filter ``u < p``."""
+    b = P.ProgramBuilder(schema.dtypes)
+    cols = [P.Column(dt, ordinal=i) for i, dt in enumerate(schema.dtypes)]
+
+    def value(e):
+        return b.value(e.bind(schema), cols)
+    keep = None if p is None else value(E.col("u") < E.lit(float(p)))
+    return b.finish(keep, [value(e) for e in bool_instructions()], [])
 
 
 def fused_programs(schema, p) -> tuple:
@@ -2170,6 +2338,9 @@ def check_fused(rng, dev, summary) -> None:
             want = int((batch.column("u").data < p).sum()) if p is not None \
                 else n
             require(count == want, f"fused_segment kept {count} of {want}")
+            require(hold_compact(bool_program(batch.schema, p), batch, True,
+                                 what + " OR / NOT") == want,
+                    "fused_segment's OR / NOT program kept another count")
             hold_global(glob, batch, what + " global")
     chunk = next(tpch.iter_lineitem(SF10_ROWS, seed=42, batch_rows=N))
     batch = batch_from_numpy(chunk, tpch.LINEITEM_SCHEMA, dev)
@@ -2230,10 +2401,9 @@ def phase_kernels(dev, tables) -> dict:
     check_left_multi_join(rng, dev, summary)
     check_null_extend(rng, dev, summary)
     check_semi_join(rng, dev, tables, summary)
+    check_substring(rng, dev)
     check_fused(rng, dev, summary)
     torch.cuda.synchronize()
-    for name in KERNELS:
-        summary[name]["max_abs_err"] = ERRS[name]
     return summary
 
 
@@ -2502,9 +2672,10 @@ class Q3Numpy:
         return sorted(out, key=lambda r: (r[0], -r[3], r[1]))
 
 
-def phase_q3_data(dev, tables, q25_ref):
+def phase_q3_data(dev, tables, q25_ref, gauntlet):
     """store_sales on the card and q3's numpy result; on the way, the pool
-    store_returns draws from and q25's store_sales rows (``q25_ref``)."""
+    store_returns draws from, q25's store_sales rows (``q25_ref``) and
+    phase 11's (``gauntlet``)."""
     date, item, d, i = tables
     t0 = time.perf_counter()
     ref = Q3Numpy(d, i)
@@ -2513,6 +2684,7 @@ def phase_q3_data(dev, tables, q25_ref):
                                                  batch_rows=N):
         ref.add(data)
         q25_ref.add_store_sales(data)
+        gauntlet.add_store_sales(data, validity)
         pool_chunks.append(({n: data[n] for n in SS_POOL}, validity))
         batches.append(tpcds.store_sales_batch(data, validity, dev))
     date_dev, item_dev = to_device(date, dev), to_device(item, dev)
@@ -2649,11 +2821,12 @@ class Q25Numpy:
 
 
 def phase_q25_data(dev, q3_dfs, ss_pool, ref: "Q25Numpy", tables,
-                   q72_ref: "Q72Numpy"):
+                   q72_ref: "Q72Numpy", gauntlet: "GauntletNumpy"):
     """store_returns and catalog_sales on the card, drawn from the pools;
-    the dataframes of q25; the numpy result; on the way, q72's sales
-    (``q72_ref``) and the (item, order) pool catalog_returns draws from,
-    with the catalog_sales batches q72 reuses."""
+    the dataframes of q25; the numpy result; on the way, q72's and phase
+    11's sales (``q72_ref``, ``gauntlet``) and the (item, order) pool
+    catalog_returns draws from, with the catalog_sales batches q72
+    reuses."""
     t0 = time.perf_counter()
     sr_batches, sr_chunks = [], []
     for data, validity in tpcds.iter_store_returns(
@@ -2669,6 +2842,7 @@ def phase_q25_data(dev, q3_dfs, ss_pool, ref: "Q25Numpy", tables,
             batch_rows=N):
         ref.add_catalog_sales(data)
         q72_ref.add_catalog_sales(data, validity)
+        gauntlet.add_catalog_sales(data, validity)
         order_chunks.append(({n: data[n] for n in CS_ORDER_POOL}, {}))
         cs_batches.append(tpcds.fact_batch(data, validity,
                                            tpcds.CATALOG_SALES_SCHEMA, dev))
@@ -3378,22 +3552,324 @@ def phase_semi_anti(dfs, item_df, dd_df, tables, ref: ChannelNumpy) -> dict:
     return launches
 
 
+# -- phase 11 -----------------------------------------------------------------
+
+#: the cut dimensions: (rows drawn, rows at real SF10); the fact
+#: generators draw their keys in the reference generators' ranges
+GAUNTLET_CUTS = {"customer": (50_000, 500_000),
+                 "customer_address": (25_000, 250_000),
+                 "store": (50, 102), "customer_demographics": (1_000, 1_920_800),
+                 "household_demographics": (100, 7_200),
+                 "promotion": (300, 500)}
+GAUNTLET_ARGS = {"q42": ("ss", "dd", "item"), "q52": ("ss", "dd", "item"),
+                 "q55": ("ss", "dd", "item"),
+                 "q96": ("ss", "hd", "td", "store"),
+                 "q7": ("ss", "cd", "dd", "item", "promo"),
+                 "q26": ("cs", "cd", "dd", "item", "promo"),
+                 "q19": ("ss", "dd", "item", "customer", "ca", "store")}
+#: (moy, year, manager) of q42, q52 and q55
+MONTH_QUERIES = {"q42": (11, 2000, 1), "q52": (12, 1998, 1),
+                 "q55": (11, 1999, 28)}
+JOIN_KERNELS = ("join_build", "join_probe", "join_expand", "gather",
+                "fused_segment")
+GROUPED_KERNELS = JOIN_KERNELS + ("murmur3", "hash_string", "partition",
+                                  "sort", "string_sort_keys",
+                                  "string_rows_equal_prev", "segmented_sum",
+                                  "concat")
+GAUNTLET_KERNELS = {
+    "q42": GROUPED_KERNELS, "q52": GROUPED_KERNELS, "q55": GROUPED_KERNELS,
+    "q96": JOIN_KERNELS + ("compaction_map", "string_sort_keys"),
+    "q7": GROUPED_KERNELS + ("compaction_map",),
+    "q26": GROUPED_KERNELS + ("compaction_map",),
+    "q19": GROUPED_KERNELS + ("compaction_map", "substring")}
+F64_RTOL_GAUNTLET = 1e-9         # against numpy's integer-cent sums
+GAUNTLET_NKEYS = {"q42": 3, "q52": 3, "q55": 2, "q96": 0, "q7": 1,
+                  "q26": 1, "q19": 3}
+
+
+def keyed(batch: ColumnarBatch, key: str, name: str) -> np.ndarray:
+    """A dimension column as an array indexed by the dimension's key."""
+    keys = batch.column(key).to_numpy()[0]
+    col = batch.column(name)
+    vals = (np.array(col.to_pylist(), dtype=object) if col.is_string
+            else col.to_numpy()[0])
+    out = np.zeros(int(keys.max()) + 1, dtype=vals.dtype)
+    out[keys] = vals
+    return out
+
+
+class GauntletNumpy:
+    """Independent q7, q19, q26, q42, q52, q55 and q96 over host arrays.
+    Every dimension is an array indexed by its key and every dimension
+    filter a boolean array by key (the fact generators draw each key in
+    its dimension's range, so every non-null key exists); the inner joins
+    commute with the filters, so each fact chunk keeps, per query, the
+    rows whose keys all pass (a null customer or promotion key joins
+    nothing), with the item, the quantity and the prices in integer
+    cents.  The groups come from the item's columns (every group key is a
+    column of item or a constant year); sums are exact cents; rows come
+    in each query's order, with numpy's exact order values beside them."""
+
+    def __init__(self, tables, dims):
+        date, item, d, _ = tables
+        self.year, self.moy = d["d_year"], d["d_moy"]
+        self.item = {n: keyed(item, "i_item_sk", n) for n in (
+            "i_item_id", "i_brand_id", "i_brand", "i_manufact_id",
+            "i_category_id", "i_category", "i_manager_id")}
+        self.dims = {"cd": dims["cd"], "promo": dims["promo"],
+                     "hd": dims["hd"], "store": tpcds.gen_store("cpu"),
+                     "customer": tpcds.gen_customer("cpu"),
+                     "ca": tpcds.gen_customer_address("cpu"),
+                     "td": tpcds.gen_time_dim("cpu")}
+        cd, promo = self.dims["cd"], self.dims["promo"]
+        hd, store, td = self.dims["hd"], self.dims["store"], self.dims["td"]
+
+        def cd_is(g, m, e):
+            return ((keyed(cd, "cd_demo_sk", "cd_gender") == g)
+                    & (keyed(cd, "cd_demo_sk", "cd_marital_status") == m)
+                    & (keyed(cd, "cd_demo_sk", "cd_education_status") == e))
+        self.cd7 = cd_is("M", "S", "College")
+        self.cd26 = cd_is("F", "W", "Primary")
+        self.promo_n = (
+            (keyed(promo, "p_promo_sk", "p_channel_email") == "N")
+            | (keyed(promo, "p_promo_sk", "p_channel_event") == "N"))
+        self.hd4 = keyed(hd, "hd_demo_sk", "hd_dep_count") == 4
+        self.ese = keyed(store, "s_store_sk", "s_store_name") == "ese"
+        self.t_ok = ((keyed(td, "t_time_sk", "t_hour") == 20)
+                     & (keyed(td, "t_time_sk", "t_minute") >= 30))
+        self.c_addr = keyed(self.dims["customer"], "c_customer_sk",
+                            "c_current_addr_sk")
+        # the zips are five ASCII digits: SUBSTRING(zip, 1, 5) is the zip
+        self.ca_zip = keyed(self.dims["ca"], "ca_address_sk",
+                            "ca_zip").astype(np.int64)
+        self.s_zip = keyed(store, "s_store_sk", "s_zip").astype(np.int64)
+        self.parts = {q: [] for q in GAUNTLET_ARGS if q != "q96"}
+        # the ca_zip of q19's rows of store_sales' first partition
+        # (chunks 0, 4, ..., 24 of phase 7's 4 partitions, which the joins
+        # stream as one): SUBSTRING's shape in one q19 call
+        self.q19_zips = []
+        self.q96 = 0
+        self.scanned = {"ss": 0, "cs": 0}
+
+    def _calendar(self, date_sk):
+        """(year, month) of each date key; -1 for a key date_dim has not
+        (catalog_sales drawn from the returns' pool may be sold past
+        2003)."""
+        i = date_sk.astype(np.int64) - 2450000
+        ok = (i >= 0) & (i < len(self.year))
+        j = np.where(ok, i, 0)
+        return np.where(ok, self.year[j], -1), np.where(ok, self.moy[j], -1)
+
+    def q19_rows(self, data, validity) -> np.ndarray:
+        """The rows q19's date, item and customer joins keep."""
+        year, moy = self._calendar(data["ss_sold_date_sk"])
+        return ((moy == 11) & (year == 1999)
+                & (self.item["i_manager_id"][data["ss_item_sk"]] == 8)
+                & validity["ss_customer_sk"])
+
+    def _averaged(self, q, cd_ok, p, data, validity) -> None:
+        """q7's or q26's rows (prefix p: ss or cs)."""
+        year, _ = self._calendar(data[f"{p}_sold_date_sk"])
+        promo = f"{p}_promo_sk"
+        cdemo = "ss_cdemo_sk" if p == "ss" else "cs_bill_cdemo_sk"
+        keep = (cd_ok[data[cdemo]] & (year == 2000)
+                & validity[promo] & self.promo_n[data[promo]])
+        self.parts[q].append(
+            (data[f"{p}_item_sk"][keep],
+             data[f"{p}_quantity"][keep].astype(np.int64),
+             cents(data[f"{p}_ext_sales_price"][keep]),
+             cents(data[f"{p}_net_profit"][keep])))
+
+    def add_store_sales(self, data, validity) -> None:
+        first_partition = self.scanned["ss"] // N % 4 == 0
+        self.scanned["ss"] += len(data["ss_item_sk"])
+        year, moy = self._calendar(data["ss_sold_date_sk"])
+        item = data["ss_item_sk"]
+        manager = self.item["i_manager_id"][item]
+        price = cents(data["ss_ext_sales_price"])
+        for q, (m, y, mgr) in MONTH_QUERIES.items():
+            keep = (moy == m) & (year == y) & (manager == mgr)
+            self.parts[q].append((item[keep], price[keep]))
+        keep = self.q19_rows(data, validity)
+        addr = self.c_addr[data["ss_customer_sk"][keep]]
+        if first_partition:
+            self.q19_zips.append(self.ca_zip[addr])
+        differ = self.ca_zip[addr] != self.s_zip[data["ss_store_sk"][keep]]
+        self.parts["q19"].append((item[keep][differ], price[keep][differ]))
+        self._averaged("q7", self.cd7, "ss", data, validity)
+        self.q96 += int((self.hd4[data["ss_hdemo_sk"]]
+                         & self.t_ok[data["ss_sold_time_sk"]]
+                         & self.ese[data["ss_store_sk"]]).sum())
+
+    def add_catalog_sales(self, data, validity) -> None:
+        self.scanned["cs"] += len(data["cs_item_sk"])
+        self._averaged("q26", self.cd26, "cs", data, validity)
+
+    def _cat(self, q):
+        parts = self.parts[q]
+        return [np.concatenate([x[j] for x in parts])
+                for j in range(len(parts[0]))]
+
+    def _sums(self, q, names):
+        """(group key tuple -> (cents, rows)) of a sum query, grouped by
+        the named item columns."""
+        item, price = self._cat(q)
+        if not len(item):
+            return {}
+        code = np.stack([self.item[n][item].astype(np.int64)
+                         if self.item[n].dtype != object else
+                         np.unique(self.item[n][item].astype(str),
+                                   return_inverse=True)[1]
+                         for n in names])
+        keys, first, inv = np.unique(code, axis=1, return_index=True,
+                                     return_inverse=True)
+        inv = inv.reshape(-1)
+        total = np.bincount(inv, price, keys.shape[1]).astype(np.int64)
+        rows = np.bincount(inv, None, keys.shape[1]).astype(np.int64)
+        out = {}
+        for g in range(keys.shape[1]):
+            it = item[first[g]]
+            out[tuple(self.item[n][it].item() if self.item[n].dtype != object
+                      else self.item[n][it] for n in names)] = (
+                int(total[g]), int(rows[g]))
+        return out
+
+    def result(self, q) -> list:
+        """[(group keys, values, order)] in the query's order: values as
+        the port gives them (a sum in cents / 100, an average), order the
+        exact tuple the query sorts by."""
+        if q == "q96":
+            return [((), (self.q96,), ())]
+        if q in ("q7", "q26"):
+            item, qty, price, profit = self._cat(q)
+            keys, inv = np.unique(item, return_inverse=True)
+            n = np.bincount(inv).astype(np.int64)
+            sums = [np.bincount(inv, v.astype(np.float64), len(keys))
+                    for v in (qty, price, profit)]
+            out = []
+            for g, k in enumerate(keys.tolist()):
+                iid = self.item["i_item_id"][k]
+                out.append(((iid,), (sums[0][g] / n[g],
+                                     sums[1][g] / 100 / n[g],
+                                     sums[2][g] / 100 / n[g]), (iid,)))
+            return sorted(out, key=lambda r: r[2])
+        if q == "q19":
+            groups = self._sums(q, ("i_brand_id", "i_brand", "i_manufact_id"))
+            out = [(k, (c / 100,), (-c, k[0], k[2]))
+                   for k, (c, _) in groups.items()]
+        elif q == "q42":
+            groups = self._sums(q, ("i_category_id", "i_category"))
+            out = [((2000, *k), (c / 100,), (-c, 2000, *k))
+                   for k, (c, _) in groups.items()]
+        elif q == "q52":
+            groups = self._sums(q, ("i_brand_id", "i_brand"))
+            out = [((1998, *k), (c / 100,), (1998, -c, k[0]))
+                   for k, (c, _) in groups.items()]
+        else:
+            groups = self._sums(q, ("i_brand_id", "i_brand"))
+            out = [(k, (c / 100,), (-c, k[0])) for k, (c, _) in groups.items()]
+        return sorted(out, key=lambda r: r[2])
+
+    def check(self, q, rows, nkeys: int) -> float:
+        """The port's rows against numpy's: each row's group is numpy's,
+        its counts exact and its sums and averages within
+        F64_RTOL_GAUNTLET; at each place numpy's own row has the same
+        order value (only groups numpy's exact sums tie may trade
+        places); as many rows as the LIMIT keeps.  Returns the largest
+        relative error."""
+        want = self.result(q)
+        require(len(rows) == min(len(want), 100), f"{q} gave {len(rows)} "
+                f"rows, numpy {len(want)} groups")
+        by_key = {w[0]: w for w in want}
+        worst = 0.0
+        for pos, (r, w) in enumerate(zip(rows, want)):
+            g = by_key.get(tuple(r[:nkeys]))
+            require(g is not None, f"{q} gave a group numpy has not: {r}")
+            for a, b in zip(r[nkeys:], g[1], strict=True):
+                if isinstance(b, float):
+                    err = abs(a - b) / max(abs(b), 1.0)
+                    require(err <= F64_RTOL_GAUNTLET, f"{q}: {a} against "
+                            f"numpy {b} in {r}")
+                    worst = max(worst, err)
+                else:
+                    require(a == b, f"{q}: {a} against numpy {b} in {r}")
+            require(g[2] == w[2], f"{q} row {pos} {r} where numpy orders "
+                    f"{w}")
+        return worst
+
+
+def phase_gauntlet_data(dev, q25_dfs, ref: GauntletNumpy):
+    """The seven queries' tables in the session of phase 7: store_sales
+    and catalog_sales as phases 7 and 8 left them on the card, date_dim
+    and item, and the dimensions drawn at the generators' sizes."""
+    t0 = time.perf_counter()
+    ss_df, _, cs_df, dd_df, _, item_df = q25_dfs
+    sess = ss_df.session
+    dfs = {"ss": ss_df, "cs": cs_df, "dd": dd_df, "item": item_df,
+           **{k: sess.create_dataframe([to_device(b, dev)])
+              for k, b in ref.dims.items()}}
+    torch.cuda.synchronize()
+    emit({"phase": "gauntlet_data", "store_sales_rows": ref.scanned["ss"],
+          "catalog_sales_rows": ref.scanned["cs"],
+          "dimension_rows": {k: b.num_rows for k, b in ref.dims.items()},
+          "cut_from_sf10": GAUNTLET_CUTS,
+          "setup_seconds": time.perf_counter() - t0})
+    require(ref.scanned == {"ss": SS_ROWS, "cs": CS_ROWS},
+            f"the numpy side saw {ref.scanned}")
+    return dfs
+
+
+def phase_gauntlet(dfs, ref: GauntletNumpy) -> dict:
+    """Each query: its main path traced, with its launches; held against
+    numpy; timed.  q19's run counts the calls of ``substring_plain``,
+    which must be none: the card ran the kernel."""
+    by_query = {}
+    plain_calls = []
+    plain = SS.substring_plain
+
+    def counted(*args):
+        plain_calls.append(1)
+        return plain(*args)
+    for name, args in GAUNTLET_ARGS.items():
+        query = lambda _, name=name, args=args: getattr(  # noqa: E731
+            tpcds, name)(*(dfs[k] for k in args))
+        SS.substring_plain = counted
+        try:
+            rows, plan, launches, first, prof = run_phase_path(
+                name, query, GAUNTLET_KERNELS[name])
+        finally:
+            SS.substring_plain = plain
+        require(not plain_calls, f"{name} ran substring_plain "
+                f"{len(plain_calls)} times on the card")
+        worst = ref.check(name, rows, GAUNTLET_NKEYS[name])
+        scanned = CS_ROWS if args[0] == "cs" else SS_ROWS
+        timing = time_path(name, query, None, scanned, prof)
+        emit({"phase": name, "fact_rows": scanned, "rows": len(rows),
+              "first_run_s": first, "max_rel_err": worst,
+              "first_rows": rows[:3], **timing})
+        by_query[name] = launches
+    return by_query
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", torch.cuda.current_device())
     phase_build()
     tables = q3_tables()
+    dims = q72_dims()
+    gauntlet = GauntletNumpy(tables, dims)
     summary = phase_kernels(dev, tables)
     dfs, q6_ref, q1_ref, nbatches = phase_data(dev)
     by_path = {**phase_q6(dfs, q6_ref, nbatches),
                **phase_q1(dfs, q1_ref, nbatches)}
     q25_ref = Q25Numpy(tables[2])
-    q3_dfs, q3_want, ss_pool = phase_q3_data(dev, tables, q25_ref)
+    q3_dfs, q3_want, ss_pool = phase_q3_data(dev, tables, q25_ref,
+                                             gauntlet)
+    time_substring_q19(dev, gauntlet, summary)
     by_path["q3"] = phase_q3(q3_dfs, q3_want)
-    dims = q72_dims()
     q72_ref = Q72Numpy(tables[0], tables[1], dims)
     q25_dfs, q25_want, cs_batches, order_pool = phase_q25_data(
-        dev, q3_dfs, ss_pool, q25_ref, tables, q72_ref)
+        dev, q3_dfs, ss_pool, q25_ref, tables, q72_ref, gauntlet)
     by_path["q25"] = phase_q25(q25_dfs, q25_want)
     phase_fusion_ab(dfs, q3_dfs, q25_dfs)
     by_path["q72"] = phase_q72(*phase_q72_data(
@@ -3403,6 +3879,8 @@ def main() -> None:
     by_path["q5"] = phase_q5(chan_dfs, dd_df, chan_ref)
     by_path["semi_anti"] = phase_semi_anti(chan_dfs, item_df, dd_df, tables,
                                            chan_ref)
+    by_path.update(phase_gauntlet(
+        phase_gauntlet_data(dev, q25_dfs, gauntlet), gauntlet))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         s = summary[name]
@@ -3412,7 +3890,7 @@ def main() -> None:
             "source": f"spark_rapids_tpu_torch/{source}",
             "replaces": replaces, "launches": sum(counts.values()),
             "launches_by_path": counts,
-            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "max_abs_err": ERRS[name], "ms": s["ms"],
             "call_ms": s["call_ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": s["library_ms"]})

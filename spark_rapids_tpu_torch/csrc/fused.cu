@@ -73,7 +73,7 @@ constexpr size_t kDefaultSmem = 48 * 1024;
 
 enum Op : int {
   LOAD = 0, CONST, CAST_DEC_F64, WIDEN, RESCALE, ADD, SUB, MUL,
-  LT, LE, GT, GE, EQ, AND, IS_NULL, IF
+  LT, LE, GT, GE, EQ, AND, IS_NULL, IF, OR, NOT
 };
 enum Kind : int { K_BOOL = 0, K_I32, K_I64, K_F64 };
 enum SumKind : int { SUM_F64 = 0, SUM_I64, SUM_NONE };
@@ -236,6 +236,16 @@ __device__ __forceinline__ void run(const Program& p, const SharedProgram& s,
         v = (av && bv) || (!ad && av) || (!bd && bv);
         break;
       }
+      case OR: {    // three-valued: TRUE OR null is TRUE
+        const bool lt = R(a) != 0 && V(a), rt = R(b) != 0 && V(b);
+        x = lt || rt;
+        v = (V(a) && V(b)) || lt || rt;
+        break;
+      }
+      case NOT:     // NOT null is null
+        x = R(a) == 0 && V(a);
+        v = V(a);
+        break;
       case IS_NULL:
         x = !V(a);
         v = true;

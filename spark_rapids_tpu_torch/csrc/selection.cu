@@ -208,7 +208,7 @@ gather_bytes_kernel(StringCols cols, const int32_t* __restrict__ idx,
   const int32_t d0 = cols.dst_off[c][r];
   const int32_t len = cols.dst_off[c][r + 1] - d0;
   if (len == 0) return;   // null, empty or out of range: nothing to read
-  const int32_t s0 = cols.src_off[c][idx[r]];
+  const int32_t s0 = cols.src_off[c][idx != nullptr ? idx[r] : r];
   for (int32_t b = lane; b < len; b += L) cols.dst[c][d0 + b] = cols.src[c][s0 + b];
 }
 
@@ -381,7 +381,9 @@ int srt_gather(int ncols, const void* const* src,
 
 // The bytes of nstr gathered string columns, after srt_gather: host arrays
 // of source offsets, source bytes, new offsets and new bytes; lanes (1, 8
-// or 32) threads copy one row.
+// or 32) threads copy one row.  With idx null, row r's bytes start at
+// src_off[c][r]: a plane of per-row source starts (SUBSTRING's kept ranges,
+// csrc/strings.cu).
 int srt_gather_bytes(int nstr, const int32_t* const* src_off,
                      const uint8_t* const* src, const int32_t* const* dst_off,
                      uint8_t* const* dst, const int32_t* idx, int64_t m,

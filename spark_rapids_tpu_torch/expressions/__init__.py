@@ -19,7 +19,10 @@ from spark_rapids_tpu_torch.expressions.predicates import (
     IsNull,
     LessThan,
     LessThanOrEqual,
+    Not,
+    Or,
 )
+from spark_rapids_tpu_torch.expressions.strings import Substring
 from spark_rapids_tpu_torch.expressions.casts import Cast
 from spark_rapids_tpu_torch.expressions.conditional import If
 from spark_rapids_tpu_torch.expressions.aggregates import (
@@ -29,6 +32,6 @@ __all__ = [
     "Add", "Alias", "And", "Average", "BoundReference", "Cast", "Col",
     "Count", "EqualTo", "EvalContext", "Expression", "GreaterThan",
     "GreaterThanOrEqual", "If", "IsNull", "LessThan", "LessThanOrEqual",
-    "Literal", "Multiply", "Subtract", "Sum", "avg", "col", "count", "lit",
-    "sum_",
+    "Literal", "Multiply", "Not", "Or", "Substring", "Subtract", "Sum",
+    "avg", "col", "count", "lit", "sum_",
 ]

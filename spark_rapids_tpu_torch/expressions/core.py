@@ -117,12 +117,21 @@ class Expression:
         from spark_rapids_tpu_torch.expressions.predicates import EqualTo
         return self._bin(other, EqualTo)
 
+    def __ne__(self, other):
+        from spark_rapids_tpu_torch.expressions.predicates import EqualTo, Not
+        return Not(self._bin(other, EqualTo))
+
+    def __or__(self, other):
+        from spark_rapids_tpu_torch.expressions.predicates import Or
+        return self._bin(other, Or)
+
+    def __invert__(self):
+        from spark_rapids_tpu_torch.expressions.predicates import Not
+        return Not(self)
+
     __truediv__ = _not_ported("/")
     __mod__ = _not_ported("%")
     __neg__ = _not_ported("unary -")
-    __ne__ = _not_ported("!=")
-    __or__ = _not_ported("OR")
-    __invert__ = _not_ported("NOT")
 
 
 class BinaryExpression(Expression):

@@ -3,11 +3,12 @@
 Counterpart of ``spark_rapids_tpu/expressions/predicates.py``
 (``EqualTo`` :160, ``LessThan`` :174, ``GreaterThan`` :190,
 ``LessThanOrEqual`` :201, ``GreaterThanOrEqual`` :213, ``And`` :262,
-``IsNull`` :328), numeric, date, Decimal64 and string operands.  Spark
-semantics: NaN equals NaN and is larger than every other double; strings
-compare by their UTF-8 bytes (``UTF8String.binaryCompare``, a proper
-prefix first); a comparison with a null operand is null; AND is
-three-valued (FALSE AND null = FALSE); IS NULL is never null.
+``Or`` :290, ``Not`` :314, ``IsNull`` :328), numeric, date, Decimal64 and
+string operands.  Spark semantics: NaN equals NaN and is larger than
+every other double; strings compare by their UTF-8 bytes
+(``UTF8String.binaryCompare``, a proper prefix first); a comparison with a
+null operand is null; AND and OR are three-valued (FALSE AND null = FALSE,
+TRUE OR null = TRUE); NOT null is null; IS NULL is never null.
 
 Two strings compare as the reference's ``_string_cmp_rank`` (:423) does:
 through the sort's string keys (``kernels/sort.py`` ``string_sort_keys``,
@@ -176,6 +177,42 @@ class And(BinaryExpression):
         rf = ~rc.data & rc.validity
         validity = (lc.validity & rc.validity) | lf | rf
         return make_column(lt & rt, validity, T.BOOLEAN)
+
+
+class Or(BinaryExpression):
+    symbol = "OR"
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+    def eval(self, ctx: EvalContext):
+        lc = self.left.eval(ctx)
+        rc = self.right.eval(ctx)
+        lt = lc.data & lc.validity    # true-and-valid
+        rt = rc.data & rc.validity
+        validity = (lc.validity & rc.validity) | lt | rt
+        return make_column(lt | rt, validity, T.BOOLEAN)
+
+
+class Not(Expression):
+    def __init__(self, child: Expression):
+        self.child = child
+        self.children = (child,)
+
+    def with_children(self, children):
+        return Not(children[0])
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+    def eval(self, ctx: EvalContext):
+        c = self.child.eval(ctx)
+        return make_column(~c.data & c.validity, c.validity, T.BOOLEAN)
+
+    def __repr__(self):
+        return f"NOT {self.child!r}"
 
 
 class IsNull(Expression):

@@ -26,8 +26,9 @@ comes from, so a lowered expression equals its ``eval`` bit for bit:
   LT LE GT GE EQ  with Spark's double rules (``predicates.py`` ``_lt``,
                ``_eq``: NaN equals NaN and is above everything, -0.0
                equals 0.0);
-  AND          three-valued; IS_NULL; IF (fixed-width, a null predicate
-               takes the false branch).
+  AND OR       three-valued (``predicates.py`` ``And``, ``Or``);
+  NOT          ``~v & valid``, null where its operand is;
+  IS_NULL; IF  (fixed-width, a null predicate takes the false branch).
 
 Validity propagates as ``null_propagating`` does; a register's data under
 a null is never read by a valid result, so only outputs zero their null
@@ -52,11 +53,11 @@ from spark_rapids_tpu_torch.expressions.core import (
     Alias, BoundReference, Expression, Literal)
 from spark_rapids_tpu_torch.expressions.predicates import (
     And, BinaryComparison, EqualTo, GreaterThan, GreaterThanOrEqual, IsNull,
-    LessThan, LessThanOrEqual, _cmp_dtype)
+    LessThan, LessThanOrEqual, Not, Or, _cmp_dtype)
 
 # opcodes and register kinds; csrc/fused.cu has the same numbers
 (LOAD, CONST, CAST_DEC_F64, WIDEN, RESCALE, ADD, SUB, MUL, LT, LE, GT, GE,
- EQ, AND, IS_NULL, IF) = range(16)
+ EQ, AND, IS_NULL, IF, OR, NOT) = range(18)
 K_BOOL, K_I32, K_I64, K_F64 = range(4)
 # a global aggregate's sum kinds
 SUM_F64, SUM_I64, SUM_NONE = range(3)
@@ -225,12 +226,13 @@ class ProgramBuilder:
                 rhs = self._to(e.right, cdt, cols)
                 kind = kind_of(cdt)
             return self._emit(_COMPARE_OPS[type(e)], kind, lhs, rhs)
-        if isinstance(e, And):
+        if isinstance(e, (And, Or, Not)):
             for c in e.children:
                 if self._dtype(c, cols) != T.BOOLEAN:
-                    raise NotLowerable("AND of a non-boolean")
-            return self._emit(AND, K_BOOL, self._value(e.left, cols),
-                              self._value(e.right, cols))
+                    raise NotLowerable(f"{type(e).__name__} of a "
+                                       "non-boolean")
+            return self._emit({And: AND, Or: OR, Not: NOT}[type(e)], K_BOOL,
+                              *(self._value(c, cols) for c in e.children))
         if isinstance(e, IsNull):
             kind_of(self._dtype(e.child, cols))
             return self._emit(IS_NULL, K_BOOL, self._value(e.child, cols))
@@ -359,7 +361,7 @@ class ProgramBuilder:
         op, _, a, b, c = self._ins[i]
         if op in (LOAD, CONST):
             return ()
-        if op in (CAST_DEC_F64, RESCALE, WIDEN, IS_NULL):
+        if op in (CAST_DEC_F64, RESCALE, WIDEN, IS_NULL, NOT):
             return (a,)
         if op == IF:
             return (a, b, c)

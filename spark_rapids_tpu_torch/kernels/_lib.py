@@ -66,6 +66,8 @@ _SIGNATURES = {
     "srt_string_sort_keys": [_P, _P, _P, _I64, _I, _P, _P, _P],
     "srt_string_max_length": [_P, _P, _I64, _P, _P],
     "srt_string_rows_equal_prev": [_P, _P, _P, _I64, _P, _P],
+    "srt_substring_rows": [_P, _P, _P, _I64, _P, _I, _P, _I, _P, _P, _P, _P,
+                           _P],
     "srt_join_scan_tile": [],
     "srt_join_build_keys": [_I, _P, _P, _P, _I64, _P, _P, _P],
     "srt_join_probe": [_I, _P, _P, _I64, _P, _P, _I64, _I, _P, _P, _P, _P,

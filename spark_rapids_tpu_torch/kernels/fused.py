@@ -104,6 +104,13 @@ def _interpret(prog: P.Program, cols: Sequence[DeviceColumn], n: int,
             va, vb = valid[a], valid[b]
             x = (la & va) & (lb & vb)
             v = (va & vb) | (~la & va) | (~lb & vb)
+        elif op == P.OR:
+            la, lb = data[a].to(torch.bool), data[b].to(torch.bool)
+            lt, rt = la & valid[a], lb & valid[b]
+            x = lt | rt
+            v = (valid[a] & valid[b]) | lt | rt
+        elif op == P.NOT:
+            x, v = ~data[a].to(torch.bool) & valid[a], valid[a]
         elif op == P.IS_NULL:
             x, v = ~valid[a], ones
         elif op == P.IF:

@@ -1,26 +1,32 @@
 """TPC-DS generation (store_sales, store_returns, catalog_sales,
-catalog_returns, inventory, date_dim, item, store, warehouse, promotion,
-customer_demographics, household_demographics, and the channel sales and
-returns of q5 and q14a) and q3, q5, q14a, q25 and q72 (with the q5 and
-q14a subsets), without JAX.
+catalog_returns, inventory, date_dim, time_dim, item, store, warehouse,
+promotion, customer, customer_address, customer_demographics,
+household_demographics, and the channel sales and returns of q5 and q14a)
+and q3, q5, q7, q14a, q19, q25, q26, q42, q52, q55, q72 and q96 (with the
+q5 and q14a subsets), without JAX.
 
 A copy of the pure-Python parts of ``spark_rapids_tpu/testing/tpcds.py``
 (``STORE_SALES_SCHEMA`` :21, ``DATE_DIM_SCHEMA`` :38, ``ITEM_SCHEMA`` :48,
 ``STORE_RETURNS_SCHEMA`` :381, ``CATALOG_SALES_SCHEMA`` :391,
 ``CATALOG_RETURNS_SCHEMA`` :405, ``INVENTORY_SCHEMA`` :411,
 ``WAREHOUSE_SCHEMA`` :418, ``STORE_SCHEMA`` :423, ``PROMOTION_SCHEMA``
-:430, ``CUSTOMER_DEMOGRAPHICS_SCHEMA`` :448,
-``HOUSEHOLD_DEMOGRAPHICS_SCHEMA`` :455, ``gen_date_dim`` :61,
+:430, ``CUSTOMER_SCHEMA`` :436, ``CUSTOMER_ADDRESS_SCHEMA`` :442,
+``CUSTOMER_DEMOGRAPHICS_SCHEMA`` :448,
+``HOUSEHOLD_DEMOGRAPHICS_SCHEMA`` :455, ``TIME_DIM_SCHEMA`` :461,
+``gen_date_dim`` :61,
 ``gen_item`` :79, ``gen_store_sales`` :102 with ``_gen_channel_fact``
 :206, ``host_pool`` :468, ``gen_store_returns`` :483,
 ``gen_catalog_sales`` :525, ``gen_catalog_returns`` :575,
 ``gen_inventory`` :601, ``gen_warehouse`` :618, ``gen_store`` :625,
-``gen_promotion`` :637, ``gen_customer_demographics`` :669,
-``gen_household_demographics`` :681, ``CHANNEL_SALES_SCHEMA`` :188,
+``gen_promotion`` :637, ``gen_customer`` :647,
+``gen_customer_address`` :657, ``gen_customer_demographics`` :669,
+``gen_household_demographics`` :681, ``gen_time_dim`` :691,
+``CHANNEL_SALES_SCHEMA`` :188,
 ``CHANNEL_RETURNS_SCHEMA`` :197, ``gen_channel_sales`` :232,
 ``gen_channel_returns`` :251, ``_aliased`` :701, ``q3`` :134,
 ``q5_subset`` :158, ``q14a_subset`` :171, ``q5`` :268, ``q14a`` :315,
-``q25`` :758, ``q72`` :868).  Generation draws the same numpy streams in
+``q7`` :709, ``q19`` :733, ``q25`` :758, ``q26`` :794, ``q42`` :817,
+``q52`` :835, ``q55`` :852, ``q72`` :868, ``q96`` :913).  Generation draws the same numpy streams in
 the same order as the reference, so both packages see the same tables for
 a seed.  A fact table is made in chunks of ``batch_rows`` rows and chunk c
 reseeds with ``seed + stride * c`` (stride 31 for store_sales, 43 for
@@ -151,6 +157,24 @@ HOUSEHOLD_DEMOGRAPHICS_SCHEMA = Schema.of(
     hd_demo_sk=T.INT,
     hd_buy_potential=T.STRING,
     hd_dep_count=T.INT,
+)
+
+CUSTOMER_SCHEMA = Schema.of(
+    c_customer_sk=T.INT,
+    c_current_addr_sk=T.INT,
+    c_birth_month=T.INT,
+)
+
+CUSTOMER_ADDRESS_SCHEMA = Schema.of(
+    ca_address_sk=T.INT,
+    ca_city=T.STRING,
+    ca_zip=T.STRING,
+)
+
+TIME_DIM_SCHEMA = Schema.of(
+    t_time_sk=T.INT,
+    t_hour=T.INT,
+    t_minute=T.INT,
 )
 
 # TPC-DS row counts at scale factor 10 (the specification's table 3-2)
@@ -497,6 +521,39 @@ def gen_household_demographics(device, n: int = 100) -> ColumnarBatch:
          "hd_buy_potential": [pots[i % 6] for i in range(n)],
          "hd_dep_count": [i % 10 for i in range(n)]},
         HOUSEHOLD_DEMOGRAPHICS_SCHEMA, device)
+
+
+def gen_customer(device, n: int = 50_000, seed: int = 83,
+                 n_addr: int = 25_000) -> ColumnarBatch:
+    rng = np.random.RandomState(seed)
+    return ColumnarBatch.from_pydict(
+        {"c_customer_sk": list(range(1, n + 1)),
+         "c_current_addr_sk": (1 + rng.randint(0, n_addr, n)).tolist(),
+         "c_birth_month": (1 + rng.randint(0, 12, n)).tolist()},
+        CUSTOMER_SCHEMA, device)
+
+
+def gen_customer_address(device, n: int = 25_000,
+                         seed: int = 89) -> ColumnarBatch:
+    rng = np.random.RandomState(seed)
+    cities = ["Midway", "Fairview", "Oakland", "Five Points", "Liberty",
+              "Greenville", "Bethel", "Pleasant Hill"]
+    return ColumnarBatch.from_pydict(
+        {"ca_address_sk": list(range(1, n + 1)),
+         "ca_city": [cities[int(x) % 8] for x in rng.randint(0, 64, n)],
+         "ca_zip": [f"{10000 + int(z):05d}"
+                    for z in rng.randint(0, 400, n)]},
+        CUSTOMER_ADDRESS_SCHEMA, device)
+
+
+def gen_time_dim(device) -> ColumnarBatch:
+    """One row per second of the day."""
+    n = 86400
+    return ColumnarBatch.from_pydict(
+        {"t_time_sk": list(range(n)),
+         "t_hour": (np.arange(n) // 3600).tolist(),
+         "t_minute": ((np.arange(n) % 3600) // 60).tolist()},
+        TIME_DIM_SCHEMA, device)
 
 
 def gen_store(device, n: int = 50, seed: int = 73) -> ColumnarBatch:
@@ -869,3 +926,169 @@ def q72(cs_df, inv_df, warehouse_df, item_df, cd_df, hd_df, dd_df,
                       ("w_warehouse_name", SortOrder(True)),
                       ("d1_week_seq", SortOrder(True)))
             .limit(100))
+
+
+def q7(store_sales_df, cd_df, dd_df, item_df, promo_df):
+    """TPC-DS Q7: store sales to one demographic in 2000 under a promotion
+    not run by email or not run as an event, averaged per item.
+
+    select i_item_id, avg(ss_quantity) agg1, avg(ss_ext_sales_price) agg2,
+           avg(ss_net_profit) agg3
+    from store_sales, customer_demographics, date_dim, item, promotion
+    where the keys match and cd_gender = 'M' and cd_marital_status = 'S'
+      and cd_education_status = 'College'
+      and (p_channel_email = 'N' or p_channel_event = 'N')
+      and d_year = 2000
+    group by i_item_id order by i_item_id limit 100
+    """
+    from spark_rapids_tpu_torch.expressions import avg, col, lit
+    from spark_rapids_tpu_torch.kernels.sort import SortOrder
+    cd = cd_df.filter((col("cd_gender") == lit("M"))
+                      & (col("cd_marital_status") == lit("S"))
+                      & (col("cd_education_status") == lit("College")))
+    promo = promo_df.filter((col("p_channel_email") == lit("N"))
+                            | (col("p_channel_event") == lit("N")))
+    dd = dd_df.filter(col("d_year") == lit(2000))
+    return (store_sales_df
+            .join(cd, on=([col("ss_cdemo_sk")], [col("cd_demo_sk")]))
+            .join(dd, on=([col("ss_sold_date_sk")], [col("d_date_sk")]))
+            .join(item_df, on=([col("ss_item_sk")], [col("i_item_sk")]))
+            .join(promo, on=([col("ss_promo_sk")], [col("p_promo_sk")]))
+            .group_by("i_item_id")
+            .agg(avg("ss_quantity").alias("agg1"),
+                 avg("ss_ext_sales_price").alias("agg2"),
+                 avg("ss_net_profit").alias("agg3"))
+            .order_by(("i_item_id", SortOrder(True)))
+            .limit(100))
+
+
+def q19(store_sales_df, dd_df, item_df, customer_df, ca_df, store_df):
+    """TPC-DS Q19: brand revenue of store sales to customers whose zip
+    differs from the store's, for one manager and one month.
+
+    select i_brand_id, i_brand, i_manufact_id, sum(ss_ext_sales_price)
+    from date_dim, store_sales, item, customer, customer_address, store
+    where the keys match and i_manager_id = 8 and d_moy = 11
+      and d_year = 1999
+      and substr(ca_zip, 1, 5) <> substr(s_zip, 1, 5)
+    group by i_brand, i_brand_id, i_manufact_id
+    order by ext_price desc, i_brand_id, i_manufact_id limit 100
+    """
+    from spark_rapids_tpu_torch.expressions import Substring, col, lit, sum_
+    from spark_rapids_tpu_torch.kernels.sort import SortOrder
+    dd = dd_df.filter((col("d_moy") == lit(11)) & (col("d_year") == lit(1999)))
+    it = item_df.filter(col("i_manager_id") == lit(8))
+    j = (store_sales_df
+         .join(dd, on=([col("ss_sold_date_sk")], [col("d_date_sk")]))
+         .join(it, on=([col("ss_item_sk")], [col("i_item_sk")]))
+         .join(customer_df, on=([col("ss_customer_sk")],
+                                [col("c_customer_sk")]))
+         .join(ca_df, on=([col("c_current_addr_sk")],
+                          [col("ca_address_sk")]))
+         .join(store_df, on=([col("ss_store_sk")], [col("s_store_sk")]))
+         .filter(Substring(col("ca_zip"), 1, 5)
+                 != Substring(col("s_zip"), 1, 5)))
+    return (j.group_by("i_brand_id", "i_brand", "i_manufact_id")
+            .agg(sum_("ss_ext_sales_price").alias("ext_price"))
+            .order_by(("ext_price", SortOrder(False)),
+                      ("i_brand_id", SortOrder(True)),
+                      ("i_manufact_id", SortOrder(True)))
+            .limit(100))
+
+
+def q26(cs_df, cd_df, dd_df, item_df, promo_df):
+    """TPC-DS Q26: q7 over catalog sales, for another demographic."""
+    from spark_rapids_tpu_torch.expressions import avg, col, lit
+    from spark_rapids_tpu_torch.kernels.sort import SortOrder
+    cd = cd_df.filter((col("cd_gender") == lit("F"))
+                      & (col("cd_marital_status") == lit("W"))
+                      & (col("cd_education_status") == lit("Primary")))
+    promo = promo_df.filter((col("p_channel_email") == lit("N"))
+                            | (col("p_channel_event") == lit("N")))
+    dd = dd_df.filter(col("d_year") == lit(2000))
+    return (cs_df
+            .join(cd, on=([col("cs_bill_cdemo_sk")], [col("cd_demo_sk")]))
+            .join(dd, on=([col("cs_sold_date_sk")], [col("d_date_sk")]))
+            .join(item_df, on=([col("cs_item_sk")], [col("i_item_sk")]))
+            .join(promo, on=([col("cs_promo_sk")], [col("p_promo_sk")]))
+            .group_by("i_item_id")
+            .agg(avg("cs_quantity").alias("agg1"),
+                 avg("cs_ext_sales_price").alias("agg2"),
+                 avg("cs_net_profit").alias("agg3"))
+            .order_by(("i_item_id", SortOrder(True)))
+            .limit(100))
+
+
+def _month_sales(store_sales_df, dd_df, item_df, moy: int, year: int,
+                 manager: int):
+    """The store sales of one month, of one manager's items (q42, q52,
+    q55)."""
+    from spark_rapids_tpu_torch.expressions import col, lit
+    dd = dd_df.filter((col("d_moy") == lit(moy))
+                      & (col("d_year") == lit(year)))
+    it = item_df.filter(col("i_manager_id") == lit(manager))
+    return (store_sales_df
+            .join(dd, on=([col("ss_sold_date_sk")], [col("d_date_sk")]))
+            .join(it, on=([col("ss_item_sk")], [col("i_item_sk")])))
+
+
+def q42(store_sales_df, dd_df, item_df):
+    """TPC-DS Q42: category revenue for one month (manager 1, November
+    2000), by year and category."""
+    from spark_rapids_tpu_torch.expressions import sum_
+    from spark_rapids_tpu_torch.kernels.sort import SortOrder
+    return (_month_sales(store_sales_df, dd_df, item_df, 11, 2000, 1)
+            .group_by("d_year", "i_category_id", "i_category")
+            .agg(sum_("ss_ext_sales_price").alias("total"))
+            .order_by(("total", SortOrder(False)),
+                      ("d_year", SortOrder(True)),
+                      ("i_category_id", SortOrder(True)),
+                      ("i_category", SortOrder(True)))
+            .limit(100))
+
+
+def q52(store_sales_df, dd_df, item_df):
+    """TPC-DS Q52: brand revenue for one month (manager 1, December
+    1998), q42 at brand grain."""
+    from spark_rapids_tpu_torch.expressions import sum_
+    from spark_rapids_tpu_torch.kernels.sort import SortOrder
+    return (_month_sales(store_sales_df, dd_df, item_df, 12, 1998, 1)
+            .group_by("d_year", "i_brand_id", "i_brand")
+            .agg(sum_("ss_ext_sales_price").alias("ext_price"))
+            .order_by(("d_year", SortOrder(True)),
+                      ("ext_price", SortOrder(False)),
+                      ("i_brand_id", SortOrder(True)))
+            .limit(100))
+
+
+def q55(store_sales_df, dd_df, item_df):
+    """TPC-DS Q55: brand revenue of one manager (28) in November 1999."""
+    from spark_rapids_tpu_torch.expressions import sum_
+    from spark_rapids_tpu_torch.kernels.sort import SortOrder
+    return (_month_sales(store_sales_df, dd_df, item_df, 11, 1999, 28)
+            .group_by("i_brand_id", "i_brand")
+            .agg(sum_("ss_ext_sales_price").alias("ext_price"))
+            .order_by(("ext_price", SortOrder(False)),
+                      ("i_brand_id", SortOrder(True)))
+            .limit(100))
+
+
+def q96(store_sales_df, hd_df, td_df, store_df):
+    """TPC-DS Q96: the store sales between 20:30 and 21:00 to households
+    of four dependents at the stores named 'ese', counted.
+
+    select count(*) from store_sales, household_demographics, time_dim,
+         store
+    where the keys match and t_hour = 20 and t_minute >= 30
+      and hd_dep_count = 4 and s_store_name = 'ese'
+    """
+    from spark_rapids_tpu_torch.expressions import col, count, lit
+    hd = hd_df.filter(col("hd_dep_count") == lit(4))
+    td = td_df.filter((col("t_hour") == lit(20))
+                      & (col("t_minute") >= lit(30)))
+    st = store_df.filter(col("s_store_name") == lit("ese"))
+    return (store_sales_df
+            .join(hd, on=([col("ss_hdemo_sk")], [col("hd_demo_sk")]))
+            .join(td, on=([col("ss_sold_time_sk")], [col("t_time_sk")]))
+            .join(st, on=([col("ss_store_sk")], [col("s_store_sk")]))
+            .agg(count().alias("cnt")))

@@ -154,6 +154,13 @@ CASES = {
                                                 E.col("x"), E.col("l")),
     "if_is_null": lambda E, T: E.If(E.IsNull(E.col("x")), E.lit(1),
                                     E.lit(0)),
+    # OR (three-valued) and NOT, and != as NOT of EQ
+    "or_bools": lambda E, T: E.col("b") | E.col("c"),
+    "or_compares": lambda E, T: (E.col("i") < E.col("j"))
+    | (E.col("x") > E.col("y")),
+    "not_bool": lambda E, T: ~E.col("b"),
+    "not_or": lambda E, T: ~(E.col("b") | E.IsNull(E.col("x"))),
+    "ne_double": lambda E, T: E.col("x") != E.col("y"),
 }
 
 
@@ -198,7 +205,7 @@ def test_instruction_matches_eval_and_reference(table, case):
 
 
 @pytest.mark.parametrize("case", ["lt_dec2_dec4", "and_compares",
-                                  "if_is_null"])
+                                  "if_is_null", "or_compares", "not_or"])
 def test_filter_program_keeps_what_the_filter_keeps(table, case):
     """A predicate as the program's filter: the kept rows and their
     computed outputs are the per-op filter's, in row order."""

@@ -186,3 +186,32 @@ def test_q14a_q5_modules_are_covered():
         assert entry in source and entry in _lib._SIGNATURES
     for kernel in ("join_expand_left_only_kernel", "kSemi", "kAnti"):
         assert kernel in source
+
+
+def test_substring_slice_modules_are_covered():
+    """The q19 slice's modules (SUBSTRING's expression and kernel wrapper,
+    OR and NOT, the fused program's new instructions, the generators) are
+    in the scans above and import nothing of JAX, and the substring
+    kernel's entry points are in a built source and bound."""
+    names = ("spark_rapids_tpu_torch.expressions.strings",
+             "spark_rapids_tpu_torch.kernels.strings",
+             "spark_rapids_tpu_torch.expressions.predicates",
+             "spark_rapids_tpu_torch.expressions.program",
+             "spark_rapids_tpu_torch.kernels.fused",
+             "spark_rapids_tpu_torch.testing.tpcds")
+    for name in names:
+        assert name in PORT_MODULES
+        path = ROOT / (name.replace(".", "/") + ".py")
+        assert not {m for m in _imported_roots(path) if m in FORBIDDEN}
+    source = (_lib.CSRC / "strings.cu").read_text()
+    assert "strings.cu" in _lib.SOURCES and "scan.cuh" in _lib.HEADERS
+    assert "srt_substring_rows" in source
+    assert "srt_substring_rows" in _lib._SIGNATURES
+    assert "substring_rows_kernel" in source
+    # the kept bytes are copied by the string gather's byte copy
+    selection = (_lib.CSRC / "selection.cu").read_text()
+    assert "idx != nullptr ? idx[r] : r" in selection
+    wrapper = (ROOT / "spark_rapids_tpu_torch/kernels/strings.py").read_text()
+    assert "srt_gather_bytes" in wrapper
+    fused = (_lib.CSRC / "fused.cu").read_text()
+    assert "IS_NULL, IF, OR, NOT" in fused
