@@ -68,6 +68,17 @@ Phases (any failure raises and the script exits non-zero):
      of OR and NOT over bools with nulls: outputs, maps,
      counts and int64 sums bit for bit, f64 sums within 1e-12; then q6's
      program (global) and q1's (compact) on the first SF10 batch, timed.
+     Then the MIN / MAX and M2 kernels (``segmented_extreme``,
+     ``masked_extreme``, ``segmented_m2``, ``masked_m2``) over bool,
+     int32, date, int64, Decimal64, float and double (10% nulls; NaN,
+     infinities and both zeros among the floats) at n = 0, 1, 1,048,576
+     and 1,000,003, in segments of one row, of 7 (one all null, one all
+     NaN, one NaN first, one NaN last), of all rows and ~1,000 random
+     ones: extremes and counts bit for bit, M2 (update, and the merge of
+     the partials in groups of 5 and to one) within 1e-12 relative; the
+     large-mean case of tests/test_variance.py:20 at 1,048,576 rows
+     against numpy; each timed at phase 12's partial shape (f64
+     [1,048,576], 14 segments).
      A kernel's ``max_abs_err`` is the largest difference over all its
      comparisons;
   4. data: TPC-H lineitem at SF10 (60,012,150 rows, all eleven columns on
@@ -104,6 +115,14 @@ Phases (any failure raises and the script exits non-zero):
      strings) across the hash exchange, ORDER BY and LIMIT 100; held
      against an independent numpy evaluation (packed int64 keys, sort and
      searchsorted joins, integer-cent sums), then timed and profiled;
+     then TPC-DS q17 on the same tables and session (the chain with
+     d1 2001 months 1-3, d2 and d3 2001 months 1-9, grouped by item id,
+     description and store name: count, avg, stddev_samp and
+     stddev_samp / avg of the three quantities; the segmented M2 update
+     and merge on its path), its 100 rows and then every group without
+     LIMIT against numpy (counts exact, means, standard deviations and
+     ratios within 1e-9 of numpy's two-pass float64, null exactly below
+     two rows), timed and profiled;
      then q6, q1, q3 and q25 fused against ``fuseStages=false`` in 6
      alternating pairs each (medians, quartiles, pairs won);
   9. q72 at TPC-DS SF10 in a session of 200 shuffle partitions with the
@@ -120,7 +139,7 @@ Phases (any failure raises and the script exits non-zero):
      first, an (item, week) join of packed int64 keys by sort and
      searchsorted, the return counts); the main-path run is traced for
      the card's busy time (no run of its own: q72 takes ~25 s), then
-     timed (median of 3);
+     timed by one more run (so is q14a's: the script's time limit);
  10. q14a, q5 and the semi_anti path at TPC-DS SF10 in the session of
      phase 9: the channel sales (store 28,800,991 rows, catalog
      14,401,261, web 7,197,566) and returns (2,875,432, 1,439,749 and
@@ -138,7 +157,7 @@ Phases (any failure raises and the script exits non-zero):
      a one-key anti join, whose item triple the web did not sell in
      January 2000 by an adaptive three-key anti join that broadcasts)
      against numpy's count and cents.  Each with its launches, then timed
-     and profiled as q72;
+     and profiled as q72 (q5 and semi_anti by the median of 3 runs);
  11. q42, q52, q55, q96, q7, q26 and q19 at TPC-DS SF10 in the session
      of phase 7 (16 shuffle partitions, every join broadcast):
      store_sales and catalog_sales as phases 7 and 8 left them on the
@@ -154,7 +173,17 @@ Phases (any failure raises and the script exits non-zero):
      sums tie may trade places); q19 must launch ``substring`` and never
      call ``substring_plain``.  Each with its launches, timed (median of
      3 after the traced main-path run) and profiled;
- 12. prints the kernels summary line, then the result line last.
+ 12. the held aggregate shapes (``testing/held.py``: tests/test_queries.py's
+     table, k INT of 13 keys, v LONG, x DOUBLE with NaN, +inf and -0.0
+     at rows 0-2, f FLOAT, b BOOLEAN, n // 7 nulls each) at 60,012,150
+     rows in batches of 1,048,576, 16 partitions: the global and grouped
+     aggregates of test_queries.py, MIN / MAX of every column, the four
+     variances of x and v, global and grouped, and a global MIN / MAX /
+     M2 after a filter, which must be one fused segment; each against
+     numpy (MIN / MAX, keys, counts and integer sums exact, the rest
+     within 1e-9, NaN where numpy has NaN), with its launches, timed and
+     profiled;
+ 13. prints the kernels summary line, then the result line last.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -162,6 +191,7 @@ from __future__ import annotations
 import json
 import os
 import statistics
+from concurrent.futures import ThreadPoolExecutor
 import subprocess
 import sys
 import time
@@ -198,7 +228,7 @@ from spark_rapids_tpu_torch.plan.execs.join import (  # noqa: E402
 from spark_rapids_tpu_torch.plan.fused import (  # noqa: E402
     GpuFusedSegmentExec)
 from spark_rapids_tpu_torch import types as T  # noqa: E402
-from spark_rapids_tpu_torch.testing import tpcds, tpch  # noqa: E402
+from spark_rapids_tpu_torch.testing import held, tpcds, tpch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 # no integer peak is published beside the tensor-core rates: the f32 rate
@@ -269,6 +299,14 @@ KERNELS = {
                               "spark_rapids_tpu/kernels/join.py:212"),
     "substring": ("csrc/strings.cu",
                   "spark_rapids_tpu/kernels/strings.py:161"),
+    "segmented_extreme": ("csrc/reduction.cu",
+                          "spark_rapids_tpu/kernels/groupby.py:228"),
+    "masked_extreme": ("csrc/reduction.cu",
+                       "spark_rapids_tpu/plan/execs/aggregate.py:292"),
+    "segmented_m2": ("csrc/reduction.cu",
+                     "spark_rapids_tpu/kernels/groupby.py:179"),
+    "masked_m2": ("csrc/reduction.cu",
+                  "spark_rapids_tpu/plan/execs/aggregate.py:318"),
 }
 FUSE_OFF = {"spark.rapids.sql.tpu.fuseStages": "false"}
 # fused (the default), q6's filter and partial sum are one kernel a batch:
@@ -863,6 +901,191 @@ def check_segmented_sum(rng, dev, shapes, summary) -> None:
                 nbytes, ops)}
     emit(line)
     summary["segmented_sum"] = summarize(line, nbytes, ops)
+
+
+# -- phase 3: MIN / MAX and M2 (q17's and phase 12's paths) --------------------
+
+AGG_TAIL_TYPES = (T.BOOLEAN, T.INT, T.DATE, T.LONG, tpch.DEC12_2, T.FLOAT,
+                  T.DOUBLE)
+M2_TYPES = (T.INT, T.LONG, T.FLOAT, T.DOUBLE)
+F64_RTOL_M2 = 1e-12              # the squares add in another order
+PHASE12_GROUPS = 14              # 13 keys and the null key
+SPECIAL_FLOATS = (0.0, -0.0, np.nan, np.inf, -np.inf)
+
+
+def tail_column(rng, n: int, dtype: T.DataType, dev, specials=True,
+                null_frac=0.1) -> DeviceColumn:
+    """Values of the type, 10% null; floats with NaN, infinities and zeros
+    of both signs among them (``specials``)."""
+    if dtype in (T.FLOAT, T.DOUBLE):
+        vals = rng.randn(n) * 1e3
+        if specials:
+            pick = rng.rand(n) < 0.08
+            vals[pick] = rng.choice(SPECIAL_FLOATS, int(pick.sum()))
+    elif dtype == T.BOOLEAN:
+        vals = rng.rand(n) < 0.5
+    elif dtype.torch_dtype == torch.int32:
+        vals = rng.randint(-2**31, 2**31 - 1, n, dtype=np.int64)
+    else:
+        vals = rng.randint(-2**63, 2**63 - 1, n, dtype=np.int64)
+    valid = rng.rand(n) >= null_frac
+    vals = np.where(valid, vals.astype(dtype.np_dtype),
+                    np.zeros((), dtype.np_dtype))
+    return DeviceColumn.from_numpy(vals, dtype, valid, dev)
+
+
+def tail_layouts(n: int) -> dict:
+    """Segment starts: every row alone, runs of 7, one segment of all rows
+    (n > 0), and ~1,000 random segments."""
+    out = {"whole": np.zeros(1, np.int64)} if n else {}
+    out["ones"] = np.arange(n)
+    out["sevens"] = np.arange(0, n, 7)
+    if n > 1_000:
+        rng = np.random.RandomState(n)
+        out["random"] = np.unique(np.r_[0, rng.randint(1, n, 999)])
+    return out
+
+
+def with_edge_segments(c: DeviceColumn, starts: np.ndarray) -> DeviceColumn:
+    """In runs of 7: segment 0 all null, and for floats segment 1 all NaN,
+    segment 2 NaN first, segment 3 NaN last."""
+    if len(starts) < 5:
+        return c
+    c.validity[starts[0]:starts[1]] = False
+    c.data[starts[0]:starts[1]] = 0
+    if c.data.is_floating_point():
+        c.validity[starts[1]:starts[4]] = True
+        c.data[starts[1]:starts[2]] = float("nan")
+        c.data[starts[2]] = float("nan")
+        c.data[starts[4] - 1] = float("nan")
+    return c
+
+
+def hold_extremes(c: DeviceColumn, st: torch.Tensor, what: str) -> None:
+    for is_min in (True, False):
+        w = f"{what} {'min' if is_min else 'max'}"
+        hold("segmented_extreme", list(zip(
+            R.segmented_extreme(c.data, c.validity, st, is_min),
+            R.segmented_extreme_plain(c.data, c.validity, st, is_min))), w)
+        hold("masked_extreme", list(zip(
+            R.masked_extreme(c.data, c.validity, is_min),
+            R.masked_extreme_plain(c.data, c.validity, is_min))), w)
+
+
+def hold_m2_pair(kernel: str, got: torch.Tensor, want: torch.Tensor,
+                 what: str) -> float:
+    """M2 within F64_RTOL_M2 relative, NaN where the plain version is."""
+    nan = torch.isnan(want)
+    require(torch.equal(torch.isnan(got), nan),
+            f"{kernel} differs from its plain version in its NaNs: {what}")
+    return hold(kernel, [(got[~nan], want[~nan])], what, F64_RTOL_M2)
+
+
+def hold_m2(c: DeviceColumn, st: torch.Tensor, what: str) -> None:
+    """Update over the column, then merge its per-segment partials (with
+    the null ones of segments without a valid row)."""
+    x64 = c.data.to(torch.float64)
+    total, ok, cnt, _ = R.segmented_sum(x64, c.validity, st)
+    args = ("update", c.data, c.validity, st, total, cnt)
+    m2 = R.segmented_m2(*args)
+    hold_m2_pair("segmented_m2", m2, R.segmented_m2_plain(*args),
+                 f"{what} update")
+    t1, _, n1 = R.masked_sum(x64, c.validity)
+    args1 = ("update", c.data, c.validity, t1, n1)
+    hold_m2_pair("masked_m2", R.masked_m2(*args1), R.masked_m2_plain(*args1),
+                 f"{what} update")
+    g = st.shape[0]
+    if g == 0:
+        return
+    # the partials merged in groups of 5 segments, and all to one
+    m2 = torch.where(ok, m2, torch.zeros((), dtype=m2.dtype, device=m2.device))
+    st5 = torch.arange(0, g, 5, dtype=torch.int32, device=st.device)
+    all_ok = torch.ones_like(ok)
+    t5, _, _, _ = R.segmented_sum(total, ok, st5)
+    n5 = R.segmented_sum(cnt, all_ok, st5)[0]
+    args5 = ("merge", m2, ok, st5, t5, n5, total, cnt)
+    hold_m2_pair("segmented_m2", R.segmented_m2(*args5),
+                 R.segmented_m2_plain(*args5), f"{what} merge")
+    tm, _, _ = R.masked_sum(total, ok)
+    nm = R.masked_sum(cnt, all_ok)[0]
+    argsm = ("merge", m2, ok, tm, nm, total, cnt)
+    hold_m2_pair("masked_m2", R.masked_m2(*argsm), R.masked_m2_plain(*argsm),
+                 f"{what} merge")
+
+
+def phase12_layout(rng, n: int, dev):
+    """A partial step's work at phase 12's shape: a batch's double column
+    sorted by its 13 keys and the null key (14 segments)."""
+    keys = np.sort(rng.randint(0, PHASE12_GROUPS, n))
+    starts = np.flatnonzero(np.r_[True, keys[1:] != keys[:-1]])
+    c = tail_column(rng, n, T.DOUBLE, dev, specials=False, null_frac=1 / 7)
+    st = torch.from_numpy(starts.astype(np.int32)).to(dev)
+    return c, st
+
+
+def check_agg_tail(rng, dev, summary) -> None:
+    """segmented_extreme, masked_extreme, segmented_m2 and masked_m2
+    against their plain versions: every type of the slice's paths, n = 0,
+    1, 1,048,576 and 1,000,003, segments of one row, of 7 (one all null,
+    one all NaN, one NaN first, one NaN last) and of all rows, ~1,000
+    random ones; extremes and counts bit for bit, M2 within 1e-12; the
+    large-mean case of tests/test_variance.py:20; then each timed at
+    phase 12's shape."""
+    for n in (0, 1, N, RAGGED):
+        for name, starts in tail_layouts(n).items():
+            st = torch.from_numpy(starts.astype(np.int32)).to(dev)
+            for dt in AGG_TAIL_TYPES:
+                c = tail_column(rng, n, dt, dev)
+                if name == "sevens":
+                    c = with_edge_segments(c, starts)
+                what = f"n={n} {name} {dt!r}"
+                hold_extremes(c, st, what)
+                if dt in M2_TYPES:
+                    hold_m2(c, st, what)
+    # mean >> stddev: 1e8 + (i % 7) - 3 in three segments
+    i = np.arange(N)
+    big = DeviceColumn.from_numpy(1.0e8 + (i % 7) - 3.0, T.DOUBLE, None, dev)
+    st3 = torch.tensor([0, N // 3, 2 * N // 3], dtype=torch.int32, device=dev)
+    hold_m2(big, st3, "large mean")
+    total, _, cnt, _ = R.segmented_sum(big.data, big.validity, st3)
+    m2 = R.segmented_m2("update", big.data, big.validity, st3, total, cnt)
+    want = [np.var((1.0e8 + (i % 7) - 3.0)[a:b]) * (b - a) for a, b in
+            zip((0, N // 3, 2 * N // 3), (N // 3, 2 * N // 3, N))]
+    require(np.allclose(m2.cpu().numpy(), want, rtol=1e-9),
+            f"large-mean M2 {m2.tolist()} against numpy {want}")
+    c, st = phase12_layout(rng, N, dev)
+    g = st.shape[0]
+    lengths = R.segment_rows(st, N)
+    total, _, cnt, _ = R.segmented_sum(c.data, c.validity, st)
+    t1, _, n1 = R.masked_sum(c.data, c.validity)
+    cases = {
+        "segmented_extreme": (
+            lambda: R.segmented_extreme(c.data, c.validity, st, True),
+            lambda: R.segmented_extreme_plain(c.data, c.validity, st, True),
+            lambda: torch.segment_reduce(c.data, "min", lengths=lengths),
+            9 * N + 4 * g + 9 * g),
+        "masked_extreme": (
+            lambda: R.masked_extreme(c.data, c.validity, True),
+            lambda: R.masked_extreme_plain(c.data, c.validity, True),
+            lambda: torch.amin(c.data), 9 * N + 17),
+        "segmented_m2": (
+            lambda: R.segmented_m2("update", c.data, c.validity, st, total,
+                                   cnt),
+            lambda: R.segmented_m2_plain("update", c.data, c.validity, st,
+                                         total, cnt),
+            None, 9 * N + 4 * g + 16 * g + 8 * g),
+        "masked_m2": (
+            lambda: R.masked_m2("update", c.data, c.validity, t1, n1),
+            lambda: R.masked_m2_plain("update", c.data, c.validity, t1, n1),
+            lambda: torch.var(c.data), 9 * N + 16 + 8),
+    }
+    hold_extremes(c, st, "phase 12's shape")
+    hold_m2(c, st, "phase 12's shape")
+    for kernel, (fn, plain, library, nbytes) in cases.items():
+        line = {"kernel": kernel, "shape": "phase12_partial", "n": N,
+                "segments": g, **measure(fn, plain, library, nbytes, N)}
+        emit(line)
+        summary[kernel] = summarize(line, nbytes, N)
 
 
 # -- phase 3: the q3 path's string and join kernels ----------------------------
@@ -2403,6 +2626,7 @@ def phase_kernels(dev, tables) -> dict:
     check_semi_join(rng, dev, tables, summary)
     check_substring(rng, dev)
     check_fused(rng, dev, summary)
+    check_agg_tail(rng, dev, summary)
     torch.cuda.synchronize()
     return summary
 
@@ -2518,8 +2742,9 @@ def run_phase_path(name: str, query, kernels) -> tuple:
 
 
 def time_path(name: str, query, df, rows: int = SF10_ROWS,
-              profile=None) -> dict:
-    """Median wall of 3 runs after the main-path run, then one profiled
+              profile=None, runs: int = 3) -> dict:
+    """Median wall of ``runs`` runs after the main-path run, then one
+    profiled
     run (``profile``: the (busy ms, activities, ms by name) of the
     main-path run instead, traced already): the card's busy time, its
     activities and idle share; ``rows`` scanned per run; the peak memory
@@ -2528,7 +2753,7 @@ def time_path(name: str, query, df, rows: int = SF10_ROWS,
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     walls = []
-    for _ in range(3):
+    for _ in range(runs):
         t = time.perf_counter()
         query(df).collect()
         torch.cuda.synchronize()
@@ -2743,41 +2968,50 @@ def cents(x: np.ndarray) -> np.ndarray:
 
 
 class Q25Numpy:
-    """Independent q25 over host arrays.  Each fact keeps only the rows in
-    its date window (the inner joins commute with those filters); the
-    composite keys pack into int64 ((ticket, item) and (customer, item),
-    all within int32) and join by sort and searchsorted; every store_sales
-    store and item exists, and (item, store) decides the four group keys,
-    so the groups are (item, store) and sort by them; the sums are integer
-    cents."""
+    """Independent q25 and q17 over host arrays.  Each fact keeps only the
+    rows in its query's date window (the inner joins commute with those
+    filters); the composite keys pack into int64 ((ticket, item) and
+    (customer, item), all within int32) and join by sort and
+    searchsorted; every store_sales store and item exists.  q25: (item,
+    store) decides its four group keys, so the groups are (item, store)
+    and sort by them; the sums are integer cents.  q17: the groups are
+    (item, store name), in the order of the item (its id and description
+    sort as its key) and the name; the standard deviations two-pass in
+    float64."""
+
+    # query -> (year, store_sales months, the later facts' months)
+    WINDOWS = {"q25": (2000, (4, 4), (4, 10)), "q17": (2001, (1, 3), (1, 9))}
+    SS_COLS = ("ss_ticket_number", "ss_item_sk", "ss_store_sk",
+               "ss_net_profit", "ss_quantity")
+    SR_COLS = ("sr_ticket_number", "sr_item_sk", "sr_customer_sk",
+               "sr_net_loss", "sr_return_quantity")
+    CS_COLS = ("cs_bill_customer_sk", "cs_item_sk", "cs_net_profit",
+               "cs_quantity")
 
     def __init__(self, d):
         self.year, self.moy = d["d_year"], d["d_moy"]
-        self.ss, self.sr, self.cs = [], [], []
+        self.parts = {q: ([], [], []) for q in self.WINDOWS}
 
-    def window(self, date_sk, lo: int, hi: int) -> np.ndarray:
+    def window(self, date_sk, year: int, months) -> np.ndarray:
         i = date_sk.astype(np.int64) - 2450000
         ok = (i >= 0) & (i < len(self.year))
         j = np.where(ok, i, 0)
-        return ok & (self.year[j] == 2000) & (self.moy[j] >= lo) & \
-            (self.moy[j] <= hi)
+        return ok & (self.year[j] == year) & (self.moy[j] >= months[0]) & \
+            (self.moy[j] <= months[1])
+
+    def _add(self, fact: int, data, date_col: str, cols) -> None:
+        for q, (year, first, later) in self.WINDOWS.items():
+            ok = self.window(data[date_col], year, later if fact else first)
+            self.parts[q][fact].append({k: data[k][ok] for k in cols})
 
     def add_store_sales(self, data) -> None:
-        ok = self.window(data["ss_sold_date_sk"], 4, 4)
-        self.ss.append({k: data[k][ok] for k in (
-            "ss_ticket_number", "ss_item_sk", "ss_store_sk",
-            "ss_net_profit")})
+        self._add(0, data, "ss_sold_date_sk", self.SS_COLS)
 
     def add_store_returns(self, data) -> None:
-        ok = self.window(data["sr_returned_date_sk"], 4, 10)
-        self.sr.append({k: data[k][ok] for k in (
-            "sr_ticket_number", "sr_item_sk", "sr_customer_sk",
-            "sr_net_loss")})
+        self._add(1, data, "sr_returned_date_sk", self.SR_COLS)
 
     def add_catalog_sales(self, data) -> None:
-        ok = self.window(data["cs_sold_date_sk"], 4, 10)
-        self.cs.append({k: data[k][ok] for k in (
-            "cs_bill_customer_sk", "cs_item_sk", "cs_net_profit")})
+        self._add(2, data, "cs_sold_date_sk", self.CS_COLS)
 
     @staticmethod
     def _cat(parts):
@@ -2798,17 +3032,23 @@ class Q25Numpy:
         start = np.repeat(np.cumsum(cnt) - cnt, cnt)
         return li, order[lo[li] + np.arange(len(li)) - start]
 
-    def result(self, limit: int = 100):
-        """((item, store, ss cents, sr cents, cs cents) of the first
-        ``limit`` groups in q25's order, the number of groups)."""
-        ss, sr, cs = (self._cat(x) for x in (self.ss, self.sr, self.cs))
+    def chain(self, q: str):
+        """The three facts of query q and the rows of each that the chain
+        joins: (ss, sr, cs, a, b, c), row i of the join is (a[i], b[i],
+        c[i])."""
+        ss, sr, cs = (self._cat(x) for x in self.parts[q])
         a, b = self._join(self._pack(ss["ss_ticket_number"], ss["ss_item_sk"]),
                           self._pack(sr["sr_ticket_number"], sr["sr_item_sk"]))
         b2, c = self._join(self._pack(sr["sr_customer_sk"][b],
                                       sr["sr_item_sk"][b]),
                            self._pack(cs["cs_bill_customer_sk"],
                                       cs["cs_item_sk"]))
-        a, b = a[b2], b[b2]
+        return ss, sr, cs, a[b2], b[b2], c
+
+    def result(self, limit: int = 100):
+        """((item, store, ss cents, sr cents, cs cents) of the first
+        ``limit`` groups in q25's order, the number of groups)."""
+        ss, sr, cs, a, b, c = self.chain("q25")
         group = self._pack(ss["ss_item_sk"][a], ss["ss_store_sk"][a])
         keys, inv = np.unique(group, return_inverse=True)
         sums = [np.bincount(inv, cents(v), len(keys)).astype(np.int64)
@@ -2818,6 +3058,37 @@ class Q25Numpy:
                 for k, t in zip(keys[:limit], zip(*(x[:limit]
                                                     for x in sums)))]
         return rows, len(keys)
+
+    def q17(self, store_names) -> list:
+        """Every q17 group in q17's order: (item, store name), then for
+        each of the three quantities its count, mean, sample standard
+        deviation and that over the mean (None below two rows)."""
+        ss, sr, cs, a, b, c = self.chain("q17")
+        names = sorted(set(store_names))
+        rank = np.array([names.index(x) for x in store_names])
+        group = (ss["ss_item_sk"][a].astype(np.int64) << 8) | \
+            rank[ss["ss_store_sk"][a] - 1]
+        keys, inv = np.unique(group, return_inverse=True)
+        count = np.bincount(inv, minlength=len(keys))
+        stats = []
+        for q in (ss["ss_quantity"][a], sr["sr_return_quantity"][b],
+                  cs["cs_quantity"][c]):
+            q = q.astype(np.float64)
+            mean = np.bincount(inv, q, len(keys)) / count
+            m2 = np.bincount(inv, (q - mean[inv]) ** 2, len(keys))
+            with np.errstate(all="ignore"):
+                std = np.sqrt(m2 / (count - 1))
+            stats.append((mean, std))
+        rows = []
+        for gi, k in enumerate(keys.tolist()):
+            row = [k >> 8, names[k & 0xFF]]
+            n = int(count[gi])
+            for mean, std in stats:
+                sd = float(std[gi]) if n > 1 else None
+                row += [n, float(mean[gi]), sd,
+                        sd / float(mean[gi]) if n > 1 else None]
+            rows.append(tuple(row))
+        return rows
 
 
 def phase_q25_data(dev, q3_dfs, ss_pool, ref: "Q25Numpy", tables,
@@ -2865,9 +3136,14 @@ def phase_q25_data(dev, q3_dfs, ss_pool, ref: "Q25Numpy", tables,
              "item_desc": item.column("i_item_desc").to_pylist(),
              "store": list(zip(store.column("s_store_id").to_pylist(),
                                store.column("s_store_name").to_pylist()))}
+    q17_want = [(names["item_id"][it - 1], names["item_desc"][it - 1],
+                 *rest) for it, *rest in ref.q17(
+                     [name for _, name in names["store"]])]
+    emit({"phase": "q17_numpy", "groups": len(q17_want),
+          "groups_with_stddev": sum(r[5] is not None for r in q17_want)})
     return dfs, [(names["item_id"][it - 1], names["item_desc"][it - 1],
                   *names["store"][st - 1], s1, s2, s3)
-                 for it, st, s1, s2, s3 in want], cs_batches, \
+                 for it, st, s1, s2, s3 in want], q17_want, cs_batches, \
         tpcds.host_pool(order_chunks, CS_ORDER_POOL)
 
 
@@ -2947,6 +3223,52 @@ def phase_q25(dfs, want) -> dict:
     timing = time_path("q25", query, None, scanned)
     emit({"phase": "q25", "fact_rows": scanned, "rows": len(rows),
           "max_rel_err": max_rel, "first_rows": rows[:3], **timing})
+    return launches
+
+
+F64_RTOL_Q17 = 1e-9             # against numpy's two-pass float64
+Q17_KERNELS = Q25_KERNELS + ("segmented_m2",)
+
+
+def check_q17_rows(name: str, rows, want) -> float:
+    """numpy's groups in q17's order: keys and counts exact, the means,
+    standard deviations and their ratios within F64_RTOL_Q17, null exactly
+    where a group has fewer than two rows."""
+    require(len(rows) == len(want),
+            f"{name} gave {len(rows)} rows, numpy {len(want)}")
+    max_rel = 0.0
+    for g, w in zip(rows, want):
+        require(g[:3] == w[:3], f"{name} row {g[:3]} where numpy has {w[:3]}")
+        for f in range(3):
+            got = g[3 + 4 * f: 7 + 4 * f]
+            exp = w[3 + 4 * f: 7 + 4 * f]
+            require(got[0] == exp[0], f"{name} count {got} vs numpy {exp}")
+            for a, b in zip(got[1:], exp[1:]):
+                require((a is None) == (b is None),
+                        f"{name} nulls {got} vs numpy {exp}")
+                if b is None:
+                    continue
+                require(np.isfinite(a), f"{name} gave {g}")
+                err = abs(a - b)
+                max_rel = max(max_rel, err / abs(b) if b else err)
+    require(max_rel <= F64_RTOL_Q17, f"{name} off numpy by {max_rel} relative")
+    return max_rel
+
+
+def phase_q17(dfs, want) -> dict:
+    """q17 on q25's tables and session: the main path (LIMIT 100) with its
+    launches, then every group (no LIMIT), each against numpy; timed and
+    profiled."""
+    query = lambda _: tpcds.q17(*dfs)  # noqa: E731
+    rows, launches = run_path("q17", query, None, Q17_KERNELS)
+    max_rel = check_q17_rows("q17", rows, want[:100])
+    every = tpcds.q17(*dfs, limit=None).collect()
+    max_rel_all = check_q17_rows("q17 without LIMIT", every, want)
+    timing = time_path("q17", query, None, SS_ROWS + SR_ROWS + CS_ROWS)
+    emit({"phase": "q17", "rows": len(rows), "groups": len(every),
+          "groups_with_stddev": sum(r[5] is not None for r in every),
+          "max_rel_err": max_rel, "max_rel_err_every_group": max_rel_all,
+          "first_rows": rows[:2], **timing})
     return launches
 
 
@@ -3220,7 +3542,9 @@ def phase_q72(dfs, want) -> dict:
           **check_q72_plan(plan)})
     check_q72_rows(rows, want)
     scanned = CS_ROWS + INV_ROWS + CR_ROWS
-    timing = time_path("q72", query, None, scanned, prof)
+    # one timed run (q72 takes ~20 s a run, q14a ~40 s): the script's
+    # time limit holds every phase
+    timing = time_path("q72", query, None, scanned, prof, runs=1)
     emit({"phase": "q72", "fact_rows": scanned, "rows": len(rows),
           "first_rows": rows[:3], **timing})
     return launches
@@ -3500,7 +3824,7 @@ def phase_q14a(dfs, item_df, ref: ChannelNumpy) -> dict:
     want = ref.q14a(mean)
     worst = check_float_rows("q14a", rows, want, 3)
     scanned = sum(CHANNEL_SALES_ROWS.values())
-    timing = time_path("q14a", query, None, scanned, prof)
+    timing = time_path("q14a", query, None, scanned, prof, runs=1)
     emit({"phase": "q14a", "fact_rows": scanned, "rows": len(rows),
           "threshold": thr, "numpy_threshold": mean,
           "numpy_price_cents": [total, count], "max_rel_err": worst,
@@ -3851,6 +4175,277 @@ def phase_gauntlet(dfs, ref: GauntletNumpy) -> dict:
     return by_query
 
 
+# -- phase 12 -----------------------------------------------------------------
+
+HELD_ROWS = SF10_ROWS            # 60,012,150: TPC-H SF10 lineitem's rows
+HELD_SEED = 0
+HELD_PARTITIONS = 16
+F64_RTOL_HELD = 1e-9             # against numpy's float64 sums
+# each held query's kernels that its main path must launch
+HELD_KERNELS = {
+    "global_aggregate": ("masked_extreme", "masked_sum"),
+    "grouped_aggregate": ("segmented_extreme", "segmented_sum", "sort"),
+    "global_extremes": ("masked_extreme",),
+    "grouped_extremes": ("segmented_extreme", "sort"),
+    "global_variance": ("masked_m2", "masked_sum"),
+    "grouped_variance": ("segmented_m2", "segmented_sum", "sort"),
+    "filtered_global": ("fused_segment", "masked_extreme", "masked_m2"),
+}
+
+
+class HeldNumpy:
+    """Independent evaluation of the held queries over the host columns:
+    Spark's MIN / MAX (NaN above everything) by ``reduceat`` over the rows
+    in group order (the null key first, then keys 0-12, as the port's rows
+    are sorted here), sums and counts exact, means and the two-pass M2 in
+    float64; a global result from the groups' where that is exact
+    (extremes, counts, integer sums), else from all rows.  The columns'
+    statistics are computed once, in threads (numpy releases the GIL).
+    Each result row comes with which of its values must be exact (keys,
+    counts, integer sums, MIN and MAX)."""
+
+    def __init__(self, data, validity):
+        self.data, self.validity = data, validity
+        gid = np.where(validity["k"], data["k"] + 1, 0).astype(np.int8)
+        self.order = np.argsort(gid, kind="stable")
+        sg = gid[self.order]
+        self.starts = np.flatnonzero(np.r_[True, sg[1:] != sg[:-1]])
+        self.keys = [None if g == 0 else int(g) - 1 for g in sg[self.starts]]
+        keep = validity["v"] & (data["v"] > 0)   # filtered_global's filter
+        with ThreadPoolExecutor(len(data)) as pool:
+            self.grouped = dict(zip(data, pool.map(self._grouped, data)))
+            self.total_m2 = dict(zip("xv", pool.map(
+                lambda c: self.moments(data[c], validity[c],
+                                       np.zeros(1, np.int64))[2], "xv")))
+            self.filtered = dict(zip(data, pool.map(
+                lambda c: self._stats(data[c], validity[c] & keep,
+                                      np.zeros(1, np.int64)), data)))
+
+    def _grouped(self, name: str) -> dict:
+        return self._stats(self.data[name][self.order],
+                           self.validity[name][self.order], self.starts)
+
+    @classmethod
+    def _stats(cls, x, ok, starts) -> dict:
+        out = {"min": cls.extreme(x, ok, starts, True),
+               "max": cls.extreme(x, ok, starts, False)}
+        if x.dtype in (np.int64, np.float64):     # v and x
+            out["moments"] = cls.moments(x, ok, starts)
+        if x.dtype == np.int64:
+            out["isum"] = np.add.reduceat(np.where(ok, x, 0), starts)
+        return out
+
+    @staticmethod
+    def extreme(x, ok, starts, is_min: bool):
+        """(the extreme of the valid non-NaN values, their count, the
+        count of valid NaNs) per run: a [runs] value array, two int64."""
+        ufunc = np.minimum if is_min else np.maximum
+        if x.dtype.kind == "f":
+            nan = np.isnan(x)
+            take = ok & ~nan
+            fill = np.inf if is_min else -np.inf
+            nans = np.add.reduceat(ok & nan, starts, dtype=np.int64)
+        else:
+            x = x.astype(np.int64)
+            take = ok
+            info = np.iinfo(np.int64)
+            fill = info.max if is_min else info.min
+            nans = np.zeros(len(starts), np.int64)
+        red = ufunc.reduceat(np.where(take, x, fill), starts)
+        return red, np.add.reduceat(take, starts, dtype=np.int64), nans
+
+    @staticmethod
+    def spark_extreme(parts, is_min: bool, dtype) -> list:
+        """Spark's MIN / MAX of each run from ``extreme``'s parts."""
+        red, nonnan, nans = parts
+        out = []
+        for v, a, b in zip(red.tolist(), nonnan.tolist(), nans.tolist()):
+            if a + b == 0:
+                out.append(None)
+            elif dtype.kind == "f" and (b > 0 if not is_min else a == 0):
+                out.append(float("nan"))
+            else:
+                out.append(bool(v) if dtype == np.bool_ else v)
+        return out
+
+    @staticmethod
+    def moments(x, ok, starts):
+        """Per run: (valid count, float64 sum, two-pass M2)."""
+        xf = np.where(ok, x.astype(np.float64), 0.0)
+        n = np.add.reduceat(ok, starts, dtype=np.int64)
+        s = np.add.reduceat(xf, starts)
+        with np.errstate(all="ignore"):
+            mean = s / np.maximum(n, 1)
+            lens = np.diff(np.r_[starts, len(x)])
+            d = np.where(ok, xf - np.repeat(mean, lens), 0.0)
+        return n, s, np.add.reduceat(d * d, starts)
+
+    @staticmethod
+    def variances(n, m2) -> list:
+        """Per run: var_samp, var_pop, stddev, stddev_pop (None where the
+        divisor is 0)."""
+        out = []
+        with np.errstate(all="ignore"):
+            for ni, mi in zip(n.tolist(), m2.tolist()):
+                vs = mi / (ni - 1) if ni > 1 else None
+                vp = mi / ni if ni > 0 else None
+                out.append((vs, vp, None if vs is None else np.sqrt(vs),
+                            None if vp is None else np.sqrt(vp)))
+        return out
+
+    def extremes_of(self, c: str, grouped: bool, filtered: bool = False
+                    ) -> list:
+        """[min per run, max per run] of column c."""
+        out = []
+        for is_min in (True, False):
+            key = "min" if is_min else "max"
+            if filtered:
+                parts = self.filtered[c][key]
+            else:
+                parts = self.grouped[c][key]
+                if not grouped:   # the groups' extremes combined
+                    red, a, b = parts
+                    pick = a > 0
+                    ufunc = np.minimum if is_min else np.maximum
+                    v = ufunc.reduce(red[pick]) if pick.any() else red[0]
+                    parts = (np.array([v]), a.sum(keepdims=True),
+                             b.sum(keepdims=True))
+            out.append(self.spark_extreme(parts, is_min,
+                                          self.data[c].dtype))
+        return out
+
+    def moments_of(self, c: str, grouped: bool, filtered: bool = False):
+        if filtered:
+            return self.filtered[c]["moments"]
+        n, s, m2 = self.grouped[c]["moments"]
+        if grouped:
+            return n, s, m2
+        return (n.sum(keepdims=True), s.sum(keepdims=True),
+                self.total_m2[c])
+
+    def rows(self, name: str):
+        """(rows, exact flags of each value) of one held query."""
+        grouped = name.startswith("grouped")
+        filtered = name == "filtered_global"
+        cols, exact = [], []
+
+        def add(values, is_exact):
+            cols.append(values)
+            exact.append(is_exact)
+
+        def extremes(names):
+            for c in names:
+                for values in self.extremes_of(c, grouped, filtered):
+                    add(values, True)
+
+        def variances(names, which=range(4)):
+            for c in names:
+                n, _, m2 = self.moments_of(c, grouped, filtered)
+                per = self.variances(n, m2)
+                for i in which:
+                    add([p[i] for p in per], False)
+
+        if name in ("global_aggregate", "grouped_aggregate"):
+            st = self.grouped["v"]
+            vsum, vn = st["isum"], st["moments"][0]
+            if not grouped:
+                vsum, vn = vsum.sum(keepdims=True), vn.sum(keepdims=True)
+            add(vsum.tolist(), True)
+            add(vn.tolist(), True)
+            if grouped:
+                extremes("x")
+                add([s / c if c else None
+                     for s, c in zip(vsum.tolist(), vn.tolist())], False)
+            else:
+                add([len(self.data["v"])], True)
+                extremes("v")
+                xn, xs, _ = self.moments_of("x", False)
+                add([float(xs[0]) / int(xn[0]) if xn[0] else None], False)
+        elif name.endswith("extremes"):
+            extremes("vxfb" if grouped else "kvxfb")
+        elif name.endswith("variance"):
+            variances("xv")
+        else:   # filtered_global
+            extremes("kxfb")
+            variances("v", [0])
+            variances("x", [3])
+        rows = [tuple(c[i] for c in cols) for i in range(len(cols[0]))]
+        if grouped:
+            rows = [(k, *r) for k, r in zip(self.keys, rows)]
+            exact = [True] + exact
+        return rows, exact
+
+
+def held_equal(a, b, is_exact: bool) -> bool:
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(b, float) and np.isnan(b):
+        return isinstance(a, float) and np.isnan(a)
+    if is_exact or a == b:
+        return a == b
+    return abs(a - b) <= F64_RTOL_HELD * abs(b)
+
+
+def phase_held_data(dev):
+    """The held table on the card: tests/test_queries.py's make_data drawn
+    at 60,012,150 rows, batches of 1,048,576, 16 partitions; numpy's
+    results of the seven queries."""
+    t0 = time.perf_counter()
+    data, validity = held.columns(HELD_ROWS, HELD_SEED)
+    batches = [batch_from_numpy({c: (data[c][o:o + N], validity[c][o:o + N])
+                                 for c in held.SCHEMA.names}, held.SCHEMA,
+                                dev) for o in range(0, HELD_ROWS, N)]
+    torch.cuda.synchronize()
+    upload = time.perf_counter() - t0
+    ref = HeldNumpy(data, validity)
+    want = {name: ref.rows(name) for name in held.QUERIES}
+    resident = sum(t.nbytes for b in batches for c in b.columns
+                   for t in (c.data, c.validity))
+    emit({"phase": "held_data", "rows": HELD_ROWS, "batches": len(batches),
+          "partitions": HELD_PARTITIONS, "resident_bytes": resident,
+          "draw_and_upload_seconds": upload,
+          "setup_seconds": time.perf_counter() - t0})
+    df = GpuSession().create_dataframe(batches, num_partitions=HELD_PARTITIONS)
+    return df, want
+
+
+def phase_held(df, want) -> dict:
+    """Each held query's main path (traced, its launches), held against
+    numpy, then timed; the filtered global aggregate must be one fused
+    segment that ran once a batch."""
+    by_path = {}
+    nbatches = -(-HELD_ROWS // N)
+    for name, build in held.QUERIES.items():
+        query = lambda _, build=build: build(df)  # noqa: E731
+        path = f"held_{name}"
+        rows, plan, launches, first_wall, profile = run_phase_path(
+            path, query, HELD_KERNELS[name])
+        rows = sorted(rows, key=lambda r: (r[0] is not None, r[0]))
+        exp, exact = want[name]
+        require(len(rows) == len(exp),
+                f"{path} gave {len(rows)} rows, numpy {len(exp)}")
+        for g, w in zip(rows, exp):
+            require(all(held_equal(a, b, e) for a, b, e in zip(g, w, exact)),
+                    f"{path} row {g} where numpy has {w}")
+        extra = {}
+        if name == "filtered_global":
+            text = query(None).explain()
+            require("GpuFusedSegment[HashAggregate <- Filter" in text,
+                    f"{path} is not one fused segment: {text}")
+            require(launches.get("fused_segment") == nbatches,
+                    f"{path} launched fused_segment "
+                    f"{launches.get('fused_segment')} times over {nbatches} "
+                    "batches")
+            extra["fused"] = True
+        timing = time_path(path, query, None, HELD_ROWS, profile)
+        emit({"phase": path, "rows": HELD_ROWS, "groups": len(rows),
+              "first_wall_s": first_wall, "first_row": rows[0], **extra,
+              "activities_per_batch": timing["device_activities"] / nbatches,
+              **timing})
+        by_path[path] = launches
+    return by_path
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -3868,9 +4463,10 @@ def main() -> None:
     time_substring_q19(dev, gauntlet, summary)
     by_path["q3"] = phase_q3(q3_dfs, q3_want)
     q72_ref = Q72Numpy(tables[0], tables[1], dims)
-    q25_dfs, q25_want, cs_batches, order_pool = phase_q25_data(
+    q25_dfs, q25_want, q17_want, cs_batches, order_pool = phase_q25_data(
         dev, q3_dfs, ss_pool, q25_ref, tables, q72_ref, gauntlet)
     by_path["q25"] = phase_q25(q25_dfs, q25_want)
+    by_path["q17"] = phase_q17(q25_dfs, q17_want)
     phase_fusion_ab(dfs, q3_dfs, q25_dfs)
     by_path["q72"] = phase_q72(*phase_q72_data(
         dev, cs_batches, order_pool, q72_ref, dims, q3_dfs))
@@ -3881,6 +4477,7 @@ def main() -> None:
                                            chan_ref)
     by_path.update(phase_gauntlet(
         phase_gauntlet_data(dev, q25_dfs, gauntlet), gauntlet))
+    by_path.update(phase_held(*phase_held_data(dev)))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         s = summary[name]

@@ -25,6 +25,7 @@ _ARROW_TO_SQL = {
     pa.bool_(): T.BOOLEAN,
     pa.int32(): T.INT,
     pa.int64(): T.LONG,
+    pa.float32(): T.FLOAT,
     pa.float64(): T.DOUBLE,
     pa.date32(): T.DATE,
     pa.string(): T.STRING,

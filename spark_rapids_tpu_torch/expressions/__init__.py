@@ -9,8 +9,8 @@ from spark_rapids_tpu_torch.expressions.core import (
     col,
     lit,
 )
-from spark_rapids_tpu_torch.expressions.arithmetic import (Add, Multiply,
-                                                        Subtract)
+from spark_rapids_tpu_torch.expressions.arithmetic import (Add, Divide,
+                                                        Multiply, Subtract)
 from spark_rapids_tpu_torch.expressions.predicates import (
     And,
     EqualTo,
@@ -26,12 +26,16 @@ from spark_rapids_tpu_torch.expressions.strings import Substring
 from spark_rapids_tpu_torch.expressions.casts import Cast
 from spark_rapids_tpu_torch.expressions.conditional import If
 from spark_rapids_tpu_torch.expressions.aggregates import (
-    Average, Count, Sum, avg, count, sum_)
+    Average, BoolAnd, BoolOr, Count, Max, Min, StddevPop, StddevSamp, Sum,
+    VariancePop, VarianceSamp, avg, count, max_, min_, stddev, stddev_pop,
+    sum_, var_pop, var_samp)
 
 __all__ = [
-    "Add", "Alias", "And", "Average", "BoundReference", "Cast", "Col",
-    "Count", "EqualTo", "EvalContext", "Expression", "GreaterThan",
-    "GreaterThanOrEqual", "If", "IsNull", "LessThan", "LessThanOrEqual",
-    "Literal", "Multiply", "Not", "Or", "Substring", "Subtract", "Sum",
-    "avg", "col", "count", "lit", "sum_",
+    "Add", "Alias", "And", "Average", "BoolAnd", "BoolOr", "BoundReference",
+    "Cast", "Col", "Count", "Divide", "EqualTo", "EvalContext", "Expression",
+    "GreaterThan", "GreaterThanOrEqual", "If", "IsNull", "LessThan",
+    "LessThanOrEqual", "Literal", "Max", "Min", "Multiply", "Not", "Or",
+    "StddevPop", "StddevSamp", "Substring", "Subtract", "Sum", "VariancePop",
+    "VarianceSamp", "avg", "col", "count", "lit", "max_", "min_", "stddev",
+    "stddev_pop", "sum_", "var_pop", "var_samp",
 ]

@@ -129,7 +129,10 @@ class Expression:
         from spark_rapids_tpu_torch.expressions.predicates import Not
         return Not(self)
 
-    __truediv__ = _not_ported("/")
+    def __truediv__(self, other):
+        from spark_rapids_tpu_torch.expressions.arithmetic import Divide
+        return self._bin(other, Divide)
+
     __mod__ = _not_ported("%")
     __neg__ = _not_ported("unary -")
 

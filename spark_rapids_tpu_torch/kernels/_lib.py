@@ -54,6 +54,12 @@ _SIGNATURES = {
     "srt_segment_tile": [],
     "srt_segmented_sum": [_I, _P, _P, _I64, _P, _I, _P, _P, _P, _P, _P, _P,
                           _P],
+    "srt_reduce_state_bytes": [],
+    "srt_segmented_extreme": [_I, _I, _P, _P, _I64, _P, _I, _P, _P, _P, _P],
+    "srt_masked_extreme": [_I, _I, _P, _P, _I64, _P, _P, _P, _P, _P],
+    "srt_segmented_m2": [_I, _I, _P, _P, _P, _P, _I64, _P, _I, _P, _P, _P,
+                         _P, _P],
+    "srt_masked_m2": [_I, _I, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P],
     "srt_max_hash_cols": [],
     "srt_murmur3": [_I, _P, _P, _P, _P, _I64, ctypes.c_uint32, _P, _I, _P,
                     _P],

@@ -4,7 +4,8 @@ Counterpart of ``spark_rapids_tpu/kernels/groupby.py`` for fixed-width and
 string keys: ``normalize_key_column`` :33, ``group_rows`` :97 with
 ``_rows_equal_prev`` :47 and ``_string_rows_equal_prev`` :74, ``seg_sum``
 :166, ``seg_count_valid`` :151,
-``seg_count_star`` :159, ``group_keys_output`` :284 and
+``seg_count_star`` :159, ``seg_m2_update`` :179, ``seg_m2_merge`` :200,
+``seg_min`` :228, ``seg_max`` :256, ``group_keys_output`` :284 and
 ``finalize_agg_column`` :293.  Spark's grouping rules hold: null keys form
 one group, -0.0 groups with 0.0, and all NaNs group together (keys are
 normalized before the sort and the compare).  Groups come out in key sort
@@ -14,8 +15,10 @@ Columns have exact sizes, so a layout keeps each group's first row (the
 ported ``compaction_map`` of the boundary flags, whose count is the one
 device->host read of a grouping) instead of per-row segment ids over a
 padded capacity.  The sort (``kernels/sort.py``), the gather and the
-compaction (``kernels/selection.py``) and the segmented sum
-(``kernels/reduction.py``) are the kernels.  A fixed-width key's boundary
+compaction (``kernels/selection.py``) and the segmented sum, extreme and
+M2 (``kernels/reduction.py``) are the kernels; the M2 of a group takes its
+sum and count from the step's ``SegmentSums``, so the SUM, M2 and
+COUNT_VALID slots of one variance share one ``segmented_sum`` launch.  A fixed-width key's boundary
 flags are plain elementwise PyTorch; a string key's come from the
 adjacent-row compare of ``csrc/strings.cu`` (``string_rows_equal_prev``).
 The split-tolerant one-pass string grouping key of the reference
@@ -33,7 +36,9 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.kernels import _lib
-from spark_rapids_tpu_torch.kernels.reduction import segmented_sum
+from spark_rapids_tpu_torch.kernels.reduction import (segmented_extreme,
+                                                      segmented_m2,
+                                                      segmented_sum)
 from spark_rapids_tpu_torch.kernels.selection import (compaction_map,
                                                       gather_batch,
                                                       gather_columns)
@@ -193,6 +198,44 @@ def seg_sum(col: DeviceColumn, sums: SegmentSums, out_dtype: torch.dtype
     """SUM: nulls ignored, an all-null group is null, int64 wraps."""
     total, ok, _, _ = sums.of(col, out_dtype)
     return total, ok
+
+
+def seg_m2_update(col: DeviceColumn, sums: SegmentSums
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """M2 = sum of (x - group mean)^2 over the valid rows (two passes: the
+    mean from the group's sum and count) -> (float64, nvalid > 0)."""
+    total, ok, nvalid, _ = sums.of(col, torch.float64)
+    return segmented_m2("update", col.data, col.validity, sums.layout.starts,
+                        total, nvalid), ok
+
+
+def seg_m2_merge(m2col: DeviceColumn, scol: DeviceColumn,
+                 ncol: DeviceColumn, sums: SegmentSums
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chan's merge of partial (M2, sum, count) rows: M2 = sum_i M2_i +
+    n_i (mean_i - mean)^2 -> (float64, n > 0).  A partial whose M2 is null
+    has n_i = 0 and s_i = 0 (null slots hold zero), so the sums over the
+    companions' own validity equal the reference's sums over M2's."""
+    total = sums.of(scol, torch.float64)[0]
+    n = sums.of(ncol, torch.int64)[0]
+    m2 = segmented_m2("merge", m2col.data, m2col.validity,
+                      sums.layout.starts, total, n, scol.data, ncol.data)
+    return m2, n > 0
+
+
+def seg_min(col: DeviceColumn, sums: SegmentSums
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Spark MIN per group: NaN only for a group whose valid values are all
+    NaN; null for a group with no valid value."""
+    return segmented_extreme(col.data, col.validity, sums.layout.starts,
+                             True)
+
+
+def seg_max(col: DeviceColumn, sums: SegmentSums
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Spark MAX per group: NaN where any valid value is NaN."""
+    return segmented_extreme(col.data, col.validity, sums.layout.starts,
+                             False)
 
 
 def group_keys_output(layout: GroupedLayout,

@@ -2,7 +2,9 @@
 
 Counterpart of ``spark_rapids_tpu/plan/execs/aggregate.py``
 (``TpuHashAggregateExec`` :783; ``_partial_step`` :505-580, ``_merge_step``
-:657-735, ``_finalize`` :736; ``_global_update`` :274) in the three modes
+:657-735 with its M2_MERGE dispatch :644 and :724, ``_finalize`` :736;
+``_seg_update`` :91, ``_global_update`` :274, ``_global_m2_merge`` :318,
+``_m2_companions`` :374, ``_identity_partial`` :881) in the three modes
 Spark plans:
   * partial:  raw rows -> one partial batch per input batch: with no keys
               one row of buffer slots, grouped the keys of each group then
@@ -12,8 +14,9 @@ Spark plans:
   * complete: both, for a single-partition child.
 A global aggregate over a partition with no input yields the identity
 partial (counts 0, sums null; aggregate.py:881), so it still gives one
-row, and SUM over no valid row is NULL (the ``nvalid > 0`` flag,
-aggregate.py:283-286).  A grouped partition with no input yields no rows.
+row, and SUM, MIN, MAX and M2 over no valid row are NULL (the
+``nvalid > 0`` flag, aggregate.py:283-286).  A grouped partition with no
+input yields no rows.
 
 Grouped steps are sort-based (kernels/groupby.py): the keys and every
 aggregate input form one work batch, which is sorted by the keys and cut
@@ -21,7 +24,7 @@ into groups; each buffer slot is then a segmented reduction over it.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,11 +32,12 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.expressions.aggregates import (
-    COUNT_STAR, COUNT_VALID, SUM, AggregateFunction)
+    COUNT_STAR, COUNT_VALID, M2, M2_MERGE, MAX, MIN, SUM, AggregateFunction)
 from spark_rapids_tpu_torch.expressions.core import (
     EvalContext, Expression, make_column)
 from spark_rapids_tpu_torch.kernels import groupby as G
-from spark_rapids_tpu_torch.kernels.reduction import masked_sum
+from spark_rapids_tpu_torch.kernels.reduction import (masked_extreme,
+                                                      masked_m2, masked_sum)
 from spark_rapids_tpu_torch.kernels.selection import coalesce_to_one
 from spark_rapids_tpu_torch.plan.execs.base import GpuExec, timed
 
@@ -60,7 +64,26 @@ def _global_update(op: str, col: DeviceColumn, num_rows: int,
     if op == SUM:
         value, ok, _ = sums.of(col, out_dtype.torch_dtype)
         return DeviceColumn(value, ok, out_dtype)
+    if op == M2:
+        # two passes: the mean from the sum the SUM slot shares
+        total, ok, nvalid = sums.of(col, torch.float64)
+        return DeviceColumn(masked_m2("update", col.data, col.validity,
+                                      total, nvalid), ok, out_dtype)
+    if op in (MIN, MAX):
+        value, ok, _ = masked_extreme(col.data, col.validity, op == MIN)
+        return DeviceColumn(value, ok, out_dtype)
     raise NotImplementedError(f"aggregate op {op!r} is not ported")
+
+
+def _global_m2_merge(m2col: DeviceColumn, scol: DeviceColumn,
+                     ncol: DeviceColumn, sums: _Sums) -> DeviceColumn:
+    """Chan's merge over all partial rows to one group (see
+    ``groupby.seg_m2_merge``)."""
+    total = sums.of(scol, torch.float64)[0]
+    n = sums.of(ncol, torch.int64)[0]
+    m2 = masked_m2("merge", m2col.data, m2col.validity, total, n, scol.data,
+                   ncol.data)
+    return DeviceColumn(m2, n > 0, T.DOUBLE)
 
 
 def _seg_update(op: str, col: DeviceColumn, out_dtype: T.DataType,
@@ -72,6 +95,12 @@ def _seg_update(op: str, col: DeviceColumn, out_dtype: T.DataType,
         v, valid = G.seg_count_valid(col, sums)
     elif op == SUM:
         v, valid = G.seg_sum(col, sums, out_dtype.torch_dtype)
+    elif op == M2:
+        v, valid = G.seg_m2_update(col, sums)
+    elif op == MIN:
+        v, valid = G.seg_min(col, sums)
+    elif op == MAX:
+        v, valid = G.seg_max(col, sums)
     else:
         raise NotImplementedError(f"aggregate op {op!r} is not ported")
     return G.finalize_agg_column(v, valid, out_dtype)
@@ -121,6 +150,10 @@ class GpuHashAggregateExec(GpuExec):
         self.device = device   # where an identity partial is made
         self.slot_specs = [(ai, slot) for ai, agg in enumerate(self.aggregates)
                            for slot in agg.buffers]
+        #: aggregate index -> the indices of its slots
+        self.slot_pos: Dict[int, List[int]] = {}
+        for si, (ai, _) in enumerate(self.slot_specs):
+            self.slot_pos.setdefault(ai, []).append(si)
         nkeys = len(self.group_exprs)
         self.partial_schema = Schema(
             tuple(f"_k{i}" for i in range(nkeys))
@@ -135,37 +168,65 @@ class GpuHashAggregateExec(GpuExec):
     def _partial_step(self, batch: ColumnarBatch) -> ColumnarBatch:
         """Raw rows -> one partial batch."""
         ctx = EvalContext(batch)
+        work = work_batch(tuple(e.eval(ctx) for e in self.work_exprs()),
+                          batch.num_rows)
         if not self.group_exprs:
-            inputs: Dict[int, DeviceColumn] = {
-                ai: agg.input.eval(ctx)
-                for ai, agg in enumerate(self.aggregates)
-                if agg.input is not None}
-            sums = _Sums()
-            cols = tuple(_global_update(slot.update_op, inputs.get(ai),
-                                        batch.num_rows, slot.dtype,
-                                        batch.device, sums)
-                         for ai, slot in self.slot_specs)
-            return ColumnarBatch(cols, 1, self.partial_schema)
+            return self.global_work_partial(work, batch.device)
         # grouped: keys + inputs in one work batch, sorted and grouped once
-        work_cols = tuple(e.eval(ctx) for e in self.work_exprs())
-        return self.grouped_partial(work_batch(work_cols, batch.num_rows))
+        return self.grouped_partial(work)
 
     def work_exprs(self) -> List[Expression]:
-        """The columns of a grouped partial step's work batch: the keys,
-        then the input of each aggregate that has one."""
+        """The columns of a partial step's work batch: the keys, then the
+        input of each aggregate that has one."""
         return list(self.group_exprs) + [agg.input for agg in self.aggregates
                                          if agg.input is not None]
 
-    def grouped_partial(self, work: ColumnarBatch) -> ColumnarBatch:
-        """A work batch (``work_exprs``' columns, evaluated here or by a
-        fused segment's kernel) -> its partial batch."""
+    def _work_inputs(self) -> List[Optional[int]]:
+        """Each slot's column in the work batch (None: no input)."""
         col_of_agg = {}
         for ai, agg in enumerate(self.aggregates):
             if agg.input is not None:
                 col_of_agg[ai] = len(self.group_exprs) + len(col_of_agg)
+        return [col_of_agg.get(ai) for ai, _ in self.slot_specs]
+
+    def grouped_partial(self, work: ColumnarBatch) -> ColumnarBatch:
+        """A work batch (``work_exprs``' columns, evaluated here or by a
+        fused segment's kernel) -> its partial batch."""
         return self._grouped_step(
-            work, [col_of_agg.get(ai) for ai, _ in self.slot_specs],
+            work, self._work_inputs(),
             [slot.update_op for _, slot in self.slot_specs])
+
+    def global_work_partial(self, work: ColumnarBatch,
+                            device: torch.device) -> ColumnarBatch:
+        """A global aggregate's work batch (the inputs of ``work_exprs``,
+        evaluated here or by a fused segment's kernel; no column at all
+        for count(*)) -> its one-row partial on ``device``: each slot a
+        whole-batch reduction (``_global_update``), the reductions of one
+        input shared."""
+        sums = _Sums()
+        cols = tuple(_global_update(
+            slot.update_op, work.columns[ci] if ci is not None else None,
+            work.num_rows, slot.dtype, device, sums)
+            for ci, (_, slot) in zip(self._work_inputs(), self.slot_specs))
+        return ColumnarBatch(cols, 1, self.partial_schema)
+
+    def m2_companions(self, ai: int) -> Tuple[int, int]:
+        """The slot indices of aggregate ai's SUM and COUNT_VALID buffers,
+        the companions of its M2: found by their ops, not their places, so
+        that a change of the buffer plan fails here instead of merging the
+        wrong columns."""
+        s_si = n_si = None
+        for si in self.slot_pos[ai]:
+            op = self.slot_specs[si][1].update_op
+            if op == SUM:
+                s_si = si
+            elif op == COUNT_VALID:
+                n_si = si
+        if s_si is None or n_si is None:
+            raise AssertionError(
+                f"M2_MERGE needs SUM and COUNT_VALID companion buffers on "
+                f"{self.aggregates[ai]!r}")
+        return s_si, n_si
 
     def global_partial(self, sums: Dict[int, tuple], rows: torch.Tensor,
                        one: torch.Tensor) -> ColumnarBatch:
@@ -192,11 +253,19 @@ class GpuHashAggregateExec(GpuExec):
         nkeys = len(self.group_exprs)
         if nkeys == 0:
             sums = _Sums()
-            cols = tuple(_global_update(slot.merge_op, partial.columns[si],
-                                        partial.num_rows, slot.dtype,
-                                        partial.device, sums)
-                         for si, (_, slot) in enumerate(self.slot_specs))
-            return ColumnarBatch(cols, 1, self.partial_schema)
+            cols = []
+            for si, (ai, slot) in enumerate(self.slot_specs):
+                col = partial.columns[si]
+                if slot.merge_op == M2_MERGE:
+                    s_si, n_si = self.m2_companions(ai)
+                    cols.append(_global_m2_merge(
+                        col, partial.columns[s_si], partial.columns[n_si],
+                        sums))
+                else:
+                    cols.append(_global_update(
+                        slot.merge_op, col, partial.num_rows, slot.dtype,
+                        partial.device, sums))
+            return ColumnarBatch(tuple(cols), 1, self.partial_schema)
         return self._grouped_step(
             partial, [nkeys + si for si in range(len(self.slot_specs))],
             [slot.merge_op for _, slot in self.slot_specs])
@@ -210,9 +279,16 @@ class GpuHashAggregateExec(GpuExec):
         layout = G.group_rows(work, list(range(nkeys)))
         sums = G.SegmentSums(layout)
         cols = G.group_keys_output(layout, list(range(nkeys)))
-        for ci, op, (_, slot) in zip(inputs, ops, self.slot_specs):
-            col = layout.sorted_batch.columns[ci] if ci is not None else None
-            cols.append(_seg_update(op, col, slot.dtype, sums))
+        sorted_cols = layout.sorted_batch.columns
+        for ci, op, (ai, slot) in zip(inputs, ops, self.slot_specs):
+            col = sorted_cols[ci] if ci is not None else None
+            if op == M2_MERGE:
+                s_si, n_si = self.m2_companions(ai)
+                v, valid = G.seg_m2_merge(col, sorted_cols[inputs[s_si]],
+                                          sorted_cols[inputs[n_si]], sums)
+                cols.append(G.finalize_agg_column(v, valid, slot.dtype))
+            else:
+                cols.append(_seg_update(op, col, slot.dtype, sums))
         return ColumnarBatch(tuple(cols), layout.num_groups,
                              self.partial_schema)
 
@@ -236,7 +312,7 @@ class GpuHashAggregateExec(GpuExec):
         return ColumnarBatch(cols, merged.num_rows, self.schema)
 
     def _identity_partial(self) -> ColumnarBatch:
-        """Counts 0 and valid; value slots null."""
+        """Counts 0 and valid; the SUM, MIN, MAX and M2 slots null."""
         device = self.device
         cols = []
         for _, slot in self.slot_specs:

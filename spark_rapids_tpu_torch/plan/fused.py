@@ -11,14 +11,19 @@ lowered once, at planning, to a flat program (``expressions/program.py``)
 that one hand-written kernel interprets (``kernels/fused.py``,
 ``csrc/fused.cu``):
 
-  * a partial aggregate with no keys (q6): global mode, two launches a
-    batch and no host read; the kernel's sums become the one-row partial;
-  * otherwise (q1's grouped partial, a filter, a projection): compact
-    mode, the computed columns of the kept rows written at their
-    compacted positions after one count read; the columns the chain only
-    passes through go through one ``gather_columns`` with the kernel's
-    map (none at all where there is no filter).  A grouped partial then
-    sorts and reduces that work batch with the existing kernels.
+  * a partial aggregate with no keys whose slots are sums and counts
+    (q6): global mode, two launches a batch and no host read; the
+    kernel's sums become the one-row partial;
+  * otherwise (q1's grouped partial, a global MIN / MAX / M2, a filter, a
+    projection): compact mode, the computed columns of the kept rows
+    written at their compacted positions after one count read; the
+    columns the chain only passes through go through one
+    ``gather_columns`` with the kernel's map (none at all where there is
+    no filter).  A grouped partial then sorts and reduces that work batch
+    with the existing kernels, a global one reduces it with the
+    whole-batch kernels (``global_work_partial``): the chain stays one
+    segment, as the reference traces its whole partial step into one
+    program (``spark_rapids_tpu/plan/fused.py:1062``).
 
 The chain rules are the reference's: the longest fusable chain top down,
 made a segment where it holds two ops or more, where its stream child is
@@ -44,7 +49,8 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.expressions import program as P
-from spark_rapids_tpu_torch.expressions.aggregates import SUM
+from spark_rapids_tpu_torch.expressions.aggregates import (COUNT_STAR,
+                                                           COUNT_VALID, SUM)
 from spark_rapids_tpu_torch.kernels.fused import fused_compact, fused_global
 from spark_rapids_tpu_torch.kernels.selection import gather_columns
 from spark_rapids_tpu_torch.plan.execs.aggregate import (GpuHashAggregateExec,
@@ -74,11 +80,19 @@ def _fusable(node: GpuExec) -> bool:
     if isinstance(node, GpuFilterExec):
         return P.lowerable(node.condition, dtypes, value=True)
     if isinstance(node, GpuHashAggregateExec) and node.mode == "partial":
-        if node.group_exprs:
-            return all(P.lowerable(e, dtypes) for e in node.work_exprs())
-        return all(P.lowerable(agg.input, dtypes, value=True)
-                   for agg in node.aggregates if agg.input is not None)
+        if _global_sums(node):
+            return all(P.lowerable(agg.input, dtypes, value=True)
+                       for agg in node.aggregates if agg.input is not None)
+        return all(P.lowerable(e, dtypes) for e in node.work_exprs())
     return False
+
+
+def _global_sums(node: GpuHashAggregateExec) -> bool:
+    """A partial aggregate with no keys whose slots the global-mode kernel
+    reduces itself: sums and counts only."""
+    return not node.group_exprs and all(
+        slot.update_op in (SUM, COUNT_VALID, COUNT_STAR)
+        for _, slot in node.slot_specs)
 
 
 def _sum_kind(agg) -> int:
@@ -108,7 +122,7 @@ class Segment:
                 cols = [b.column(e, cols) for e in node.exprs]
             elif isinstance(node, GpuFilterExec):
                 keep = b.and_keep(keep, b.value(node.condition, cols))
-            elif node.group_exprs:
+            elif not _global_sums(node):
                 cols = [b.column(e, cols) for e in node.work_exprs()]
             else:
                 for ai, agg in enumerate(node.aggregates):
@@ -121,6 +135,8 @@ class Segment:
                 cols = []
         self.is_global = (isinstance(top, GpuHashAggregateExec)
                           and not top.group_exprs)
+        #: global mode: the kernel reduces the partial's sums itself
+        self.global_sums = self.is_global and _global_sums(top)
         self.has_filter = keep is not None
         #: each output column: (True, stream ordinal) passed through, or
         #: (False, the kernel output it is) computed
@@ -181,7 +197,7 @@ class GpuFusedSegmentExec(GpuExec):
         prog = seg.program
         top = self.chain[0]
         n = batch.num_rows
-        if seg.is_global:
+        if seg.global_sums:
             res = fused_global(prog, self._device_words(batch.device),
                                batch.columns, n)
             return top.global_partial(
@@ -199,15 +215,25 @@ class GpuFusedSegmentExec(GpuExec):
         if idx is not None and count:
             through = dict(zip(seg.passthrough, gather_columns(
                 [batch.columns[o] for o in seg.passthrough], idx)))
-        is_grouped = isinstance(top, GpuHashAggregateExec)
-        if count == 0 and (seg.has_filter or is_grouped):
+        is_agg = isinstance(top, GpuHashAggregateExec)
+        if count == 0 and seg.is_global:
+            # nothing kept: the partial of no rows
+            return top._identity_partial()
+        if count == 0 and (seg.has_filter or is_agg):
             # nothing kept: no gather, and no grouping over no rows
-            return empty_batch(top.partial_schema if is_grouped
+            return empty_batch(top.partial_schema if is_agg
                                else self.schema, batch.device)
-        cols = tuple(through[i] if is_through else
-                     DeviceColumn(*outs[i], dt)
-                     for (is_through, i), dt in zip(seg.layout, seg.dtypes))
-        if is_grouped:
+        # one column per kernel output, so that the slots over one input
+        # share their reductions
+        computed = {i: DeviceColumn(*outs[i], dt)
+                    for (is_through, i), dt in zip(seg.layout, seg.dtypes)
+                    if not is_through}
+        cols = tuple(through[i] if is_through else computed[i]
+                     for is_through, i in seg.layout)
+        if seg.is_global:
+            return top.global_work_partial(work_batch(cols, count),
+                                           batch.device)
+        if is_agg:
             return top.grouped_partial(work_batch(cols, count))
         return ColumnarBatch(cols, count, self.schema)
 

@@ -2,8 +2,8 @@
 catalog_returns, inventory, date_dim, time_dim, item, store, warehouse,
 promotion, customer, customer_address, customer_demographics,
 household_demographics, and the channel sales and returns of q5 and q14a)
-and q3, q5, q7, q14a, q19, q25, q26, q42, q52, q55, q72 and q96 (with the
-q5 and q14a subsets), without JAX.
+and q3, q5, q7, q14a, q17, q19, q25, q26, q42, q52, q55, q72 and q96 (with
+the q5 and q14a subsets), without JAX.
 
 A copy of the pure-Python parts of ``spark_rapids_tpu/testing/tpcds.py``
 (``STORE_SALES_SCHEMA`` :21, ``DATE_DIM_SCHEMA`` :38, ``ITEM_SCHEMA`` :48,
@@ -860,6 +860,64 @@ def q25(ss_df, sr_df, cs_df, dd_df, store_df, item_df):
                       ("s_store_id", SortOrder(True)),
                       ("s_store_name", SortOrder(True)))
             .limit(100))
+
+
+def q17(ss_df, sr_df, cs_df, dd_df, store_df, item_df, limit=100):
+    """TPC-DS Q17, q25's three-fact chain with counts, averages and sample
+    standard deviations of the three quantities.
+
+    select i_item_id, i_item_desc, s_state,
+           count(ss_quantity), avg(ss_quantity), stddev_samp(ss_quantity),
+           stddev_samp(ss_quantity) / avg(ss_quantity), and the same of
+           sr_return_quantity and cs_quantity
+    from store_sales, store_returns, catalog_sales, date_dim d1, d2, d3,
+         store, item
+    where d1.d_quarter_name = '2001Q1' and d2.d_quarter_name in ('2001Q1',
+      '2001Q2', '2001Q3') and d3.d_quarter_name in (the same) and the
+      chain's keys match
+    group by i_item_id, i_item_desc, s_state
+    order by i_item_id, i_item_desc, s_state limit 100
+
+    Cut to the generators' columns: they have no ``d_quarter_name``, so
+    the quarters are ``d_year = 2001`` with ``d_moy`` 1-3 and 1-9; they
+    have no ``s_state``, so ``s_store_name``, a low-cardinality store
+    attribute, stands in for it.  ``limit=None`` leaves the LIMIT out, so
+    that every group can be held.
+    """
+    from spark_rapids_tpu_torch.expressions import (avg, col, count, lit,
+                                                    stddev)
+    from spark_rapids_tpu_torch.kernels.sort import SortOrder
+
+    def quarters(last_moy: int):
+        return dd_df.filter((col("d_year") == lit(2001))
+                            & (col("d_moy") >= lit(1))
+                            & (col("d_moy") <= lit(last_moy)))
+    d1 = _aliased(quarters(3), "d1")
+    d2 = _aliased(quarters(9), "d2")
+    d3 = _aliased(quarters(9), "d3")
+    j = (ss_df
+         .join(sr_df, on=([col("ss_ticket_number"), col("ss_item_sk")],
+                          [col("sr_ticket_number"), col("sr_item_sk")]))
+         .join(cs_df, on=([col("sr_customer_sk"), col("sr_item_sk")],
+                          [col("cs_bill_customer_sk"), col("cs_item_sk")]))
+         .join(d1, on=([col("ss_sold_date_sk")], [col("d1_date_sk")]))
+         .join(d2, on=([col("sr_returned_date_sk")], [col("d2_date_sk")]))
+         .join(d3, on=([col("cs_sold_date_sk")], [col("d3_date_sk")]))
+         .join(store_df, on=([col("ss_store_sk")], [col("s_store_sk")]))
+         .join(item_df, on=([col("ss_item_sk")], [col("i_item_sk")])))
+    aggs = []
+    for prefix, c in (("store_sales", "ss_quantity"),
+                      ("store_returns", "sr_return_quantity"),
+                      ("catalog_sales", "cs_quantity")):
+        aggs += [count(c).alias(f"{prefix}_quantitycount"),
+                 avg(c).alias(f"{prefix}_quantityave"),
+                 stddev(c).alias(f"{prefix}_quantitystdev"),
+                 (stddev(c) / avg(c)).alias(f"{prefix}_quantitycov")]
+    out = (j.group_by("i_item_id", "i_item_desc", "s_store_name").agg(*aggs)
+           .order_by(("i_item_id", SortOrder(True)),
+                     ("i_item_desc", SortOrder(True)),
+                     ("s_store_name", SortOrder(True))))
+    return out if limit is None else out.limit(limit)
 
 
 def q72(cs_df, inv_df, warehouse_df, item_df, cd_df, hd_df, dd_df,

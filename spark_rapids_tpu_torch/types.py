@@ -1,9 +1,10 @@
 """Spark SQL data types of the port, each mapped to a torch dtype.
 
 Counterpart of ``spark_rapids_tpu/types.py:72-188``, cut to the types the
-TPC-H lineitem table, q6, q1 and TPC-DS q3 use: BOOLEAN, INT, LONG, DOUBLE,
-DATE, Decimal64 (precision <= 18, held as its int64 unscaled value) and
-STRING (UTF-8 bytes, variable width; ``StringType`` :138).  Every type
+TPC-H lineitem table, q6, q1 and TPC-DS q3 use: BOOLEAN, INT, LONG, FLOAT
+(the held aggregate shapes' float32 column), DOUBLE, DATE, Decimal64
+(precision <= 18, held as its int64 unscaled value) and STRING (UTF-8
+bytes, variable width; ``StringType`` :138).  Every type
 carries the torch dtype of its device buffer and the numpy dtype used for
 host staging.
 """
@@ -75,6 +76,13 @@ class LongType(IntegralType):
     byte_width = 8
 
 
+class FloatType(FractionalType):
+    torch_dtype = torch.float32
+    np_dtype = np.float32
+    sql_name = "float"
+    byte_width = 4
+
+
 class DoubleType(FractionalType):
     torch_dtype = torch.float64
     np_dtype = np.float64
@@ -142,6 +150,7 @@ class DecimalType(FractionalType):
 BOOLEAN = BooleanType()
 INT = IntegerType()
 LONG = LongType()
+FLOAT = FloatType()
 DOUBLE = DoubleType()
 DATE = DateType()
 STRING = StringType()

@@ -215,3 +215,70 @@ def test_substring_slice_modules_are_covered():
     assert "srt_gather_bytes" in wrapper
     fused = (_lib.CSRC / "fused.cu").read_text()
     assert "IS_NULL, IF, OR, NOT" in fused
+
+
+def test_aggregate_tail_modules_are_covered():
+    """The MIN / MAX / M2 slice's modules (the aggregate functions and
+    Divide, the wrappers, the grouped and global steps, the fused route,
+    the q17 builder) are in the scans above and import nothing of JAX; the
+    four kernels' entry points are in a built source and bound, and the
+    DSL exports the new functions."""
+    names = ("spark_rapids_tpu_torch.expressions.aggregates",
+             "spark_rapids_tpu_torch.expressions.arithmetic",
+             "spark_rapids_tpu_torch.expressions",
+             "spark_rapids_tpu_torch.kernels.reduction",
+             "spark_rapids_tpu_torch.kernels.groupby",
+             "spark_rapids_tpu_torch.plan.execs.aggregate",
+             "spark_rapids_tpu_torch.plan.fused",
+             "spark_rapids_tpu_torch.types",
+             "spark_rapids_tpu_torch.testing.tpcds")
+    for name in names:
+        assert name in PORT_MODULES
+        path = ROOT / (name.replace(".", "/") + ".py")
+        if not path.exists():
+            path = ROOT / name.replace(".", "/") / "__init__.py"
+        assert not {m for m in _imported_roots(path) if m in FORBIDDEN}
+    source = (_lib.CSRC / "reduction.cu").read_text()
+    assert "reduction.cu" in _lib.SOURCES
+    for entry in ("srt_reduce_state_bytes", "srt_segmented_extreme",
+                  "srt_masked_extreme", "srt_segmented_m2", "srt_masked_m2"):
+        assert entry in source and entry in _lib._SIGNATURES
+    from spark_rapids_tpu_torch import expressions as E
+    for fn in ("min_", "max_", "var_samp", "var_pop", "stddev",
+               "stddev_pop", "Divide", "BoolAnd", "BoolOr"):
+        assert hasattr(E, fn) and fn in E.__all__
+    from spark_rapids_tpu_torch.testing import tpcds
+    assert callable(tpcds.q17)
+
+
+def _meta(dtype, n=8):
+    return torch.empty(n, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("call", [
+    lambda R: R.segmented_extreme(_meta(torch.float64), _meta(torch.bool),
+                                  _meta(torch.int32, 2), True),
+    lambda R: R.masked_extreme(_meta(torch.int32), _meta(torch.bool), False),
+    lambda R: R.segmented_m2("update", _meta(torch.int64), _meta(torch.bool),
+                             _meta(torch.int32, 2), _meta(torch.float64, 2),
+                             _meta(torch.int64, 2)),
+    lambda R: R.segmented_m2("merge", _meta(torch.float64),
+                             _meta(torch.bool), _meta(torch.int32, 2),
+                             _meta(torch.float64, 2), _meta(torch.int64, 2),
+                             _meta(torch.float64), _meta(torch.int64)),
+    lambda R: R.masked_m2("update", _meta(torch.float32), _meta(torch.bool),
+                          _meta(torch.float64, 1), _meta(torch.int64, 1)),
+    lambda R: R.masked_m2("merge", _meta(torch.float64), _meta(torch.bool),
+                          _meta(torch.float64, 1), _meta(torch.int64, 1),
+                          _meta(torch.float64), _meta(torch.int64)),
+], ids=["segmented_extreme", "masked_extreme", "segmented_m2_update",
+        "segmented_m2_merge", "masked_m2_update", "masked_m2_merge"])
+def test_new_wrappers_raise_off_the_cpu_without_cuda(call):
+    """A tensor that is not on the CPU goes to the CUDA path, which raises
+    for anything but a CUDA tensor (here: no card): no wrapper runs its
+    plain version there, and nothing is counted as launched."""
+    from spark_rapids_tpu_torch.kernels import reduction as R
+    before = dict(_lib.LAUNCHES)
+    with pytest.raises(ValueError, match="expected cuda"):
+        call(R)
+    assert dict(_lib.LAUNCHES) == before

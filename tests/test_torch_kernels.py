@@ -17,19 +17,22 @@ from spark_rapids_tpu import types as JT
 from spark_rapids_tpu.columnar.batch import ColumnarBatch as JaxBatch
 from spark_rapids_tpu.columnar.column import DeviceColumn as JaxColumn
 from spark_rapids_tpu.expressions.aggregates import (
-    COUNT_STAR as J_COUNT_STAR, COUNT_VALID as J_COUNT_VALID, SUM as J_SUM)
+    COUNT_STAR as J_COUNT_STAR, COUNT_VALID as J_COUNT_VALID, M2 as J_M2,
+    MAX as J_MAX, MIN as J_MIN, SUM as J_SUM)
 from spark_rapids_tpu.kernels import selection as jsel
 from spark_rapids_tpu.plan.execs.aggregate import (
+    _global_m2_merge as jax_global_m2_merge,
     _global_update as jax_global_update)
 
 from spark_rapids_tpu_torch import types as PT
 from spark_rapids_tpu_torch.columnar.arrow import arrow_to_batch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.expressions.aggregates import (
-    COUNT_STAR, COUNT_VALID, SUM)
+    COUNT_STAR, COUNT_VALID, M2, MAX, MIN, SUM)
 from spark_rapids_tpu_torch.kernels import reduction as R
 from spark_rapids_tpu_torch.kernels import selection as S
-from spark_rapids_tpu_torch.plan.execs.aggregate import _global_update
+from spark_rapids_tpu_torch.plan.execs.aggregate import (
+    _global_m2_merge, _global_update, _Sums)
 
 F64_RTOL = 1e-12
 
@@ -132,6 +135,103 @@ def test_global_update_matches_reference(op, dtype, kind):
         np.testing.assert_allclose(got.data.item(), ref_v, rtol=F64_RTOL)
     else:
         assert got.data.item() == ref_v
+
+
+_EXTREME_TYPES = {"int": (JT.INT, PT.INT), "long": (JT.LONG, PT.LONG),
+                  "double": (JT.DOUBLE, PT.DOUBLE),
+                  "float": (JT.FLOAT, PT.FLOAT),
+                  "bool": (JT.BOOLEAN, PT.BOOLEAN)}
+
+
+def _extreme_inputs(kind: str, dtype: str, seed: int):
+    """Values of the type with NaN, infinities and both zeros among the
+    floats; ``all_nan`` holds only NaNs (MIN is NaN there)."""
+    rng = np.random.RandomState(seed)
+    n = {"empty": 0, "one_row": 1, "all_null": 300, "nulls": 5_000,
+         "all_nan": 40}[kind]
+    if dtype in ("double", "float"):
+        vals = rng.randn(n) * 1e3
+        vals[rng.rand(n) < 0.05] = np.nan
+        vals[rng.rand(n) < 0.02] = np.inf
+        vals[rng.rand(n) < 0.02] = -0.0
+        if kind == "all_nan":
+            vals[:] = np.nan
+        vals = vals.astype(np.float32 if dtype == "float" else np.float64)
+    elif dtype == "bool":
+        vals = rng.rand(n) < 0.5
+    elif dtype == "int":
+        vals = rng.randint(-2**31, 2**31 - 1, n, dtype=np.int64).astype(
+            np.int32)
+    else:
+        vals = rng.randint(-2**63, 2**63 - 1, n, dtype=np.int64)
+    valid = np.zeros(n, np.bool_) if kind == "all_null" \
+        else rng.rand(n) >= (0.1 if kind == "nulls" else 0.0)
+    return np.where(valid, vals, np.zeros((), vals.dtype)), valid
+
+
+_GLOBAL_CASES = [(op, dtype, kind)
+                 for op in ("min", "max", "m2")
+                 for dtype in _EXTREME_TYPES if op != "m2" or dtype != "bool"
+                 for kind in ("empty", "one_row", "all_null", "nulls")
+                 + (("all_nan",) if dtype in ("double", "float") else ())]
+
+
+@pytest.mark.parametrize("op,dtype,kind", _GLOBAL_CASES)
+def test_global_extreme_and_m2_match_reference(op, dtype, kind):
+    """_global_update's MIN / MAX (exact, bits of floats) and M2 (within
+    1e-12 relative) against the reference's on the same input."""
+    vals, valid = _extreme_inputs(kind, dtype, seed=len(kind) + len(dtype))
+    n = len(vals)
+    jt, pt = _EXTREME_TYPES[dtype]
+    jop, pop = {"min": (J_MIN, MIN), "max": (J_MAX, MAX),
+                "m2": (J_M2, M2)}[op]
+    out_p = PT.DOUBLE if op == "m2" else pt
+    cap = max(n, 1)
+    jcol = JaxColumn.from_numpy(vals, jt, valid, capacity=cap)
+    ref_v, ref_ok = jax_global_update(jop, jcol, jnp.arange(cap) < n,
+                                      JT.DOUBLE if op == "m2" else jt)
+    got = _global_update(pop, DeviceColumn.from_numpy(vals, pt, valid, "cpu"),
+                         n, out_p, "cpu")
+    assert got.num_rows == 1 and got.dtype == out_p
+    assert bool(got.validity[0]) == bool(ref_ok)
+    if not bool(ref_ok):
+        assert got.data.item() == 0
+        return
+    ref_v = np.asarray(ref_v).reshape(1)
+    if op == "m2":
+        np.testing.assert_allclose(got.data.numpy(), ref_v, rtol=F64_RTOL,
+                                   equal_nan=True)
+    else:
+        got_v = got.data.numpy()
+        assert got_v.dtype == ref_v.dtype
+        if got_v.dtype.kind == "f":
+            got_v = got_v.view({4: np.int32, 8: np.int64}[got_v.itemsize])
+            ref_v = ref_v.view(got_v.dtype)
+        np.testing.assert_array_equal(got_v, ref_v)
+
+
+@pytest.mark.parametrize("rows", [0, 1, 57, 4_000])
+def test_global_m2_merge_matches_reference(rows):
+    """Chan's merge of partial (M2, sum, count) rows to one group, partials
+    with count 0 among them (null M2, sum 0)."""
+    rng = np.random.RandomState(rows)
+    cnt = rng.randint(0, 5_000, rows).astype(np.int64)
+    cnt[rng.rand(rows) < 0.1] = 0
+    ok = cnt > 0
+    s = np.where(ok, rng.randn(rows) * 1e6, 0.0)
+    m2 = np.where(ok, rng.rand(rows) * 1e9, 0.0)
+    cap = max(rows, 1)
+    jcols = [JaxColumn.from_numpy(v, t, valid, capacity=cap) for v, t, valid
+             in ((m2, JT.DOUBLE, ok), (s, JT.DOUBLE, ok),
+                 (cnt, JT.LONG, np.ones(rows, np.bool_)))]
+    ref_v, ref_ok = jax_global_m2_merge(*jcols, jnp.arange(cap) < rows)
+    pcols = [DeviceColumn.from_numpy(v, t, valid, "cpu") for v, t, valid
+             in ((m2, PT.DOUBLE, ok), (s, PT.DOUBLE, ok),
+                 (cnt, PT.LONG, np.ones(rows, np.bool_)))]
+    got = _global_m2_merge(*pcols, _Sums())
+    assert bool(got.validity[0]) == bool(ref_ok)
+    np.testing.assert_allclose(got.data.numpy(), np.asarray(ref_v).reshape(1),
+                               rtol=F64_RTOL)
 
 
 def test_masked_sum_flag_and_count():
