@@ -78,7 +78,16 @@ Phases (any failure raises and the script exits non-zero):
      the partials in groups of 5 and to one) within 1e-12 relative; the
      large-mean case of tests/test_variance.py:20 at 1,048,576 rows
      against numpy; each timed at phase 12's partial shape (f64
-     [1,048,576], 14 segments).
+     [1,048,576], 14 segments).  Then the picks and bitwise reductions
+     (``segmented_pick``, ``masked_pick``, ``segmented_bitwise``,
+     ``masked_bitwise``) bit for bit at n = 1,048,576, 1,000,003 and 0, in
+     14 segments and in ~n/2 of one or two rows (one all null; 10% nulls,
+     ties): first / last with and without ignore_nulls; min / max keys
+     over bool, int8, int16, int32, int64, float and double (NaN,
+     infinities, both zeros) in both NaN modes, and over strings of 0-64
+     bytes with binaryCompare's edges ("ab" beside "ab\0", "" beside
+     "a"); AND / OR / XOR at every integral width; each timed at phase
+     13's partial shape (1,048,576 rows of the tail's table, 9 segments).
      A kernel's ``max_abs_err`` is the largest difference over all its
      comparisons;
   4. data: TPC-H lineitem at SF10 (60,012,150 rows, all eleven columns on
@@ -183,7 +192,18 @@ Phases (any failure raises and the script exits non-zero):
      numpy (MIN / MAX, keys, counts and integer sums exact, the rest
      within 1e-9, NaN where numpy has NaN), with its launches, timed and
      profiled;
- 13. prints the kernels summary line, then the result line last.
+ 13. the aggregate tail (``testing/held.py`` ``tail_columns``:
+     tests/test_agg_tail.py's table, k INT of 9 keys, v LONG, x DOUBLE
+     with NaN, -0.0 and +inf at rows 0-2, s STRING of 95 distinct values
+     (3-8 bytes), b BYTE, n // 6 nulls each in v, x, s and b) at
+     30,006,075 rows (half of phase 12's, for the script's time) in
+     batches of 1,048,576, 16 partitions, fused by default: grouped and global FIRST / LAST, grouped MAX_BY / MIN_BY
+     over x and over v, MAX_BY / MIN_BY over the STRING s grouped and
+     global, grouped STRING MIN / MAX, and the bit aggregates over v and
+     b grouped and global; each against numpy in the port's input order
+     (values exact, floats bit for bit, NaN equal to NaN), with its
+     launches, timed and profiled;
+ 14. prints the kernels summary line, then the result line last.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -307,6 +327,14 @@ KERNELS = {
                      "spark_rapids_tpu/kernels/groupby.py:179"),
     "masked_m2": ("csrc/reduction.cu",
                   "spark_rapids_tpu/plan/execs/aggregate.py:318"),
+    "segmented_pick": ("csrc/reduction.cu",
+                       "spark_rapids_tpu/kernels/groupby.py:419"),
+    "masked_pick": ("csrc/reduction.cu",
+                    "spark_rapids_tpu/kernels/groupby.py:496"),
+    "segmented_bitwise": ("csrc/reduction.cu",
+                          "spark_rapids_tpu/kernels/groupby.py:448"),
+    "masked_bitwise": ("csrc/reduction.cu",
+                       "spark_rapids_tpu/kernels/groupby.py:528"),
 }
 FUSE_OFF = {"spark.rapids.sql.tpu.fuseStages": "false"}
 # fused (the default), q6's filter and partial sum are one kernel a batch:
@@ -360,36 +388,80 @@ def cuda_ms(fn) -> float:
     return statistics.median(times)
 
 
+#: the kernel of torch.cuda._sleep (ATen/cuda/Sleep.cu), which each trace
+#: of device_profile launches after fn to show that the trace saw the card
+SENTINEL = "spin_kernel"
+
+#: device_profile calls whose traces never saw the card (not even the
+#: sentinel), timed with CUDA events instead: (fn's name, ms per call)
+PROFILER_LOST: list = []
+
+
+def traced_events(fn, calls: int) -> tuple:
+    """(name, ms) of the device activities of ``calls`` calls of fn, and
+    whether the trace saw the card: the sentinel spin, launched after the
+    calls inside the same trace, is in it (and taken out of the list)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    mine = [e for e in events if SENTINEL not in e[0]]
+    return mine, len(mine) < len(events)
+
+
+def events_ms(fn, calls: int) -> float:
+    """Time of ``calls`` calls of fn between two CUDA events, per call."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def device_profile(fn, calls: int = ITERS, idle_ok: bool = False,
                    warm: bool = True):
     """Device activity of ``calls`` calls of fn under torch.profiler (CUPTI):
     (device ms per call, device activities per call, device ms by name).
     Device activities are kernels, copies and memsets; their summed
     durations are the time the card worked, whatever the host did.  A
-    trace with no device activity is taken again, twice at most; then it
-    fails, unless the caller declares (``idle_ok``) that fn may launch
-    nothing, as an empty gather does.  ``warm``: one call first, outside
-    the trace (a caller that has just run fn passes False)."""
+    trace without fn's activity is taken again, three times at most, with
+    a growing pause.  If the sentinel is in the last one, fn launched
+    nothing: that fails, unless the caller declares (``idle_ok``) that fn
+    may launch nothing, as an empty gather does.  If no trace saw even the
+    sentinel, CUPTI delivered nothing for a while (it has happened after
+    hundreds of traces): fn is then timed between CUDA events, which also
+    holds the host's share, and the call returns (that ms, None, {}),
+    noted in PROFILER_LOST and on stderr.  ``warm``: one call first,
+    outside the trace (a caller that has just run fn passes False)."""
     if warm:
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):   # a trace now and then comes back without the card
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CPU,
-                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        by_name = {}
-        count = 0
-        for name, ms in device_events(prof):
-            by_name[name] = by_name.get(name, 0.0) + ms / calls
-            count += 1
-        if count:
+    for attempt in range(4):
+        if attempt:
+            time.sleep(0.1 * attempt)
+        events, seen = traced_events(fn, calls)
+        if seen and (events or idle_ok):
             break
-    require(count > 0 or idle_ok, "torch.profiler recorded no device "
+    if not seen:
+        ms = events_ms(fn, calls)
+        name = getattr(fn, "__qualname__", repr(fn))
+        PROFILER_LOST.append((name, ms))
+        print(f"chip_smoke: no trace saw the card for {name}; timed with "
+              f"CUDA events: {ms} ms a call", file=sys.stderr, flush=True)
+        return ms, None, {}
+    require(events or idle_ok, "torch.profiler recorded no device "
             "activity for a call that launches work")
-    return sum(by_name.values()), count / calls, by_name
+    by_name = {}
+    for name, ms in events:
+        by_name[name] = by_name.get(name, 0.0) + ms / calls
+    return sum(by_name.values()), len(events) / calls, by_name
 
 
 def device_events(prof):
@@ -426,7 +498,10 @@ def measure(kernel, plain, library, nbytes: int, ops: int = 0,
             out[f"{key}_ms"] = out[f"{key}_device_ms"] = None
             continue
         out[f"{key}_ms"] = cuda_ms(fn)
-        out[f"{key}_device_ms"] = device_profile(fn, idle_ok=idle_ok)[0]
+        ms, activities, _ = device_profile(fn, idle_ok=idle_ok)
+        out[f"{key}_device_ms"] = ms
+        if activities is None:
+            out[f"{key}_device_ms_from"] = "cuda_events"
     out["bound_us"] = bound_ms(nbytes, ops) * 1e3
     return out
 
@@ -435,6 +510,7 @@ def summarize(line: dict, nbytes: int, ops: int = 0) -> dict:
     """The kernels-line entry: device times, beside the bound.  Its
     ``max_abs_err`` comes from ERRS when the line is printed."""
     return dict(ms=line["kernel_device_ms"],
+                ms_from=line.get("kernel_device_ms_from", "profiler"),
                 call_ms=line["kernel_ms"],
                 plain_ms=line["plain_device_ms"],
                 library_ms=line["library_device_ms"],
@@ -2597,6 +2673,209 @@ def check_fused(rng, dev, summary) -> None:
             summary["fused_segment"] = summarize(line, nbytes)
 
 
+# -- phase 3: the picks and bitwise reductions (phase 13's path) --------------
+
+PICK_KEY_TYPES = (T.BOOLEAN, T.BYTE, T.SHORT, T.INT, T.LONG, T.FLOAT,
+                  T.DOUBLE)
+BIT_TYPES = (T.BYTE, T.SHORT, T.INT, T.LONG)
+BIT_OPS = ("bit_and", "bit_or", "bit_xor")
+#: binaryCompare's edges beside the random strings: a trailing NUL, the
+#: empty string before a one-byte one
+PICK_STRING_EDGES = STRING_EDGES + ["a", "", "ab", "ab\x00", "a", ""]
+
+
+def pick_column(rng, n: int, dtype: T.DataType, dev) -> DeviceColumn:
+    """10% nulls; half the rows from seven small values, so that keys tie;
+    floats with NaN, infinities and both zeros."""
+    if dtype in (T.FLOAT, T.DOUBLE):
+        vals = rng.randn(n) * 1e3
+        pick = rng.rand(n) < 0.1
+        vals[pick] = rng.choice(SPECIAL_FLOATS, int(pick.sum()))
+    elif dtype == T.BOOLEAN:
+        vals = rng.rand(n) < 0.5
+    else:
+        info = np.iinfo(dtype.np_dtype)
+        vals = rng.randint(info.min, info.max, n, dtype=np.int64)
+    if dtype != T.BOOLEAN:
+        few = rng.rand(n) < 0.5
+        vals[few] = rng.randint(-3, 4, int(few.sum()))
+    valid = rng.rand(n) >= 0.1
+    vals = np.where(valid, vals.astype(dtype.np_dtype),
+                    np.zeros((), dtype.np_dtype))
+    return DeviceColumn.from_numpy(vals, dtype, valid, dev)
+
+
+def pick_layouts(rng, n: int) -> dict:
+    """Segment starts: 14 segments, and ~n/2 of one or two rows."""
+    out = {}
+    if n >= 14:
+        out["fourteen"] = np.r_[0, np.sort(rng.choice(np.arange(1, n), 13,
+                                                      replace=False))]
+    pairs = np.r_[0, np.cumsum(rng.randint(1, 3, n))]
+    out["pairs"] = pairs[pairs < n]
+    return out
+
+
+def null_segment(c: DeviceColumn, starts: np.ndarray) -> DeviceColumn:
+    """Segment 2 all null (a null row's bytes and data zero)."""
+    if len(starts) < 4:
+        return c
+    a, b = int(starts[2]), int(starts[3])
+    if c.is_string:
+        keep = torch.ones(c.num_rows, dtype=torch.bool, device=c.device)
+        keep[a:b] = False
+        idx = torch.where(keep, torch.arange(c.num_rows, device=c.device),
+                          -1).to(torch.int32)
+        return S.gather_columns_plain([c], idx)[0]
+    c.validity[a:b] = False
+    c.data[a:b] = 0
+    return c
+
+
+def hold_pick(c: DeviceColumn, st: torch.Tensor, pick: str, what: str,
+              **kw) -> None:
+    """segmented_pick and masked_pick against their plain versions, with
+    ``c`` the value (first / last) or the key (min / max)."""
+    if pick in ("first", "last"):
+        args = (pick, c.validity)
+        key = ()
+    else:
+        args = (pick, c.validity)
+        key = (c.data, c.offsets) if c.is_string else (c.data,)
+    hold("segmented_pick", [(
+        R.segmented_pick(*args, st, *key, **kw),
+        R.segmented_pick_plain(*args, st, *key, **kw))], what)
+    hold("masked_pick", [(
+        R.masked_pick(*args, *key, **kw),
+        R.masked_pick_plain(*args, *key, **kw))], what)
+
+
+def hold_bitwise(c: DeviceColumn, st: torch.Tensor, op: str,
+                 what: str) -> None:
+    hold("segmented_bitwise", list(zip(
+        R.segmented_bitwise(op, c.data, c.validity, st),
+        R.segmented_bitwise_plain(op, c.data, c.validity, st))), what)
+    hold("masked_bitwise", list(zip(
+        R.masked_bitwise(op, c.data, c.validity),
+        R.masked_bitwise_plain(op, c.data, c.validity))), what)
+
+
+def phase13_layout(rng, n: int, dev):
+    """A partial step's work at phase 13's shape: a batch of the tail's
+    table (``held.tail_columns``) sorted by its 9 keys: v, x, s and b."""
+    data, validity = held.tail_columns(n, int(rng.randint(1 << 30)))
+    order = np.argsort(data["k"], kind="stable")
+    keys = data["k"][order]
+    starts = np.flatnonzero(np.r_[True, keys[1:] != keys[:-1]])
+    types = dict(zip(held.TAIL_SCHEMA.names, held.TAIL_SCHEMA.dtypes))
+    cols = {c: DeviceColumn.from_numpy(data[c][order], types[c],
+                                       validity[c][order], dev)
+            for c in "vxb"}
+    cols["s"] = DeviceColumn.from_string_buffers(*held.tail_strings(
+        data["s"][order], validity["s"][order]), dev)
+    return cols, torch.from_numpy(starts.astype(np.int32)).to(dev)
+
+
+def check_picks(rng, dev, summary) -> None:
+    """segmented_pick, masked_pick, segmented_bitwise and masked_bitwise
+    against their plain versions, bit for bit: n = 1,048,576, 1,000,003
+    and 0; 14 segments and ~n/2 of one or two rows, one all null; 10%
+    nulls and ties; first / last with and without ignore_nulls; min / max
+    keys over bool, int8, int16, int32, int64, float and double (NaN,
+    infinities, both zeros) in both NaN modes and over strings of 0-64
+    bytes (bytes >= 0x80, shared prefixes, binaryCompare's edges); AND /
+    OR / XOR at every integral width.  Then each timed at phase 13's
+    partial shape (the kernels line: the pick over the double ``x``, the
+    XOR over the long ``v``; the position and string picks beside)."""
+    for n in (N, RAGGED, 0):
+        for name, starts in pick_layouts(rng, n).items():
+            st = torch.from_numpy(starts.astype(np.int32)).to(dev)
+            what = f"n={n} {name}"
+            val = null_segment(pick_column(rng, n, T.LONG, dev), starts)
+            for pick in ("first", "last"):
+                for ignore in (False, True):
+                    hold_pick(val, st, pick, f"{what} {pick} "
+                              f"ignore_nulls={ignore}", ignore_nulls=ignore)
+            for dt in PICK_KEY_TYPES:
+                key = null_segment(pick_column(rng, n, dt, dev), starts)
+                for nan_greatest in ((True, False) if dt.is_floating
+                                     else (True,)):
+                    for pick in ("min", "max"):
+                        hold_pick(key, st, pick, f"{what} {dt!r} {pick} "
+                                  f"nan_greatest={nan_greatest}",
+                                  nan_greatest=nan_greatest)
+            for dt in BIT_TYPES:
+                c = null_segment(pick_column(rng, n, dt, dev), starts)
+                for op in BIT_OPS:
+                    hold_bitwise(c, st, op, f"{what} {dt!r} {op}")
+        strings = S.concat_column_plain([string_column(rng, n, dev),
+                                         DeviceColumn.from_strings(
+                                             PICK_STRING_EDGES, dev)])
+        for name, starts in pick_layouts(rng, strings.num_rows).items():
+            st = torch.from_numpy(starts.astype(np.int32)).to(dev)
+            c = null_segment(strings, starts)
+            for pick in ("min", "max"):
+                hold_pick(c, st, pick, f"n={n} {name} strings {pick}")
+    cols, st = phase13_layout(rng, N, dev)
+    g = st.shape[0]
+    x, v, s = cols["x"], cols["v"], cols["s"]
+    str_bytes = N + 4 * (N + 1) + int(s.data.shape[0]) + 8 * g
+    cases = {
+        "segmented_pick": (
+            lambda: R.segmented_pick("max", x.validity, st, x.data),
+            lambda: R.segmented_pick_plain("max", x.validity, st, x.data),
+            None, 9 * N + 8 * g),
+        "masked_pick": (
+            lambda: R.masked_pick("max", x.validity, x.data),
+            lambda: R.masked_pick_plain("max", x.validity, x.data),
+            lambda: torch.argmax(x.data), 9 * N + 4),
+        "segmented_bitwise": (
+            lambda: R.segmented_bitwise("bit_xor", v.data, v.validity, st),
+            lambda: R.segmented_bitwise_plain("bit_xor", v.data, v.validity,
+                                              st),
+            None, 9 * N + 4 * g + 9 * g),
+        "masked_bitwise": (
+            lambda: R.masked_bitwise("bit_xor", v.data, v.validity),
+            lambda: R.masked_bitwise_plain("bit_xor", v.data, v.validity),
+            None, 9 * N + 9),
+    }
+    # beside the kernels line: the position kind and the string kind
+    extra = {
+        "segmented_pick[first_valid]": (
+            lambda: R.segmented_pick("first", v.validity, st,
+                                     ignore_nulls=True),
+            lambda: R.segmented_pick_plain("first", v.validity, st,
+                                           ignore_nulls=True),
+            None, N + 8 * g),
+        "masked_pick[first_valid]": (
+            lambda: R.masked_pick("first", v.validity, ignore_nulls=True),
+            lambda: R.masked_pick_plain("first", v.validity,
+                                        ignore_nulls=True),
+            None, N + 4),
+        "segmented_pick[string]": (
+            lambda: R.segmented_pick("max", s.validity, st, s.data,
+                                     s.offsets),
+            lambda: R.segmented_pick_plain("max", s.validity, st, s.data,
+                                           s.offsets),
+            None, str_bytes),
+        "masked_pick[string]": (
+            lambda: R.masked_pick("max", s.validity, s.data, s.offsets),
+            lambda: R.masked_pick_plain("max", s.validity, s.data,
+                                        s.offsets),
+            None, str_bytes - 8 * g + 4),
+    }
+    for pick in ("first", "max"):
+        hold_pick(x, st, pick, "phase 13's shape x")
+    hold_pick(s, st, "max", "phase 13's shape s")
+    hold_bitwise(v, st, "bit_xor", "phase 13's shape v")
+    for kernel, (fn, plain, library, nbytes) in {**cases, **extra}.items():
+        line = {"kernel": kernel, "shape": "phase13_partial", "n": N,
+                "segments": g, **measure(fn, plain, library, nbytes, N)}
+        emit(line)
+        if kernel in cases:
+            summary[kernel] = summarize(line, nbytes, N)
+
+
 def phase_kernels(dev, tables) -> dict:
     # the profiler itself must see the card
     device_profile(lambda: torch.ones(8, device=dev) + 1)
@@ -2627,6 +2906,7 @@ def phase_kernels(dev, tables) -> dict:
     check_substring(rng, dev)
     check_fused(rng, dev, summary)
     check_agg_tail(rng, dev, summary)
+    check_picks(rng, dev, summary)
     torch.cuda.synchronize()
     return summary
 
@@ -2761,19 +3041,27 @@ def time_path(name: str, query, df, rows: int = SF10_ROWS,
     wall = statistics.median(walls)
     busy_ms, activities, by_name = profile or device_profile(
         lambda: query(df).collect(), calls=1, warm=False)
+    if activities is None:   # no trace saw the card: busy time unknown
+        busy_ms = idle = None
+    else:
+        idle = 1.0 - busy_ms / (wall * 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     emit({"phase": f"{name}_profile", "device_busy_ms": busy_ms,
-          "device_activities": activities,
-          "idle_share": 1.0 - busy_ms / (wall * 1e3),
+          "device_activities": activities, "idle_share": idle,
           "top_device_ms": top})
     return {"wall_s": wall, "wall_s_runs": walls,
             "rows_per_s": rows / wall, "device_busy_ms": busy_ms,
-            "device_activities": activities,
-            "idle_share": 1.0 - busy_ms / (wall * 1e3),
+            "device_activities": activities, "idle_share": idle,
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
             "resident_bytes": resident,
             "peak_above_resident_bytes":
                 torch.cuda.max_memory_allocated() - resident}
+
+
+def per_batch(timing: dict, nbatches: int):
+    """Device activities a batch (None where no trace saw the card)."""
+    activities = timing["device_activities"]
+    return None if activities is None else activities / nbatches
 
 
 def check_fusion(name: str, query, df, launches, fused: bool,
@@ -2819,7 +3107,7 @@ def phase_q6(dfs, ref, nbatches) -> dict:
         require(rel_c <= F64_RTOL_Q6, f"{name} q6_count revenue {rows_c[0][0]}")
         emit({"phase": name, "rows": SF10_ROWS, "revenue": rows[0][0],
               "rel_err": rel, "count": rows_c[0][1], **fusion,
-              "activities_per_batch": timing["device_activities"] / nbatches,
+              "activities_per_batch": per_batch(timing, nbatches),
               **timing})
         by_path[name] = launches
     return by_path
@@ -2847,7 +3135,7 @@ def phase_q1(dfs, ref_rows, nbatches) -> dict:
         emit({"phase": name, "rows": SF10_ROWS, "groups": len(rows),
               "max_rel_err": max_rel, "count_order": [r[8] for r in rows],
               "shuffle_partitions": SHUFFLE_PARTITIONS, **fusion,
-              "activities_per_batch": timing["device_activities"] / nbatches,
+              "activities_per_batch": per_batch(timing, nbatches),
               **timing})
         by_path[name] = launches
     return by_path
@@ -4440,7 +4728,200 @@ def phase_held(df, want) -> dict:
         timing = time_path(path, query, None, HELD_ROWS, profile)
         emit({"phase": path, "rows": HELD_ROWS, "groups": len(rows),
               "first_wall_s": first_wall, "first_row": rows[0], **extra,
-              "activities_per_batch": timing["device_activities"] / nbatches,
+              "activities_per_batch": per_batch(timing, nbatches),
+              **timing})
+        by_path[path] = launches
+    return by_path
+
+
+# -- phase 13 -----------------------------------------------------------------
+
+# half of phase 12's 60,012,150: at the full count phase 13 took 59 s and
+# the whole script 662 s on an H100 80GB HBM3 at 700 W, past its ~11
+# minutes
+TAIL_ROWS = SF10_ROWS // 2       # 30,006,075
+TAIL_SEED = 3                    # tests/test_agg_tail.py's _data seed
+TAIL_PARTITIONS = 16
+# each tail query's kernels that its main path must launch
+TAIL_KERNELS = {
+    "grouped_first_last": ("segmented_pick", "gather", "gather_strings",
+                           "sort"),
+    "global_first_last": ("masked_pick", "gather", "gather_strings"),
+    "grouped_max_min_by": ("segmented_pick", "segmented_extreme",
+                           "gather_strings"),
+    "grouped_by_string": ("segmented_pick", "gather_strings"),
+    "global_by_string": ("masked_pick", "gather_strings"),
+    "grouped_string_extremes": ("segmented_pick", "gather_strings"),
+    "grouped_bits": ("segmented_bitwise", "sort"),
+    "global_bits": ("masked_bitwise",),
+}
+# each output column of a tail query, as numpy evaluates it: (kind, value
+# column, ordering column or ignore_nulls); MIN / MAX over a string is the
+# string at its own extreme
+TAIL_SPECS = {
+    "grouped_first_last": [("first", "v", False), ("last", "v", False),
+                           ("first", "v", True), ("last", "v", True),
+                           ("first", "s", False), ("last", "s", True)],
+    "global_first_last": [("first", "v", True), ("last", "x", False),
+                          ("first", "s", False), ("last", "b", True)],
+    "grouped_max_min_by": [("max", "v", "x"), ("min", "v", "x"),
+                           ("max", "s", "v"), ("min", "s", "v")],
+    "grouped_by_string": [("max", "v", "s"), ("min", "v", "s"),
+                          ("max", "s", "s"), ("min", "x", "s")],
+    "global_by_string": [("max", "v", "s"), ("min", "v", "s")],
+    "grouped_string_extremes": [("min", "s", "s"), ("max", "s", "s")],
+    "grouped_bits": [("bit_and", "v", None), ("bit_or", "v", None),
+                     ("bit_xor", "v", None), ("bit_and", "b", None),
+                     ("bit_xor", "b", None)],
+    "global_bits": [(op, c, None) for c in "vb"
+                    for op in ("bit_and", "bit_or", "bit_xor")],
+}
+_I64_MAX = np.iinfo(np.int64).max
+_I64_MIN = np.iinfo(np.int64).min
+
+
+class TailNumpy:
+    """Independent evaluation of the tail queries over the host columns,
+    in the port's input order (a partition's batches in turn, the
+    partitions in order: ``create_dataframe`` deals the batches out
+    round-robin): a group's rows stably sorted by key, then FIRST / LAST
+    as the first / last eligible position, MAX_BY / MIN_BY as the first
+    position of the valid extreme of an int64 order word (a double's
+    bits, -0.0 as 0.0, NaN above +inf grouped and equal to it global, as
+    the reference orders it; a string's code through ``held.TAIL_RANK``),
+    the bit aggregates by ``np.bitwise_*.reduceat``."""
+
+    def __init__(self, data, validity, nbatches: int, batch_rows: int,
+                 parts: int):
+        self.data, self.validity = data, validity
+        n = len(data["k"])
+        order = np.concatenate([
+            np.arange(i * batch_rows, min((i + 1) * batch_rows, n))
+            for p in range(parts) for i in range(p, nbatches, parts)])
+        self.global_idx = order
+        self.grouped_idx = order[np.argsort(data["k"][order], kind="stable")]
+        sk = data["k"][self.grouped_idx]
+        self.starts = np.flatnonzero(np.r_[True, sk[1:] != sk[:-1]])
+        self.keys = sk[self.starts].tolist()
+
+    def key_word(self, c: str, idx, grouped: bool) -> np.ndarray:
+        x = self.data[c][idx]
+        if c == "s":
+            return held.TAIL_RANK[x.astype(np.int64)]
+        if x.dtype.kind != "f":
+            return x.astype(np.int64)
+        nan = np.isnan(x)
+        y = np.where(nan, np.inf, np.where(x == 0, 0.0, x))
+        b = y.view(np.int64)
+        w = np.where(b < 0, b ^ 0x7FFFFFFFFFFFFFFF, b)
+        return np.where(nan, _I64_MAX, w) if grouped else w
+
+    def value(self, c: str, row) -> object:
+        if row is None or not self.validity[c][row]:
+            return None
+        v = self.data[c][row]
+        return held.TAIL_STRINGS[int(v)] if c == "s" else v.item()
+
+    def column(self, spec, grouped: bool) -> list:
+        kind, c, arg = spec
+        idx = self.grouped_idx if grouped else self.global_idx
+        starts = self.starts if grouped else np.zeros(1, np.int64)
+        n = len(idx)
+        pos = np.arange(n)
+        if kind.startswith("bit_"):
+            x = self.data[c][idx]
+            ok = self.validity[c][idx]
+            ident = x.dtype.type(-1 if kind == "bit_and" else 0)
+            ufunc = {"bit_and": np.bitwise_and, "bit_or": np.bitwise_or,
+                     "bit_xor": np.bitwise_xor}[kind]
+            red = ufunc.reduceat(np.where(ok, x, ident), starts)
+            cnt = np.add.reduceat(ok, starts, dtype=np.int64)
+            return [r.item() if k else None for r, k in zip(red, cnt)]
+        if kind in ("first", "last"):
+            eligible = self.validity[c][idx] if arg else np.ones(n, bool)
+        else:
+            ok = self.validity[arg][idx]
+            w = self.key_word(arg, idx, grouped)
+            is_min = kind == "min"
+            ident = _I64_MAX if is_min else _I64_MIN
+            ufunc = np.minimum if is_min else np.maximum
+            best = ufunc.reduceat(np.where(ok, w, ident), starts)
+            lens = np.diff(np.r_[starts, n])
+            eligible = ok & (w == np.repeat(best, lens))
+        if kind == "last":
+            at = np.maximum.reduceat(np.where(eligible, pos, -1), starts)
+        else:
+            at = np.minimum.reduceat(np.where(eligible, pos, n), starts)
+        return [self.value(c, idx[a]) if 0 <= a < n else None for a in at]
+
+    def rows(self, name: str) -> list:
+        grouped = name.startswith("grouped")
+        cols = [self.column(spec, grouped) for spec in TAIL_SPECS[name]]
+        rows = [tuple(col[i] for col in cols) for i in range(len(cols[0]))]
+        if grouped:
+            rows = [(k, *r) for k, r in zip(self.keys, rows)]
+        return rows
+
+
+def phase_tail_data(dev):
+    """The aggregate tail's table on the card: tests/test_agg_tail.py's
+    _data drawn at 30,006,075 rows, batches of 1,048,576, 16 partitions;
+    numpy's results of the eight queries."""
+    t0 = time.perf_counter()
+    data, validity = held.tail_columns(TAIL_ROWS, TAIL_SEED)
+    batches = held.tail_batches(data, validity, dev, N)
+    torch.cuda.synchronize()
+    upload = time.perf_counter() - t0
+    ref = TailNumpy(data, validity, len(batches), N, TAIL_PARTITIONS)
+    with ThreadPoolExecutor(4) as pool:
+        want = dict(zip(held.TAIL_QUERIES, pool.map(
+            ref.rows, held.TAIL_QUERIES)))
+    resident = sum(t.nbytes for b in batches for c in b.columns
+                   for t in (c.data, c.validity)
+                   + ((c.offsets,) if c.is_string else ()))
+    emit({"phase": "tail_data", "rows": TAIL_ROWS, "batches": len(batches),
+          "partitions": TAIL_PARTITIONS, "resident_bytes": resident,
+          "draw_and_upload_seconds": upload,
+          "setup_seconds": time.perf_counter() - t0})
+    df = GpuSession().create_dataframe(batches,
+                                       num_partitions=TAIL_PARTITIONS)
+    return df, want
+
+
+def tail_equal(a, b) -> bool:
+    """Exact: floats bit for bit (NaN equal to NaN, -0.0 apart from
+    0.0)."""
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(b, float):
+        return isinstance(a, float) and (
+            np.isnan(a) and np.isnan(b)
+            or np.float64(a).view(np.int64) == np.float64(b).view(np.int64))
+    return a == b
+
+
+def phase_tail(df, want) -> dict:
+    """Each tail query's main path (traced, its launches), held against
+    numpy, then timed."""
+    by_path = {}
+    nbatches = -(-TAIL_ROWS // N)
+    for name, build in held.TAIL_QUERIES.items():
+        query = lambda _, build=build: build(df)  # noqa: E731
+        path = f"tail_{name}"
+        rows, plan, launches, first_wall, profile = run_phase_path(
+            path, query, TAIL_KERNELS[name])
+        rows = sorted(rows, key=lambda r: r[0])
+        exp = want[name]
+        require(len(rows) == len(exp),
+                f"{path} gave {len(rows)} rows, numpy {len(exp)}")
+        for g, w in zip(rows, exp):
+            require(len(g) == len(w) and all(
+                tail_equal(a, b) for a, b in zip(g, w)),
+                f"{path} row {g} where numpy has {w}")
+        timing = time_path(path, query, None, TAIL_ROWS, profile)
+        emit({"phase": path, "rows": TAIL_ROWS, "groups": len(rows),
+              "first_wall_s": first_wall, "first_row": rows[0],
+              "activities_per_batch": per_batch(timing, nbatches),
               **timing})
         by_path[path] = launches
     return by_path
@@ -4478,6 +4959,7 @@ def main() -> None:
     by_path.update(phase_gauntlet(
         phase_gauntlet_data(dev, q25_dfs, gauntlet), gauntlet))
     by_path.update(phase_held(*phase_held_data(dev)))
+    by_path.update(phase_tail(*phase_tail_data(dev)))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         s = summary[name]
@@ -4487,10 +4969,11 @@ def main() -> None:
             "source": f"spark_rapids_tpu_torch/{source}",
             "replaces": replaces, "launches": sum(counts.values()),
             "launches_by_path": counts,
-            "max_abs_err": ERRS[name], "ms": s["ms"],
+            "max_abs_err": ERRS[name], "ms": s["ms"], "ms_from": s["ms_from"],
             "call_ms": s["call_ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": s["library_ms"]})
+    emit({"phase": "profiler", "traces_without_the_card": PROFILER_LOST})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

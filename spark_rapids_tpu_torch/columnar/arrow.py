@@ -23,6 +23,8 @@ from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 
 _ARROW_TO_SQL = {
     pa.bool_(): T.BOOLEAN,
+    pa.int8(): T.BYTE,
+    pa.int16(): T.SHORT,
     pa.int32(): T.INT,
     pa.int64(): T.LONG,
     pa.float32(): T.FLOAT,

@@ -1,7 +1,8 @@
 // Reductions of the port over columns with validity: the whole-batch
 // masked sum and the segmented sum of a grouped aggregate (f64 or i64),
-// and the MIN / MAX and M2 (variance) reductions, segmented and
-// whole-batch.  Built for sm_90a by kernels/_lib.py and called through
+// the MIN / MAX and M2 (variance) reductions, the picks (FIRST / LAST,
+// MAX_BY / MIN_BY, string MIN / MAX) and BIT_AND / BIT_OR / BIT_XOR, each
+// segmented and whole-batch.  Built for sm_90a by kernels/_lib.py and called through
 // ctypes from kernels/reduction.py.  Every entry point launches on the
 // caller's stream, allocates nothing, and returns the cudaError_t of its
 // launches.  All are deterministic (no float atomics: a result is the same
@@ -42,6 +43,8 @@
 #include <cuda_runtime.h>
 #include <cub/block/block_reduce.cuh>
 #include <cub/block/block_scan.cuh>
+
+#include "strings.cuh"
 
 namespace {
 
@@ -293,7 +296,8 @@ int launch_segmented(const T* data, const uint8_t* valid, int64_t n,
 }
 
 // ---------------------------------------------------------------------------
-// MIN / MAX and M2: one tile design for any associative state.
+// MIN / MAX, M2, the picks and the bitwise reductions: one tile design
+// for any associative state (the picks and bitwise ones are further down).
 //
 // segmented_extreme <- spark_rapids_tpu/kernels/groupby.py:228 seg_min,
 //                      :256 seg_max (with _extreme :219)
@@ -305,7 +309,8 @@ int launch_segmented(const T* data, const uint8_t* valid, int64_t n,
 //                      (_global_update's M2) and :318 _global_m2_merge
 //
 // A policy P says what a row contributes (load), how two partial states
-// combine (associative; for MIN / MAX also commutative) and how a
+// combine (associative; for MIN / MAX and the picks also commutative;
+// a pick's combine reads the policy's columns) and how a
 // segment's final state is written.  The segmented pair is
 // segmented_sum's design with the state in place of (sum, count): pass 1
 // tiles the rows (kSegItems consecutive rows a thread, the first row's
@@ -346,20 +351,24 @@ struct PRun {
   typename P::S s;
 };
 
+// The scan and reduce operators carry the policy: a combine may read the
+// policy's columns (the string pick compares two rows' bytes).
 template <class P>
 struct PRunOp {
+  P p;
   __device__ __forceinline__ PRun<P> operator()(const PRun<P>& a,
                                                 const PRun<P>& b) const {
     if (a.seg != b.seg) return b;
-    return PRun<P>{b.seg, P::combine(a.s, b.s)};
+    return PRun<P>{b.seg, p.combine(a.s, b.s)};
   }
 };
 
 template <class P>
 struct PCombine {
+  P p;
   __device__ __forceinline__ typename P::S operator()(
       const typename P::S& a, const typename P::S& b) const {
-    return P::combine(a, b);
+    return p.combine(a, b);
   }
 };
 
@@ -389,13 +398,13 @@ seg_reduce_tiles(P p_in, int64_t n, const int32_t* __restrict__ starts,
         while (s + 1 < g && starts[s + 1] <= r) ++s;
         segs[k] = s;
         vals[k] = p.load(r, s);
-        agg = agg.seg == s ? R{s, P::combine(agg.s, vals[k])}
+        agg = agg.seg == s ? R{s, p.combine(agg.s, vals[k])}
                            : R{s, vals[k]};
       }
     }
   }
   R prefix;
-  Scan(tmp).ExclusiveScan(agg, prefix, R{-1, P::identity()}, PRunOp<P>());
+  Scan(tmp).ExclusiveScan(agg, prefix, R{-1, P::identity()}, PRunOp<P>{p});
   if (r0 >= tile_end) return;
   R run{-1, P::identity()};
 #pragma unroll
@@ -404,7 +413,7 @@ seg_reduce_tiles(P p_in, int64_t n, const int32_t* __restrict__ starts,
     if (r >= tile_end) break;
     const int s = segs[k];
     if (k == 0) run = prefix.seg == s ? prefix : R{s, P::identity()};
-    run.s = P::combine(run.s, vals[k]);
+    run.s = p.combine(run.s, vals[k]);
     const bool ends_here = r + 1 == n || (s + 1 < g && starts[s + 1] == r + 1);
     if (ends_here) {
       if (starts[s] >= tile0) {           // the whole segment is in the tile
@@ -435,7 +444,7 @@ seg_reduce_final(P p, const int32_t* __restrict__ starts, int g, int64_t n,
   const int64_t tb = (end - 1) / kSegTile;
   if (ta == tb) return;                   // pass 1 wrote it
   typename P::S acc = tail[ta];
-  for (int64_t t = ta + 1; t <= tb; ++t) acc = P::combine(acc, head[t]);
+  for (int64_t t = ta + 1; t <= tb; ++t) acc = p.combine(acc, head[t]);
   p.write(s, acc);
 }
 
@@ -470,9 +479,9 @@ masked_reduce_tiles(P p_in, int64_t n,
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     const int64_t j = base + static_cast<int64_t>(i) * kThreads + threadIdx.x;
-    if (j < n) acc = P::combine(acc, p.load(j, 0));
+    if (j < n) acc = p.combine(acc, p.load(j, 0));
   }
-  const S total = Reduce(tmp).Reduce(acc, PCombine<P>());
+  const S total = Reduce(tmp).Reduce(acc, PCombine<P>{p});
   if (threadIdx.x == 0) tile_state[blockIdx.x] = total;
 }
 
@@ -485,9 +494,9 @@ masked_reduce_final(P p, const typename P::S* __restrict__ tile_state,
   __shared__ typename Reduce::TempStorage tmp;
   S acc = P::identity();
   for (int64_t i = threadIdx.x; i < ntiles; i += kFinalThreads) {
-    acc = P::combine(acc, tile_state[i]);
+    acc = p.combine(acc, tile_state[i]);
   }
-  const S total = Reduce(tmp).Reduce(acc, PCombine<P>());
+  const S total = Reduce(tmp).Reduce(acc, PCombine<P>{p});
   if (threadIdx.x == 0) p.write(0, total);
 }
 
@@ -777,6 +786,330 @@ int m2(bool segmented, int dtype, int merge, const void* x,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+
+// -- picks: FIRST / LAST, MAX_BY / MIN_BY, string MIN / MAX --------------------
+//
+// segmented_pick <- spark_rapids_tpu/kernels/groupby.py:406 seg_pick (with
+//                   _seg_arg :390), :419 seg_pick_by, :341
+//                   seg_extreme_string (with string_order_rank :313)
+// masked_pick    <- spark_rapids_tpu/kernels/groupby.py:478 global_pick,
+//                   :496 global_pick_by, :363 global_extreme_string
+//
+// Each writes one int32 row index a segment (or for the batch), -1 where
+// no row qualifies; the caller's gather (csrc/selection.cu) then moves
+// the value column of any type, strings too.  The state is (row, key),
+// row -1 for "no candidate"; the combine is associative and commutative
+// and, between two candidates of one key, keeps the lower row.  Kinds:
+//  * first / last: the lowest / highest eligible row; eligible is every
+//    row, or with ignore_nulls only the valid ones;
+//  * min / max over a fixed-width key: the key's int64 order word
+//    (BOOLEAN its byte, integers sign-extended, floats their bits with all
+//    but the sign flipped where the sign is set, -0.0 taken as 0.0).  NaN
+//    is greatest (nan_greatest: seg_pick_by's order through seg_min /
+//    seg_max) or equal to +inf (global_pick_by maps NaN to +inf, so the
+//    first of the two wins).  A null key never wins;
+//  * min / max over a STRING key: the two rows' bytes compared in place
+//    (unsigned, 8-byte big-endian chunks; a prefix before the longer
+//    string), Spark's UTF8String.binaryCompare with no length cap.  The
+//    reference ranks the strings first (a lexsort of their chunk keys) so
+//    that XLA reduces a fixed-width surrogate; a combine here reads the
+//    bytes of its two rows from device memory instead, each time.
+// Bound: bytes.  The key (or the validity alone) read once, the starts
+// read and one int32 a segment written; a string key's bytes read once.
+//
+// segmented_bitwise <- spark_rapids_tpu/kernels/groupby.py:448 seg_bitwise
+// masked_bitwise    <- spark_rapids_tpu/kernels/groupby.py:528
+//                      global_bitwise
+// BIT_AND / BIT_OR / BIT_XOR over int8 ... int64: the state is (int64
+// accumulator of the sign-extended values, valid count), identity -1 for
+// AND and 0 for OR and XOR; the result is written at the input's width, 0
+// with valid 0 where the segment has no valid row.  Bound: bytes, as for
+// MIN / MAX.
+
+struct PickState {
+  long long row;       // -1: no candidate
+  long long key;       // the order word (fixed-width keys)
+};
+
+__device__ __forceinline__ PickState no_pick() { return PickState{-1, 0}; }
+
+// FIRST (Last = false) or LAST
+template <bool Last>
+struct PositionPick {
+  using S = PickState;
+  const uint8_t* valid;
+  int ignore_nulls;
+  int32_t* out;
+
+  static __device__ __forceinline__ S identity() { return no_pick(); }
+  static __device__ __forceinline__ S combine(const S& a, const S& b) {
+    if (a.row < 0) return b;
+    if (b.row < 0) return a;
+    return (Last ? a.row > b.row : a.row < b.row) ? a : b;
+  }
+  __device__ __forceinline__ S load(int64_t r, int) const {
+    return (!ignore_nulls || valid[r]) ? S{r, 0} : no_pick();
+  }
+  __device__ __forceinline__ void write(int seg, const S& s) const {
+    out[seg] = static_cast<int32_t>(s.row);
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ long long order_word(T x, int) {
+  return static_cast<long long>(x);
+}
+
+template <>
+__device__ __forceinline__ long long order_word<float>(float x,
+                                                       int nan_greatest) {
+  if (x != x) {
+    if (nan_greatest) return INT64_MAX;
+    x = Bounds<float>::hi();              // NaN counts as +inf
+  } else if (x == 0.0f) {
+    x = 0.0f;                             // -0.0 is 0.0
+  }
+  const int32_t b = __float_as_int(x);
+  return static_cast<long long>(b < 0 ? b ^ 0x7FFFFFFF : b);
+}
+
+template <>
+__device__ __forceinline__ long long order_word<double>(double x,
+                                                        int nan_greatest) {
+  if (x != x) {
+    if (nan_greatest) return INT64_MAX;
+    x = Bounds<double>::hi();
+  } else if (x == 0.0) {
+    x = 0.0;
+  }
+  const long long b = __double_as_longlong(x);
+  return b < 0 ? b ^ 0x7FFFFFFFFFFFFFFFll : b;
+}
+
+template <bool IsMin>
+__device__ __forceinline__ PickState better_key(const PickState& a,
+                                                const PickState& b) {
+  if (a.row < 0) return b;
+  if (b.row < 0) return a;
+  if (a.key != b.key) return (IsMin ? a.key < b.key : a.key > b.key) ? a : b;
+  return a.row < b.row ? a : b;
+}
+
+template <typename T, bool IsMin>
+struct KeyPick {
+  using S = PickState;
+  const T* key;
+  const uint8_t* valid;
+  int nan_greatest;
+  int32_t* out;
+
+  static __device__ __forceinline__ S identity() { return no_pick(); }
+  static __device__ __forceinline__ S combine(const S& a, const S& b) {
+    return better_key<IsMin>(a, b);
+  }
+  __device__ __forceinline__ S load(int64_t r, int) const {
+    return valid[r] ? S{r, order_word<T>(key[r], nan_greatest)} : no_pick();
+  }
+  __device__ __forceinline__ void write(int seg, const S& s) const {
+    out[seg] = static_cast<int32_t>(s.row);
+  }
+};
+
+// -1, 0 or 1: row i's bytes against row j's, unsigned, a prefix first
+__device__ __forceinline__ int compare_rows(const int32_t* __restrict__ off,
+                                            const uint8_t* __restrict__ bytes,
+                                            long long i, long long j) {
+  const int32_t la = off[i + 1] - off[i];
+  const int32_t lb = off[j + 1] - off[j];
+  const uint8_t* p = bytes + off[i];
+  const uint8_t* q = bytes + off[j];
+  const int32_t m = la < lb ? la : lb;
+  for (int c = 0; 8 * c < m; ++c) {
+    const uint64_t x = string_chunk(p, la, c);
+    const uint64_t y = string_chunk(q, lb, c);
+    if (x != y) return x < y ? -1 : 1;
+  }
+  return la == lb ? 0 : (la < lb ? -1 : 1);
+}
+
+template <bool IsMin>
+struct StringPick {
+  using S = PickState;
+  const int32_t* off;
+  const uint8_t* bytes;
+  const uint8_t* valid;
+  int32_t* out;
+
+  static __device__ __forceinline__ S identity() { return no_pick(); }
+  __device__ __forceinline__ S combine(const S& a, const S& b) const {
+    if (a.row < 0) return b;
+    if (b.row < 0) return a;
+    const int c = compare_rows(off, bytes, a.row, b.row);
+    if (c != 0) return (IsMin ? c < 0 : c > 0) ? a : b;
+    return a.row < b.row ? a : b;
+  }
+  __device__ __forceinline__ S load(int64_t r, int) const {
+    return valid[r] ? S{r, 0} : no_pick();
+  }
+  __device__ __forceinline__ void write(int seg, const S& s) const {
+    out[seg] = static_cast<int32_t>(s.row);
+  }
+};
+
+// the pick kinds and flags of the entry points (kernels/reduction.py
+// _PICK_KIND, _PICK_*): dtype codes as for MIN / MAX, plus int8, int16
+// and STRING
+enum : int { kPickFirst = 0, kPickLast = 1, kPickMin = 2, kPickMax = 3 };
+enum : int { kI8 = 5, kI16 = 6, kString = 7 };
+constexpr int kIgnoreNulls = 1;
+constexpr int kNanGreatest = 2;
+
+template <typename T, bool IsMin>
+int key_pick(bool segmented, int flags, const void* key,
+             const uint8_t* valid, int64_t n, const int32_t* starts, int g,
+             void* scratch, int32_t* out, cudaStream_t stream) {
+  const KeyPick<T, IsMin> p{static_cast<const T*>(key), valid,
+                            (flags & kNanGreatest) != 0, out};
+  return reduce_launch(p, segmented, n, starts, g, scratch, stream);
+}
+
+template <bool IsMin>
+int key_pick_dispatch(bool segmented, int dtype, int flags, const void* key,
+                      const int32_t* key_off, const uint8_t* valid, int64_t n,
+                      const int32_t* starts, int g, void* scratch,
+                      int32_t* out, cudaStream_t stream) {
+  switch (dtype) {
+    case kBool:
+      return key_pick<uint8_t, IsMin>(segmented, flags, key, valid, n, starts,
+                                      g, scratch, out, stream);
+    case kI8:
+      return key_pick<int8_t, IsMin>(segmented, flags, key, valid, n, starts,
+                                     g, scratch, out, stream);
+    case kI16:
+      return key_pick<int16_t, IsMin>(segmented, flags, key, valid, n, starts,
+                                      g, scratch, out, stream);
+    case kI32:
+      return key_pick<int32_t, IsMin>(segmented, flags, key, valid, n, starts,
+                                      g, scratch, out, stream);
+    case kI64:
+      return key_pick<int64_t, IsMin>(segmented, flags, key, valid, n, starts,
+                                      g, scratch, out, stream);
+    case kF32:
+      return key_pick<float, IsMin>(segmented, flags, key, valid, n, starts,
+                                    g, scratch, out, stream);
+    case kF64:
+      return key_pick<double, IsMin>(segmented, flags, key, valid, n, starts,
+                                     g, scratch, out, stream);
+    case kString: {
+      const StringPick<IsMin> p{key_off, static_cast<const uint8_t*>(key),
+                                valid, out};
+      return reduce_launch(p, segmented, n, starts, g, scratch, stream);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int pick(bool segmented, int kind, int dtype, int flags, const void* key,
+         const int32_t* key_off, const uint8_t* valid, int64_t n,
+         const int32_t* starts, int g, void* scratch, int32_t* out,
+         cudaStream_t stream) {
+  const int ignore = (flags & kIgnoreNulls) != 0;
+  switch (kind) {
+    case kPickFirst:
+      return reduce_launch(PositionPick<false>{valid, ignore, out}, segmented,
+                           n, starts, g, scratch, stream);
+    case kPickLast:
+      return reduce_launch(PositionPick<true>{valid, ignore, out}, segmented,
+                           n, starts, g, scratch, stream);
+    case kPickMin:
+      return key_pick_dispatch<true>(segmented, dtype, flags, key, key_off,
+                                     valid, n, starts, g, scratch, out,
+                                     stream);
+    case kPickMax:
+      return key_pick_dispatch<false>(segmented, dtype, flags, key, key_off,
+                                      valid, n, starts, g, scratch, out,
+                                      stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// -- bitwise --------------------------------------------------------------------
+
+struct BitState {
+  long long acc;
+  long long nvalid;
+};
+
+enum : int { kBitAnd = 0, kBitOr = 1, kBitXor = 2 };
+
+template <typename T, int Op>
+struct BitwisePolicy {
+  using S = BitState;
+  const T* data;
+  const uint8_t* valid;
+  T* out;
+  uint8_t* out_valid;
+
+  static __device__ __forceinline__ S identity() {
+    return S{Op == kBitAnd ? -1ll : 0ll, 0};
+  }
+  static __device__ __forceinline__ S combine(const S& a, const S& b) {
+    const long long v = Op == kBitAnd ? (a.acc & b.acc)
+                        : Op == kBitOr ? (a.acc | b.acc) : (a.acc ^ b.acc);
+    return S{v, a.nvalid + b.nvalid};
+  }
+  __device__ __forceinline__ S load(int64_t r, int) const {
+    if (!valid[r]) return identity();
+    return S{static_cast<long long>(data[r]), 1};
+  }
+  __device__ __forceinline__ void write(int seg, const S& s) const {
+    out[seg] = s.nvalid > 0 ? static_cast<T>(s.acc) : T(0);
+    out_valid[seg] = s.nvalid > 0;
+  }
+};
+
+template <typename T>
+int bitwise_typed(bool segmented, int op, const void* data,
+                  const uint8_t* valid, int64_t n, const int32_t* starts,
+                  int g, void* scratch, void* out, uint8_t* out_valid,
+                  cudaStream_t stream) {
+  const T* d = static_cast<const T*>(data);
+  T* o = static_cast<T*>(out);
+  switch (op) {
+    case kBitAnd:
+      return reduce_launch(BitwisePolicy<T, kBitAnd>{d, valid, o, out_valid},
+                           segmented, n, starts, g, scratch, stream);
+    case kBitOr:
+      return reduce_launch(BitwisePolicy<T, kBitOr>{d, valid, o, out_valid},
+                           segmented, n, starts, g, scratch, stream);
+    case kBitXor:
+      return reduce_launch(BitwisePolicy<T, kBitXor>{d, valid, o, out_valid},
+                           segmented, n, starts, g, scratch, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int bitwise(bool segmented, int op, int dtype, const void* data,
+            const uint8_t* valid, int64_t n, const int32_t* starts, int g,
+            void* scratch, void* out, uint8_t* out_valid,
+            cudaStream_t stream) {
+  switch (dtype) {
+    case kI8:
+      return bitwise_typed<int8_t>(segmented, op, data, valid, n, starts, g,
+                                   scratch, out, out_valid, stream);
+    case kI16:
+      return bitwise_typed<int16_t>(segmented, op, data, valid, n, starts, g,
+                                    scratch, out, out_valid, stream);
+    case kI32:
+      return bitwise_typed<int32_t>(segmented, op, data, valid, n, starts, g,
+                                    scratch, out, out_valid, stream);
+    case kI64:
+      return bitwise_typed<int64_t>(segmented, op, data, valid, n, starts, g,
+                                    scratch, out, out_valid, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" {
@@ -869,6 +1202,51 @@ int srt_masked_m2(int dtype, int merge, const void* x, const uint8_t* valid,
                   void* scratch, double* out, cudaStream_t stream) {
   return m2(false, dtype, merge, x, valid, part_sum, part_count, n, nullptr,
             1, sum, count, scratch, out, stream);
+}
+
+// The row each segment picks into out[g] (int32, -1 where none qualifies).
+// kind: 0 first, 1 last, 2 min, 3 max.  flags: 1 ignore_nulls (first /
+// last), 2 NaN greatest (min / max over floats; else NaN equals +inf).
+// min / max: key of dtype 0-6 (bool, int32, int64, float, double, int8,
+// int16) or 7 (STRING: key the bytes, key_off[n + 1] the offsets), valid
+// its validity; first / last: valid the value's validity, key unused.
+// Scratch as for srt_segmented_extreme.
+int srt_segmented_pick(int kind, int dtype, int flags, const void* key,
+                       const int32_t* key_off, const uint8_t* valid,
+                       int64_t n, const int32_t* starts, int g, void* scratch,
+                       int32_t* out, cudaStream_t stream) {
+  return pick(true, kind, dtype, flags, key, key_off, valid, n, starts, g,
+              scratch, out, stream);
+}
+
+// The same over the whole batch: out[1].  Scratch as for
+// srt_masked_extreme.
+int srt_masked_pick(int kind, int dtype, int flags, const void* key,
+                    const int32_t* key_off, const uint8_t* valid, int64_t n,
+                    void* scratch, int32_t* out, cudaStream_t stream) {
+  return pick(false, kind, dtype, flags, key, key_off, valid, n, nullptr, 1,
+              scratch, out, stream);
+}
+
+// BIT_AND (op 0), BIT_OR (1) or BIT_XOR (2) of each segment's valid rows
+// into out[g] at the data's type (dtype 1 int32, 2 int64, 5 int8, 6
+// int16), out_valid[g].  Scratch as for srt_segmented_extreme.
+int srt_segmented_bitwise(int op, int dtype, const void* data,
+                          const uint8_t* valid, int64_t n,
+                          const int32_t* starts, int g, void* scratch,
+                          void* out, uint8_t* out_valid,
+                          cudaStream_t stream) {
+  return bitwise(true, op, dtype, data, valid, n, starts, g, scratch, out,
+                 out_valid, stream);
+}
+
+// The same over the whole batch: out[1], out_valid[1].  Scratch as for
+// srt_masked_extreme.
+int srt_masked_bitwise(int op, int dtype, const void* data,
+                       const uint8_t* valid, int64_t n, void* scratch,
+                       void* out, uint8_t* out_valid, cudaStream_t stream) {
+  return bitwise(false, op, dtype, data, valid, n, nullptr, 1, scratch, out,
+                 out_valid, stream);
 }
 
 }  // extern "C"

@@ -26,16 +26,19 @@ from spark_rapids_tpu_torch.expressions.strings import Substring
 from spark_rapids_tpu_torch.expressions.casts import Cast
 from spark_rapids_tpu_torch.expressions.conditional import If
 from spark_rapids_tpu_torch.expressions.aggregates import (
-    Average, BoolAnd, BoolOr, Count, Max, Min, StddevPop, StddevSamp, Sum,
-    VariancePop, VarianceSamp, avg, count, max_, min_, stddev, stddev_pop,
-    sum_, var_pop, var_samp)
+    Average, BitAndAgg, BitOrAgg, BitXorAgg, BoolAnd, BoolOr, Count, First,
+    Last, Max, MaxBy, Min, MinBy, StddevPop, StddevSamp, Sum, VariancePop,
+    VarianceSamp, avg, bit_and, bit_or, bit_xor, count, first, last, max_,
+    max_by, min_, min_by, stddev, stddev_pop, sum_, var_pop, var_samp)
 
 __all__ = [
-    "Add", "Alias", "And", "Average", "BoolAnd", "BoolOr", "BoundReference",
-    "Cast", "Col", "Count", "Divide", "EqualTo", "EvalContext", "Expression",
-    "GreaterThan", "GreaterThanOrEqual", "If", "IsNull", "LessThan",
-    "LessThanOrEqual", "Literal", "Max", "Min", "Multiply", "Not", "Or",
-    "StddevPop", "StddevSamp", "Substring", "Subtract", "Sum", "VariancePop",
-    "VarianceSamp", "avg", "col", "count", "lit", "max_", "min_", "stddev",
-    "stddev_pop", "sum_", "var_pop", "var_samp",
+    "Add", "Alias", "And", "Average", "BitAndAgg", "BitOrAgg", "BitXorAgg",
+    "BoolAnd", "BoolOr", "BoundReference", "Cast", "Col", "Count", "Divide",
+    "EqualTo", "EvalContext", "Expression", "First", "GreaterThan",
+    "GreaterThanOrEqual", "If", "IsNull", "Last", "LessThan",
+    "LessThanOrEqual", "Literal", "Max", "MaxBy", "Min", "MinBy", "Multiply",
+    "Not", "Or", "StddevPop", "StddevSamp", "Substring", "Subtract", "Sum",
+    "VariancePop", "VarianceSamp", "avg", "bit_and", "bit_or", "bit_xor",
+    "col", "count", "first", "last", "lit", "max_", "max_by", "min_",
+    "min_by", "stddev", "stddev_pop", "sum_", "var_pop", "var_samp",
 ]

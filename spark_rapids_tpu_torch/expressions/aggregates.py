@@ -1,11 +1,14 @@
 """Declarative aggregate functions: SUM, COUNT, AVG, MIN, MAX, the
-variances and standard deviations, BOOL_AND and BOOL_OR.
+variances and standard deviations, BOOL_AND and BOOL_OR, FIRST and LAST,
+MAX_BY and MIN_BY, and BIT_AND, BIT_OR and BIT_XOR.
 
 Counterpart of ``spark_rapids_tpu/expressions/aggregates.py`` (``Sum`` :91,
 ``Count`` :134, ``Min`` :172, ``Max`` :204, ``Average`` :236,
 ``VarianceBase`` :382 with ``_finish`` :413, ``VarianceSamp``,
 ``VariancePop``, ``StddevSamp``, ``StddevPop`` :434-454, ``BoolAnd`` /
-``BoolOr`` :476-490; non-decimal inputs, and Decimal64 for MIN / MAX).
+``BoolOr`` :476-490, ``First`` :1069, ``Last`` :1113, ``_ExtremeBy`` /
+``MaxBy`` / ``MinBy`` :1118-1171, ``_BitAggBase`` and the bit aggregates
+:1176-1216; non-decimal inputs, and Decimal64 for MIN / MAX).
 Each function declares its buffer slots: the slot's type, how raw rows
 fold into it (``update_op``) and how partial buffers fold together
 (``merge_op``; counts update by counting and merge by summing), plus a
@@ -18,7 +21,13 @@ count -> LONG (never null), avg(numeric) -> DOUBLE (null over no valid
 row), min / max keep the input type (null over no valid row), the
 variances and standard deviations are DOUBLE over the buffers (SUM
 DOUBLE, M2 merged by Chan's formula, COUNT_VALID), null where the
-divisor would be 0.  MIN / MAX over STRING and over two-limb decimals
+divisor would be 0.  MIN / MAX over STRING keep the first row holding
+the extreme (unsigned byte order).  FIRST / LAST keep their input's type
+(any, strings too), MAX_BY / MIN_BY their value's, the bit aggregates
+their integral input's; each is null where no row qualifies.  A
+multi-input aggregate (MAX_BY, MIN_BY) lists its ``inputs``, and each
+buffer slot names the input it folds (``input_index``).  MIN / MAX and
+the variances over BYTE or SHORT, and MIN / MAX over two-limb decimals,
 raise: their kernels are still to port (ROADMAP queue 2).
 """
 from __future__ import annotations
@@ -29,6 +38,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.expressions.core import Expression, col
 
 SUM = "sum"
@@ -38,6 +48,18 @@ COUNT_VALID = "count_valid"  # counts non-null inputs
 COUNT_STAR = "count_star"    # counts rows
 MIN = "min"
 MAX = "max"
+FIRST = "first"
+FIRST_VALID = "first_valid"  # ignoreNulls=true
+LAST = "last"
+LAST_VALID = "last_valid"
+PICK_OPS = (FIRST, FIRST_VALID, LAST, LAST_VALID)
+MAXBY_VAL = "maxby_val"      # x at the extreme of y
+MINBY_VAL = "minby_val"
+BY_OPS = (MAXBY_VAL, MINBY_VAL)
+BIT_AND = "bit_and"
+BIT_OR = "bit_or"
+BIT_XOR = "bit_xor"
+BIT_OPS = (BIT_AND, BIT_OR, BIT_XOR)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,16 +69,22 @@ class BufferSlot:
     dtype: T.DataType
     update_op: str
     merge_op: str
+    input_index: int = 0   # which of the aggregate's ``inputs`` it folds
 
 
 class AggregateFunction(Expression):
-    """Base: children[0] (if any) is the input value expression."""
+    """Base: children[0] (if any) is the input value expression; an
+    aggregate of several inputs (MAX_BY) overrides ``inputs``."""
 
     name = "agg"
 
     @property
     def input(self) -> Optional[Expression]:
         return self.children[0] if self.children else None
+
+    @property
+    def inputs(self) -> Tuple[Expression, ...]:
+        return (self.children[0],) if self.children else ()
 
     def with_children(self, children):
         return type(self)(children[0]) if children else type(self)()
@@ -66,7 +94,9 @@ class AggregateFunction(Expression):
         raise NotImplementedError
 
     def finalize(self, bufs: List[Tuple[torch.Tensor, torch.Tensor]]):
-        """(values, validity) per merged buffer -> (values, validity)."""
+        """(values, validity) per merged buffer -> (values, validity).  A
+        STRING buffer comes as its column in place of its values; a STRING
+        result is such a column, whose own validity is the result's."""
         raise NotImplementedError
 
     def __repr__(self):
@@ -150,14 +180,20 @@ class Average(AggregateFunction):
         return s / torch.where(valid, n, 1).to(s.dtype), valid
 
 
+def _narrow_int(dt: T.DataType) -> bool:
+    return isinstance(dt, (T.ByteType, T.ShortType))
+
+
 class _Extreme(AggregateFunction):
     """MIN / MAX: buffers (the extreme at the input's type, LONG
     COUNT_VALID merged by SUM), valid where the count is > 0.  Floats
     follow Spark's order: NaN above everything (MIN skips NaN unless the
     group holds nothing else, any NaN makes MAX NaN), and -0.0 below 0.0,
-    as the reference's extremes give it on the CPU.  A two-limb decimal
-    (the reference's MIN128 / MAX128 buffers) cannot reach here: the
-    port's ``DecimalType`` refuses a precision above 18."""
+    as the reference's extremes give it on the CPU.  A STRING's extreme is
+    its first row holding the smallest / largest bytes (a pick).  A
+    two-limb decimal (the reference's MIN128 / MAX128 buffers) cannot
+    reach here: the port's ``DecimalType`` refuses a precision above
+    18."""
 
     op = MIN
 
@@ -167,11 +203,10 @@ class _Extreme(AggregateFunction):
     @property
     def dtype(self):
         dt = self.input.dtype
-        if dt.variable_width:
+        if _narrow_int(dt):
             raise NotImplementedError(
-                f"{self.name}({dt!r}) is not ported: string MIN / MAX "
-                "(string_order_rank, seg_extreme_string, "
-                "global_extreme_string) is ROADMAP queue 2")
+                f"{self.name}({dt!r}) is not ported: MIN / MAX over BYTE "
+                "and SHORT are ROADMAP queue 2")
         return dt
 
     @property
@@ -224,7 +259,7 @@ class VarianceBase(AggregateFunction):
     @property
     def dtype(self):
         cdt = self.input.dtype
-        if not (cdt.is_integral or cdt.is_floating):
+        if not (cdt.is_integral or cdt.is_floating) or _narrow_int(cdt):
             raise NotImplementedError(f"{self.name}({cdt!r}) is not ported")
         return T.DOUBLE
 
@@ -270,6 +305,143 @@ class StddevPop(VarianceBase):
     name = "stddev_pop"
     _sample = False
     _sqrt = True
+
+
+class First(AggregateFunction):
+    """first(expr[, ignoreNulls]): the value of the first row in input
+    order, or of the first valid row with ``ignore_nulls``; one buffer of
+    the input's type, picked again at the merge (the partials arrive in
+    input order).  Spark calls it non-deterministic without an ordering:
+    the tests pin the partitioning."""
+
+    name = "first"
+    _pick_last = False
+
+    def __init__(self, child: Expression, ignore_nulls: bool = False):
+        self.children = (child,)
+        self.ignore_nulls = bool(ignore_nulls)
+
+    def with_children(self, children):
+        return type(self)(children[0], self.ignore_nulls)
+
+    @property
+    def dtype(self):
+        return self.input.dtype
+
+    @property
+    def buffers(self):
+        if self._pick_last:
+            op = LAST_VALID if self.ignore_nulls else LAST
+        else:
+            op = FIRST_VALID if self.ignore_nulls else FIRST
+        return (BufferSlot(self.dtype, op, op),)
+
+    def finalize(self, bufs):
+        return bufs[0]
+
+    def __repr__(self):
+        ign = ", ignoreNulls" if self.ignore_nulls else ""
+        return f"{self.name}({self.input!r}{ign})"
+
+
+class Last(First):
+    name = "last"
+    _pick_last = True
+
+
+class _ExtremeBy(AggregateFunction):
+    """max_by / min_by(x, y): x at the extreme of y; of equal y the first
+    row wins (Spark's update keeps the incumbent).  Buffers: x at the
+    pick, y's extreme (MAX / MIN over y, the key the merge picks by) and
+    y's valid count; null where y has no valid row."""
+
+    name = "max_by"
+    _is_min = False
+
+    def __init__(self, value: Expression, ordering: Expression):
+        self.children = (value, ordering)
+
+    @property
+    def inputs(self):
+        return self.children
+
+    def with_children(self, children):
+        return type(self)(children[0], children[1])
+
+    @property
+    def dtype(self):
+        return self.children[0].dtype
+
+    @property
+    def buffers(self):
+        vop = MINBY_VAL if self._is_min else MAXBY_VAL
+        kop = MIN if self._is_min else MAX
+        return (BufferSlot(self.children[0].dtype, vop, vop, input_index=0),
+                BufferSlot(self.children[1].dtype, kop, kop, input_index=1),
+                BufferSlot(T.LONG, COUNT_VALID, SUM, input_index=1))
+
+    def finalize(self, bufs):
+        (v, v_valid), _key, (n, _) = bufs
+        if isinstance(v, DeviceColumn):   # a STRING x: a valid pick has n > 0
+            return v, v.validity
+        return v, v_valid & (n > 0)
+
+    def __repr__(self):
+        return f"{self.name}({self.children[0]!r}, {self.children[1]!r})"
+
+
+class MaxBy(_ExtremeBy):
+    name = "max_by"
+    _is_min = False
+
+
+class MinBy(_ExtremeBy):
+    name = "min_by"
+    _is_min = True
+
+
+class _BitAggBase(AggregateFunction):
+    """bit_and / bit_or / bit_xor over an integral input: its type kept,
+    nulls ignored, null over no valid row.  Buffers: the reduction and
+    the valid count."""
+
+    name = "bit_and"
+    _op = BIT_AND
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        dt = self.input.dtype
+        if not dt.is_integral:
+            raise TypeError(f"{self.name} takes an integral input, got "
+                            f"{dt!r}")
+        return dt
+
+    @property
+    def buffers(self):
+        return (BufferSlot(self.dtype, self._op, self._op),
+                BufferSlot(T.LONG, COUNT_VALID, SUM))
+
+    def finalize(self, bufs):
+        (v, v_valid), (n, _) = bufs
+        return v, v_valid & (n > 0)
+
+
+class BitAndAgg(_BitAggBase):
+    name = "bit_and"
+    _op = BIT_AND
+
+
+class BitOrAgg(_BitAggBase):
+    name = "bit_or"
+    _op = BIT_OR
+
+
+class BitXorAgg(_BitAggBase):
+    name = "bit_xor"
+    _op = BIT_XOR
 
 
 def find_aggregates(e: Expression) -> List[AggregateFunction]:
@@ -322,3 +494,31 @@ def stddev(e) -> StddevSamp:
 
 def stddev_pop(e) -> StddevPop:
     return StddevPop(_arg(e))
+
+
+def first(e, ignore_nulls: bool = False) -> First:
+    return First(_arg(e), ignore_nulls)
+
+
+def last(e, ignore_nulls: bool = False) -> Last:
+    return Last(_arg(e), ignore_nulls)
+
+
+def max_by(value, ordering) -> MaxBy:
+    return MaxBy(_arg(value), _arg(ordering))
+
+
+def min_by(value, ordering) -> MinBy:
+    return MinBy(_arg(value), _arg(ordering))
+
+
+def bit_and(e) -> BitAndAgg:
+    return BitAndAgg(_arg(e))
+
+
+def bit_or(e) -> BitOrAgg:
+    return BitOrAgg(_arg(e))
+
+
+def bit_xor(e) -> BitXorAgg:
+    return BitXorAgg(_arg(e))

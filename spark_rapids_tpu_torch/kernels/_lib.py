@@ -60,6 +60,10 @@ _SIGNATURES = {
     "srt_segmented_m2": [_I, _I, _P, _P, _P, _P, _I64, _P, _I, _P, _P, _P,
                          _P, _P],
     "srt_masked_m2": [_I, _I, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P],
+    "srt_segmented_pick": [_I, _I, _I, _P, _P, _P, _I64, _P, _I, _P, _P, _P],
+    "srt_masked_pick": [_I, _I, _I, _P, _P, _P, _I64, _P, _P, _P],
+    "srt_segmented_bitwise": [_I, _I, _P, _P, _I64, _P, _I, _P, _P, _P, _P],
+    "srt_masked_bitwise": [_I, _I, _P, _P, _I64, _P, _P, _P, _P],
     "srt_max_hash_cols": [],
     "srt_murmur3": [_I, _P, _P, _P, _P, _I64, ctypes.c_uint32, _P, _I, _P,
                     _P],

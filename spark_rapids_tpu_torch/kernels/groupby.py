@@ -5,8 +5,13 @@ string keys: ``normalize_key_column`` :33, ``group_rows`` :97 with
 ``_rows_equal_prev`` :47 and ``_string_rows_equal_prev`` :74, ``seg_sum``
 :166, ``seg_count_valid`` :151,
 ``seg_count_star`` :159, ``seg_m2_update`` :179, ``seg_m2_merge`` :200,
-``seg_min`` :228, ``seg_max`` :256, ``group_keys_output`` :284 and
-``finalize_agg_column`` :293.  Spark's grouping rules hold: null keys form
+``seg_min`` :228, ``seg_max`` :256, ``group_keys_output`` :284,
+``finalize_agg_column`` :293, and the picks and bitwise reductions:
+``seg_extreme_string`` :341, ``global_extreme_string`` :363, ``seg_pick``
+:406, ``seg_pick_by`` :419, ``seg_bitwise`` :448, ``global_pick`` :478,
+``global_pick_by`` :496 and ``global_bitwise`` :528 (without their
+``max_bytes`` arguments: a string key is compared in place, so there is
+no bucket of string lengths to cover).  Spark's grouping rules hold: null keys form
 one group, -0.0 groups with 0.0, and all NaNs group together (keys are
 normalized before the sort and the compare).  Groups come out in key sort
 order (ASC NULLS FIRST); Spark leaves the order unspecified.
@@ -16,7 +21,8 @@ ported ``compaction_map`` of the boundary flags, whose count is the one
 device->host read of a grouping) instead of per-row segment ids over a
 padded capacity.  The sort (``kernels/sort.py``), the gather and the
 compaction (``kernels/selection.py``) and the segmented sum, extreme and
-M2 (``kernels/reduction.py``) are the kernels; the M2 of a group takes its
+M2, the picks and the bitwise reductions (``kernels/reduction.py``) are
+the kernels; a pick gives each group's row, which the gather moves; the M2 of a group takes its
 sum and count from the step's ``SegmentSums``, so the SUM, M2 and
 COUNT_VALID slots of one variance share one ``segmented_sum`` launch.  A fixed-width key's boundary
 flags are plain elementwise PyTorch; a string key's come from the
@@ -36,9 +42,9 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.kernels import _lib
-from spark_rapids_tpu_torch.kernels.reduction import (segmented_extreme,
-                                                      segmented_m2,
-                                                      segmented_sum)
+from spark_rapids_tpu_torch.kernels.reduction import (
+    masked_bitwise, masked_pick, segmented_bitwise, segmented_extreme,
+    segmented_m2, segmented_pick, segmented_sum)
 from spark_rapids_tpu_torch.kernels.selection import (compaction_map,
                                                       gather_batch,
                                                       gather_columns)
@@ -158,6 +164,11 @@ class ReductionCache:
         entry = self._by_col.get(id(col), (col, {}))[1]
         if entry:
             return next(iter(entry.values()))
+        if col.is_string:   # no values to sum: sum the validity itself
+            entry = self._by_col.setdefault(id(col), (col, {}))[1]
+            entry[torch.int64] = self._reduce(
+                col.validity.to(torch.int64), col.validity)
+            return entry[torch.int64]
         return self.of(col, torch.float64 if col.data.dtype == torch.float64
                        else torch.int64)
 
@@ -236,6 +247,73 @@ def seg_max(col: DeviceColumn, sums: SegmentSums
     """Spark MAX per group: NaN where any valid value is NaN."""
     return segmented_extreme(col.data, col.validity, sums.layout.starts,
                              False)
+
+
+def seg_pick(col: DeviceColumn, layout: GroupedLayout, ignore_nulls: bool,
+             last: bool) -> DeviceColumn:
+    """FIRST / LAST per group as a gather, for any type (strings too): the
+    group's first / last row in input order (the sort is stable), or its
+    first / last valid one with ``ignore_nulls`` (null where none)."""
+    idx = segmented_pick("last" if last else "first", col.validity,
+                         layout.starts, ignore_nulls=ignore_nulls)
+    return gather_columns([col], idx)[0]
+
+
+def seg_pick_by(xcol: DeviceColumn, ycol: DeviceColumn,
+                layout: GroupedLayout, is_min: bool) -> DeviceColumn:
+    """max_by / min_by: x at the first row (input order) holding the
+    group's largest / smallest y.  A null y never wins; a group with no
+    valid y is null.  -0.0 equals 0.0 and NaN is greatest (the reference
+    reduces y with seg_min / seg_max); a STRING y compares by its bytes."""
+    idx = segmented_pick("min" if is_min else "max", ycol.validity,
+                         layout.starts, ycol.data, ycol.offsets,
+                         nan_greatest=True)
+    return gather_columns([xcol], idx)[0]
+
+
+def seg_extreme_string(col: DeviceColumn, layout: GroupedLayout,
+                       is_min: bool) -> DeviceColumn:
+    """MIN / MAX per group of a STRING column: its first row holding the
+    extreme; null where the group has no valid row."""
+    return seg_pick_by(col, col, layout, is_min)
+
+
+def seg_bitwise(col: DeviceColumn, layout: GroupedLayout, op: str
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """bit_and / bit_or / bit_xor per group over an integral column ->
+    (values at its type, nvalid > 0)."""
+    return segmented_bitwise(op, col.data, col.validity, layout.starts)
+
+
+def global_pick(col: DeviceColumn, ignore_nulls: bool,
+                last: bool) -> DeviceColumn:
+    """FIRST / LAST over the batch -> a one-row column (null over no
+    rows)."""
+    idx = masked_pick("last" if last else "first", col.validity,
+                      ignore_nulls=ignore_nulls)
+    return gather_columns([col], idx)[0]
+
+
+def global_pick_by(xcol: DeviceColumn, ycol: DeviceColumn,
+                   is_min: bool) -> DeviceColumn:
+    """max_by / min_by over the batch -> a one-row column.  NaN counts as
+    +inf, so of a NaN and a +inf the first row wins (the reference's
+    global order, which differs from its grouped one)."""
+    idx = masked_pick("min" if is_min else "max", ycol.validity, ycol.data,
+                      ycol.offsets, nan_greatest=False)
+    return gather_columns([xcol], idx)[0]
+
+
+def global_extreme_string(col: DeviceColumn, is_min: bool) -> DeviceColumn:
+    """MIN / MAX of a STRING column over the batch -> a one-row column."""
+    return global_pick_by(col, col, is_min)
+
+
+def global_bitwise(col: DeviceColumn, op: str
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """bit_and / bit_or / bit_xor over the batch -> ([1] at the column's
+    type, [1] nvalid > 0)."""
+    return masked_bitwise(op, col.data, col.validity)
 
 
 def group_keys_output(layout: GroupedLayout,

@@ -50,7 +50,7 @@ def _kind(dtype: T.DataType) -> int:
         return _BOOL
     if isinstance(dtype, T.StringType):
         return _STRING
-    raise NotImplementedError(f"murmur3 of {dtype!r} is not ported")
+    raise T.key_type_not_ported(dtype, "murmur3")
 
 # ---------------------------------------------------------------------------
 # plain version (int64 lanes holding uint32 values)

@@ -94,7 +94,7 @@ def _kind(dtype: T.DataType) -> int:
         return _BOOL
     if isinstance(dtype, T.StringType):
         return _STRING
-    raise NotImplementedError(f"a join key of {dtype!r} is not ported")
+    raise T.key_type_not_ported(dtype, "a join key")
 
 
 def _check_key_types(lt: T.DataType, rt: T.DataType) -> None:

@@ -1,4 +1,6 @@
-"""Reductions: SUM, MIN / MAX and M2, whole-batch and segmented.
+"""Reductions: SUM, MIN / MAX, M2, the picks (FIRST / LAST, MAX_BY /
+MIN_BY, string MIN / MAX) and the bitwise ones, whole-batch and
+segmented.
 
 ``masked_sum`` is the counterpart of the reduction inside
 ``spark_rapids_tpu/plan/execs/aggregate.py:274`` (``_global_update``, ops
@@ -11,6 +13,13 @@ groupby.py`` ``seg_sum`` :166, ``seg_count_valid`` :151 and
 ``_global_update`` (aggregate.py:292-316); ``segmented_m2`` ports
 ``seg_m2_update`` :179 and ``seg_m2_merge`` :200, ``masked_m2`` the M2
 branch of ``_global_update`` (:286-291) and ``_global_m2_merge`` (:318).
+``segmented_pick`` ports ``seg_pick`` :406 (with ``_seg_arg`` :390),
+``seg_pick_by`` :419 and ``seg_extreme_string`` :341 (with
+``string_order_rank`` :313), ``masked_pick`` ``global_pick`` :478,
+``global_pick_by`` :496 and ``global_extreme_string`` :363: each gives
+the row a segment (or the batch) picks, which the caller gathers.
+``segmented_bitwise`` ports ``seg_bitwise`` :448, ``masked_bitwise``
+``global_bitwise`` :528.
 On CUDA tensors each launches its two-pass kernel of
 ``csrc/reduction.cu`` and counts the launch under its own name; on CPU
 tensors it runs the plain PyTorch version beside it, and on any other
@@ -22,7 +31,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.kernels import _lib
+from spark_rapids_tpu_torch.kernels.sort import SortOrder, string_keys_plain
 
 _SUM_DTYPES = (torch.float64, torch.int64)
 
@@ -473,3 +485,317 @@ def masked_m2(mode: str, x: torch.Tensor, validity: torch.Tensor,
         _lib.stream(dev)), "masked_m2")
     _lib.LAUNCHES["masked_m2"] += 1
     return out
+
+# ---------------------------------------------------------------------------
+# picks: FIRST / LAST, MAX_BY / MIN_BY, string MIN / MAX
+
+#: the pick kinds, and the kernels' key type codes (csrc/reduction.cu
+#: kPickFirst ..., kBool ... kString)
+_PICK_KIND = {"first": 0, "last": 1, "min": 2, "max": 3}
+_KEY_CODE = {**_DTYPE_CODE, torch.int8: 5, torch.int16: 6}
+_STRING_CODE = 7
+_IGNORE_NULLS, _NAN_GREATEST = 1, 2
+_I64 = torch.iinfo(torch.int64)
+
+
+def _string_rank_plain(offsets: torch.Tensor, data: torch.Tensor,
+                       validity: torch.Tensor) -> torch.Tensor:
+    """int64 dense rank of each row's string in unsigned byte order (a
+    prefix first; equal strings share a rank), as the reference's
+    ``string_order_rank`` gives it: the ported sort keys (8-byte chunks,
+    then the length), sorted stably least significant first."""
+    n = validity.shape[0]
+    keys = string_keys_plain(DeviceColumn(data, validity, T.STRING, offsets),
+                             SortOrder(True))
+    dev = validity.device
+    order = torch.arange(n, dtype=torch.int64, device=dev)
+    for k in reversed(keys):
+        order = order[torch.sort(k[order], stable=True).indices]
+    same = torch.ones(max(n - 1, 0), dtype=torch.bool, device=dev)
+    for k in keys:
+        sk = k[order]
+        same &= sk[1:] == sk[:-1]
+    boundary = torch.cat([torch.ones(min(n, 1), dtype=torch.bool,
+                                     device=dev), ~same])
+    rank = torch.cumsum(boundary.to(torch.int64), 0) - 1
+    return torch.empty_like(rank).scatter_(0, order, rank)
+
+
+def _pick_key_plain(key: torch.Tensor, key_offsets: Optional[torch.Tensor],
+                    validity: torch.Tensor, nan_greatest: bool
+                    ) -> torch.Tensor:
+    """The int64 order word of each row's key (the kernel's
+    ``order_word``, a string's rank)."""
+    if key_offsets is not None:
+        return _string_rank_plain(key_offsets, key, validity)
+    if not key.is_floating_point():
+        return key.to(torch.int64)
+    zero = torch.zeros((), dtype=key.dtype, device=key.device)
+    inf = torch.full((), float("inf"), dtype=key.dtype, device=key.device)
+    nan = torch.isnan(key)
+    x = torch.where(key == 0, zero, key)          # -0.0 is 0.0
+    x = torch.where(nan, inf, x)
+    k = _order_key(x)
+    if nan_greatest:
+        k = torch.where(nan, _I64.max, k)
+    return k
+
+
+def _pick_plain(pick: str, validity: torch.Tensor, seg: torch.Tensor,
+                g: int, key: Optional[torch.Tensor],
+                key_offsets: Optional[torch.Tensor], ignore_nulls: bool,
+                nan_greatest: bool) -> torch.Tensor:
+    dev = validity.device
+    n = validity.shape[0]
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    if pick in ("first", "last"):
+        eligible = validity if ignore_nulls else torch.ones_like(validity)
+    else:
+        k = _pick_key_plain(key, key_offsets, validity, nan_greatest)
+        is_min = pick == "min"
+        ident = _I64.max if is_min else _I64.min
+        best = torch.full((g,), ident, dtype=torch.int64, device=dev)
+        best.scatter_reduce_(0, seg, torch.where(validity, k, ident),
+                             "amin" if is_min else "amax")
+        eligible = validity & (k == best[seg])
+    last = pick == "last"
+    none = -1 if last else n
+    row = torch.full((g,), none, dtype=torch.int64, device=dev)
+    row.scatter_reduce_(0, seg, torch.where(eligible, pos, none),
+                        "amax" if last else "amin")
+    return torch.where(row == n, -1, row).to(torch.int32)
+
+
+def segmented_pick_plain(pick: str, validity: torch.Tensor,
+                         starts: torch.Tensor,
+                         key: Optional[torch.Tensor] = None,
+                         key_offsets: Optional[torch.Tensor] = None,
+                         ignore_nulls: bool = False,
+                         nan_greatest: bool = True) -> torch.Tensor:
+    return _pick_plain(pick, validity,
+                       _segment_ids(starts, validity.shape[0]),
+                       starts.shape[0], key, key_offsets, ignore_nulls,
+                       nan_greatest)
+
+
+def masked_pick_plain(pick: str, validity: torch.Tensor,
+                      key: Optional[torch.Tensor] = None,
+                      key_offsets: Optional[torch.Tensor] = None,
+                      ignore_nulls: bool = False,
+                      nan_greatest: bool = False) -> torch.Tensor:
+    seg = torch.zeros(validity.shape[0], dtype=torch.int64,
+                      device=validity.device)
+    return _pick_plain(pick, validity, seg, 1, key, key_offsets,
+                       ignore_nulls, nan_greatest)
+
+
+def _check_pick(name: str, pick: str, validity: torch.Tensor,
+                key: Optional[torch.Tensor],
+                key_offsets: Optional[torch.Tensor]) -> list:
+    """The pick's inputs checked; the tensors the kernel reads."""
+    if pick not in _PICK_KIND:
+        raise ValueError(f"{name}: pick is first, last, min or max, not "
+                         f"{pick!r}")
+    if validity.dtype != torch.bool or validity.dim() != 1:
+        raise ValueError(f"{name} needs 1-d bool validity")
+    if pick in ("first", "last"):
+        if key is not None or key_offsets is not None:
+            raise ValueError(f"{name}: {pick} takes no key")
+        return [validity]
+    if key is None:
+        raise ValueError(f"{name}: {pick} needs a key")
+    if key_offsets is not None:
+        if key.dtype != torch.uint8 or key.dim() != 1 or \
+                key_offsets.dtype != torch.int32 or \
+                key_offsets.shape != (validity.shape[0] + 1,):
+            raise TypeError(f"{name}: a string key is uint8 bytes with int32 "
+                            f"offsets [{validity.shape[0] + 1}]")
+        return [validity, key, key_offsets]
+    if key.dtype not in _KEY_CODE or key.shape != validity.shape:
+        raise TypeError(f"{name} takes a key of bool, int8, int16, int32, "
+                        f"int64, float32 or float64 of the validity's "
+                        f"length, got {key.dtype} {tuple(key.shape)}")
+    return [validity, key]
+
+
+def _pick_args(pick: str, key, key_offsets, ignore_nulls: bool,
+               nan_greatest: bool) -> tuple:
+    """The entry points' kind, key type code, flags and key pointers."""
+    if key is None:
+        code = 0
+    else:
+        code = _STRING_CODE if key_offsets is not None else _KEY_CODE[
+            key.dtype]
+    flags = (_IGNORE_NULLS if ignore_nulls else 0) | (
+        _NAN_GREATEST if nan_greatest else 0)
+    return (_PICK_KIND[pick], code, flags,
+            _lib.ptr(key) if key is not None else None,
+            _lib.ptr(key_offsets) if key_offsets is not None else None)
+
+
+def segmented_pick(pick: str, validity: torch.Tensor, starts: torch.Tensor,
+                   key: Optional[torch.Tensor] = None,
+                   key_offsets: Optional[torch.Tensor] = None,
+                   ignore_nulls: bool = False,
+                   nan_greatest: bool = True) -> torch.Tensor:
+    """The row each segment of contiguous rows picks: int32 [g], -1 where
+    no row qualifies.  ``pick`` "first" / "last": the segment's first /
+    last row, or with ``ignore_nulls`` its first / last row where
+    ``validity`` holds.  "min" / "max": the first row (lowest index)
+    holding the smallest / largest valid ``key``: fixed-width (bool,
+    int8 ... int64, float32, float64; -0.0 equals 0.0; NaN greatest with
+    ``nan_greatest``, else equal to +inf) or a STRING's bytes with
+    ``key_offsets`` (unsigned byte order, a prefix first); ``validity``
+    is the key's, and a null key never wins."""
+    ts = _check_pick("segmented_pick", pick, validity, key, key_offsets)
+    _check_starts(starts)
+    if validity.device.type == "cpu":
+        return segmented_pick_plain(pick, validity, starts, key, key_offsets,
+                                    ignore_nulls, nan_greatest)
+    _lib.require_cuda("segmented_pick", starts, *ts)
+    lib = _lib.lib()
+    n, g, dev = validity.shape[0], starts.shape[0], validity.device
+    out = torch.empty(g, dtype=torch.int32, device=dev)
+    scratch = _scratch(n, lib.srt_segment_tile(), 2, dev)
+    _lib.check(lib.srt_segmented_pick(
+        *_pick_args(pick, key, key_offsets, ignore_nulls, nan_greatest),
+        _lib.ptr(validity), n,
+        _lib.ptr(starts), g, _lib.ptr(scratch), _lib.ptr(out),
+        _lib.stream(dev)), "segmented_pick")
+    if n and g:
+        _lib.LAUNCHES["segmented_pick"] += 1
+    return out
+
+
+def masked_pick(pick: str, validity: torch.Tensor,
+                key: Optional[torch.Tensor] = None,
+                key_offsets: Optional[torch.Tensor] = None,
+                ignore_nulls: bool = False,
+                nan_greatest: bool = False) -> torch.Tensor:
+    """``segmented_pick`` over the whole batch as one segment: int32 [1]
+    (NaN equal to +inf by default, as ``global_pick_by`` orders it)."""
+    ts = _check_pick("masked_pick", pick, validity, key, key_offsets)
+    if validity.device.type == "cpu":
+        return masked_pick_plain(pick, validity, key, key_offsets,
+                                 ignore_nulls, nan_greatest)
+    _lib.require_cuda("masked_pick", *ts)
+    lib = _lib.lib()
+    n, dev = validity.shape[0], validity.device
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    scratch = _scratch(n, lib.srt_reduction_tile(), 1, dev)
+    _lib.check(lib.srt_masked_pick(
+        *_pick_args(pick, key, key_offsets, ignore_nulls, nan_greatest),
+        _lib.ptr(validity), n,
+        _lib.ptr(scratch), _lib.ptr(out), _lib.stream(dev)), "masked_pick")
+    _lib.LAUNCHES["masked_pick"] += 1
+    return out
+
+# ---------------------------------------------------------------------------
+# BIT_AND / BIT_OR / BIT_XOR
+
+_BIT_OP = {"bit_and": 0, "bit_or": 1, "bit_xor": 2}
+_BIT_IDENT = {"bit_and": -1, "bit_or": 0, "bit_xor": 0}
+_BIT_FN = {"bit_and": torch.bitwise_and, "bit_or": torch.bitwise_or,
+           "bit_xor": torch.bitwise_xor}
+_BIT_CODE = {torch.int8: 5, torch.int16: 6, torch.int32: 1, torch.int64: 2}
+
+
+def segmented_bitwise_plain(op: str, data: torch.Tensor,
+                            validity: torch.Tensor, starts: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's segmented inclusive scan with a flag-resetting
+    combine (log2(n) rounds of Hillis-Steele), read at each segment's
+    last row; the values sign-extended to int64 and written back at the
+    data's width."""
+    n, g, dev = data.shape[0], starts.shape[0], data.device
+    fn = _BIT_FN[op]
+    v = torch.where(validity, data.to(torch.int64),
+                    torch.full((), _BIT_IDENT[op], dtype=torch.int64,
+                               device=dev))
+    flag = torch.zeros(n, dtype=torch.bool, device=dev)
+    flag[starts.long()] = True
+    d = 1
+    while d < n:
+        v = torch.cat([v[:d], torch.where(flag[d:], v[d:], fn(v[:-d], v[d:]))])
+        flag = torch.cat([flag[:d], flag[d:] | flag[:-d]])
+        d *= 2
+    rows = segment_rows(starts, n)
+    nvalid = torch.zeros(g, dtype=torch.int64, device=dev).index_add_(
+        0, _segment_ids(starts, n), validity.to(torch.int64))
+    ok = nvalid > 0
+    out = v[(starts.to(torch.int64) + rows - 1).clamp(min=0)] if g else \
+        torch.zeros(0, dtype=torch.int64, device=dev)
+    out = torch.where(ok, out, torch.zeros((), dtype=torch.int64,
+                                           device=dev))
+    return out.to(data.dtype), ok
+
+
+def masked_bitwise_plain(op: str, data: torch.Tensor, validity: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if data.shape[0] == 0:
+        return (torch.zeros(1, dtype=data.dtype, device=data.device),
+                torch.zeros(1, dtype=torch.bool, device=data.device))
+    return segmented_bitwise_plain(op, data, validity,
+                                   torch.zeros(1, dtype=torch.int32,
+                                               device=data.device))
+
+
+def _check_bitwise(name: str, op: str, data: torch.Tensor,
+                   validity: torch.Tensor) -> None:
+    if op not in _BIT_OP:
+        raise ValueError(f"{name}: op is bit_and, bit_or or bit_xor, not "
+                         f"{op!r}")
+    if data.dtype not in _BIT_CODE:
+        raise TypeError(f"{name} takes int8, int16, int32 or int64, got "
+                        f"{data.dtype}")
+    if validity.dtype != torch.bool or validity.shape != data.shape \
+            or data.dim() != 1:
+        raise ValueError(f"{name} needs 1-d data and bool validity of the "
+                         "same length")
+
+
+def segmented_bitwise(op: str, data: torch.Tensor, validity: torch.Tensor,
+                      starts: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """BIT_AND / BIT_OR / BIT_XOR (``op`` "bit_and", "bit_or", "bit_xor")
+    of the valid rows of each segment of contiguous rows: (values at the
+    data's type, nvalid > 0); a segment with no valid row gives 0 and
+    False."""
+    _check_bitwise("segmented_bitwise", op, data, validity)
+    _check_starts(starts)
+    if data.device.type == "cpu":
+        return segmented_bitwise_plain(op, data, validity, starts)
+    _lib.require_cuda("segmented_bitwise", data, validity, starts)
+    lib = _lib.lib()
+    n, g, dev = data.shape[0], starts.shape[0], data.device
+    out = torch.empty(g, dtype=data.dtype, device=dev)
+    ok = torch.empty(g, dtype=torch.bool, device=dev)
+    scratch = _scratch(n, lib.srt_segment_tile(), 2, dev)
+    _lib.check(lib.srt_segmented_bitwise(
+        _BIT_OP[op], _BIT_CODE[data.dtype], _lib.ptr(data),
+        _lib.ptr(validity), n, _lib.ptr(starts), g, _lib.ptr(scratch),
+        _lib.ptr(out), _lib.ptr(ok), _lib.stream(dev)), "segmented_bitwise")
+    if n and g:
+        _lib.LAUNCHES["segmented_bitwise"] += 1
+    return out, ok
+
+
+def masked_bitwise(op: str, data: torch.Tensor, validity: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``segmented_bitwise`` over the whole batch as one segment: two
+    one-element tensors, the value and nvalid > 0."""
+    _check_bitwise("masked_bitwise", op, data, validity)
+    if data.device.type == "cpu":
+        return masked_bitwise_plain(op, data, validity)
+    _lib.require_cuda("masked_bitwise", data, validity)
+    lib = _lib.lib()
+    n, dev = data.shape[0], data.device
+    out = torch.empty(1, dtype=data.dtype, device=dev)
+    ok = torch.empty(1, dtype=torch.bool, device=dev)
+    scratch = _scratch(n, lib.srt_reduction_tile(), 1, dev)
+    _lib.check(lib.srt_masked_bitwise(
+        _BIT_OP[op], _BIT_CODE[data.dtype], _lib.ptr(data),
+        _lib.ptr(validity), n, _lib.ptr(scratch), _lib.ptr(out),
+        _lib.ptr(ok), _lib.stream(dev)), "masked_bitwise")
+    _lib.LAUNCHES["masked_bitwise"] += 1
+    return out, ok

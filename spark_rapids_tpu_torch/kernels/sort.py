@@ -73,7 +73,7 @@ def _kind(dtype: T.DataType) -> int:
         return _BOOL
     if isinstance(dtype, T.StringType):
         return _STRING
-    raise NotImplementedError(f"sort key of {dtype!r} is not ported")
+    raise T.key_type_not_ported(dtype, "sort key")
 
 
 def string_chunks(longest: int) -> int:

@@ -1,26 +1,36 @@
 """Hash-aggregate exec, global and grouped.
 
 Counterpart of ``spark_rapids_tpu/plan/execs/aggregate.py``
-(``TpuHashAggregateExec`` :783; ``_partial_step`` :505-580, ``_merge_step``
-:657-735 with its M2_MERGE dispatch :644 and :724, ``_finalize`` :736;
-``_seg_update`` :91, ``_global_update`` :274, ``_global_m2_merge`` :318,
-``_m2_companions`` :374, ``_identity_partial`` :881) in the three modes
-Spark plans:
+(``TpuHashAggregateExec`` :783; ``_partial_step`` :505-580 with its pick,
+pick-by, string-extreme and bitwise branches (global :476-497, grouped
+:553-575), ``_merge_step`` :657-735 with the same branches (global
+:622-643, grouped :701-722) and its M2_MERGE dispatch :644 and :724,
+``_finalize`` :736; ``_seg_update`` :91, ``_global_update`` :274,
+``_global_m2_merge`` :318, ``_m2_companions`` :374, ``_by_companion``
+:412, ``_identity_partial`` :881) in the three modes Spark plans:
   * partial:  raw rows -> one partial batch per input batch: with no keys
               one row of buffer slots, grouped the keys of each group then
               its buffer slots;
   * final:    partial batches -> concat (aggregate.py:845-862) -> merge ->
               finalize;
   * complete: both, for a single-partition child.
-A global aggregate over a partition with no input yields the identity
-partial (counts 0, sums null; aggregate.py:881), so it still gives one
-row, and SUM, MIN, MAX and M2 over no valid row are NULL (the
-``nvalid > 0`` flag, aggregate.py:283-286).  A grouped partition with no
-input yields no rows.
+A global aggregate's partial of no input rows has no rows: its merge
+over the partials' rows still gives one row, SUM, MIN, MAX and M2 over no
+valid row are NULL (the ``nvalid > 0`` flag, aggregate.py:283-286) and
+counts 0.  The reference makes a one-row identity partial instead
+(:881): its fixed shapes need one, and FIRST / LAST at its merge then pick
+that row's null over a later partition's first row; here a batch with no
+rows offers FIRST / LAST no candidate, as Spark's and the reference's CPU
+oracle's answers have it.  A grouped partition with no input yields no
+rows.
 
 Grouped steps are sort-based (kernels/groupby.py): the keys and every
 aggregate input form one work batch, which is sorted by the keys and cut
-into groups; each buffer slot is then a segmented reduction over it.
+into groups; each buffer slot is then a segmented reduction over it, or
+a pick (FIRST / LAST, MAX_BY / MIN_BY, string MIN / MAX) whose rows the
+gather moves.  A MAX_BY / MIN_BY value slot picks by the column of its
+second input when it updates, and by its ordering-key buffer
+(``by_companion``) when it merges.
 """
 from __future__ import annotations
 
@@ -32,7 +42,8 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.expressions.aggregates import (
-    COUNT_STAR, COUNT_VALID, M2, M2_MERGE, MAX, MIN, SUM, AggregateFunction)
+    BIT_OPS, BY_OPS, COUNT_STAR, COUNT_VALID, M2, M2_MERGE, MAX, MIN, MINBY_VAL,
+    PICK_OPS, SUM, AggregateFunction)
 from spark_rapids_tpu_torch.expressions.core import (
     EvalContext, Expression, make_column)
 from spark_rapids_tpu_torch.kernels import groupby as G
@@ -40,6 +51,7 @@ from spark_rapids_tpu_torch.kernels.reduction import (masked_extreme,
                                                       masked_m2, masked_sum)
 from spark_rapids_tpu_torch.kernels.selection import coalesce_to_one
 from spark_rapids_tpu_torch.plan.execs.base import GpuExec, timed
+from spark_rapids_tpu_torch.plan.execs.join import empty_batch
 
 
 class _Sums(G.ReductionCache):
@@ -49,10 +61,46 @@ class _Sums(G.ReductionCache):
         return masked_sum(data, validity)
 
 
+def _global_tail_op(op: str, col: DeviceColumn,
+                 ycol: Optional[DeviceColumn]) -> Optional[DeviceColumn]:
+    """A slot of the aggregate tail (a pick, a string MIN / MAX, a bitwise
+    reduction) over the whole batch, or None for the other ops; ``ycol``:
+    a MAX_BY / MIN_BY slot's ordering column."""
+    if op in PICK_OPS:
+        return G.global_pick(col, op.endswith("_valid"),
+                             op.startswith("last"))
+    if op in BY_OPS:
+        return G.global_pick_by(col, ycol, op == MINBY_VAL)
+    if op in (MIN, MAX) and col.is_string:
+        return G.global_extreme_string(col, op == MIN)
+    if op in BIT_OPS:
+        return DeviceColumn(*G.global_bitwise(col, op), col.dtype)
+    return None
+
+
+def _seg_tail_op(op: str, col: DeviceColumn, ycol: Optional[DeviceColumn],
+              layout: G.GroupedLayout) -> Optional[DeviceColumn]:
+    """``_global_tail_op`` per group."""
+    if op in PICK_OPS:
+        return G.seg_pick(col, layout, op.endswith("_valid"),
+                          op.startswith("last"))
+    if op in BY_OPS:
+        return G.seg_pick_by(col, ycol, layout, op == MINBY_VAL)
+    if op in (MIN, MAX) and col.is_string:
+        return G.seg_extreme_string(col, layout, op == MIN)
+    if op in BIT_OPS:
+        return DeviceColumn(*G.seg_bitwise(col, layout, op), col.dtype)
+    return None
+
+
 def _global_update(op: str, col: DeviceColumn, num_rows: int,
                    out_dtype: T.DataType, device,
-                   sums: Optional[_Sums] = None) -> DeviceColumn:
+                   sums: Optional[_Sums] = None,
+                   ycol: Optional[DeviceColumn] = None) -> DeviceColumn:
     """Whole-batch reduction of one slot to a one-row column."""
+    picked = _global_tail_op(op, col, ycol) if col is not None else None
+    if picked is not None:
+        return picked
     sums = _Sums() if sums is None else sums
     ones = torch.ones(1, dtype=torch.bool, device=device)
     if op == COUNT_STAR:
@@ -177,23 +225,29 @@ class GpuHashAggregateExec(GpuExec):
 
     def work_exprs(self) -> List[Expression]:
         """The columns of a partial step's work batch: the keys, then the
-        input of each aggregate that has one."""
-        return list(self.group_exprs) + [agg.input for agg in self.aggregates
-                                         if agg.input is not None]
+        inputs of each aggregate."""
+        return list(self.group_exprs) + [e for agg in self.aggregates
+                                         for e in agg.inputs]
 
-    def _work_inputs(self) -> List[Optional[int]]:
-        """Each slot's column in the work batch (None: no input)."""
-        col_of_agg = {}
+    def _work_inputs(self) -> Tuple[List[Optional[int]],
+                                    List[Optional[int]]]:
+        """Each slot's column in the work batch (None: no input), and a
+        MAX_BY / MIN_BY value slot's ordering column (else None)."""
+        col_of = {}
         for ai, agg in enumerate(self.aggregates):
-            if agg.input is not None:
-                col_of_agg[ai] = len(self.group_exprs) + len(col_of_agg)
-        return [col_of_agg.get(ai) for ai, _ in self.slot_specs]
+            for ii in range(len(agg.inputs)):
+                col_of[(ai, ii)] = len(self.group_exprs) + len(col_of)
+        inputs = [col_of.get((ai, slot.input_index))
+                  for ai, slot in self.slot_specs]
+        by = [col_of[(ai, 1)] if slot.update_op in BY_OPS else None
+              for ai, slot in self.slot_specs]
+        return inputs, by
 
     def grouped_partial(self, work: ColumnarBatch) -> ColumnarBatch:
         """A work batch (``work_exprs``' columns, evaluated here or by a
         fused segment's kernel) -> its partial batch."""
         return self._grouped_step(
-            work, self._work_inputs(),
+            work, *self._work_inputs(),
             [slot.update_op for _, slot in self.slot_specs])
 
     def global_work_partial(self, work: ColumnarBatch,
@@ -202,13 +256,28 @@ class GpuHashAggregateExec(GpuExec):
         evaluated here or by a fused segment's kernel; no column at all
         for count(*)) -> its one-row partial on ``device``: each slot a
         whole-batch reduction (``_global_update``), the reductions of one
-        input shared."""
+        input shared; a batch of no rows -> the partial of no rows."""
+        if work.num_rows == 0:
+            return self._identity_partial()
         sums = _Sums()
         cols = tuple(_global_update(
             slot.update_op, work.columns[ci] if ci is not None else None,
-            work.num_rows, slot.dtype, device, sums)
-            for ci, (_, slot) in zip(self._work_inputs(), self.slot_specs))
+            work.num_rows, slot.dtype, device, sums,
+            work.columns[bi] if bi is not None else None)
+            for ci, bi, (_, slot) in zip(*self._work_inputs(),
+                                         self.slot_specs))
         return ColumnarBatch(cols, 1, self.partial_schema)
+
+    def by_companion(self, ai: int) -> int:
+        """The slot index of MAX_BY / MIN_BY ``ai``'s ordering-key buffer,
+        which its value buffer picks by at the merge."""
+        for si in self.slot_pos[ai]:
+            slot = self.slot_specs[si][1]
+            if slot.input_index == 1 and slot.update_op in (MIN, MAX):
+                return si
+        raise AssertionError(
+            f"max_by / min_by needs a MIN / MAX ordering companion buffer on "
+            f"{self.aggregates[ai]!r}")
 
     def m2_companions(self, ai: int) -> Tuple[int, int]:
         """The slot indices of aggregate ai's SUM and COUNT_VALID buffers,
@@ -251,6 +320,8 @@ class GpuHashAggregateExec(GpuExec):
     def _merge_step(self, partial: ColumnarBatch) -> ColumnarBatch:
         """Concatenated partial batches -> one merged partial batch."""
         nkeys = len(self.group_exprs)
+        by = [nkeys + self.by_companion(ai) if slot.merge_op in BY_OPS
+              else None for ai, slot in self.slot_specs]
         if nkeys == 0:
             sums = _Sums()
             cols = []
@@ -264,25 +335,34 @@ class GpuHashAggregateExec(GpuExec):
                 else:
                     cols.append(_global_update(
                         slot.merge_op, col, partial.num_rows, slot.dtype,
-                        partial.device, sums))
+                        partial.device, sums,
+                        partial.columns[by[si]] if by[si] is not None
+                        else None))
             return ColumnarBatch(tuple(cols), 1, self.partial_schema)
         return self._grouped_step(
-            partial, [nkeys + si for si in range(len(self.slot_specs))],
+            partial, [nkeys + si for si in range(len(self.slot_specs))], by,
             [slot.merge_op for _, slot in self.slot_specs])
 
     def _grouped_step(self, work: ColumnarBatch,
-                      inputs: List[Optional[int]], ops: List[str]
+                      inputs: List[Optional[int]],
+                      by: List[Optional[int]], ops: List[str]
                       ) -> ColumnarBatch:
         """Group ``work`` by its leading key columns, then reduce slot i's
-        work column ``inputs[i]`` (None: no input) with ``ops[i]``."""
+        work column ``inputs[i]`` (None: no input) with ``ops[i]``, a
+        MAX_BY / MIN_BY value slot by the ordering column ``by[i]``."""
         nkeys = len(self.group_exprs)
         layout = G.group_rows(work, list(range(nkeys)))
         sums = G.SegmentSums(layout)
         cols = G.group_keys_output(layout, list(range(nkeys)))
         sorted_cols = layout.sorted_batch.columns
-        for ci, op, (ai, slot) in zip(inputs, ops, self.slot_specs):
+        for ci, bi, op, (ai, slot) in zip(inputs, by, ops, self.slot_specs):
             col = sorted_cols[ci] if ci is not None else None
-            if op == M2_MERGE:
+            picked = (_seg_tail_op(op, col, sorted_cols[bi]
+                                   if bi is not None else None, layout)
+                      if col is not None else None)
+            if picked is not None:
+                cols.append(picked)
+            elif op == M2_MERGE:
                 s_si, n_si = self.m2_companions(ai)
                 v, valid = G.seg_m2_merge(col, sorted_cols[inputs[s_si]],
                                           sorted_cols[inputs[n_si]], sums)
@@ -301,10 +381,11 @@ class GpuHashAggregateExec(GpuExec):
             bufs = []
             for _ in agg.buffers:
                 c = merged.columns[si]
-                bufs.append((c.data, c.validity))
+                bufs.append((c if c.is_string else c.data, c.validity))
                 si += 1
             v, valid = agg.finalize(bufs)
             mapping[id(agg)] = _DeviceAggResult(
+                v if isinstance(v, DeviceColumn) else
                 make_column(v.to(agg.dtype.torch_dtype), valid, agg.dtype))
         ctx = EvalContext(merged)
         cols = tuple(merged.columns[:nkeys]) + tuple(
@@ -312,16 +393,9 @@ class GpuHashAggregateExec(GpuExec):
         return ColumnarBatch(cols, merged.num_rows, self.schema)
 
     def _identity_partial(self) -> ColumnarBatch:
-        """Counts 0 and valid; the SUM, MIN, MAX and M2 slots null."""
-        device = self.device
-        cols = []
-        for _, slot in self.slot_specs:
-            is_count = slot.update_op in (COUNT_STAR, COUNT_VALID)
-            cols.append(DeviceColumn(
-                torch.zeros(1, dtype=slot.dtype.torch_dtype, device=device),
-                torch.full((1,), is_count, dtype=torch.bool, device=device),
-                slot.dtype))
-        return ColumnarBatch(tuple(cols), 1, self.partial_schema)
+        """The partial of no rows: a batch of no rows (see the module's
+        docstring for why it is not the reference's one-row identity)."""
+        return empty_batch(self.partial_schema, self.device)
 
     # -- host orchestration ---------------------------------------------------
 

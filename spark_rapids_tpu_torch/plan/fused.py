@@ -14,10 +14,12 @@ that one hand-written kernel interprets (``kernels/fused.py``,
   * a partial aggregate with no keys whose slots are sums and counts
     (q6): global mode, two launches a batch and no host read; the
     kernel's sums become the one-row partial;
-  * otherwise (q1's grouped partial, a global MIN / MAX / M2, a filter, a
-    projection): compact mode, the computed columns of the kept rows
-    written at their compacted positions after one count read; the
-    columns the chain only passes through go through one
+  * otherwise (q1's grouped partial, a global MIN / MAX / M2, pick or
+    bitwise slot, a filter, a projection): compact mode, the computed
+    columns of the kept rows written at their compacted positions after
+    one count read; the columns the chain only passes through (STRING,
+    BYTE and SHORT ones always: no instruction loads them, so an
+    expression over one breaks the chain) go through one
     ``gather_columns`` with the kernel's map (none at all where there is
     no filter).  A grouped partial then sorts and reduces that work batch
     with the existing kernels, a global one reduces it with the
@@ -188,8 +190,8 @@ class GpuFusedSegmentExec(GpuExec):
             empty = False
             yield self._count_out(out)
         if empty and self.segment.is_global:
-            # a partition with no input still gives its identity partial
-            # (aggregate.py:881 of the reference)
+            # a partition with no input gives the partial of no rows
+            # (the reference's identity partial, aggregate.py:881)
             yield self._count_out(top._identity_partial())
 
     def _run(self, batch: ColumnarBatch) -> ColumnarBatch:

@@ -1,7 +1,9 @@
 """The held aggregate shapes: the table and queries of the reference's
 ``tests/test_queries.py`` (``SCHEMA`` :101, ``make_data`` :104-121,
 ``test_global_aggregate`` :149, ``test_grouped_aggregate`` :163) and
-``tests/test_variance.py`` (:6, :14), at any size, without JAX.
+``tests/test_variance.py`` (:6, :14), and the aggregate tail's table and
+queries of ``tests/test_agg_tail.py`` (``SCHEMA`` :18, ``_data`` :20-38),
+at any size, without JAX.
 
 No TPC query over the repo's generators runs MIN or MAX, so these shapes
 are the main path of the port's extremes: ``k`` INT (13 keys), ``v``
@@ -13,6 +15,17 @@ BOOLEAN, each with n // 7 nulls.  ``columns`` draws the numpy streams of
 Each query takes the dataframe and the DSL module to build it with (the
 port's by default): the same function builds the JAX package's twin in
 the CPU tests.
+
+The tail's table (``TAIL_SCHEMA``): ``k`` INT (9 keys), ``v`` LONG
+(-1000..999), ``x`` DOUBLE (3 decimals; NaN, -0.0 and +inf at rows 0-2),
+``s`` STRING ``f"s{i % 19}-{'y' * (i % 5)}"`` for a code i in 0-99 (3-8
+bytes, 95 distinct values), ``b`` BYTE, n // 6 nulls each in v, x, s and
+b.  ``tail_columns`` draws ``_data``'s numpy streams in its order,
+vectorised, so ``tail_columns(700, 3)`` is ``_data()`` row for row; it
+returns ``s`` as its codes, which ``tail_strings`` turns into the
+column's bytes, so that an answer can be computed over the codes
+(``TAIL_RANK``: each code's rank in the strings' byte order) and never
+over millions of Python strings.
 """
 from __future__ import annotations
 
@@ -112,3 +125,132 @@ def filtered_global(df, E=PE):
 QUERIES = {f.__name__: f for f in (
     global_aggregate, grouped_aggregate, global_extremes, grouped_extremes,
     global_variance, grouped_variance, filtered_global)}
+
+
+# -- the aggregate tail (tests/test_agg_tail.py) --------------------------------
+
+TAIL_SCHEMA = Schema.of(k=T.INT, v=T.LONG, x=T.DOUBLE, s=T.STRING, b=T.BYTE)
+TAIL_KEYS = 9
+TAIL_CODES = 100
+#: the string of each code
+TAIL_STRINGS = [f"s{i % 19}-{'y' * (i % 5)}" for i in range(TAIL_CODES)]
+_TAIL_BYTES = [t.encode() for t in TAIL_STRINGS]
+#: each code's dense rank in the strings' unsigned byte order (equal
+#: strings share one)
+TAIL_RANK = np.searchsorted(sorted(set(_TAIL_BYTES)), _TAIL_BYTES).astype(
+    np.int64)
+
+
+def tail_columns(n: int, seed: int = 3
+                 ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """(values, validity) per column of the tail's table, ``s`` as its
+    codes; a null slot holds zero (a null ``s`` code 0)."""
+    rng = np.random.RandomState(seed)
+    data = {"k": rng.randint(0, TAIL_KEYS, n).astype(np.int32),
+            "v": rng.randint(-1000, 1000, n).astype(np.int64),
+            "x": np.round(rng.randn(n), 3),
+            "s": rng.randint(0, TAIL_CODES, n).astype(np.int8),
+            "b": rng.randint(-128, 128, n).astype(np.int8)}
+    data["x"][:3] = [np.nan, -0.0, np.inf][:n]
+    validity = {"k": np.ones(n, np.bool_)}
+    for name in "vxsb":
+        ok = np.ones(n, np.bool_)
+        ok[rng.choice(n, n // 6, replace=False)] = False
+        validity[name] = ok
+        data[name] = np.where(ok, data[name], np.zeros((), data[name].dtype))
+    return data, validity
+
+
+def tail_strings(codes: np.ndarray, valid: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The STRING column of these codes: (int32 offsets, uint8 bytes,
+    validity), a null row of length 0."""
+    width = max(len(t) for t in _TAIL_BYTES)
+    table = np.zeros((TAIL_CODES, width), np.uint8)
+    lengths = np.zeros(TAIL_CODES, np.int64)
+    for i, t in enumerate(_TAIL_BYTES):
+        table[i, :len(t)] = np.frombuffer(t, np.uint8)
+        lengths[i] = len(t)
+    row_len = np.where(valid, lengths[codes], 0)
+    offsets = np.zeros(len(codes) + 1, np.int64)
+    np.cumsum(row_len, out=offsets[1:])
+    keep = np.arange(width) < row_len[:, None]
+    return offsets.astype(np.int32), table[codes][keep], valid
+
+
+def tail_batches(data: Dict[str, np.ndarray],
+                 validity: Dict[str, np.ndarray], device,
+                 batch_rows: int = 1 << 20) -> List[ColumnarBatch]:
+    """``tail_columns``' columns as device batches of ``batch_rows``."""
+    n = len(data["k"])
+    out = []
+    for o in range(0, n, batch_rows):
+        cut = {c: (data[c][o:o + batch_rows], validity[c][o:o + batch_rows])
+               for c in TAIL_SCHEMA.names}
+        cut["s"] = tail_strings(*cut["s"])
+        out.append(batch_from_numpy(cut, TAIL_SCHEMA, device))
+    return out
+
+
+def grouped_first_last(df, E=PE):
+    """test_first_last_grouped (:49)."""
+    return df.group_by("k").agg(
+        E.first("v").alias("fv"), E.last("v").alias("lv"),
+        E.first("v", ignore_nulls=True).alias("fvn"),
+        E.last("v", ignore_nulls=True).alias("lvn"),
+        E.first("s").alias("fs"), E.last("s", ignore_nulls=True).alias("lsn"))
+
+
+def global_first_last(df, E=PE):
+    """test_first_last_global_and_empty's second query (:76), with the
+    first and last ``s`` and ``b``."""
+    return df.agg(E.first("v", ignore_nulls=True).alias("f"),
+                  E.last("x").alias("l"), E.first("s").alias("fs"),
+                  E.last("b", ignore_nulls=True).alias("lbn"))
+
+
+def grouped_max_min_by(df, E=PE):
+    """test_max_by_min_by (:83)."""
+    return df.group_by("k").agg(
+        E.max_by("v", "x").alias("mbx"), E.min_by("v", "x").alias("nbx"),
+        E.max_by("s", "v").alias("mbs"), E.min_by("s", "v").alias("nbs"))
+
+
+def grouped_by_string(df, E=PE):
+    """test_max_by_min_by_string_ordering_keys (:108)."""
+    return df.group_by("k").agg(
+        E.max_by("v", "s").alias("mvs"), E.min_by("v", "s").alias("nvs"),
+        E.max_by("s", "s").alias("mss"), E.min_by("x", "s").alias("nxs"))
+
+
+def global_by_string(df, E=PE):
+    """test_max_by_string_keys_global_and_ties (:126), over the table."""
+    return df.agg(E.max_by("v", "s").alias("m"),
+                  E.min_by("v", "s").alias("n"))
+
+
+def grouped_string_extremes(df, E=PE):
+    """test_min_max_over_strings (:152)."""
+    return df.group_by("k").agg(E.Min(E.col("s")).alias("mn"),
+                                E.Max(E.col("s")).alias("mx"))
+
+
+def grouped_bits(df, E=PE):
+    """test_bit_aggregates (:168)."""
+    return df.group_by("k").agg(
+        E.bit_and("v").alias("ba"), E.bit_or("v").alias("bo"),
+        E.bit_xor("v").alias("bx"), E.bit_and("b").alias("bab"),
+        E.bit_xor("b").alias("bxb"))
+
+
+def global_bits(df, E=PE):
+    """test_bit_aggregates_global_all_null (:180)'s aggregates, and the
+    rest of the family, over the table."""
+    return df.agg(*[f(c).alias(f"{f.__name__}_{c}") for c in "vb"
+                    for f in (E.bit_and, E.bit_or, E.bit_xor)])
+
+
+TAIL_QUERIES = {f.__name__: f for f in (
+    grouped_first_last, global_first_last, grouped_max_min_by,
+    grouped_by_string, global_by_string, grouped_string_extremes,
+    grouped_bits, global_bits)}

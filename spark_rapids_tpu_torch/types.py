@@ -1,10 +1,12 @@
 """Spark SQL data types of the port, each mapped to a torch dtype.
 
 Counterpart of ``spark_rapids_tpu/types.py:72-188``, cut to the types the
-TPC-H lineitem table, q6, q1 and TPC-DS q3 use: BOOLEAN, INT, LONG, FLOAT
-(the held aggregate shapes' float32 column), DOUBLE, DATE, Decimal64
-(precision <= 18, held as its int64 unscaled value) and STRING (UTF-8
-bytes, variable width; ``StringType`` :138).  Every type
+TPC-H lineitem table, q6, q1 and TPC-DS q3 use: BOOLEAN, BYTE and SHORT
+(``tinyint`` / ``smallint``, :78-92; value columns only: as a group,
+join or sort key they raise), INT, LONG, FLOAT (the held aggregate
+shapes' float32 column), DOUBLE, DATE, Decimal64 (precision <= 18, held
+as its int64 unscaled value) and STRING (UTF-8 bytes, variable width;
+``StringType`` :138).  Every type
 carries the torch dtype of its device buffer and the numpy dtype used for
 host staging.
 """
@@ -60,6 +62,20 @@ class BooleanType(DataType):
     np_dtype = np.bool_
     sql_name = "boolean"
     byte_width = 1
+
+
+class ByteType(IntegralType):
+    torch_dtype = torch.int8
+    np_dtype = np.int8
+    sql_name = "tinyint"
+    byte_width = 1
+
+
+class ShortType(IntegralType):
+    torch_dtype = torch.int16
+    np_dtype = np.int16
+    sql_name = "smallint"
+    byte_width = 2
 
 
 class IntegerType(IntegralType):
@@ -148,6 +164,8 @@ class DecimalType(FractionalType):
 
 
 BOOLEAN = BooleanType()
+BYTE = ByteType()
+SHORT = ShortType()
 INT = IntegerType()
 LONG = LongType()
 FLOAT = FloatType()
@@ -166,3 +184,13 @@ def numeric_promote(a: DataType, b: DataType) -> DataType:
         raise NotImplementedError(f"numeric promotion of {a!r} and {b!r}")
     return _NUMERIC_WIDEN_ORDER[max(_NUMERIC_WIDEN_ORDER.index(a),
                                     _NUMERIC_WIDEN_ORDER.index(b))]
+
+
+def key_type_not_ported(dtype: DataType, what: str) -> NotImplementedError:
+    """The error for a type the port holds as a value column only (BYTE,
+    SHORT) or not at all, used as a ``what`` key."""
+    if isinstance(dtype, (ByteType, ShortType)):
+        return NotImplementedError(
+            f"{what} of {dtype!r} is not ported: BYTE and SHORT are value "
+            "columns only; as keys they are ROADMAP queue 2")
+    return NotImplementedError(f"{what} of {dtype!r} is not ported")

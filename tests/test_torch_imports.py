@@ -282,3 +282,59 @@ def test_new_wrappers_raise_off_the_cpu_without_cuda(call):
     with pytest.raises(ValueError, match="expected cuda"):
         call(R)
     assert dict(_lib.LAUNCHES) == before
+
+
+def test_pick_and_bitwise_slice_modules_are_covered():
+    """The aggregate tail's modules (the types with BYTE and SHORT, the
+    Arrow bridge, the wrappers, the group-by functions, the aggregates,
+    the exec, the held table) are in the scans above and import nothing
+    of JAX; the four kernels' entry points are in a built source and
+    bound; the DSL exports the new functions."""
+    names = ("spark_rapids_tpu_torch.kernels.reduction",
+             "spark_rapids_tpu_torch.kernels.groupby",
+             "spark_rapids_tpu_torch.expressions.aggregates",
+             "spark_rapids_tpu_torch.plan.execs.aggregate",
+             "spark_rapids_tpu_torch.columnar.arrow",
+             "spark_rapids_tpu_torch.testing.held",
+             "spark_rapids_tpu_torch.types")
+    for name in names:
+        assert name in PORT_MODULES
+        path = ROOT / (name.replace(".", "/") + ".py")
+        assert not {m for m in _imported_roots(path) if m in FORBIDDEN}
+    source = (_lib.CSRC / "reduction.cu").read_text()
+    for entry in ("srt_segmented_pick", "srt_masked_pick",
+                  "srt_segmented_bitwise", "srt_masked_bitwise"):
+        assert entry in source and entry in _lib._SIGNATURES
+    assert '#include "strings.cuh"' in source    # the string pick's chunks
+    from spark_rapids_tpu_torch import expressions as E
+    for fn in ("first", "last", "max_by", "min_by", "bit_and", "bit_or",
+               "bit_xor", "First", "Last", "MaxBy", "MinBy"):
+        assert hasattr(E, fn) and fn in E.__all__
+
+
+@pytest.mark.parametrize("call", [
+    lambda R: R.segmented_pick("first", _meta(torch.bool),
+                               _meta(torch.int32, 2)),
+    lambda R: R.segmented_pick("max", _meta(torch.bool),
+                               _meta(torch.int32, 2), _meta(torch.int8)),
+    lambda R: R.segmented_pick("min", _meta(torch.bool),
+                               _meta(torch.int32, 2), _meta(torch.uint8, 20),
+                               _meta(torch.int32, 9)),
+    lambda R: R.masked_pick("last", _meta(torch.bool), ignore_nulls=True),
+    lambda R: R.masked_pick("max", _meta(torch.bool), _meta(torch.float64)),
+    lambda R: R.segmented_bitwise("bit_and", _meta(torch.int16),
+                                  _meta(torch.bool), _meta(torch.int32, 2)),
+    lambda R: R.masked_bitwise("bit_xor", _meta(torch.int64),
+                               _meta(torch.bool)),
+], ids=["segmented_pick_first", "segmented_pick_key", "segmented_pick_string",
+        "masked_pick_last", "masked_pick_key", "segmented_bitwise",
+        "masked_bitwise"])
+def test_pick_and_bitwise_wrappers_raise_off_the_cpu_without_cuda(call):
+    """As ``test_new_wrappers_raise_off_the_cpu_without_cuda``, for the
+    four wrappers of the aggregate tail: no plain version off the CPU, no
+    launch counted."""
+    from spark_rapids_tpu_torch.kernels import reduction as R
+    before = dict(_lib.LAUNCHES)
+    with pytest.raises(ValueError, match="expected cuda"):
+        call(R)
+    assert dict(_lib.LAUNCHES) == before
