@@ -88,8 +88,21 @@ Phases (any failure raises and the script exits non-zero):
      bytes with binaryCompare's edges ("ab" beside "ab\0", "" beside
      "a"); AND / OR / XOR at every integral width; each timed at phase
      13's partial shape (1,048,576 rows of the tail's table, 9 segments).
-     A kernel's ``max_abs_err`` is the largest difference over all its
-     comparisons;
+     Then the Decimal128 kernels bit for bit (limbs and validity):
+     ``decimal128_binary`` at n = 1,000,003 and 0 over one- and
+     two-limb operands of every magnitude with +-(10**38 - 1), -2**127
+     and 2**127 - 1: add and subtract with rescales, the checked
+     multiply, rescales by 10**0..10**38, the cast to double, under
+     every precision mode; ``decimal128_divide`` with shifts 0, 13 and
+     40, zero divisors, ties of +-0.5 ulp, per-row counts and rescales
+     down by 10**1..10**38; ``segmented_sum128`` / ``masked_sum128`` and
+     ``segmented_extreme128`` / ``masked_extreme128`` at n = 0, 1 and
+     1,000,003 over segments of one row, of 7 (one all
+     null), ~1,000 random and ~80,000 rows, sums past int128 and past the
+     precision, a merge's poison; each timed at its path's shape
+     (q1_decimal's multiply and partial, the held table's a / c, global
+     sum and extremes).  A kernel's ``max_abs_err`` is the largest
+     difference over all its comparisons;
   4. data: TPC-H lineitem at SF10 (60,012,150 rows, all eleven columns on
      the card, batches of 1,048,576 rows, 4 partitions), with independent
      numpy evaluations of q6 and q1;
@@ -101,7 +114,7 @@ Phases (any failure raises and the script exits non-zero):
      gather and masked sum), each with its launches and device
      activities a batch;
   6. q1 the same two ways: grouped partial aggregate, hash exchange into
-     16 partitions, final aggregate;
+     16 partitions, final aggregate; then phase 14 over the same data;
   7. q3 at TPC-DS SF10 (store_sales 28,800,991 rows, all twelve columns on
      the card, batches of 1,048,576 rows, 4 partitions; item 102,000
      rows; date_dim 2,190 rows): two broadcast hash joins, the grouped
@@ -184,7 +197,7 @@ Phases (any failure raises and the script exits non-zero):
      3 after the traced main-path run) and profiled;
  12. the held aggregate shapes (``testing/held.py``: tests/test_queries.py's
      table, k INT of 13 keys, v LONG, x DOUBLE with NaN, +inf and -0.0
-     at rows 0-2, f FLOAT, b BOOLEAN, n // 7 nulls each) at 60,012,150
+     at rows 0-2, f FLOAT, b BOOLEAN, n // 7 nulls each) at 15,003,037
      rows in batches of 1,048,576, 16 partitions: the global and grouped
      aggregates of test_queries.py, MIN / MAX of every column, the four
      variances of x and v, global and grouped, and a global MIN / MAX /
@@ -196,18 +209,38 @@ Phases (any failure raises and the script exits non-zero):
      tests/test_agg_tail.py's table, k INT of 9 keys, v LONG, x DOUBLE
      with NaN, -0.0 and +inf at rows 0-2, s STRING of 95 distinct values
      (3-8 bytes), b BYTE, n // 6 nulls each in v, x, s and b) at
-     30,006,075 rows (half of phase 12's, for the script's time) in
-     batches of 1,048,576, 16 partitions, fused by default: grouped and global FIRST / LAST, grouped MAX_BY / MIN_BY
-     over x and over v, MAX_BY / MIN_BY over the STRING s grouped and
+     15,003,037 rows (a quarter of SF10 lineitem's, for the script's
+     time) in batches of 1,048,576, 16 partitions, fused by default:
+     grouped and global FIRST / LAST, grouped MAX_BY / MIN_BY over x and
+     over v, MAX_BY / MIN_BY over the STRING s grouped and
      global, grouped STRING MIN / MAX, and the bit aggregates over v and
      b grouped and global; each against numpy in the port's input order
      (values exact, floats bit for bit, NaN equal to NaN), with its
      launches, timed and profiled;
- 14. prints the kernels summary line, then the result line last.
+ 14. (run right after phase 6) q1_decimal: TPC-H q1 with its decimal
+     types (sums decimal(22,2) to decimal(38,6), averages decimal(16,6),
+     no cast to DOUBLE) over phase 4's lineitem, every value and count
+     of the 7 groups exact against numpy's integers accumulated in
+     phase 4's pass; with its launches, timed and profiled;
+ 15. the held two-limb decimals (``testing/held.py``
+     ``decimal_columns``: tests/test_decimal128.py's table, a
+     decimal(25,4), b decimal(30,2), c decimal(12,2), k INT of 7 keys,
+     n // 9 nulls in a and b) at 8,388,608 rows in batches of
+     1,048,576, 8 partitions: add and subtract, the multiply, the mixed
+     add, the comparison filter, the casts, the divide, SUM grouped,
+     global and past 38 digits, AVG, MIN / MAX grouped and global.  An
+     elementwise query's output stays on the card and is held bit for
+     bit against the same query run with the plain versions, and at
+     100,000 seeded rows against Python ints; an aggregate's rows exact
+     against numpy's integer reductions over 32-bit limbs.  Each with
+     its launches, timed and profiled;
+ 16. prints the kernels summary line, then the result line last.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
+import decimal
 import json
 import os
 import statistics
@@ -224,13 +257,15 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from spark_rapids_tpu_torch.api.session import (  # noqa: E402
     DataFrame, GpuSession)
 from spark_rapids_tpu_torch.columnar.arrow import batch_from_numpy  # noqa: E402
-from spark_rapids_tpu_torch.columnar.column import DeviceColumn  # noqa: E402
+from spark_rapids_tpu_torch.columnar.column import (  # noqa: E402
+    DeviceColumn, const128, to_python)
 from spark_rapids_tpu_torch.columnar.batch import (  # noqa: E402
     ColumnarBatch, Schema)
 from spark_rapids_tpu_torch.expressions.core import EvalContext  # noqa: E402
 from spark_rapids_tpu_torch import expressions as E  # noqa: E402
 from spark_rapids_tpu_torch.expressions import program as P  # noqa: E402
 from spark_rapids_tpu_torch.kernels import _lib  # noqa: E402
+from spark_rapids_tpu_torch.kernels import decimal as DK  # noqa: E402
 from spark_rapids_tpu_torch.kernels import fused as FK  # noqa: E402
 from spark_rapids_tpu_torch.kernels import groupby as G  # noqa: E402
 from spark_rapids_tpu_torch.kernels import hash as HK  # noqa: E402
@@ -335,6 +370,18 @@ KERNELS = {
                           "spark_rapids_tpu/kernels/groupby.py:448"),
     "masked_bitwise": ("csrc/reduction.cu",
                        "spark_rapids_tpu/kernels/groupby.py:528"),
+    "decimal128_binary": ("csrc/decimal.cu",
+                          "spark_rapids_tpu/kernels/decimal.py:237"),
+    "decimal128_divide": ("csrc/decimal.cu",
+                          "spark_rapids_tpu/kernels/decimal.py:409"),
+    "segmented_sum128": ("csrc/reduction.cu",
+                         "spark_rapids_tpu/kernels/decimal.py:293"),
+    "masked_sum128": ("csrc/reduction.cu",
+                      "spark_rapids_tpu/kernels/decimal.py:304"),
+    "segmented_extreme128": ("csrc/reduction.cu",
+                             "spark_rapids_tpu/kernels/decimal.py:315"),
+    "masked_extreme128": ("csrc/reduction.cu",
+                          "spark_rapids_tpu/plan/execs/aggregate.py:147"),
 }
 FUSE_OFF = {"spark.rapids.sql.tpu.fuseStages": "false"}
 # fused (the default), q6's filter and partial sum are one kernel a batch:
@@ -2876,6 +2923,247 @@ def check_picks(rng, dev, summary) -> None:
             summary[kernel] = summarize(line, nbytes, N)
 
 
+# -- phase 3: the Decimal128 kernels (phase 14's and 15's paths) -------------
+
+DEC_EDGES = [0, 1, -1, 5, -5, 15, -15, 25, -25, 10**38 - 1, -(10**38 - 1),
+             -(1 << 127), (1 << 127) - 1, 10**37, -(10**37), 10**19,
+             -(10**19), 2**63 - 1, -(2**63), 10**18 - 1]
+
+
+def dec_plane(rng, n: int, two: bool, dev) -> torch.Tensor:
+    """n seeded decimals of every magnitude up to int128's (an [n, 2] plane;
+    one limb: int64 [n]), the edges first."""
+    lo = rng.randint(-2**63, 2**63 - 1, n, dtype=np.int64)
+    if two:
+        hi = rng.randint(-2**62, 2**62, n, dtype=np.int64) >> \
+            rng.randint(0, 63, n)
+        small = rng.rand(n) < 0.3                    # one-limb magnitudes
+        hi = np.where(small, lo >> 63, hi)
+        vals = np.stack([lo, hi], 1)
+        edges = [const128(v) for v in DEC_EDGES]
+    else:
+        vals = lo >> rng.randint(0, 63, n)
+        edges = [v for v in DEC_EDGES if -2**63 <= v < 2**63]
+    m = min(len(edges), n)
+    vals[:m] = np.array(edges[:m], np.int64).reshape(vals[:m].shape)
+    return torch.from_numpy(vals).to(dev)
+
+
+def dec_valid(rng, n: int, dev) -> torch.Tensor:
+    v = rng.rand(n) >= 0.1
+    v[:len(DEC_EDGES)] = True
+    return torch.from_numpy(v).to(dev)
+
+
+def hold_binary(what: str, *args, **kw) -> None:
+    got = DK.decimal128_binary(*args, **kw)
+    want = DK.decimal128_binary_plain(*args, **kw)
+    hold("decimal128_binary", list(zip(got, want)), what)
+
+
+def hold_divide(what: str, *args, **kw) -> None:
+    got = DK.decimal128_divide(*args, **kw)
+    want = DK.decimal128_divide_plain(*args, **kw)
+    hold("decimal128_divide", list(zip(got, want)), what)
+
+
+def hold_sum128(x, v, st, precision, count, what: str) -> None:
+    hold("segmented_sum128", list(zip(
+        R.segmented_sum128(x, v, st, precision, count),
+        R.segmented_sum128_plain(x, v, st, precision, count))), what)
+    hold("masked_sum128", list(zip(
+        R.masked_sum128(x, v, precision, count),
+        R.masked_sum128_plain(x, v, precision, count))), what)
+
+
+def hold_extreme128(x, v, st, what: str) -> None:
+    for is_min in (True, False):
+        w = f"{what} {'min' if is_min else 'max'}"
+        hold("segmented_extreme128", list(zip(
+            R.segmented_extreme128(x, v, st, is_min),
+            R.segmented_extreme128_plain(x, v, st, is_min))), w)
+        hold("masked_extreme128", list(zip(
+            R.masked_extreme128(x, v, is_min),
+            R.masked_extreme128_plain(x, v, is_min))), w)
+
+
+def check_decimal_elementwise(rng, dev) -> None:
+    """decimal128_binary and decimal128_divide bit for bit (limbs and
+    validity) against their plain versions at n = 1,000,003 and 0 (and
+    n = 1,048,576 at the timed shapes):
+    one- and two-limb operands, every op, every precision mode, rescales
+    up to 10**38, divides with shifts to 40 (two-staged past 38), zero
+    divisors, ties."""
+    n = RAGGED
+    a2, b2 = dec_plane(rng, n, True, dev), dec_plane(rng, n, True, dev)
+    a1, b1 = dec_plane(rng, n, False, dev), dec_plane(rng, n, False, dev)
+    va, vb = dec_valid(rng, n, dev), dec_valid(rng, n, dev)
+    for an, a in (("a2", a2), ("a1", a1)):
+        for bn, b in (("b2", b2), ("b1", b1)):
+            for op in (DK.ADD, DK.SUB, DK.MUL):
+                for p in (38, 20, DK.INT128, DK.WRAP):
+                    for ka, kb in ((0, 0), (4, 2), (0, 38)):
+                        if op == DK.MUL and (ka or kb):
+                            continue
+                        hold_binary(f"n={n} op {op} {an} {bn} p={p} "
+                                    f"k={ka},{kb}", op, a, va, b, vb, ka,
+                                    kb, p)
+        for k in (0, 1, 18, 19, 38):
+            for p in (38, 30, DK.WRAP):
+                hold_binary(f"n={n} rescale {an} k={k} p={p}",
+                            DK.RESCALE, a, va, ka=k, precision=p)
+        for s in (0, 2, 4, 38):
+            hold_binary(f"n={n} to_double {an} s={s}", DK.TO_DOUBLE, a,
+                        va, ka=s)
+        hold_binary(f"n={n} mul {an} narrow", DK.MUL, a, va, b1, vb,
+                    precision=16, out_two=False)
+    b2[7::13] = 0                       # zero divisors
+    b1[7::13] = 0
+    ties = torch.tensor([5, -5, 15, -25], dtype=torch.int64, device=dev)
+    a1[:4] = ties
+    b1[:4] = 10
+    for (an, a), (bn, b) in ((("a2", a2), ("b1", b1)),
+                             (("a2", a2), ("b2", b2)),
+                             (("a1", a1), ("b1", b1))):
+        for shift in (0, 13, 40):
+            for p in (38, 16, DK.INT128):
+                hold_divide(f"n={n} {an}/{bn} shift={shift} p={p}", a,
+                            va, b, vb, shift, p)
+        hold_divide(f"n={n} {an}/{bn} truncating", a, va, b, vb,
+                    half_up=False, precision=DK.INT128)
+    counts = torch.from_numpy(rng.randint(1, 2**31, n).astype(
+        np.int64)).to(dev)
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    hold_divide(f"n={n} by counts", a2, va, counts, ones, 0, 38)
+    for drop in (1, 9, 10, 20, 38):
+        hold_divide(f"n={n} rescale down {drop}", a2, va, 10 ** drop,
+                    precision=DK.INT128, out_two=drop < 20)
+    z = torch.zeros((0, 2), dtype=torch.int64, device=dev)
+    zv = torch.zeros(0, dtype=torch.bool, device=dev)
+    hold_binary("n=0", DK.ADD, z, zv, z, zv)
+    hold_divide("n=0", z, zv, z, zv, 6)
+
+
+def dec_layouts(n: int) -> dict:
+    """tail_layouts, and segments of ~80,000 rows."""
+    out = tail_layouts(n)
+    if n > 80_000:
+        out["long"] = np.arange(0, n, 80_000)
+    return out
+
+
+def check_decimal_reductions(rng, dev) -> None:
+    """segmented_sum128 / masked_sum128 and segmented_extreme128 /
+    masked_extreme128 bit for bit: n = 0, 1 and 1,000,003 (1,048,576 at
+    the timed shapes);
+    segments of one row, of 7 (the first all null), ~1,000 random and of
+    ~80,000 rows; one- and two-limb rows with the edges (sums past int128
+    and past the precision); the merge with its counts (a null partial of
+    a nonzero count poisons its segment)."""
+    for n in (0, 1, RAGGED):
+        for two in (True, False):
+            x = dec_plane(rng, n, two, dev)
+            v = dec_valid(rng, n, dev)[:n]
+            count = torch.from_numpy(rng.randint(0, 3, n).astype(
+                np.int64)).to(dev)
+            for name, starts in dec_layouts(n).items():
+                st = torch.from_numpy(starts.astype(np.int32)).to(dev)
+                if name == "sevens" and n > 7:
+                    v[:7] = False
+                what = f"n={n} {name} two={two}"
+                for p in (38, 22):
+                    hold_sum128(x, v, st, p, None, f"{what} p={p}")
+                hold_sum128(x, v, st, 38, count, f"{what} merge")
+                hold_extreme128(x, v, st, what)
+
+
+def dec_partial_layout(rng, n: int, dev):
+    """A partial step's work: [n, 2] decimals sorted by 7 keys."""
+    keys = np.sort(rng.randint(0, held.DEC_KEYS, n))
+    starts = np.flatnonzero(np.r_[True, keys[1:] != keys[:-1]])
+    x = dec_plane(rng, n, True, dev)
+    x[:, 1] = x[:, 0] >> 63          # 64-bit magnitudes, as a money sum's
+    return x, dec_valid(rng, n, dev), torch.from_numpy(
+        starts.astype(np.int32)).to(dev)
+
+
+def divide_steps(a: torch.Tensor, shift: int) -> int:
+    """The long division's steps over these rows: the bit length of each
+    |a| * 10**shift (the kernel starts at the numerator's top bit)."""
+    lo, hi = a[:, 0].cpu().numpy(), a[:, 1].cpu().numpy()
+    mag = np.abs(hi.astype(np.float64) * 2.0**64
+                 + lo.view(np.uint64).astype(np.float64))
+    bits = np.floor(np.log2(np.maximum(mag, 1.0) * 10.0 ** shift)) + 1
+    return int(np.where(mag > 0, bits, 0).sum())
+
+
+#: 64-bit operations a long-division step takes (a 128-bit shift, the bit,
+#: a 128-bit compare and subtract, the quotient bit)
+DIVIDE_STEP_OPS = 8
+#: 64-bit operations of one two-limb multiply and its overflow test
+MUL_OPS = 12
+
+
+def check_decimal128(rng, dev, summary) -> None:
+    """The four Decimal128 kernels (six wrappers) against their plain
+    versions, then each timed at the shape its path gives it: q1_decimal's
+    disc_price multiply (decimal(12,2) x decimal(13,2), 1,048,576 rows)
+    and its sums' partial (1,048,576 two-limb rows in 7 segments); the
+    held table's a / c (decimal(25,4) / decimal(12,2), shift 13), global
+    sum and extremes over 1,048,576 rows."""
+    check_decimal_elementwise(rng, dev)
+    check_decimal_reductions(rng, dev)
+    price = torch.from_numpy(np.round(rng.uniform(900, 105_000, N) * 100)
+                             .astype(np.int64)).to(dev)
+    disc = torch.from_numpy(100 - rng.randint(0, 11, N).astype(
+        np.int64)).to(dev)
+    ones = torch.ones(N, dtype=torch.bool, device=dev)
+    hold_binary("q1_decimal's disc_price", DK.MUL, price, ones, disc, ones,
+                precision=26)
+    data, valid = held.decimal_columns(N, 5)
+    a = torch.from_numpy(data["a"]).to(dev)
+    va = torch.from_numpy(valid["a"]).to(dev)
+    c = torch.from_numpy(data["c"]).to(dev)
+    hold_divide("held's a / c", a, va, c, ones, 13, 38)
+    x, v, st = dec_partial_layout(rng, N, dev)
+    g = st.shape[0]
+    hold_sum128(x, v, st, 36, None, "q1_decimal's partial")
+    hold_extreme128(x, v, st, "the held partial")
+    cases = {
+        "decimal128_binary": (
+            lambda: DK.decimal128_binary(DK.MUL, price, ones, disc, ones,
+                                         precision=26),
+            lambda: DK.decimal128_binary_plain(DK.MUL, price, ones, disc,
+                                               ones, precision=26),
+            35 * N, MUL_OPS * N, "q1_decimal_disc_price"),
+        "decimal128_divide": (
+            lambda: DK.decimal128_divide(a, va, c, ones, 13, 38),
+            lambda: DK.decimal128_divide_plain(a, va, c, ones, 13, 38),
+            43 * N, DIVIDE_STEP_OPS * divide_steps(a, 13), "held_a_div_c"),
+        "segmented_sum128": (
+            lambda: R.segmented_sum128(x, v, st, 36),
+            lambda: R.segmented_sum128_plain(x, v, st, 36),
+            17 * N + 4 * g + 18 * g, 3 * N, "q1_decimal_partial"),
+        "masked_sum128": (
+            lambda: R.masked_sum128(x, v, 38),
+            lambda: R.masked_sum128_plain(x, v, 38),
+            17 * N + 18, 3 * N, "held_global"),
+        "segmented_extreme128": (
+            lambda: R.segmented_extreme128(x, v, st, True),
+            lambda: R.segmented_extreme128_plain(x, v, st, True),
+            17 * N + 4 * g + 17 * g, 2 * N, "held_partial"),
+        "masked_extreme128": (
+            lambda: R.masked_extreme128(x, v, True),
+            lambda: R.masked_extreme128_plain(x, v, True),
+            17 * N + 17, 2 * N, "held_global"),
+    }
+    for kernel, (fn, plain, nbytes, ops, shape) in cases.items():
+        line = {"kernel": kernel, "shape": shape, "n": N, "segments": g,
+                **measure(fn, plain, None, nbytes, ops)}
+        emit(line)
+        summary[kernel] = summarize(line, nbytes, ops)
+
+
 def phase_kernels(dev, tables) -> dict:
     # the profiler itself must see the card
     device_profile(lambda: torch.ones(8, device=dev) + 1)
@@ -2907,6 +3195,7 @@ def phase_kernels(dev, tables) -> dict:
     check_fused(rng, dev, summary)
     check_agg_tail(rng, dev, summary)
     check_picks(rng, dev, summary)
+    check_decimal128(rng, dev, summary)
     torch.cuda.synchronize()
     return summary
 
@@ -2954,11 +3243,13 @@ def phase_data(dev):
     t0 = time.perf_counter()
     batches, revenue, count = [], 0.0, 0
     q1_acc = np.zeros((8, 6))
+    q1d_acc = np.zeros((8, 6), np.int64)
     for chunk in tpch.iter_lineitem(SF10_ROWS, seed=42, batch_rows=N):
         r, c = q6_numpy(chunk)
         revenue += r
         count += c
         q1_acc += q1_numpy(chunk)
+        q1d_acc += q1_decimal_numpy(chunk)
         batches.append(batch_from_numpy(chunk, tpch.LINEITEM_SCHEMA, dev))
     torch.cuda.synchronize()
     resident = sum(c.data.nbytes + c.validity.nbytes
@@ -2976,7 +3267,8 @@ def phase_data(dev):
         require(sess.conf.fuse_stages == (conf is None),
                 "spark.rapids.sql.tpu.fuseStages is on by default")
         dfs[name] = sess.create_dataframe(batches, num_partitions=4)
-    return dfs, (revenue, count), q1_rows_numpy(q1_acc), len(batches)
+    return (dfs, (revenue, count), q1_rows_numpy(q1_acc),
+            q1_decimal_rows_numpy(q1d_acc), len(batches))
 
 
 def run_path(name: str, query, df, kernels) -> tuple:
@@ -3139,6 +3431,83 @@ def phase_q1(dfs, ref_rows, nbatches) -> dict:
               **timing})
         by_path[name] = launches
     return by_path
+
+
+# -- phase 14 ----------------------------------------------------------------
+
+#: the kernels q1_decimal's main path must launch
+Q1D_KERNELS = ("decimal128_binary", "decimal128_divide", "segmented_sum128",
+               "gather", "sort", "concat", "murmur3", "partition")
+
+
+def q1_decimal_numpy(chunk) -> np.ndarray:
+    """Exact q1_decimal partial over host arrays: int64 [8 keys, 6] sums
+    of qty, price, disc_price (scale 4), charge (scale 6), disc, and the
+    row count (key 0 unused).  disc_price = price * (100 - disc) and
+    charge = disc_price * (100 + tax) in unscaled int64; the largest
+    group sum, charge's, stays below 2**63 at SF10."""
+    mask = chunk["l_shipdate"] <= Q1_CUTOFF
+    key = chunk["l_linenumber"][mask]
+    qty, price, disc, tax = (chunk[c][mask] for c in (
+        "l_quantity", "l_extendedprice", "l_discount", "l_tax"))
+    disc_price = price * (100 - disc)
+    charge = disc_price * (100 + tax)
+    order = np.argsort(key, kind="stable")
+    ks = key[order]
+    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    out = np.zeros((8, 6), np.int64)
+    for j, x in enumerate((qty, price, disc_price, charge, disc)):
+        out[ks[starts], j] = np.add.reduceat(x[order], starts)
+    out[ks[starts], 5] = np.diff(np.r_[starts, len(ks)])
+    return out
+
+
+def half_up_div(num: int, den: int) -> int:
+    q, r = divmod(abs(num), den)
+    q += 1 if 2 * r >= den else 0
+    return -q if num < 0 else q
+
+
+def q1_decimal_rows_numpy(acc: np.ndarray) -> list:
+    """(key, sum_qty, sum_base_price, sum_disc_price, sum_charge, avg_qty,
+    avg_price, avg_disc, count_order) as unscaled ints, keys 1..7; an
+    average is HALF_UP of sum * 10**4 / count (scale 2 -> 6)."""
+    rows = []
+    for k in range(1, 8):
+        sq, sp, sdp, sc, sd, n = (int(v) for v in acc[k])
+        rows.append((k, sq, sp, sdp, sc, half_up_div(sq * 10**4, n),
+                     half_up_div(sp * 10**4, n), half_up_div(sd * 10**4, n),
+                     n))
+    return rows
+
+
+def unscaled(v):
+    """A row's decimal.Decimal as its unscaled int (its digits, exactly);
+    any other value as it is."""
+    if isinstance(v, decimal.Decimal):
+        sign, digits, _ = v.as_tuple()
+        n = int("".join(map(str, digits)))
+        return -n if sign else n
+    return v
+
+
+def phase_q1_decimal(dfs, ref_rows, nbatches) -> dict:
+    """q1_decimal over phase 5's lineitem (fused session: its partial
+    aggregate holds SUM128 buffers and runs op by op), every value exact
+    against numpy's integers, then timed."""
+    df = dfs["fused"]
+    rows, launches = run_path("q1_decimal", tpch.q1_decimal, df, Q1D_KERNELS)
+    rows = sorted(([unscaled(v) for v in r] for r in rows),
+                  key=lambda r: (r[0] is not None, r[0]))
+    require([tuple(r) for r in rows] == ref_rows,
+            f"q1_decimal gave {rows} where numpy has {ref_rows}")
+    timing = time_path("q1_decimal", tpch.q1_decimal, df)
+    emit({"phase": "q1_decimal", "rows": SF10_ROWS, "groups": len(rows),
+          "exact": True, "count_order": [r[8] for r in rows],
+          "sum_charge": [str(r[4]) for r in rows],
+          "shuffle_partitions": SHUFFLE_PARTITIONS,
+          "activities_per_batch": per_batch(timing, nbatches), **timing})
+    return {"q1_decimal": launches}
 
 
 # -- phase 7 ------------------------------------------------------------------
@@ -4465,7 +4834,11 @@ def phase_gauntlet(dfs, ref: GauntletNumpy) -> dict:
 
 # -- phase 12 -----------------------------------------------------------------
 
-HELD_ROWS = SF10_ROWS            # 60,012,150: TPC-H SF10 lineitem's rows
+# a quarter of TPC-H SF10 lineitem's 60,012,150 rows, for phases 14 and
+# 15's time: with them the script took 739.0 s at half this count (on an
+# H100 80GB HBM3 at 700 W; the set-up alone 24.26 s, 47.96 s at the
+# full count)
+HELD_ROWS = SF10_ROWS // 4       # 15,003,037
 HELD_SEED = 0
 HELD_PARTITIONS = 16
 F64_RTOL_HELD = 1e-9             # against numpy's float64 sums
@@ -4676,7 +5049,7 @@ def held_equal(a, b, is_exact: bool) -> bool:
 
 def phase_held_data(dev):
     """The held table on the card: tests/test_queries.py's make_data drawn
-    at 60,012,150 rows, batches of 1,048,576, 16 partitions; numpy's
+    at 15,003,037 rows, batches of 1,048,576, 16 partitions; numpy's
     results of the seven queries."""
     t0 = time.perf_counter()
     data, validity = held.columns(HELD_ROWS, HELD_SEED)
@@ -4736,10 +5109,10 @@ def phase_held(df, want) -> dict:
 
 # -- phase 13 -----------------------------------------------------------------
 
-# half of phase 12's 60,012,150: at the full count phase 13 took 59 s and
-# the whole script 662 s on an H100 80GB HBM3 at 700 W, past its ~11
-# minutes
-TAIL_ROWS = SF10_ROWS // 2       # 30,006,075
+# a quarter of SF10's 60,012,150: at the full count phase 13 took 59 s
+# and the whole script 662 s on an H100 80GB HBM3 at 700 W, and at half
+# of it, with phases 14 and 15, the script took 739.0 s
+TAIL_ROWS = SF10_ROWS // 4       # 15,003,037
 TAIL_SEED = 3                    # tests/test_agg_tail.py's _data seed
 TAIL_PARTITIONS = 16
 # each tail query's kernels that its main path must launch
@@ -4865,7 +5238,7 @@ class TailNumpy:
 
 def phase_tail_data(dev):
     """The aggregate tail's table on the card: tests/test_agg_tail.py's
-    _data drawn at 30,006,075 rows, batches of 1,048,576, 16 partitions;
+    _data drawn at 15,003,037 rows, batches of 1,048,576, 16 partitions;
     numpy's results of the eight queries."""
     t0 = time.perf_counter()
     data, validity = held.tail_columns(TAIL_ROWS, TAIL_SEED)
@@ -4927,6 +5300,343 @@ def phase_tail(df, want) -> dict:
     return by_path
 
 
+# -- phase 15 ----------------------------------------------------------------
+
+# 8 batches of 1,048,576: at 16,777,216 rows the script took 739.0 s on
+# an H100 80GB HBM3 at 700 W
+DEC_ROWS = 1 << 23               # 8,388,608
+DEC_SEED = 11                    # tests/test_decimal128.py's df seed
+DEC_PARTITIONS = 8
+DEC_SAMPLE = 100_000
+# each held decimal query's kernels that its main path must launch
+DEC_KERNELS = {
+    "dec_add_sub": ("decimal128_binary",),
+    "dec_mul": ("decimal128_binary",),
+    "dec_mixed": ("decimal128_binary",),
+    "dec_filter": ("decimal128_binary", "compaction_map", "gather"),
+    "dec_casts": ("decimal128_binary", "decimal128_divide"),
+    "dec_divide": ("decimal128_divide",),
+    "dec_sum_grouped": ("segmented_sum128", "sort", "gather", "concat"),
+    "dec_sum_global": ("masked_sum128",),
+    "dec_overflow": ("decimal128_binary", "segmented_sum128"),
+    "dec_avg": ("segmented_sum128", "decimal128_binary", "decimal128_divide"),
+    "dec_min_max_grouped": ("segmented_extreme128", "gather"),
+    "dec_min_max_global": ("masked_extreme128",),
+}
+_M32 = 0xFFFFFFFF
+
+
+def exact_sums(x: np.ndarray, ok: np.ndarray, starts: np.ndarray) -> list:
+    """Per run, the exact sum of the valid rows (int64 [n] or [n, 2]
+    limbs) as Python ints: 32-bit limbs reduced in int64, joined after."""
+    if x.ndim == 1:
+        return [int(v) for v in np.add.reduceat(np.where(ok, x, 0), starts)]
+    lo, hi = x[:, 0], x[:, 1]
+    parts = [lo & _M32, (lo >> 32) & _M32, hi & _M32, hi >> 32]
+    sums = [np.add.reduceat(np.where(ok, p, 0), starts) for p in parts]
+    return [int(a) + (int(b) << 32) + (int(c) << 64) + (int(d) << 96)
+            for a, b, c, d in zip(*sums)]
+
+
+def exact_extremes(x: np.ndarray, ok: np.ndarray, starts: np.ndarray,
+                   is_min: bool) -> list:
+    """Per run, the smallest / largest valid two-limb value (signed high
+    limb, unsigned low), or None."""
+    lo, hi = x[:, 0], x[:, 1].astype(np.int64)
+    ufunc = np.minimum if is_min else np.maximum
+    i64 = np.iinfo(np.int64)
+    mh = ufunc.reduceat(np.where(ok, hi, i64.max if is_min else i64.min),
+                        starts)
+    lens = np.diff(np.r_[starts, len(lo)])
+    cand = ok & (hi == np.repeat(mh, lens))
+    lou = lo.view(np.uint64)
+    ml = ufunc.reduceat(np.where(cand, lou, np.uint64(2**64 - 1) if is_min
+                                 else np.uint64(0)), starts)
+    n = np.add.reduceat(ok, starts, dtype=np.int64)
+    return [to_python(int(b), a) if c else None
+            for a, b, c in zip(mh.tolist(), ml.tolist(), n.tolist())]
+
+
+class DecimalNumpy:
+    """Independent evaluation of the held decimal queries over the host
+    limbs: sums, averages, extremes and counts exact (Python ints from
+    int64 reductions over 32-bit limb planes, never float weights), per
+    key in key order; each elementwise query's rows at a seeded sample
+    of positions of its output, in the port's input order (a partition's
+    batches in turn, the partitions in order), from Python ints."""
+
+    def __init__(self, data, validity, nbatches: int, batch_rows: int,
+                 parts: int):
+        self.data, self.validity = data, validity
+        n = len(data["k"])
+        self.order = np.concatenate([
+            np.arange(i * batch_rows, min((i + 1) * batch_rows, n))
+            for p in range(parts) for i in range(p, nbatches, parts)])
+        k = data["k"]
+        self.gorder = np.argsort(k, kind="stable")
+        sk = k[self.gorder]
+        self.starts = np.flatnonzero(np.r_[True, sk[1:] != sk[:-1]])
+        self.keys = sk[self.starts].tolist()
+        self.counts = np.diff(np.r_[self.starts, n]).tolist()
+        c = data["c"].copy()
+        a = data["a"]
+        # dec_filter's rows: a > c * 100 (c at a's scale), both valid
+        c100 = c * 100
+        hi_c = c100 >> 63
+        gt = (a[:, 1] > hi_c) | ((a[:, 1] == hi_c) & (
+            a[:, 0].view(np.uint64) > c100.view(np.uint64)))
+        self.kept = self.order[(validity["a"] & gt)[self.order]]
+
+    def grouped(self, c: str):
+        return (self.data[c][self.gorder], self.validity[c][self.gorder])
+
+    def agg_rows(self, name: str) -> list:
+        st = self.starts
+        if name == "dec_sum_grouped":
+            cols = [exact_sums(*self.grouped(c), st) for c in "abc"]
+            bounds = (10**35, 10**38, 10**22)
+            cols = [[v if abs(v) < b else None for v in col]
+                    for col, b in zip(cols, bounds)]
+            return [(k, *v, n) for k, *v, n in zip(self.keys, *cols,
+                                                   self.counts)]
+        if name == "dec_sum_global":
+            s = exact_sums(self.data["a"], self.validity["a"],
+                           np.zeros(1, np.int64))[0]
+            return [(s, len(self.data["k"]))]
+        if name == "dec_overflow":
+            return [(k, 0 if k == 0 else None) for k in self.keys]
+        if name == "dec_avg":
+            out = []
+            sums = {c: exact_sums(*self.grouped(c), st) for c in "ac"}
+            nv = {c: np.add.reduceat(self.grouped(c)[1], st).tolist()
+                  for c in "ac"}
+            for i, k in enumerate(self.keys):
+                out.append((k, *(half_up_div(sums[c][i] * 10**4, nv[c][i])
+                                 for c in "ca")))
+            return out
+        if name == "dec_min_max_grouped":
+            x, ok = self.grouped("a")
+            mn = exact_extremes(x, ok, st, True)
+            mx = exact_extremes(x, ok, st, False)
+            n = np.add.reduceat(ok, st, dtype=np.int64).tolist()
+            return list(zip(self.keys, mn, mx, n))
+        if name == "dec_min_max_global":
+            z = np.zeros(1, np.int64)
+            return [(exact_extremes(self.data["b"], self.validity["b"], z,
+                                    True)[0],
+                     exact_extremes(self.data["b"], self.validity["b"], z,
+                                    False)[0])]
+        raise KeyError(name)
+
+    def value(self, c: str, i: int):
+        if not self.validity[c][i]:
+            return None
+        v = self.data[c][i]
+        return to_python(v[0], v[1]) if c in "ab" else int(v)
+
+    def row(self, name: str, i: int) -> tuple:
+        """The expected output row of input row i."""
+        a, b, c, k = (self.value(x, i) for x in "abck")
+
+        def fit(v, p):
+            return v if v is not None and abs(v) < 10 ** p else None
+
+        def opt(f, *xs):
+            return None if any(x is None for x in xs) else f(*xs)
+
+        if name == "dec_add_sub":
+            return (fit(opt(lambda x, y: x + y * 100, a, b), 33),
+                    fit(opt(lambda x, y: x - y * 100, a, b), 33), k)
+        if name == "dec_mul":
+            return (fit(opt(lambda x, y: x * y, a, c), 38), k)
+        if name == "dec_mixed":
+            return (fit(opt(lambda x, y: y * 100 + x, a, c), 26),)
+        if name == "dec_filter":
+            return (a, k)
+        if name == "dec_casts":
+            return (fit(opt(lambda x: x * 100, a), 30),
+                    fit(opt(lambda x: half_up_div(x, 1000), a), 20),
+                    fit(opt(lambda x: half_up_div(x, 100), a), 12),
+                    c, opt(to_double_ref, a),
+                    opt(lambda x: -(-x // 10**4) if x < 0 else x // 10**4,
+                        a),
+                    k * 1000)
+        if name == "dec_divide":
+            if a is None or c == 0:
+                return (None, k)
+            q = half_up_div(abs(a) * 10**13, abs(c))
+            return (fit(-q if (a < 0) != (c < 0) else q, 38), k)
+        raise KeyError(name)
+
+    def sample(self, name: str, rng, rows: int) -> tuple:
+        """(output positions, their input rows) of a seeded sample."""
+        src = self.kept if name == "dec_filter" else self.order
+        pos = np.sort(rng.choice(len(src), min(DEC_SAMPLE, len(src)),
+                                 replace=False))
+        return pos, src[pos]
+
+
+def to_double_ref(x: int) -> float:
+    """The reference's to_double(x) / 10.0**4 in IEEE doubles: |x|'s high
+    and low words each rounded, one rounding in the sum."""
+    m = abs(x)
+    f = float(m >> 64) * 18446744073709551616.0 + float(m & (2**64 - 1))
+    return (-f if x < 0 else f) / 10.0 ** 4
+
+
+def phase_decimal_data(dev):
+    """The held decimal table on the card: tests/test_decimal128.py's df
+    drawn at 8,388,608 rows (numpy limb products), batches of
+    1,048,576, 8 partitions."""
+    t0 = time.perf_counter()
+    data, validity = held.decimal_columns(DEC_ROWS, DEC_SEED)
+    batches = held.decimal_batches(data, validity, dev, N)
+    torch.cuda.synchronize()
+    upload = time.perf_counter() - t0
+    ref = DecimalNumpy(data, validity, len(batches), N, DEC_PARTITIONS)
+    resident = sum(t.nbytes for b in batches for c in b.columns
+                   for t in (c.data, c.validity))
+    emit({"phase": "decimal_data", "rows": DEC_ROWS, "batches": len(batches),
+          "partitions": DEC_PARTITIONS, "resident_bytes": resident,
+          "draw_and_upload_seconds": upload,
+          "setup_seconds": time.perf_counter() - t0})
+    df = GpuSession().create_dataframe(batches,
+                                       num_partitions=DEC_PARTITIONS)
+    return df, ref
+
+
+@contextlib.contextmanager
+def plain_decimal():
+    """decimal128_binary and decimal128_divide replaced by their plain
+    versions (on the card), for one comparison run."""
+    saved = DK.decimal128_binary, DK.decimal128_divide
+    DK.decimal128_binary = DK.decimal128_binary_plain
+    DK.decimal128_divide = DK.decimal128_divide_plain
+    try:
+        yield
+    finally:
+        DK.decimal128_binary, DK.decimal128_divide = saved
+
+
+def run_batches(query) -> list:
+    """A query run to its device batches, in output order."""
+    return [b for part in GpuEngine().execute(query.physical_plan())
+            for b in part]
+
+
+def output_columns(batches) -> list:
+    """Each output column, its batches concatenated, on the card."""
+    return list(S.concat_batches_device(batches).columns) if batches else []
+
+
+def cell(col: DeviceColumn, pos: np.ndarray) -> list:
+    data = col.data[torch.from_numpy(pos).to(col.device)].cpu()
+    ok = col.validity[torch.from_numpy(pos).to(col.device)].cpu().tolist()
+    if col.is_two_limb:
+        vals = [to_python(lo, hi) for lo, hi in data.tolist()]
+    else:
+        vals = data.tolist()
+    return [v if m else None for v, m in zip(vals, ok)]
+
+
+def time_rows_path(name: str, query, profile, runs: int = 3) -> dict:
+    """time_path for a query whose output is the table's size: the walls
+    of ``runs`` runs to device batches (no host rows), and the traced
+    main-path run's profile."""
+    walls = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        run_batches(query())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    wall = statistics.median(walls)
+    busy_ms, activities, by_name = profile or (None, None, {})
+    idle = None if activities is None else 1.0 - busy_ms / (wall * 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    emit({"phase": f"{name}_profile", "device_busy_ms": busy_ms,
+          "device_activities": activities, "idle_share": idle,
+          "top_device_ms": top})
+    return {"wall_s": wall, "wall_s_runs": walls,
+            "rows_per_s": DEC_ROWS / wall, "device_busy_ms": busy_ms,
+            "device_activities": activities, "idle_share": idle}
+
+
+def run_rows_path(name: str, query, kernels) -> tuple:
+    """run_phase_path for a query run to its device batches: the counts
+    set to 0 just before, read just after."""
+    _lib.reset_launch_counts()
+    t = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        batches = run_batches(query())
+        torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t
+    launches = dict(_lib.LAUNCHES)
+    emit({"phase": f"{name}_launches", "launches": launches})
+    for k in kernels:
+        require(launches.get(k, 0) > 0, f"{name} never launched {k}")
+    by_name: dict = {}
+    events = device_events(prof)
+    for event, ms in events:
+        by_name[event] = by_name.get(event, 0.0) + ms
+    profile = (sum(by_name.values()), len(events), by_name) if events \
+        else None
+    return output_columns(batches), launches, first_wall, profile
+
+
+def phase_decimal(df, ref: DecimalNumpy) -> dict:
+    """Each held decimal query's main path (traced, its launches).  An
+    elementwise query's output stays on the card: held bit for bit over
+    the whole table against the same plan run with the plain versions of
+    decimal128_binary and decimal128_divide, and against Python ints at
+    100,000 seeded rows.  An aggregate's rows against numpy's exact
+    integers.  Each timed."""
+    by_path = {}
+    nbatches = -(-DEC_ROWS // N)
+    rng = np.random.RandomState(DEC_SEED)
+    for name, build in held.DEC_ROW_QUERIES.items():
+        path = f"held_{name}"
+        query = lambda build=build: build(df)  # noqa: E731
+        cols, launches, first_wall, profile = run_rows_path(
+            path, query, DEC_KERNELS[name])
+        with plain_decimal():
+            plain_cols = output_columns(run_batches(query()))
+        hold_rows = [p for g, w in zip(cols, plain_cols, strict=True)
+                     for p in ((g.data, w.data), (g.validity, w.validity))]
+        require(all(torch.equal(bits(g), bits(w)) for g, w in hold_rows),
+                f"{path}: the kernels' output differs from the plain "
+                "versions' over the table")
+        pos, src = ref.sample(name, rng, cols[0].num_rows)
+        got = list(zip(*(cell(c, pos) for c in cols)))
+        for g, i in zip(got, src.tolist()):
+            w = ref.row(name, i)
+            require(g == w, f"{path} row {i}: {g} where Python has {w}")
+        timing = time_rows_path(path, query, profile)
+        emit({"phase": path, "rows": DEC_ROWS,
+              "output_rows": cols[0].num_rows, "sampled": len(pos),
+              "plain_equal": True, "first_wall_s": first_wall,
+              "activities_per_batch": per_batch(timing, nbatches),
+              **timing})
+        by_path[path] = launches
+    for name, build in held.DEC_AGG_QUERIES.items():
+        query = lambda _, build=build: build(df)  # noqa: E731
+        path = f"held_{name}"
+        rows, plan, launches, first_wall, profile = run_phase_path(
+            path, query, DEC_KERNELS[name])
+        rows = sorted(tuple(unscaled(v) for v in r) for r in rows)
+        want = ref.agg_rows(name)
+        require(rows == want, f"{path} gave {rows} where numpy has {want}")
+        timing = time_path(path, query, None, DEC_ROWS, profile)
+        emit({"phase": path, "rows": DEC_ROWS, "groups": len(rows),
+              "first_wall_s": first_wall, "first_row": [str(v) for v in
+                                                        rows[0]],
+              "activities_per_batch": per_batch(timing, nbatches),
+              **timing})
+        by_path[path] = launches
+    return by_path
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -4935,9 +5645,10 @@ def main() -> None:
     dims = q72_dims()
     gauntlet = GauntletNumpy(tables, dims)
     summary = phase_kernels(dev, tables)
-    dfs, q6_ref, q1_ref, nbatches = phase_data(dev)
+    dfs, q6_ref, q1_ref, q1d_ref, nbatches = phase_data(dev)
     by_path = {**phase_q6(dfs, q6_ref, nbatches),
-               **phase_q1(dfs, q1_ref, nbatches)}
+               **phase_q1(dfs, q1_ref, nbatches),
+               **phase_q1_decimal(dfs, q1d_ref, nbatches)}
     q25_ref = Q25Numpy(tables[2])
     q3_dfs, q3_want, ss_pool = phase_q3_data(dev, tables, q25_ref,
                                              gauntlet)
@@ -4960,6 +5671,7 @@ def main() -> None:
         phase_gauntlet_data(dev, q25_dfs, gauntlet), gauntlet))
     by_path.update(phase_held(*phase_held_data(dev)))
     by_path.update(phase_tail(*phase_tail_data(dev)))
+    by_path.update(phase_decimal(*phase_decimal_data(dev)))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         s = summary[name]

@@ -5,7 +5,9 @@ Counterpart of ``spark_rapids_tpu/columnar/arrow.py`` (``arrow_to_batch``
 the reference package to the port: a reference batch's ``to_arrow()`` table
 goes through ``arrow_to_batch`` unchanged.  Decimal64 values cross as their
 int64 unscaled value, read from and written to the low half of Arrow's
-16-byte decimal128 slots without Python objects.  Strings cross as Arrow's
+16-byte decimal128 slots without Python objects; a Decimal128 column's
+``[n, 2]`` limbs are those slots themselves (the reference's
+``columnar/arrow.py:163`` refuses precision > 18 there).  Strings cross as Arrow's
 offsets and bytes: ``utf8`` and ``large_utf8`` come in, ``utf8`` goes out,
 and a null slot that Arrow gave bytes loses them (the port's null row has
 length 0).
@@ -67,9 +69,11 @@ def arrow_column_to_numpy(arr, dtype: T.DataType
     valid = _validity_of(arr)
     if isinstance(dtype, T.DecimalType):
         # decimal128 slots are 16-byte little-endian two's complement; a
-        # Decimal64 value is the low 8 bytes
+        # Decimal64 value is the low 8 bytes, a Decimal128 the whole slot
         words = np.frombuffer(arr.buffers()[1], dtype=np.int64)
-        vals = words[2 * arr.offset: 2 * (arr.offset + len(arr)): 2].copy()
+        words = words[2 * arr.offset: 2 * (arr.offset + len(arr))]
+        vals = (words.reshape(-1, 2).copy() if dtype.uses_two_limbs
+                else words[::2].copy())
     elif isinstance(dtype, T.BooleanType):
         vals = arr.fill_null(False).to_numpy(zero_copy_only=False)
     else:
@@ -157,6 +161,9 @@ def _column_to_arrow(col: DeviceColumn) -> pa.Array:
     n = len(vals)
     mask_buf = (pa.array(valid).buffers()[1] if not valid.all() else None)
     at = sql_type_to_arrow(col.dtype)
+    if col.is_two_limb:
+        return pa.Array.from_buffers(at, n, [mask_buf, pa.py_buffer(
+            np.ascontiguousarray(vals))])
     if isinstance(col.dtype, T.DecimalType):
         words = np.empty((n, 2), np.int64)
         words[:, 0] = vals

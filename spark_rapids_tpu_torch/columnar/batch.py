@@ -80,14 +80,22 @@ class ColumnarBatch:
     def from_pydict(data: Dict[str, list], schema: Schema,
                     device) -> "ColumnarBatch":
         """Host Python lists (None is null) -> one device batch; strings as
-        str (``ColumnarBatch.from_pydict`` :110 of the reference)."""
+        str, decimals as their unscaled ints (``ColumnarBatch.from_pydict``
+        :110 of the reference)."""
         import pyarrow as pa
 
         from spark_rapids_tpu_torch.columnar.arrow import (arrow_to_batch,
                                                            sql_type_to_arrow)
-        return arrow_to_batch(pa.table(
-            {n: pa.array(data[n], sql_type_to_arrow(d))
-             for n, d in zip(schema.names, schema.dtypes)}), device)
+        cols = []
+        for n, d in zip(schema.names, schema.dtypes):
+            if isinstance(d, T.DecimalType):
+                cols.append(DeviceColumn.from_pylist(data[n], d, device))
+            else:
+                cols.append(arrow_to_batch(pa.table(
+                    {n: pa.array(data[n], sql_type_to_arrow(d))}),
+                    device).columns[0])
+        rows = len(next(iter(data.values()))) if data else 0
+        return ColumnarBatch(tuple(cols), rows, schema)
 
     def to_arrow(self):
         from spark_rapids_tpu_torch.columnar.arrow import batch_to_arrow

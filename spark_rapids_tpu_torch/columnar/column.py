@@ -8,6 +8,12 @@ exactly ``data[n]`` plus ``validity[n]`` (bool, True = non-null), and the
 row count is the host int ``n``.  Null slots hold zero, as in the
 reference.
 
+A Decimal128 column (``T.two_limbs``) holds ``data`` as int64 ``[n, 2]``:
+each row's low and high limbs, Arrow's 16-byte ``decimal128`` slot.  Its
+host values are Python ints (the unscaled value): ``from_pylist`` and
+``to_pylist`` carry them exactly (``const128`` / ``to_python``, the
+reference's ``kernels/decimal.py:33`` and ``:45``).
+
 A STRING column is ``offsets`` (int32 ``[n + 1]``), ``data`` (uint8 bytes)
 and ``validity[n]``: row i is ``data[offsets[i]:offsets[i + 1]]`` and a
 null row has length 0.  The offsets need not start at 0, so a slice of
@@ -17,6 +23,7 @@ kernel reads a row through its two offsets, and ``to_pylist`` rebases.
 from __future__ import annotations
 
 import dataclasses
+import decimal as _decimal
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -24,10 +31,37 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 
+_U128 = (1 << 128) - 1
+
+
+def const128(value: int) -> Tuple[int, int]:
+    """A Python int -> its (low, high) int64 limbs, two's complement
+    modulo 2**128."""
+    v = value & _U128
+    lo, hi = v & (2**64 - 1), v >> 64
+    return (lo - (1 << 64) if lo >= 1 << 63 else lo,
+            hi - (1 << 64) if hi >= 1 << 63 else hi)
+
+
+def _unscaled(v, scale: int) -> int:
+    """A decimal's unscaled int: an int as it is, a ``decimal.Decimal`` at
+    its value, exactly (38 digits pass the default context's 28)."""
+    if not isinstance(v, _decimal.Decimal):
+        return int(v)
+    with _decimal.localcontext() as ctx:
+        ctx.prec = 80
+        return int(v.scaleb(scale))
+
+
+def to_python(lo: int, hi: int) -> int:
+    """(low, high) int64 limbs -> the signed Python int."""
+    return (int(hi) << 64) | (int(lo) & (2**64 - 1))
+
 
 @dataclasses.dataclass
 class DeviceColumn:
-    data: torch.Tensor       # [n] of dtype.torch_dtype; uint8 bytes for strings
+    data: torch.Tensor       # [n] of dtype.torch_dtype ([n, 2] for a
+                             # Decimal128); uint8 bytes for strings
     validity: torch.Tensor   # [n] bool
     dtype: T.DataType
     offsets: Optional[torch.Tensor] = None   # int32 [n + 1], strings only
@@ -39,7 +73,11 @@ class DeviceColumn:
         if self.validity.dtype != torch.bool or self.validity.dim() != 1:
             raise TypeError(f"validity must be 1-d bool, got "
                             f"{self.validity.dtype} {tuple(self.validity.shape)}")
-        if self.data.dim() != 1:
+        if T.two_limbs(self.dtype):
+            if self.data.dim() != 2 or self.data.shape[1] != 2:
+                raise ValueError(f"{self.dtype!r} data must be [n, 2], got "
+                                 f"{tuple(self.data.shape)}")
+        elif self.data.dim() != 1:
             raise ValueError(f"data must be 1-d, got {tuple(self.data.shape)}")
         if self.dtype.variable_width:
             o = self.offsets
@@ -49,7 +87,7 @@ class DeviceColumn:
                                  f"[{self.validity.shape[0] + 1}]")
         elif self.offsets is not None:
             raise ValueError(f"{self.dtype!r} column takes no offsets")
-        elif self.validity.shape != self.data.shape:
+        elif self.validity.shape[0] != self.data.shape[0]:
             raise ValueError(f"data {tuple(self.data.shape)} and validity "
                              f"{tuple(self.validity.shape)} must be [n] and [n]")
 
@@ -64,6 +102,10 @@ class DeviceColumn:
     @property
     def is_string(self) -> bool:
         return self.offsets is not None
+
+    @property
+    def is_two_limb(self) -> bool:
+        return self.data.dim() == 2
 
     def byte_tile(self, width: int) -> torch.Tensor:
         """uint8 [n, width] of a STRING column: row i's first ``width``
@@ -87,16 +129,38 @@ class DeviceColumn:
     def from_numpy(values: np.ndarray, dtype: T.DataType,
                    validity: Optional[np.ndarray] = None,
                    device="cpu") -> "DeviceColumn":
-        """Host -> device upload of a fixed-width column; null slots are
-        zeroed."""
+        """Host -> device upload of a fixed-width column ([n, 2] limbs for
+        a Decimal128); null slots are zeroed."""
         vals = np.ascontiguousarray(values, dtype=dtype.np_dtype)
         if validity is None:
-            valid = np.ones(vals.shape, np.bool_)
+            valid = np.ones(vals.shape[:1], np.bool_)
         else:
             valid = np.ascontiguousarray(validity, dtype=np.bool_)
-            vals = np.where(valid, vals, np.zeros((), vals.dtype))
+            vals = np.where(valid.reshape(-1, *[1] * (vals.ndim - 1)), vals,
+                            np.zeros((), vals.dtype))
         return DeviceColumn(torch.from_numpy(vals).to(device),
                             torch.from_numpy(valid).to(device), dtype)
+
+    @staticmethod
+    def from_pylist(values: Sequence, dtype: T.DataType,
+                    device="cpu") -> "DeviceColumn":
+        """Host -> device upload of a fixed-width column from Python values
+        (None is null); a decimal's values are its unscaled ints (a
+        ``decimal.Decimal`` is taken at its value)."""
+        n = len(values)
+        valid = np.fromiter((v is not None for v in values), np.bool_, n)
+        if isinstance(dtype, T.DecimalType):
+            ints = [0 if v is None else _unscaled(v, dtype.scale)
+                    for v in values]
+            if dtype.uses_two_limbs:
+                vals = np.array([const128(v) for v in ints],
+                                np.int64).reshape(n, 2)
+            else:
+                vals = np.array(ints, np.int64)
+        else:
+            vals = np.array([0 if v is None else v for v in values],
+                            dtype=dtype.np_dtype)
+        return DeviceColumn.from_numpy(vals, dtype, valid, device)
 
     @staticmethod
     def from_string_buffers(offsets: np.ndarray, data: np.ndarray,
@@ -146,7 +210,11 @@ class DeviceColumn:
 
     def to_pylist(self) -> List:
         """Host values of the column (None for null); strings decode as
-        UTF-8."""
+        UTF-8, a Decimal128 row is its unscaled Python int."""
+        if self.is_two_limb:
+            vals, valid = self.to_numpy()
+            return [to_python(lo, hi) if ok else None
+                    for (lo, hi), ok in zip(vals.tolist(), valid)]
         if not self.is_string:
             vals, valid = self.to_numpy()
             return [v if ok else None for v, ok in zip(vals.tolist(), valid)]

@@ -44,6 +44,7 @@
 #include <cub/block/block_reduce.cuh>
 #include <cub/block/block_scan.cuh>
 
+#include "int128.cuh"
 #include "strings.cuh"
 
 namespace {
@@ -343,7 +344,7 @@ int launch_segmented(const T* data, const uint8_t* valid, int64_t n,
 // order of the additions differs.  Bound: bytes (8 bytes of x or 8 + 8 +
 // 8 of a partial row, and 1 of validity, per row).
 
-constexpr int kStateBytes = 32;   // scratch slot: the largest state fits
+constexpr int kStateBytes = 48;   // scratch slot: the largest state fits
 
 template <class P>
 struct PRun {
@@ -1110,6 +1111,156 @@ int bitwise(bool segmented, int op, int dtype, const void* data,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// -- SUM128, MIN128 / MAX128 ----------------------------------------------------
+//
+// segmented_sum128  <- spark_rapids_tpu/kernels/decimal.py:293
+//                      segment_sum128 (with _carry_join) and
+//                      spark_rapids_tpu/plan/execs/aggregate.py:108
+//                      _seg_sum128
+// masked_sum128     <- spark_rapids_tpu/kernels/decimal.py:304 sum128 and
+//                      spark_rapids_tpu/plan/execs/aggregate.py:160
+//                      _global_sum128
+// segmented_extreme128 <- spark_rapids_tpu/kernels/decimal.py:315
+//                         segment_extreme128 and
+//                         spark_rapids_tpu/plan/execs/aggregate.py:136
+//                         _seg_extreme128
+// masked_extreme128    <- spark_rapids_tpu/plan/execs/aggregate.py:147
+//                         _global_extreme128
+//
+// Two more policies of the tile design above.  SUM128's state is an exact
+// 192-bit two's complement sum (three 64-bit words, add with carry; the
+// reference sums six sign-extended 32-bit limb planes and carries after),
+// the valid count, and a poison flag: at the merge, a null partial whose
+// COUNT_VALID is above zero is an overflow marker and nulls its group
+// (SPARK-28067).  Its write gives the low 128 bits, null where no row is
+// valid, where the sum leaves int128, where it reaches 10**p at the
+// buffer's precision, or where it is poisoned; a flags byte says which (1
+// int128, 2 precision, 4 poison).  An input row is a Decimal128's two limbs
+// or a Decimal64 (update over a decimal(p <= 18) column), sign-extended.
+// MIN128 / MAX128 compare (signed high, unsigned low) limbs; the state is
+// the extreme and the valid count, so one kernel serves update and merge
+// (the min of mins is the min).  Bound: bytes: 8 or 16 bytes and 1 byte
+// (and 8 bytes of a merge's count) read per row, the starts read and 17
+// bytes written per segment.
+
+struct Sum128State {
+  unsigned long long w0, w1, w2;   // the 192-bit sum, low word first
+  long long nvalid;
+  int poison;
+};
+
+struct Sum128Policy {
+  using S = Sum128State;
+  const int64_t* data;
+  bool two;
+  const uint8_t* valid;
+  const int64_t* count;    // a merge's COUNT_VALID partials, else null
+  int precision;
+  int64_t* out;            // [groups, 2]
+  uint8_t* out_valid;
+  uint8_t* out_flags;
+
+  static __device__ __forceinline__ S identity() { return S{0, 0, 0, 0, 0}; }
+  static __device__ __forceinline__ S combine(const S& a, const S& b) {
+    const i128::u128 x = i128::make(a.w0, a.w1);
+    const i128::u128 lo = x + i128::make(b.w0, b.w1);
+    const unsigned long long carry = lo < x ? 1ull : 0ull;
+    return S{static_cast<unsigned long long>(lo),
+             static_cast<unsigned long long>(lo >> 64), a.w2 + b.w2 + carry,
+             a.nvalid + b.nvalid, a.poison | b.poison};
+  }
+  __device__ __forceinline__ S load(int64_t r, int) const {
+    if (!valid[r]) {
+      S s = identity();
+      s.poison = count != nullptr && count[r] > 0;
+      return s;
+    }
+    const i128::s128 v = i128::load(data, two, r);
+    const i128::u128 u = static_cast<i128::u128>(v);
+    return S{static_cast<unsigned long long>(u),
+             static_cast<unsigned long long>(u >> 64), v < 0 ? ~0ull : 0ull,
+             1, 0};
+  }
+  __device__ __forceinline__ void write(int seg, const S& s) const {
+    const i128::s128 v = static_cast<i128::s128>(i128::make(s.w0, s.w1));
+    const bool past = s.w2 != ((s.w1 >> 63) ? ~0ull : 0ull);
+    const bool wide = i128::too_wide(v, precision);
+    const bool ok = s.nvalid > 0 && !past && !wide && !s.poison;
+    i128::store(out, true, seg, ok ? v : i128::s128(0));
+    out_valid[seg] = ok;
+    out_flags[seg] = static_cast<uint8_t>((past ? 1 : 0) | (wide ? 2 : 0) |
+                                          (s.poison ? 4 : 0));
+  }
+};
+
+struct Extreme128State {
+  long long hi;
+  unsigned long long lo;
+  long long nvalid;
+};
+
+template <bool IsMin>
+struct Extreme128Policy {
+  using S = Extreme128State;
+  const int64_t* data;
+  bool two;
+  const uint8_t* valid;
+  int64_t* out;            // [groups, 2]
+  uint8_t* out_valid;
+
+  static __device__ __forceinline__ S identity() {
+    return IsMin ? S{INT64_MAX, ~0ull, 0} : S{INT64_MIN, 0ull, 0};
+  }
+  static __device__ __forceinline__ bool less(const S& a, const S& b) {
+    return a.hi < b.hi || (a.hi == b.hi && a.lo < b.lo);
+  }
+  static __device__ __forceinline__ S combine(const S& a, const S& b) {
+    S r = (IsMin ? less(b, a) : less(a, b)) ? b : a;
+    r.nvalid = a.nvalid + b.nvalid;
+    return r;
+  }
+  __device__ __forceinline__ S load(int64_t r, int) const {
+    if (!valid[r]) return identity();
+    const i128::u128 u = static_cast<i128::u128>(i128::load(data, two, r));
+    return S{static_cast<long long>(static_cast<unsigned long long>(u >> 64)),
+             static_cast<unsigned long long>(u), 1};
+  }
+  __device__ __forceinline__ void write(int seg, const S& s) const {
+    const bool ok = s.nvalid > 0;
+    const i128::s128 v = static_cast<i128::s128>(i128::make(
+        s.lo, static_cast<unsigned long long>(s.hi)));
+    i128::store(out, true, seg, ok ? v : i128::s128(0));
+    out_valid[seg] = ok;
+  }
+};
+
+int sum128(bool segmented, const void* data, int two, const uint8_t* valid,
+           const int64_t* count, int64_t n, const int32_t* starts, int g,
+           int precision, void* scratch, int64_t* out, uint8_t* out_valid,
+           uint8_t* out_flags, cudaStream_t stream) {
+  if (precision < 1 || precision > i128::kMaxPrecision) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Sum128Policy p{static_cast<const int64_t*>(data), two != 0, valid,
+                       count, precision, out, out_valid, out_flags};
+  return reduce_launch(p, segmented, n, starts, g, scratch, stream);
+}
+
+int extreme128(bool segmented, int is_min, const void* data, int two,
+               const uint8_t* valid, int64_t n, const int32_t* starts, int g,
+               void* scratch, int64_t* out, uint8_t* out_valid,
+               cudaStream_t stream) {
+  const int64_t* d = static_cast<const int64_t*>(data);
+  if (is_min) {
+    return reduce_launch(Extreme128Policy<true>{d, two != 0, valid, out,
+                                                out_valid},
+                         segmented, n, starts, g, scratch, stream);
+  }
+  return reduce_launch(Extreme128Policy<false>{d, two != 0, valid, out,
+                                               out_valid},
+                       segmented, n, starts, g, scratch, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1247,6 +1398,44 @@ int srt_masked_bitwise(int op, int dtype, const void* data,
                        void* out, uint8_t* out_valid, cudaStream_t stream) {
   return bitwise(false, op, dtype, data, valid, n, nullptr, 1, scratch, out,
                  out_valid, stream);
+}
+
+// data: int64 [n, 2] (two = 1) or [n]; count: int64 [n] COUNT_VALID
+// partials (a merge) or null; precision: the SUM128 buffer's (1..38);
+// out: int64 [g, 2]; out_flags: 1 past int128, 2 past 10**precision, 4
+// poisoned.  scratch: srt_reduce_state_bytes() per tile, two slots.
+int srt_segmented_sum128(const void* data, int two, const uint8_t* valid,
+                         const int64_t* count, int64_t n,
+                         const int32_t* starts, int g, int precision,
+                         void* scratch, int64_t* out, uint8_t* out_valid,
+                         uint8_t* out_flags, cudaStream_t stream) {
+  return sum128(true, data, two, valid, count, n, starts, g, precision,
+                scratch, out, out_valid, out_flags, stream);
+}
+
+int srt_masked_sum128(const void* data, int two, const uint8_t* valid,
+                      const int64_t* count, int64_t n, int precision,
+                      void* scratch, int64_t* out, uint8_t* out_valid,
+                      uint8_t* out_flags, cudaStream_t stream) {
+  return sum128(false, data, two, valid, count, n, nullptr, 1, precision,
+                scratch, out, out_valid, out_flags, stream);
+}
+
+int srt_segmented_extreme128(int is_min, const void* data, int two,
+                             const uint8_t* valid, int64_t n,
+                             const int32_t* starts, int g, void* scratch,
+                             int64_t* out, uint8_t* out_valid,
+                             cudaStream_t stream) {
+  return extreme128(true, is_min, data, two, valid, n, starts, g, scratch,
+                    out, out_valid, stream);
+}
+
+int srt_masked_extreme128(int is_min, const void* data, int two,
+                          const uint8_t* valid, int64_t n, void* scratch,
+                          int64_t* out, uint8_t* out_valid,
+                          cudaStream_t stream) {
+  return extreme128(false, is_min, data, two, valid, n, nullptr, 1, scratch,
+                    out, out_valid, stream);
 }
 
 }  // extern "C"

@@ -17,7 +17,8 @@
 // gather      <- spark_rapids_tpu/kernels/selection.py:84 gather_column,
 //                :191 gather_batch
 //   Bound: bytes: 4 bytes of index plus (width + 1) bytes read and written
-//   per output row and column.  Design: one launch for up to kMaxGatherCols
+//   per output row and column; a width is 1, 2, 4, 8 or 16 bytes (a
+//   Decimal128 row's two limbs).  Design: one launch for up to kMaxGatherCols
 //   columns, passed by value as a parameter struct; each thread reads its
 //   row index once and moves that row of every column, so the index map is
 //   read once per batch and not once per column.  Reads are random (the
@@ -158,10 +159,18 @@ __device__ __forceinline__ void move_row(const void* src, void* dst,
   static_cast<W*>(dst)[r] = valid ? static_cast<const W*>(src)[s] : W(0);
 }
 
+// a Decimal128 row: its two int64 limbs (8-byte aligned, not 16)
+struct Limbs2 {
+  uint64_t lo, hi;
+  Limbs2() = default;
+  __device__ explicit Limbs2(int) : lo(0), hi(0) {}
+};
+
 __device__ __forceinline__ void move_row_width(int width, const void* src,
                                                void* dst, int32_t s, int64_t r,
                                                bool valid) {
   switch (width) {
+    case 16: move_row<Limbs2>(src, dst, s, r, valid); break;
     case 8: move_row<uint64_t>(src, dst, s, r, valid); break;
     case 4: move_row<uint32_t>(src, dst, s, r, valid); break;
     case 2: move_row<uint16_t>(src, dst, s, r, valid); break;

@@ -8,7 +8,9 @@ Counterpart of ``spark_rapids_tpu/expressions/aggregates.py`` (``Sum`` :91,
 ``VariancePop``, ``StddevSamp``, ``StddevPop`` :434-454, ``BoolAnd`` /
 ``BoolOr`` :476-490, ``First`` :1069, ``Last`` :1113, ``_ExtremeBy`` /
 ``MaxBy`` / ``MinBy`` :1118-1171, ``_BitAggBase`` and the bit aggregates
-:1176-1216; non-decimal inputs, and Decimal64 for MIN / MAX).
+:1176-1216), decimals included: SUM and AVG over any decimal use
+the two-limb SUM128 buffer, MIN / MAX over a Decimal128 the MIN128 /
+MAX128 buffers (:91-130, :172-235, :290-345).
 Each function declares its buffer slots: the slot's type, how raw rows
 fold into it (``update_op``) and how partial buffers fold together
 (``merge_op``; counts update by counting and merge by summing), plus a
@@ -17,7 +19,10 @@ finalize step over the merged buffers.  The exec layer
 keys) or the segmented kernels (grouped) of ``kernels/reduction.py``.
 
 Type rules follow Spark: sum(integral) -> LONG, sum(floating) -> DOUBLE,
-count -> LONG (never null), avg(numeric) -> DOUBLE (null over no valid
+sum(decimal(p, s)) -> decimal(p + 10, s) (a Decimal64 below precision 19,
+else a SUM128 buffer: exact, null past its precision), count -> LONG
+(never null), avg(numeric) -> DOUBLE and avg(decimal(p, s)) ->
+decimal(p + 4, s + 4) (HALF_UP over the exact sum; null over no valid
 row), min / max keep the input type (null over no valid row), the
 variances and standard deviations are DOUBLE over the buffers (SUM
 DOUBLE, M2 merged by Chan's formula, COUNT_VALID), null where the
@@ -27,8 +32,8 @@ the extreme (unsigned byte order).  FIRST / LAST keep their input's type
 their integral input's; each is null where no row qualifies.  A
 multi-input aggregate (MAX_BY, MIN_BY) lists its ``inputs``, and each
 buffer slot names the input it folds (``input_index``).  MIN / MAX and
-the variances over BYTE or SHORT, and MIN / MAX over two-limb decimals,
-raise: their kernels are still to port (ROADMAP queue 2).
+the variances over BYTE or SHORT raise: their kernels are still to port
+(ROADMAP queue 2).
 """
 from __future__ import annotations
 
@@ -60,6 +65,10 @@ BIT_AND = "bit_and"
 BIT_OR = "bit_or"
 BIT_XOR = "bit_xor"
 BIT_OPS = (BIT_AND, BIT_OR, BIT_XOR)
+SUM128 = "sum128"            # exact two-limb decimal sum (merge: poisoned
+                             # by a null partial of a nonzero count)
+MIN128 = "min128"
+MAX128 = "max128"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +122,9 @@ class Sum(AggregateFunction):
     @property
     def dtype(self):
         cdt = self.input.dtype
+        if isinstance(cdt, T.DecimalType):
+            return T.DecimalType(min(cdt.precision + 10,
+                                     T.DecimalType.MAX_PRECISION), cdt.scale)
         if cdt.is_integral or isinstance(cdt, T.BooleanType):
             return T.LONG
         if cdt.is_floating:
@@ -121,7 +133,13 @@ class Sum(AggregateFunction):
 
     @property
     def buffers(self):
-        return (BufferSlot(self.dtype, SUM, SUM),
+        dt = self.dtype
+        if T.two_limbs(dt):
+            # int128 accumulation; an overflow is a null sum buffer beside
+            # a nonzero count (Spark's contract since SPARK-28067)
+            return (BufferSlot(dt, SUM128, SUM128),
+                    BufferSlot(T.LONG, COUNT_VALID, SUM))
+        return (BufferSlot(dt, SUM, SUM),
                 BufferSlot(T.LONG, COUNT_VALID, SUM))
 
     def finalize(self, bufs):
@@ -154,16 +172,28 @@ class Count(AggregateFunction):
 class Average(AggregateFunction):
     """avg over a non-decimal numeric input: buffers (DOUBLE SUM, LONG
     COUNT_VALID merged by SUM), result sum / count, null when the count is
-    0.  Decimal avg (the reference's two-limb SUM128 buffer) is not
-    ported."""
+    0.  Over decimal(p, s): decimal(p + 4, s + 4), from a two-limb SUM128
+    buffer of decimal(max(p + 10, 19), s): the sum rescaled by 10**4, then
+    divided by the count with HALF_UP (``decimal128_binary`` and
+    ``decimal128_divide``); null where the sum reaches 10**34 (the
+    reference's headroom cap, :315-322) or the result its precision."""
 
     name = "avg"
 
     def __init__(self, child: Expression):
         self.children = (child,)
 
+    def _decimal_in(self) -> Optional[T.DecimalType]:
+        dt = self.input.dtype
+        return dt if isinstance(dt, T.DecimalType) else None
+
     @property
     def dtype(self):
+        d = self._decimal_in()
+        if d is not None:
+            return T.DecimalType(
+                min(d.precision + 4, T.DecimalType.MAX_PRECISION),
+                min(d.scale + 4, T.DecimalType.MAX_PRECISION))
         cdt = self.input.dtype
         if cdt.is_integral or cdt.is_floating:
             return T.DOUBLE
@@ -171,13 +201,40 @@ class Average(AggregateFunction):
 
     @property
     def buffers(self):
+        d = self._decimal_in()
+        if d is not None:
+            buf = T.DecimalType(
+                min(max(d.precision + 10, T.DecimalType.MAX_LONG_DIGITS + 1),
+                    T.DecimalType.MAX_PRECISION), d.scale)
+            return (BufferSlot(buf, SUM128, SUM128),
+                    BufferSlot(T.LONG, COUNT_VALID, SUM))
         return (BufferSlot(self.dtype, SUM, SUM),
                 BufferSlot(T.LONG, COUNT_VALID, SUM))
 
     def finalize(self, bufs):
-        (s, _), (n, _) = bufs
-        valid = n > 0
-        return s / torch.where(valid, n, 1).to(s.dtype), valid
+        (s, s_valid), (n, _) = bufs
+        d = self._decimal_in()
+        if d is None:
+            valid = n > 0
+            return s / torch.where(valid, n, 1).to(s.dtype), valid
+        from spark_rapids_tpu_torch.kernels import decimal as DK
+        out = self.dtype
+        k = out.scale - d.scale
+        valid = s_valid & (n > 0)
+        if k != _AVG_HEADROOM:
+            # the reference's cap is |sum| < 10**34 whatever the rescale
+            valid = DK.decimal128_binary(DK.RESCALE, s, valid,
+                                         precision=_AVG_CAP)[1]
+        s, valid = DK.decimal128_binary(DK.RESCALE, s, valid, ka=k,
+                                        precision=DK.MAX_PRECISION)
+        return DK.decimal128_divide(s, valid, n, torch.ones_like(valid),
+                                    precision=out.precision,
+                                    out_two=out.uses_two_limbs)
+
+
+#: avg(decimal)'s rescale and its cap on the sum's digits
+_AVG_HEADROOM = 4
+_AVG_CAP = T.DecimalType.MAX_PRECISION - _AVG_HEADROOM
 
 
 def _narrow_int(dt: T.DataType) -> bool:
@@ -190,12 +247,11 @@ class _Extreme(AggregateFunction):
     follow Spark's order: NaN above everything (MIN skips NaN unless the
     group holds nothing else, any NaN makes MAX NaN), and -0.0 below 0.0,
     as the reference's extremes give it on the CPU.  A STRING's extreme is
-    its first row holding the smallest / largest bytes (a pick).  A
-    two-limb decimal (the reference's MIN128 / MAX128 buffers) cannot
-    reach here: the port's ``DecimalType`` refuses a precision above
-    18."""
+    its first row holding the smallest / largest bytes (a pick); a
+    Decimal128's is a MIN128 / MAX128 buffer over its two limbs."""
 
     op = MIN
+    op128 = MIN128
 
     def __init__(self, child: Expression):
         self.children = (child,)
@@ -211,7 +267,9 @@ class _Extreme(AggregateFunction):
 
     @property
     def buffers(self):
-        return (BufferSlot(self.dtype, self.op, self.op),
+        dt = self.dtype
+        op = self.op128 if T.two_limbs(dt) else self.op
+        return (BufferSlot(dt, op, op),
                 BufferSlot(T.LONG, COUNT_VALID, SUM))
 
     def finalize(self, bufs):
@@ -222,11 +280,13 @@ class _Extreme(AggregateFunction):
 class Min(_Extreme):
     name = "min"
     op = MIN
+    op128 = MIN128
 
 
 class Max(_Extreme):
     name = "max"
     op = MAX
+    op128 = MAX128
 
 
 class BoolAnd(Min):

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expressions.core import (
     EvalContext, Expression, make_column)
 
@@ -39,7 +40,8 @@ class If(Expression):
         t = self.if_true.eval(ctx)
         f = self.if_false.eval(ctx)
         take_true = p.data & p.validity
-        vals = torch.where(take_true, t.data.to(out_dt.torch_dtype),
+        pick = take_true[:, None] if T.two_limbs(out_dt) else take_true
+        vals = torch.where(pick, t.data.to(out_dt.torch_dtype),
                            f.data.to(out_dt.torch_dtype))
         validity = torch.where(take_true, t.validity, f.validity)
         return make_column(vals, validity, out_dt)

@@ -210,8 +210,8 @@ def _infer_literal_type(value) -> T.DataType:
 
 
 class Literal(Expression):
-    """A constant; a decimal literal is its unscaled int, a string literal
-    its UTF-8 bytes in every row.  ``Literal(None, dtype)`` is a typed null:
+    """A constant; a decimal literal is its unscaled int (a Decimal128's
+    two limbs in every row), a string literal its UTF-8 bytes in every row.  ``Literal(None, dtype)`` is a typed null:
     an all-invalid column of that type (null slots zero; a string's offsets
     all zero and no bytes), as the reference's ``Literal`` (:346) with its
     expand's ``_coerce`` (``plan/execs/misc.py:72-82``) gives it.  A null
@@ -238,7 +238,8 @@ class Literal(Expression):
                     self._dtype, torch.zeros(n + 1, dtype=torch.int32,
                                              device=dev))
             return DeviceColumn(
-                torch.zeros(n, dtype=self._dtype.torch_dtype, device=dev),
+                torch.zeros((n, 2) if T.two_limbs(self._dtype) else n,
+                            dtype=self._dtype.torch_dtype, device=dev),
                 invalid, self._dtype)
         if self._dtype.variable_width:
             raw = self.value.encode("utf-8")
@@ -249,10 +250,14 @@ class Literal(Expression):
                 one.repeat(n), torch.ones(n, dtype=torch.bool, device=dev),
                 self._dtype, torch.arange(n + 1, dtype=torch.int32,
                                           device=dev) * len(raw))
-        return DeviceColumn(
-            torch.full((n,), self.value, dtype=self._dtype.torch_dtype,
-                       device=dev),
-            torch.ones(n, dtype=torch.bool, device=dev), self._dtype)
+        if T.two_limbs(self._dtype):   # the unscaled int's two limbs
+            from spark_rapids_tpu_torch.kernels.decimal import const_col128
+            data = const_col128(int(self.value), n, dev)
+        else:
+            data = torch.full((n,), self.value, dtype=self._dtype.torch_dtype,
+                              device=dev)
+        return DeviceColumn(data, torch.ones(n, dtype=torch.bool, device=dev),
+                            self._dtype)
 
     def __repr__(self):
         return f"lit({self.value!r})"
@@ -306,8 +311,9 @@ def null_propagating(validities: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def make_column(values: torch.Tensor, validity: torch.Tensor,
                 dtype: T.DataType) -> DeviceColumn:
-    """Null slots hold zero."""
-    values = torch.where(validity, values,
+    """Null slots hold zero (both limbs of a Decimal128 row)."""
+    values = torch.where(validity[:, None] if values.dim() == 2 else validity,
+                         values,
                          torch.zeros((), dtype=values.dtype,
                                      device=values.device))
     return DeviceColumn(values, validity, dtype)

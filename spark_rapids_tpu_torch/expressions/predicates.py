@@ -3,12 +3,17 @@
 Counterpart of ``spark_rapids_tpu/expressions/predicates.py``
 (``EqualTo`` :160, ``LessThan`` :174, ``GreaterThan`` :190,
 ``LessThanOrEqual`` :201, ``GreaterThanOrEqual`` :213, ``And`` :262,
-``Or`` :290, ``Not`` :314, ``IsNull`` :328), numeric, date, Decimal64 and
+``Or`` :290, ``Not`` :314, ``IsNull`` :328), numeric, date, decimal and
 string operands.  Spark semantics: NaN equals NaN and is larger than
 every other double; strings compare by their UTF-8 bytes
 (``UTF8String.binaryCompare``, a proper prefix first); a comparison with a
 null operand is null; AND and OR are three-valued (FALSE AND null = FALSE,
 TRUE OR null = TRUE); NOT null is null; IS NULL is never null.
+
+Two decimals compare at their common scale: int64 values where that
+scale's precision is at most 18, else two-limb values (:122-135): each
+side rescaled by ``decimal128_binary`` (wrapping, as the reference's
+``rescale`` wraps), then ``lt128`` / ``eq128``.
 
 Two strings compare as the reference's ``_string_cmp_rank`` (:423) does:
 through the sort's string keys (``kernels/sort.py`` ``string_sort_keys``,
@@ -33,7 +38,8 @@ def _cmp_dtype(l: T.DataType, r: T.DataType) -> T.DataType:
     if isinstance(l, T.DecimalType) and isinstance(r, T.DecimalType):
         scale = max(l.scale, r.scale)
         intd = max(l.precision - l.scale, r.precision - r.scale)
-        return T.DecimalType(intd + scale, scale)
+        return T.DecimalType(min(intd + scale, T.DecimalType.MAX_PRECISION),
+                             scale)
     return T.numeric_promote(l, r)
 
 
@@ -42,6 +48,23 @@ def _rescale(unscaled, from_scale: int, to_scale: int):
     if to_scale == from_scale:
         return unscaled
     return unscaled * (10 ** (to_scale - from_scale))
+
+
+def decimal128_rank(lc, rc, scale: int) -> torch.Tensor:
+    """Per row, int8 0, 1 or 2 as decimal ``lc`` is below, equal to or
+    above ``rc``, both taken as two limbs at ``scale``."""
+    from spark_rapids_tpu_torch.kernels import decimal as DK
+
+    def at_scale(c):
+        k = scale - c.dtype.scale
+        if k == 0:
+            return c.data if c.is_two_limb else DK.widen64(c.data)
+        return DK.decimal128_binary(DK.RESCALE, c.data, c.validity, ka=k,
+                                    precision=DK.WRAP)[0]
+    lhs, rhs = at_scale(lc), at_scale(rc)
+    lt, eq = DK.lt128(lhs, rhs), DK.eq128(lhs, rhs)
+    one = torch.ones((), dtype=torch.int8, device=lhs.device)
+    return torch.where(lt, 0 * one, torch.where(eq, one, 2 * one))
 
 
 def string_rank(lc, rc) -> torch.Tensor:
@@ -67,7 +90,8 @@ def string_rank(lc, rc) -> torch.Tensor:
 
 
 class BinaryComparison(BinaryExpression):
-    #: the string ranks (0 less, 1 equal, 2 greater) that make it true
+    #: the ranks (0 less, 1 equal, 2 greater) that make it true, for
+    #: strings and two-limb decimals
     string_ranks: tuple = ()
 
     @property
@@ -84,14 +108,10 @@ class BinaryComparison(BinaryExpression):
             if not (lc.is_string and rc.is_string):
                 raise TypeError(f"{self.symbol} compares a string with a "
                                 "string only")
-            rank = string_rank(lc, rc)
-            vals = torch.zeros(lc.num_rows, dtype=torch.bool,
-                               device=lc.device)
-            for r in self.string_ranks:
-                vals = vals | (rank == r)
-            return make_column(vals, null_propagating(
-                [lc.validity, rc.validity]), T.BOOLEAN)
+            return self._from_rank(string_rank(lc, rc), lc, rc)
         cdt = _cmp_dtype(lc.dtype, rc.dtype)
+        if T.two_limbs(cdt) or lc.is_two_limb or rc.is_two_limb:
+            return self._from_rank(decimal128_rank(lc, rc, cdt.scale), lc, rc)
         validity = null_propagating([lc.validity, rc.validity])
         if isinstance(cdt, T.DecimalType):
             # compare unscaled int64 values at the common scale
@@ -104,6 +124,14 @@ class BinaryComparison(BinaryExpression):
             is_float = cdt.is_floating
         return make_column(self._compare(lhs, rhs, is_float), validity,
                            T.BOOLEAN)
+
+
+    def _from_rank(self, rank, lc, rc):
+        vals = torch.zeros(lc.num_rows, dtype=torch.bool, device=lc.device)
+        for r in self.string_ranks:
+            vals = vals | (rank == r)
+        return make_column(vals, null_propagating(
+            [lc.validity, rc.validity]), T.BOOLEAN)
 
 
 def _lt(lhs, rhs, is_float):

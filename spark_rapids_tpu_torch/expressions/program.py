@@ -84,6 +84,9 @@ class NotLowerable(Exception):
 
 def kind_of(dt: T.DataType) -> int:
     """The register kind of a fixed-width type (by its torch dtype)."""
+    if T.two_limbs(dt):
+        raise NotLowerable(f"{dt!r} is two limbs: the program's decimal "
+                           "instructions are ROADMAP queue 1 item 5 (rest)")
     for k, td in KIND_DTYPE.items():
         if dt.torch_dtype == td and not dt.variable_width:
             return k
@@ -215,6 +218,8 @@ class ProgramBuilder:
             ldt = self._dtype(e.left, cols)
             rdt = self._dtype(e.right, cols)
             cdt = _cmp_dtype(ldt, rdt)
+            if T.two_limbs(cdt):
+                raise NotLowerable(f"a compare at {cdt!r} (two limbs)")
             if isinstance(cdt, T.DecimalType):
                 lhs = self._rescale(self._value(e.left, cols), ldt.scale,
                                     cdt.scale)

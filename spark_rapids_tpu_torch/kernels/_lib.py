@@ -26,8 +26,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("selection.cu", "reduction.cu", "hash.cu", "sort.cu",
-           "strings.cu", "join.cu", "fused.cu")
-HEADERS = ("scan.cuh", "strings.cuh")
+           "strings.cu", "join.cu", "fused.cu", "decimal.cu")
+HEADERS = ("scan.cuh", "strings.cuh", "int128.cuh", "decimal.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -64,6 +64,16 @@ _SIGNATURES = {
     "srt_masked_pick": [_I, _I, _I, _P, _P, _P, _I64, _P, _P, _P],
     "srt_segmented_bitwise": [_I, _I, _P, _P, _I64, _P, _I, _P, _P, _P, _P],
     "srt_masked_bitwise": [_I, _I, _P, _P, _I64, _P, _P, _P, _P],
+    "srt_segmented_sum128": [_P, _I, _P, _P, _I64, _P, _I, _I, _P, _P, _P,
+                             _P, _P],
+    "srt_masked_sum128": [_P, _I, _P, _P, _I64, _I, _P, _P, _P, _P, _P],
+    "srt_segmented_extreme128": [_I, _P, _I, _P, _I64, _P, _I, _P, _P, _P,
+                                 _P],
+    "srt_masked_extreme128": [_I, _P, _I, _P, _I64, _P, _P, _P, _P],
+    "srt_decimal128_binary": [_I, _P, _I, _P, _P, _I, _P, _I64, _I, _I, _I,
+                              _I, ctypes.c_double, _P, _P, _P],
+    "srt_decimal128_divide": [_P, _I, _P, _P, _I, _P, _I64, _I64, _I64, _I,
+                              _I, _I, _I, _P, _P, _P],
     "srt_max_hash_cols": [],
     "srt_murmur3": [_I, _P, _P, _P, _P, _I64, ctypes.c_uint32, _P, _I, _P,
                     _P],

@@ -164,7 +164,8 @@ class ReductionCache:
         entry = self._by_col.get(id(col), (col, {}))[1]
         if entry:
             return next(iter(entry.values()))
-        if col.is_string:   # no values to sum: sum the validity itself
+        if col.is_string or col.is_two_limb:
+            # no int64 values to sum: sum the validity itself
             entry = self._by_col.setdefault(id(col), (col, {}))[1]
             entry[torch.int64] = self._reduce(
                 col.validity.to(torch.int64), col.validity)
@@ -328,7 +329,8 @@ def finalize_agg_column(values: torch.Tensor, validity: torch.Tensor,
     """A [num_groups] segment-reduce result in canonical form: null slots
     hold zero."""
     values = values.to(dtype.torch_dtype)
-    return DeviceColumn(torch.where(validity, values,
+    return DeviceColumn(torch.where(validity[:, None] if values.dim() == 2
+                                    else validity, values,
                                     torch.zeros((), dtype=values.dtype,
                                                 device=values.device)),
                         validity, dtype)

@@ -40,6 +40,8 @@ _INT32, _INT64, _F64, _BOOL, _STRING = 0, 1, 2, 3, 4
 
 
 def _kind(dtype: T.DataType) -> int:
+    if T.two_limbs(dtype):
+        raise T.key_type_not_ported(dtype, "murmur3")
     if isinstance(dtype, (T.IntegerType, T.DateType)):
         return _INT32
     if isinstance(dtype, (T.LongType, T.DecimalType)):

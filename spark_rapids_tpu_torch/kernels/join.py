@@ -84,6 +84,8 @@ _NULLS_LAST = SortOrder(True, False)
 
 
 def _kind(dtype: T.DataType) -> int:
+    if T.two_limbs(dtype):
+        raise T.key_type_not_ported(dtype, "a join key")
     if isinstance(dtype, (T.IntegerType, T.DateType)):
         return _INT32
     if isinstance(dtype, (T.LongType, T.DecimalType)):

@@ -19,7 +19,13 @@ branch of ``_global_update`` (:286-291) and ``_global_m2_merge`` (:318).
 ``global_pick_by`` :496 and ``global_extreme_string`` :363: each gives
 the row a segment (or the batch) picks, which the caller gathers.
 ``segmented_bitwise`` ports ``seg_bitwise`` :448, ``masked_bitwise``
-``global_bitwise`` :528.
+``global_bitwise`` :528.  ``segmented_sum128`` / ``masked_sum128`` port
+the Decimal128 sums (``spark_rapids_tpu/kernels/decimal.py``
+``segment_sum128`` :293 and ``sum128`` :304 with ``_carry_join``, under
+``plan/execs/aggregate.py`` ``_seg_sum128`` :108 and ``_global_sum128``
+:160), ``segmented_extreme128`` / ``masked_extreme128`` the MIN128 /
+MAX128 extremes (``segment_extreme128`` :315, ``_seg_extreme128`` :136,
+``_global_extreme128`` :147).
 On CUDA tensors each launches its two-pass kernel of
 ``csrc/reduction.cu`` and counts the launch under its own name; on CPU
 tensors it runs the plain PyTorch version beside it, and on any other
@@ -34,6 +40,7 @@ import torch
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.kernels import _lib
+from spark_rapids_tpu_torch.kernels import decimal as DK
 from spark_rapids_tpu_torch.kernels.sort import SortOrder, string_keys_plain
 
 _SUM_DTYPES = (torch.float64, torch.int64)
@@ -798,4 +805,223 @@ def masked_bitwise(op: str, data: torch.Tensor, validity: torch.Tensor
         _lib.ptr(validity), n, _lib.ptr(scratch), _lib.ptr(out),
         _lib.ptr(ok), _lib.stream(dev)), "masked_bitwise")
     _lib.LAUNCHES["masked_bitwise"] += 1
+    return out, ok
+
+# ---------------------------------------------------------------------------
+# SUM128 and MIN128 / MAX128 over Decimal128 (or widened Decimal64) rows
+
+#: segmented_sum128's flags (csrc/reduction.cu Sum128Policy)
+PAST_INT128, PAST_PRECISION, POISONED = 1, 2, 4
+_M32 = 0xFFFFFFFF
+
+
+def _sum128_plain(data: torch.Tensor, validity: torch.Tensor,
+                  seg: torch.Tensor, g: int, precision: int,
+                  count: Optional[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference's exact sum: six sign-extended 32-bit limbs summed
+    per segment in int64, then the carries joined (``_carry_join``)."""
+    dev = validity.device
+    lo, hi = DK.limbs(data)
+    w = validity.to(torch.int64)
+    sign = (hi >> 63) & _M32
+    parts = [lo & _M32, (lo >> 32) & _M32, hi & _M32, (hi >> 32) & _M32,
+             sign, sign]
+    sums = [torch.zeros(g, dtype=torch.int64, device=dev).index_add_(
+        0, seg, x * w) for x in parts]
+    words, carry = [], torch.zeros(g, dtype=torch.int64, device=dev)
+    for x in sums:
+        t = x + carry
+        words.append(t & _M32)
+        carry = t >> 32
+    out_lo = words[0] | (words[1] << 32)
+    out_hi = words[2] | (words[3] << 32)
+    top = words[4] | (words[5] << 32)
+    past = top != (out_hi >> 63)
+    out = torch.stack([out_lo, out_hi], 1)
+    digits = DK._digits(out_lo, out_hi)
+    wide = DK._too_wide(digits, out_hi < 0, precision)
+    nvalid = torch.zeros(g, dtype=torch.int64, device=dev).index_add_(0, seg,
+                                                                      w)
+    if count is None:
+        poison = torch.zeros(g, dtype=torch.bool, device=dev)
+    else:
+        poison = torch.zeros(g, dtype=torch.int64, device=dev).index_add_(
+            0, seg, (~validity & (count > 0)).to(torch.int64)) > 0
+    ok = (nvalid > 0) & ~past & ~wide & ~poison
+    out = torch.where(ok[:, None], out, torch.zeros((), dtype=torch.int64,
+                                                    device=dev))
+    flags = (past.to(torch.uint8) * PAST_INT128
+             | wide.to(torch.uint8) * PAST_PRECISION
+             | poison.to(torch.uint8) * POISONED)
+    return out, ok, flags
+
+
+def segmented_sum128_plain(data, validity, starts, precision, count=None):
+    return _sum128_plain(data, validity, _segment_ids(starts, data.shape[0]),
+                         starts.shape[0], precision, count)
+
+
+def masked_sum128_plain(data, validity, precision, count=None):
+    seg = torch.zeros(data.shape[0], dtype=torch.int64, device=data.device)
+    return _sum128_plain(data, validity, seg, 1, precision, count)
+
+
+def _check_128(name: str, data: torch.Tensor, validity: torch.Tensor
+               ) -> None:
+    if data.dtype != torch.int64 or not (
+            data.dim() == 1 or (data.dim() == 2 and data.shape[1] == 2)):
+        raise TypeError(f"{name} takes int64 [n, 2] limbs or int64 [n], got "
+                        f"{data.dtype} {tuple(data.shape)}")
+    if validity.dtype != torch.bool or validity.shape != data.shape[:1]:
+        raise ValueError(f"{name} needs bool validity [{data.shape[0]}]")
+
+
+def _check_sum128(name, data, validity, precision, count) -> list:
+    _check_128(name, data, validity)
+    if not 1 <= precision <= 38:
+        raise ValueError(f"{name}: the buffer's precision is 1..38, not "
+                         f"{precision}")
+    if count is None:
+        return [data, validity]
+    if count.dtype != torch.int64 or count.shape != validity.shape:
+        raise TypeError(f"{name}: a merge's counts are int64 "
+                        f"[{validity.shape[0]}]")
+    return [data, validity, count]
+
+
+def _sum128_outputs(g: int, dev):
+    return (torch.empty((g, 2), dtype=torch.int64, device=dev),
+            torch.empty(g, dtype=torch.bool, device=dev),
+            torch.empty(g, dtype=torch.uint8, device=dev))
+
+
+def segmented_sum128(data: torch.Tensor, validity: torch.Tensor,
+                     starts: torch.Tensor, precision: int,
+                     count: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact SUM of the valid rows of each segment of contiguous rows, of
+    Decimal128 [n, 2] limbs or Decimal64 int64 [n] values: (int64 [g, 2]
+    sums, validity [g], flags uint8 [g]).  Null (zero limbs) where a
+    segment has no valid row, where its sum leaves int128 (flag
+    PAST_INT128), reaches 10**precision (PAST_PRECISION), or, at a merge
+    (``count``: each partial row's COUNT_VALID), holds a null partial of
+    a count above zero (POISONED: an overflowed partial, SPARK-28067)."""
+    ts = _check_sum128("segmented_sum128", data, validity, precision, count)
+    _check_starts(starts)
+    if data.device.type == "cpu":
+        return segmented_sum128_plain(data, validity, starts, precision,
+                                      count)
+    _lib.require_cuda("segmented_sum128", starts, *ts)
+    lib = _lib.lib()
+    n, g, dev = data.shape[0], starts.shape[0], data.device
+    out, ok, flags = _sum128_outputs(g, dev)
+    scratch = _scratch(n, lib.srt_segment_tile(), 2, dev)
+    _lib.check(lib.srt_segmented_sum128(
+        _lib.ptr(data), int(data.dim() == 2), _lib.ptr(validity),
+        _lib.ptr(count) if count is not None else None, n, _lib.ptr(starts),
+        g, precision, _lib.ptr(scratch), _lib.ptr(out), _lib.ptr(ok),
+        _lib.ptr(flags), _lib.stream(dev)), "segmented_sum128")
+    if n and g:
+        _lib.LAUNCHES["segmented_sum128"] += 1
+    return out, ok, flags
+
+
+def masked_sum128(data: torch.Tensor, validity: torch.Tensor,
+                  precision: int, count: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``segmented_sum128`` over the whole batch as one segment: [1, 2],
+    [1], [1]."""
+    ts = _check_sum128("masked_sum128", data, validity, precision, count)
+    if data.device.type == "cpu":
+        return masked_sum128_plain(data, validity, precision, count)
+    _lib.require_cuda("masked_sum128", *ts)
+    lib = _lib.lib()
+    n, dev = data.shape[0], data.device
+    out, ok, flags = _sum128_outputs(1, dev)
+    scratch = _scratch(n, lib.srt_reduction_tile(), 1, dev)
+    _lib.check(lib.srt_masked_sum128(
+        _lib.ptr(data), int(data.dim() == 2), _lib.ptr(validity),
+        _lib.ptr(count) if count is not None else None, n, precision,
+        _lib.ptr(scratch), _lib.ptr(out), _lib.ptr(ok), _lib.ptr(flags),
+        _lib.stream(dev)), "masked_sum128")
+    _lib.LAUNCHES["masked_sum128"] += 1
+    return out, ok, flags
+
+
+def _extreme128_plain(data: torch.Tensor, validity: torch.Tensor,
+                      seg: torch.Tensor, g: int, is_min: bool
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's two reductions: the extreme high limb, then the
+    extreme low limb (unsigned) of the rows holding it."""
+    dev = validity.device
+    lo, hi = DK.limbs(data)
+    reduce = "amin" if is_min else "amax"
+    ident = _I64.max if is_min else _I64.min
+    mh = torch.full((g,), ident, dtype=torch.int64, device=dev)
+    mh.scatter_reduce_(0, seg, torch.where(validity, hi, ident), reduce)
+    cand = validity & (hi == mh[seg])
+    key = lo ^ _I64.min                    # unsigned order as signed
+    ml = torch.full((g,), ident, dtype=torch.int64, device=dev)
+    ml.scatter_reduce_(0, seg, torch.where(cand, key, ident), reduce)
+    nvalid = torch.zeros(g, dtype=torch.int64, device=dev).index_add_(
+        0, seg, validity.to(torch.int64))
+    ok = nvalid > 0
+    out = torch.stack([ml ^ _I64.min, mh], 1)
+    return torch.where(ok[:, None], out, torch.zeros(
+        (), dtype=torch.int64, device=dev)), ok
+
+
+def segmented_extreme128_plain(data, validity, starts, is_min):
+    return _extreme128_plain(data, validity,
+                             _segment_ids(starts, data.shape[0]),
+                             starts.shape[0], is_min)
+
+
+def masked_extreme128_plain(data, validity, is_min):
+    seg = torch.zeros(data.shape[0], dtype=torch.int64, device=data.device)
+    return _extreme128_plain(data, validity, seg, 1, is_min)
+
+
+def segmented_extreme128(data: torch.Tensor, validity: torch.Tensor,
+                         starts: torch.Tensor, is_min: bool
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MIN (``is_min``) or MAX of the valid Decimal128 rows of each
+    segment of contiguous rows (signed high limb, unsigned low limb):
+    (int64 [g, 2], nvalid > 0); zero limbs where no row is valid.  One
+    kernel for update and merge: the min of mins is the min."""
+    _check_128("segmented_extreme128", data, validity)
+    _check_starts(starts)
+    if data.device.type == "cpu":
+        return segmented_extreme128_plain(data, validity, starts, is_min)
+    _lib.require_cuda("segmented_extreme128", data, validity, starts)
+    lib = _lib.lib()
+    n, g, dev = data.shape[0], starts.shape[0], data.device
+    out, ok, _ = _sum128_outputs(g, dev)
+    scratch = _scratch(n, lib.srt_segment_tile(), 2, dev)
+    _lib.check(lib.srt_segmented_extreme128(
+        int(is_min), _lib.ptr(data), int(data.dim() == 2), _lib.ptr(validity),
+        n, _lib.ptr(starts), g, _lib.ptr(scratch), _lib.ptr(out),
+        _lib.ptr(ok), _lib.stream(dev)), "segmented_extreme128")
+    if n and g:
+        _lib.LAUNCHES["segmented_extreme128"] += 1
+    return out, ok
+
+
+def masked_extreme128(data: torch.Tensor, validity: torch.Tensor,
+                      is_min: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``segmented_extreme128`` over the whole batch: [1, 2] and [1]."""
+    _check_128("masked_extreme128", data, validity)
+    if data.device.type == "cpu":
+        return masked_extreme128_plain(data, validity, is_min)
+    _lib.require_cuda("masked_extreme128", data, validity)
+    lib = _lib.lib()
+    n, dev = data.shape[0], data.device
+    out, ok, _ = _sum128_outputs(1, dev)
+    scratch = _scratch(n, lib.srt_reduction_tile(), 1, dev)
+    _lib.check(lib.srt_masked_extreme128(
+        int(is_min), _lib.ptr(data), int(data.dim() == 2), _lib.ptr(validity),
+        n, _lib.ptr(scratch), _lib.ptr(out), _lib.ptr(ok), _lib.stream(dev)),
+        "masked_extreme128")
+    _lib.LAUNCHES["masked_extreme128"] += 1
     return out, ok

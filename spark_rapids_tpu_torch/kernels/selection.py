@@ -119,16 +119,23 @@ def gather_columns_plain(cols: Sequence[DeviceColumn],
         inb = (indices >= 0) & (indices < c.num_rows)
         if c.num_rows == 0:
             valid = torch.zeros_like(inb)
-            data = torch.zeros(indices.shape, dtype=c.data.dtype,
-                               device=c.device)
+            data = torch.zeros(indices.shape + c.data.shape[1:],
+                               dtype=c.data.dtype, device=c.device)
         else:
             safe = torch.where(inb, indices, 0).long()
             valid = inb & c.validity[safe]
-            data = torch.where(valid, c.data[safe],
+            data = torch.where(valid[:, None] if c.is_two_limb else valid,
+                               c.data[safe],
                                torch.zeros((), dtype=c.data.dtype,
                                            device=c.device))
         out.append(DeviceColumn(data, valid, c.dtype))
     return out
+
+
+def _row_bytes(data: torch.Tensor) -> int:
+    """Bytes of one row of a fixed-width plane (16 for a Decimal128's
+    limbs)."""
+    return data.element_size() * (data.shape[1] if data.dim() == 2 else 1)
 
 
 def _ptr_array(tensors: Sequence[torch.Tensor]) -> ctypes.c_void_p:
@@ -153,13 +160,14 @@ def _gather_group_cuda(src: Sequence[DeviceColumn], indices: torch.Tensor,
     # a string column's first plane is its offsets (lengths, then scanned)
     planes = [c.offsets if c.is_string else c.data for c in src]
     dst = [torch.empty(m + 1, dtype=torch.int32, device=dev) if c.is_string
-           else torch.empty(m, dtype=c.data.dtype, device=dev) for c in src]
+           else torch.empty((m,) + c.data.shape[1:], dtype=c.data.dtype,
+                            device=dev) for c in src]
     dst_valid = [torch.empty(m, dtype=torch.bool, device=dev) for _ in src]
     strings = [i for i, c in enumerate(src) if c.is_string]
     k = len(src)
     keep = [_ptr_array(ts) for ts in (planes, [c.validity for c in src], dst,
                                       dst_valid)]
-    widths = (ctypes.c_int * k)(*(0 if c.is_string else c.data.element_size()
+    widths = (ctypes.c_int * k)(*(0 if c.is_string else _row_bytes(c.data)
                                   for c in src))
     ntiles = max(-(-m // lib.srt_scan_tile()), 1)
     tile_sums = torch.empty(len(strings) * ntiles if strings else 0,
@@ -261,8 +269,8 @@ def concat_column_plain(pieces: Sequence[DeviceColumn]) -> DeviceColumn:
         return concat_string_plain(pieces)
     valid = torch.cat([p.validity for p in pieces])
     data = torch.cat([p.data for p in pieces])
-    data = torch.where(valid, data, torch.zeros((), dtype=data.dtype,
-                                                device=data.device))
+    data = torch.where(valid[:, None] if data.dim() == 2 else valid, data,
+                       torch.zeros((), dtype=data.dtype, device=data.device))
     return DeviceColumn(data, valid, pieces[0].dtype)
 
 
@@ -281,11 +289,12 @@ def _concat_column_cuda(pieces: Sequence[DeviceColumn]) -> DeviceColumn:
     desc = torch.tensor([p.data.data_ptr() for p in pieces]
                         + [p.validity.data_ptr() for p in pieces] + offsets,
                         dtype=torch.int64).to(dev)
-    data = torch.empty(total, dtype=pieces[0].data.dtype, device=dev)
+    data = torch.empty((total,) + pieces[0].data.shape[1:],
+                       dtype=pieces[0].data.dtype, device=dev)
     valid = torch.empty(total, dtype=torch.bool, device=dev)
     _lib.check(lib.srt_concat(_lib.ptr(desc),
                               ctypes.c_void_p(desc.data_ptr() + 16 * k), k,
-                              data.element_size(), _lib.ptr(data),
+                              _row_bytes(data), _lib.ptr(data),
                               _lib.ptr(valid), total, _lib.stream(dev)),
                "concat")
     if total:

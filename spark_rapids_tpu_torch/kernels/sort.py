@@ -63,6 +63,8 @@ class SortOrder:
 
 
 def _kind(dtype: T.DataType) -> int:
+    if T.two_limbs(dtype):
+        raise T.key_type_not_ported(dtype, "sort key")
     if isinstance(dtype, (T.IntegerType, T.DateType)):
         return _INT32
     if isinstance(dtype, (T.LongType, T.DecimalType)):

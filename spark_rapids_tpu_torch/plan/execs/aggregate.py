@@ -42,13 +42,14 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.expressions.aggregates import (
-    BIT_OPS, BY_OPS, COUNT_STAR, COUNT_VALID, M2, M2_MERGE, MAX, MIN, MINBY_VAL,
-    PICK_OPS, SUM, AggregateFunction)
+    BIT_OPS, BY_OPS, COUNT_STAR, COUNT_VALID, M2, M2_MERGE, MAX, MAX128, MIN,
+    MIN128, MINBY_VAL, PICK_OPS, SUM, SUM128, AggregateFunction)
 from spark_rapids_tpu_torch.expressions.core import (
     EvalContext, Expression, make_column)
 from spark_rapids_tpu_torch.kernels import groupby as G
-from spark_rapids_tpu_torch.kernels.reduction import (masked_extreme,
-                                                      masked_m2, masked_sum)
+from spark_rapids_tpu_torch.kernels.reduction import (
+    masked_extreme, masked_extreme128, masked_m2, masked_sum, masked_sum128,
+    segmented_extreme128, segmented_sum128)
 from spark_rapids_tpu_torch.kernels.selection import coalesce_to_one
 from spark_rapids_tpu_torch.plan.execs.base import GpuExec, timed
 from spark_rapids_tpu_torch.plan.execs.join import empty_batch
@@ -96,11 +97,21 @@ def _seg_tail_op(op: str, col: DeviceColumn, ycol: Optional[DeviceColumn],
 def _global_update(op: str, col: DeviceColumn, num_rows: int,
                    out_dtype: T.DataType, device,
                    sums: Optional[_Sums] = None,
-                   ycol: Optional[DeviceColumn] = None) -> DeviceColumn:
-    """Whole-batch reduction of one slot to a one-row column."""
+                   ycol: Optional[DeviceColumn] = None,
+                   ncol: Optional[DeviceColumn] = None) -> DeviceColumn:
+    """Whole-batch reduction of one slot to a one-row column; ``ncol``: a
+    SUM128 merge's COUNT_VALID partials."""
     picked = _global_tail_op(op, col, ycol) if col is not None else None
     if picked is not None:
         return picked
+    if op == SUM128:     # _global_sum128, aggregate.py:160
+        out, ok, _ = masked_sum128(col.data, col.validity,
+                                   out_dtype.precision,
+                                   ncol.data if ncol is not None else None)
+        return DeviceColumn(out, ok, out_dtype)
+    if op in (MIN128, MAX128):    # _global_extreme128, aggregate.py:147
+        return DeviceColumn(*masked_extreme128(col.data, col.validity,
+                                               op == MIN128), out_dtype)
     sums = _Sums() if sums is None else sums
     ones = torch.ones(1, dtype=torch.bool, device=device)
     if op == COUNT_STAR:
@@ -135,8 +146,19 @@ def _global_m2_merge(m2col: DeviceColumn, scol: DeviceColumn,
 
 
 def _seg_update(op: str, col: DeviceColumn, out_dtype: T.DataType,
-                sums: G.SegmentSums) -> DeviceColumn:
-    """Segmented reduction of one slot to a [num_groups] column."""
+                sums: G.SegmentSums,
+                ncol: Optional[DeviceColumn] = None) -> DeviceColumn:
+    """Segmented reduction of one slot to a [num_groups] column; ``ncol``:
+    a SUM128 merge's COUNT_VALID partials."""
+    starts = sums.layout.starts
+    if op == SUM128:     # _seg_sum128, aggregate.py:108
+        out, ok, _ = segmented_sum128(col.data, col.validity, starts,
+                                      out_dtype.precision,
+                                      ncol.data if ncol is not None else None)
+        return DeviceColumn(out, ok, out_dtype)
+    if op in (MIN128, MAX128):    # _seg_extreme128, aggregate.py:136
+        return DeviceColumn(*segmented_extreme128(
+            col.data, col.validity, starts, op == MIN128), out_dtype)
     if op == COUNT_STAR:
         v, valid = G.seg_count_star(sums)
     elif op == COUNT_VALID:
@@ -279,6 +301,17 @@ class GpuHashAggregateExec(GpuExec):
             f"max_by / min_by needs a MIN / MAX ordering companion buffer on "
             f"{self.aggregates[ai]!r}")
 
+    def count_companion(self, ai: int) -> int:
+        """The slot index of aggregate ai's COUNT_VALID buffer, which a
+        SUM128 merge reads to tell an overflowed partial from an empty
+        one."""
+        for si in self.slot_pos[ai]:
+            if self.slot_specs[si][1].update_op == COUNT_VALID:
+                return si
+        raise AssertionError(
+            f"SUM128 needs a COUNT_VALID companion buffer on "
+            f"{self.aggregates[ai]!r}")
+
     def m2_companions(self, ai: int) -> Tuple[int, int]:
         """The slot indices of aggregate ai's SUM and COUNT_VALID buffers,
         the companions of its M2: found by their ops, not their places, so
@@ -337,19 +370,23 @@ class GpuHashAggregateExec(GpuExec):
                         slot.merge_op, col, partial.num_rows, slot.dtype,
                         partial.device, sums,
                         partial.columns[by[si]] if by[si] is not None
-                        else None))
+                        else None,
+                        partial.columns[self.count_companion(ai)]
+                        if slot.merge_op == SUM128 else None))
             return ColumnarBatch(tuple(cols), 1, self.partial_schema)
         return self._grouped_step(
             partial, [nkeys + si for si in range(len(self.slot_specs))], by,
-            [slot.merge_op for _, slot in self.slot_specs])
+            [slot.merge_op for _, slot in self.slot_specs], merge=True)
 
     def _grouped_step(self, work: ColumnarBatch,
                       inputs: List[Optional[int]],
-                      by: List[Optional[int]], ops: List[str]
-                      ) -> ColumnarBatch:
+                      by: List[Optional[int]], ops: List[str],
+                      merge: bool = False) -> ColumnarBatch:
         """Group ``work`` by its leading key columns, then reduce slot i's
         work column ``inputs[i]`` (None: no input) with ``ops[i]``, a
-        MAX_BY / MIN_BY value slot by the ordering column ``by[i]``."""
+        MAX_BY / MIN_BY value slot by the ordering column ``by[i]``;
+        ``merge``: ``work`` holds partials (a SUM128 slot then reads its
+        COUNT_VALID companion)."""
         nkeys = len(self.group_exprs)
         layout = G.group_rows(work, list(range(nkeys)))
         sums = G.SegmentSums(layout)
@@ -368,7 +405,10 @@ class GpuHashAggregateExec(GpuExec):
                                           sorted_cols[inputs[n_si]], sums)
                 cols.append(G.finalize_agg_column(v, valid, slot.dtype))
             else:
-                cols.append(_seg_update(op, col, slot.dtype, sums))
+                cols.append(_seg_update(
+                    op, col, slot.dtype, sums,
+                    sorted_cols[inputs[self.count_companion(ai)]]
+                    if merge and op == SUM128 else None))
         return ColumnarBatch(tuple(cols), layout.num_groups,
                              self.partial_schema)
 

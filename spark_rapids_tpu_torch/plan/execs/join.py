@@ -56,6 +56,7 @@ from typing import Iterator, List, Optional, Sequence
 
 import torch
 
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.expressions.core import (BoundReference,
@@ -101,7 +102,8 @@ def empty_batch(schema: Schema, device: torch.device) -> ColumnarBatch:
     cols = []
     for dt in schema.dtypes:
         valid = torch.empty(0, dtype=torch.bool, device=device)
-        data = torch.empty(0, dtype=dt.torch_dtype, device=device)
+        data = torch.empty((0, 2) if T.two_limbs(dt) else 0,
+                           dtype=dt.torch_dtype, device=device)
         offsets = (torch.zeros(1, dtype=torch.int32, device=device)
                    if dt.variable_width else None)
         cols.append(DeviceColumn(data, valid, dt, offsets))

@@ -30,9 +30,11 @@ that one hand-written kernel interprets (``kernels/fused.py``,
 The chain rules are the reference's: the longest fusable chain top down,
 made a segment where it holds two ops or more, where its stream child is
 on the far side of a shuffle, or where it sits directly under an
-exchange.  A node is fusable when every expression lowers; a string
-output is then always a plain column reference (``_passthrough_strings_
-only`` :85 holds by construction: no instruction makes a string).  Not
+exchange.  A node is fusable when every expression lowers (no
+Decimal128 value or buffer does: two-limb instructions are to come); a
+string output is then always a plain column reference
+(``_passthrough_strings_only`` :85 holds by construction: no instruction
+makes a string).  Not
 ported: a broadcast join inside a segment with the dim-build fold, the
 shuffled join as a segment's tail and stream pieces across a shuffle, the
 exchange's map-side fold into the segment (``execute_partition_sliced``),
@@ -51,8 +53,8 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.expressions import program as P
-from spark_rapids_tpu_torch.expressions.aggregates import (COUNT_STAR,
-                                                           COUNT_VALID, SUM)
+from spark_rapids_tpu_torch.expressions.aggregates import (
+    COUNT_STAR, COUNT_VALID, MAX128, MIN128, SUM, SUM128)
 from spark_rapids_tpu_torch.kernels.fused import fused_compact, fused_global
 from spark_rapids_tpu_torch.kernels.selection import gather_columns
 from spark_rapids_tpu_torch.plan.execs.aggregate import (GpuHashAggregateExec,
@@ -73,6 +75,11 @@ _SHUFFLE_BOUNDARY = (GpuShuffleExchangeExec, GpuCoalescedShuffleReaderExec,
                      GpuAdaptiveJoinExec)
 
 
+# Decimal128 buffers: the program has no two-limb registers (ROADMAP queue
+# 1 item 5 (rest)), so a partial aggregate holding one runs op by op
+_TWO_LIMB_OPS = (SUM128, MIN128, MAX128)
+
+
 def _fusable(node: GpuExec) -> bool:
     if not node.children:
         return False
@@ -82,6 +89,8 @@ def _fusable(node: GpuExec) -> bool:
     if isinstance(node, GpuFilterExec):
         return P.lowerable(node.condition, dtypes, value=True)
     if isinstance(node, GpuHashAggregateExec) and node.mode == "partial":
+        if any(slot.update_op in _TWO_LIMB_OPS for _, slot in node.slot_specs):
+            return False     # see _TWO_LIMB_OPS
         if _global_sums(node):
             return all(P.lowerable(agg.input, dtypes, value=True)
                        for agg in node.aggregates if agg.input is not None)

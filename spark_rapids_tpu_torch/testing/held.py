@@ -254,3 +254,142 @@ TAIL_QUERIES = {f.__name__: f for f in (
     grouped_first_last, global_first_last, grouped_max_min_by,
     grouped_by_string, global_by_string, grouped_string_extremes,
     grouped_bits, global_bits)}
+
+
+# -- the two-limb decimal shapes (tests/test_decimal128.py) ------------------
+
+DEC_KEYS = 7
+
+
+def decimal_schema(T_=T) -> Schema:
+    """``a`` decimal(25,4), ``b`` decimal(30,2), ``c`` decimal(12,2), ``k``
+    INT, in the types module ``T_`` (the port's, or the reference's)."""
+    return (T_.DecimalType(25, 4), T_.DecimalType(30, 2),
+            T_.DecimalType(12, 2), T_.INT)
+
+
+DEC_SCHEMA = Schema(("a", "b", "c", "k"), decimal_schema())
+
+
+def _product_limbs(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """x * y (|x| < 2**31, 0 <= y < 2**62) exactly, as int64 [n, 2] (low,
+    high) limbs: y's 32-bit halves keep each partial product in int64."""
+    yl = (y & 0xFFFFFFFF).astype(np.int64)
+    yh = (y >> 32).astype(np.int64)
+    p1 = x * yl                      # |p1| < 2**63
+    p2 = x * yh
+    lo = (p2.astype(np.uint64) << np.uint64(32)) + p1.astype(np.uint64)
+    carry = (lo < (p2.astype(np.uint64) << np.uint64(32))).astype(np.int64)
+    hi = (p2 >> 32) + (p1 >> 63) + carry
+    return np.stack([lo.view(np.int64), hi], 1)
+
+
+def decimal_columns(n: int, seed: int = 11
+                    ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """``df``'s streams in its order, vectorised: ``a`` = x * y with x in
+    [-10**9, 10**9) and y in [0, 10**11), ``b`` the same with y < 10**14
+    (both int64 [n, 2] limbs), ``c`` in [-10**9, 10**9), ``k`` in [0, 7);
+    n // 9 nulls in ``a`` and in ``b``.  ``decimal_columns(200)`` is
+    ``df()``'s rows."""
+    rng = np.random.RandomState(seed)
+    ax, ay = rng.randint(-10**9, 10**9, n), rng.randint(0, 10**11, n)
+    bx, by = rng.randint(-10**9, 10**9, n), rng.randint(0, 10**14, n)
+    data = {"a": _product_limbs(ax.astype(np.int64), ay.astype(np.int64)),
+            "b": _product_limbs(bx.astype(np.int64), by.astype(np.int64)),
+            "c": rng.randint(-10**9, 10**9, n).astype(np.int64),
+            "k": rng.randint(0, DEC_KEYS, n).astype(np.int32)}
+    validity = {c: np.ones(n, np.bool_) for c in data}
+    for c in "ab":
+        validity[c][rng.choice(n, n // 9, replace=False)] = False
+        data[c][~validity[c]] = 0
+    return data, validity
+
+
+def decimal_batches(data, validity, device, batch_rows: int
+                    ) -> List[ColumnarBatch]:
+    n = len(data["k"])
+    return [batch_from_numpy({c: (data[c][o:o + batch_rows],
+                                  validity[c][o:o + batch_rows])
+                              for c in DEC_SCHEMA.names}, DEC_SCHEMA, device)
+            for o in range(0, n, batch_rows)]
+
+
+def dec_add_sub(df, E=PE, T_=T):
+    return df.select((E.col("a") + E.col("b")).alias("s"),
+                     (E.col("a") - E.col("b")).alias("d"), E.col("k"))
+
+
+def dec_mul(df, E=PE, T_=T):
+    """decimal(25,4) x decimal(12,2) -> decimal(38,6): products past 38
+    digits are null."""
+    return df.select((E.col("a") * E.col("c")).alias("m"), E.col("k"))
+
+
+def dec_mixed(df, E=PE, T_=T):
+    return df.select((E.col("c") + E.col("a")).alias("s"))
+
+
+def dec_filter(df, E=PE, T_=T):
+    return df.filter(E.col("a") > E.Cast(E.col("c"), T_.DecimalType(25, 4))
+                     ).select(E.col("a"), E.col("k"))
+
+
+def dec_casts(df, E=PE, T_=T):
+    C, c = E.Cast, E.col
+    return df.select(C(c("a"), T_.DecimalType(30, 6)).alias("up"),
+                     C(c("a"), T_.DecimalType(20, 1)).alias("down"),
+                     C(c("a"), T_.DecimalType(12, 2)).alias("narrow"),
+                     C(c("c"), T_.DecimalType(30, 2)).alias("widen"),
+                     C(c("a"), T_.DOUBLE).alias("dbl"),
+                     C(c("a"), T_.LONG).alias("lng"),
+                     C(c("k"), T_.DecimalType(28, 3)).alias("from_int"))
+
+
+def dec_divide(df, E=PE, T_=T):
+    return df.select((E.col("a") / E.col("c")).alias("q"), E.col("k"))
+
+
+def dec_sum_grouped(df, E=PE, T_=T):
+    return df.group_by("k").agg(E.sum_(E.col("a")).alias("sa"),
+                                E.sum_(E.col("b")).alias("sb"),
+                                E.sum_(E.col("c")).alias("sc"),
+                                E.count().alias("n"))
+
+
+def dec_sum_global(df, E=PE, T_=T):
+    return df.agg(E.sum_(E.col("a")).alias("sa"), E.count().alias("n"))
+
+
+def dec_overflow(df, E=PE, T_=T):
+    """k * 10**37 as decimal(38,0) (exact products of LONG literals cast
+    to decimal(38,0)), summed: every group but k = 0 passes 38 digits and
+    is null."""
+    d38 = T_.DecimalType(38, 0)
+    big = E.Cast(E.col("k"), d38)
+    for factor in (10 ** 18, 10 ** 18, 10):
+        big = big * E.Cast(E.lit(factor), d38)
+    return df.group_by("k").agg(E.sum_(big).alias("sv"))
+
+
+def dec_avg(df, E=PE, T_=T):
+    return df.group_by("k").agg(E.avg(E.col("c")).alias("ac"),
+                                E.avg(E.col("a")).alias("aa"))
+
+
+def dec_min_max_grouped(df, E=PE, T_=T):
+    return df.group_by("k").agg(E.min_(E.col("a")).alias("mn"),
+                                E.max_(E.col("a")).alias("mx"),
+                                E.count(E.col("a")).alias("n"))
+
+
+def dec_min_max_global(df, E=PE, T_=T):
+    return df.agg(E.min_(E.col("b")).alias("mn"),
+                  E.max_(E.col("b")).alias("mx"))
+
+
+#: the elementwise queries, and the aggregates
+DEC_ROW_QUERIES = {f.__name__: f for f in (
+    dec_add_sub, dec_mul, dec_mixed, dec_filter, dec_casts, dec_divide)}
+DEC_AGG_QUERIES = {f.__name__: f for f in (
+    dec_sum_grouped, dec_sum_global, dec_overflow, dec_avg,
+    dec_min_max_grouped, dec_min_max_global)}

@@ -2,7 +2,8 @@
 
 A copy of the pure-Python parts of ``spark_rapids_tpu/testing/tpch.py``
 (``LINEITEM_SCHEMA`` :39, ``ROWS_PER_SF`` :54, ``gen_lineitem`` :57,
-``q6`` :106, ``q1`` :129).  Generation draws the same numpy streams in the same order as
+``q6`` :106, ``q1`` :129), and ``q1_decimal``: q1 with the spec's decimal
+arithmetic in place of the reference's casts to DOUBLE.  Generation draws the same numpy streams in the same order as
 the reference, so both packages see identical data for a seed; it returns
 host numpy columns, and ``lineitem_batches`` uploads them.
 """
@@ -149,4 +150,28 @@ def q1(df):
                  avg(qty).alias("avg_qty"),
                  avg(price).alias("avg_price"),
                  avg(disc).alias("avg_disc"),
+                 count().alias("count_order")))
+
+
+def q1_decimal(df):
+    """TPC-H Q1 as the spec writes it, over lineitem's decimal(12,2)
+    columns with no cast to DOUBLE: the reference's ``q1`` filter and key,
+    then Spark's decimal types throughout: ``disc_price = l_extendedprice
+    * (1 - l_discount)`` is decimal(26,4) and its sum decimal(36,4);
+    ``charge = disc_price * (1 + l_tax)`` is decimal(38,6), and so is its
+    sum; the money sums are decimal(22,2) and the averages decimal(16,6),
+    exact (two-limb sums, HALF_UP averages)."""
+    from spark_rapids_tpu_torch.expressions import avg, col, count, lit, sum_
+    one = lit(1, T.DecimalType(1, 0))
+    disc_price = col("l_extendedprice") * (one - col("l_discount"))
+    charge = disc_price * (one + col("l_tax"))
+    return (df.filter(col("l_shipdate") <= lit(_days(1998, 9, 2), T.DATE))
+            .group_by("l_linenumber")
+            .agg(sum_(col("l_quantity")).alias("sum_qty"),
+                 sum_(col("l_extendedprice")).alias("sum_base_price"),
+                 sum_(disc_price).alias("sum_disc_price"),
+                 sum_(charge).alias("sum_charge"),
+                 avg(col("l_quantity")).alias("avg_qty"),
+                 avg(col("l_extendedprice")).alias("avg_price"),
+                 avg(col("l_discount")).alias("avg_disc"),
                  count().alias("count_order")))

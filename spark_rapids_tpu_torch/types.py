@@ -4,8 +4,10 @@ Counterpart of ``spark_rapids_tpu/types.py:72-188``, cut to the types the
 TPC-H lineitem table, q6, q1 and TPC-DS q3 use: BOOLEAN, BYTE and SHORT
 (``tinyint`` / ``smallint``, :78-92; value columns only: as a group,
 join or sort key they raise), INT, LONG, FLOAT (the held aggregate
-shapes' float32 column), DOUBLE, DATE, Decimal64 (precision <= 18, held
-as its int64 unscaled value) and STRING (UTF-8 bytes, variable width;
+shapes' float32 column), DOUBLE, DATE, DECIMAL (``DecimalType`` :167:
+Decimal64, precision <= 18, held as its int64 unscaled value, and
+Decimal128, precision 19-38, held as two int64 limbs; a Decimal128 is a
+value column only) and STRING (UTF-8 bytes, variable width;
 ``StringType`` :138).  Every type
 carries the torch dtype of its device buffer and the numpy dtype used for
 host staging.
@@ -128,28 +130,38 @@ class StringType(DataType):
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class DecimalType(FractionalType):
-    """Decimal(precision, scale) held as an int64 unscaled value.
+    """Decimal(precision, scale), held as its unscaled integer.
 
-    Only Decimal64 (precision <= 18) exists in this port; the two-limb
-    decimal128 layout of the reference comes with its kernels later.
+    Precision <= 18 (Decimal64): int64 ``data[n]``.  Precision 19-38
+    (Decimal128, ``uses_two_limbs``): int64 ``data[n, 2]`` holding each
+    row's (low, high) limbs of the 128-bit two's complement value, which
+    is Arrow's 16-byte little-endian ``decimal128`` slot; the kernels are
+    in ``kernels/decimal.py``.
     """
 
     precision: int = 10
     scale: int = 0
     sql_name = "decimal"
-    byte_width = 8
     torch_dtype = torch.int64
     np_dtype = np.int64
 
+    MAX_PRECISION = 38
     MAX_LONG_DIGITS = 18
 
     def __post_init__(self):
-        if not (1 <= self.precision <= self.MAX_LONG_DIGITS):
-            raise NotImplementedError(
-                f"decimal({self.precision},{self.scale}): only precision "
-                f"<= {self.MAX_LONG_DIGITS} (Decimal64) is ported")
+        if not (1 <= self.precision <= self.MAX_PRECISION):
+            raise ValueError(f"decimal precision out of range: "
+                             f"{self.precision}")
         if not (0 <= self.scale <= self.precision):
             raise ValueError(f"decimal scale out of range: {self.scale}")
+
+    @property
+    def uses_two_limbs(self) -> bool:
+        return self.precision > self.MAX_LONG_DIGITS
+
+    @property
+    def byte_width(self) -> int:  # type: ignore[override]
+        return 16 if self.uses_two_limbs else 8
 
     def __eq__(self, other) -> bool:
         return (isinstance(other, DecimalType)
@@ -161,6 +173,11 @@ class DecimalType(FractionalType):
 
     def __repr__(self) -> str:
         return f"decimal({self.precision},{self.scale})"
+
+
+def two_limbs(dtype: DataType) -> bool:
+    """A Decimal128: its column's data is int64 [n, 2]."""
+    return isinstance(dtype, DecimalType) and dtype.uses_two_limbs
 
 
 BOOLEAN = BooleanType()
@@ -188,7 +205,11 @@ def numeric_promote(a: DataType, b: DataType) -> DataType:
 
 def key_type_not_ported(dtype: DataType, what: str) -> NotImplementedError:
     """The error for a type the port holds as a value column only (BYTE,
-    SHORT) or not at all, used as a ``what`` key."""
+    SHORT, Decimal128) or not at all, used as a ``what`` key."""
+    if two_limbs(dtype):
+        return NotImplementedError(
+            f"{what} of {dtype!r} is not ported: Decimal128 is a value "
+            "column only; as a key it is ROADMAP queue 2 item 12a (rest)")
     if isinstance(dtype, (ByteType, ShortType)):
         return NotImplementedError(
             f"{what} of {dtype!r} is not ported: BYTE and SHORT are value "

@@ -97,8 +97,12 @@ def test_null_slots_hold_zero_and_types_map_to_torch():
 
 
 def test_unported_types_and_conf_raise():
-    with pytest.raises(NotImplementedError, match="decimal"):
-        PT.DecimalType(20, 2)
+    # Decimal128 is ported (tests/test_torch_decimal128.py); precision 39
+    # is out of Spark's range
+    assert PT.DecimalType(20, 2).uses_two_limbs
+    assert PT.DecimalType(20, 2).byte_width == 16
+    with pytest.raises(ValueError, match="decimal precision"):
+        PT.DecimalType(39, 2)
     # strings are ported (tests/test_torch_strings.py); binary is not
     with pytest.raises(NotImplementedError, match="binary"):
         arrow_to_batch(pa.table({"b": pa.array([b"a"], pa.binary())}), "cpu")

@@ -338,3 +338,81 @@ def test_pick_and_bitwise_wrappers_raise_off_the_cpu_without_cuda(call):
     with pytest.raises(ValueError, match="expected cuda"):
         call(R)
     assert dict(_lib.LAUNCHES) == before
+
+
+def test_decimal128_slice_modules_are_covered():
+    """The Decimal128 slice's modules (the types, the column layout, the
+    Arrow bridge, the gather and concat, the new wrappers, the
+    expressions, the aggregates and their exec, the fused program's
+    refusal, q1_decimal and the held decimal table) are in the scans above
+    and import nothing of JAX; the four kernels' entry points are in a
+    built source and bound, and the headers they share are in the
+    library's content hash."""
+    names = ("spark_rapids_tpu_torch.types",
+             "spark_rapids_tpu_torch.columnar.column",
+             "spark_rapids_tpu_torch.columnar.arrow",
+             "spark_rapids_tpu_torch.kernels.selection",
+             "spark_rapids_tpu_torch.kernels.decimal",
+             "spark_rapids_tpu_torch.kernels.reduction",
+             "spark_rapids_tpu_torch.expressions.arithmetic",
+             "spark_rapids_tpu_torch.expressions.casts",
+             "spark_rapids_tpu_torch.expressions.predicates",
+             "spark_rapids_tpu_torch.expressions.aggregates",
+             "spark_rapids_tpu_torch.expressions.program",
+             "spark_rapids_tpu_torch.plan.execs.aggregate",
+             "spark_rapids_tpu_torch.plan.fused",
+             "spark_rapids_tpu_torch.testing.tpch",
+             "spark_rapids_tpu_torch.testing.held")
+    for name in names:
+        assert name in PORT_MODULES
+        path = ROOT / (name.replace(".", "/") + ".py")
+        assert not {m for m in _imported_roots(path) if m in FORBIDDEN}
+    assert "decimal.cu" in _lib.SOURCES
+    assert {"int128.cuh", "decimal.cuh"} <= set(_lib.HEADERS)
+    for src, entries in (("decimal.cu", ("srt_decimal128_binary",
+                                         "srt_decimal128_divide")),
+                         ("reduction.cu", ("srt_segmented_sum128",
+                                           "srt_masked_sum128",
+                                           "srt_segmented_extreme128",
+                                           "srt_masked_extreme128"))):
+        source = (_lib.CSRC / src).read_text()
+        assert '#include "int128.cuh"' in source or \
+            '#include "decimal.cuh"' in source
+        for entry in entries:
+            assert entry in source and entry in _lib._SIGNATURES
+    from spark_rapids_tpu_torch.testing import tpch
+    assert callable(tpch.q1_decimal)
+
+
+def _limbs(n=8):
+    return torch.empty((n, 2), dtype=torch.int64, device="meta")
+
+
+@pytest.mark.parametrize("call", [
+    lambda D, R: D.decimal128_binary(D.ADD, _limbs(), _meta(torch.bool),
+                                     _meta(torch.int64), _meta(torch.bool)),
+    lambda D, R: D.decimal128_binary(D.TO_DOUBLE, _limbs(), _meta(torch.bool),
+                                     ka=2),
+    lambda D, R: D.decimal128_divide(_limbs(), _meta(torch.bool), _limbs(),
+                                     _meta(torch.bool), 6),
+    lambda D, R: D.decimal128_divide(_limbs(), _meta(torch.bool), 10 ** 20),
+    lambda D, R: R.segmented_sum128(_limbs(), _meta(torch.bool),
+                                    _meta(torch.int32, 2), 38,
+                                    _meta(torch.int64)),
+    lambda D, R: R.masked_sum128(_meta(torch.int64), _meta(torch.bool), 22),
+    lambda D, R: R.segmented_extreme128(_limbs(), _meta(torch.bool),
+                                        _meta(torch.int32, 2), True),
+    lambda D, R: R.masked_extreme128(_limbs(), _meta(torch.bool), False),
+], ids=["binary", "to_double", "divide", "divide_by_constant",
+        "segmented_sum128", "masked_sum128", "segmented_extreme128",
+        "masked_extreme128"])
+def test_decimal128_wrappers_raise_off_the_cpu_without_cuda(call):
+    """As ``test_pick_and_bitwise_wrappers_raise_off_the_cpu_without_cuda``,
+    for the Decimal128 wrappers: no plain version off the CPU, no launch
+    counted."""
+    from spark_rapids_tpu_torch.kernels import decimal as D
+    from spark_rapids_tpu_torch.kernels import reduction as R
+    before = dict(_lib.LAUNCHES)
+    with pytest.raises(ValueError, match="expected cuda"):
+        call(D, R)
+    assert dict(_lib.LAUNCHES) == before
