@@ -101,8 +101,23 @@ Phases (any failure raises and the script exits non-zero):
      null), ~1,000 random and ~80,000 rows, sums past int128 and past the
      precision, a merge's poison; each timed at its path's shape
      (q1_decimal's multiply and partial, the held table's a / c, global
-     sum and extremes).  A kernel's ``max_abs_err`` is the largest
-     difference over all its comparisons;
+     sum and extremes).  Then the window kernels (``window_layout``,
+     ``frame_sum_count``, ``range_frame_bounds``, ``frame_extreme``) at
+     n = 0, 1 and 1,048,576 over partitions of one row, of all rows and
+     ~1,000 random ones with peer runs (1,000,003: the random ones):
+     layouts, counts, int64 sums (at the limits, wrapping), RANGE bounds
+     (int32 and int64 keys with ties, at the types' ends, a null key's
+     zero first) and MIN / MAX over bool, int32, int64, float and double
+     (NaN, infinities and both zeros; int64 and double alone over the
+     one-row and one-partition layouts at full size) bit for bit, f64
+     sums within 1e-12 of the prefix's sum of |x|, over ROWS frames
+     (clamped, empty, unbounded), the running and whole frames and random
+     ones; each timed at phase 16's shapes (its largest task partition,
+     2,045,868 rows in 3 partitions, for the layout, W5's avg(x) sums and
+     W6's RANGE bounds; one key's 681,956 rows for a running MIN, which
+     torch.cummin computes as one call).
+     A kernel's ``max_abs_err`` is the largest difference over all its
+     comparisons;
   4. data: TPC-H lineitem at SF10 (60,012,150 rows, all eleven columns on
      the card, batches of 1,048,576 rows, 4 partitions), with independent
      numpy evaluations of q6 and q1;
@@ -234,7 +249,25 @@ Phases (any failure raises and the script exits non-zero):
      100,000 seeded rows against Python ints; an aggregate's rows exact
      against numpy's integer reductions over 32-bit limbs.  Each with
      its launches, timed and profiled;
- 16. prints the kernels summary line, then the result line last.
+ 16. the held window shapes (``testing/held.py`` ``window_columns``:
+     tests/test_window.py's wdf, k INT of 11 keys, t INT 0-39, v LONG and
+     x DOUBLE with n // 9 nulls, and the row index i) at 7,501,518 rows
+     (an eighth of SF10 lineitem's, for the script's time) in batches of
+     1,048,576, 16 partitions: W1 the ranks, W2 the default
+     RANGE frame, W3 the whole partition, W4 LEAD / LAG / FIRST / LAST /
+     NTH_VALUE, W5 the seven ROWS frames and W6 the six bounded RANGE
+     frames of tests/test_window.py, W7 ROW_NUMBER over (t, v) with no
+     partition (all rows in one); each run to its device batches, every
+     row against numpy in the port's arrival order (exact; W5's float
+     frame sums within 1e-9), the whole output against the same plan run
+     with the four window kernels' plain versions (bit for bit; W5's
+     float frame sums within 1e-12); with its launches, timed and
+     profiled;
+ 17. TPC-DS q98 over phase 11's store_sales, item and date_dim (SF10):
+     the window over a string key inside arithmetic, every row against
+     numpy's integer cents in order (revenue and ratio within 1e-9), with
+     its launches, timed and profiled;
+ 18. prints the kernels summary line, then the result line last.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -275,6 +308,7 @@ from spark_rapids_tpu_torch.kernels import reduction as R  # noqa: E402
 from spark_rapids_tpu_torch.kernels import selection as S  # noqa: E402
 from spark_rapids_tpu_torch.kernels import sort as SK  # noqa: E402
 from spark_rapids_tpu_torch.kernels import strings as SS  # noqa: E402
+from spark_rapids_tpu_torch.kernels import window as WK  # noqa: E402
 from spark_rapids_tpu_torch.plan.engine import GpuEngine  # noqa: E402
 from spark_rapids_tpu_torch.plan.execs.exchange import (  # noqa: E402
     GpuCoalescedShuffleReaderExec)
@@ -382,6 +416,14 @@ KERNELS = {
                              "spark_rapids_tpu/kernels/decimal.py:315"),
     "masked_extreme128": ("csrc/reduction.cu",
                           "spark_rapids_tpu/plan/execs/aggregate.py:147"),
+    "window_layout": ("csrc/window.cu",
+                      "spark_rapids_tpu/kernels/window.py:45"),
+    "frame_sum_count": ("csrc/window.cu",
+                        "spark_rapids_tpu/kernels/window.py:255"),
+    "range_frame_bounds": ("csrc/window.cu",
+                           "spark_rapids_tpu/kernels/window.py:216"),
+    "frame_extreme": ("csrc/window.cu",
+                      "spark_rapids_tpu/kernels/window.py:268"),
 }
 FUSE_OFF = {"spark.rapids.sql.tpu.fuseStages": "false"}
 # fused (the default), q6's filter and partial sum are one kernel a batch:
@@ -3164,6 +3206,253 @@ def check_decimal128(rng, dev, summary) -> None:
         summary[kernel] = summarize(line, nbytes, ops)
 
 
+# -- phase 3: the window kernels (phases 16's and 17's paths) ------------------
+
+LAYOUT_FIELDS = ("seg_start", "seg_end", "run_id", "run_first", "run_last")
+WINDOW_ROWS_FRAMES = ((2, 0), (3, 3), (None, 0), (0, 2), (-1, 1), (5, -2),
+                      (None, None))
+WINDOW_RANGE_FRAMES = ((5, 5), (3, 0), (10, -2), (4, 4), (None, 3),
+                       (2, None), (0, 0))
+EXTREME_TYPES = (T.BOOLEAN, T.INT, T.LONG, T.FLOAT, T.DOUBLE)
+# ROWS frames the extremes skip (the others cover clamped, empty and
+# unbounded frames; the script's time)
+EXTREME_SKIP = ("rows 3,3", "rows 0,2", "rows None,None")
+F64_RTOL_FRAME = 1e-12           # of the prefix's sum of |x|
+# phase 16's largest task partition: three of its 11 keys
+WINDOW_KEY_ROWS = SF10_ROWS // 8 // 11            # one key: 681,956
+WINDOW_SHAPE_ROWS = 3 * WINDOW_KEY_ROWS           # 2,045,868
+
+
+def window_flags(rng, n: int, shape: str, dev):
+    """(partition, peer) boundary flags: every row its own partition, one
+    partition of all rows, or ~1,000 random partitions; peer runs of ~3
+    rows inside them."""
+    if shape == "one":
+        part = np.ones(n, np.bool_)
+    elif shape == "all":
+        part = np.zeros(n, np.bool_)
+    else:
+        part = rng.rand(n) < 1e-3
+    part[:1] = True
+    peer = part | (rng.rand(n) < 0.3)
+    return torch.from_numpy(part).to(dev), torch.from_numpy(peer).to(dev)
+
+
+def hold_layout(part, peer, what: str):
+    got = WK.window_layout(part, peer)
+    want = WK.window_layout_plain(part, peer)
+    hold("window_layout", [(getattr(got, f), getattr(want, f))
+                           for f in LAYOUT_FIELDS], what)
+    return got
+
+
+def window_frames(rng, layout) -> list:
+    """(name, lower, upper, max_len) on the card: the ROWS frames, the
+    running RANGE frame, the whole partition and random frames (a fifth
+    of them empty)."""
+    out = []
+    for pre, fol in WINDOW_ROWS_FRAMES:
+        lo, up = WK.frame_bounds_rows(layout, pre, fol)
+        bounded = pre is not None and fol is not None
+        out.append((f"rows {pre},{fol}", lo, up,
+                    max(pre + fol + 1, 1) if bounded else None))
+    out.append(("running", layout.seg_start, layout.run_last, None))
+    out.append(("whole", layout.seg_start, layout.seg_end - 1, None))
+    n, dev = layout.n, layout.seg_start.device
+    size = (layout.seg_end - layout.seg_start).long().clamp(min=1)
+    a, b, e = (torch.from_numpy(x).to(dev) for x in (
+        rng.randint(0, 2**30, n), rng.randint(0, 2**30, n), rng.rand(n) < 0.2))
+    lo = layout.seg_start.long() + a % size
+    up = layout.seg_start.long() + b % size
+    lo, up = torch.minimum(lo, up), torch.maximum(lo, up)
+    lo = torch.where(e, up + 1, lo)
+    out.append(("random", lo.to(torch.int32), up.to(torch.int32), None))
+    return out
+
+
+def hold_frame_sum(c: DeviceColumn, layout, lo, up, what: str) -> None:
+    """Counts and int64 sums bit for bit; f64 sums that are not finite bit
+    for bit, finite ones within F64_RTOL_FRAME of the prefix's sum of |x|
+    up to the frame's end."""
+    got = WK.frame_sum_count(c.data, c.validity, layout.seg_start, lo, up)
+    want = WK.frame_sum_count_plain(c.data, c.validity, layout.seg_start, lo,
+                                    up)
+    hold("frame_sum_count", [(got[1], want[1])], what)
+    if c.data.dtype == torch.int64:
+        hold("frame_sum_count", [(got[0], want[0])], what)
+        return
+    g, w = got[0], want[0]
+    finite = torch.isfinite(w)
+    require(torch.equal(bits(g[~finite]), bits(w[~finite])),
+            f"frame_sum_count: {what}: a non-finite sum differs")
+    x = torch.where(c.validity & torch.isfinite(c.data), c.data.abs(), 0.0)
+    scale = torch.cumsum(x, 0)[up.long().clamp(min=0)] if c.num_rows \
+        else x
+    err = (g - w).abs().masked_fill(~finite, 0.0)
+    require(bool((err <= F64_RTOL_FRAME * scale).all()),
+            f"frame_sum_count differs from its plain version: {what}")
+    ERRS["frame_sum_count"] = max(ERRS.get("frame_sum_count", 0.0),
+                                  float(err.max()) if err.numel() else 0.0)
+
+
+def hold_range_bounds(key: torch.Tensor, layout, pre, fol, what: str):
+    hold("range_frame_bounds", list(zip(
+        WK.range_frame_bounds(key, layout.seg_start, layout.seg_end, pre,
+                              fol),
+        WK.range_frame_bounds_plain(key, layout.seg_start, layout.seg_end,
+                                    pre, fol))), what)
+
+
+def hold_frame_extreme(c: DeviceColumn, lo, up, is_min: bool, max_len,
+                       what: str) -> None:
+    hold("frame_extreme", list(zip(
+        WK.frame_extreme(c.data, c.validity, lo, up, is_min, max_len),
+        WK.frame_extreme_plain(c.data, c.validity, lo, up, is_min,
+                               max_len))), what)
+
+
+def sorted_keys(rng, part: torch.Tensor, dtype, lo: int, hi: int):
+    """A key ascending within each partition (ties included)."""
+    seg = np.cumsum(part.cpu().numpy()) - 1
+    key = rng.randint(lo, hi, len(seg), dtype=np.int64).astype(dtype)
+    return key[np.lexsort((key, seg))]
+
+
+def window_key_cases(rng, part: torch.Tensor, dev) -> dict:
+    """int32 and int64 order keys: small with ties, at the types' ends
+    (key - preceding and key + following wrap), and with each partition's
+    first key 0, as a null order key sorts (the run is not sorted
+    there)."""
+    out = {}
+    starts = np.flatnonzero(part.cpu().numpy())
+    for dt in (np.int32, np.int64):
+        info = np.iinfo(dt)
+        small = sorted_keys(rng, part, dt, -40, 40)
+        edges = sorted_keys(rng, part, dt, info.min, info.max)
+        null_first = small.copy()
+        null_first[starts] = 0
+        for name, k in (("small", small), ("edges", edges),
+                        ("null_first", null_first)):
+            out[f"{dt.__name__} {name}"] = torch.from_numpy(k).to(dev)
+    return out
+
+
+def window_time_shape(rng, dev):
+    """Phase 16's largest task partition (W1-W6): three keys' rows, each
+    key a partition sorted by t (0-39: the peer runs), x DOUBLE and v
+    LONG with n // 9 nulls; and the layout of it."""
+    n = WINDOW_SHAPE_ROWS
+    seg = np.repeat(np.arange(3), n // 3)
+    t = np.sort(rng.randint(0, 40, n).reshape(3, -1), axis=1).reshape(-1)
+    part = np.r_[True, seg[1:] != seg[:-1]]
+    peer = part | np.r_[True, t[1:] != t[:-1]]
+    layout = WK.window_layout(torch.from_numpy(part).to(dev),
+                              torch.from_numpy(peer).to(dev))
+    valid = np.ones(n, np.bool_)
+    valid[rng.choice(n, n // 9, replace=False)] = False
+    x = DeviceColumn.from_numpy(np.where(valid, rng.randn(n), 0.0), T.DOUBLE,
+                                valid, dev)
+    key = torch.from_numpy(t.astype(np.int32)).to(dev)
+    return (torch.from_numpy(part).to(dev), torch.from_numpy(peer).to(dev),
+            layout, x, key)
+
+
+def check_window(rng, dev, summary) -> None:
+    """window_layout, frame_sum_count, range_frame_bounds and
+    frame_extreme against their plain versions at n = 0, 1 and 1,048,576
+    over partitions of one row, of all rows and ~1,000 random ones with
+    peer runs, and at 1,000,003 over the random ones (full-size extremes
+    over every type on the random partitions, int64 and double on the
+    others): layouts, counts, int64 sums, bounds and
+    extremes bit for bit, f64 sums within 1e-12 of the prefix's sum of
+    |x| (NaN and the infinities bit for bit); int64 values at the limits,
+    floats with NaN, infinities and both zeros, 10% nulls; ROWS frames
+    (clamped, empty, unbounded), the running and whole frames and random
+    frames; RANGE frames over int32 and int64 keys with ties, at the
+    types' ends and with a null key's zero first.  Then each timed at
+    phase 16's shapes."""
+    for n in (0, 1, N, RAGGED):
+        # the ragged size over the random partitions only: the script's
+        # time
+        for shape in (("random",) if n == RAGGED else
+                      ("one", "all", "random")):
+            part, peer = window_flags(rng, n, shape, dev)
+            what = f"n={n} {shape}"
+            layout = hold_layout(part, peer, what)
+            frames = window_frames(rng, layout)
+            for dt in (T.LONG, T.DOUBLE):
+                c = tail_column(rng, n, dt, dev)
+                for name, lo, up, _ in frames:
+                    hold_frame_sum(c, layout, lo, up, f"{what} {dt!r} {name}")
+            for dt in (EXTREME_TYPES if n < N or shape == "random"
+                       else (T.LONG, T.DOUBLE)):
+                c = tail_column(rng, n, dt, dev)
+                for name, lo, up, max_len in frames:
+                    if name in EXTREME_SKIP:
+                        continue
+                    for is_min in (True, False):
+                        hold_frame_extreme(c, lo, up, is_min, max_len,
+                                           f"{what} {dt!r} {name} "
+                                           f"{'min' if is_min else 'max'}")
+            if n == 0:
+                continue
+            for kname, key in window_key_cases(rng, part, dev).items():
+                for pre, fol in WINDOW_RANGE_FRAMES:
+                    hold_range_bounds(key, layout, pre, fol,
+                                      f"{what} {kname} {pre},{fol}")
+    # timed at phase 16's shapes
+    part, peer, layout, x, key = window_time_shape(rng, dev)
+    n = WINDOW_SHAPE_ROWS
+    lo7, up7 = WK.frame_bounds_rows(layout, 3, 3)          # W5's avg(x)
+    hold_layout(part, peer, "phase 16's shape")
+    hold_frame_sum(x, layout, lo7, up7, "phase 16's shape")
+    hold_range_bounds(key, layout, 5, 5, "phase 16's shape")
+    # frame_extreme: one key's partition, ROWS UNBOUNDED PRECEDING to
+    # CURRENT ROW, which torch.cummin computes as one call
+    m = WINDOW_KEY_ROWS
+    v = tail_column(rng, m, T.LONG, dev, null_frac=1 / 9)
+    run_lo = torch.zeros(m, dtype=torch.int32, device=dev)
+    run_up = torch.arange(m, dtype=torch.int32, device=dev)
+    masked = torch.where(v.validity, v.data, 2**63 - 1)
+    hold_frame_extreme(v, run_lo, run_up, True, None, "phase 16's shape")
+    hold("frame_extreme", [(WK.frame_extreme(
+        v.data, v.validity, run_lo, run_up, True)[0],
+        torch.cummin(masked, 0).values)], "against torch.cummin")
+    steps = 2 * max(int(n // 3).bit_length(), 1)
+    cases = {
+        "window_layout": (
+            lambda: WK.window_layout(part, peer),
+            lambda: WK.window_layout_plain(part, peer), None, 22 * n, n,
+            n, "held_w1_task"),
+        "frame_sum_count": (
+            lambda: WK.frame_sum_count(x.data, x.validity, layout.seg_start,
+                                       lo7, up7),
+            lambda: WK.frame_sum_count_plain(x.data, x.validity,
+                                             layout.seg_start, lo7, up7),
+            None, 37 * n, 20 * n, n, "held_w5_avg_x_task"),
+        "range_frame_bounds": (
+            lambda: WK.range_frame_bounds(key, layout.seg_start,
+                                          layout.seg_end, 5, 5),
+            lambda: WK.range_frame_bounds_plain(key, layout.seg_start,
+                                                layout.seg_end, 5, 5),
+            None, 20 * n, steps * n, n, "held_w6_range_task"),
+        "frame_extreme": (
+            lambda: WK.frame_extreme(v.data, v.validity, run_lo, run_up,
+                                     True),
+            lambda: WK.frame_extreme_plain(v.data, v.validity, run_lo,
+                                           run_up, True),
+            lambda: torch.cummin(torch.where(v.validity, v.data,
+                                             2**63 - 1), 0),
+            26 * m, WK.extreme_levels(m) * m, m, "held_key_running_min"),
+    }
+    for kernel, (fn, plain, library, nbytes, ops, rows, shape) in \
+            cases.items():
+        line = {"kernel": kernel, "shape": shape, "n": rows,
+                **measure(fn, plain, library, nbytes, ops)}
+        emit(line)
+        summary[kernel] = summarize(line, nbytes, ops)
+
+
 def phase_kernels(dev, tables) -> dict:
     # the profiler itself must see the card
     device_profile(lambda: torch.ones(8, device=dev) + 1)
@@ -3196,6 +3485,7 @@ def phase_kernels(dev, tables) -> dict:
     check_agg_tail(rng, dev, summary)
     check_picks(rng, dev, summary)
     check_decimal128(rng, dev, summary)
+    check_window(rng, dev, summary)
     torch.cuda.synchronize()
     return summary
 
@@ -4631,6 +4921,12 @@ class GauntletNumpy:
         self.q19_zips = []
         self.q96 = 0
         self.scanned = {"ss": 0, "cs": 0}
+        # q98: each item's cents in its dates, of its three categories
+        self.item["i_item_desc"] = keyed(item, "i_item_sk", "i_item_desc")
+        self.q98_item = np.isin(self.item["i_category"].astype(str),
+                                tpcds.Q98_CATEGORIES)
+        self.q98_cents = np.zeros(len(self.q98_item), np.int64)
+        self.q98_count = np.zeros(len(self.q98_item), np.int64)
 
     def _calendar(self, date_sk):
         """(year, month) of each date key; -1 for a key date_dim has not
@@ -4678,6 +4974,14 @@ class GauntletNumpy:
         differ = self.ca_zip[addr] != self.s_zip[data["ss_store_sk"][keep]]
         self.parts["q19"].append((item[keep][differ], price[keep][differ]))
         self._averaged("q7", self.cd7, "ss", data, validity)
+        day = data["ss_sold_date_sk"].astype(np.int64) - 2450000
+        keep = ((day >= tpcds.Q98_FIRST_DAY) & (day <= tpcds.Q98_LAST_DAY)
+                & self.q98_item[item])
+        size = len(self.q98_cents)
+        self.q98_cents += np.bincount(item[keep], price[keep],
+                                      size).astype(np.int64)
+        self.q98_count += np.bincount(item[keep], None, size).astype(
+            np.int64)
         self.q96 += int((self.hd4[data["ss_hdemo_sk"]]
                          & self.t_ok[data["ss_sold_time_sk"]]
                          & self.ese[data["ss_store_sk"]]).sum())
@@ -4750,6 +5054,22 @@ class GauntletNumpy:
             groups = self._sums(q, ("i_brand_id", "i_brand"))
             out = [(k, (c / 100,), (-c, k[0])) for k, (c, _) in groups.items()]
         return sorted(out, key=lambda r: r[2])
+
+    def q98_rows(self) -> list:
+        """(i_item_id, i_item_desc, i_category, i_brand, itemrevenue,
+        revenueratio) in q98's order: revenue from exact cents, each
+        brand's total the sum of its items' cents."""
+        items = np.flatnonzero(self.q98_count)
+        brand = self.item["i_brand"][items]
+        totals: dict = {}
+        for b, c in zip(brand, self.q98_cents[items]):
+            totals[b] = totals.get(b, 0) + int(c)
+        out = [(self.item["i_item_id"][it], self.item["i_item_desc"][it],
+                self.item["i_category"][it], b,
+                int(self.q98_cents[it]) / 100,
+                int(self.q98_cents[it]) * 100 / totals[b])
+               for it, b in zip(items.tolist(), brand)]
+        return sorted(out, key=lambda r: (r[2], r[3], r[0], r[1], r[5]))
 
     def check(self, q, rows, nkeys: int) -> float:
         """The port's rows against numpy's: each row's group is numpy's,
@@ -5539,7 +5859,8 @@ def cell(col: DeviceColumn, pos: np.ndarray) -> list:
     return [v if m else None for v, m in zip(vals, ok)]
 
 
-def time_rows_path(name: str, query, profile, runs: int = 3) -> dict:
+def time_rows_path(name: str, query, profile, runs: int = 3,
+                   rows: int = DEC_ROWS) -> dict:
     """time_path for a query whose output is the table's size: the walls
     of ``runs`` runs to device batches (no host rows), and the traced
     main-path run's profile."""
@@ -5557,7 +5878,7 @@ def time_rows_path(name: str, query, profile, runs: int = 3) -> dict:
           "device_activities": activities, "idle_share": idle,
           "top_device_ms": top})
     return {"wall_s": wall, "wall_s_runs": walls,
-            "rows_per_s": DEC_ROWS / wall, "device_busy_ms": busy_ms,
+            "rows_per_s": rows / wall, "device_busy_ms": busy_ms,
             "device_activities": activities, "idle_share": idle}
 
 
@@ -5637,6 +5958,409 @@ def phase_decimal(df, ref: DecimalNumpy) -> dict:
     return by_path
 
 
+# -- phase 16 ----------------------------------------------------------------
+
+# an eighth of SF10 lineitem's rows: at a quarter (15,003,037, the size
+# of phases 12 and 13) the script took 775.1 s on an H100 80GB HBM3 at
+# 700 W, numpy's check of the seven queries the most of phase 16's 45 s
+WINDOW_ROWS = SF10_ROWS // 8     # 7,501,518
+WINDOW_SEED = 2                  # tests/test_window.py's wdf seed
+WINDOW_PARTITIONS = 16
+F64_RTOL_WINDOW = 1e-9           # tests/test_queries.py's _eq_val
+# each held window query's kernels that its main path must launch
+WINDOW_KERNELS = {
+    "window_ranks": ("window_layout", "sort", "partition", "gather"),
+    "window_running": ("window_layout", "frame_sum_count", "frame_extreme"),
+    "window_whole": ("window_layout", "frame_sum_count", "frame_extreme"),
+    "window_offsets": ("window_layout", "gather_null_extend"),
+    "window_rows": ("window_layout", "frame_sum_count", "frame_extreme"),
+    "window_range": ("window_layout", "range_frame_bounds",
+                     "frame_sum_count", "frame_extreme"),
+    "window_global": ("window_layout", "sort"),
+}
+#: the columns of W5 that are float frame sums (compared within
+#: F64_RTOL_WINDOW; every other value exactly)
+WINDOW_APPROX = {"window_rows": ("w1",)}
+_BIG = np.iinfo(np.int64).max
+
+
+class WindowNumpy:
+    """Independent evaluation of the held window queries over every row.
+    Rows reach the window's sort in table order within each key: the 15
+    batches are map partitions 0-14 (round-robin), the exchange delivers
+    them in that order and keeps the rows' order inside a batch, and the
+    sort is stable; so each key's rows are ordered by (t, i) (W7: all rows
+    by (t, v nulls first, i)).  Ranks and frames come from that order by
+    np.maximum.accumulate and reduceat, running extremes by
+    np.minimum.accumulate per key, the ROWS frames (at most 7 rows) by
+    shifted copies, the RANGE frames from per-(k, t) group statistics.
+    Each expected column is (values, validity) indexed by ``i``."""
+
+    def __init__(self, data, validity):
+        n = len(data["i"])
+        self.n = n
+        self.data, self.validity = data, validity
+        order = np.lexsort((data["i"], data["t"], data["k"]))
+        self.order = order
+        k, t = data["k"][order], data["t"][order]
+        pos = np.arange(n)
+        part = np.r_[True, k[1:] != k[:-1]]
+        peer = part | np.r_[True, t[1:] != t[:-1]]
+        self.starts = np.flatnonzero(part)
+        self.ends = np.r_[self.starts[1:], n]
+        seg = np.cumsum(part) - 1
+        run = np.cumsum(peer) - 1
+        self.seg_start = np.maximum.accumulate(np.where(part, pos, 0))
+        self.seg_end = self.ends[seg]
+        self.seg = seg
+        self.run_id = run
+        self.run_first = np.maximum.accumulate(np.where(peer, pos, 0))
+        self.run_last = np.r_[np.flatnonzero(peer)[1:], n][run] - 1
+        self.pos = pos
+
+    def sorted(self, name):
+        """A column in the window's order: (values, validity)."""
+        return (self.data[name][self.order],
+                self.validity[name][self.order])
+
+    def by_i(self, vals, valid=None):
+        out = np.empty_like(vals)
+        out[self.order] = vals
+        ok = np.ones(self.n, np.bool_)
+        if valid is not None:
+            ok[self.order] = valid
+        return out, ok
+
+    def _frame(self, vals, valid, lo, up, op):
+        """Over inclusive sorted frames [lo, up] with prefix sums: op
+        'sum' (exact int64 or float) or 'count'."""
+        contrib = np.where(valid, vals, 0) if op == "sum" else \
+            valid.astype(np.int64)
+        p = np.r_[np.zeros(1, contrib.dtype), np.cumsum(contrib)]
+        empty = up < lo
+        return np.where(empty, 0, p[np.maximum(up, lo - 1) + 1] - p[lo])
+
+    def _running_extreme(self, vals, valid, is_min):
+        fill = (np.inf if is_min else -np.inf) if vals.dtype.kind == "f" \
+            else (_BIG if is_min else -_BIG - 1)
+        x = np.where(valid, vals, fill)
+        acc = np.minimum.accumulate if is_min else np.maximum.accumulate
+        out = np.empty_like(x)
+        for a, b in zip(self.starts, self.ends):
+            out[a:b] = acc(x[a:b])
+        return out
+
+    def _rows_frame(self, vals, valid, pre, fol, op):
+        """A ROWS frame of at most a few rows by shifted copies: sum,
+        count, min or max over the valid rows of [pos - pre, pos +
+        fol]."""
+        n = self.n
+        if op in ("min", "max"):
+            fill = (np.inf if op == "min" else -np.inf) \
+                if vals.dtype.kind == "f" else \
+                (_BIG if op == "min" else -_BIG - 1)
+            acc = np.full(n, fill, vals.dtype)
+        else:
+            acc = np.zeros(n, vals.dtype)
+        cnt = np.zeros(n, np.int64)
+        for d in range(-pre, fol + 1):
+            j = self.pos + d
+            ok = (j >= self.seg_start) & (j < self.seg_end)
+            x = np.zeros_like(vals)          # vals and valid d rows on
+            shifted = np.zeros(n, np.bool_)
+            if d >= 0:
+                x[:n - d], shifted[:n - d] = vals[d:], valid[d:]
+            else:
+                x[-d:], shifted[-d:] = vals[:n + d], valid[:n + d]
+            ok &= shifted
+            if op == "min":
+                acc = np.where(ok, np.minimum(acc, x), acc)
+            elif op == "max":
+                acc = np.where(ok, np.maximum(acc, x), acc)
+            else:
+                acc = acc + np.where(ok, x, 0)
+            cnt += ok
+        return acc, cnt
+
+    def _group_stats(self):
+        """Per (k, t): count, sum, min and max of the valid v (once)."""
+        if not hasattr(self, "_stats"):
+            k, t = self.data["k"], self.data["t"]
+            v, ok = self.data["v"], self.validity["v"]
+            g = (k.astype(np.int64) * 40 + t)[ok]
+            size = held.WINDOW_KEYS * 40
+            mn = np.full(size, _BIG)
+            mx = np.full(size, -_BIG - 1)
+            np.minimum.at(mn, g, v[ok])
+            np.maximum.at(mx, g, v[ok])
+            self._stats = tuple(a.reshape(held.WINDOW_KEYS, 40) for a in (
+                np.bincount(g, minlength=size),
+                np.rint(np.bincount(g, v[ok], size)).astype(np.int64),
+                mn, mx))
+        return self._stats
+
+    def _range_tables(self, pre, fol):
+        """Per (k, t): count, sum, min, max of the valid v over the rows
+        of the key with t in [t - pre, t + fol] (None: unbounded)."""
+        cnt, tot, mn, mx = self._group_stats()
+        out = {f: np.zeros((held.WINDOW_KEYS, 40), np.int64)
+               for f in ("cnt", "sum", "min", "max")}
+        for t0 in range(40):
+            a = 0 if pre is None else max(t0 - pre, 0)
+            b = 39 if fol is None else min(t0 + fol, 39)
+            if b < a:
+                out["min"][:, t0], out["max"][:, t0] = _BIG, -_BIG - 1
+                continue
+            out["cnt"][:, t0] = cnt[:, a:b + 1].sum(1)
+            out["sum"][:, t0] = tot[:, a:b + 1].sum(1)
+            out["min"][:, t0] = mn[:, a:b + 1].min(1)
+            out["max"][:, t0] = mx[:, a:b + 1].max(1)
+        return out
+
+    def expected(self, name) -> dict:
+        """Output column -> (values, validity) by i."""
+        n, p = self.n, self.pos
+        v, vok = self.sorted("v")
+        x, xok = self.sorted("x")
+        st, en = self.seg_start, self.seg_end
+        cnt = en - st
+        out = {}
+        if name == "window_ranks":
+            rk = self.run_first - st
+            bs, rem = cnt // 3, cnt % 3
+            r = p - st
+            thr = rem * (bs + 1)
+            nt = np.where(bs == 0, r + 1, np.where(
+                r < thr, r // np.maximum(bs + 1, 1) + 1,
+                rem + (r - thr) // np.maximum(bs, 1) + 1))
+            cols = {"rn": p - st + 1, "rk": rk + 1,
+                    "drk": self.run_id - self.run_id[st] + 1,
+                    "pr": np.where(cnt > 1, rk / np.maximum(cnt - 1.0, 1.0),
+                                   0.0),
+                    "cd": (self.run_last + 1 - st) / np.maximum(cnt, 1.0),
+                    "nt": nt}
+            return {c: self.by_i(a) for c, a in cols.items()}
+        if name in ("window_running", "window_whole"):
+            up = self.run_last if name == "window_running" else en - 1
+            sv = self._frame(v, vok, st, up, "sum")
+            cv = self._frame(v, vok, st, up, "count")
+            cx = self._frame(x, xok, st, up, "count")
+            if name == "window_running":
+                mn = self._running_extreme(v, vok, True)[up]
+                mx = self._running_extreme(x, xok, False)[up]
+                out = {"sv": self.by_i(sv, cv > 0), "cv": self.by_i(cv),
+                       "av": self.by_i(sv / np.maximum(cv, 1), cv > 0),
+                       "mn": self.by_i(mn, cv > 0),
+                       "mx": self.by_i(mx, cx > 0)}
+            else:
+                seg_min = np.minimum.reduceat(np.where(vok, v, _BIG),
+                                              self.starts)[self.seg]
+                seg_max = np.maximum.reduceat(np.where(xok, x, -np.inf),
+                                              self.starts)[self.seg]
+                out = {"sv": self.by_i(sv, cv > 0), "n": self.by_i(cnt),
+                       "mn": self.by_i(seg_min, cv > 0),
+                       "mx": self.by_i(seg_max, cx > 0),
+                       "av": self.by_i(sv / np.maximum(cv, 1), cv > 0)}
+            return out
+        if name == "window_offsets":
+            def at(j, ok):
+                jj = np.clip(j, 0, n - 1)
+                return self.by_i(np.where(ok & vok[jj], v[jj], 0),
+                                 ok & vok[jj])
+            return {"ld": at(p + 1, p + 1 < en), "lg": at(p - 2, p - 2 >= st),
+                    "fv": at(st, st >= 0), "lv": at(en - 1, en > 0),
+                    "nv": self.by_i(np.zeros(n, np.int64),
+                                    np.zeros(n, np.bool_))}
+        if name == "window_rows":
+            for j, (fn, c, start, end) in enumerate(held.ROWS_FRAMES):
+                if start is None:       # count(*) ROWS UNBOUNDED..CURRENT
+                    out[f"w{j}"] = self.by_i(p - st + 1)
+                    continue
+                vals, ok = (v, vok) if c == "v" else (x, xok)
+                if fn == "sum_":        # an exact int64 sum: by prefixes
+                    lo = np.maximum(p + start, st)
+                    up = np.minimum(p + end, en - 1)
+                    k = self._frame(vals, ok, lo, up, "count")
+                    acc = self._frame(vals, ok, lo, up, "sum")
+                else:                   # floats and extremes: row by row
+                    op = {"avg": "sum", "min_": "min", "max_": "max"}[fn]
+                    acc, k = self._rows_frame(vals, ok, -start, end, op)
+                if fn == "avg":
+                    acc = acc / np.maximum(k, 1)
+                out[f"w{j}"] = self.by_i(acc, k > 0)
+            return out
+        if name == "window_range":
+            k, t = self.data["k"][self.order], self.data["t"][self.order]
+            for j, (fn, c, start, end) in enumerate(held.RANGE_FRAMES):
+                tab = self._range_tables(None if start is None else -start,
+                                         end)
+                kc = tab["cnt"][k, t]
+                if fn == "count":
+                    out[f"w{j}"] = self.by_i(kc)
+                elif fn == "sum_":
+                    out[f"w{j}"] = self.by_i(tab["sum"][k, t], kc > 0)
+                elif fn == "avg":
+                    out[f"w{j}"] = self.by_i(tab["sum"][k, t]
+                                             / np.maximum(kc, 1), kc > 0)
+                else:
+                    f = "min" if fn == "min_" else "max"
+                    out[f"w{j}"] = self.by_i(tab[f][k, t], kc > 0)
+            return out
+        # window_global: ROW_NUMBER over (t, v nulls first), no partition
+        order = np.lexsort((self.data["i"], self.data["v"],
+                            self.validity["v"], self.data["t"]))
+        rn = np.empty(n, np.int64)
+        rn[order] = np.arange(1, n + 1)
+        return {"rn": (rn, np.ones(n, np.bool_))}
+
+
+def window_output_equal(name: str, cols, names, want) -> float:
+    """The port's output columns (on the card) against numpy's by i:
+    validity exactly, values where valid exactly (floats bit for bit)
+    except WINDOW_APPROX's, within F64_RTOL_WINDOW (abs 1e-12).  Returns
+    the largest relative error of those."""
+    host = {nm: c.data.cpu().numpy() for nm, c in zip(names, cols)}
+    ok = {nm: c.validity.cpu().numpy() for nm, c in zip(names, cols)}
+    i = host["i"]
+    require(np.array_equal(np.sort(i), np.arange(len(i))),
+            f"held_{name}: the output is not every row once")
+    worst = 0.0
+    for col, (wv, wok) in want.items():
+        g, gok = host[col], ok[col]
+        wv, wok = wv[i], wok[i]
+        require(np.array_equal(gok, wok), f"held_{name} {col}: validity "
+                f"differs at {np.flatnonzero(gok != wok)[:5]}")
+        g, w = g[gok], wv[gok].astype(g.dtype)
+        if col in WINDOW_APPROX.get(name, ()):
+            err = np.abs(g - w)
+            bad = err > F64_RTOL_WINDOW * np.abs(w) + 1e-12
+            require(not bad.any(), f"held_{name} {col}: {g[bad][:3]} where "
+                    f"numpy has {w[bad][:3]}")
+            worst = max(worst, float((err / np.maximum(np.abs(w), 1e-300))
+                                     .max()) if len(w) else 0.0)
+        else:
+            same = g.view(np.int64) == w.view(np.int64) \
+                if g.dtype == np.float64 else g == w
+            require(bool(same.all()), f"held_{name} {col}: "
+                    f"{g[~same][:3]} where numpy has {w[~same][:3]}")
+    return worst
+
+
+@contextlib.contextmanager
+def plain_window():
+    """The four window kernels replaced by their plain versions (on the
+    card), for one comparison run."""
+    names = ("window_layout", "frame_sum_count", "range_frame_bounds",
+             "frame_extreme")
+    saved = {nm: getattr(WK, nm) for nm in names}
+    for nm in names:
+        setattr(WK, nm, getattr(WK, f"{nm}_plain"))
+    try:
+        yield
+    finally:
+        for nm, fn in saved.items():
+            setattr(WK, nm, fn)
+
+
+def phase_window_data(dev):
+    """The held window table on the card: tests/test_window.py's wdf drawn
+    at 7,501,518 rows with the row index i, batches of 1,048,576, 16
+    partitions; numpy's evaluation of the seven queries, started in
+    threads (futures by query)."""
+    t0 = time.perf_counter()
+    data, validity = held.window_columns(WINDOW_ROWS, WINDOW_SEED)
+    batches = held.window_batches(data, validity, dev, N)
+    torch.cuda.synchronize()
+    upload = time.perf_counter() - t0
+    ref = WindowNumpy(data, validity)
+    # numpy's answers, in threads while the card runs the queries
+    pool = ThreadPoolExecutor(4)
+    want = {name: pool.submit(ref.expected, name)
+            for name in held.WINDOW_QUERIES}
+    pool.shutdown(wait=False)
+    resident = sum(t.nbytes for b in batches for c in b.columns
+                   for t in (c.data, c.validity))
+    emit({"phase": "window_data", "rows": WINDOW_ROWS,
+          "batches": len(batches), "partitions": WINDOW_PARTITIONS,
+          "resident_bytes": resident, "draw_and_upload_seconds": upload,
+          "setup_seconds": time.perf_counter() - t0})
+    df = GpuSession().create_dataframe(batches,
+                                       num_partitions=WINDOW_PARTITIONS)
+    return df, want
+
+
+def phase_window(df, want) -> dict:
+    """Each held window query's main path (traced, its launches), run to
+    its device batches: every row against numpy, and the whole output
+    against the same plan run with the plain versions of the four window
+    kernels (bit for bit but W5's float frame sums, within K2's
+    tolerance); then timed."""
+    by_path = {}
+    nbatches = -(-WINDOW_ROWS // N)
+    for name, build in held.WINDOW_QUERIES.items():
+        path = f"held_{name}"
+        query = lambda build=build: build(df)  # noqa: E731
+        cols, launches, first_wall, profile = run_rows_path(
+            path, query, WINDOW_KERNELS[name])
+        names = query().schema.names
+        t = time.perf_counter()
+        worst = window_output_equal(name, cols, names, want[name].result())
+        numpy_s = time.perf_counter() - t
+        with plain_window():
+            plain_cols = output_columns(run_batches(query()))
+        for nm, g, w in zip(names, cols, plain_cols, strict=True):
+            require(torch.equal(g.validity, w.validity),
+                    f"{path} {nm}: validity differs from the plain run")
+            if nm in WINDOW_APPROX.get(name, ()):
+                err = (g.data - w.data).abs()
+                require(bool((err <= 1e-12 * w.data.abs() + 1e-12)
+                             [w.validity].all()),
+                        f"{path} {nm}: differs from the plain run")
+            else:
+                require(torch.equal(bits(g.data), bits(w.data)),
+                        f"{path} {nm}: differs from the plain run")
+        timing = time_rows_path(path, query, profile, rows=WINDOW_ROWS)
+        emit({"phase": path, "rows": WINDOW_ROWS,
+              "output_rows": cols[0].num_rows, "max_rel_err": worst,
+              "numpy_check_s": numpy_s, "plain_equal": True,
+              "first_wall_s": first_wall,
+              "activities_per_batch": per_batch(timing, nbatches),
+              **timing})
+        by_path[path] = launches
+    return by_path
+
+
+# -- phase 17 ----------------------------------------------------------------
+
+Q98_KERNELS = GROUPED_KERNELS + ("window_layout", "frame_sum_count",
+                                 "string_rows_equal_prev")
+
+
+def phase_q98(dfs, ref: GauntletNumpy) -> dict:
+    """TPC-DS q98 over the SF10 store_sales, item and date_dim of phase
+    11 (the session of phase 7): its main path traced, with its launches;
+    every row against numpy in order; timed."""
+    query = lambda _: tpcds.q98(dfs["ss"], dfs["dd"], dfs["item"])  # noqa
+    rows, plan, launches, first, prof = run_phase_path("q98", query,
+                                                       Q98_KERNELS)
+    want = ref.q98_rows()
+    require(len(rows) == len(want), f"q98 gave {len(rows)} rows, numpy "
+            f"{len(want)}")
+    worst = 0.0
+    for g, w in zip(rows, want):
+        require(tuple(g[:4]) == w[:4], f"q98 row {g} where numpy has {w}")
+        for a, b in zip(g[4:], w[4:], strict=True):
+            err = abs(a - b) / abs(b)
+            require(err <= F64_RTOL_GAUNTLET, f"q98: {a} against numpy {b} "
+                    f"in {g}")
+            worst = max(worst, err)
+    timing = time_path("q98", query, None, SS_ROWS, prof)
+    emit({"phase": "q98", "fact_rows": SS_ROWS, "rows": len(rows),
+          "brands": len({r[3] for r in rows}), "first_run_s": first,
+          "max_rel_err": worst, "first_rows": rows[:3], **timing})
+    return {"q98": launches}
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -5667,11 +6391,13 @@ def main() -> None:
     by_path["q5"] = phase_q5(chan_dfs, dd_df, chan_ref)
     by_path["semi_anti"] = phase_semi_anti(chan_dfs, item_df, dd_df, tables,
                                            chan_ref)
-    by_path.update(phase_gauntlet(
-        phase_gauntlet_data(dev, q25_dfs, gauntlet), gauntlet))
+    gauntlet_dfs = phase_gauntlet_data(dev, q25_dfs, gauntlet)
+    by_path.update(phase_gauntlet(gauntlet_dfs, gauntlet))
     by_path.update(phase_held(*phase_held_data(dev)))
     by_path.update(phase_tail(*phase_tail_data(dev)))
     by_path.update(phase_decimal(*phase_decimal_data(dev)))
+    by_path.update(phase_window(*phase_window_data(dev)))
+    by_path.update(phase_q98(gauntlet_dfs, gauntlet))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         s = summary[name]

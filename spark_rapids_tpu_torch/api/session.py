@@ -4,12 +4,13 @@ Counterpart of ``spark_rapids_tpu/api/session.py`` (``TpuSession`` :95,
 ``create_dataframe`` :129, ``GroupedData`` :368 with
 ``_grouping_sets_agg`` :395-462, ``DataFrame`` :583, ``with_column`` :604,
 ``rollup`` :610, ``group_by`` :685, ``order_by`` :692, ``limit`` :704,
-``union`` :707, ``join`` :744, ``collect`` :767, ``explain`` :824), cut to
-the q6, q1, q3, q25, q72, q14a and q5 surface: filter, select,
-with_column, agg, group_by(...).agg, rollup(...).agg, join (inner, left,
-left semi and left anti, with a residual condition), union, order_by,
-limit, collect, count and explain (the physical plan's tree).  ``cube``
-and ``grouping_id()`` are not ported.
+``union`` :707, ``join`` :744, ``collect`` :767, ``explain`` :824,
+``_extract_windows`` :33), cut to the surface of the ported queries:
+filter, select and with_column (window expressions included), agg,
+group_by(...).agg, rollup(...).agg, join (inner, left, left semi and left
+anti, with a residual condition), union, order_by, limit, collect, count
+and explain (the physical plan's tree).  ``cube`` and ``grouping_id()``
+are not ported.
 
 A session runs on the card unless the caller names another device:
 ``GpuSession(device=None)`` takes ``cuda`` and raises where there is none.
@@ -17,7 +18,7 @@ It never falls back to the CPU by itself; the tests pass ``device="cpu"``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import pyarrow as pa
@@ -55,6 +56,52 @@ def _to_expr(e) -> Expression:
     if isinstance(e, str):
         return col(e)
     return lit(e)
+
+
+def _extract_windows(exprs: List[Expression], plan: L.LogicalPlan
+                     ) -> Tuple[List[Expression], L.LogicalPlan]:
+    """Spark's ExtractWindowExpressions: every window expression anywhere
+    in a projection list (``over(...) + 1`` included) becomes a column of
+    a Window node under the projection.  Identical windows (by repr) share
+    one column ``__w<i>``; the windows of one (partition_by, order_by)
+    share one Window node, and the nodes of different pairs stack in the
+    order the pairs first appear.  Returns the projections, each window
+    replaced by a reference to its column, and the new child."""
+    from spark_rapids_tpu_torch.expressions.window import WindowExpression
+
+    found: List[Expression] = []
+
+    def scan(e):
+        if isinstance(e, WindowExpression):
+            found.append(e)
+            return
+        for c in e.children:
+            scan(c)
+
+    for e in exprs:
+        scan(e)
+    if not found:
+        return exprs, plan
+    names: Dict[str, str] = {}
+    groups: Dict[Tuple[str, str], List[Expression]] = {}
+    for w in found:
+        if repr(w) in names:
+            continue
+        names[repr(w)] = f"__w{len(names)}"
+        key = (repr(w.spec.partition_by), repr(w.spec.order_by))
+        groups.setdefault(key, []).append(w)
+    for ws in groups.values():
+        plan = L.Window([w.alias(names[repr(w)]) for w in ws], plan)
+
+    def rewrite(e):
+        if isinstance(e, WindowExpression):
+            return col(names[repr(e)])
+        kids = tuple(rewrite(c) for c in e.children)
+        if all(n is o for n, o in zip(kids, e.children)):
+            return e
+        return e.with_children(kids)
+
+    return [rewrite(e) for e in exprs], plan
 
 
 class GpuSession:
@@ -168,8 +215,9 @@ class DataFrame:
         return self.plan.schema
 
     def select(self, *exprs) -> "DataFrame":
-        return DataFrame(L.Project([_to_expr(e) for e in exprs], self.plan),
-                         self.session)
+        projections, plan = _extract_windows([_to_expr(e) for e in exprs],
+                                             self.plan)
+        return DataFrame(L.Project(projections, plan), self.session)
 
     def filter(self, condition) -> "DataFrame":
         return DataFrame(L.Filter(_to_expr(condition), self.plan),

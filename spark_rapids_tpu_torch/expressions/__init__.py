@@ -30,15 +30,22 @@ from spark_rapids_tpu_torch.expressions.aggregates import (
     Last, Max, MaxBy, Min, MinBy, StddevPop, StddevSamp, Sum, VariancePop,
     VarianceSamp, avg, bit_and, bit_or, bit_xor, count, first, last, max_,
     max_by, min_, min_by, stddev, stddev_pop, sum_, var_pop, var_samp)
+from spark_rapids_tpu_torch.expressions.window import (
+    CumeDist, DenseRank, FirstValue, Lag, LastValue, Lead, NthValue, Ntile,
+    PercentRank, Rank, RowNumber, WindowExpression, WindowFrame, WindowSpec,
+    over)
 
 __all__ = [
     "Add", "Alias", "And", "Average", "BitAndAgg", "BitOrAgg", "BitXorAgg",
-    "BoolAnd", "BoolOr", "BoundReference", "Cast", "Col", "Count", "Divide",
-    "EqualTo", "EvalContext", "Expression", "First", "GreaterThan",
-    "GreaterThanOrEqual", "If", "IsNull", "Last", "LessThan",
-    "LessThanOrEqual", "Literal", "Max", "MaxBy", "Min", "MinBy", "Multiply",
-    "Not", "Or", "StddevPop", "StddevSamp", "Substring", "Subtract", "Sum",
-    "VariancePop", "VarianceSamp", "avg", "bit_and", "bit_or", "bit_xor",
-    "col", "count", "first", "last", "lit", "max_", "max_by", "min_",
-    "min_by", "stddev", "stddev_pop", "sum_", "var_pop", "var_samp",
+    "BoolAnd", "BoolOr", "BoundReference", "Cast", "Col", "Count", "CumeDist",
+    "DenseRank", "Divide", "EqualTo", "EvalContext", "Expression", "First",
+    "FirstValue", "GreaterThan", "GreaterThanOrEqual", "If", "IsNull", "Lag",
+    "Last", "LastValue", "Lead", "LessThan", "LessThanOrEqual", "Literal",
+    "Max", "MaxBy", "Min", "MinBy", "Multiply", "Not", "NthValue", "Ntile",
+    "Or", "PercentRank", "Rank", "RowNumber", "StddevPop", "StddevSamp",
+    "Substring", "Subtract", "Sum", "VariancePop", "VarianceSamp",
+    "WindowExpression", "WindowFrame", "WindowSpec", "avg", "bit_and",
+    "bit_or", "bit_xor", "col", "count", "first", "last", "lit", "max_",
+    "max_by", "min_", "min_by", "over", "stddev", "stddev_pop", "sum_",
+    "var_pop", "var_samp",
 ]

@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("selection.cu", "reduction.cu", "hash.cu", "sort.cu",
-           "strings.cu", "join.cu", "fused.cu", "decimal.cu")
+           "strings.cu", "join.cu", "fused.cu", "decimal.cu", "window.cu")
 HEADERS = ("scan.cuh", "strings.cuh", "int128.cuh", "decimal.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -110,6 +110,14 @@ _SIGNATURES = {
                         _I64, _P, _P, _P],
     "srt_fused_global": [_P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _I64,
                          _P, _P, _P, _P, _P],
+    "srt_window_tile": [],
+    "srt_window_state_bytes": [_I],
+    "srt_window_layout": [_P, _P, _I64, _P, _P, _P, _P, _P, _P, _P],
+    "srt_frame_sum": [_I, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _P, _P],
+    "srt_range_frame_bounds": [_I, _P, _P, _P, _I64, _I, _I64, _I, _I64, _P,
+                               _P, _P],
+    "srt_frame_extreme": [_I, _I, _P, _P, _I64, _P, _P, _I, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

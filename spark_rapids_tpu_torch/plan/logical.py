@@ -2,7 +2,8 @@
 
 Counterpart of ``spark_rapids_tpu/plan/logical.py`` (``InMemoryRelation``
 :45, ``Project`` :189, ``Filter`` :205, ``Aggregate`` :222, ``Sort`` :251,
-``Limit`` :269, ``Join`` :287, ``Expand`` :387, ``Union`` :464).  Schemas resolve eagerly, so binding
+``Limit`` :269, ``Join`` :287, ``Expand`` :387, ``Union`` :464,
+``Window`` :509).  Schemas resolve eagerly, so binding
 errors surface when the plan is built.
 """
 from __future__ import annotations
@@ -12,7 +13,8 @@ from typing import List, Optional, Sequence, Tuple
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
 from spark_rapids_tpu_torch.expressions.aggregates import find_aggregates
-from spark_rapids_tpu_torch.expressions.core import Expression, output_name
+from spark_rapids_tpu_torch.expressions.core import (Alias, Expression,
+                                                     output_name)
 from spark_rapids_tpu_torch.kernels.join import JOIN_TYPES
 from spark_rapids_tpu_torch.kernels.sort import SortOrder
 
@@ -213,3 +215,32 @@ class Union(LogicalPlan):
     @property
     def schema(self):
         return self.children[0].schema
+
+
+class Window(LogicalPlan):
+    """Append window columns to the child's.  Every window expression
+    shares one (partition_by, order_by); frames may differ (the session
+    puts a window of another pair in a Window node of its own)."""
+
+    def __init__(self, window_exprs: Sequence[Expression],
+                 child: LogicalPlan):
+        from spark_rapids_tpu_torch.expressions.window import (
+            WindowExpression)
+        self.window_exprs = tuple(e.bind(child.schema) for e in window_exprs)
+        self.child = child
+        self.children = (child,)
+        names = list(child.schema.names)
+        for e in self.window_exprs:
+            names.append(output_name(e, len(names)))
+        self._schema = Schema(tuple(names), tuple(child.schema.dtypes) + tuple(
+            e.dtype for e in self.window_exprs))
+        inner = [e.child if isinstance(e, Alias) else e
+                 for e in self.window_exprs]
+        if not inner or not all(isinstance(e, WindowExpression)
+                                for e in inner):
+            raise TypeError("a Window node takes window expressions")
+        self.spec = inner[0].spec
+
+    @property
+    def schema(self):
+        return self._schema

@@ -3,14 +3,17 @@ column pruning.
 
 Counterpart of ``spark_rapids_tpu/planner/optimizer.py`` (``push_filters``
 :67-191 with the union branch :142-154, ``_rebuild`` :189, ``prune_columns``
-:38 with the union at :271) for InMemoryRelation, Project, Filter,
-Aggregate, Join, Sort, Limit, Expand and Union.  ``push_filters`` moves
+:38 with the union at :271 and the window at :281-290) for
+InMemoryRelation, Project, Filter, Aggregate, Join, Sort, Limit, Expand,
+Union and Window.  ``push_filters`` moves
 each conjunct of a filter over an inner join into the side whose columns
 it references (so q3's ``i_manufact_id = 28`` and ``d_moy = 11`` filter
 the dimension tables before the joins), below a Project of pass-through
 columns, and into every child of a Union (renamed by position), and merges
 adjacent filters; a filter over any other join stays where it is, so none
-crosses a left join's null side or reaches a semi or anti join's build.
+crosses a left join's null side or reaches a semi or anti join's build,
+and none crosses a Window: a filter below it would change the rows each
+window sees, whatever columns it reads.
 ``prune_columns`` makes a scan carry only the columns some ancestor, a
 join's residual condition included, references, through a Project of
 column references on top of the relation (a zero-copy select in the
@@ -172,6 +175,8 @@ def _rebuild(plan: L.LogicalPlan, children) -> L.LogicalPlan:
         return L.Union(children)
     if isinstance(plan, L.Expand):
         return _expand(plan.projections, plan.schema.names, children[0])
+    if isinstance(plan, L.Window):
+        return L.Window([_unbind(e) for e in plan.window_exprs], children[0])
     raise NotImplementedError(f"logical node {type(plan).__name__} is not "
                               "ported")
 
@@ -261,4 +266,11 @@ def _prune(p: L.LogicalPlan, required: Set[str]) -> L.LogicalPlan:
         child = _prune(p.child, _exprs_refs(e for proj in projections
                                             for e in proj))
         return _expand(projections, [p.schema.names[i] for i in keep], child)
+    if isinstance(p, L.Window):
+        # the child keeps what the parent needs of its columns and every
+        # column the window expressions read
+        names = set(p.child.schema.names)
+        child = _prune(p.child, (set(required) & names)
+                       | _exprs_refs(p.window_exprs))
+        return L.Window([_unbind(e) for e in p.window_exprs], child)
     raise NotImplementedError(f"logical node {type(p).__name__} is not ported")

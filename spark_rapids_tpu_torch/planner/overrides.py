@@ -4,9 +4,10 @@ Counterpart of ``spark_rapids_tpu/planner/overrides.py`` (``plan_query``
 :1147, ``PlanMeta.convert`` :753 with ``Expand`` :808, ``Union`` :823 and
 ``Limit`` :826, ``_convert_join`` :945-1020, ``_convert_aggregate``
 :1022-1042, ``_exchange`` :1044, ``_estimate_rows`` :1063,
-``_plan_partitions`` :1090-1135, ``_insert_aqe_readers`` :1218) for
-InMemoryRelation, Project, Filter, Aggregate, Join, Sort, Limit, Expand
-and Union.
+``_plan_partitions`` :1090-1135, ``_insert_aqe_readers`` :1218,
+``_tag_window`` :861-931, ``_convert_window`` :933-943) for
+InMemoryRelation, Project, Filter, Aggregate, Join, Sort, Limit, Expand,
+Union and Window.
 
 - Over more than one partition an aggregate is split in two: a partial
   aggregate, an exchange (one partition for a global aggregate; a hash
@@ -24,6 +25,18 @@ and Union.
 - A union's partitions are its children's, one after another (its
   partition count is their sum); an expand runs each batch once per
   projection, and neither is a stage of a fused segment.
+- A window over more than one partition reads a hash exchange on its
+  partition keys into ``spark.sql.shuffle.partitions`` (a single-partition
+  exchange where it has none), so that each task holds whole window
+  partitions.  What the reference tags "will NOT work" and runs on its CPU
+  raises NotImplementedError here with the same reason: a bounded RANGE
+  frame over anything but one ascending INT, LONG or DATE key, FIRST /
+  LAST / NTH_VALUE over strings, a function or input type not ported.
+  One difference: the reference refuses a Window node whose expressions'
+  specs differ by ``repr``, which holds the frame, so its frames of one
+  (partition, order) pair run on its CPU; its exec reads each
+  expression's own frame, and the port, which has no CPU fallback,
+  compares only (partition_by, order_by).
 - A global sort over more than one partition is a single-partition
   exchange under the sort (the shape of the reference's ``TpuSortExec``
   docstring, plan/execs/sort.py:43; its ``TpuRangeSortExec`` is not
@@ -47,8 +60,14 @@ from __future__ import annotations
 
 import torch
 
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.config import RapidsConf
+from spark_rapids_tpu_torch.expressions.aggregates import Count, Max, Min
 from spark_rapids_tpu_torch.expressions.core import BoundReference
+from spark_rapids_tpu_torch.expressions.window import (FirstValue, LastValue,
+                                                       NthValue,
+                                                       WindowFunction)
+from spark_rapids_tpu_torch.kernels.sort import _kind
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.execs.aggregate import GpuHashAggregateExec
 from spark_rapids_tpu_torch.plan.execs.base import GpuExec
@@ -63,6 +82,8 @@ from spark_rapids_tpu_torch.plan.execs.join import (
 from spark_rapids_tpu_torch.plan.execs.misc import GpuExpandExec
 from spark_rapids_tpu_torch.plan.execs.scan import GpuInMemoryScanExec
 from spark_rapids_tpu_torch.plan.execs.sort import GpuLimitExec, GpuSortExec
+from spark_rapids_tpu_torch.plan.execs.window import (WINDOW_AGGREGATES,
+                                                      GpuWindowExec, unwrap)
 from spark_rapids_tpu_torch.plan.fused import fuse_segments
 from spark_rapids_tpu_torch.planner.optimizer import (prune_columns,
                                                       push_filters)
@@ -97,6 +118,8 @@ def _convert(p: L.LogicalPlan, conf: RapidsConf,
     if isinstance(p, L.Union):
         return GpuUnionExec(tuple(_convert(c, conf, device)
                                   for c in p.children), p.schema)
+    if isinstance(p, L.Window):
+        return _convert_window(p, conf, device)
     raise NotImplementedError(f"no exec for {type(p).__name__} in the port")
 
 
@@ -193,6 +216,75 @@ def _convert_aggregate(p: L.Aggregate, conf: RapidsConf,
         exchange = GpuSinglePartitionExec(partial)
     return GpuHashAggregateExec(p.group_exprs, p.agg_exprs, p.aggregates,
                                 exchange, p.schema, device, mode="final")
+
+
+#: the order keys a bounded RANGE frame searches (csrc/window.cu)
+_RANGE_KEY_TYPES = (T.IntegerType, T.LongType, T.DateType)
+
+
+def _window_input_ok(fn, dt: T.DataType) -> bool:
+    """SUM / AVG over any integral, bool or float input, MIN / MAX over
+    bool, INT, DATE, LONG, FLOAT and DOUBLE (``frame_extreme``'s types);
+    no decimal or string."""
+    if isinstance(dt, T.DecimalType) or dt.variable_width:
+        return False
+    if isinstance(fn, (Min, Max)):
+        return dt.torch_dtype in (torch.bool, torch.int32, torch.int64,
+                                  torch.float32, torch.float64)
+    return dt.is_integral or dt.is_floating or isinstance(dt, T.BooleanType)
+
+
+def _tag_window(p: L.Window) -> None:
+    """Raise NotImplementedError, with the reference's reason, for what
+    the window exec does not run."""
+    spec = p.spec
+    for what, exprs in (("partition", spec.partition_by),
+                        ("order", [e for e, _ in spec.order_by])):
+        for e in exprs:
+            try:
+                _kind(e.dtype)
+            except (TypeError, NotImplementedError):
+                raise NotImplementedError(
+                    f"window {what} key {e!r} not supported yet") from None
+    pair = (repr(spec.partition_by), repr(spec.order_by))
+    for e in p.window_exprs:
+        we = unwrap(e)
+        if (repr(we.spec.partition_by), repr(we.spec.order_by)) != pair:
+            raise NotImplementedError("mixed window specs in one Window node")
+        fn, frame = we.function, we.spec.frame
+        bounded_range = frame.kind == "range" and not (
+            frame.is_unbounded_to_current() or frame.is_unbounded_both())
+        ob = we.spec.order_by
+        if bounded_range and not (
+                len(ob) == 1 and ob[0][1].ascending
+                and isinstance(ob[0][0].dtype, _RANGE_KEY_TYPES)):
+            raise NotImplementedError(
+                f"bounded range frame {frame} needs a single ascending "
+                "fixed-width non-float order key")
+        if isinstance(fn, (FirstValue, LastValue, NthValue)):
+            if fn.child.dtype.variable_width:
+                raise NotImplementedError(
+                    f"{fn.name} over strings needs offset-aware frame "
+                    "gathers (fixed-width inputs only)")
+            continue
+        if isinstance(fn, WindowFunction):
+            continue
+        if isinstance(fn, WINDOW_AGGREGATES) and (
+                fn.input is None or isinstance(fn, Count)
+                or _window_input_ok(fn, fn.input.dtype)):
+            continue
+        raise NotImplementedError(f"window function {fn!r} not supported")
+
+
+def _convert_window(p: L.Window, conf: RapidsConf,
+                    device: torch.device) -> GpuExec:
+    _tag_window(p)
+    child = _convert(p.child, conf, device)
+    if _plan_partitions(child) > 1:
+        child = (GpuShuffleExchangeExec(conf.shuffle_partitions,
+                                        p.spec.partition_by, child)
+                 if p.spec.partition_by else GpuSinglePartitionExec(child))
+    return GpuWindowExec(p.window_exprs, child, p.schema)
 
 
 def _insert_aqe_readers(root: GpuExec, conf: RapidsConf) -> GpuExec:

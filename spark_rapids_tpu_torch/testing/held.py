@@ -1,9 +1,11 @@
 """The held aggregate shapes: the table and queries of the reference's
 ``tests/test_queries.py`` (``SCHEMA`` :101, ``make_data`` :104-121,
 ``test_global_aggregate`` :149, ``test_grouped_aggregate`` :163) and
-``tests/test_variance.py`` (:6, :14), and the aggregate tail's table and
+``tests/test_variance.py`` (:6, :14), the aggregate tail's table and
 queries of ``tests/test_agg_tail.py`` (``SCHEMA`` :18, ``_data`` :20-38),
-at any size, without JAX.
+the two-limb decimals of ``tests/test_decimal128.py``, and the window
+shapes of ``tests/test_window.py`` (``wdf`` :29, ``WINDOW_EXPRS``
+:46-87), at any size, without JAX.
 
 No TPC query over the repo's generators runs MIN or MAX, so these shapes
 are the main path of the port's extremes: ``k`` INT (13 keys), ``v``
@@ -393,3 +395,126 @@ DEC_ROW_QUERIES = {f.__name__: f for f in (
 DEC_AGG_QUERIES = {f.__name__: f for f in (
     dec_sum_grouped, dec_sum_global, dec_overflow, dec_avg,
     dec_min_max_grouped, dec_min_max_global)}
+
+
+# -- the window shapes (tests/test_window.py) ----------------------------------
+
+#: wdf's columns and ``i``, the row's index in the table (no window reads
+#: it: it lets an answer computed elsewhere find its row)
+WINDOW_SCHEMA = Schema.of(k=T.INT, t=T.INT, v=T.LONG, x=T.DOUBLE, i=T.LONG)
+WINDOW_KEYS = 11
+
+
+def window_columns(n: int, seed: int = 2
+                   ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """wdf's numpy streams in its order, vectorised (``window_columns(300)``
+    is ``wdf``'s rows): k INT of 11 keys, t INT 0-39 (ties make peer runs),
+    v LONG -100..99 and x DOUBLE (randn) with n // 9 nulls each; a null
+    slot holds zero.  Returns (values, validity)."""
+    rng = np.random.RandomState(seed)
+    data = {"k": rng.randint(0, WINDOW_KEYS, n).astype(np.int32),
+            "t": rng.randint(0, 40, n).astype(np.int32),
+            "v": rng.randint(-100, 100, n).astype(np.int64),
+            "x": rng.randn(n),
+            "i": np.arange(n, dtype=np.int64)}
+    validity = {c: np.ones(n, np.bool_) for c in WINDOW_SCHEMA.names}
+    for c in ("v", "x"):
+        validity[c][rng.choice(n, n // 9, replace=False)] = False
+        data[c] = np.where(validity[c], data[c], np.zeros((), data[c].dtype))
+    return data, validity
+
+
+def window_batches(data: Dict[str, np.ndarray],
+                   validity: Dict[str, np.ndarray], device,
+                   batch_rows: int = 100) -> List[ColumnarBatch]:
+    n = len(data["i"])
+    return [batch_from_numpy({c: (data[c][o:o + batch_rows],
+                                  validity[c][o:o + batch_rows])
+                              for c in WINDOW_SCHEMA.names}, WINDOW_SCHEMA,
+                             device) for o in range(0, n, batch_rows)]
+
+
+def _kt(E, fn, frame=None):
+    return E.over(fn, partition_by=["k"], order_by=["t"], frame=frame)
+
+
+def window_ranks(df, E=PE):
+    """W1: the rank family over (k; t)."""
+    return df.select(
+        E.col("i"), _kt(E, E.RowNumber()).alias("rn"),
+        _kt(E, E.Rank()).alias("rk"), _kt(E, E.DenseRank()).alias("drk"),
+        _kt(E, E.PercentRank()).alias("pr"), _kt(E, E.CumeDist()).alias("cd"),
+        _kt(E, E.Ntile(3)).alias("nt"))
+
+
+def window_running(df, E=PE):
+    """W2: the default RANGE UNBOUNDED PRECEDING..CURRENT ROW frame."""
+    return df.select(
+        E.col("i"), _kt(E, E.sum_("v")).alias("sv"),
+        _kt(E, E.count("v")).alias("cv"), _kt(E, E.avg("v")).alias("av"),
+        _kt(E, E.min_("v")).alias("mn"), _kt(E, E.max_("x")).alias("mx"))
+
+
+def window_whole(df, E=PE):
+    """W3: the whole partition of k."""
+    def whole(fn):
+        return E.over(fn, partition_by=["k"])
+    return df.select(
+        E.col("i"), whole(E.sum_("v")).alias("sv"),
+        whole(E.count()).alias("n"), whole(E.min_("v")).alias("mn"),
+        whole(E.max_("x")).alias("mx"), whole(E.avg("v")).alias("av"))
+
+
+def window_offsets(df, E=PE):
+    """W4: LEAD, LAG, FIRST_VALUE and LAST_VALUE over the whole RANGE,
+    NTH_VALUE over ROWS 1..1."""
+    both = E.WindowFrame("range", None, None)
+    return df.select(
+        E.col("i"), _kt(E, E.Lead(E.col("v"), 1)).alias("ld"),
+        _kt(E, E.Lag(E.col("v"), 2)).alias("lg"),
+        _kt(E, E.FirstValue(E.col("v")), both).alias("fv"),
+        _kt(E, E.LastValue(E.col("v")), both).alias("lv"),
+        _kt(E, E.NthValue(E.col("v"), 2),
+            E.WindowFrame("rows", 1, 1)).alias("nv"))
+
+
+#: the ROWS frames of WINDOW_EXPRS (:59-73): (function, column, start, end)
+ROWS_FRAMES = (("sum_", "v", -2, 0), ("avg", "x", -3, 3),
+               ("count", None, None, 0), ("min_", "v", -2, 0),
+               ("max_", "v", -3, 3), ("min_", "x", -4, 1),
+               ("max_", "x", 0, 2))
+#: its bounded RANGE frames (:75-86)
+RANGE_FRAMES = (("sum_", "v", -5, 5), ("count", "v", -3, 0),
+                ("avg", "v", -10, -2), ("min_", "v", -4, 4),
+                ("max_", "v", None, 3), ("sum_", "v", -2, None))
+
+
+def _framed(df, E, kind, frames):
+    cols = [E.col("i")]
+    for j, (fn, c, start, end) in enumerate(frames):
+        agg = getattr(E, fn)(c) if c is not None else getattr(E, fn)()
+        cols.append(_kt(E, agg, E.WindowFrame(kind, start, end)).alias(
+            f"w{j}"))
+    return df.select(*cols)
+
+
+def window_rows(df, E=PE):
+    """W5: the seven ROWS frames."""
+    return _framed(df, E, "rows", ROWS_FRAMES)
+
+
+def window_range(df, E=PE):
+    """W6: the six bounded RANGE frames."""
+    return _framed(df, E, "range", RANGE_FRAMES)
+
+
+def window_global(df, E=PE):
+    """W7: ROW_NUMBER over (t, v) with no partition: one partition of
+    every row."""
+    return df.select(E.col("i"), E.over(E.RowNumber(),
+                                        order_by=["t", "v"]).alias("rn"))
+
+
+WINDOW_QUERIES = {f.__name__: f for f in (
+    window_ranks, window_running, window_whole, window_offsets, window_rows,
+    window_range, window_global)}

@@ -2,8 +2,8 @@
 catalog_returns, inventory, date_dim, time_dim, item, store, warehouse,
 promotion, customer, customer_address, customer_demographics,
 household_demographics, and the channel sales and returns of q5 and q14a)
-and q3, q5, q7, q14a, q17, q19, q25, q26, q42, q52, q55, q72 and q96 (with
-the q5 and q14a subsets), without JAX.
+and q3, q5, q7, q14a, q17, q19, q25, q26, q42, q52, q55, q72, q96 and q98
+(with the q5 and q14a subsets), without JAX.
 
 A copy of the pure-Python parts of ``spark_rapids_tpu/testing/tpcds.py``
 (``STORE_SALES_SCHEMA`` :21, ``DATE_DIM_SCHEMA`` :38, ``ITEM_SCHEMA`` :48,
@@ -918,6 +918,54 @@ def q17(ss_df, sr_df, cs_df, dd_df, store_df, item_df, limit=100):
                      ("i_item_desc", SortOrder(True)),
                      ("s_store_name", SortOrder(True))))
     return out if limit is None else out.limit(limit)
+
+
+#: q98's dates: d_date_ord 417 is 1999-02-22 in gen_date_dim's calendar
+#: (365-day years from 1998-01-01), and the range runs 30 days on
+Q98_FIRST_DAY = 365 + 31 + 21
+Q98_LAST_DAY = Q98_FIRST_DAY + 30
+Q98_CATEGORIES = ("Sports", "Books", "Home")
+
+
+def q98(ss_df, dd_df, item_df):
+    """TPC-DS Q98, each item's share of its class's revenue.
+
+    select i_item_id, i_item_desc, i_category, i_class, i_current_price,
+           sum(ss_ext_sales_price) as itemrevenue,
+           sum(ss_ext_sales_price) * 100 / sum(sum(ss_ext_sales_price))
+             over (partition by i_class) as revenueratio
+    from store_sales, item, date_dim
+    where ss_item_sk = i_item_sk and i_category in ('Sports', 'Books',
+      'Home') and ss_sold_date_sk = d_date_sk
+      and d_date between cast('1999-02-22' as date)
+                     and (cast('1999-02-22' as date) + 30 days)
+    group by i_item_id, i_item_desc, i_category, i_class, i_current_price
+    order by i_category, i_class, i_item_id, i_item_desc, revenueratio
+
+    Cut to the generators' columns, as q17 is: ``i_brand`` (a string)
+    stands in for ``i_class``, ``i_current_price`` is left out, and the
+    dates are ``d_date_ord`` 417-447.  No LIMIT, as in the specification.
+    The window sits inside arithmetic: a Window node under a Project.
+    """
+    from spark_rapids_tpu_torch.expressions import col, lit, over, sum_
+    dd = dd_df.filter((col("d_date_ord") >= lit(Q98_FIRST_DAY))
+                      & (col("d_date_ord") <= lit(Q98_LAST_DAY)))
+    cat = col("i_category")
+    item = item_df.filter((cat == lit(Q98_CATEGORIES[0]))
+                          | (cat == lit(Q98_CATEGORIES[1]))
+                          | (cat == lit(Q98_CATEGORIES[2])))
+    keys = ("i_item_id", "i_item_desc", "i_category", "i_brand")
+    return (ss_df
+            .join(item, on=([col("ss_item_sk")], [col("i_item_sk")]))
+            .join(dd, on=([col("ss_sold_date_sk")], [col("d_date_sk")]))
+            .group_by(*keys)
+            .agg(sum_("ss_ext_sales_price").alias("itemrevenue"))
+            .select(*keys, col("itemrevenue"),
+                    (col("itemrevenue") * lit(100) / over(
+                        sum_("itemrevenue"), partition_by=["i_brand"])
+                     ).alias("revenueratio"))
+            .order_by("i_category", "i_brand", "i_item_id", "i_item_desc",
+                      "revenueratio"))
 
 
 def q72(cs_df, inv_df, warehouse_df, item_df, cd_df, hd_df, dd_df,

@@ -416,3 +416,62 @@ def test_decimal128_wrappers_raise_off_the_cpu_without_cuda(call):
     with pytest.raises(ValueError, match="expected cuda"):
         call(D, R)
     assert dict(_lib.LAUNCHES) == before
+
+
+def test_window_slice_modules_are_covered():
+    """The window slice's modules (the expressions, the Window node and
+    its extraction, the planner's tag and conversion, the kernels'
+    wrappers, the exec, the held window shapes and q98) are in the scans
+    above and import nothing of JAX; the four kernels' entry points are
+    in a built source and bound, and the DSL exports the window
+    surface."""
+    names = ("spark_rapids_tpu_torch.expressions.window",
+             "spark_rapids_tpu_torch.plan.logical",
+             "spark_rapids_tpu_torch.api.session",
+             "spark_rapids_tpu_torch.planner.optimizer",
+             "spark_rapids_tpu_torch.planner.overrides",
+             "spark_rapids_tpu_torch.kernels.window",
+             "spark_rapids_tpu_torch.plan.execs.window",
+             "spark_rapids_tpu_torch.testing.held",
+             "spark_rapids_tpu_torch.testing.tpcds")
+    for name in names:
+        assert name in PORT_MODULES
+        path = ROOT / (name.replace(".", "/") + ".py")
+        assert not {m for m in _imported_roots(path) if m in FORBIDDEN}
+    assert "window.cu" in _lib.SOURCES
+    source = (_lib.CSRC / "window.cu").read_text()
+    for entry in ("srt_window_layout", "srt_frame_sum",
+                  "srt_range_frame_bounds", "srt_frame_extreme"):
+        assert entry in source and entry in _lib._SIGNATURES
+    from spark_rapids_tpu_torch import expressions as E
+    for fn in ("over", "WindowFrame", "RowNumber", "Rank", "DenseRank",
+               "PercentRank", "CumeDist", "Ntile", "Lead", "Lag",
+               "FirstValue", "LastValue", "NthValue"):
+        assert hasattr(E, fn) and fn in E.__all__
+    from spark_rapids_tpu_torch.testing import held, tpcds
+    assert callable(tpcds.q98) and len(held.WINDOW_QUERIES) == 7
+
+
+@pytest.mark.parametrize("call", [
+    lambda W: W.window_layout(_meta(torch.bool), _meta(torch.bool)),
+    lambda W: W.frame_sum_count(_meta(torch.float64), _meta(torch.bool),
+                                _meta(torch.int32), _meta(torch.int32),
+                                _meta(torch.int32)),
+    lambda W: W.frame_sum_count(_meta(torch.int64), _meta(torch.bool),
+                                _meta(torch.int32), _meta(torch.int32),
+                                _meta(torch.int32)),
+    lambda W: W.range_frame_bounds(_meta(torch.int32), _meta(torch.int32),
+                                   _meta(torch.int32), 5, None),
+    lambda W: W.frame_extreme(_meta(torch.float64), _meta(torch.bool),
+                              _meta(torch.int32), _meta(torch.int32), True),
+], ids=["window_layout", "frame_sum_f64", "frame_sum_i64",
+        "range_frame_bounds", "frame_extreme"])
+def test_window_wrappers_raise_off_the_cpu_without_cuda(call):
+    """As ``test_decimal128_wrappers_raise_off_the_cpu_without_cuda``, for
+    the four window wrappers: no plain version off the CPU, no launch
+    counted."""
+    from spark_rapids_tpu_torch.kernels import window as W
+    before = dict(_lib.LAUNCHES)
+    with pytest.raises(ValueError, match="expected cuda"):
+        call(W)
+    assert dict(_lib.LAUNCHES) == before
