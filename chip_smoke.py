@@ -115,7 +115,25 @@ Phases (any failure raises and the script exits non-zero):
      ones; each timed at phase 16's shapes (its largest task partition,
      2,045,868 rows in 3 partitions, for the layout, W5's avg(x) sums and
      W6's RANGE bounds; one key's 681,956 rows for a running MIN, which
-     torch.cummin computes as one call).
+     torch.cummin computes as one call).  Then the memory slice's:
+     ``range_partition`` (the range sort's router) at n = 0, 1,
+     1,048,576 and 1,000,003 over 1-4 key words against 15 and 255
+     boundaries, 24 against 255 (shared memory full), 31 (a 226-byte
+     string key) against 15 and 299 and 3 against 2,047 (boundaries read
+     from global memory), and over a 180-230-byte string key's and a
+     string and an int key's order words (chunks from
+     ``string_sort_keys``), rows drawn from few distinct word rows
+     (heavy ties, keys equal to boundaries): bucket order and counts bit
+     for bit; ``order_words``; the Decimal128 sort key
+     (``decimal128_sort_key``, where the path runs it: the order words,
+     the radix sort, and the several-key join's build and probe words)
+     and the Decimal128 murmur3 (``decimal128_hash``,
+     with pmod) at n = 0, 1 and 1,000,003 over 0, +-1, +-255, +-256,
+     +-2**63, +-10**37, +-(10**38 - 1), every magnitude, repeats and 10%
+     nulls, bit for bit, and the hash also against Java's
+     BigInteger.toByteArray and murmur3 in Python over 100,000 rows; each
+     timed (the router and the order words at phase 18's ORDER BY shape,
+     the decimal kernels at phase 15's, K2 through the order words).
      A kernel's ``max_abs_err`` is the largest difference over all its
      comparisons;
   4. data: TPC-H lineitem at SF10 (60,012,150 rows, all eleven columns on
@@ -134,7 +152,8 @@ Phases (any failure raises and the script exits non-zero):
      the card, batches of 1,048,576 rows, 4 partitions; item 102,000
      rows; date_dim 2,190 rows): two broadcast hash joins, the grouped
      aggregate on (d_year, i_brand_id, i_brand) across the hash exchange,
-     ORDER BY over a single-partition exchange; held against an
+     ORDER BY as a range sort (its input fits one batch: one bucket);
+     held against an
      independent numpy evaluation (same groups, same order), then timed
      and profiled as q1.  Its pass over store_sales also collects the
      zips of the rows of store_sales' first partition that reach q19's
@@ -162,23 +181,26 @@ Phases (any failure raises and the script exits non-zero):
      two rows), timed and profiled;
      then q6, q1, q3 and q25 fused against ``fuseStages=false`` in 6
      alternating pairs each (medians, quartiles, pairs won);
-  9. q72 at TPC-DS SF10 in a session of 200 shuffle partitions with the
-     coalesced reader off: catalog_sales as in phase 8; inventory
+  9. q72 at TPC-DS SF10 in the default session (16 shuffle partitions,
+     the coalesced reader on): catalog_sales as in phase 8; inventory
      133,110,000 rows (102,000 items, 10 warehouses), catalog_returns
      1,439,749 (60% copied from the sales' (item, order) pairs), 4
      partitions each, all on the card; item 102,000 rows, date_dim 2,190,
      warehouse 10, promotion 300, customer_demographics 1,000,
      household_demographics 100.  The inventory join must be a shuffled
-     join with its condition that took the streamed probe in all 200
-     partitions, the catalog_returns join an adaptive left join that went
+     join with its condition that took the out-of-core branch (spillable
+     co-buckets joined pairwise) in every partition whose build passes
+     batchSizeRows (each ~8.3M rows; the branch counts, the builds and the
+     sub-buckets are printed), the catalog_returns join an adaptive left
+     join that went
      shuffled, promotion a broadcast left join; the 100 rows must equal
      an independent numpy evaluation exactly and in order (the filters
      first, an (item, week) join of packed int64 keys by sort and
      searchsorted, the return counts); the main-path run is traced for
      the card's busy time (no run of its own: q72 takes ~25 s), then
      timed by one more run (so is q14a's: the script's time limit);
- 10. q14a, q5 and the semi_anti path at TPC-DS SF10 in the session of
-     phase 9: the channel sales (store 28,800,991 rows, catalog
+ 10. q14a, q5 and the semi_anti path at TPC-DS SF10 in a session of 200
+     shuffle partitions with the coalesced reader off: the channel sales (store 28,800,991 rows, catalog
      14,401,261, web 7,197,566) and returns (2,875,432, 1,439,749 and
      719,217), six and five columns, 4 partitions each, all on the card;
      item 102,000 rows, date_dim 2,190.  q14a runs with its scalar
@@ -247,8 +269,12 @@ Phases (any failure raises and the script exits non-zero):
      elementwise query's output stays on the card and is held bit for
      bit against the same query run with the plain versions, and at
      100,000 seeded rows against Python ints; an aggregate's rows exact
-     against numpy's integer reductions over 32-bit limbs.  Each with
-     its launches, timed and profiled;
+     against numpy's integer reductions over 32-bit limbs.  Then the
+     Decimal128 keys: ORDER BY a ascending and descending (a range sort
+     into 8 buckets), GROUP BY a with a count, a left join on a against
+     the rows of k = 0, each exact against numpy over the two limbs
+     (np.lexsort / np.unique in int128 order).  Each with its launches,
+     timed and profiled;
  16. the held window shapes (``testing/held.py`` ``window_columns``:
      tests/test_window.py's wdf, k INT of 11 keys, t INT 0-39, v LONG and
      x DOUBLE with n // 9 nulls, and the row index i) at 7,501,518 rows
@@ -267,7 +293,23 @@ Phases (any failure raises and the script exits non-zero):
      the window over a string key inside arithmetic, every row against
      numpy's integer cents in order (revenue and ratio within 1e-9), with
      its launches, timed and profiled;
- 18. prints the kernels summary line, then the result line last.
+ 18. the memory runtime on phase 12's table, drawn at half its rows
+     (7,501,518, 16 partitions) to keep the script's time in bounds, at
+     batchSizeRows 29,302 (a 16th of a partition):
+     (a) GROUP BY v (~7.5M groups: the final aggregate out of core in
+     every partition) and ORDER BY v (range-routed into 16 buckets),
+     exact against numpy, the sort in order; (b) the GROUP BY with the
+     arena's budget at a quarter of its shuffle store's bytes and
+     spillStorageSize at 64 MB, checksums on: handles must go to pinned
+     host memory and to disk and come back; (c) the GROUP BY under three
+     injected retry OOMs and one injected split OOM, the ORDER BY under
+     three retry OOMs; (d) a 4.5 GB spillable handle, then
+     ``torch.cuda.set_per_process_memory_fraction`` at what the caching
+     allocator holds plus 8 MB: the ORDER BY must meet a real
+     OutOfMemoryError in ``with_retry_no_split``, spill and pass.  Each
+     part prints its wall, spill and retry counters and peak device
+     memory;
+ 19. prints the kernels summary line, then the result line last.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -311,7 +353,7 @@ from spark_rapids_tpu_torch.kernels import strings as SS  # noqa: E402
 from spark_rapids_tpu_torch.kernels import window as WK  # noqa: E402
 from spark_rapids_tpu_torch.plan.engine import GpuEngine  # noqa: E402
 from spark_rapids_tpu_torch.plan.execs.exchange import (  # noqa: E402
-    GpuCoalescedShuffleReaderExec)
+    GpuCoalescedShuffleReaderExec, GpuShuffleExchangeExec)
 from spark_rapids_tpu_torch.plan.execs.join import (  # noqa: E402
     GpuAdaptiveJoinExec, GpuBroadcastHashJoinExec, GpuShuffledHashJoinExec)
 from spark_rapids_tpu_torch.plan.fused import (  # noqa: E402
@@ -424,6 +466,14 @@ KERNELS = {
                            "spark_rapids_tpu/kernels/window.py:216"),
     "frame_extreme": ("csrc/window.cu",
                       "spark_rapids_tpu/kernels/window.py:268"),
+    "range_partition": ("csrc/sort.cu",
+                        "spark_rapids_tpu/plan/execs/range_sort.py:96"),
+    "order_words": ("csrc/sort.cu",
+                    "spark_rapids_tpu/plan/execs/range_sort.py:43"),
+    "decimal128_sort_key": ("csrc/sort.cu",
+                            "spark_rapids_tpu/kernels/sort.py:123"),
+    "decimal128_hash": ("csrc/hash.cu",
+                        "spark_rapids_tpu/kernels/hash.py:141"),
 }
 FUSE_OFF = {"spark.rapids.sql.tpu.fuseStages": "false"}
 # fused (the default), q6's filter and partial sum are one kernel a batch:
@@ -3453,6 +3503,251 @@ def check_window(rng, dev, summary) -> None:
         summary[kernel] = summarize(line, nbytes, ops)
 
 
+RANGE_EDGES = [0, 1, -1, 255, -255, 256, -256, 2**63, -2**63, 10**37,
+               -10**37, 10**38 - 1, -(10**38 - 1)]
+#: phase 18's ORDER BY: 1,048,576-row batches, 2 words (v's null word and
+#: its data word), the 15 boundaries of 16 buckets
+RANGE_TIME_WORDS, RANGE_TIME_BOUNDS = 2, 15
+
+
+def to_byte_array(v: int) -> bytes:
+    """Java's BigInteger.toByteArray(): bitLength() excludes the sign bit
+    (for a negative value it is the bit length of ~v)."""
+    return v.to_bytes((v if v >= 0 else ~v).bit_length() // 8 + 1, "big",
+                      signed=True)
+
+
+def java_murmur3(v, seed: int = 42) -> int:
+    """Spark's Murmur3 of a Decimal128 (hashUnsafeBytes of its bytes), as
+    an int32; a null passes the seed."""
+    m = 0xFFFFFFFF
+    h = seed & m
+    if v is not None:
+        def mix(h, k):
+            k = (k * 0xCC9E2D51) & m
+            k = ((k << 15) | (k >> 17)) & m
+            k = (k * 0x1B873593) & m
+            h ^= k
+            h = ((h << 13) | (h >> 19)) & m
+            return (h * 5 + 0xE6546B64) & m
+        b = to_byte_array(v)
+        aligned = len(b) // 4 * 4
+        for i in range(0, aligned, 4):
+            h = mix(h, int.from_bytes(b[i:i + 4], "little"))
+        for x in b[aligned:]:
+            h = mix(h, (x - 256 if x >= 128 else x) & m)
+        h ^= len(b)
+        h ^= h >> 16
+        h = (h * 0x85EBCA6B) & m
+        h ^= h >> 13
+        h = (h * 0xC2B2AE35) & m
+        h ^= h >> 16
+    return h - 2**32 if h >= 2**31 else h
+
+
+def dec_key_column(rng, n: int, dev, null_frac: float = 0.1
+                   ) -> DeviceColumn:
+    """n Decimal128 keys: the range edges first, then every magnitude up
+    to 10**38 with repeats (a fifth of the rows are copies of others),
+    ``null_frac`` nulls (the edges valid), garbage under a null."""
+    lo = rng.randint(-2**63, 2**63 - 1, n, dtype=np.int64)
+    hi = rng.randint(-2**62, 2**62, n, dtype=np.int64) >> \
+        rng.randint(0, 63, n)
+    hi = np.where(rng.rand(n) < 0.3, lo >> 63, hi)
+    vals = np.stack([lo, hi], 1)
+    if n > 10:
+        dup = rng.rand(n) < 0.2
+        vals[dup] = vals[rng.randint(0, n, int(dup.sum()))]
+    m = min(len(RANGE_EDGES), n)
+    vals[:m] = np.array([const128(v) for v in RANGE_EDGES[:m]],
+                        np.int64).reshape(m, 2)
+    valid = rng.rand(n) >= null_frac
+    valid[:m] = True
+    return DeviceColumn(torch.from_numpy(vals).to(dev),
+                        torch.from_numpy(valid).to(dev), T.DecimalType(38, 2))
+
+
+def route_case(rng, n: int, nk: int, nbounds: int, dev, distinct: int):
+    """(words [nk, n], boundaries [nb, nk]) with heavy ties: the rows drawn
+    from ``distinct`` word rows whose words take few values, the sorted
+    distinct boundaries drawn from the same rows (so that keys equal
+    them)."""
+    pool = rng.randint(0, 4, (max(distinct, 1), nk)).astype(np.uint64)
+    pool[:, -1] = rng.randint(0, 2**62, max(distinct, 1),
+                              dtype=np.int64).astype(np.uint64) * \
+        np.uint64(3)
+    rows = pool[rng.randint(0, len(pool), n)] if n else \
+        np.zeros((0, nk), np.uint64)
+    cand = pool[np.lexsort(pool.T[::-1])]
+    keep = np.r_[True, (cand[1:] != cand[:-1]).any(1)]
+    cand = cand[keep]
+    pick = np.sort(rng.choice(len(cand), min(nbounds, len(cand)),
+                              replace=False))
+    words = torch.from_numpy(rows.T.copy().view(np.int64)).to(dev)
+    bounds = torch.from_numpy(cand[pick].view(np.int64).copy()).to(dev)
+    return words, bounds
+
+
+def hold_route(words, bounds, what: str) -> None:
+    nparts = bounds.shape[0] + 1
+    got = PK.range_partition(words, bounds, nparts)
+    want = PK.partition_order_plain(PK.range_route_plain(words, bounds),
+                                    nparts)
+    hold("range_partition", [(got[0], want[0]), (got[1], want[1])], what)
+
+
+def hold_dec_keys(col: DeviceColumn, build: DeviceColumn, what: str
+                  ) -> None:
+    """K2 where the path runs it: the order words (the range sort's), the
+    radix sort, and the several-key join's build and probe key words
+    (``col`` streams against ``build``)."""
+    for asc in (True, False):
+        o = SK.SortOrder(asc, nulls_first=not asc)
+        hold("decimal128_sort_key", [
+            (SK.order_words(col, o), SK.order_words_plain(col, o))],
+            f"{what} order words asc={asc}")
+        hold_sort([col], [o], f"{what} decimal asc={asc}")
+    for join_type in ("inner", "left"):
+        hold_multi_join([col], [build], f"{what} decimal key", join_type)
+
+
+def hold_dec_hash(col: DeviceColumn, what: str) -> None:
+    for seed in (42, 0x5F3759DF):
+        hold("decimal128_hash", [
+            (HK.murmur3_hash([col], seed),
+             HK.murmur3_hash_plain([col], seed))], f"{what} seed={seed}")
+    got = HK.murmur3_partition([col], 200)
+    want = HK.murmur3_hash_plain([col])
+    hold("decimal128_hash", [(got[0], want), (got[1], HK.pmod(want, 200))],
+         f"{what} partition")
+
+
+def check_memory_kernels(rng, dev, summary) -> None:
+    """range_partition (K1), the Decimal128 sort key (K2, through the
+    order words, the radix sort and the several-key join's build and
+    probe words) and the Decimal128 murmur3 (K3) against their plain
+    versions, bit for bit.  K1 at n = 0, 1, 1,048,576 and 1,000,003 over
+    1-4 words against 15 and 255 boundaries and past what shared memory
+    holds (31 words, 2,047 boundaries), and over the words of a long
+    string key and of a string key and an int key (order_words, chunks
+    from string_sort_keys), rows drawn from few distinct word rows (heavy
+    ties, keys equal to boundaries); K2 and K3 at n = 0, 1 and 1,000,003
+    over 0, +-1, +-255, +-256, +-2**63, +-10**37, +-(10**38 - 1), every
+    magnitude, repeats and 10% nulls, and at phase 15's shape (its left
+    join against the rows of k = 0); K3 also against Java's
+    BigInteger.toByteArray and murmur3 in Python over 100,000 rows.  Then
+    each timed: K1 and the order words at phase 18's ORDER BY shape, K2
+    (through the order words) and K3 at phase 15's (one 1,048,576-row
+    batch of the held decimal a)."""
+    for n in (0, 1, N, RAGGED):
+        # 1-4 words against 15 and 255 boundaries in shared memory (24
+        # words of 255 fill its 48 KB); 31 words (a 226-byte string key)
+        # and 2,047 boundaries read them from global memory
+        for nk, nb in [(nk, nb) for nk in (1, 2, 3, 4) for nb in (15, 255)] \
+                + [(24, 255), (31, 15), (31, 299), (3, 2047)]:
+            words, bounds = route_case(rng, n, nk, nb, dev,
+                                       distinct=max(nb * 4, 1))
+            hold_route(words, bounds, f"n={n} nk={nk} nb={nb}")
+        if n:
+            long_key = string_column(rng, n, dev, null_frac=0.1, lo=180,
+                                     hi=230)
+            nch = SK.string_chunks(SK.string_longest([long_key])[0])
+            words = SK.order_words(long_key, SK.SortOrder(True), nch)
+            for nb in (15, 299):
+                pick = torch.from_numpy(rng.randint(0, n, nb)).to(dev)
+                cand = words[:, pick].t().cpu().numpy().view(np.uint64)
+                cand = cand[np.lexsort(cand.T[::-1])]
+                cand = cand[np.r_[True, (cand[1:] != cand[:-1]).any(1)]]
+                hold_route(words, torch.from_numpy(
+                    cand.view(np.int64).copy()).to(dev),
+                    f"n={n} {words.shape[0]}-word string key "
+                    f"nb={len(cand)}")
+            s = string_column(rng, n, dev, null_frac=0.1, lo=0, hi=40)
+            k = key_column(rng, n, T.INT, 50, dev)
+            longest = SK.string_longest([s])[0]
+            nch = SK.string_chunks(longest)
+            words = torch.cat([
+                SK.order_words(s, SK.SortOrder(False), nch),
+                SK.order_words(k, SK.SortOrder(True, False))])
+            hold("order_words", [(words, torch.cat([
+                SK.order_words_plain(s, SK.SortOrder(False), nch),
+                SK.order_words_plain(k, SK.SortOrder(True, False))]))],
+                f"n={n} string and int")
+            for nb in (15, 255):
+                pick = torch.from_numpy(rng.randint(0, n, nb)).to(dev)
+                cand = words[:, pick].t().cpu().numpy().view(np.uint64)
+                cand = cand[np.lexsort(cand.T[::-1])]
+                cand = cand[np.r_[True, (cand[1:] != cand[:-1]).any(1)]]
+                hold_route(words, torch.from_numpy(
+                    cand.view(np.int64).copy()).to(dev),
+                    f"n={n} string key nb={len(cand)}")
+    for n in (0, 1, RAGGED):
+        col = dec_key_column(rng, n, dev)
+        # the build: a shuffled half of the stream's rows, so that keys
+        # match once, several times (the repeats) or not at all
+        half = torch.from_numpy(rng.permutation(n)[:max(n // 2, 1)]).to(dev)
+        build = DeviceColumn(col.data[half], col.validity[half], col.dtype)
+        hold_dec_keys(col, build, f"n={n}")
+        hold_dec_hash(col, f"n={n}")
+    col = dec_key_column(rng, 100_000, dev)
+    got = HK.murmur3_hash([col]).tolist()
+    lo, hi = col.data.cpu().numpy().T.tolist()
+    ok = col.validity.cpu().tolist()
+    for g, a, b, v in zip(got, lo, hi, ok):
+        want = java_murmur3(to_python(a, b) if v else None)
+        require(g == want, f"decimal128_hash {to_python(a, b)}: {g} where "
+                f"BigInteger.toByteArray gives {want}")
+    emit({"kernel": "decimal128_hash", "python_rows": len(got),
+          "java_bytes_equal": True})
+    # timed shapes
+    n = N
+    words, bounds = route_case(rng, n, RANGE_TIME_WORDS, RANGE_TIME_BOUNDS,
+                               dev, distinct=n)
+    hold_route(words, bounds, "phase 18's shape")
+    flat = words[-1] ^ (-2**63)            # the data word, signed order
+    flat_bounds = (bounds[:, -1] ^ (-2**63)).sort().values
+    v = key_column(rng, n, T.LONG, n, dev)
+    data, validity = held.decimal_columns(n, DEC_SEED)
+    dcol = DeviceColumn(torch.from_numpy(data["a"]).to(dev),
+                        torch.from_numpy(validity["a"]).to(dev),
+                        T.DecimalType(25, 4))
+    # phase 15's left join: a against the rows of k = 0
+    kzero = torch.from_numpy(np.flatnonzero(data["k"] == 0)).to(dev)
+    hold_dec_keys(dcol, DeviceColumn(dcol.data[kzero],
+                                     dcol.validity[kzero], dcol.dtype),
+                  "phase 15's shape")
+    hold_dec_hash(dcol, "phase 15's shape")
+    asc = SK.SortOrder(True)
+    nk = RANGE_TIME_WORDS
+    cases = {
+        "range_partition": (
+            lambda: PK.range_partition(words, bounds, RANGE_TIME_BOUNDS + 1),
+            lambda: PK.partition_order_plain(
+                PK.range_route_plain(words, bounds), RANGE_TIME_BOUNDS + 1),
+            lambda: torch.searchsorted(flat_bounds, flat, right=True),
+            8 * nk * n + 4 * n + 8 * n,
+            n * nk * (RANGE_TIME_BOUNDS + 1).bit_length(), "held_order_by"),
+        "order_words": (
+            lambda: SK.order_words(v, asc), lambda: SK.order_words_plain(
+                v, asc), None, 9 * n + 16 * n, 0, "held_order_by"),
+        # through the call the range sort makes: the null word and K2's
+        # two words of one Decimal128 key
+        "decimal128_sort_key": (
+            lambda: SK.order_words(dcol, asc),
+            lambda: SK.order_words_plain(dcol, asc), None,
+            17 * n + 24 * n, 0, "held_dec_order_by_a"),
+        "decimal128_hash": (
+            lambda: HK.murmur3_partition([dcol], 16),
+            lambda: HK.pmod(HK.murmur3_hash_plain([dcol]), 16), None,
+            17 * n + 8 * n, 60 * n, "held_dec_group_by_a"),
+    }
+    for kernel, (fn, plain, library, nbytes, ops, shape) in cases.items():
+        line = {"kernel": kernel, "shape": shape, "n": n,
+                **measure(fn, plain, library, nbytes, ops)}
+        emit(line)
+        summary[kernel] = summarize(line, nbytes, ops)
+
+
 def phase_kernels(dev, tables) -> dict:
     # the profiler itself must see the card
     device_profile(lambda: torch.ones(8, device=dev) + 1)
@@ -3486,6 +3781,7 @@ def phase_kernels(dev, tables) -> dict:
     check_picks(rng, dev, summary)
     check_decimal128(rng, dev, summary)
     check_window(rng, dev, summary)
+    check_memory_kernels(rng, dev, summary)
     torch.cuda.synchronize()
     return summary
 
@@ -4256,9 +4552,10 @@ def phase_fusion_ab(dfs, q3_dfs, q25_dfs) -> None:
 
 # -- phase 9 ------------------------------------------------------------------
 
-Q72_CONF = {"spark.sql.shuffle.partitions": "200",
-            "spark.rapids.sql.adaptive.coalescePartitions.enabled": "false"}
-Q72_PARTITIONS = 200
+# q72 runs in the default session: 16 shuffle partitions, the coalesced
+# reader on, batchSizeRows 1,048,576 (each inventory build partition,
+# ~8.3M rows, takes the out-of-core join)
+Q72_CONF: dict = {}
 Q72_KERNELS = ("fused_segment", "compaction_map", "gather",
                "gather_strings", "concat", "murmur3", "hash_string",
                "partition", "sort",
@@ -4397,8 +4694,8 @@ class Q72Numpy:
 def phase_q72_data(dev, cs_batches, order_pool, ref: "Q72Numpy", dims,
                    q3_dfs):
     """inventory and catalog_returns on the card; the dataframes of q72,
-    in a session of 200 shuffle partitions with the coalesced reader off;
-    the numpy result."""
+    in the default session (16 shuffle partitions, the coalesced reader
+    on); the numpy result."""
     t0 = time.perf_counter()
     inv_batches = []
     for data, _ in tpcds.iter_inventory(INV_ROWS, ITEM_ROWS, WAREHOUSES,
@@ -4424,7 +4721,7 @@ def phase_q72_data(dev, cs_batches, order_pool, ref: "Q72Numpy", dims,
           "resident_bytes_added": resident, "numpy_q72_groups": groups,
           "numpy_inventory_join_rows": pairs,
           "setup_seconds": time.perf_counter() - t0})
-    sess = GpuSession(Q72_CONF)
+    sess = GpuSession(Q72_CONF, device=dev)
     _, dd_df, item_df = q3_dfs
     one = lambda b: sess.create_dataframe([to_device(b, dev)])  # noqa: E731
     dfs = (sess.create_dataframe(cs_batches, num_partitions=4),
@@ -4437,8 +4734,9 @@ def phase_q72_data(dev, cs_batches, order_pool, ref: "Q72Numpy", dims,
 
 def check_q72_plan(plan) -> dict:
     """The inventory join is a shuffled join with the condition that took
-    the streamed probe in all 200 partitions; the returns join went
-    shuffled as a left join; promotion broadcasts as a left join."""
+    the out-of-core branch in every partition whose build passes
+    batchSizeRows (and the streamed probe in the others); the returns join
+    went shuffled as a left join; promotion broadcasts as a left join."""
     nodes = list(plan_nodes(plan))
 
     def right(n):
@@ -4449,8 +4747,15 @@ def check_q72_plan(plan) -> dict:
     require(len(inv) == 1 and inv[0].condition is not None,
             "the inventory join is not one shuffled join with a condition")
     inv = inv[0]
-    require(inv.branches == {"streamed": Q72_PARTITIONS},
-            f"the inventory join's branches: {dict(inv.branches)}")
+    require(inv.branches["out_of_core"] >= 1
+            and inv.largest_build_rows > inv.target_rows,
+            f"the inventory join's branches: {dict(inv.branches)}, its "
+            f"largest build {inv.largest_build_rows} rows")
+    ooc = inv.branches["out_of_core"]
+    builds = [b for b in inv.build_rows if b > inv.target_rows]
+    require(len(builds) == ooc,
+            f"{len(builds)} builds above {inv.target_rows} rows, {ooc} "
+            "partitions out of core")
     cr = [n for n in nodes if isinstance(n, GpuAdaptiveJoinExec)
           and "cr_item_sk" in right(n)]
     require(len(cr) == 1 and cr[0].chosen == "shuffled"
@@ -4463,7 +4768,9 @@ def check_q72_plan(plan) -> dict:
     require(len(promo) == 1 and promo[0].join_type == "left",
             "the promotion join is not a broadcast left join")
     return {"inventory_join": {
-                "partitions": inv.branches["streamed"],
+                "branches": dict(inv.branches),
+                "sub_buckets": inv.sub_buckets,
+                "build_rows": inv.build_rows,
                 "largest_build_rows": inv.largest_build_rows,
                 "target_rows": inv.target_rows,
                 "condition": repr(inv.condition),
@@ -4505,7 +4812,10 @@ CHANNEL_SALES_ROWS = {"store": SS_ROWS, "catalog": CS_ROWS,
 CHANNEL_RETURNS_ROWS = {"store": SR_ROWS, "catalog": CR_ROWS,
                         "web": tpcds.SF10_WEB_RETURNS_ROWS}
 CHANNEL_SEEDS = {"store": (41, 19), "catalog": (43, 20), "web": (47, 21)}
-Q14A_CONF = Q72_CONF
+# q14a, q5 and semi_anti keep phase 9's former session
+Q14A_CONF = {"spark.sql.shuffle.partitions": "200",
+             "spark.rapids.sql.adaptive.coalescePartitions.enabled": "false"}
+Q14A_PARTITIONS = 200
 Q14A_KERNELS = ("join_multi_probe_semi", "join_expand_left_only",
                 "join_multi_build", "join_build", "join_probe",
                 "join_expand", "murmur3", "hash_string", "partition", "sort",
@@ -4724,7 +5034,7 @@ def check_q14a_plan(plan) -> dict:
         isinstance(n, GpuShuffledHashJoinExec) for n in semi),
         f"q14a's semi joins: {[type(n).__name__ for n in semi]}")
     for n in semi:
-        require(n.branches == {"streamed": Q72_PARTITIONS},
+        require(n.branches == {"streamed": Q14A_PARTITIONS},
                 f"a q14a semi join's branches: {dict(n.branches)}")
     return {"semi_joins": [{"largest_build_rows": n.largest_build_rows,
                             "output_rows": n.output_rows.value}
@@ -5955,6 +6265,104 @@ def phase_decimal(df, ref: DecimalNumpy) -> dict:
               "activities_per_batch": per_batch(timing, nbatches),
               **timing})
         by_path[path] = launches
+    by_path.update(phase_decimal_keys(df, ref))
+    return by_path
+
+
+# each Decimal128 key query's kernels that its main path must launch
+DEC_KEY_KERNELS = {
+    "dec_order_by_a": ("order_words", "decimal128_sort_key",
+                       "range_partition", "sort", "gather"),
+    "dec_order_by_a_desc": ("order_words", "decimal128_sort_key",
+                            "range_partition", "sort", "gather"),
+    "dec_group_by_a": ("decimal128_sort_key", "decimal128_hash", "murmur3",
+                       "partition", "sort"),
+    # broadcast or shuffled by the build's estimate (the group by shuffles)
+    "dec_left_join_a": ("decimal128_sort_key", "join_multi_build",
+                        "join_multi_probe_left", "join_expand"),
+}
+
+
+def limb_keys(limbs: np.ndarray) -> np.ndarray:
+    """int128 order of [n, 2] (low, high) limbs as a structured array:
+    the high limb signed, then the low limb unsigned."""
+    out = np.empty(len(limbs), dtype=[("hi", "<i8"), ("lo", "<u8")])
+    out["hi"] = limbs[:, 1]
+    out["lo"] = limbs[:, 0].view(np.uint64)
+    return out
+
+
+def phase_decimal_keys(df, ref: DecimalNumpy) -> dict:
+    """The Decimal128 key queries over the held decimal table: ORDER BY a
+    ascending and descending (the range sort), GROUP BY a with a count,
+    and a left join on a against the rows of k = 0; each run to its
+    device batches with its launches, exact against numpy over the two
+    int64 limbs (np.lexsort on (lo as uint64, hi)), timed by one more
+    run."""
+    a = ref.data["a"]
+    ok = ref.validity["a"]
+    keys = limb_keys(a[ok])
+    order = np.lexsort((keys["lo"], keys["hi"]))
+    sorted_a = a[ok][order]
+    nnull = int((~ok).sum())
+    uniq, counts = np.unique(keys, return_counts=True)
+    right = ok & (ref.data["k"] == 0)
+    both = np.concatenate([keys, limb_keys(a[right])])
+    _, inv = np.unique(both, return_inverse=True)
+    rcount = np.bincount(inv[len(keys):], minlength=inv.max() + 1)
+    m = rcount[inv[:len(keys)]]
+    join_rows = nnull + int(np.maximum(m, 1).sum())
+    by_path = {}
+    queries = {
+        "dec_order_by_a": lambda: df.order_by(("a", SK.SortOrder(True))),
+        "dec_order_by_a_desc": lambda: df.order_by(
+            ("a", SK.SortOrder(False))),
+        "dec_group_by_a": lambda: df.group_by("a").agg(
+            E.count().alias("n")),
+        "dec_left_join_a": lambda: df.join(
+            df.filter(E.col("k") == 0).select(E.col("a").alias("a2")),
+            on=([E.col("a")], [E.col("a2")]), how="left"),
+    }
+    for name, query in queries.items():
+        path = f"held_{name}"
+        cols, launches, first_wall, profile = run_rows_path(
+            path, query, DEC_KEY_KERNELS[name])
+        got_a = cols[0].data.cpu().numpy()
+        got_ok = cols[0].validity.cpu().numpy()
+        if name.startswith("dec_order_by"):
+            asc = name == "dec_order_by_a"
+            want_ok = np.r_[np.zeros(nnull, bool), np.ones(len(keys), bool)]
+            want = sorted_a if asc else sorted_a[::-1]
+            if not asc:
+                want_ok = want_ok[::-1]
+            require(np.array_equal(got_ok, want_ok)
+                    and np.array_equal(got_a[got_ok], want),
+                    f"{path}: the order differs from numpy's")
+            extra = {"output_rows": len(got_ok)}
+        elif name == "dec_group_by_a":
+            n_col = cols[1].data.cpu().numpy()
+            require(int((~got_ok).sum()) == 1
+                    and int(n_col[~got_ok][0]) == nnull,
+                    f"{path}: the null group")
+            gk = limb_keys(got_a[got_ok])
+            go = np.argsort(gk, order=("hi", "lo"), kind="stable")
+            require(np.array_equal(gk[go], uniq)
+                    and np.array_equal(n_col[got_ok][go], counts),
+                    f"{path}: groups or counts differ from numpy's")
+            extra = {"groups": len(uniq) + 1}
+        else:
+            a2 = cols[-1]
+            matched = int(a2.validity.sum())
+            same = bool((cols[0].data[a2.validity]
+                         == a2.data[a2.validity]).all())
+            require(len(got_ok) == join_rows and matched == int(m.sum())
+                    and same, f"{path}: {len(got_ok)} rows, {matched} "
+                    f"matched where numpy has {join_rows} and {int(m.sum())}")
+            extra = {"output_rows": join_rows, "matched": matched}
+        timing = time_rows_path(path, query, profile, runs=1)
+        emit({"phase": path, "rows": DEC_ROWS, "first_wall_s": first_wall,
+              **extra, **timing})
+        by_path[path] = launches
     return by_path
 
 
@@ -6361,6 +6769,292 @@ def phase_q98(dfs, ref: GauntletNumpy) -> dict:
     return {"q98": launches}
 
 
+# -- phase 18 ----------------------------------------------------------------
+
+# phase 12's table at half its rows (7,501,518): at 15,003,037 part (b)
+# alone took 60-74 s on an H100 80GB HBM3 at 700 W, its ~10 GB of spill
+# files most of it, and the script 850-939 s
+MEM_ROWS = HELD_ROWS // 2
+MEM_PARTITIONS = HELD_PARTITIONS
+#: batchSizeRows at a 16th of a partition: the final aggregate and the
+#: sort go out of core
+MEM_TARGET = MEM_ROWS // MEM_PARTITIONS // 16            # 29,302
+MEM_HOST_LIMIT = 64 << 20        # spark.rapids.memory.host.spillStorageSize
+MEM_CONF = {"spark.rapids.sql.batchSizeRows": str(MEM_TARGET)}
+#: (d): the device memory left above what is reserved when the cap is set
+MEM_HEADROOM = 8 << 20
+MEM_BALLAST_ROWS = 512 << 20     # a 4.5 GB spillable handle
+#: (d)'s host tier holds the ballast (a session's spillStorageSize)
+MEM_D_CONF = {**MEM_CONF,
+              "spark.rapids.memory.host.spillStorageSize": str(8 << 30)}
+MEM_KERNELS = {
+    "group_by": ("murmur3", "partition", "sort", "gather", "segmented_sum",
+                 "concat"),
+    "order_by": ("order_words", "range_partition", "partition", "sort",
+                 "gather", "concat"),
+}
+
+
+def mem_group_by(df):
+    return df.group_by("v").agg(E.count().alias("n"),
+                                E.count("x").alias("nx"),
+                                E.sum_("k").alias("sk"))
+
+
+def mem_order_by(df):
+    return df.order_by(("v", SK.SortOrder(True)))
+
+
+class MemNumpy:
+    """phase 18's answers over the host columns: GROUP BY v's groups with
+    their row counts, valid-x counts and k sums (exact), the null group
+    apart; ORDER BY v's v column, nulls first."""
+
+    def __init__(self, data, validity):
+        v, ok = data["v"], validity["v"]
+        self.nnull = int((~ok).sum())
+        self.keys, inv, self.n = np.unique(v[ok], return_inverse=True,
+                                           return_counts=True)
+        okx, okk = validity["x"], validity["k"]
+        k = np.where(okk, data["k"], 0).astype(np.int64)
+        self.nx = np.bincount(inv, weights=okx[ok]).astype(np.int64)
+        self.sk = np.bincount(inv, weights=k[ok]).astype(np.int64)
+        self.null_row = (self.nnull, int(okx[~ok].sum()),
+                         int(k[~ok].sum()))
+        self.sorted_v = np.sort(v[ok])
+
+    def check_group_by(self, cols, what: str) -> int:
+        v, n, nx, sk = (c.data.cpu().numpy() for c in cols)
+        ok = cols[0].validity.cpu().numpy()
+        require(int((~ok).sum()) == 1 and
+                (int(n[~ok][0]), int(nx[~ok][0]), int(sk[~ok][0]))
+                == self.null_row, f"{what}: the null group")
+        o = np.argsort(v[ok], kind="stable")
+        for name, got, want in (("keys", v[ok][o], self.keys),
+                                ("count", n[ok][o], self.n),
+                                ("count(x)", nx[ok][o], self.nx),
+                                ("sum(k)", sk[ok][o], self.sk)):
+            require(np.array_equal(got, want),
+                    f"{what}: {name} differs from numpy's")
+        return len(o) + 1
+
+    def check_order_by(self, cols, what: str) -> int:
+        v_col = cols[held.SCHEMA.names.index("v")]
+        v = v_col.data.cpu().numpy()
+        ok = v_col.validity.cpu().numpy()
+        require(not ok[:self.nnull].any() and ok[self.nnull:].all()
+                and np.array_equal(v[self.nnull:], self.sorted_v),
+                f"{what}: v is not numpy's order, nulls first")
+        return len(v)
+
+
+def phase_memory_data(dev):
+    """Phase 12's held table again (phase 12 freed it), drawn at
+    7,501,518 rows in batches of 1,048,576, 16 partitions; numpy's
+    answers."""
+    t0 = time.perf_counter()
+    data, validity = held.columns(MEM_ROWS, HELD_SEED)
+    batches = [batch_from_numpy({c: (data[c][o:o + N], validity[c][o:o + N])
+                                 for c in held.SCHEMA.names}, held.SCHEMA,
+                                dev) for o in range(0, MEM_ROWS, N)]
+    ref = MemNumpy(data, validity)
+    torch.cuda.synchronize()
+    emit({"phase": "memory_data", "rows": MEM_ROWS, "batches": len(batches),
+          "partitions": MEM_PARTITIONS, "batch_size_rows": MEM_TARGET,
+          "groups": len(ref.keys) + 1,
+          "setup_seconds": time.perf_counter() - t0})
+    return batches, ref
+
+
+def plan_execs(plan, cls) -> list:
+    return [n for n in plan_nodes(plan) if isinstance(n, cls)]
+
+
+def mem_run(name: str, sess, batches, query, kernels) -> tuple:
+    """One run of a phase 18 query to its device batches: the launch counts
+    set to 0 just before and read just after (each of ``kernels`` must
+    have launched), the spill metrics, retries and real OOMs it added,
+    the shuffle store's bytes, its wall and the peak device memory it
+    allocated.  Returns (output columns, plan, counters)."""
+    from spark_rapids_tpu_torch.memory import arena as arena_mod
+    from spark_rapids_tpu_torch.memory import metrics as task_metrics
+    from spark_rapids_tpu_torch.memory import spill_framework
+    fw = spill_framework()
+    open_before = {id(h) for h in fw.leaked_handles()}
+    m0 = fw.metrics.as_dict()
+    t0 = task_metrics.get().as_dict()
+    oom0 = arena_mod.GLOBAL_DEVICE_OOM_COUNT
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _lib.reset_launch_counts()
+    wall = time.perf_counter()
+    df = sess.create_dataframe(batches, num_partitions=MEM_PARTITIONS)
+    plan = query(df).physical_plan()
+    try:
+        out = [b for p in range(plan.num_partitions())
+               for b in plan.execute_partition(p)]
+        store = sum(ex._store.stored_bytes() for ex in plan_execs(
+            plan, GpuShuffleExchangeExec) if ex._store is not None)
+    finally:
+        plan.cleanup()
+    cols = output_columns(out)
+    del out
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - wall
+    launches = dict(_lib.LAUNCHES)
+    for k in kernels:
+        require(launches.get(k, 0) > 0, f"{name} never launched {k}")
+    m1, t1 = fw.metrics.as_dict(), task_metrics.get().as_dict()
+    info = {"wall_s": wall,
+            "peak_device_bytes": torch.cuda.max_memory_allocated() - base,
+            "store_bytes": store,
+            "spill": {k: m1[k] - m0[k] for k in m1},
+            "retries": {k: t1[k] - t0[k] for k in t1},
+            "real_ooms": arena_mod.GLOBAL_DEVICE_OOM_COUNT - oom0,
+            "leaked_handles": len([h for h in fw.leaked_handles()
+                                   if id(h) not in open_before]),
+            "launches": launches}
+    require(info["leaked_handles"] == 0, f"{name} leaked spillable handles")
+    return cols, plan, info
+
+
+def phase_memory(batches, ref: MemNumpy) -> dict:
+    """The memory runtime on phase 12's table, in four parts, each with
+    its wall, spill and retry counters and peak device memory:
+    (a) GROUP BY v and ORDER BY v at batchSizeRows = a 16th of a
+        partition: the final aggregate out of core in every partition,
+        the global sort range-routed into 16 buckets; rows exact against
+        numpy, the sort in order;
+    (b) the GROUP BY with the arena's budget at a quarter of its shuffle
+        store's bytes and spillStorageSize at 64 MB, checksums on:
+        handles go to pinned host memory and to disk and come back;
+    (c) the GROUP BY under injected retry OOMs and one injected split OOM
+        (which halves a batch of the partial aggregate), and the ORDER BY
+        under injected retry OOMs;
+    (d) one real OOM: a 4.5 GB spillable handle, then
+        ``torch.cuda.set_per_process_memory_fraction`` at what the
+        caching allocator holds plus 8 MB, so that the ORDER BY finishes
+        only by spilling; the allocator's OutOfMemoryError must reach
+        ``with_retry_no_split`` as the retry OOM, and the rerun pass."""
+    from spark_rapids_tpu_torch.memory import (device_arena,
+                                               disable_oom_injection,
+                                               enable_oom_injection,
+                                               make_spillable)
+    from spark_rapids_tpu_torch.plan.execs.aggregate import \
+        GpuHashAggregateExec
+    from spark_rapids_tpu_torch.plan.execs.range_sort import \
+        GpuRangeSortExec
+    by_path = {}
+    sess = GpuSession(MEM_CONF)
+    cols, plan, info = mem_run("memory_a_group_by", sess, batches,
+                               mem_group_by, MEM_KERNELS["group_by"])
+    groups = ref.check_group_by(cols, "memory_a_group_by")
+    final = [n for n in plan_execs(plan, GpuHashAggregateExec)
+             if n.mode == "final"]
+    require(len(final) == 1 and final[0].branches["out_of_core"] >= 1,
+            "memory_a_group_by: the final aggregate never went out of "
+            f"core: {[dict(n.branches) for n in final]}")
+    store = info["store_bytes"]
+    emit({"phase": "memory_a_group_by", "groups": groups,
+          "branches": dict(final[0].branches), **info})
+    by_path["memory_a_group_by"] = info["launches"]
+    del cols
+    cols, plan, info = mem_run("memory_a_order_by", sess, batches,
+                               mem_order_by, MEM_KERNELS["order_by"])
+    rows = ref.check_order_by(cols, "memory_a_order_by")
+    rs = plan_execs(plan, GpuRangeSortExec)
+    require(len(rs) == 1 and rs[0].branch == "routed",
+            "memory_a_order_by: the global sort was not range-routed")
+    emit({"phase": "memory_a_order_by", "rows": rows,
+          "partitions": rs[0].out_partitions, "branch": rs[0].branch,
+          **info})
+    by_path["memory_a_order_by"] = info["launches"]
+    del cols
+    # (b) spill through both tiers
+    sess_b = GpuSession({**MEM_CONF, "spark.rapids.memory.host."
+                         "spillStorageSize": str(MEM_HOST_LIMIT)})
+    arena = device_arena()
+    saved = arena.budget_bytes
+    arena.budget_bytes = store // 4
+    try:
+        cols, _, info = mem_run("memory_b_spill", sess_b, batches,
+                                mem_group_by, MEM_KERNELS["group_by"])
+    finally:
+        arena.budget_bytes = saved
+    ref.check_group_by(cols, "memory_b_spill")
+    sp = info["spill"]
+    require(sp["spill_to_host_bytes"] > 0 and sp["spill_to_disk_bytes"] > 0
+            and sp["read_spill_bytes"] > 0 and sp["unspill_host_bytes"] > 0
+            and sp["corruption_errors"] == 0,
+            f"memory_b_spill: the tiers were not both used: {sp}")
+    emit({"phase": "memory_b_spill", "budget_bytes": store // 4,
+          "host_limit_bytes": MEM_HOST_LIMIT, "checksums": True, **info})
+    by_path["memory_b_spill"] = info["launches"]
+    del cols
+    # (c) injected OOMs (a session made now: the memory settings are the
+    # last session's)
+    sess = GpuSession(MEM_CONF)
+    for name, query, check, kind, num, skip in (
+            ("memory_c_retry_group_by", mem_group_by, ref.check_group_by,
+             "retry", 3, 1),
+            ("memory_c_split_group_by", mem_group_by, ref.check_group_by,
+             "split", 1, 0),
+            ("memory_c_retry_order_by", mem_order_by, ref.check_order_by,
+             "retry", 3, 2)):
+        enable_oom_injection(num_ooms=num, skip=skip, kind=kind)
+        try:
+            cols, _, info = mem_run(name, sess, batches, query,
+                                    MEM_KERNELS["group_by" if query is
+                                                mem_group_by else "order_by"])
+        finally:
+            disable_oom_injection()
+        check(cols, name)
+        key = "retry_count" if kind == "retry" else "split_retry_count"
+        require(info["retries"][key] == num,
+                f"{name}: {info['retries']} after {num} injected {kind} OOMs")
+        emit({"phase": name, "injected": {"kind": kind, "num": num,
+                                          "skip": skip}, **info})
+        by_path[name] = info["launches"]
+        del cols
+    # (d) one real OOM
+    sess = GpuSession(MEM_D_CONF)
+    torch.cuda.synchronize()
+    dev = batches[0].device
+    ballast = make_spillable(ColumnarBatch(
+        (DeviceColumn(torch.zeros(MEM_BALLAST_ROWS, dtype=torch.int64,
+                                  device=dev),
+                      torch.ones(MEM_BALLAST_ROWS, dtype=torch.bool,
+                                 device=dev), T.LONG),),
+        MEM_BALLAST_ROWS, Schema(("z",), (T.LONG,))))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    reserved = torch.cuda.memory_reserved(dev)
+    frac = (reserved + MEM_HEADROOM) / total
+    torch.cuda.set_per_process_memory_fraction(frac, dev)
+    try:
+        cols, _, info = mem_run("memory_d_real_oom", sess, batches,
+                                mem_order_by, MEM_KERNELS["order_by"])
+        tier = ballast.tier()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        ballast.close()
+    ref.check_order_by(cols, "memory_d_real_oom")
+    require(info["real_ooms"] >= 1 and info["retries"]["retry_count"] >= 1
+            and tier == "host",
+            f"memory_d_real_oom: {info['real_ooms']} real OOMs, "
+            f"{info['retries']}, the ballast on the {tier}")
+    emit({"phase": "memory_d_real_oom", "memory_fraction": frac,
+          "reserved_bytes_at_cap": reserved, "headroom_bytes": MEM_HEADROOM,
+          "ballast_bytes": 9 * MEM_BALLAST_ROWS, "ballast_tier": tier,
+          **info})
+    by_path["memory_d_real_oom"] = info["launches"]
+    del cols
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -6398,6 +7092,7 @@ def main() -> None:
     by_path.update(phase_decimal(*phase_decimal_data(dev)))
     by_path.update(phase_window(*phase_window_data(dev)))
     by_path.update(phase_q98(gauntlet_dfs, gauntlet))
+    by_path.update(phase_memory(*phase_memory_data(dev)))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         s = summary[name]

@@ -29,6 +29,7 @@ from spark_rapids_tpu_torch.columnar.arrow import (arrow_to_batch,
                                                    batch_from_numpy)
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
 from spark_rapids_tpu_torch.config import RapidsConf
+from spark_rapids_tpu_torch.memory import initialize_memory
 from spark_rapids_tpu_torch.expressions.core import (Alias, Col, Expression,
                                                      Literal, col, lit)
 from spark_rapids_tpu_torch.kernels.sort import SortOrder
@@ -112,6 +113,7 @@ class GpuSession:
                 "spark.rapids.sql.enabled=false runs the CPU oracle engine, "
                 "which is not ported")
         self.device = resolve_device(device)
+        initialize_memory(self.conf, self.device)
 
     def create_dataframe(self, data, schema: Optional[Schema] = None,
                          num_partitions: int = 1) -> "DataFrame":

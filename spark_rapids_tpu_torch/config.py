@@ -1,8 +1,9 @@
 """Session configuration of the port.
 
 Counterpart of ``spark_rapids_tpu/config.py`` (``RapidsConf`` :927), cut to
-the keys the q6, q1, q3, q25 and q72 paths read, and ``fuseStages``
-(``STAGE_FUSION`` :150-156, ``fuse_stages`` :1109).  Keys keep the
+the keys the q6, q1, q3, q25 and q72 paths read, ``fuseStages``
+(``STAGE_FUSION`` :150-156, ``fuse_stages`` :1109) and the memory
+runtime's keys.  Keys keep the
 reference's names; a key the port does not know is kept and ignored, as
 Spark does with unknown confs.
 """
@@ -18,6 +19,11 @@ JOIN_ADAPTIVE = "spark.rapids.sql.join.adaptive.enabled"
 AQE_COALESCE = "spark.rapids.sql.adaptive.coalescePartitions.enabled"
 BATCH_SIZE_BYTES = "spark.rapids.sql.batchSizeBytes"
 STAGE_FUSION = "spark.rapids.sql.tpu.fuseStages"
+RETRY_MAX_ATTEMPTS = "spark.rapids.sql.retry.maxAttempts"
+HOST_SPILL_STORAGE_SIZE = "spark.rapids.memory.host.spillStorageSize"
+SPILL_CHECKSUM_ENABLED = "spark.rapids.memory.spill.checksum.enabled"
+MEMORY_LEAK_AUDIT = "spark.rapids.memory.debug.leakAudit"
+DEVICE_MEMORY_LIMIT = "spark.rapids.memory.tpu.allocFraction"
 
 _DEFAULTS = {
     SQL_ENABLED: True,
@@ -33,6 +39,12 @@ _DEFAULTS = {
     BATCH_SIZE_BYTES: 1 << 28,
     # config.py:150-156 of the reference
     STAGE_FUSION: True,
+    # config.py:543, :538, :283, :428 and :533 of the reference
+    RETRY_MAX_ATTEMPTS: 8,
+    HOST_SPILL_STORAGE_SIZE: 1 << 30,
+    SPILL_CHECKSUM_ENABLED: True,
+    MEMORY_LEAK_AUDIT: False,
+    DEVICE_MEMORY_LIMIT: 0.85,
 }
 
 
@@ -104,3 +116,30 @@ class RapidsConf:
         """Run each exchange-free chain of Project / Filter / partial
         aggregate as one fused-segment kernel per batch (plan/fused.py)."""
         return _to_bool(self._get(STAGE_FUSION))
+
+    @property
+    def retry_max_attempts(self) -> int:
+        """Runs of a step on OOM before the task fails."""
+        return int(self._get(RETRY_MAX_ATTEMPTS))
+
+    @property
+    def host_spill_storage_size(self) -> int:
+        """Bytes of spilled batches the host tier holds before it moves
+        the oldest to disk (0: no limit)."""
+        return int(self._get(HOST_SPILL_STORAGE_SIZE))
+
+    @property
+    def spill_checksum_enabled(self) -> bool:
+        """Checksum spill files when written and verify them on reload."""
+        return _to_bool(self._get(SPILL_CHECKSUM_ENABLED))
+
+    @property
+    def memory_leak_audit(self) -> bool:
+        """Record where each spillable handle was made."""
+        return _to_bool(self._get(MEMORY_LEAK_AUDIT))
+
+    @property
+    def device_memory_fraction(self) -> float:
+        """The share of the card's memory the arena's budget allows the
+        spillable handles."""
+        return float(self._get(DEVICE_MEMORY_LIMIT))

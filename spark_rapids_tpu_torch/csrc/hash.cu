@@ -27,6 +27,19 @@
 //   8-9 bytes), so no byte tile is built: the reference pads every row to
 //   a power-of-two bucket of bytes because XLA needs static shapes.
 //   Bound: bytes: 8 bytes of offsets and each string byte read once.
+//
+// Decimal128 columns <- spark_rapids_tpu/kernels/hash.py:141
+//                       _hash_decimal128_bytes
+//   One more kind: Spark hashes a decimal of precision above 18 as
+//   hashUnsafeBytes of BigInteger.toByteArray(), the minimal big-endian
+//   two's-complement bytes of the unscaled value.  The row builds the 16
+//   big-endian bytes of (high limb, low limb) in registers, strips the
+//   leading bytes that equal the sign fill while the next byte's top bit
+//   still equals the sign (at least one byte stays), mixes the aligned
+//   4-byte little-endian words, then each tail byte sign-extended, and
+//   takes fmix with the length.
+//   Bound: bytes: 16 bytes of limbs and a validity byte read, 4 bytes of
+//   hash written per row; ~60 integer operations per row.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -41,6 +54,8 @@ constexpr int kInt64 = 1;   // long, Decimal64: hashLong
 constexpr int kF64 = 2;     // double: hashLong of the normalized bits
 constexpr int kBool = 3;    // bool (one byte): hashInt of 0 or 1
 constexpr int kString = 4;  // string: hashUnsafeBytes of the row's bytes
+constexpr int kDec128 = 5;  // two-limb decimal: hashUnsafeBytes of its
+                            // minimal big-endian bytes
 
 struct HashCols {
   const void* data[kMaxHashCols];
@@ -101,6 +116,25 @@ __device__ __forceinline__ uint32_t hash_bytes(const uint8_t* p, int32_t len,
   return fmix(h1, static_cast<uint32_t>(len));
 }
 
+// Spark's hash of a two-limb decimal (lo, hi): BigInteger.toByteArray()
+__device__ __forceinline__ uint32_t hash_decimal128(int64_t lo, int64_t hi,
+                                                    uint32_t seed) {
+  uint8_t be[16];
+  for (int j = 0; j < 8; ++j) {
+    be[j] = static_cast<uint8_t>(static_cast<uint64_t>(hi) >> (8 * (7 - j)));
+    be[8 + j] =
+        static_cast<uint8_t>(static_cast<uint64_t>(lo) >> (8 * (7 - j)));
+  }
+  const bool neg = hi < 0;
+  const uint8_t fill = neg ? 0xFF : 0x00;
+  int strip = 0;
+  while (strip < 15 && be[strip] == fill &&
+         ((be[strip + 1] & 0x80) != 0) == neg) {
+    ++strip;
+  }
+  return hash_bytes(be + strip, 16 - strip, seed);
+}
+
 __global__ void __launch_bounds__(kThreads)
 murmur3_kernel(HashCols cols, int ncols, int64_t n, uint32_t seed,
                int32_t* __restrict__ hashes, int32_t num_partitions,
@@ -127,6 +161,11 @@ murmur3_kernel(HashCols cols, int ncols, int64_t n, uint32_t seed,
           bits = static_cast<uint64_t>(__double_as_longlong(d));
         }
         h = hash_long(bits, h);
+        break;
+      }
+      case kDec128: {
+        const int64_t* limbs = static_cast<const int64_t*>(cols.data[c]);
+        h = hash_decimal128(limbs[2 * r], limbs[2 * r + 1], h);
         break;
       }
       case kString: {

@@ -109,6 +109,10 @@ constexpr int kInt64 = 1;   // long, Decimal64
 constexpr int kF64 = 2;     // double
 constexpr int kBool = 3;    // bool
 constexpr int kString = 4;  // string (several-key path only)
+constexpr int kDec128 = 5;  // two-limb decimal (several-key path only): two
+                            // words, the signed high limb with its sign bit
+                            // flipped, then the low limb (csrc/sort.cu's
+                            // kDec128Hi and kDec128Lo)
 constexpr int kMaxKeys = 16;
 
 // probe modes (kernels/join.py _MODES)
@@ -268,6 +272,12 @@ join_key_words_kernel(KeyCols cols, const int32_t* __restrict__ perm,
   }
   int j = 0;
   for (int k = 0; k < cols.nkeys; ++k) {
+    if (cols.kinds[k] == kDec128) {
+      const int64_t* limbs = static_cast<const int64_t*>(cols.data[k]);
+      w[j++] = static_cast<uint64_t>(limbs[2 * r + 1]) ^ (1ull << 63);
+      w[j++] = static_cast<uint64_t>(limbs[2 * r]);
+      continue;
+    }
     if (cols.kinds[k] != kString) {
       w[j++] = order_key(cols.data[k], cols.kinds[k], r);
       continue;
@@ -490,7 +500,7 @@ bool key_cols(int nkeys, const int* kinds, const int* nchunks,
   int words = 0;
   out->nkeys = nkeys;
   for (int k = 0; k < nkeys; ++k) {
-    if (kinds[k] < kInt32 || kinds[k] > kString) return false;
+    if (kinds[k] < kInt32 || kinds[k] > kDec128) return false;
     if (kinds[k] == kString && (nchunks[k] < 0 || offsets[k] == nullptr))
       return false;
     out->kinds[k] = kinds[k];
@@ -498,7 +508,8 @@ bool key_cols(int nkeys, const int* kinds, const int* nchunks,
     out->data[k] = data[k];
     out->valid[k] = static_cast<const uint8_t*>(valid[k]);
     out->offsets[k] = static_cast<const int32_t*>(offsets[k]);
-    words += kinds[k] == kString ? nchunks[k] + 1 : 1;
+    words += kinds[k] == kString ? nchunks[k] + 1
+             : kinds[k] == kDec128 ? 2 : 1;
   }
   return words == nwords;
 }

@@ -50,6 +50,40 @@
 //   column is then the length (least significant, on only as many bytes as
 //   the longest length needs), then the chunks from last to first, then
 //   its null pass: UTF8String.binaryCompare order.
+//
+// Decimal128 keys <- spark_rapids_tpu/kernels/sort.py:123
+//                    _decimal128_data_keys
+//   Two more key kinds over a two-limb column (int64 [n, 2], low limb
+//   first): kDec128Hi, the signed high limb with its sign bit flipped, and
+//   kDec128Lo, the low limb as unsigned: int128 order, the high word most
+//   significant.  Both are complemented for DESC and 0 on a null row, as
+//   every key here.  A decimal column sorts as its low word's 8 passes,
+//   then its high word's, then its null pass.
+//   Bound: bytes: 16 bytes of limbs read and 16 of words written per row.
+//
+// order words <- spark_rapids_tpu/plan/execs/range_sort.py:43 _encode_fn
+//   The range sort's per-row uint64 words, word-plane major: the null
+//   word (1 sorts after 0, as null_key_kernel) and the key kernel's data
+//   word of one plane, for every key kind above.  A string key is its
+//   chunks and its length from csrc/strings.cu, each taken as kRawU64 /
+//   kRawU32; a Decimal128 key its kDec128Hi and kDec128Lo words.
+//   Bound: bytes: each key read once, 8 bytes a word written.
+//
+// range_partition <- spark_rapids_tpu/plan/execs/range_sort.py:96-113
+//                    make_router.route
+//   Each row's bucket is the number of sampled boundaries whose word row is
+//   lexicographically <= the row's words (so equal keys never split), by a
+//   binary search over the boundaries, which are sorted.  They are staged
+//   in shared memory when they fit in 48 KB (255 boundaries of 24 words);
+//   more boundaries or longer keys (a long string's chunks) read them
+//   from global memory, through L1.  The words are plane major, so a
+//   warp's loads of one word are coalesced; a row's first word is held in
+//   a register and the others are read only on a tie.  The reorder and
+//   the bucket counts are srt_partition's stable counting scatter over the
+//   bucket ids (its block histograms give the counts).
+//   Bound: bytes: nk words of 8 bytes read and 4 bytes of bucket id written
+//   per row, then the partition pass's ids.  The compares, ~8 nk per row,
+//   are far below the card's integer rate.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <cub/block/block_reduce.cuh>
@@ -72,6 +106,9 @@ constexpr int kF64 = 2;     // double
 constexpr int kBool = 3;    // bool
 constexpr int kRawU32 = 4;  // a ready order-preserving uint32 key
 constexpr int kRawU64 = 5;  // a ready order-preserving uint64 key
+constexpr int kDec128Hi = 6;  // a two-limb decimal's high limb, signed
+constexpr int kDec128Lo = 7;  // its low limb, unsigned
+constexpr int kMaxStagedBoundaryBytes = 48 * 1024;
 
 template <typename K>
 __device__ __forceinline__ uint32_t digit_of(K key, int shift, uint32_t mask) {
@@ -204,6 +241,36 @@ int radix_pass(const K* keys_in, K* keys_out, const int32_t* ids_in,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The order-preserving unsigned key of row r of a key plane (ascending, the
+// row taken as valid).
+__device__ __forceinline__ uint64_t data_key(const void* data, int kind,
+                                             int64_t r) {
+  switch (kind) {
+    case kInt32:
+      return static_cast<uint32_t>(static_cast<const int32_t*>(data)[r]) ^
+             0x80000000u;
+    case kInt64:
+      return static_cast<uint64_t>(static_cast<const int64_t*>(data)[r]) ^
+             (1ull << 63);
+    case kF64: {
+      const uint64_t bits = static_cast<uint64_t>(
+          __double_as_longlong(static_cast<const double*>(data)[r]));
+      return (bits >> 63) ? ~bits : (bits | (1ull << 63));
+    }
+    case kRawU32:
+      return static_cast<const uint32_t*>(data)[r];
+    case kRawU64:
+      return static_cast<const uint64_t*>(data)[r];
+    case kDec128Hi:
+      return static_cast<uint64_t>(static_cast<const int64_t*>(data)[2 * r + 1]) ^
+             (1ull << 63);
+    case kDec128Lo:
+      return static_cast<uint64_t>(static_cast<const int64_t*>(data)[2 * r]);
+    default:
+      return static_cast<const uint8_t*>(data)[r] != 0;
+  }
+}
+
 // Order-preserving unsigned key of row ids[i] (or i), in the current order.
 template <typename K>
 __global__ void __launch_bounds__(kThreads)
@@ -215,33 +282,7 @@ sort_key_kernel(const void* __restrict__ data, const uint8_t* __restrict__ valid
   const int64_t r = ids != nullptr ? ids[i] : i;
   K k = K(0);                    // a null row's data key is a constant
   if (valid[r] != 0) {
-    uint64_t u;
-    switch (kind) {
-      case kInt32:
-        u = static_cast<uint32_t>(static_cast<const int32_t*>(data)[r]) ^
-            0x80000000u;
-        break;
-      case kInt64:
-        u = static_cast<uint64_t>(static_cast<const int64_t*>(data)[r]) ^
-            (1ull << 63);
-        break;
-      case kF64: {
-        const uint64_t bits = static_cast<uint64_t>(
-            __double_as_longlong(static_cast<const double*>(data)[r]));
-        u = (bits >> 63) ? ~bits : (bits | (1ull << 63));
-        break;
-      }
-      case kRawU32:
-        u = static_cast<const uint32_t*>(data)[r];
-        break;
-      case kRawU64:
-        u = static_cast<const uint64_t*>(data)[r];
-        break;
-      default:
-        u = static_cast<const uint8_t*>(data)[r] != 0;
-        break;
-    }
-    k = static_cast<K>(u);
+    k = static_cast<K>(data_key(data, kind, r));
     if (descending) k = static_cast<K>(~k);
   }
   out[i] = k;
@@ -348,9 +389,101 @@ int sort_column(int kind, const void* data, const uint8_t* valid,
   return err;
 }
 
+// One row's null word (if null_out) and data word of one key plane.
+__global__ void __launch_bounds__(kThreads)
+order_word_kernel(const void* __restrict__ data,
+                  const uint8_t* __restrict__ valid, int kind, int descending,
+                  int nulls_first, int64_t n, uint64_t* __restrict__ null_out,
+                  uint64_t* __restrict__ out) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (r >= n) return;
+  const bool v = valid[r] != 0;
+  if (null_out != nullptr) null_out[r] = nulls_first ? v : !v;
+  uint64_t k = 0;
+  if (v) {
+    k = data_key(data, kind, r);
+    if (descending) k = ~k;
+  }
+  out[r] = k;
+}
+
+// dest[r] = the boundaries (nb rows of nk words, sorted) whose words are
+// lexicographically <= row r's words[j * n + r]; kStaged: the boundaries
+// are first copied into dynamic shared memory.
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+range_route_kernel(const uint64_t* __restrict__ words, int64_t n, int nk,
+                   const uint64_t* __restrict__ bounds, int nb,
+                   int32_t* __restrict__ dest) {
+  extern __shared__ uint64_t staged[];
+  const uint64_t* sb = bounds;
+  if (kStaged) {
+    const int64_t total = static_cast<int64_t>(nb) * nk;
+    for (int64_t i = threadIdx.x; i < total; i += kThreads) {
+      staged[i] = bounds[i];
+    }
+    __syncthreads();
+    sb = staged;
+  }
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (r >= n) return;
+  const uint64_t k0 = words[r];
+  int lo = 0, hi = nb;             // the first boundary above the key
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const uint64_t* b = sb + static_cast<int64_t>(mid) * nk;
+    bool at_or_below = b[0] < k0;  // the boundary <= the key
+    if (b[0] == k0) {
+      int j = 1;
+      uint64_t kj = 0;
+      for (; j < nk; ++j) {
+        kj = words[static_cast<int64_t>(j) * n + r];
+        if (b[j] != kj) break;
+      }
+      at_or_below = j == nk || b[j] < kj;
+    }
+    if (at_or_below) lo = mid + 1; else hi = mid;
+  }
+  dest[r] = lo;
+}
+
 }  // namespace
 
 extern "C" {
+
+// out[n] (uint64) receives one key plane's words (the kinds above;
+// DESC complemented, 0 on a null row) and, if null_out is not null, the
+// null words (nulls_first: a valid row 1, a null row 0; else reversed).
+int srt_order_words(int kind, const void* data, const uint8_t* valid,
+                    int descending, int nulls_first, int64_t n,
+                    uint64_t* null_out, uint64_t* out, cudaStream_t stream) {
+  if (kind < kInt32 || kind > kDec128Lo) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n > 0) {
+    order_word_kernel<<<grid_rows(n), kThreads, 0, stream>>>(
+        data, valid, kind, descending, nulls_first, n, null_out, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dest[n] (int32): each row's range bucket in [0, nb] against nb sorted
+// boundary rows bounds[nb * nk] (row major) over the rows' words[nk * n]
+// (plane major).
+int srt_range_route(const uint64_t* words, int64_t n, int nk,
+                    const uint64_t* bounds, int nb, int32_t* dest,
+                    cudaStream_t stream) {
+  if (nk < 1 || nb < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t staged = static_cast<int64_t>(nb) * nk * sizeof(uint64_t);
+  if (n > 0 && staged <= kMaxStagedBoundaryBytes) {
+    range_route_kernel<true><<<grid_rows(n), kThreads, staged, stream>>>(
+        words, n, nk, bounds, nb, dest);
+  } else if (n > 0) {
+    range_route_kernel<false><<<grid_rows(n), kThreads, 0, stream>>>(
+        words, n, nk, bounds, nb, dest);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 int srt_sort_tile() { return kTile; }
 
@@ -446,6 +579,8 @@ int srt_sort_column(int kind, const void* data, const uint8_t* valid,
     case kInt64:
     case kF64:
     case kRawU64:
+    case kDec128Hi:
+    case kDec128Lo:
       return sort_column<uint64_t>(kind, data, valid, descending, nulls_first,
                                    has_nulls, key_bytes, ids_in, n, key_a,
                                    key_b, ids_out, ids_tmp, hist, totals,

@@ -81,6 +81,8 @@ _SIGNATURES = {
     "srt_max_radix_bits": [],
     "srt_partition": [_P, _I64, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "srt_null_counts": [_I, _P, _I64, _P, _P],
+    "srt_order_words": [_I, _P, _P, _I, _I, _I64, _P, _P, _P],
+    "srt_range_route": [_P, _I64, _I, _P, _I, _P, _P],
     "srt_sort_column": [_I, _P, _P, _I, _I, _I, _I, _P, _I64, _P, _P, _P, _P,
                         _P, _P, _P],
     "srt_string_sort_keys": [_P, _P, _P, _I64, _I, _P, _P, _P],

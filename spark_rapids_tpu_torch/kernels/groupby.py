@@ -102,6 +102,10 @@ def _rows_equal_prev(col: DeviceColumn) -> torch.Tensor:
     bits is exact."""
     if col.is_string:
         return string_rows_equal_prev(col)
+    if col.is_two_limb:     # both limbs equal (a null slot need not be 0)
+        data = torch.where(col.validity[:, None], col.data, 0)
+        return (data[1:] == data[:-1]).all(1) & \
+            (col.validity[1:] == col.validity[:-1])
     data = col.data
     if isinstance(col.dtype, T.DoubleType):
         data = data.view(torch.int64)

@@ -7,6 +7,9 @@ Decimal64 (the unscaled long) as hashLong (low word, then high word),
 doubles as hashLong of their bits after -0.0 -> 0.0 and NaN -> canonical
 NaN, and strings as hashUnsafeBytes (4-byte little-endian words, then each
 tail byte as a sign-extended int, then fmix with the byte length).
+A Decimal128 (precision above 18) hashes as hashUnsafeBytes of its
+minimal big-endian two's-complement bytes, Java's
+``BigInteger.toByteArray`` (``_hash_decimal128_bytes`` :141; K3).
 Columns chain left to right; a null row passes the running hash
 through.  Routing must be bit-exact: a CPU Spark stage and the card must
 send a key to the same reduce partition.
@@ -36,12 +39,12 @@ _C1, _C2, _M5 = 0xCC9E2D51, 0x1B873593, 0xE6546B64
 _CANONICAL_NAN_BITS = 0x7FF8000000000000
 
 # column kinds of csrc/hash.cu
-_INT32, _INT64, _F64, _BOOL, _STRING = 0, 1, 2, 3, 4
+_INT32, _INT64, _F64, _BOOL, _STRING, _DEC128 = 0, 1, 2, 3, 4, 5
 
 
 def _kind(dtype: T.DataType) -> int:
     if T.two_limbs(dtype):
-        raise T.key_type_not_ported(dtype, "murmur3")
+        return _DEC128
     if isinstance(dtype, (T.IntegerType, T.DateType)):
         return _INT32
     if isinstance(dtype, (T.LongType, T.DecimalType)):
@@ -103,13 +106,44 @@ def hash_fixed_width(col: DeviceColumn, seeds: torch.Tensor) -> torch.Tensor:
     """Chain one column into running hashes (int64 lanes, uint32 values);
     null rows keep their seed.  The plain version of one column's step."""
     kind = _kind(col.dtype)
-    if kind == _INT64:
+    if kind == _DEC128:
+        h = hash_decimal128(col, seeds)
+    elif kind == _INT64:
         h = _hash_long(col.data, seeds)
     elif kind == _F64:
         h = _hash_long(f64_hash_bits(col.data), seeds)
     else:   # int32 sign-extends; its low 32 bits are the value's bits
         h = _hash_int(col.data.to(torch.int64), seeds)
     return torch.where(col.validity, h, seeds)
+
+
+def hash_decimal128(col: DeviceColumn, seeds: torch.Tensor) -> torch.Tensor:
+    """The plain version of K3: each row's running hash mixed with the
+    minimal big-endian bytes of its (high, low) limbs, null rows too (the
+    caller keeps their seeds)."""
+    lo, hi = col.data[:, 0], col.data[:, 1]
+    be = torch.stack([(hi >> (8 * (7 - j))) & 0xFF for j in range(8)]
+                     + [(lo >> (8 * (7 - j))) & 0xFF for j in range(8)], 1)
+    neg = hi < 0
+    fill = torch.where(neg, 0xFF, 0)
+    top = (be & 0x80) != 0
+    redundant = (be[:, :15] == fill[:, None]) & (top[:, 1:] == neg[:, None])
+    strip = torch.cumprod(redundant.to(torch.int64), dim=1).sum(1)
+    length = 16 - strip                                  # at least 1
+    pos = torch.arange(16, device=be.device)
+    src = (strip[:, None] + pos).clamp(max=15)
+    tile = torch.where(pos < length[:, None], torch.gather(be, 1, src), 0)
+    h = seeds
+    for i in range(4):
+        w = (tile[:, 4 * i] | (tile[:, 4 * i + 1] << 8)
+             | (tile[:, 4 * i + 2] << 16) | (tile[:, 4 * i + 3] << 24))
+        h = torch.where(i < length // 4, _mix_h1(h, w), h)
+    aligned = (length // 4) * 4
+    for i in range(16):
+        b = tile[:, i]
+        signed = torch.where(b >= 128, b - 256, b) & _M32
+        h = torch.where((i >= aligned) & (i < length), _mix_h1(h, signed), h)
+    return _fmix(h, length)
 
 
 def hash_string(col: DeviceColumn, seeds: torch.Tensor) -> torch.Tensor:
@@ -189,6 +223,8 @@ def _murmur3_cuda(columns: Sequence[DeviceColumn], seed: int,
         _lib.LAUNCHES["murmur3"] += 1
         if any(c.is_string for c in columns):
             _lib.LAUNCHES["hash_string"] += 1
+        if any(c.is_two_limb for c in columns):
+            _lib.LAUNCHES["decimal128_hash"] += 1
     return hashes, part
 
 

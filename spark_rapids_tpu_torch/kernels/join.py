@@ -20,7 +20,11 @@ ordered by the ported radix ``sort_indices``, nulls last, written as
 uint64 order keys.  On several keys or a string key ('multi') it is
 ordered by (any key null, the keys) and each sorted row's key tuple
 becomes a row of uint64 order words (a string key: its big-endian 8-byte
-chunks, then its length), where the reference sorts both sides together.
+chunks, then its length; a Decimal128 key: the two words of
+``kernels/sort.py`` ``decimal128_sort_keys_plain``, the high limb with its
+sign bit flipped, then the low limb; each key-word launch over one counts
+as ``decimal128_sort_key`` too), where the reference sorts both sides
+together.  A Decimal128 key always takes the 'multi' path.
 Each stream batch is then probed (``join_probe``: a lower and an upper
 bound per row, the exclusive scan of the match counts, one blocking read
 of the number of pairs) and expanded (``join_expand``: each row writes its
@@ -78,14 +82,14 @@ JOIN_TYPES = ("inner", "left", "right", "full", "left_semi", "left_anti",
               "cross", "existence")
 
 # key kinds of csrc/join.cu
-_INT32, _INT64, _F64, _BOOL, _STRING = 0, 1, 2, 3, 4
+_INT32, _INT64, _F64, _BOOL, _STRING, _DEC128 = 0, 1, 2, 3, 4, 5
 _SIGN64 = -2**63
 _NULLS_LAST = SortOrder(True, False)
 
 
 def _kind(dtype: T.DataType) -> int:
     if T.two_limbs(dtype):
-        raise T.key_type_not_ported(dtype, "a join key")
+        return _DEC128
     if isinstance(dtype, (T.IntegerType, T.DateType)):
         return _INT32
     if isinstance(dtype, (T.LongType, T.DecimalType)):
@@ -129,8 +133,7 @@ def join_path(left: ColumnarBatch, left_keys: Sequence[int],
         return "cross"
     if (join_type in ("inner", "left", "left_semi", "left_anti")
             and len(left_keys) == 1
-            and not left.columns[left_keys[0]].is_string
-            and not right.columns[right_keys[0]].is_string):
+            and _single(left, left_keys) and _single(right, right_keys)):
         return "single"
     return "multi"
 
@@ -392,6 +395,8 @@ def key_words_plain(cols: Sequence[DeviceColumn],
         if c.is_string:
             ch, lengths = string_sort_keys_plain(c, 8 * nch)
             words += list(ch) + [lengths.to(torch.int64)]
+        elif c.is_two_limb:
+            words += [c.data[:, 1] ^ _SIGN64, c.data[:, 0]]
         else:
             words.append(order_keys_plain(c))
     valid = _all_valid(cols)
@@ -481,8 +486,16 @@ def _key_col_arrays(cols: Sequence[DeviceColumn],
     return arrays, [ctypes.cast(a, ctypes.c_void_p) for a in arrays]
 
 
-def _words(chunks: Sequence[Optional[int]]) -> int:
-    return sum(1 if n is None else n + 1 for n in chunks)
+def _words(cols: Sequence[DeviceColumn],
+           chunks: Sequence[Optional[int]]) -> int:
+    return sum(2 if c.is_two_limb else 1 if n is None else n + 1
+               for c, n in zip(cols, chunks))
+
+
+def _count_dec128_words(cols: Sequence[DeviceColumn]) -> None:
+    """A key-word launch over a Decimal128 key ran K2's kind as well."""
+    if any(c.is_two_limb for c in cols):
+        _lib.LAUNCHES["decimal128_sort_key"] += 1
 
 
 def _multi_build_cuda(cols: Sequence[DeviceColumn], perm: torch.Tensor
@@ -495,7 +508,7 @@ def _multi_build_cuda(cols: Sequence[DeviceColumn], perm: torch.Tensor
     longest = iter(string_longest(strings))
     chunks = tuple(string_chunks(next(longest)) if c.is_string else None
                    for c in cols)
-    n, nw = perm.shape[0], _words(chunks)
+    n, nw = perm.shape[0], _words(cols, chunks)
     words = torch.empty((n, nw), dtype=torch.int64, device=perm.device)
     valid = torch.empty(n, dtype=torch.bool, device=perm.device)
     _keep, arrays = _key_col_arrays(cols, chunks)
@@ -504,6 +517,7 @@ def _multi_build_cuda(cols: Sequence[DeviceColumn], perm: torch.Tensor
         _lib.ptr(valid), _lib.stream(perm.device)), "join_multi_build")
     if n:
         _lib.LAUNCHES["join_multi_build"] += 1
+        _count_dec128_words(cols)
     return words, valid, chunks
 
 
@@ -533,6 +547,7 @@ def _multi_probe_cuda(cols: Sequence[DeviceColumn], build: JoinBuild,
         "join_multi_probe")
     if n:
         _lib.LAUNCHES["join_multi_probe" + _MODE_SUFFIX[join_type]] += 1
+        _count_dec128_words(cols)
     # the one device->host read of a probe: the number of pairs
     return lo, offsets, int(total.item())
 
@@ -572,8 +587,10 @@ def _ordinals(keys: Union[int, Sequence[int]]) -> List[int]:
 
 
 def _single(batch: ColumnarBatch, keys: Sequence[int]) -> bool:
-    """The reference's 'single' path: one key, not a string."""
-    return len(keys) == 1 and not batch.columns[keys[0]].is_string
+    """The reference's 'single' path: one key, not a string (nor, in the
+    port, a Decimal128: its two words take the 'multi' path)."""
+    return len(keys) == 1 and not batch.columns[keys[0]].is_string \
+        and not batch.columns[keys[0]].is_two_limb
 
 
 def build_side(right: ColumnarBatch,

@@ -12,6 +12,15 @@ On CUDA tensors ``partition_order`` runs the stable radix passes of
 more for every further 8 bits) and counts the launch; on CPU
 tensors it runs the plain version (a stable ``torch.sort`` and a
 ``torch.bincount``).  ``round_robin_partition`` (:67) is not ported.
+
+``range_partition`` (K1) is the range sort's router
+(``spark_rapids_tpu/plan/execs/range_sort.py`` ``make_router.route``
+:96-113): each row's bucket is the number of sorted boundary rows whose
+words are lexicographically at most its own, so equal keys never split,
+then the same stable reorder by bucket and the counts.  On the card the
+buckets come from ``srt_range_route`` (``csrc/sort.cu``); its plain
+version ranks the boundary and key rows together (``torch.unique``) and
+searches the boundaries' ranks.
 """
 from __future__ import annotations
 
@@ -24,6 +33,8 @@ from spark_rapids_tpu_torch.kernels import _lib
 from spark_rapids_tpu_torch.kernels.hash import (DEFAULT_SEED,
                                                  murmur3_partition)
 from spark_rapids_tpu_torch.kernels.selection import gather_batch
+
+_SIGN64 = -2**63
 
 
 def partition_order_plain(part: torch.Tensor, num_partitions: int
@@ -82,3 +93,63 @@ def hash_partition(batch: ColumnarBatch, key_cols: Sequence[int],
                                 num_partitions, seed)
     order, counts = partition_order(part, num_partitions)
     return gather_batch(batch, order), counts
+
+
+def _check_route(words: torch.Tensor, bounds: torch.Tensor) -> None:
+    if words.dtype != torch.int64 or words.dim() != 2:
+        raise TypeError(f"range route: words must be int64 [nk, n], got "
+                        f"{words.dtype} {tuple(words.shape)}")
+    if bounds.dtype != torch.int64 or bounds.dim() != 2 \
+            or bounds.shape[1] != words.shape[0]:
+        raise TypeError(f"range route: boundaries must be int64 [nb, "
+                        f"{words.shape[0]}], got {bounds.dtype} "
+                        f"{tuple(bounds.shape)}")
+
+
+def range_route_plain(words: torch.Tensor, bounds: torch.Tensor
+                      ) -> torch.Tensor:
+    """int32 bucket of each row (the signed order of word ^ sign bit is the
+    uint64 order of the word)."""
+    n, nb = words.shape[1], bounds.shape[0]
+    if nb == 0 or n == 0:
+        return torch.zeros(n, dtype=torch.int32, device=words.device)
+    rows = torch.cat([bounds, words.t()]) ^ _SIGN64
+    _, rank = torch.unique(rows, dim=0, return_inverse=True)
+    return torch.searchsorted(rank[:nb].contiguous(), rank[nb:].contiguous(),
+                              right=True).to(torch.int32)
+
+
+def _range_route_cuda(words: torch.Tensor, bounds: torch.Tensor
+                      ) -> torch.Tensor:
+    _lib.require_cuda("range_partition", words, bounds)
+    lib = _lib.lib()
+    nk, n = words.shape
+    nb = bounds.shape[0]
+    dest = torch.empty(n, dtype=torch.int32, device=words.device)
+    _lib.check(lib.srt_range_route(
+        _lib.ptr(words.contiguous()), n, nk, _lib.ptr(bounds.contiguous()),
+        nb, _lib.ptr(dest), _lib.stream(words.device)), "range_partition")
+    if n:
+        _lib.LAUNCHES["range_partition"] += 1
+    return dest
+
+
+def range_route(words: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """int32 [n]: each row's bucket in [0, nb] for int64 [nk, n] row words
+    (uint64 bits, plane major) against int64 [nb, nk] boundary rows sorted
+    and distinct."""
+    _check_route(words, bounds)
+    if words.device.type == "cpu":
+        return range_route_plain(words, bounds)
+    return _range_route_cuda(words, bounds)
+
+
+def range_partition(words: torch.Tensor, bounds: torch.Tensor,
+                    num_partitions: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1: (the stable order of the rows by range bucket, int32
+    counts[num_partitions]); num_partitions > the number of boundaries."""
+    if num_partitions <= bounds.shape[0]:
+        raise ValueError(f"range partition: {bounds.shape[0]} boundaries "
+                         f"make {bounds.shape[0] + 1} buckets, more than "
+                         f"{num_partitions}")
+    return partition_order(range_route(words, bounds), num_partitions)

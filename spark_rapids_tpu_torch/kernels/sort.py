@@ -23,7 +23,12 @@ On CUDA tensors ``sort_indices`` runs the LSD radix passes of
 and counts one launch per call; on CPU tensors it runs the plain version:
 the same keys, as order-preserving signed int64 (the CPU has no uint64
 compare), each applied with a stable ``torch.sort`` from the least
-significant key up.  Struct and decimal128 keys are not ported.
+significant key up.  A Decimal128 key sorts as two words
+(``_decimal128_data_keys`` :123): the signed high limb, then the unsigned
+low limb (K2: two key kinds of ``csrc/sort.cu``; every launch over one of
+them also counts as ``decimal128_sort_key``).  ``order_words`` writes the
+range sort's per-row key words (the null word, then each key's data words;
+``range_sort.py`` ``_encode_fn`` :43).  Struct keys are not ported.
 """
 from __future__ import annotations
 
@@ -41,8 +46,10 @@ from spark_rapids_tpu_torch.kernels.selection import gather_batch
 # key kinds of csrc/sort.cu, and their key widths in bytes (a string column
 # is -1 here: its keys are _RAW_U32 lengths and _RAW_U64 chunks)
 _INT32, _INT64, _F64, _BOOL, _RAW_U32, _RAW_U64 = 0, 1, 2, 3, 4, 5
+_DEC128_HI, _DEC128_LO = 6, 7
 _STRING = -1
-_KEY_BYTES = {_INT32: 4, _INT64: 8, _F64: 8, _BOOL: 1, _STRING: 8}
+_KEY_BYTES = {_INT32: 4, _INT64: 8, _F64: 8, _BOOL: 1, _STRING: 8,
+              _DEC128_HI: 8}
 _F64_MAGNITUDE = 0x7FFFFFFFFFFFFFFF
 _SIGN64 = -2**63
 CHUNK_BYTES = 8
@@ -64,7 +71,7 @@ class SortOrder:
 
 def _kind(dtype: T.DataType) -> int:
     if T.two_limbs(dtype):
-        raise T.key_type_not_ported(dtype, "sort key")
+        return _DEC128_HI
     if isinstance(dtype, (T.IntegerType, T.DateType)):
         return _INT32
     if isinstance(dtype, (T.LongType, T.DecimalType)):
@@ -100,6 +107,19 @@ def data_key_plain(col: DeviceColumn, order: SortOrder) -> torch.Tensor:
     # null rows get a constant so they never perturb less-significant keys
     return torch.where(col.validity, k, torch.zeros((), dtype=torch.int64,
                                                     device=k.device))
+
+
+def decimal128_sort_keys_plain(col: DeviceColumn, order: SortOrder
+                               ) -> torch.Tensor:
+    """K2's plain version, int64 [2, n]: the uint64 bits of a Decimal128
+    column's order words, the high limb with its sign bit flipped, then the
+    low limb; complemented for DESC, 0 on a null row.  On the card the
+    words are key kinds of the radix sort's, the order words' and the
+    join's key kernels (``_DEC128_HI``, ``_DEC128_LO``)."""
+    words = torch.stack([col.data[:, 1] ^ _SIGN64, col.data[:, 0]])
+    if not order.ascending:
+        words = ~words
+    return torch.where(col.validity, words, 0)
 
 
 def string_sort_keys_plain(col: DeviceColumn, longest: int
@@ -194,8 +214,12 @@ def sort_indices_plain(columns: Sequence[DeviceColumn],
     perm = torch.arange(n, dtype=torch.int64, device=columns[0].device)
     keys: List[torch.Tensor] = []   # least significant first
     for c, o in zip(reversed(list(columns)), reversed(list(orders))):
-        data = (string_keys_plain(c, o)[::-1] if c.is_string
-                else [data_key_plain(c, o)])
+        if c.is_string:
+            data = string_keys_plain(c, o)[::-1]
+        elif c.is_two_limb:   # signed order of word ^ sign = its uint64 order
+            data = list(decimal128_sort_keys_plain(c, o) ^ _SIGN64)[::-1]
+        else:
+            data = [data_key_plain(c, o)]
         keys += data + [null_key_plain(c, o).to(torch.int8)]
     for k in keys:
         perm = perm[torch.sort(k[perm], stable=True).indices]
@@ -250,8 +274,12 @@ def _sort_indices_cuda(columns: Sequence[DeviceColumn],
     ids = None
     for i in reversed(range(k)):
         c, o = columns[i], orders[i]
-        passes = (_string_key_planes(c, longest[i]) if c.is_string
-                  else [(_kind(c.dtype), c.data, 0)])
+        if c.is_string:
+            passes = _string_key_planes(c, longest[i])
+        elif c.is_two_limb:     # K2: the low word, then the high word
+            passes = [(_DEC128_LO, c.data, 0), (_DEC128_HI, c.data, 0)]
+        else:
+            passes = [(_kind(c.dtype), c.data, 0)]
         for p, (kind, plane, key_bytes) in enumerate(passes):
             # the column's null pass follows its most significant key
             null_pass = p == len(passes) - 1 and has_nulls[i] > 0
@@ -263,6 +291,8 @@ def _sort_indices_cuda(columns: Sequence[DeviceColumn],
                 key_bytes, _lib.ptr(ids) if ids is not None else None, n,
                 _lib.ptr(key_a), _lib.ptr(key_b), _lib.ptr(out),
                 _lib.ptr(tmp), _lib.ptr(hist), _lib.ptr(totals), s), "sort")
+            if kind in (_DEC128_HI, _DEC128_LO):
+                _lib.LAUNCHES["decimal128_sort_key"] += 1
             ids = out
     _lib.LAUNCHES["sort"] += 1
     return ids
@@ -288,3 +318,78 @@ def sort_indices(batch: ColumnarBatch, key_cols: Sequence[int],
 def sort_batch(batch: ColumnarBatch, key_cols: Sequence[int],
                orders: Sequence[SortOrder]) -> ColumnarBatch:
     return gather_batch(batch, sort_indices(batch, key_cols, orders))
+
+# ---------------------------------------------------------------------------
+# order words of the range sort
+
+
+def _data_word_plain(col: DeviceColumn) -> torch.Tensor:
+    """The key kernel's ascending uint64 word of a fixed-width key, as
+    int64 bits."""
+    kind = _kind(col.dtype)
+    if kind == _INT32:
+        return (col.data.to(torch.int64) & 0xFFFFFFFF) ^ 0x80000000
+    if kind == _INT64:
+        return col.data ^ _SIGN64
+    if kind == _F64:
+        bits = col.data.view(torch.int64)
+        return torch.where(bits < 0, ~bits, bits | _SIGN64)
+    return (col.data != 0).to(torch.int64)
+
+
+def order_words_plain(col: DeviceColumn, order: SortOrder,
+                      nchunks: int = 0) -> torch.Tensor:
+    """int64 [1 + w, n]: uint64 bits of the null word (1 sorts after 0),
+    then the key's w data words: 1 for a fixed-width key, 2 for a
+    Decimal128, ``nchunks`` chunks and the length for a string; DESC
+    complements the data words, and a null row's are 0."""
+    null = (col.validity if order.nulls_first else ~col.validity).to(
+        torch.int64)
+    if col.is_two_limb:
+        return torch.cat([null[None], decimal128_sort_keys_plain(col, order)])
+    if col.is_string:
+        chunks, lengths = string_sort_keys_plain(col, CHUNK_BYTES * nchunks)
+        data = torch.cat([chunks, lengths.to(torch.int64)[None]])
+    else:
+        data = _data_word_plain(col)[None]
+    if not order.ascending:
+        data = ~data
+    return torch.cat([null[None], torch.where(col.validity, data, 0)])
+
+
+def _order_words_cuda(col: DeviceColumn, order: SortOrder,
+                      nchunks: int) -> torch.Tensor:
+    _lib.require_cuda("order_words", col.data, col.validity)
+    lib = _lib.lib()
+    n, dev = col.num_rows, col.device
+    if col.is_string:
+        chunks, lengths = string_sort_keys(col, CHUNK_BYTES * nchunks)
+        planes = [(_RAW_U64, chunks[j]) for j in range(nchunks)] + \
+            [(_RAW_U32, lengths)]
+    elif col.is_two_limb:
+        planes = [(_DEC128_HI, col.data), (_DEC128_LO, col.data)]
+    else:
+        planes = [(_kind(col.dtype), col.data)]
+    out = torch.empty((1 + len(planes), n), dtype=torch.int64, device=dev)
+    for j, (kind, plane) in enumerate(planes):
+        _lib.check(lib.srt_order_words(
+            kind, _lib.ptr(plane), _lib.ptr(col.validity),
+            int(not order.ascending), int(order.nulls_first), n,
+            _lib.ptr(out[0]) if j == 0 else None, _lib.ptr(out[1 + j]),
+            _lib.stream(dev)), "order_words")
+        if n and kind in (_DEC128_HI, _DEC128_LO):
+            _lib.LAUNCHES["decimal128_sort_key"] += 1
+    if n:
+        _lib.LAUNCHES["order_words"] += 1
+    return out
+
+
+def order_words(col: DeviceColumn, order: SortOrder,
+                nchunks: int = 0) -> torch.Tensor:
+    """The range sort's words of one key column (see
+    ``order_words_plain``); a string key takes ``nchunks`` chunks, which
+    must cover its longest valid row."""
+    _kind(col.dtype)
+    if col.device.type == "cpu":
+        return order_words_plain(col, order, nchunks)
+    return _order_words_cuda(col, order, nchunks)

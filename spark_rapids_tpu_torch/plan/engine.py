@@ -1,9 +1,9 @@
 """Query engine: runs a physical exec tree.
 
 Counterpart of ``spark_rapids_tpu/plan/engine.py`` (``TpuEngine.execute``
-/ ``collect``).  Partitions run in order on the calling thread; the device
-semaphore, tenants, cancellation and the sanitizer come with the memory
-runtime.
+/ ``collect``).  Partitions run in order on the calling thread, so the
+reference's device semaphore and tenants are not needed yet (ROADMAP
+queue 1 item 9, with cancellation and the sanitizer).
 """
 from __future__ import annotations
 

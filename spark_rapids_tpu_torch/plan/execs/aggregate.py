@@ -24,6 +24,20 @@ rows offers FIRST / LAST no candidate, as Spark's and the reference's CPU
 oracle's answers have it.  A grouped partition with no input yields no
 rows.
 
+The final and complete modes merge a partition's partials in one batch
+when they hold at most ``batchSizeRows`` rows (``target_rows``), the
+concat inside the retry body: over a hash exchange, read through its
+shuffle pieces under ``retry_over_stream_pieces`` (the reference's
+``_execute_final_fused`` :906-952).  A larger partial set takes the
+reference's out-of-core branch (``_execute_out_of_core`` :1009): grouped,
+the partials are hash-sub-partitioned on the keys into spillable buckets,
+and each bucket is merged and finalized alone (equal keys share a bucket,
+and a bucket keeps its rows' order, so FIRST / LAST still see them in
+order); global, the partials merge in runs of at most ``target_rows``
+rows until one is left.  Each partial step runs under retry,
+split-capable (``coalesce.retry_per_batch``): a split-and-retry OOM halves
+its batch, whose halves' partials stand for the batch's.
+
 Grouped steps are sort-based (kernels/groupby.py): the keys and every
 aggregate input form one work batch, which is sorted by the keys and cut
 into groups; each buffer slot is then a segmented reduction over it, or
@@ -34,7 +48,9 @@ second input when it updates, and by its ordering-key buffer
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+import collections
+from typing import (Dict, Iterable, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -51,7 +67,13 @@ from spark_rapids_tpu_torch.kernels.reduction import (
     masked_extreme, masked_extreme128, masked_m2, masked_sum, masked_sum128,
     segmented_extreme128, segmented_sum128)
 from spark_rapids_tpu_torch.kernels.selection import coalesce_to_one
+from spark_rapids_tpu_torch.memory.retry import with_retry_no_split
+from spark_rapids_tpu_torch.memory.spill import make_spillable
 from spark_rapids_tpu_torch.plan.execs.base import GpuExec, timed
+from spark_rapids_tpu_torch.plan.execs.coalesce import (
+    retry_over_spillable, retry_over_stream_pieces, retry_per_batch)
+from spark_rapids_tpu_torch.plan.execs.out_of_core import (
+    close_all, drain, num_sub_buckets, sub_partition_spillable)
 from spark_rapids_tpu_torch.plan.execs.join import empty_batch
 
 
@@ -210,7 +232,7 @@ class GpuHashAggregateExec(GpuExec):
                  agg_exprs: Sequence[Expression],
                  aggregates: List[AggregateFunction], child: GpuExec,
                  schema: Schema, device: torch.device,
-                 mode: str = "complete"):
+                 mode: str = "complete", target_rows: int = 1 << 20):
         if mode not in ("partial", "final", "complete"):
             raise ValueError(f"unknown aggregate mode {mode!r}")
         self.group_exprs = tuple(group_exprs)
@@ -218,6 +240,9 @@ class GpuHashAggregateExec(GpuExec):
         self.aggregates = list(aggregates)
         self.mode = mode
         self.device = device   # where an identity partial is made
+        self.target_rows = max(int(target_rows), 1)
+        #: partitions that took each branch ("in_core", "out_of_core")
+        self.branches: "collections.Counter[str]" = collections.Counter()
         self.slot_specs = [(ai, slot) for ai, agg in enumerate(self.aggregates)
                            for slot in agg.buffers]
         #: aggregate index -> the indices of its slots
@@ -439,23 +464,105 @@ class GpuHashAggregateExec(GpuExec):
 
     # -- host orchestration ---------------------------------------------------
 
+    def _combine(self, partials: List[ColumnarBatch]) -> ColumnarBatch:
+        """Concatenated partials merged and finalized."""
+        return self._finalize(self._merge_step(coalesce_to_one(partials)))
+
     def execute_partition(self, idx: int) -> Iterator[ColumnarBatch]:
+        child = self.children[0]
+        if self.mode == "final" and hasattr(child, "stream_pieces"):
+            pieces = child.stream_pieces(idx)
+            if pieces and sum(p.count for p in pieces) <= self.target_rows:
+                self.branches["in_core"] += 1
+                with timed(self.op_time):
+                    out = retry_over_stream_pieces(
+                        [pieces], lambda mats: self._combine(mats[0]))
+                yield self._count_out(out)
+                return
+            total = sum(p.count for p in pieces)
+            if total > self.target_rows and self.group_exprs:
+                # out of core straight from the store: its blocks read in
+                # runs of at most target_rows rows, none held past its run
+                self.branches["out_of_core"] += 1
+                yield from self._merge_buckets(child.execute_partition(idx),
+                                               total)
+                return
         with timed(self.op_time):
             partials = []
-            for batch in self.children[0].execute_partition(idx):
-                partials.append(batch if self.mode == "final"
-                                else self._partial_step(batch))
+            for batch in child.execute_partition(idx):
+                partials.extend([batch] if self.mode == "final" else
+                                retry_per_batch(batch, self._partial_step))
             if not partials:
                 if self.group_exprs:
                     return
                 partials = [self._identity_partial()]
-            if self.mode == "partial":
-                out = partials
-            else:
-                merged_in = coalesce_to_one(partials)
-                out = [self._finalize(self._merge_step(merged_in))]
-        for b in out:
-            yield self._count_out(b)
+        if self.mode == "partial":
+            for b in partials:
+                yield self._count_out(b)
+            return
+        total = sum(p.num_rows for p in partials)
+        if total > self.target_rows:
+            self.branches["out_of_core"] += 1
+            yield from self._execute_out_of_core(partials, total)
+            return
+        self.branches["in_core"] += 1
+        with timed(self.op_time):
+            out = with_retry_no_split(lambda: self._combine(partials))
+        yield self._count_out(out)
+
+    def _execute_out_of_core(self, partials: List[ColumnarBatch],
+                             total: int) -> Iterator[ColumnarBatch]:
+        """Merge a partial set above ``target_rows`` rows; the list is
+        emptied, so that its rows live in the handles alone."""
+        nkeys = len(self.group_exprs)
+        if nkeys == 0:
+            # runs of at most target_rows rows (two partials at least, so
+            # that each round shrinks), merged until one is left
+            while len(partials) > 1:
+                merged, group, acc = [], [], 0
+                for p in partials + [None]:
+                    if p is not None and (
+                            len(group) < 2
+                            or acc + p.num_rows <= self.target_rows):
+                        group.append(p)
+                        acc += p.num_rows
+                        continue
+                    with timed(self.op_time):
+                        merged.append(with_retry_no_split(
+                            lambda: self._merge_step(coalesce_to_one(group))))
+                    if p is not None:
+                        group, acc = [p], p.num_rows
+                partials = merged
+            with timed(self.op_time):
+                out = with_retry_no_split(
+                    lambda: self._finalize(partials[0]))
+            yield self._count_out(out)
+            return
+        with timed(self.op_time):
+            handles = [make_spillable(p) for p in drain(partials)]
+        yield from self._merge_buckets(
+            (h.release_device_copy() for h in handles), total)
+
+    def _merge_buckets(self, partials: Iterable[ColumnarBatch],
+                       total: int) -> Iterator[ColumnarBatch]:
+        """Grouped partials hash-sub-partitioned on the keys into spillable
+        buckets, each merged and finalized alone."""
+        n_b = num_sub_buckets(total, self.target_rows)
+        with timed(self.op_time):
+            buckets = sub_partition_spillable(
+                partials, list(range(len(self.group_exprs))), n_b,
+                self.target_rows)
+        try:
+            for q in buckets:
+                if not q:
+                    continue
+                with timed(self.op_time):
+                    out = retry_over_spillable(
+                        q, lambda b: self._finalize(self._merge_step(b)))
+                    close_all([q])
+                yield self._count_out(out)
+        finally:
+            close_all(buckets)
 
     def describe(self):
         keys = ", ".join(map(repr, self.group_exprs))

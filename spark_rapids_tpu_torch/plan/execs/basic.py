@@ -6,7 +6,9 @@ its predicate, compacts the rows where it is true (a null predicate drops
 the row) and gathers them: the compaction reads its count back to the host
 once, so the gather writes columns of exactly that many rows.  A union's
 partitions are its children's, one child after another; its batches take
-the first child's column names.
+the first child's column names.  Each step of a project or a filter
+runs under retry (the reference's :58 and :96), split-capable
+(``coalesce.retry_per_batch``): a split-and-retry OOM halves the batch.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from spark_rapids_tpu_torch.expressions.core import EvalContext, Expression
 from spark_rapids_tpu_torch.kernels.selection import (compaction_map,
                                                       gather_batch)
 from spark_rapids_tpu_torch.plan.execs.base import GpuExec, timed
+from spark_rapids_tpu_torch.plan.execs.coalesce import retry_per_batch
 
 
 class GpuProjectExec(GpuExec):
@@ -28,10 +31,14 @@ class GpuProjectExec(GpuExec):
     def execute_partition(self, idx: int) -> Iterator[ColumnarBatch]:
         for batch in self.children[0].execute_partition(idx):
             with timed(self.op_time):
-                ctx = EvalContext(batch)
-                out = ColumnarBatch(tuple(e.eval(ctx) for e in self.exprs),
-                                    batch.num_rows, self.schema)
-            yield self._count_out(out)
+                outs = retry_per_batch(batch, self._step)
+            for out in outs:
+                yield self._count_out(out)
+
+    def _step(self, batch: ColumnarBatch) -> ColumnarBatch:
+        ctx = EvalContext(batch)
+        return ColumnarBatch(tuple(e.eval(ctx) for e in self.exprs),
+                             batch.num_rows, self.schema)
 
     def describe(self):
         return f"GpuProject[{', '.join(map(repr, self.exprs))}]"
@@ -45,10 +52,14 @@ class GpuFilterExec(GpuExec):
     def execute_partition(self, idx: int) -> Iterator[ColumnarBatch]:
         for batch in self.children[0].execute_partition(idx):
             with timed(self.op_time):
-                pred = self.condition.eval(EvalContext(batch))
-                indices, _ = compaction_map(pred.data & pred.validity)
-                out = gather_batch(batch, indices)
-            yield self._count_out(out)
+                outs = retry_per_batch(batch, self._step)
+            for out in outs:
+                yield self._count_out(out)
+
+    def _step(self, batch: ColumnarBatch) -> ColumnarBatch:
+        pred = self.condition.eval(EvalContext(batch))
+        indices, _ = compaction_map(pred.data & pred.validity)
+        return gather_batch(batch, indices)
 
     def describe(self):
         return f"GpuFilter[{self.condition!r}]"

@@ -12,8 +12,11 @@ the first read: each child batch gets its key columns appended, is
 reordered by ``hash_partition`` (Spark's murmur3 and pmod, so the routing
 is Spark's), loses the key columns again and goes, with its host row
 counts (one device->host read per map batch), into a device-resident
-store. A reduce partition yields its blocks as views of the stored
-batches; ``cleanup`` drops the store.
+store whose map batches are spillable handles (``shuffle/transport.py``).
+Each map batch's step runs under ``with_retry_no_split`` (the
+reference's :164). A reduce partition yields its blocks as views of the
+stored batches, each materialized where the spill framework moved it;
+``cleanup`` closes the store.
 
 The coalesced reader presents an exchange's reduce partitions regrouped by
 a ``SharedCoalesceSpec``: adjacent partitions merge until their combined
@@ -33,8 +36,10 @@ import numpy as np
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
 from spark_rapids_tpu_torch.expressions.core import EvalContext, Expression
 from spark_rapids_tpu_torch.kernels.partition import hash_partition
+from spark_rapids_tpu_torch.memory.retry import with_retry_no_split
 from spark_rapids_tpu_torch.plan.execs.base import GpuExec, timed
-from spark_rapids_tpu_torch.shuffle.transport import DeviceShuffleStore
+from spark_rapids_tpu_torch.shuffle.transport import (DeviceShuffleStore,
+                                                      StreamPiece)
 
 
 class GpuSinglePartitionExec(GpuExec):
@@ -89,14 +94,18 @@ class GpuShuffleExchangeExec(GpuExec):
         for in_part in range(child.num_partitions()):
             for batch in child.execute_partition(in_part):
                 with timed(self.op_time):
-                    work, key_idx = append_key_columns(batch, self.keys)
-                    reordered, counts = hash_partition(work, key_idx,
-                                                       self.out_partitions)
-                    out = ColumnarBatch(reordered.columns[:nfields],
-                                        reordered.num_rows, child.schema)
-                    store.write_partitioned(out, counts.tolist())
+                    out, counts = with_retry_no_split(
+                        lambda: self._map_step(batch, nfields))
+                    store.write_partitioned(out, counts)
         self._store = store
         return store
+
+    def _map_step(self, batch: ColumnarBatch, nfields: int):
+        work, key_idx = append_key_columns(batch, self.keys)
+        reordered, counts = hash_partition(work, key_idx, self.out_partitions)
+        return (ColumnarBatch(reordered.columns[:nfields],
+                              reordered.num_rows, batch.schema),
+                counts.tolist())
 
     def partition_row_counts(self) -> List[int]:
         """Rows per reduce partition, after the map side (AQE's runtime
@@ -107,8 +116,17 @@ class GpuShuffleExchangeExec(GpuExec):
         store = self._materialize()
         for piece in store.read(idx):
             yield self._count_out(piece)
+            # a view of a stored batch: let it go before the next read
+            del piece
+
+    def stream_pieces(self, idx: int) -> List[StreamPiece]:
+        """The reduce partition's blocks, unsliced (for
+        ``coalesce.retry_over_stream_pieces``)."""
+        return self._materialize().pieces(idx)
 
     def cleanup(self) -> None:
+        if self._store is not None:
+            self._store.close()
         self._store = None
         super().cleanup()
 
@@ -190,6 +208,11 @@ class GpuCoalescedShuffleReaderExec(GpuExec):
         for p in self.spec.groups()[idx]:
             for batch in self.children[0].execute_partition(p):
                 yield self._count_out(batch)
+                del batch       # as the exchange's own read
+
+    def stream_pieces(self, idx: int) -> List[StreamPiece]:
+        return [piece for p in self.spec.groups()[idx]
+                for piece in self.children[0].stream_pieces(p)]
 
     def cleanup(self) -> None:
         self.spec.reset()

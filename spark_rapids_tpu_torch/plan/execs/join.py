@@ -36,10 +36,17 @@ optional residual condition.
   Where a partition's build side holds at most ``batchSizeRows`` rows it
   is built whole once and the probe side streams against it in groups of
   at most ``batchSizeRows`` rows.  A larger build partition takes the
-  reference's out-of-core branch, which sub-partitions both sides into
-  spillable buckets (``_execute_out_of_core`` :530,
-  ``plan/execs/out_of_core.py``); that needs the spill framework of the
-  memory runtime and raises NotImplementedError here.
+  reference's out-of-core branch (``_execute_out_of_core`` :530): both
+  sides are hash-sub-partitioned on their keys into spillable co-buckets
+  (``plan/execs/out_of_core.py``) of about ``batchSizeRows`` rows, and
+  each pair is joined alone, its build whole and its stream in groups of
+  at most ``batchSizeRows`` rows (a bucket's hot key then still joins in
+  bounded pieces, the reference's skew split :604).  Equal keys share a
+  bucket, so the buckets' outputs are the partition's join, for every
+  ported type and with a residual condition.
+- Every build and every stream group is joined under
+  ``with_retry_no_split``, the concat inside the retry body (the
+  reference's :257-369 and :474-509).
 - The adaptive join materializes its build side first and counts its rows:
   at most ``spark.rapids.sql.join.broadcastRowThreshold`` rows make a
   broadcast join over an in-memory scan of them; more make two hash
@@ -64,14 +71,24 @@ from spark_rapids_tpu_torch.expressions.core import (BoundReference,
 from spark_rapids_tpu_torch.kernels import join as J
 from spark_rapids_tpu_torch.kernels.selection import (coalesce_to_one,
                                                       gather_columns)
+from spark_rapids_tpu_torch.memory.retry import with_retry_no_split
 from spark_rapids_tpu_torch.plan.execs.base import GpuExec, timed
 from spark_rapids_tpu_torch.plan.execs.exchange import (
     GpuCoalescedShuffleReaderExec, GpuShuffleExchangeExec,
     SharedCoalesceSpec)
+from spark_rapids_tpu_torch.plan.execs.out_of_core import (
+    close_all, drain, num_sub_buckets, sub_partition_spillable)
 from spark_rapids_tpu_torch.plan.execs.scan import GpuInMemoryScanExec
+from spark_rapids_tpu_torch.shuffle.transport import slice_batch
 
 # the join types that emit nothing where the build side has no row
 _NOTHING_WITHOUT_BUILD = ("inner", "left_semi")
+
+
+def _split_rows(batch: ColumnarBatch, rows: int) -> Iterator[ColumnarBatch]:
+    """A batch in views of at most ``rows`` rows."""
+    for start in range(0, batch.num_rows, rows):
+        yield slice_batch(batch, start, min(rows, batch.num_rows - start))
 
 
 def _ordinal(key: Expression) -> int:
@@ -171,17 +188,45 @@ class _HashJoin(GpuExec):
     def _join(self, group: List[ColumnarBatch],
               build: J.JoinBuild) -> ColumnarBatch:
         with timed(self.op_time):
-            left = coalesce_to_one(group)
-            if self.condition is None:
-                lo, offsets, total = J.join_probe(left, self.left_keys, build,
-                                                  self.join_type)
-                li, ri = J.join_expand(lo, offsets, total, build,
-                                       self.join_type)
-            else:
-                li, ri = self._conditional_maps(left, build)
-            out = J.apply_gather_maps(left, build.batch, li, ri, self.schema,
-                                      self.join_type)
+            out = with_retry_no_split(lambda: self._join_step(group, build))
         return self._count_out(out)
+
+    def _join_step(self, group: List[ColumnarBatch],
+                   build: J.JoinBuild) -> ColumnarBatch:
+        left = coalesce_to_one(group)
+        if self.condition is None:
+            lo, offsets, total = J.join_probe(left, self.left_keys, build,
+                                              self.join_type)
+            li, ri = J.join_expand(lo, offsets, total, build, self.join_type)
+        else:
+            li, ri = self._conditional_maps(left, build)
+        return J.apply_gather_maps(left, build.batch, li, ri, self.schema,
+                                   self.join_type)
+
+    def _build_of(self, batches: List[ColumnarBatch],
+                  keep_empty: bool = False) -> Optional[J.JoinBuild]:
+        """The build of these right batches, under retry (None: no batch,
+        or, without ``keep_empty``, no row)."""
+        def step():
+            whole = coalesce_to_one(batches)
+            if whole is None or not (whole.num_rows or keep_empty):
+                return None
+            return J.build_side(whole, self.right_keys)
+        with timed(self.op_time):
+            return with_retry_no_split(step)
+
+    def _join_stream(self, stream, build: Optional[J.JoinBuild]
+                     ) -> Iterator[ColumnarBatch]:
+        """Join a stream of left batches against a build, in groups; an
+        empty build still drains the stream, as the reference's does; a
+        left join emits the stream null-extended against it, an anti
+        join every stream row."""
+        for group in self._chunks(stream):
+            if build is None:
+                if self.join_type in _NOTHING_WITHOUT_BUILD:
+                    continue
+                build = self._empty_build(group[0].device)
+            yield self._join(group, build)
 
     def _conditional_maps(self, left: ColumnarBatch, build: J.JoinBuild):
         """The reference's conditional program: candidates from the inner
@@ -240,10 +285,7 @@ class GpuBroadcastHashJoinExec(_HashJoin):
                 right = self.children[1]
                 batches = [b for p in range(right.num_partitions())
                            for b in right.execute_partition(p)]
-                with timed(self.op_time):
-                    whole = coalesce_to_one(batches)
-                    self._build = (J.build_side(whole, self.right_keys)
-                                   if whole is not None else None)
+                self._build = self._build_of(batches, keep_empty=True)
                 self._build_done = True
             return self._build
 
@@ -289,37 +331,76 @@ class GpuShuffledHashJoinExec(_HashJoin):
                     f"a shuffled join of a {lt!r} key with a {rt!r} key is "
                     "not ported: the sides would hash apart")
         #: partitions that took each branch ("streamed", "out_of_core"),
-        #: and the rows of the largest build partition seen
+        #: each partition's build rows (the largest of them), and the most
+        #: sub-buckets an out-of-core partition took
         self.branches: "collections.Counter[str]" = collections.Counter()
+        self.build_rows: List[int] = []
         self.largest_build_rows = 0
+        self.sub_buckets = 0
 
     def execute_partition(self, idx: int) -> Iterator[ColumnarBatch]:
-        right_batches = list(self.children[1].execute_partition(idx))
+        right_batches = [b for b in self.children[1].execute_partition(idx)
+                         if b.num_rows]
         right_rows = sum(b.num_rows for b in right_batches)
+        self.build_rows.append(right_rows)
         self.largest_build_rows = max(self.largest_build_rows, right_rows)
         if right_rows > self.target_rows:
-            # the join's sides then hold more than target_rows rows
-            # together: the reference's out-of-core branch
             self.branches["out_of_core"] += 1
-            raise NotImplementedError(
-                f"a shuffled join's build partition of {right_rows} rows is "
-                f"above spark.rapids.sql.batchSizeRows={self.target_rows}: "
-                "the out-of-core join (plan/execs/out_of_core.py) needs the "
-                "spill framework of the memory runtime and is not ported")
+            left_batches = [b for b in
+                            self.children[0].execute_partition(idx)
+                            if b.num_rows]
+            total = right_rows + sum(b.num_rows for b in left_batches)
+            yield from self._execute_out_of_core(left_batches, right_batches,
+                                                 total)
+            return
         self.branches["streamed"] += 1
+        build = self._build_of(right_batches)
+        right_batches.clear()
+        yield from self._join_stream(
+            self.children[0].execute_partition(idx), build)
+
+    def _execute_out_of_core(self, left_batches: List[ColumnarBatch],
+                             right_batches: List[ColumnarBatch],
+                             total: int) -> Iterator[ColumnarBatch]:
+        """Both sides sub-partitioned on their keys into spillable
+        co-buckets, each pair joined alone; the lists are emptied, so
+        that the queued rows live in the handles alone."""
+        n_b = num_sub_buckets(total, self.target_rows)
+        self.sub_buckets = max(self.sub_buckets, n_b)
         with timed(self.op_time):
-            whole = coalesce_to_one(right_batches)
-            build = (J.build_side(whole, self.right_keys)
-                     if whole is not None and whole.num_rows else None)
-        # an empty build still drains the probe side, as the reference's
-        # does; a left join emits the stream null-extended against it, an
-        # anti join every stream row
-        for group in self._chunks(self.children[0].execute_partition(idx)):
-            if build is None:
-                if self.join_type in _NOTHING_WITHOUT_BUILD:
-                    continue
-                build = self._empty_build(group[0].device)
-            yield self._join(group, build)
+            lbuckets = sub_partition_spillable(
+                drain(left_batches), self.left_keys, n_b, self.target_rows)
+            rbuckets = sub_partition_spillable(
+                drain(right_batches), self.right_keys, n_b,
+                self.target_rows)
+        try:
+            for lq, rq in zip(lbuckets, rbuckets):
+                if not lq:
+                    continue    # no stream row: no output of any type
+                # the bucket's handles stay pinned through its join
+                pinned = []
+                try:
+                    rmats = []
+                    for h in rq:
+                        rmats.append(h.materialize())
+                        pinned.append(h)
+                    build = self._build_of(rmats)
+                    del rmats
+                    lmats = []
+                    for h in lq:
+                        lmats.append(h.materialize())
+                        pinned.append(h)
+                    yield from self._join_stream(
+                        (piece for b in lmats
+                         for piece in _split_rows(b, self.target_rows)),
+                        build)
+                finally:
+                    for h in pinned:
+                        h.unpin()
+                    close_all([lq, rq])
+        finally:
+            close_all(lbuckets)
+            close_all(rbuckets)
 
     def describe(self):
         return f"GpuShuffledHashJoin[{self.join_type}, {self._keys_string()}]"

@@ -57,6 +57,7 @@ from spark_rapids_tpu_torch.expressions.aggregates import (
     COUNT_STAR, COUNT_VALID, MAX128, MIN128, SUM, SUM128)
 from spark_rapids_tpu_torch.kernels.fused import fused_compact, fused_global
 from spark_rapids_tpu_torch.kernels.selection import gather_columns
+from spark_rapids_tpu_torch.plan.execs.coalesce import retry_per_batch
 from spark_rapids_tpu_torch.plan.execs.aggregate import (GpuHashAggregateExec,
                                                          work_batch)
 from spark_rapids_tpu_torch.plan.execs.base import GpuExec, timed
@@ -195,9 +196,10 @@ class GpuFusedSegmentExec(GpuExec):
         empty = True
         for batch in self.children[0].execute_partition(idx):
             with timed(self.op_time):
-                out = self._run(batch)
+                outs = retry_per_batch(batch, self._run)
             empty = False
-            yield self._count_out(out)
+            for out in outs:
+                yield self._count_out(out)
         if empty and self.segment.is_global:
             # a partition with no input gives the partial of no rows
             # (the reference's identity partial, aggregate.py:881)

@@ -37,10 +37,13 @@ Union and Window.
   (partition, order) pair run on its CPU; its exec reads each
   expression's own frame, and the port, which has no CPU fallback,
   compares only (partition_by, order_by).
-- A global sort over more than one partition is a single-partition
-  exchange under the sort (the shape of the reference's ``TpuSortExec``
-  docstring, plan/execs/sort.py:43; its ``TpuRangeSortExec`` is not
-  ported).  A limit takes the first rows across partitions.
+- A global sort over more than one partition is a range sort
+  (``GpuRangeSortExec``, the reference's :831-840) into
+  min(``spark.sql.shuffle.partitions``, the child's partitions)
+  partitions; an input of at most ``batchSizeRows`` rows sorts whole into
+  its first partition.  A sort within partitions, and a global sort over
+  one partition, is ``GpuSortExec``, out of core past ``batchSizeRows``
+  rows.  A limit takes the first rows across partitions.
 - After conversion, with
   ``spark.rapids.sql.adaptive.coalescePartitions.enabled``, the hash
   exchange under a final aggregate is read through a coalesced reader, and
@@ -80,6 +83,7 @@ from spark_rapids_tpu_torch.plan.execs.exchange import (
 from spark_rapids_tpu_torch.plan.execs.join import (
     GpuAdaptiveJoinExec, GpuBroadcastHashJoinExec, GpuShuffledHashJoinExec)
 from spark_rapids_tpu_torch.plan.execs.misc import GpuExpandExec
+from spark_rapids_tpu_torch.plan.execs.range_sort import GpuRangeSortExec
 from spark_rapids_tpu_torch.plan.execs.scan import GpuInMemoryScanExec
 from spark_rapids_tpu_torch.plan.execs.sort import GpuLimitExec, GpuSortExec
 from spark_rapids_tpu_torch.plan.execs.window import (WINDOW_AGGREGATES,
@@ -107,9 +111,12 @@ def _convert(p: L.LogicalPlan, conf: RapidsConf,
         return _convert_join(p, conf, device)
     if isinstance(p, L.Sort):
         child = _convert(p.child, conf, device)
-        if p.global_sort and _plan_partitions(child) > 1:
-            child = GpuSinglePartitionExec(child)
-        return GpuSortExec(p.orders, child)
+        nparts = _plan_partitions(child)
+        if p.global_sort and nparts > 1:
+            return GpuRangeSortExec(
+                p.orders, child, min(conf.shuffle_partitions, nparts),
+                small_sort_rows=conf.batch_size_rows)
+        return GpuSortExec(p.orders, child, target_rows=conf.batch_size_rows)
     if isinstance(p, L.Limit):
         return GpuLimitExec(p.n, _convert(p.child, conf, device))
     if isinstance(p, L.Expand):
@@ -201,11 +208,14 @@ def _convert_join(p: L.Join, conf: RapidsConf,
 def _convert_aggregate(p: L.Aggregate, conf: RapidsConf,
                        device: torch.device) -> GpuExec:
     child = _convert(p.child, conf, device)
+    target = conf.batch_size_rows
     if _plan_partitions(child) == 1:
         return GpuHashAggregateExec(p.group_exprs, p.agg_exprs, p.aggregates,
-                                    child, p.schema, device, mode="complete")
+                                    child, p.schema, device, mode="complete",
+                                    target_rows=target)
     partial = GpuHashAggregateExec(p.group_exprs, p.agg_exprs, p.aggregates,
-                                   child, p.schema, device, mode="partial")
+                                   child, p.schema, device, mode="partial",
+                                   target_rows=target)
     if p.group_exprs:
         # the partial output's leading columns are the keys _k0, _k1, ...
         key_refs = [BoundReference(i, e.dtype, f"_k{i}")
@@ -215,7 +225,8 @@ def _convert_aggregate(p: L.Aggregate, conf: RapidsConf,
     else:
         exchange = GpuSinglePartitionExec(partial)
     return GpuHashAggregateExec(p.group_exprs, p.agg_exprs, p.aggregates,
-                                exchange, p.schema, device, mode="final")
+                                exchange, p.schema, device, mode="final",
+                                target_rows=target)
 
 
 #: the order keys a bounded RANGE frame searches (csrc/window.cu)
@@ -284,7 +295,8 @@ def _convert_window(p: L.Window, conf: RapidsConf,
         child = (GpuShuffleExchangeExec(conf.shuffle_partitions,
                                         p.spec.partition_by, child)
                  if p.spec.partition_by else GpuSinglePartitionExec(child))
-    return GpuWindowExec(p.window_exprs, child, p.schema)
+    return GpuWindowExec(p.window_exprs, child, p.schema,
+                         target_rows=conf.batch_size_rows)
 
 
 def _insert_aqe_readers(root: GpuExec, conf: RapidsConf) -> GpuExec:

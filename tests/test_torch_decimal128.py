@@ -247,16 +247,19 @@ def test_decimal128_divide_fuzz_vs_python():
 
 
 def test_decimal128_keys_raise():
-    """Decimal128 as a sort, group or join key, or hashed: not ported yet
-    (ROADMAP queue 2 item 12a (rest)), and each says so."""
-    pdf, _ = dec_dfs(n=60)
-    for q in (lambda: pdf.order_by(("a", SortOrder(True))),
-              lambda: pdf.group_by("a").agg(PE.count()),
-              lambda: pdf.join(pdf.select(PE.col("a").alias("a2")),
-                               on=([PE.col("a")], [PE.col("a2")]),
-                               how="left")):
-        with pytest.raises(NotImplementedError, match="12a"):
-            q().collect()
+    """Decimal128 as a sort, group or join key no longer raises (the keys
+    of ROADMAP queue 2 item 12a (rest) are ported): each query gives the
+    oracle's rows."""
+    pdf, jdf = dec_dfs(n=60)
+    for q, ordered in (
+            (lambda df, E, O: df.order_by(("a", O(True)), ("k", O(True))),
+             True),
+            (lambda df, E, O: df.group_by("a").agg(E.count()), False),
+            (lambda df, E, O: df.join(df.select(E.col("a").alias("a2")),
+                                      on=([E.col("a")], [E.col("a2")]),
+                                      how="left"), False)):
+        assert_rows(port_rows(q(pdf, PE, SortOrder)),
+                    q(jdf, JE, JaxSortOrder).collect(), ordered=ordered)
 
 
 def test_decimal128_runs_op_by_op():

@@ -475,3 +475,92 @@ def test_window_wrappers_raise_off_the_cpu_without_cuda(call):
     with pytest.raises(ValueError, match="expected cuda"):
         call(W)
     assert dict(_lib.LAUNCHES) == before
+
+
+def test_memory_slice_modules_are_covered():
+    """The memory runtime's modules (the arena, the spill framework, retry,
+    the device manager, the copies of metrics, task completion and the
+    checksums), the out-of-core helpers, the coalesce helpers, the range
+    sort and the spillable shuffle store are in the scans above and import
+    nothing of JAX; the router's and the order words' entry points are in
+    a built source and bound, and the Decimal128 hash and join kinds are
+    in theirs."""
+    names = ("spark_rapids_tpu_torch.memory",
+             "spark_rapids_tpu_torch.memory.arena",
+             "spark_rapids_tpu_torch.memory.spill",
+             "spark_rapids_tpu_torch.memory.retry",
+             "spark_rapids_tpu_torch.memory.device_manager",
+             "spark_rapids_tpu_torch.memory.metrics",
+             "spark_rapids_tpu_torch.memory.task_completion",
+             "spark_rapids_tpu_torch.utils.checksum",
+             "spark_rapids_tpu_torch.plan.execs.out_of_core",
+             "spark_rapids_tpu_torch.plan.execs.coalesce",
+             "spark_rapids_tpu_torch.plan.execs.range_sort",
+             "spark_rapids_tpu_torch.shuffle.transport",
+             "spark_rapids_tpu_torch.kernels.partition",
+             "spark_rapids_tpu_torch.kernels.sort",
+             "spark_rapids_tpu_torch.kernels.hash",
+             "spark_rapids_tpu_torch.kernels.join")
+    for name in names:
+        assert name in PORT_MODULES
+        path = ROOT / (name.replace(".", "/")
+                       + ("/__init__.py" if name.endswith("memory")
+                          else ".py"))
+        assert not {m for m in _imported_roots(path) if m in FORBIDDEN}
+    source = (_lib.CSRC / "sort.cu").read_text()
+    for entry in ("srt_order_words", "srt_range_route"):
+        assert entry in source and entry in _lib._SIGNATURES
+    assert "kDec128Hi" in source and "kDec128Lo" in source
+    assert "kDec128" in (_lib.CSRC / "hash.cu").read_text()
+    assert "kDec128" in (_lib.CSRC / "join.cu").read_text()
+
+
+def _dec_meta(n=8):
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    return DeviceColumn(_limbs(n), _meta(torch.bool, n), T.DecimalType(38, 2))
+
+
+def _dec_meta_batch(n=8):
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
+    return ColumnarBatch((_dec_meta(n),), n,
+                         Schema(("a",), (T.DecimalType(38, 2),)))
+
+
+def _join_build_meta():
+    from spark_rapids_tpu_torch.kernels import join as J
+    return J._multi_build_cuda(
+        [_dec_meta()], torch.empty(8, dtype=torch.int32, device="meta"))
+
+
+@pytest.mark.parametrize("call", [
+    lambda P, S, H: P.range_partition(
+        torch.empty((3, 8), dtype=torch.int64, device="meta"),
+        torch.empty((2, 3), dtype=torch.int64, device="meta"), 4),
+    lambda P, S, H: S.sort_indices(_dec_meta_batch(), [0],
+                                   [S.SortOrder(False)]),
+    lambda P, S, H: S.order_words(_dec_meta(), S.SortOrder(True)),
+    lambda P, S, H: H.murmur3_hash([_dec_meta()]),
+    lambda P, S, H: H.murmur3_partition([_dec_meta()], 16),
+    # a 226-byte string key's 31 words against 299 boundaries
+    lambda P, S, H: P.range_partition(
+        torch.empty((31, 8), dtype=torch.int64, device="meta"),
+        torch.empty((299, 31), dtype=torch.int64, device="meta"), 300),
+    lambda P, S, H: _join_build_meta(),
+], ids=["range_partition", "decimal128_sort_key", "order_words",
+        "decimal128_hash", "decimal128_hash_partition",
+        "range_partition_long_key_300_partitions", "decimal128_join_key"])
+def test_memory_slice_wrappers_raise_off_the_cpu_without_cuda(call):
+    """As ``test_window_wrappers_raise_off_the_cpu_without_cuda``, for K1
+    (the range router, also past the boundaries that fit in shared
+    memory), K2 (the Decimal128 sort key, through the radix sort, the
+    order words and the join's key words) and K3 (the Decimal128
+    murmur3): no plain version off the CPU, no launch counted."""
+    from spark_rapids_tpu_torch.kernels import hash as H
+    from spark_rapids_tpu_torch.kernels import partition as P
+    from spark_rapids_tpu_torch.kernels import sort as S
+    before = dict(_lib.LAUNCHES)
+    with pytest.raises(ValueError, match="expected cuda"):
+        call(P, S, H)
+    assert dict(_lib.LAUNCHES) == before

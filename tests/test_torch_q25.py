@@ -273,20 +273,29 @@ def test_shared_coalesce_spec_merges_both_sides_counts(counts, target, want):
 
 def test_shuffled_join_over_target_raises_out_of_core(reference):
     """A build partition above batchSizeRows takes the reference's
-    out-of-core branch, which needs the spill framework: it raises."""
+    out-of-core branch (spillable co-buckets joined pairwise), which gives
+    the rows of the in-core join."""
     tables, _ = reference
-    ss, sr, *_ = _port_dfs(tables, {THR: "0",
-                                    "spark.sql.shuffle.partitions": "2",
-                                    "spark.rapids.sql.batchSizeRows": "1000"})
     from spark_rapids_tpu_torch import expressions as PE
-    df = ss.join(sr, on=([PE.col("ss_ticket_number"), PE.col("ss_item_sk")],
-                         [PE.col("sr_ticket_number"), PE.col("sr_item_sk")]))
-    plan = df.physical_plan()
-    assert isinstance(plan, GpuShuffledHashJoinExec)
-    with pytest.raises(NotImplementedError, match="out-of-core"):
-        GpuEngine().collect(plan)
-    assert plan.branches["out_of_core"] >= 1
-    assert plan.largest_build_rows > 1000
+    rows = {}
+    for target in ("1000", "1000000"):
+        ss, sr, *_ = _port_dfs(tables, {
+            THR: "0", "spark.sql.shuffle.partitions": "2",
+            "spark.rapids.sql.batchSizeRows": target})
+        df = ss.join(sr, on=([PE.col("ss_ticket_number"),
+                              PE.col("ss_item_sk")],
+                             [PE.col("sr_ticket_number"),
+                              PE.col("sr_item_sk")]))
+        plan = df.physical_plan()
+        assert isinstance(plan, GpuShuffledHashJoinExec)
+        rows[target] = sorted(GpuEngine().collect(plan), key=repr)
+        if target == "1000":
+            assert plan.branches["out_of_core"] >= 1
+            assert plan.largest_build_rows > 1000
+            assert plan.sub_buckets >= 2
+        else:
+            assert plan.branches["out_of_core"] == 0
+    assert rows["1000"] == rows["1000000"] and rows["1000"]
 
 
 @pytest.mark.parametrize("conf,adaptive,shuffled,readers", [

@@ -25,11 +25,10 @@ from spark_rapids_tpu_torch.columnar.arrow import arrow_to_batch
 from spark_rapids_tpu_torch.kernels.sort import SortOrder
 from spark_rapids_tpu_torch.plan.execs.basic import GpuFilterExec
 from spark_rapids_tpu_torch.plan.execs.exchange import (
-    GpuCoalescedShuffleReaderExec, GpuShuffleExchangeExec,
-    GpuSinglePartitionExec)
+    GpuCoalescedShuffleReaderExec, GpuShuffleExchangeExec)
 from spark_rapids_tpu_torch.plan.execs.join import (
     GpuAdaptiveJoinExec, GpuBroadcastHashJoinExec, GpuShuffledHashJoinExec)
-from spark_rapids_tpu_torch.plan.execs.sort import GpuSortExec
+from spark_rapids_tpu_torch.plan.execs.range_sort import GpuRangeSortExec
 from spark_rapids_tpu_torch.plan.fused import GpuFusedSegmentExec
 from spark_rapids_tpu_torch.testing import tpcds as port_tpcds
 
@@ -103,14 +102,12 @@ def test_q3_matches_reference_in_order(reference):
 def test_q3_plan_shape(reference):
     """Both joins broadcast, their filters pushed into the dimension
     tables; the grouped aggregate goes through the hash exchange, read
-    through the AQE coalesced reader; the global sort sits over a
-    single-partition exchange."""
+    through the AQE coalesced reader; the global sort is a range sort
+    over the final aggregate's partitions."""
     tables, ref = reference
     plan = port_tpcds.q3(*_port_dfs(tables)).physical_plan()
-    assert isinstance(plan, GpuSortExec)
-    single = plan.children[0]
-    assert isinstance(single, GpuSinglePartitionExec)
-    final = single.children[0]
+    assert isinstance(plan, GpuRangeSortExec)
+    final = plan.children[0]
     assert final.mode == "final"
     reader = final.children[0]
     assert isinstance(reader, GpuCoalescedShuffleReaderExec)
@@ -132,7 +129,7 @@ def test_q3_plan_shape(reference):
         assert cond in repr(build.chain[0].condition)
     lines = plan.tree_string().splitlines()
     assert sum("GpuFilter" in ln for ln in lines) == 2
-    assert sum("GpuSort" in ln for ln in lines) == 1
+    assert sum("GpuRangeSort" in ln for ln in lines) == 1
 
 
 @pytest.mark.parametrize("conf,num_partitions", [
