@@ -134,8 +134,24 @@ Phases (any failure raises and the script exits non-zero):
      BigInteger.toByteArray and murmur3 in Python over 100,000 rows; each
      timed (the router and the order words at phase 18's ORDER BY shape,
      the decimal kernels at phase 15's, K2 through the order words).
-     A kernel's ``max_abs_err`` is the largest difference over all its
-     comparisons;
+     Then the join slice's: K1 (``join_expand_outer``, the right and full
+     joins' expand with its per-build-row flags, and the appended
+     unmatched build rows) at n = 0, 1, 1,048,576 and 1,000,003 against
+     100,000 keys with duplicates, with every build row matched, with
+     none, with 30% null keys on both sides and over (int, string) keys,
+     step by step and against the plain path's whole maps on the CPU; K2
+     (``join_expand_cross``) with nr = 0, 1 and 16 and at 70,001 x 16,
+     past batchSizeRows; K3 (``string_hash_key``) over strings of 0-64
+     and 0-300 bytes and empty strings, at the longest row's chunk count
+     and at more, with the hashed sort and the split grouping; the BYTE
+     and SHORT kinds of the sort (both ways), the order words, murmur3,
+     the join's build and probe (and K1 over them) and the extremes and
+     M2 at the types' extremes (-128, 127, -32768, 32767) at n = 0, 1,
+     1,048,576 and 1,000,003; all bit for bit.  K1 and K2 timed at phase
+     19's shape beside ``Tensor.index_fill_`` and
+     ``torch.cartesian_prod``, K3 over phase 13's s, the BYTE sort and
+     extreme beside INT's.  A kernel's ``max_abs_err`` is the largest
+     difference over all its comparisons;
   4. data: TPC-H lineitem at SF10 (60,012,150 rows, all eleven columns on
      the card, batches of 1,048,576 rows, 4 partitions), with independent
      numpy evaluations of q6 and q1;
@@ -253,7 +269,12 @@ Phases (any failure raises and the script exits non-zero):
      global, grouped STRING MIN / MAX, and the bit aggregates over v and
      b grouped and global; each against numpy in the port's input order
      (values exact, floats bit for bit, NaN equal to NaN), with its
-     launches, timed and profiled;
+     launches, timed and profiled; then the BYTE and SHORT keys over the
+     same table with ``h`` SHORT (v narrowed): GROUP BY b (COUNT, MIN(x))
+     and GROUP BY h (COUNT, MAX(b)), each ordered by its key, MIN / MAX /
+     VARIANCE of b by k, and an inner join on b against a 256-row BYTE
+     dimension (COUNT, SUM(v), SUM(d)), each exact against numpy (the
+     variance within 1e-9), timed once and profiled;
  14. (run right after phase 6) q1_decimal: TPC-H q1 with its decimal
      types (sums decimal(22,2) to decimal(38,6), averages decimal(16,6),
      no cast to DOUBLE) over phase 4's lineitem, every value and count
@@ -309,7 +330,17 @@ Phases (any failure raises and the script exits non-zero):
      OutOfMemoryError in ``with_retry_no_split``, spill and pass.  Each
      part prints its wall, spill and retry counters and peak device
      memory;
- 19. prints the kernels summary line, then the result line last.
+ 19. the held joins (``testing/held.py`` ``join_columns``:
+     tests/test_joins.py's left_df and right_df at 7,501,518 and 3,750,759
+     rows, keys in [0, n / 15) and [0, n / 12), n / 8 nulls a column) in
+     batches of 1,048,576, 16 partitions: J1 the right join on k, J2 the
+     full join (and grouped by rv), J3 the full join with lv < rv, J4 the
+     cross join against the right side's first 16 rows, J5 the keyless
+     inner and right joins with lv < rv against them, each followed by
+     COUNT(*), COUNT(lv), SUM(lv), SUM(rv) and exact against numpy; then
+     J2 again at batchSizeRows 131,072, where every partition must go out
+     of core; each with its launches, timed once and profiled;
+ 20. prints the kernels summary line, then the result line last.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -474,6 +505,12 @@ KERNELS = {
                             "spark_rapids_tpu/kernels/sort.py:123"),
     "decimal128_hash": ("csrc/hash.cu",
                         "spark_rapids_tpu/kernels/hash.py:141"),
+    "join_expand_outer": ("csrc/join.cu",
+                          "spark_rapids_tpu/kernels/join.py:393"),
+    "join_expand_cross": ("csrc/join.cu",
+                          "spark_rapids_tpu/kernels/join.py:260"),
+    "string_hash_key": ("csrc/sort.cu",
+                        "spark_rapids_tpu/kernels/sort.py:183"),
 }
 FUSE_OFF = {"spark.rapids.sql.tpu.fuseStages": "false"}
 # fused (the default), q6's filter and partial sum are one kernel a batch:
@@ -485,7 +522,7 @@ Q1_UNFUSED_KERNELS = ("compaction_map", "gather", "concat", "murmur3",
 Q1_KERNELS = Q1_UNFUSED_KERNELS + ("fused_segment",)
 Q3_KERNELS = ("fused_segment", "compaction_map", "gather", "gather_strings",
               "concat", "concat_strings", "murmur3", "hash_string",
-              "partition", "sort",
+              "partition", "sort", "string_hash_key",
               "string_sort_keys", "string_rows_equal_prev", "segmented_sum",
               "join_build", "join_probe", "join_expand")
 Q25_KERNELS = Q3_KERNELS + ("join_multi_build", "join_multi_probe")
@@ -3748,6 +3785,249 @@ def check_memory_kernels(rng, dev, summary) -> None:
         summary[kernel] = summarize(line, nbytes, ops)
 
 
+# -- phase 3: the join slice's kernels ----------------------------------------
+
+JOIN_LEFT_ROWS = SF10_ROWS // 8          # 7,501,518: phase 19's left side
+JOIN_RIGHT_ROWS = JOIN_LEFT_ROWS // 2    # 3,750,759
+JOIN_SEED = 5                            # tests/test_joins.py's left_df seed
+JOIN_PARTITIONS = 16
+NARROW_EDGES = {"byte": (-128, 127), "short": (-32768, 32767)}
+NARROW_TYPES = {"byte": T.BYTE, "short": T.SHORT}
+
+
+def cpu_batch(cols) -> ColumnarBatch:
+    return to_device(keys_batch(cols), "cpu")
+
+
+def hold_outer(stream_cols, build_cols, join_type: str, what: str,
+               on_cpu: bool = True):
+    """K1 step by step on the same tensors: the probe, the expand with the
+    flags against the plain expand with them, the appended rows against
+    the flags' complement; then (``on_cpu``) the whole maps against the
+    plain path's on the CPU.  Returns (build, lo, offsets, pairs,
+    flags)."""
+    keys = list(range(len(build_cols)))
+    build = JK.build_side(keys_batch(build_cols), keys)
+    lo, off, total = JK.join_probe(keys_batch(stream_cols), keys, build,
+                                   join_type)
+    dev = lo.device
+    matched = JK.new_matched(build.num_rows, dev)
+    li, ri = JK.join_expand(lo, off, total, build, join_type, matched)
+    want = JK.new_matched(build.num_rows, dev)
+    pli, pri = JK.expand_plain(lo, off, total, build.perm, want)
+    hold("join_expand_outer", [(li, pli), (ri, pri), (matched, want)], what)
+    ali, ari = JK.unmatched_build_rows(matched)
+    rows = torch.nonzero(~want).flatten().to(torch.int32)
+    hold("join_expand_outer", [(ari, rows), (ali, torch.full_like(rows, -1))],
+         f"{what}: the appended rows")
+    if not on_cpu:
+        return build, lo, off, total, matched
+    gli, gri, _ = JK.join_gather_maps(cpu_batch(stream_cols), keys,
+                                      cpu_batch(build_cols), keys, join_type)
+    require(torch.equal(torch.cat([li, ali]).cpu(), gli)
+            and torch.equal(torch.cat([ri, ari]).cpu(), gri),
+            f"join_expand_outer: {join_type} maps differ from the CPU's: "
+            f"{what}")
+    return build, lo, off, total, matched
+
+
+def narrow_column(rng, n: int, kind: str, dev,
+                  null_frac: float = 0.1) -> DeviceColumn:
+    """BYTE or SHORT values over the whole range, the type's two extremes,
+    -1 and 0 in the first rows, 10% null."""
+    lo, hi = NARROW_EDGES[kind]
+    v = rng.randint(lo, hi + 1, n)
+    v[:4] = [lo, hi, -1, 0][:n]
+    valid = rng.rand(n) >= null_frac
+    valid[:4] = True
+    dt = NARROW_TYPES[kind]
+    return DeviceColumn.from_numpy(
+        np.where(valid, v, 0).astype(dt.np_dtype), dt, valid, dev)
+
+
+def check_narrow_kinds(rng, dev, summary) -> None:
+    """The BYTE and SHORT kinds of the sort, the order words, murmur3, the
+    join's build and probe and the extremes (and the M2 update over them,
+    widened to int32), bit for bit at n = 0, 1, 1,048,576 and 1,000,003
+    with the types' extremes; then the BYTE sort and the BYTE segmented
+    extreme timed at phase 13's partial shape beside INT's."""
+    asc, desc = [SK.SortOrder()], [SK.SortOrder(False)]
+    for n in (0, 1, N, RAGGED):
+        for kind in NARROW_EDGES:
+            c = narrow_column(rng, n, kind, dev)
+            what = f"n={n} {kind}"
+            if n:
+                hold_sort([c], asc, f"{what} asc")
+                hold_sort([c], desc, f"{what} desc")
+                hold_murmur3([c], what)
+                hold("order_words", [(SK.order_words(c, desc[0]),
+                                      SK.order_words_plain(c, desc[0]))],
+                     what)
+                build = narrow_column(rng, 300, kind, dev)
+                hold_join(c, build, f"{what} keys")
+                hold_outer([c], [build], "full", f"{what} keys")
+            for label, starts in tail_layouts(n).items():
+                st = torch.from_numpy(starts.astype(np.int32)).to(dev)
+                hold_extremes(c, st, f"{what} {label}")
+                hold_m2(c, st, f"{what} {label}")
+    cols, st = phase13_layout(rng, N, dev)
+    c8 = cols["b"]
+    c32 = tail_column(rng, N, T.INT, dev, specials=False)
+    for label, col in (("byte", c8), ("int", c32)):
+        batch = build_batch(col)
+        # a digit pass per key byte and the null pass, each reading and
+        # writing the key and the row id
+        width = col.data.element_size()
+        nbytes = (width + 1) * 2 * (width + 4) * N
+        emit({"kernel": "sort", "shape": f"phase13_{label}_key", "n": N,
+              **measure(lambda: SK.sort_indices(batch, [0], asc),
+                        lambda: SK.sort_indices_plain([col], asc), None,
+                        nbytes)})
+        nbytes = (col.data.element_size() + 1) * N + 4 * st.shape[0]
+        emit({"kernel": "segmented_extreme",
+              "shape": f"phase13_{label}_partial", "n": N, **measure(
+                  lambda: R.segmented_extreme(col.data, col.validity, st,
+                                              True),
+                  lambda: R.segmented_extreme_plain(col.data, col.validity,
+                                                    st, True), None,
+                  nbytes)})
+
+
+def check_string_hash_key(rng, dev, summary) -> None:
+    """K3 bit for bit against its plain version at n = 0, 1, 1,048,576
+    and 1,000,003 over strings of 0-64 and 0-300 bytes (10% nulls,
+    shared prefixes, the binaryCompare edges), at the chunk count of the
+    longest valid row and at more; the sort by it and the split-tolerant
+    grouping (the boundaries of the exact grouping must hold); then timed
+    at phase 13's shape (the tail's s, 1,048,576 rows of 3-8 bytes)."""
+    for n in (0, 1, N, RAGGED):
+        for hi in (64, 300):
+            c = with_edges(string_column(rng, n, dev, hi=hi), dev)
+            nch = SK.hash_chunks(SK.string_longest([c])[0])
+            what = f"n={n} strings of 0-{hi} bytes"
+            for k in (nch, nch + 3):
+                hold("string_hash_key", [(SK.string_hash_key(c, k),
+                                          SK.string_hash_key_plain(c, k))],
+                     f"{what}, {k} chunks")
+            batch = build_batch(c)
+            hold("sort", [(SK.sort_indices(batch, [0], [SK.SortOrder()],
+                                           hash_string_keys=True),
+                           SK.sort_indices_plain([c], [SK.SortOrder()],
+                                                 True))], f"{what} hashed")
+            split = G.group_rows(batch, [0], allow_split_groups=True)
+            exact = G.group_rows(batch, [0])
+            require(split.num_groups == exact.num_groups,
+                    f"string_hash_key: {split.num_groups} split groups "
+                    f"against {exact.num_groups}: {what}")
+        if n:   # no byte at all: empty strings and nulls
+            c = DeviceColumn.from_strings(["", None] * (n // 2) + [""] * (n % 2),
+                                          dev)
+            hold("string_hash_key", [(SK.string_hash_key(c, 1),
+                                      SK.string_hash_key_plain(c, 1))],
+                 f"n={n} empty strings")
+    data, validity = held.tail_columns(N, TAIL_SEED)
+    s = held.tail_batches(data, validity, dev, N)[0].columns[3]
+    nch = SK.hash_chunks(SK.string_longest([s])[0])
+    hold("string_hash_key", [(SK.string_hash_key(s, nch),
+                              SK.string_hash_key_plain(s, nch))],
+         "the timed tail s")
+    nbytes = 4 * (N + 1) + s.data.shape[0] + N + 8 * N
+    ops = (3 * SK.HASH_CHUNK_BYTES + 2) * nch * N
+    line = {"kernel": "string_hash_key", "shape": "phase13_s", "n": N,
+            "chunks": nch, **measure(
+                lambda: SK.string_hash_key(s, nch),
+                lambda: SK.string_hash_key_plain(s, nch), None, nbytes, ops)}
+    emit(line)
+    summary["string_hash_key"] = summarize(line, nbytes, ops)
+
+
+def check_outer_and_cross(rng, dev, summary) -> None:
+    """K1 (right and full) and K2 against their plain versions.  K1 at
+    n = 0, 1, 1,048,576 and 1,000,003 against a build of 100,000 keys with
+    duplicates, with every build row matched, with none matched and with
+    30% null keys on both sides, and over (int, string) keys; K2 with nr =
+    0, 1 and 16 at the same n and with a build whose product passes
+    batchSizeRows (70,001 x 16).  Then both timed at phase 19's shape
+    (K1: the 7,501,518-row left side against the 3,750,759-row right one
+    on k; K2: the left side against 16 rows), beside Tensor.index_fill_
+    over the pairs' right rows (K1's flags) and torch.cartesian_prod
+    (K2)."""
+    pool = string_pool(rng, 500, 24)
+    for n in (0, 1, N, RAGGED):
+        for jt in JK.OUTER:
+            what = f"n={n} {jt}"
+            hold_outer([key_column(rng, n, T.INT, 1_000, dev)],
+                       [key_column(rng, 100_000, T.INT, 60_000, dev)], jt,
+                       f"{what} against 100,000 keys")
+            if n >= 100:
+                stream = key_column(rng, n, T.INT, 50, dev)
+                *_, matched = hold_outer(
+                    [stream], [key_column(rng, 5_000, T.INT, 50, dev, 0.0)],
+                    jt, f"{what} every build row matched")
+                require(bool(matched.all()), f"{what}: a build row of a key "
+                        "every stream draws went unmatched")
+            none = key_column(rng, 5_000, T.INT, 50, dev)
+            none.data += 1_000_000
+            *_, matched = hold_outer([key_column(rng, n, T.INT, 50, dev)],
+                                     [none], jt, f"{what} none matched")
+            require(not bool(matched.any()), f"{what}: a build row matched "
+                    "a key no stream row holds")
+            hold_outer([key_column(rng, n, T.INT, 500, dev, 0.3)],
+                       [key_column(rng, 20_000, T.INT, 500, dev, 0.3)], jt,
+                       f"{what} null keys on both sides")
+            hold_outer([multi_column(rng, n, "int", 40, dev),
+                        multi_column(rng, n, "string", 0, dev, pool=pool)],
+                       [multi_column(rng, 30_000, "int", 40, dev),
+                        multi_column(rng, 30_000, "string", 0, dev,
+                                     pool=pool)], jt,
+                       f"{what} (int, string) keys")
+        for nr in (0, 1, 16):
+            hold("join_expand_cross", zip(
+                JK.cross_join_maps(n, nr, dev),
+                JK.cross_join_maps_plain(n, nr, dev)), f"n={n} x {nr}")
+    big = 70_001
+    require(big * 16 > 1 << 20, "the cross case must pass batchSizeRows")
+    hold("join_expand_cross", zip(JK.cross_join_maps(big, 16, dev),
+                                  JK.cross_join_maps_plain(big, 16, dev)),
+         f"{big} x 16, past batchSizeRows")
+    # phase 19's shape
+    (ld, lv), (rd, rv) = held.join_columns(JOIN_LEFT_ROWS, JOIN_SEED)
+    left = DeviceColumn.from_numpy(ld["k"], T.INT, lv["k"], dev)
+    right = DeviceColumn.from_numpy(rd["k"], T.INT, rv["k"], dev)
+    build, lo, off, total, matched = hold_outer(
+        [left], [right], "full", "phase 19's full join", on_cpu=False)
+    n, nb = left.num_rows, right.num_rows
+    flags = JK.new_matched(nb, dev)
+    pflags = JK.new_matched(nb, dev)
+    _, ri = JK.join_expand(lo, off, total, build, "full", flags)
+    hit = ri[ri >= 0].long()
+    nbytes = 8 * total + 4 * hit.shape[0] + 8 * n + hit.shape[0]
+    line = {"kernel": "join_expand_outer", "shape": "phase19_full", "n": n,
+            "build": nb, "pairs": total, **measure(
+                lambda: JK.join_expand(lo, off, total, build, "full", flags),
+                lambda: JK.expand_plain(lo, off, total, build.perm, pflags),
+                lambda: flags.index_fill_(0, hit, True), nbytes)}
+    emit(line)
+    summary["join_expand_outer"] = summarize(line, nbytes)
+    nr = held.JOIN_SMALL_BUILD
+    nbytes = 8 * n * nr
+    ar_l = torch.arange(n, dtype=torch.int32, device=dev)
+    ar_r = torch.arange(nr, dtype=torch.int32, device=dev)
+    line = {"kernel": "join_expand_cross", "shape": "phase19_cross", "n": n,
+            "build": nr, "pairs": n * nr, **measure(
+                lambda: JK.cross_join_maps(n, nr, dev),
+                lambda: JK.cross_join_maps_plain(n, nr, dev),
+                lambda: torch.cartesian_prod(ar_l, ar_r), nbytes)}
+    emit(line)
+    summary["join_expand_cross"] = summarize(line, nbytes)
+
+
+def check_join_slice(rng, dev, summary) -> None:
+    check_outer_and_cross(rng, dev, summary)
+    check_string_hash_key(rng, dev, summary)
+    check_narrow_kinds(rng, dev, summary)
+
+
 def phase_kernels(dev, tables) -> dict:
     # the profiler itself must see the card
     device_profile(lambda: torch.ones(8, device=dev) + 1)
@@ -3782,6 +4062,7 @@ def phase_kernels(dev, tables) -> dict:
     check_decimal128(rng, dev, summary)
     check_window(rng, dev, summary)
     check_memory_kernels(rng, dev, summary)
+    check_join_slice(rng, dev, summary)
     torch.cuda.synchronize()
     return summary
 
@@ -5779,8 +6060,41 @@ TAIL_SPECS = {
     "global_bits": [(op, c, None) for c in "vb"
                     for op in ("bit_and", "bit_or", "bit_xor")],
 }
+# each BYTE / SHORT key query's kernels (the BYTE and SHORT kinds of the
+# sort, murmur3, the join and the extremes)
+TAIL_KEY_KERNELS = {
+    "group_by_byte": ("sort", "murmur3", "segmented_extreme"),
+    "byte_extremes": ("segmented_extreme", "segmented_m2"),
+    "group_by_short": ("sort", "murmur3", "segmented_extreme"),
+    "join_on_byte": ("join_build", "join_probe"),
+}
 _I64_MAX = np.iinfo(np.int64).max
 _I64_MIN = np.iinfo(np.int64).min
+
+
+def spark_min_f64(x, ok, gid, ng: int) -> list:
+    """Spark's MIN of doubles per group id: -0.0 below 0.0, NaN only where
+    a group's valid values are all NaN, None where it has none."""
+    nan = np.isnan(x)
+    take = ok & ~nan
+    b = x.view(np.int64)
+    key = np.where(b < 0, b ^ 0x7FFFFFFFFFFFFFFF, b)
+    best = np.full(ng, _I64_MAX, np.int64)
+    np.minimum.at(best, gid[take], key[take])
+    vals = np.where(best < 0, best ^ 0x7FFFFFFFFFFFFFFF, best).view(
+        np.float64)
+    nonnan = np.bincount(gid[take], minlength=ng)
+    nvalid = np.bincount(gid[ok], minlength=ng)
+    return [None if nvalid[g] == 0 else float("nan") if nonnan[g] == 0
+            else float(vals[g]) for g in range(ng)]
+
+
+def int_extreme(x, ok, gid, ng: int, is_min: bool) -> list:
+    best = np.full(ng, _I64_MAX if is_min else _I64_MIN, np.int64)
+    (np.minimum if is_min else np.maximum).at(best, gid[ok],
+                                              x[ok].astype(np.int64))
+    nvalid = np.bincount(gid[ok], minlength=ng)
+    return [int(best[g]) if nvalid[g] else None for g in range(ng)]
 
 
 class TailNumpy:
@@ -5857,6 +6171,44 @@ class TailNumpy:
             at = np.minimum.reduceat(np.where(eligible, pos, n), starts)
         return [self.value(c, idx[a]) if 0 <= a < n else None for a in at]
 
+    def key_rows(self, name: str) -> list:
+        """The BYTE / SHORT key queries (``held.TAIL_KEY_QUERIES``), in
+        ORDER BY order where they end in one, else sorted by key."""
+        d, ok = self.data, self.validity
+        b = d["b"].astype(np.int64)
+        if name == "group_by_byte":
+            gid = np.where(ok["b"], b + 129, 0)    # the null group first
+            n = np.bincount(gid, minlength=257)
+            mins = spark_min_f64(d["x"], ok["x"], gid, 257)
+            return [(None if g == 0 else g - 129, int(n[g]), mins[g])
+                    for g in range(257) if n[g]]
+        if name == "byte_extremes":
+            k = d["k"].astype(np.int64)
+            ng = held.TAIL_KEYS
+            mn = int_extreme(b, ok["b"], k, ng, True)
+            mx = int_extreme(b, ok["b"], k, ng, False)
+            m = ok["b"]
+            cnt = np.bincount(k[m], minlength=ng)
+            mean = np.bincount(k[m], b[m], ng) / np.maximum(cnt, 1)
+            m2 = np.bincount(k[m], (b[m] - mean[k[m]]) ** 2, ng)
+            var = [float(m2[g] / (cnt[g] - 1)) if cnt[g] > 1 else None
+                   for g in range(ng)]
+            rows = np.bincount(k, minlength=ng)
+            return [(g, mn[g], mx[g], var[g]) for g in range(ng) if rows[g]]
+        if name == "group_by_short":
+            h = d["v"].astype(np.int16).astype(np.int64)
+            gid = np.where(ok["v"], h + 1001, 0)   # -1000..999, null first
+            n = np.bincount(gid, minlength=2001)
+            mx = int_extreme(b, ok["b"], gid, 2001, False)
+            return [(None if g == 0 else g - 1001, int(n[g]), mx[g])
+                    for g in range(2001) if n[g]]
+        # join_on_byte: every valid b meets its one dimension row
+        m = ok["b"]
+        sv = m & ok["v"]
+        return [(int(m.sum()),
+                 int(d["v"][sv].sum()) if sv.any() else None,
+                 int((b[m] + 1000).sum()) if m.any() else None)]
+
     def rows(self, name: str) -> list:
         grouped = name.startswith("grouped")
         cols = [self.column(spec, grouped) for spec in TAIL_SPECS[name]]
@@ -5872,13 +6224,15 @@ def phase_tail_data(dev):
     numpy's results of the eight queries."""
     t0 = time.perf_counter()
     data, validity = held.tail_columns(TAIL_ROWS, TAIL_SEED)
-    batches = held.tail_batches(data, validity, dev, N)
+    batches = held.tail_batches(data, validity, dev, N, with_short=True)
     torch.cuda.synchronize()
     upload = time.perf_counter() - t0
     ref = TailNumpy(data, validity, len(batches), N, TAIL_PARTITIONS)
     with ThreadPoolExecutor(4) as pool:
         want = dict(zip(held.TAIL_QUERIES, pool.map(
             ref.rows, held.TAIL_QUERIES)))
+        want.update(zip(held.TAIL_KEY_QUERIES, pool.map(
+            ref.key_rows, held.TAIL_KEY_QUERIES)))
     resident = sum(t.nbytes for b in batches for c in b.columns
                    for t in (c.data, c.validity)
                    + ((c.offsets,) if c.is_string else ()))
@@ -5886,9 +6240,10 @@ def phase_tail_data(dev):
           "partitions": TAIL_PARTITIONS, "resident_bytes": resident,
           "draw_and_upload_seconds": upload,
           "setup_seconds": time.perf_counter() - t0})
-    df = GpuSession().create_dataframe(batches,
-                                       num_partitions=TAIL_PARTITIONS)
-    return df, want
+    sess = GpuSession()
+    df = sess.create_dataframe(batches, num_partitions=TAIL_PARTITIONS)
+    dim = sess.create_dataframe([held.byte_dimension(dev)])
+    return df, dim, want
 
 
 def tail_equal(a, b) -> bool:
@@ -5903,9 +6258,9 @@ def tail_equal(a, b) -> bool:
     return a == b
 
 
-def phase_tail(df, want) -> dict:
+def phase_tail(df, dim, want) -> dict:
     """Each tail query's main path (traced, its launches), held against
-    numpy, then timed."""
+    numpy, then timed; then the BYTE / SHORT key queries the same way."""
     by_path = {}
     nbatches = -(-TAIL_ROWS // N)
     for name, build in held.TAIL_QUERIES.items():
@@ -5922,6 +6277,32 @@ def phase_tail(df, want) -> dict:
                 tail_equal(a, b) for a, b in zip(g, w)),
                 f"{path} row {g} where numpy has {w}")
         timing = time_path(path, query, None, TAIL_ROWS, profile)
+        emit({"phase": path, "rows": TAIL_ROWS, "groups": len(rows),
+              "first_wall_s": first_wall, "first_row": rows[0],
+              "activities_per_batch": per_batch(timing, nbatches),
+              **timing})
+        by_path[path] = launches
+    for name, build in held.TAIL_KEY_QUERIES.items():
+        if name == "join_on_byte":
+            query = lambda _, build=build: build(df, dim)  # noqa: E731
+        else:
+            query = lambda _, build=build: build(df)  # noqa: E731
+        path = f"tail_{name}"
+        rows, plan, launches, first_wall, profile = run_phase_path(
+            path, query, TAIL_KEY_KERNELS[name])
+        if name == "byte_extremes":
+            rows = sorted(rows, key=lambda r: r[0])
+        exp = want[name]
+        require(len(rows) == len(exp),
+                f"{path} gave {len(rows)} rows, numpy {len(exp)}")
+        for g, w in zip(rows, exp):
+            same = len(g) == len(w) and all(
+                tail_equal(a, b) if not (name == "byte_extremes" and i == 3)
+                else (a is None) == (b is None) and (
+                    a is None or abs(a - b) <= F64_RTOL_HELD * abs(b))
+                for i, (a, b) in enumerate(zip(g, w)))
+            require(same, f"{path} row {g} where numpy has {w}")
+        timing = time_path(path, query, None, TAIL_ROWS, profile, runs=1)
         emit({"phase": path, "rows": TAIL_ROWS, "groups": len(rows),
               "first_wall_s": first_wall, "first_row": rows[0],
               "activities_per_batch": per_batch(timing, nbatches),
@@ -7055,6 +7436,234 @@ def phase_memory(batches, ref: MemNumpy) -> dict:
     return by_path
 
 
+# -- phase 19 -----------------------------------------------------------------
+
+#: batchSizeRows of J2's second run: below each partition's build (~234,000
+#: rows), so that every partition's join goes out of core
+JOIN_OOC_TARGET = 131_072
+# each held join's kernels that its main path must launch
+JOIN_PHASE_KERNELS = {
+    "right_join": ("join_build", "join_probe", "join_expand_outer",
+                   "compaction_map", "gather_null_extend"),
+    "full_join": ("join_probe_left", "join_expand_outer",
+                  "gather_null_extend"),
+    "full_join_by_rv": ("join_probe_left", "join_expand_outer"),
+    "full_join_condition": ("join_probe", "join_expand",
+                            "conditional_join_maps", "compaction_map"),
+    "cross_join": ("join_expand_cross",),
+    "keyless_inner": ("join_expand_cross", "conditional_join_maps"),
+    "keyless_right": ("join_expand_cross", "conditional_join_maps",
+                      "compaction_map"),
+}
+
+
+def _sum_or_none(x: np.ndarray):
+    return int(x.sum()) if len(x) else None
+
+
+class JoinNumpy:
+    """Independent evaluation of the held joins over the host columns:
+    per-key counts and sums by np.bincount (every equi-join's pairs of a
+    key are its left rows times its right rows), the condition lv < rv by
+    searchsorted over the right rows sorted by (k, rv) packed in int64,
+    the keyless joins by searchsorted over the sorted lv.  Each query's
+    aggregates: COUNT(*), COUNT(lv), SUM(lv), SUM(rv)."""
+
+    def __init__(self, left, right, small: int):
+        (ld, lv), (rd, rv) = left, right
+        self.lk, self.lk_ok = ld["k"].astype(np.int64), lv["k"]
+        self.lv, self.lv_ok = ld["lv"], lv["lv"]
+        self.rk, self.rk_ok = rd["k"].astype(np.int64), rv["k"]
+        self.rv, self.rv_ok = rd["rv"], rv["rv"]
+        self.small = small
+        kk = int(max(self.lk.max(), self.rk.max())) + 1
+        self.nk = kk
+        lm, rm = self.lk_ok, self.rk_ok
+        lvm, rvm = lm & self.lv_ok, rm & self.rv_ok
+
+        def count(k, m):
+            return np.bincount(k[m], minlength=kk).astype(np.int64)
+
+        def total(k, m, x):
+            return np.bincount(k[m], x[m].astype(np.float64),
+                               kk).round().astype(np.int64)
+        self.cl, self.clv, self.sl = count(self.lk, lm), \
+            count(self.lk, lvm), total(self.lk, lvm, self.lv)
+        self.cr, self.crv, self.sr = count(self.rk, rm), \
+            count(self.rk, rvm), total(self.rk, rvm, self.rv)
+
+    def _outer(self, right: bool, full: bool) -> tuple:
+        n = int((self.cl * self.cr).sum())
+        nl = int((self.clv * self.cr).sum())
+        sl = int((self.sl * self.cr).sum())
+        sr = int((self.sr * self.cl).sum())
+        if right:
+            un = ~self.rk_ok | (self.cl[self.rk] == 0)
+            n += int(un.sum())
+            sr += int(self.rv[un & self.rv_ok].sum())
+        if full:
+            un = ~self.lk_ok | (self.cr[self.lk] == 0)
+            n += int(un.sum())
+            nl += int((un & self.lv_ok).sum())
+            sl += int(self.lv[un & self.lv_ok].sum())
+        return (n, nl, sl, sr)
+
+    def full_by_rv(self) -> list:
+        """GROUP BY rv of the full join: (rv, COUNT(*), SUM(lv))."""
+        matched = self.rk_ok & (self.cl[self.rk] > 0)
+        k = self.rk
+        cnt = np.where(matched, self.cl[k], 1)
+        nlv = np.where(matched, self.clv[k], 0)
+        slv = np.where(matched, self.sl[k], 0)
+        gid = np.where(self.rv_ok, self.rv + 1001, 0)
+        n = np.bincount(gid, cnt.astype(np.float64), 2001)
+        v = np.bincount(gid, nlv.astype(np.float64), 2001)
+        s = np.bincount(gid, slv.astype(np.float64), 2001)
+        un = ~self.lk_ok | (self.cr[self.lk] == 0)
+        n[0] += un.sum()
+        v[0] += (un & self.lv_ok).sum()
+        s[0] += self.lv[un & self.lv_ok].sum()
+        return [(None if g == 0 else g - 1001, int(round(n[g])),
+                 int(round(s[g])) if v[g] else None)
+                for g in range(2001) if n[g]]
+
+    def full_condition(self) -> tuple:
+        """The full join on k with lv < rv."""
+        rm = self.rk_ok & self.rv_ok
+        packed = (self.rk[rm] << 12) | (self.rv[rm] + 1000)
+        order = np.argsort(packed, kind="stable")
+        packed, rvs = packed[order], self.rv[rm][order]
+        prefix = np.r_[0, np.cumsum(rvs)]
+        lm = self.lk_ok & self.lv_ok
+        lo = np.searchsorted(packed, (self.lk[lm] << 12) | (self.lv[lm]
+                                                           + 1001))
+        hi = np.searchsorted(packed, (self.lk[lm] + 1) << 12)
+        cnt = np.zeros(len(self.lk), np.int64)
+        cnt[lm] = hi - lo
+        srv = int((prefix[hi] - prefix[lo]).sum())
+        n = int(cnt.sum())
+        nl = n
+        sl = int((cnt * self.lv).sum())
+        sr = srv
+        un = cnt == 0
+        n += int(un.sum())
+        nl += int((un & self.lv_ok).sum())
+        sl += int(self.lv[un & self.lv_ok].sum())
+        least = np.full(self.nk, _I64_MAX, np.int64)
+        np.minimum.at(least, self.lk[lm], self.lv[lm])
+        rmatched = rm & (least[self.rk] < self.rv)
+        un = ~rmatched
+        n += int(un.sum())
+        sr += int(self.rv[un & self.rv_ok].sum())
+        return (n, nl, sl, sr)
+
+    def cross(self) -> tuple:
+        m = self.small
+        nl_rows = len(self.lk)
+        return (nl_rows * m, int(self.lv_ok.sum()) * m,
+                int(self.lv[self.lv_ok].sum()) * m,
+                nl_rows * int(self.rv[:m][self.rv_ok[:m]].sum()))
+
+    def keyless(self, right: bool) -> tuple:
+        lv = np.sort(self.lv[self.lv_ok])
+        prefix = np.r_[0, np.cumsum(lv)]
+        rv, ok = self.rv[:self.small], self.rv_ok[:self.small]
+        c = np.where(ok, np.searchsorted(lv, rv, "left"), 0)
+        n = int(c.sum())
+        sl = int(prefix[c].sum())
+        sr = int((c * rv).sum())
+        nl = n
+        if right:
+            un = c == 0
+            n += int(un.sum())
+            sr += int(rv[un & ok].sum())
+        return (n, nl, sl, sr)
+
+    def rows(self, name: str) -> list:
+        if name == "full_join_by_rv":
+            return self.full_by_rv()
+        return [{"right_join": lambda: self._outer(True, False),
+                 "full_join": lambda: self._outer(True, True),
+                 "full_join_condition": self.full_condition,
+                 "cross_join": self.cross,
+                 "keyless_inner": lambda: self.keyless(False),
+                 "keyless_right": lambda: self.keyless(True)}[name]()]
+
+
+def phase_join_data(dev):
+    """The held joins' sides on the card: tests/test_joins.py's left_df
+    and right_df at 7,501,518 and 3,750,759 rows, batches of 1,048,576;
+    the small build is the right side's first 16 rows; numpy's answers."""
+    t0 = time.perf_counter()
+    left, right = held.join_columns(JOIN_LEFT_ROWS, JOIN_SEED)
+    lb = held.join_batches(*left, held.JOIN_LEFT_SCHEMA, dev, N)
+    rb = held.join_batches(*right, held.JOIN_RIGHT_SCHEMA, dev, N)
+    sb = held.join_batches(*right, held.JOIN_RIGHT_SCHEMA, dev, N,
+                           rows=held.JOIN_SMALL_BUILD)
+    torch.cuda.synchronize()
+    upload = time.perf_counter() - t0
+    ref = JoinNumpy(left, right, held.JOIN_SMALL_BUILD)
+    with ThreadPoolExecutor(4) as pool:
+        want = dict(zip(held.JOIN_QUERIES, pool.map(ref.rows,
+                                                    held.JOIN_QUERIES)))
+    emit({"phase": "join_data", "left_rows": JOIN_LEFT_ROWS,
+          "right_rows": JOIN_RIGHT_ROWS, "small_rows": held.JOIN_SMALL_BUILD,
+          "partitions": JOIN_PARTITIONS, "draw_and_upload_seconds": upload,
+          "setup_seconds": time.perf_counter() - t0})
+    return (lb, rb, sb), want
+
+
+def join_sides(sess, batches) -> tuple:
+    lb, rb, sb = batches
+    return (sess.create_dataframe(lb, num_partitions=JOIN_PARTITIONS),
+            sess.create_dataframe(rb, num_partitions=JOIN_PARTITIONS),
+            sess.create_dataframe(sb))
+
+
+def phase_joins(batches, want) -> dict:
+    """Each held join's main path (traced, its launches), exact against
+    numpy, then timed once; then the full join again with batchSizeRows
+    131,072, where every partition's join must go out of core."""
+    by_path = {}
+    conf = {"spark.sql.shuffle.partitions": str(JOIN_PARTITIONS)}
+    runs = [(name, conf) for name in held.JOIN_QUERIES] + [
+        ("full_join", {**conf, "spark.rapids.sql.batchSizeRows":
+                       str(JOIN_OOC_TARGET)})]
+    for name, c in runs:
+        ooc = "spark.rapids.sql.batchSizeRows" in c
+        ldf, rdf, sdf = join_sides(GpuSession(c), batches)
+        build, small = held.JOIN_QUERIES[name]
+        other = sdf if small else rdf
+        query = lambda _, b=build, o=other: b(ldf, o)  # noqa: E731
+        path = f"join_{name}" + ("_out_of_core" if ooc else "")
+        rows, plan, launches, first_wall, profile = run_phase_path(
+            path, query, JOIN_PHASE_KERNELS[name])
+        if name == "full_join_by_rv":
+            rows = sorted(rows, key=lambda r: (r[0] is not None, r[0] or 0))
+        require(rows == want[name], f"{path} gave {rows[:3]}..., numpy "
+                f"{want[name][:3]}... ({len(rows)} and {len(want[name])} "
+                "rows)")
+        joins = [n for n in plan_nodes(plan)
+                 if isinstance(n, (GpuShuffledHashJoinExec,
+                                   GpuBroadcastHashJoinExec))]
+        require(len(joins) == 1, f"{path}: {len(joins)} joins in the plan")
+        branches = dict(getattr(joins[0], "branches", {}))
+        if ooc:
+            require(branches.get("out_of_core", 0) == JOIN_PARTITIONS,
+                    f"{path}: branches {branches}, every partition must go "
+                    "out of core")
+        timing = time_path(path, query, None, JOIN_LEFT_ROWS, profile,
+                           runs=1)
+        emit({"phase": path, "rows": JOIN_LEFT_ROWS, "out_rows": len(rows),
+              "first_row": rows[0], "join": type(joins[0]).__name__,
+              "branches": branches,
+              "largest_build_rows": getattr(joins[0], "largest_build_rows",
+                                            None),
+              "first_wall_s": first_wall, **timing})
+        by_path[path] = launches
+    return by_path
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -7093,6 +7702,7 @@ def main() -> None:
     by_path.update(phase_window(*phase_window_data(dev)))
     by_path.update(phase_q98(gauntlet_dfs, gauntlet))
     by_path.update(phase_memory(*phase_memory_data(dev)))
+    by_path.update(phase_joins(*phase_join_data(dev)))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         s = summary[name]

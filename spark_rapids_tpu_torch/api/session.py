@@ -260,10 +260,14 @@ class DataFrame:
     def join(self, other: "DataFrame", on=None, how: str = "inner",
              condition=None) -> "DataFrame":
         """Equi-join on ``on``: a column name, a list of names common to
-        both sides, or a (left keys, right keys) pair of expression lists;
-        ``condition``, a residual predicate over the left columns and the
-        right ones.  The inner, left, left semi and left anti joins
-        run."""
+        both sides, or a (left keys, right keys) pair of expression lists
+        (None or ``([], [])``: no keys); ``condition``, a residual
+        predicate over the left columns and the right ones.  The inner,
+        left, right, full, left semi and left anti joins run on keys,
+        each with or without a condition; ``how="cross"`` runs with no
+        keys (its condition filters the product), and a keyless join of
+        another type runs with a condition (the nested-loop join).  The
+        existence join raises."""
         if on is None:
             lkeys, rkeys = [], []
         elif isinstance(on, str):

@@ -16,7 +16,9 @@
 //   long and Decimal64 (its unscaled long) take hashLong, low word then
 //   high word, length 8; doubles turn -0.0 into 0.0 and every NaN into
 //   0x7FF8000000000000 before taking their bits; a null row passes the
-//   running seed through.  All arithmetic is uint32_t.
+//   running seed through.  All arithmetic is uint32_t.  BYTE and SHORT
+//   (kinds kInt8, kInt16) take hashInt of the value sign-extended to int,
+//   as Spark and the reference's hash_fixed_width :99 do.
 //
 // string columns <- spark_rapids_tpu/kernels/hash.py:187 hash_string
 //   One more column kind in the same chain: Spark's hashUnsafeBytes over
@@ -56,6 +58,8 @@ constexpr int kBool = 3;    // bool (one byte): hashInt of 0 or 1
 constexpr int kString = 4;  // string: hashUnsafeBytes of the row's bytes
 constexpr int kDec128 = 5;  // two-limb decimal: hashUnsafeBytes of its
                             // minimal big-endian bytes
+constexpr int kInt8 = 6;    // byte: hashInt of the value sign-extended
+constexpr int kInt16 = 7;   // short: hashInt of the value sign-extended
 
 struct HashCols {
   const void* data[kMaxHashCols];
@@ -150,6 +154,14 @@ murmur3_kernel(HashCols cols, int ncols, int64_t n, uint32_t seed,
         break;
       case kInt64:
         h = hash_long(static_cast<const uint64_t*>(cols.data[c])[r], h);
+        break;
+      case kInt8:
+        h = hash_int(static_cast<uint32_t>(static_cast<int32_t>(
+                         static_cast<const int8_t*>(cols.data[c])[r])), h);
+        break;
+      case kInt16:
+        h = hash_int(static_cast<uint32_t>(static_cast<int32_t>(
+                         static_cast<const int16_t*>(cols.data[c])[r])), h);
         break;
       case kF64: {
         double d = static_cast<const double*>(cols.data[c])[r];

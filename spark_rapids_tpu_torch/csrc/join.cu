@@ -1,7 +1,8 @@
-// Equi-join of the port, inner, left, semi and anti, on one fixed-width
-// key or on several keys (strings among them): a sorted build side, a
-// binary-search probe and the expansion into gather maps; and the final
-// maps of a join with a residual condition.  Built for sm_90a by kernels/_lib.py and
+// Joins of the port, inner, left, right, full, semi and anti, on one
+// fixed-width key or on several keys (strings among them): a sorted build
+// side, a binary-search probe and the expansion into gather maps; the
+// cross join's pairs; and the final maps of a join with a residual
+// condition.  Built for sm_90a by kernels/_lib.py and
 // called through ctypes from kernels/join.py.  Every entry point launches
 // on the caller's stream, allocates nothing, and returns the cudaError_t of
 // its launches.
@@ -10,8 +11,9 @@
 //    _expand_single, :275 _probe_multi, :420 _expand_multi (behind
 //    join_probe :457, join_expand :484, join_gather_maps :496), their left
 //    branches (:203-206, :237-246; :395), their semi and anti branches
-//    (:197-201, :212, :231-233; :397-400, :440-441), and :44
-//    conditional_join_maps
+//    (:197-201, :212, :231-233; :397-400, :440-441), their right and full
+//    branches (:393-416, :445-452), :250 _probe_cross and :260
+//    _expand_cross, and :44 conditional_join_maps
 //
 // Modes.  A probe runs in one of four modes, one per join type it serves
 // (kernels/join.py _MODES): inner, left, left semi, left anti.
@@ -37,8 +39,30 @@
 //   read, the 4-byte count written and read by the scan.  Bound (expand):
 //   bytes: the n + 1 offsets read, 4 bytes per kept row written.
 //
+// Right and full joins (K1) <- spark_rapids_tpu/kernels/join.py:393-416
+// _probe_multi's right / full branches, :445-452 _expand_multi's append.
+// A right join probes in inner mode, a full join in left mode; the expand
+// then also stores 1 in matched[perm[lo + j]], a byte per build row, for
+// every pair it writes (the flags of a build outlive its stream groups:
+// the wrapper zeroes them once, each group's expand sets more).  Many
+// threads may store the same 1 into one byte: a benign race, all writers
+// store the same value, and the launch boundary orders the stores before
+// the compaction that reads them, so no atomics are needed.  After the
+// last group the wrapper compacts the flags' complement in build-row
+// order (csrc/selection.cu) into the appended (-1, row) pairs, so there
+// is no second pass over the pairs.
+//   Bound: bytes: the maps written (8 bytes a pair), each matched row's lo,
+//   offsets and perm entries read, and one flag byte per pair.
+//
+// Cross join (K2) <- spark_rapids_tpu/kernels/join.py:250 _probe_cross,
+// :260 _expand_cross.  One thread per pair k < nl * nr writes li = k / nr
+// and ri = k % nr (int32): the pairs in left-row order, each left row's in
+// right-row order; also the candidates of a keyless join with a
+// condition.  No probe: the counts are nl * nr.
+//   Bound: bytes: 8 bytes written per pair.
+//
 // Keys.  Every key becomes the order-preserving uint64 of csrc/sort.cu:
-// integers (int, date, long, Decimal64) sign-extend to 64 bits and flip
+// integers (byte, short, int, date, long, Decimal64) sign-extend to 64 bits and flip
 // the sign bit, so an int key and a long key compare by value; doubles
 // take Java's total order after -0.0 -> 0.0 and every NaN -> the
 // canonical NaN, so -0.0 matches 0.0 and NaN matches NaN (Spark's join
@@ -113,6 +137,8 @@ constexpr int kDec128 = 5;  // two-limb decimal (several-key path only): two
                             // words, the signed high limb with its sign bit
                             // flipped, then the low limb (csrc/sort.cu's
                             // kDec128Hi and kDec128Lo)
+constexpr int kInt8 = 6;    // byte
+constexpr int kInt16 = 7;   // short
 constexpr int kMaxKeys = 16;
 
 // probe modes (kernels/join.py _MODES)
@@ -140,6 +166,12 @@ __device__ __forceinline__ uint64_t order_key(const void* data, int kind,
     case kInt64:
       return static_cast<uint64_t>(static_cast<const int64_t*>(data)[r]) ^
              (1ull << 63);
+    case kInt8:
+      return static_cast<uint64_t>(static_cast<int64_t>(
+                 static_cast<const int8_t*>(data)[r])) ^ (1ull << 63);
+    case kInt16:
+      return static_cast<uint64_t>(static_cast<int64_t>(
+                 static_cast<const int16_t*>(data)[r])) ^ (1ull << 63);
     case kF64: {
       double d = static_cast<const double*>(data)[r];
       uint64_t bits;
@@ -223,25 +255,41 @@ join_probe_kernel(const void* __restrict__ data,
   write_match(r, first, lo - first, mode, lo_out, count);
 }
 
+// matched (K1, a right or full join; may be null): each pair's build row
+// is flagged.
 __global__ void __launch_bounds__(kThreads)
 join_expand_kernel(const int32_t* __restrict__ lo,
                    const int32_t* __restrict__ offsets,
                    const int32_t* __restrict__ perm, int64_t n,
-                   int32_t* __restrict__ li, int32_t* __restrict__ ri) {
+                   int32_t* __restrict__ li, int32_t* __restrict__ ri,
+                   uint8_t* __restrict__ matched) {
   const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (r >= n) return;
   const int32_t base = offsets[r];
   const int32_t m = offsets[r + 1] - base;
   const int32_t first = lo[r];
-  if (first < 0) {   // a left join's row with no match: null-extended
+  if (first < 0) {   // a left or full join's row with no match
     li[base] = static_cast<int32_t>(r);
     ri[base] = -1;
     return;
   }
   for (int32_t j = 0; j < m; ++j) {
+    const int32_t b = perm[first + j];
     li[base + j] = static_cast<int32_t>(r);
-    ri[base + j] = perm[first + j];
+    ri[base + j] = b;
+    if (matched != nullptr) matched[b] = 1;
   }
+}
+
+// K2: pair k of nl x nr is (k / nr, k % nr).
+__global__ void __launch_bounds__(kThreads)
+join_expand_cross_kernel(int64_t total, int64_t nr,
+                         int32_t* __restrict__ li, int32_t* __restrict__ ri) {
+  const int64_t k = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (k >= total) return;
+  const int64_t l = k / nr;
+  li[k] = static_cast<int32_t>(l);
+  ri[k] = static_cast<int32_t>(k - l * nr);
 }
 
 // A semi or anti join's map: a kept row (count 1) writes its index at its
@@ -500,7 +548,7 @@ bool key_cols(int nkeys, const int* kinds, const int* nchunks,
   int words = 0;
   out->nkeys = nkeys;
   for (int k = 0; k < nkeys; ++k) {
-    if (kinds[k] < kInt32 || kinds[k] > kDec128) return false;
+    if (kinds[k] < kInt32 || kinds[k] > kInt16) return false;
     if (kinds[k] == kString && (nchunks[k] < 0 || offsets[k] == nullptr))
       return false;
     out->kinds[k] = kinds[k];
@@ -518,6 +566,12 @@ unsigned grid_rows(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
+// a kind of one fixed-width key (the single-key build and probe)
+bool single_kind(int kind) {
+  return kind >= kInt32 && kind <= kInt16 && kind != kString &&
+         kind != kDec128;
+}
+
 }  // namespace
 
 extern "C" {
@@ -528,7 +582,7 @@ int srt_join_scan_tile() { return scan::kScanTile; }
 int srt_join_build_keys(int kind, const void* data, const uint8_t* valid,
                         const int32_t* perm, int64_t n, uint64_t* keys,
                         uint8_t* key_valid, cudaStream_t stream) {
-  if (kind < kInt32 || kind > kBool) {
+  if (!single_kind(kind)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {
@@ -548,7 +602,7 @@ int srt_join_probe(int kind, const void* data, const uint8_t* valid,
                    int64_t n, const uint64_t* keys, const uint8_t* key_valid,
                    int64_t nb, int mode, int32_t* lo, int32_t* offsets,
                    int64_t* tile_sums, int64_t* total, cudaStream_t stream) {
-  if (kind < kInt32 || kind > kBool || mode < kInner || mode > kAnti) {
+  if (!single_kind(kind) || mode < kInner || mode > kAnti) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {
@@ -562,13 +616,30 @@ int srt_join_probe(int kind, const void* data, const uint8_t* valid,
   return scan::scan_columns(cols, 1, n, tile_sums, total, stream);
 }
 
-// li[total] and ri[total]: the pairs, after srt_join_probe.
+// li[total] and ri[total]: the pairs, after srt_join_probe; matched (may
+// be null: K1) receives a 1 for each pair's build row perm[lo + j] (the
+// caller zeroed it once per build).
 int srt_join_expand(const int32_t* lo, const int32_t* offsets,
                     const int32_t* perm, int64_t n, int32_t* li, int32_t* ri,
-                    cudaStream_t stream) {
+                    uint8_t* matched, cudaStream_t stream) {
   if (n > 0) {
-    join_expand_kernel<<<grid_rows(n), kThreads, 0, stream>>>(lo, offsets,
-                                                              perm, n, li, ri);
+    join_expand_kernel<<<grid_rows(n), kThreads, 0, stream>>>(
+        lo, offsets, perm, n, li, ri, matched);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2: li[nl * nr] and ri[nl * nr] (int32), every pair, left-major; nl * nr
+// must stay below 2**31.
+int srt_join_expand_cross(int64_t nl, int64_t nr, int32_t* li, int32_t* ri,
+                          cudaStream_t stream) {
+  if (nl < 0 || nr < 0 || nl * nr >= (1ll << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t total = nl * nr;
+  if (total > 0) {
+    join_expand_cross_kernel<<<grid_rows(total), kThreads, 0, stream>>>(
+        total, nr, li, ri);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -642,22 +713,26 @@ int srt_cond_join_tile() { return kCjTile; }
 // the output offset of every tile of the enabled segments, and total[0]
 // (int64), the output rows.  tiles is the sum over the enabled segments
 // of ceil(rows / srt_cond_join_tile()); tile_sums holds ceil(tiles /
-// srt_join_scan_tile()) int64, at least one.
+// srt_join_scan_tile()) int64, at least one.  accumulate_right: rmatched
+// is not zeroed first, so that the flags of a build's stream groups add up
+// (the caller leaves the right rows' segment out and appends them once).
 int srt_cond_join_count(int segments, int left_want, const uint8_t* pass,
                         const int32_t* li, const int32_t* ri, int64_t npairs,
                         const uint8_t* left_live, int64_t nl,
                         const uint8_t* right_live, int64_t nr,
                         uint8_t* lmatched, uint8_t* rmatched,
                         int32_t* tile_counts, int64_t* tile_sums,
-                        int64_t* total, cudaStream_t stream) {
+                        int64_t* total, int accumulate_right,
+                        cudaStream_t stream) {
   CondSegs s;
   if (!cond_segs(segments, left_want, pass, li, ri, npairs, left_live, nl,
                  right_live, nr, lmatched, rmatched, &s)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t e = cudaMemsetAsync(lmatched, 0, nl > 0 ? nl : 0, stream);
-  if (e == cudaSuccess) e = cudaMemsetAsync(rmatched, 0, nr > 0 ? nr : 0,
-                                            stream);
+  if (e == cudaSuccess && !accumulate_right) {
+    e = cudaMemsetAsync(rmatched, 0, nr > 0 ? nr : 0, stream);
+  }
   if (e != cudaSuccess) return static_cast<int>(e);
   if (npairs > 0) {
     cond_mark_kernel<<<grid_rows(npairs), kThreads, 0, stream>>>(

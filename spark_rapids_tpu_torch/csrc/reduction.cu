@@ -329,7 +329,9 @@ int launch_segmented(const T* data, const uint8_t* valid, int64_t n,
 // holds the extreme of the valid non-NaN values, the valid count and two
 // flags, "a valid non-NaN value" (MIN is NaN without one) and "a valid
 // NaN" (MAX is NaN with one); -0.0 is below 0.0, as the reference's
-// extremes give it on the CPU.  BOOLEAN is the extreme of its byte.  A
+// extremes give it on the CPU.  BOOLEAN is the extreme of its byte; BYTE
+// and SHORT (kI8, kI16) reduce at their own width (the reference's
+// seg_min :228 / seg_max :256 over int8 and int16), no widening.  A
 // segment with no valid row writes 0 and valid = 0 (the canonical null
 // slot).  Bound: bytes, the data and validity read once, the starts read
 // and the results written once.
@@ -523,6 +525,14 @@ template <> struct Bounds<uint8_t> {   // BOOLEAN as its byte
   static __device__ __forceinline__ uint8_t lo() { return 0; }
   static __device__ __forceinline__ uint8_t hi() { return 1; }
 };
+template <> struct Bounds<int8_t> {
+  static __device__ __forceinline__ int8_t lo() { return INT8_MIN; }
+  static __device__ __forceinline__ int8_t hi() { return INT8_MAX; }
+};
+template <> struct Bounds<int16_t> {
+  static __device__ __forceinline__ int16_t lo() { return INT16_MIN; }
+  static __device__ __forceinline__ int16_t hi() { return INT16_MAX; }
+};
 template <> struct Bounds<int32_t> {
   static __device__ __forceinline__ int32_t lo() { return INT32_MIN; }
   static __device__ __forceinline__ int32_t hi() { return INT32_MAX; }
@@ -657,7 +667,8 @@ int extreme_dispatch(bool segmented, int is_min, const void* data,
 }
 
 // dtype codes of the entry points (kernels/reduction.py _DTYPE_CODE)
-enum : int { kBool = 0, kI32 = 1, kI64 = 2, kF32 = 3, kF64 = 4 };
+enum : int { kBool = 0, kI32 = 1, kI64 = 2, kF32 = 3, kF64 = 4, kI8 = 5,
+             kI16 = 6 };
 
 int extreme(bool segmented, int dtype, int is_min, const void* data,
             const uint8_t* valid, int64_t n, const int32_t* starts, int g,
@@ -666,6 +677,14 @@ int extreme(bool segmented, int dtype, int is_min, const void* data,
   switch (dtype) {
     case kBool:
       return extreme_dispatch<uint8_t>(segmented, is_min, data, valid, n,
+                                       starts, g, scratch, out, out_valid,
+                                       out_count, stream);
+    case kI8:
+      return extreme_dispatch<int8_t>(segmented, is_min, data, valid, n,
+                                      starts, g, scratch, out, out_valid,
+                                      out_count, stream);
+    case kI16:
+      return extreme_dispatch<int16_t>(segmented, is_min, data, valid, n,
                                        starts, g, scratch, out, out_valid,
                                        out_count, stream);
     case kI32:
@@ -961,7 +980,7 @@ struct StringPick {
 // _PICK_KIND, _PICK_*): dtype codes as for MIN / MAX, plus int8, int16
 // and STRING
 enum : int { kPickFirst = 0, kPickLast = 1, kPickMin = 2, kPickMax = 3 };
-enum : int { kI8 = 5, kI16 = 6, kString = 7 };
+enum : int { kString = 7 };
 constexpr int kIgnoreNulls = 1;
 constexpr int kNanGreatest = 2;
 

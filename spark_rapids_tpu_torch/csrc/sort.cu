@@ -44,6 +44,28 @@
 //   Bound: bytes: per pass the key and the row id are read and written
 //   once (the histogram reads the key again).
 //
+// BYTE and SHORT keys <- spark_rapids_tpu/kernels/sort.py:101
+//                        _data_key_fixed over int8 and int16
+//   Two more kinds, kInt8 and kInt16: the value with its sign bit flipped
+//   on its own width, so a key takes 1 or 2 digit passes, not 4.
+//   Bound: bytes: per pass the 1- or 2-byte key and the row id read and
+//   written once.
+//
+// string_hash_key (K3) <- spark_rapids_tpu/kernels/sort.py:183
+//                         _string_hash_key (over :160 _string_data_keys)
+//   One thread per row folds the row's nchunks chunks into one uint64 by
+//   FNV-1a (h = (h ^ chunk) * 1099511628211 from 14695981039346656037); a
+//   chunk is 7 bytes in 9-bit lanes, byte + 1 and 0 past the end, the
+//   first byte in the most significant lane, as the reference's.  A null
+//   row writes 0.  nchunks comes from the column's longest valid row
+//   (srt_string_max_length), the same for every row, so equal strings
+//   hash equal.  The sort then takes the word as a kRawU64 key (8 passes)
+//   in place of a string's chunk and length passes: the reference's
+//   hash_string_keys option, for a caller that can take split groups.
+//   Bound: bytes: the offsets, the row's bytes and its validity read, 8
+//   bytes written per row; ~3 integer operations a byte (the lane, the
+//   shift, the or) and 2 a chunk.
+//
 // string keys <- spark_rapids_tpu/kernels/sort.py:160 _string_data_keys
 //   csrc/strings.cu writes each string's big-endian 8-byte chunks and its
 //   length as ready unsigned keys (kinds kRawU64, kRawU32 here); a string
@@ -108,6 +130,8 @@ constexpr int kRawU32 = 4;  // a ready order-preserving uint32 key
 constexpr int kRawU64 = 5;  // a ready order-preserving uint64 key
 constexpr int kDec128Hi = 6;  // a two-limb decimal's high limb, signed
 constexpr int kDec128Lo = 7;  // its low limb, unsigned
+constexpr int kInt8 = 8;    // byte
+constexpr int kInt16 = 9;   // short
 constexpr int kMaxStagedBoundaryBytes = 48 * 1024;
 
 template <typename K>
@@ -266,6 +290,12 @@ __device__ __forceinline__ uint64_t data_key(const void* data, int kind,
              (1ull << 63);
     case kDec128Lo:
       return static_cast<uint64_t>(static_cast<const int64_t*>(data)[2 * r]);
+    case kInt8:
+      return static_cast<uint8_t>(static_cast<const int8_t*>(data)[r]) ^
+             0x80u;
+    case kInt16:
+      return static_cast<uint16_t>(static_cast<const int16_t*>(data)[r]) ^
+             0x8000u;
     default:
       return static_cast<const uint8_t*>(data)[r] != 0;
   }
@@ -407,6 +437,38 @@ order_word_kernel(const void* __restrict__ data,
   out[r] = k;
 }
 
+// K3: one FNV-1a word per row over nchunks 9-bit-lane chunks of 7 bytes.
+__global__ void __launch_bounds__(kThreads)
+string_hash_key_kernel(const int32_t* __restrict__ offsets,
+                       const uint8_t* __restrict__ bytes,
+                       const uint8_t* __restrict__ valid, int64_t n,
+                       int nchunks, uint64_t* __restrict__ out) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (r >= n) return;
+  if (valid[r] == 0) {
+    out[r] = 0ull;
+    return;
+  }
+  const int32_t b = offsets[r];
+  const int32_t len = offsets[r + 1] - b;
+  const uint8_t* p = bytes + b;
+  uint64_t h = 14695981039346656037ull;
+  for (int c = 0; c < nchunks; ++c) {
+    // only the row's own bytes are read: the loop runs over the bytes the
+    // chunk holds (csrc/strings.cuh), then the empty lanes shift in
+    const int32_t c0 = 7 * c;
+    const int32_t left = len - c0;
+    const int m = left <= 0 ? 0 : (left < 7 ? static_cast<int>(left) : 7);
+    uint64_t chunk = 0;
+    for (int j = 0; j < m; ++j) {
+      chunk = (chunk << 9) | (static_cast<uint64_t>(p[c0 + j]) + 1ull);
+    }
+    chunk <<= 9 * (7 - m);
+    h = (h ^ chunk) * 1099511628211ull;
+  }
+  out[r] = h;
+}
+
 // dest[r] = the boundaries (nb rows of nk words, sorted) whose words are
 // lexicographically <= row r's words[j * n + r]; kStaged: the boundaries
 // are first copied into dynamic shared memory.
@@ -457,7 +519,7 @@ extern "C" {
 int srt_order_words(int kind, const void* data, const uint8_t* valid,
                     int descending, int nulls_first, int64_t n,
                     uint64_t* null_out, uint64_t* out, cudaStream_t stream) {
-  if (kind < kInt32 || kind > kDec128Lo) {
+  if (kind < kInt32 || kind > kInt16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {
@@ -486,6 +548,19 @@ int srt_range_route(const uint64_t* words, int64_t n, int nk,
 }
 
 int srt_sort_tile() { return kTile; }
+
+// out[n] (uint64): K3, each string row's hash key over nchunks (>= 1)
+// chunks of 7 bytes, 0 on a null row.
+int srt_string_hash_key(const int32_t* offsets, const uint8_t* bytes,
+                        const uint8_t* valid, int64_t n, int nchunks,
+                        uint64_t* out, cudaStream_t stream) {
+  if (nchunks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0) {
+    string_hash_key_kernel<<<grid_rows(n), kThreads, 0, stream>>>(
+        offsets, bytes, valid, n, nchunks, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 int srt_max_radix_bits() { return kMaxBits; }
 
@@ -586,10 +661,16 @@ int srt_sort_column(int kind, const void* data, const uint8_t* valid,
                                    key_b, ids_out, ids_tmp, hist, totals,
                                    stream);
     case kBool:
+    case kInt8:
       return sort_column<uint8_t>(kind, data, valid, descending, nulls_first,
                                   has_nulls, key_bytes, ids_in, n, key_a,
                                   key_b, ids_out, ids_tmp, hist, totals,
                                   stream);
+    case kInt16:
+      return sort_column<uint16_t>(kind, data, valid, descending, nulls_first,
+                                   has_nulls, key_bytes, ids_in, n, key_a,
+                                   key_b, ids_out, ids_tmp, hist, totals,
+                                   stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -31,9 +31,9 @@ the extreme (unsigned byte order).  FIRST / LAST keep their input's type
 (any, strings too), MAX_BY / MIN_BY their value's, the bit aggregates
 their integral input's; each is null where no row qualifies.  A
 multi-input aggregate (MAX_BY, MIN_BY) lists its ``inputs``, and each
-buffer slot names the input it folds (``input_index``).  MIN / MAX and
-the variances over BYTE or SHORT raise: their kernels are still to port
-(ROADMAP queue 2).
+buffer slot names the input it folds (``input_index``).  MIN / MAX over
+BYTE and SHORT reduce at their own width (BYTE and SHORT results); their
+variances update from the values widened to int32 (DOUBLE results).
 """
 from __future__ import annotations
 
@@ -237,10 +237,6 @@ _AVG_HEADROOM = 4
 _AVG_CAP = T.DecimalType.MAX_PRECISION - _AVG_HEADROOM
 
 
-def _narrow_int(dt: T.DataType) -> bool:
-    return isinstance(dt, (T.ByteType, T.ShortType))
-
-
 class _Extreme(AggregateFunction):
     """MIN / MAX: buffers (the extreme at the input's type, LONG
     COUNT_VALID merged by SUM), valid where the count is > 0.  Floats
@@ -258,12 +254,7 @@ class _Extreme(AggregateFunction):
 
     @property
     def dtype(self):
-        dt = self.input.dtype
-        if _narrow_int(dt):
-            raise NotImplementedError(
-                f"{self.name}({dt!r}) is not ported: MIN / MAX over BYTE "
-                "and SHORT are ROADMAP queue 2")
-        return dt
+        return self.input.dtype
 
     @property
     def buffers(self):
@@ -319,7 +310,7 @@ class VarianceBase(AggregateFunction):
     @property
     def dtype(self):
         cdt = self.input.dtype
-        if not (cdt.is_integral or cdt.is_floating) or _narrow_int(cdt):
+        if not (cdt.is_integral or cdt.is_floating):
             raise NotImplementedError(f"{self.name}({cdt!r}) is not ported")
         return T.DOUBLE
 

@@ -87,6 +87,7 @@ _SIGNATURES = {
                         _P, _P, _P],
     "srt_string_sort_keys": [_P, _P, _P, _I64, _I, _P, _P, _P],
     "srt_string_max_length": [_P, _P, _I64, _P, _P],
+    "srt_string_hash_key": [_P, _P, _P, _I64, _I, _P, _P],
     "srt_string_rows_equal_prev": [_P, _P, _P, _I64, _P, _P],
     "srt_substring_rows": [_P, _P, _P, _I64, _P, _I, _P, _I, _P, _P, _P, _P,
                            _P],
@@ -94,7 +95,8 @@ _SIGNATURES = {
     "srt_join_build_keys": [_I, _P, _P, _P, _I64, _P, _P, _P],
     "srt_join_probe": [_I, _P, _P, _I64, _P, _P, _I64, _I, _P, _P, _P, _P,
                        _P],
-    "srt_join_expand": [_P, _P, _P, _I64, _P, _P, _P],
+    "srt_join_expand": [_P, _P, _P, _I64, _P, _P, _P, _P],
+    "srt_join_expand_cross": [_I64, _I64, _P, _P, _P],
     "srt_join_expand_left_only": [_P, _I64, _P, _P],
     "srt_join_max_keys": [],
     "srt_join_key_words": [_I, _P, _P, _P, _P, _P, _P, _I64, _I, _P, _P, _P],
@@ -102,7 +104,7 @@ _SIGNATURES = {
                              _I64, _I, _P, _P, _P, _P, _P],
     "srt_cond_join_tile": [],
     "srt_cond_join_count": [_I, _I, _P, _P, _P, _I64, _P, _I64, _P, _I64, _P,
-                            _P, _P, _P, _P, _P],
+                            _P, _P, _P, _P, _I, _P],
     "srt_cond_join_scatter": [_I, _I, _P, _P, _P, _I64, _P, _I64, _P, _I64,
                               _P, _P, _P, _P, _P, _P],
     "srt_fused_tile": [],

@@ -27,9 +27,15 @@ sum and count from the step's ``SegmentSums``, so the SUM, M2 and
 COUNT_VALID slots of one variance share one ``segmented_sum`` launch.  A fixed-width key's boundary
 flags are plain elementwise PyTorch; a string key's come from the
 adjacent-row compare of ``csrc/strings.cu`` (``string_rows_equal_prev``).
-The split-tolerant one-pass string grouping key of the reference
-(``_string_hash_key``, kernels/sort.py:183) is not ported: a string key
-sorts on all its chunks.
+BYTE and SHORT keys sort and compare as they are.
+
+``group_rows(..., allow_split_groups=True)`` (the reference's :97-140)
+sorts a string key by its one split-tolerant hash word
+(``kernels/sort.py`` ``string_hash_key``, K3) instead of all its chunks;
+the boundaries still compare the bytes, so a collision, which interleaves
+two keys in one hash run, splits a group into several and never merges
+two.  Only a caller whose output is merged again by key may take it: the
+partial aggregate step.
 """
 from __future__ import annotations
 
@@ -121,9 +127,11 @@ class GroupedLayout:
     num_groups: int
 
 
-def group_rows(batch: ColumnarBatch,
-               key_cols: Sequence[int]) -> GroupedLayout:
-    """Sort the rows by the keys (normalized) and delimit the groups."""
+def group_rows(batch: ColumnarBatch, key_cols: Sequence[int],
+               allow_split_groups: bool = False) -> GroupedLayout:
+    """Sort the rows by the keys (normalized) and delimit the groups;
+    ``allow_split_groups``: string keys sort by their hash word (see the
+    module's docstring), so that a group may come out in pieces."""
     cols = list(batch.columns)
     for ci in key_cols:
         cols[ci] = normalize_key_column(cols[ci])
@@ -133,7 +141,8 @@ def group_rows(batch: ColumnarBatch,
     if n == 0:
         return GroupedLayout(nb, torch.empty(0, dtype=torch.int32,
                                              device=dev), 0)
-    idx = sort_indices(nb, key_cols, [SortOrder(True, True)] * len(key_cols))
+    idx = sort_indices(nb, key_cols, [SortOrder(True, True)] * len(key_cols),
+                       hash_string_keys=allow_split_groups)
     sb = gather_batch(nb, idx)
     boundary = torch.ones(n, dtype=torch.bool, device=dev)
     if n > 1:

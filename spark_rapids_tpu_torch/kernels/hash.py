@@ -2,7 +2,9 @@
 
 Counterpart of ``spark_rapids_tpu/kernels/hash.py`` (``hash_fixed_width``
 :99, ``hash_string`` :187, ``murmur3_hash`` :237, ``pmod`` :258).  Spark's
-Murmur3_x86_32 with seed 42: int/date/bool hash as hashInt, long and
+Murmur3_x86_32 with seed 42: int/date/bool hash as hashInt (BYTE and
+SHORT too, the value sign-extended to int, as ``hash_fixed_width`` :99
+does), long and
 Decimal64 (the unscaled long) as hashLong (low word, then high word),
 doubles as hashLong of their bits after -0.0 -> 0.0 and NaN -> canonical
 NaN, and strings as hashUnsafeBytes (4-byte little-endian words, then each
@@ -39,7 +41,7 @@ _C1, _C2, _M5 = 0xCC9E2D51, 0x1B873593, 0xE6546B64
 _CANONICAL_NAN_BITS = 0x7FF8000000000000
 
 # column kinds of csrc/hash.cu
-_INT32, _INT64, _F64, _BOOL, _STRING, _DEC128 = 0, 1, 2, 3, 4, 5
+_INT32, _INT64, _F64, _BOOL, _STRING, _DEC128, _INT8, _INT16 = range(8)
 
 
 def _kind(dtype: T.DataType) -> int:
@@ -55,6 +57,10 @@ def _kind(dtype: T.DataType) -> int:
         return _BOOL
     if isinstance(dtype, T.StringType):
         return _STRING
+    if isinstance(dtype, T.ByteType):
+        return _INT8
+    if isinstance(dtype, T.ShortType):
+        return _INT16
     raise T.key_type_not_ported(dtype, "murmur3")
 
 # ---------------------------------------------------------------------------
@@ -112,7 +118,7 @@ def hash_fixed_width(col: DeviceColumn, seeds: torch.Tensor) -> torch.Tensor:
         h = _hash_long(col.data, seeds)
     elif kind == _F64:
         h = _hash_long(f64_hash_bits(col.data), seeds)
-    else:   # int32 sign-extends; its low 32 bits are the value's bits
+    else:   # int8 / int16 / int32 sign-extend; the low 32 bits hash
         h = _hash_int(col.data.to(torch.int64), seeds)
     return torch.where(col.validity, h, seeds)
 

@@ -1,13 +1,14 @@
-"""Equi-join kernels: the inner, left, left semi and left anti joins on one
-fixed-width key or on several keys, strings among them, and the final maps
-of a join with a residual condition.
+"""Join kernels: the inner, left, right, full, left semi and left anti
+joins on one fixed-width key or on several keys, strings among them, the
+cross join, and the final maps of a join with a residual condition.
 
 Counterpart of ``spark_rapids_tpu/kernels/join.py``
 (``conditional_join_maps`` :44, ``join_path`` :134, ``_probe_single``
-:154, ``_expand_single`` :226, ``_probe_multi`` :275, ``_expand_multi``
-:420, ``join_probe`` :457, ``join_expand`` :484, ``join_gather_maps``
-:496, ``apply_gather_maps`` :521) for the inner, left, semi and anti
-joins.
+:154, ``_expand_single`` :226, ``_probe_cross`` :250, ``_expand_cross``
+:260, ``_probe_multi`` :275 with its right and full branches :393-416,
+``_expand_multi`` :420 with :445-452, ``join_probe`` :457,
+``join_expand`` :484, ``join_gather_maps`` :496, ``apply_gather_maps``
+:521) for every join type but the existence join.
 Spark's semantics hold: a null in any key never matches, NaN
 matches NaN and -0.0 matches 0.0 (keys are normalized), an int key matches
 a long key by value, strings match byte for byte, and the pairs come out
@@ -37,6 +38,25 @@ the single-key path, :395 of the several-key one) probes with a left flag:
 a stream row with no match, a null key included, gets one output row whose
 right index is -1, and the gather makes that row's right columns null.
 
+The right and full joins (K1; the reference's right and full branches of
+``_probe_multi`` :393-416 and ``_expand_multi`` :445-452) probe as the
+inner and the left join do, and the expand also sets a byte flag for each
+build row it writes a pair for (``matched``, bool [build rows], zeroed once
+per build and set by every stream group; many pairs may store the same 1,
+which needs no atomics).  After the last stream group the unmatched build
+rows, compacted in build-row order by the ported ``compaction_map``
+(``unmatched_build_rows``), are appended with right index their row and
+left index -1.  So the maps are the reference's: the left-driven pairs in
+stream-row order, each row's matches in build-row order, then the
+unmatched right rows in right-row order.  The reference sends right and
+full joins down its several-key path on any key; the port keeps its
+sorted build, which gives the same maps.
+
+The cross join (K2, ``cross_join_maps``; the reference's ``_probe_cross``
+:250 and ``_expand_cross`` :260) writes ``li = k / nr, ri = k % nr`` for
+``k < nl * nr``; the same pairs are the candidates of a keyless join with
+a condition.
+
 The semi and anti joins (the reference's :197-201, :212 and :231-233 of
 the single-key path, :397-400 and :440-441 of the several-key one) probe
 in a mode of their own: a stream row needs only the lower bound and one
@@ -53,11 +73,18 @@ probe and expand, evaluates the condition over them (in the exec), and
 the final maps of any join type: the passing pairs in candidate order,
 then the unmatched live left rows (left, full), then the unmatched live
 right rows (right, full); semi, anti and existence keep left rows only.
+A right or full join whose stream comes in several groups passes its
+build's ``matched`` flags as ``rmatched``: each call then ORs its passing
+pairs' right rows into them and leaves the right rows out, and the caller
+appends the unmatched ones once, after the last group (a build row that
+passes only in a later group must not be null-extended in an earlier
+one).
+
+BYTE and SHORT keys are sign-extended order keys like INT's.
 
 On CUDA tensors each step launches its kernel of ``csrc/join.cu`` and
 counts the launch; on CPU tensors it runs the plain PyTorch version
-beside it.  The probe's right and full branches and the cross join raise
-NotImplementedError.
+beside it.
 """
 from __future__ import annotations
 
@@ -72,7 +99,8 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.kernels import _lib
 from spark_rapids_tpu_torch.kernels.groupby import normalize_key_column
-from spark_rapids_tpu_torch.kernels.selection import gather_columns
+from spark_rapids_tpu_torch.kernels.selection import (compaction_map,
+                                                      gather_columns)
 from spark_rapids_tpu_torch.kernels.sort import (SortOrder, sort_indices,
                                                  string_chunks,
                                                  string_longest,
@@ -82,7 +110,7 @@ JOIN_TYPES = ("inner", "left", "right", "full", "left_semi", "left_anti",
               "cross", "existence")
 
 # key kinds of csrc/join.cu
-_INT32, _INT64, _F64, _BOOL, _STRING, _DEC128 = 0, 1, 2, 3, 4, 5
+_INT32, _INT64, _F64, _BOOL, _STRING, _DEC128, _INT8, _INT16 = range(8)
 _SIGN64 = -2**63
 _NULLS_LAST = SortOrder(True, False)
 
@@ -100,6 +128,10 @@ def _kind(dtype: T.DataType) -> int:
         return _BOOL
     if isinstance(dtype, T.StringType):
         return _STRING
+    if isinstance(dtype, T.ByteType):
+        return _INT8
+    if isinstance(dtype, T.ShortType):
+        return _INT16
     raise T.key_type_not_ported(dtype, "a join key")
 
 
@@ -113,22 +145,27 @@ def _check_key_types(lt: T.DataType, rt: T.DataType) -> None:
 
 
 #: the join types whose probe and expand are ported, and the probe's mode
-#: for each (csrc/join.cu)
-PROBE_TYPES = ("inner", "left", "left_semi", "left_anti")
-_MODES = {"inner": 0, "left": 1, "left_semi": 2, "left_anti": 3}
+#: for each (csrc/join.cu): a right join probes as the inner join, a full
+#: join as the left join
+PROBE_TYPES = ("inner", "left", "left_semi", "left_anti", "right", "full")
+_MODES = {"inner": 0, "left": 1, "left_semi": 2, "left_anti": 3,
+          "right": 0, "full": 1}
 #: the join types whose output is the stream rows alone
 LEFT_ONLY = ("left_semi", "left_anti")
+#: the join types that append the build rows no stream row matched
+OUTER = ("right", "full")
 # the launch counter of each probe mode, after the kernel's name
 _MODE_SUFFIX = {"inner": "", "left": "_left", "left_semi": "_semi",
-                "left_anti": "_anti"}
+                "left_anti": "_anti", "right": "", "full": "_left"}
 
 
 def join_path(left: ColumnarBatch, left_keys: Sequence[int],
               right: ColumnarBatch, right_keys: Sequence[int],
               join_type: str) -> str:
     """The reference's kernel-path dispatch ('cross' | 'single' |
-    'multi'); the inner, left, semi and anti joins of both 'single' and
-    'multi' are ported."""
+    'multi'; right and full joins take 'multi').  Every path is ported;
+    the port's build picks its own layout from the keys (``build_side``),
+    so only 'cross' changes what runs."""
     if join_type == "cross":
         return "cross"
     if (join_type in ("inner", "left", "left_semi", "left_anti")
@@ -136,12 +173,6 @@ def join_path(left: ColumnarBatch, left_keys: Sequence[int],
             and _single(left, left_keys) and _single(right, right_keys)):
         return "single"
     return "multi"
-
-
-def _require_ported(path: str, join_type: str) -> None:
-    if path == "cross":
-        raise NotImplementedError("the cross join is not ported")
-    require_probe_type(join_type)
 
 
 def require_probe_type(join_type: str) -> None:
@@ -176,18 +207,28 @@ def _check_cond_inputs(li, ri, pass_mask, left_live, right_live,
                          "differ in length")
 
 
+def _cond_segments(join_type: str, rmatched: Optional[torch.Tensor]
+                   ) -> Tuple[int, int]:
+    """The join type's segments, without the right rows where the caller
+    accumulates the right flags across calls."""
+    segments, want = _COND_SEGMENTS[join_type]
+    return (segments & ~4 if rmatched is not None else segments), want
+
+
 def conditional_join_maps_plain(li: torch.Tensor, ri: torch.Tensor,
                                 pass_mask: torch.Tensor,
                                 left_live: torch.Tensor,
-                                right_live: torch.Tensor, join_type: str
+                                right_live: torch.Tensor, join_type: str,
+                                rmatched: Optional[torch.Tensor] = None
                                 ) -> Tuple[torch.Tensor, torch.Tensor,
                                            torch.Tensor]:
     """Flags set through the passing pairs, then the segments selected by
     boolean-mask indexing and concatenated."""
-    segments, want = _COND_SEGMENTS[join_type]
+    segments, want = _cond_segments(join_type, rmatched)
     dev = li.device
     lmatched = torch.zeros_like(left_live)
-    rmatched = torch.zeros_like(right_live)
+    if rmatched is None:
+        rmatched = torch.zeros_like(right_live)
     lmatched[li[pass_mask].long()] = True
     rmatched[ri[pass_mask].long()] = True
     lis: List[torch.Tensor] = []
@@ -210,18 +251,22 @@ def conditional_join_maps_plain(li: torch.Tensor, ri: torch.Tensor,
 
 
 def _conditional_join_maps_cuda(li, ri, pass_mask, left_live, right_live,
-                                join_type):
+                                join_type, rmatched=None):
     _lib.require_cuda("conditional_join_maps", li, ri, pass_mask, left_live,
                       right_live)
     lib = _lib.lib()
-    segments, want = _COND_SEGMENTS[join_type]
+    accumulate = rmatched is not None
+    segments, want = _cond_segments(join_type, rmatched)
     dev = li.device
     npairs, nl, nr = li.shape[0], left_live.shape[0], right_live.shape[0]
     tile = lib.srt_cond_join_tile()
     tiles = sum(-(-n // tile) for bit, n in ((1, npairs), (2, nl), (4, nr))
                 if segments & bit)
     lmatched = torch.empty(nl, dtype=torch.bool, device=dev)
-    rmatched = torch.empty(nr, dtype=torch.bool, device=dev)
+    if accumulate:
+        _lib.require_cuda("conditional_join_maps", rmatched)
+    else:
+        rmatched = torch.empty(nr, dtype=torch.bool, device=dev)
     tile_counts = torch.empty(tiles + 1, dtype=torch.int32, device=dev)
     tile_sums = torch.empty(max(-(-tiles // lib.srt_join_scan_tile()), 1),
                             dtype=torch.int64, device=dev)
@@ -231,7 +276,7 @@ def _conditional_join_maps_cuda(li, ri, pass_mask, left_live, right_live,
             npairs, _lib.ptr(left_live), nl, _lib.ptr(right_live), nr,
             _lib.ptr(lmatched), _lib.ptr(rmatched), _lib.ptr(tile_counts))
     _lib.check(lib.srt_cond_join_count(*args, _lib.ptr(tile_sums),
-                                       _lib.ptr(total), s),
+                                       _lib.ptr(total), int(accumulate), s),
                "conditional_join_maps")
     _lib.LAUNCHES["conditional_join_maps"] += 1
     # the one device->host read: the number of output rows
@@ -250,7 +295,8 @@ def _conditional_join_maps_cuda(li, ri, pass_mask, left_live, right_live,
 
 def conditional_join_maps(li: torch.Tensor, ri: torch.Tensor,
                           pass_mask: torch.Tensor, left_live: torch.Tensor,
-                          right_live: torch.Tensor, join_type: str
+                          right_live: torch.Tensor, join_type: str,
+                          rmatched: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
     """The final maps of a join with a residual condition: from candidate
@@ -258,13 +304,20 @@ def conditional_join_maps(li: torch.Tensor, ri: torch.Tensor,
     condition is true), over ``left_live`` [nl] and ``right_live`` [nr]
     rows, the int32 ``(li2, ri2)`` of the join's rows (-1: null-extend that
     side) and the bool ``lmatched`` [nl], whether a left row has a passing
-    pair (the existence join's flag)."""
+    pair (the existence join's flag).  ``rmatched`` (bool [nr], right and
+    full joins streamed in groups): the passing pairs' right rows are ORed
+    into it and the unmatched right rows are left out of the maps, for the
+    caller to append after its last group (``unmatched_build_rows``)."""
     _check_cond_inputs(li, ri, pass_mask, left_live, right_live, join_type)
+    if rmatched is not None and (rmatched.dtype != torch.bool
+                                 or rmatched.shape != right_live.shape):
+        raise TypeError("conditional_join_maps: rmatched must be bool "
+                        f"[{right_live.shape[0]}]")
     if li.device.type == "cpu":
         return conditional_join_maps_plain(li, ri, pass_mask, left_live,
-                                           right_live, join_type)
+                                           right_live, join_type, rmatched)
     return _conditional_join_maps_cuda(li, ri, pass_mask, left_live,
-                                       right_live, join_type)
+                                       right_live, join_type, rmatched)
 
 
 @dataclasses.dataclass
@@ -319,7 +372,7 @@ def build_keys_plain(col: DeviceColumn, perm: torch.Tensor
 def _counts_plain(lo: torch.Tensor, hi: torch.Tensor, valid: torch.Tensor,
                   join_type: str) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """(int32 first match, int32 offsets, pairs) from the bounds: a null
-    row matches nothing; in a left join a row with no match gets one pair
+    row matches nothing; in a left or full join a row with no match gets one pair
     and first match -1; in a semi or anti join a row counts 1 where it is
     kept and there is no first match (an empty tensor)."""
     counts = torch.where(valid, hi - lo, 0)
@@ -327,7 +380,7 @@ def _counts_plain(lo: torch.Tensor, hi: torch.Tensor, valid: torch.Tensor,
     if join_type in LEFT_ONLY:
         counts = ((counts > 0) == (join_type == "left_semi")).to(counts.dtype)
         lo = lo[:0]
-    elif join_type == "left":
+    elif _MODES[join_type] == _MODES["left"]:     # left and full
         lo = torch.where(counts > 0, lo, -1)
         counts = counts.clamp(min=1)
     offsets = torch.zeros(counts.shape[0] + 1, dtype=torch.int64,
@@ -350,9 +403,12 @@ def probe_plain(col: DeviceColumn, build: JoinBuild,
 
 
 def expand_plain(lo: torch.Tensor, offsets: torch.Tensor, total: int,
-                 perm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                 perm: torch.Tensor,
+                 matched: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A row's pairs; a row whose first match is -1 (a left join's row
-    with no match) gets right index -1."""
+    with no match) gets right index -1; ``matched``: K1's plain version,
+    each written pair's build row flagged."""
     counts = (offsets[1:] - offsets[:-1]).long()
     row = torch.repeat_interleave(
         torch.arange(lo.shape[0], device=lo.device), counts)
@@ -362,7 +418,16 @@ def expand_plain(lo: torch.Tensor, offsets: torch.Tensor, total: int,
     ri = (perm.long()[pos] if perm.shape[0]
           else torch.zeros_like(pos))
     ri = torch.where(first < 0, -1, ri)
+    if matched is not None:
+        matched[ri[ri >= 0]] = True
     return row.to(torch.int32), ri.to(torch.int32)
+
+
+def cross_join_maps_plain(nl: int, nr: int, device
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's plain version: every (left row, right row) pair, left-major."""
+    k = torch.arange(nl * nr, dtype=torch.int64, device=device)
+    return (k // max(nr, 1)).to(torch.int32), (k % max(nr, 1)).to(torch.int32)
 
 
 def expand_left_only_plain(offsets: torch.Tensor, total: int
@@ -553,16 +618,35 @@ def _multi_probe_cuda(cols: Sequence[DeviceColumn], build: JoinBuild,
 
 
 def _expand_cuda(lo: torch.Tensor, offsets: torch.Tensor, total: int,
-                 perm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    _lib.require_cuda("join_expand", lo, offsets, perm)
+                 perm: torch.Tensor, matched: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    _lib.require_cuda("join_expand", lo, offsets, perm,
+                      *(() if matched is None else (matched,)))
     dev = lo.device
     li = torch.empty(total, dtype=torch.int32, device=dev)
     ri = torch.empty(total, dtype=torch.int32, device=dev)
     if total:
         _lib.check(_lib.lib().srt_join_expand(
             _lib.ptr(lo), _lib.ptr(offsets), _lib.ptr(perm), lo.shape[0],
-            _lib.ptr(li), _lib.ptr(ri), _lib.stream(dev)), "join_expand")
-        _lib.LAUNCHES["join_expand"] += 1
+            _lib.ptr(li), _lib.ptr(ri),
+            _lib.ptr(matched) if matched is not None else None,
+            _lib.stream(dev)), "join_expand")
+        _lib.LAUNCHES["join_expand" if matched is None
+                      else "join_expand_outer"] += 1
+    return li, ri
+
+
+def _cross_join_maps_cuda(nl: int, nr: int, device
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    total = nl * nr
+    li = torch.empty(total, dtype=torch.int32, device=device)
+    ri = torch.empty(total, dtype=torch.int32, device=device)
+    _lib.require_cuda("join_expand_cross", li, ri)
+    if total:
+        _lib.check(_lib.lib().srt_join_expand_cross(
+            nl, nr, _lib.ptr(li), _lib.ptr(ri), _lib.stream(device)),
+            "join_expand_cross")
+        _lib.LAUNCHES["join_expand_cross"] += 1
     return li, ri
 
 
@@ -613,6 +697,13 @@ def build_side(right: ColumnarBatch,
     perm = _multi_build_perm(cols)
     words, valid, chunks = build_words(cols, perm)
     return JoinBuild(right, tuple(keys), perm, words, valid, chunks)
+
+
+def keyless_build(right: ColumnarBatch) -> JoinBuild:
+    """The build of a keyless join: its rows as they are, no key."""
+    none = torch.empty(0, dtype=torch.int32, device=right.device)
+    return JoinBuild(right, (), none, none.to(torch.int64),
+                     none.to(torch.bool))
 
 
 def _multi_build_perm(cols: Sequence[DeviceColumn]) -> torch.Tensor:
@@ -685,34 +776,76 @@ def join_probe(left: ColumnarBatch, left_keys: Union[int, Sequence[int]],
 
 
 def join_expand(lo: torch.Tensor, offsets: torch.Tensor, total: int,
-                build: JoinBuild, join_type: str = "inner"
+                build: JoinBuild, join_type: str = "inner",
+                matched: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The (left, right) int32 row-id maps of the pairs (right -1 for a
-    left join's row with no match); a semi or anti join's kept rows and an
-    empty right map."""
+    left or full join's row with no match); a semi or anti join's kept rows
+    and an empty right map.  ``matched`` (bool [build rows], a right or
+    full join; K1): each pair's build row is flagged in it, for
+    ``unmatched_build_rows`` after the last stream group."""
     if join_type in LEFT_ONLY:
         if offsets.device.type == "cpu":
             return expand_left_only_plain(offsets, total)
         return _expand_left_only_cuda(offsets, total)
+    if matched is not None and (matched.dtype != torch.bool
+                                or matched.shape != (build.num_rows,)):
+        raise TypeError(f"join_expand: matched must be bool "
+                        f"[{build.num_rows}]")
     if lo.device.type == "cpu":
-        return expand_plain(lo, offsets, total, build.perm)
-    return _expand_cuda(lo, offsets, total, build.perm)
+        return expand_plain(lo, offsets, total, build.perm, matched)
+    return _expand_cuda(lo, offsets, total, build.perm, matched)
+
+
+def new_matched(build_rows: int, device) -> torch.Tensor:
+    """The zeroed per-build-row flags of a right or full join."""
+    return torch.zeros(build_rows, dtype=torch.bool, device=device)
+
+
+def unmatched_build_rows(matched: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The appended maps of a right or full join: (-1, each build row no
+    pair flagged), in build-row order (the ported ``compaction_map``)."""
+    rows, _ = compaction_map(~matched)
+    return torch.full_like(rows, -1), rows
+
+
+def cross_join_maps(nl: int, nr: int, device
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: the int32 maps of every (left row, right row) pair, ``li = k /
+    nr, ri = k % nr`` for ``k < nl * nr``: a cross join's pairs, and the
+    candidates of a keyless join with a condition."""
+    if nl * nr >= 2**31:
+        raise ValueError(f"a cross join batch of {nl} x {nr} pairs: int32 "
+                         "row ids need fewer than 2**31")
+    if torch.device(device).type == "cpu":
+        return cross_join_maps_plain(nl, nr, device)
+    return _cross_join_maps_cuda(nl, nr, device)
 
 
 def join_gather_maps(left: ColumnarBatch, left_keys: Sequence[int],
                      right: ColumnarBatch, right_keys: Sequence[int],
                      join_type: str) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """One-shot (li, ri, pairs) of a join: build, probe and expand."""
+    """One-shot (li, ri, rows) of a join: build, probe and expand (a right
+    or full join then appends its unmatched build rows); the cross join's
+    every pair."""
     if join_type not in JOIN_TYPES:
         raise ValueError(f"unknown join type {join_type!r}")
     if len(left_keys) != len(right_keys):
         raise ValueError("a join needs as many left keys as right keys")
-    _require_ported(join_path(left, left_keys, right, right_keys, join_type),
-                    join_type)
+    if join_path(left, left_keys, right, right_keys, join_type) == "cross":
+        li, ri = cross_join_maps(left.num_rows, right.num_rows, left.device)
+        return li, ri, li.shape[0]
+    require_probe_type(join_type)
     build = build_side(right, right_keys)
     lo, offsets, total = join_probe(left, left_keys, build, join_type)
-    li, ri = join_expand(lo, offsets, total, build, join_type)
-    return li, ri, total
+    matched = (new_matched(build.num_rows, left.device)
+               if join_type in OUTER else None)
+    li, ri = join_expand(lo, offsets, total, build, join_type, matched)
+    if matched is not None:
+        ali, ari = unmatched_build_rows(matched)
+        li, ri = torch.cat([li, ali]), torch.cat([ri, ari])
+    return li, ri, li.shape[0]
 
 
 def apply_gather_maps(left: ColumnarBatch, right: ColumnarBatch,
@@ -723,7 +856,7 @@ def apply_gather_maps(left: ColumnarBatch, right: ColumnarBatch,
     ported gather, strings included).  An index of -1 gives a null row:
     the gather of a side that a join type null-extends counts as the
     null-extending gather."""
-    if join_type not in JOIN_TYPES or join_type == "cross":
+    if join_type not in JOIN_TYPES:
         raise ValueError(f"apply_gather_maps: join type {join_type!r}")
     cols = gather_columns(left.columns, li,
                           null_extend=join_type in ("right", "full"))

@@ -177,6 +177,8 @@ def segmented_sum(data: torch.Tensor, validity: torch.Tensor,
 #: the kernels' type codes (csrc/reduction.cu kBool ... kF64)
 _DTYPE_CODE = {torch.bool: 0, torch.int32: 1, torch.int64: 2,
                torch.float32: 3, torch.float64: 4}
+#: the extremes' types: BYTE and SHORT reduce at their own width
+_EXTREME_CODE = {**_DTYPE_CODE, torch.int8: 5, torch.int16: 6}
 _FLOAT_BITS = {torch.float32: (torch.int32, 0x7FFFFFFF),
                torch.float64: (torch.int64, 0x7FFFFFFFFFFFFFFF)}
 
@@ -254,9 +256,9 @@ def masked_extreme_plain(data: torch.Tensor, validity: torch.Tensor,
 
 def _check_extreme(name: str, data: torch.Tensor, validity: torch.Tensor
                    ) -> None:
-    if data.dtype not in _DTYPE_CODE:
-        raise TypeError(f"{name} takes bool, int32, int64, float32 or "
-                        f"float64, got {data.dtype}")
+    if data.dtype not in _EXTREME_CODE:
+        raise TypeError(f"{name} takes bool, int8, int16, int32, int64, "
+                        f"float32 or float64, got {data.dtype}")
     if validity.dtype != torch.bool or validity.shape != data.shape \
             or data.dim() != 1:
         raise ValueError(f"{name} needs 1-d data and bool validity of the "
@@ -284,7 +286,7 @@ def _segmented_extreme_cuda(data, validity, starts, is_min):
     ok = torch.empty(g, dtype=torch.bool, device=dev)
     scratch = _scratch(n, lib.srt_segment_tile(), 2, dev)
     _lib.check(lib.srt_segmented_extreme(
-        _DTYPE_CODE[data.dtype], int(is_min), _lib.ptr(data),
+        _EXTREME_CODE[data.dtype], int(is_min), _lib.ptr(data),
         _lib.ptr(validity), n, _lib.ptr(starts), g, _lib.ptr(scratch),
         _lib.ptr(out), _lib.ptr(ok), _lib.stream(dev)), "segmented_extreme")
     if n and g:
@@ -316,7 +318,7 @@ def _masked_extreme_cuda(data, validity, is_min):
     nvalid = torch.empty(1, dtype=torch.int64, device=dev)
     scratch = _scratch(n, lib.srt_reduction_tile(), 1, dev)
     _lib.check(lib.srt_masked_extreme(
-        _DTYPE_CODE[data.dtype], int(is_min), _lib.ptr(data),
+        _EXTREME_CODE[data.dtype], int(is_min), _lib.ptr(data),
         _lib.ptr(validity), n, _lib.ptr(scratch), _lib.ptr(out),
         _lib.ptr(ok), _lib.ptr(nvalid), _lib.stream(dev)), "masked_extreme")
     _lib.LAUNCHES["masked_extreme"] += 1
@@ -438,6 +440,14 @@ def _m2_pointers(mode: str, x, validity, part_sum, part_count):
             _lib.ptr(part_count) if merge else None)
 
 
+def _widened(mode: str, x: torch.Tensor) -> torch.Tensor:
+    """A BYTE or SHORT update input widened to int32 elementwise (the
+    variances over them; the M2 kernel takes int32 and wider)."""
+    if mode == "update" and x.dtype in (torch.int8, torch.int16):
+        return x.to(torch.int32)
+    return x
+
+
 def segmented_m2(mode: str, x: torch.Tensor, validity: torch.Tensor,
                  starts: torch.Tensor, total: torch.Tensor,
                  count: torch.Tensor,
@@ -451,6 +461,7 @@ def segmented_m2(mode: str, x: torch.Tensor, validity: torch.Tensor,
     M2_i + n_i (s_i / max(n_i, 1) - mean)^2 over valid rows."""
     _check_starts(starts)
     g = starts.shape[0]
+    x = _widened(mode, x)
     ts = _check_m2("segmented_m2", mode, x, validity, total, count,
                    part_sum, part_count, g)
     if x.device.type == "cpu":
@@ -476,6 +487,7 @@ def masked_m2(mode: str, x: torch.Tensor, validity: torch.Tensor,
               part_count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``segmented_m2`` over the whole batch as one group: ``total`` and
     ``count`` are one-element (from ``masked_sum``); a [1] float64."""
+    x = _widened(mode, x)
     ts = _check_m2("masked_m2", mode, x, validity, total, count, part_sum,
                    part_count, 1)
     if x.device.type == "cpu":
@@ -499,7 +511,7 @@ def masked_m2(mode: str, x: torch.Tensor, validity: torch.Tensor,
 #: the pick kinds, and the kernels' key type codes (csrc/reduction.cu
 #: kPickFirst ..., kBool ... kString)
 _PICK_KIND = {"first": 0, "last": 1, "min": 2, "max": 3}
-_KEY_CODE = {**_DTYPE_CODE, torch.int8: 5, torch.int16: 6}
+_KEY_CODE = _EXTREME_CODE
 _STRING_CODE = 7
 _IGNORE_NULLS, _NAN_GREATEST = 1, 2
 _I64 = torch.iinfo(torch.int64)

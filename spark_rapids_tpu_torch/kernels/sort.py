@@ -4,7 +4,9 @@ Counterpart of ``spark_rapids_tpu/kernels/sort.py`` (``SortOrder`` :32,
 ``sort_indices`` :200, ``sort_batch`` :241) for fixed-width and string
 keys, with the key builders ``_data_key_fixed`` :101, ``_null_key`` :117,
 ``f64_total_order_u64`` :52 (its non-TPU branch) and, in place of
-``_string_data_keys`` :160, big-endian 8-byte chunks plus the length.  Ordering follows Spark's
+``_string_data_keys`` :160, big-endian 8-byte chunks plus the length.
+``f64_injective_u64`` :74 is one bitcast off the TPU (:84-85): the F64
+kind's key already is the double's bits in Java's total order.  Ordering follows Spark's
 SortExec: ASC NULLS FIRST by default (DESC NULLS LAST), NULLS FIRST/LAST
 absolute, doubles in Java's total order (-0.0 < 0.0, NaN above +Inf), and
 the sort is stable.  Strings sort in Spark's ``UTF8String.binaryCompare``
@@ -28,7 +30,23 @@ significant key up.  A Decimal128 key sorts as two words
 low limb (K2: two key kinds of ``csrc/sort.cu``; every launch over one of
 them also counts as ``decimal128_sort_key``).  ``order_words`` writes the
 range sort's per-row key words (the null word, then each key's data words;
-``range_sort.py`` ``_encode_fn`` :43).  Struct keys are not ported.
+``range_sort.py`` ``_encode_fn`` :43).  BYTE and SHORT keys sort as
+sign-flipped 1- and 2-byte keys (``_data_key_fixed`` :101 over int8 and
+int16): one or two digit passes, not four.
+
+The split-tolerant grouping key (``_string_hash_key`` :183, behind
+``sort_indices(..., hash_string_keys=True)`` :200): one uint64 per string
+row, the FNV-1a fold (offset basis 14695981039346656037, prime
+1099511628211) of the reference's ``_string_data_keys`` chunks (7 bytes a
+chunk in 9-bit lanes, byte + 1, 0 past the end) over ceil(longest / 7)
+chunks, the longest live key of the column (so equal strings of a batch
+always hash equal); 0 on a null row.  A string key then sorts as (its null
+key, that word), one pass of 8 digits instead of ceil(longest / 8) chunk
+passes and a length pass: equal keys contiguous, up to a collision that
+interleaves two keys, which a caller that compares the bytes at its
+boundaries (``group_rows(..., allow_split_groups=True)``) turns into a
+split group, never a merged one.  K3, ``string_hash_key``, computes it
+on the card (``csrc/sort.cu``).  Struct keys are not ported.
 """
 from __future__ import annotations
 
@@ -46,13 +64,18 @@ from spark_rapids_tpu_torch.kernels.selection import gather_batch
 # key kinds of csrc/sort.cu, and their key widths in bytes (a string column
 # is -1 here: its keys are _RAW_U32 lengths and _RAW_U64 chunks)
 _INT32, _INT64, _F64, _BOOL, _RAW_U32, _RAW_U64 = 0, 1, 2, 3, 4, 5
-_DEC128_HI, _DEC128_LO = 6, 7
+_DEC128_HI, _DEC128_LO, _INT8, _INT16 = 6, 7, 8, 9
 _STRING = -1
 _KEY_BYTES = {_INT32: 4, _INT64: 8, _F64: 8, _BOOL: 1, _STRING: 8,
-              _DEC128_HI: 8}
+              _DEC128_HI: 8, _INT8: 1, _INT16: 2}
 _F64_MAGNITUDE = 0x7FFFFFFFFFFFFFFF
 _SIGN64 = -2**63
 CHUNK_BYTES = 8
+#: the hash key's chunks: 7 bytes in 9-bit lanes (the reference's
+#: BYTES_PER_CHUNK), folded by FNV-1a
+HASH_CHUNK_BYTES = 7
+FNV_OFFSET = 14695981039346656037
+FNV_PRIME = 1099511628211
 
 
 class SortOrder:
@@ -82,12 +105,22 @@ def _kind(dtype: T.DataType) -> int:
         return _BOOL
     if isinstance(dtype, T.StringType):
         return _STRING
+    if isinstance(dtype, T.ByteType):
+        return _INT8
+    if isinstance(dtype, T.ShortType):
+        return _INT16
     raise T.key_type_not_ported(dtype, "sort key")
 
 
 def string_chunks(longest: int) -> int:
     """Chunks of a string key whose longest live string has this length."""
     return -(-longest // CHUNK_BYTES)
+
+
+def hash_chunks(longest: int) -> int:
+    """The hash key's chunks for a longest live string of this length (at
+    least one: the reference's ``max(1, ceil(max_bytes / 7))``)."""
+    return max(1, -(-longest // HASH_CHUNK_BYTES))
 
 # ---------------------------------------------------------------------------
 # plain version
@@ -190,6 +223,58 @@ def string_longest(cols: Sequence[DeviceColumn]) -> List[int]:
     return _string_longest_cuda(cols)
 
 
+def _signed(u: int) -> int:
+    return u - 2**64 if u >= 2**63 else u
+
+
+def string_hash_key_plain(col: DeviceColumn, nchunks: int) -> torch.Tensor:
+    """K3's plain version: int64 [n] holding the uint64 bits of each row's
+    FNV-1a fold of ``nchunks`` 9-bit-lane chunks (int64 products wrap as
+    uint64 ones do), 0 on a null row."""
+    n = col.num_rows
+    lengths = (col.offsets[1:] - col.offsets[:-1]).to(torch.int64)
+    width = HASH_CHUNK_BYTES * nchunks
+    # a column of empty strings has no bytes to index
+    tile = (col.byte_tile(width).to(torch.int64) if col.data.numel()
+            else torch.zeros((n, width), dtype=torch.int64,
+                             device=col.data.device))
+    pos = torch.arange(width, device=tile.device)
+    lanes = torch.where(pos < lengths[:, None], tile + 1, 0)
+    h = torch.full((n,), _signed(FNV_OFFSET), dtype=torch.int64,
+                   device=tile.device)
+    prime = _signed(FNV_PRIME)
+    for c in range(nchunks):
+        chunk = torch.zeros(n, dtype=torch.int64, device=tile.device)
+        for j in range(HASH_CHUNK_BYTES):
+            chunk = (chunk << 9) | lanes[:, HASH_CHUNK_BYTES * c + j]
+        h = (h ^ chunk) * prime
+    return torch.where(col.validity, h, 0)
+
+
+def _string_hash_key_cuda(col: DeviceColumn, nchunks: int) -> torch.Tensor:
+    _lib.require_cuda("string_hash_key", col.offsets, col.data, col.validity)
+    n = col.num_rows
+    out = torch.empty(n, dtype=torch.int64, device=col.device)
+    _lib.check(_lib.lib().srt_string_hash_key(
+        _lib.ptr(col.offsets), _lib.ptr(col.data), _lib.ptr(col.validity), n,
+        nchunks, _lib.ptr(out), _lib.stream(col.device)), "string_hash_key")
+    if n:
+        _lib.LAUNCHES["string_hash_key"] += 1
+    return out
+
+
+def string_hash_key(col: DeviceColumn, nchunks: int) -> torch.Tensor:
+    """K3: one split-tolerant grouping word per string row (uint64 bits in
+    int64; see the module's docstring), over ``nchunks`` 7-byte chunks,
+    which must be the same for every row of the batch."""
+    if nchunks < 1:
+        raise ValueError(f"string_hash_key: nchunks must be >= 1, got "
+                         f"{nchunks}")
+    if col.device.type == "cpu":
+        return string_hash_key_plain(col, nchunks)
+    return _string_hash_key_cuda(col, nchunks)
+
+
 def string_keys_plain(col: DeviceColumn, order: SortOrder
                       ) -> List[torch.Tensor]:
     """int64 keys of a string column, most significant first: the chunks,
@@ -209,12 +294,16 @@ def null_key_plain(col: DeviceColumn, order: SortOrder) -> torch.Tensor:
 
 
 def sort_indices_plain(columns: Sequence[DeviceColumn],
-                       orders: Sequence[SortOrder]) -> torch.Tensor:
+                       orders: Sequence[SortOrder],
+                       hash_string_keys: bool = False) -> torch.Tensor:
     n = columns[0].num_rows
     perm = torch.arange(n, dtype=torch.int64, device=columns[0].device)
     keys: List[torch.Tensor] = []   # least significant first
     for c, o in zip(reversed(list(columns)), reversed(list(orders))):
-        if c.is_string:
+        if c.is_string and hash_string_keys:
+            data = [string_hash_key_plain(c, hash_chunks(_longest_plain(c)))
+                    ^ _SIGN64]
+        elif c.is_string:
             data = string_keys_plain(c, o)[::-1]
         elif c.is_two_limb:   # signed order of word ^ sign = its uint64 order
             data = list(decimal128_sort_keys_plain(c, o) ^ _SIGN64)[::-1]
@@ -240,7 +329,8 @@ def _string_key_planes(c: DeviceColumn, longest: int) -> List[tuple]:
 
 
 def _sort_indices_cuda(columns: Sequence[DeviceColumn],
-                       orders: Sequence[SortOrder]) -> torch.Tensor:
+                       orders: Sequence[SortOrder],
+                       hash_string_keys: bool = False) -> torch.Tensor:
     _lib.require_cuda("sort", *(
         t for c in columns for t in (c.data, c.validity)
         + ((c.offsets,) if c.is_string else ())))
@@ -274,7 +364,10 @@ def _sort_indices_cuda(columns: Sequence[DeviceColumn],
     ids = None
     for i in reversed(range(k)):
         c, o = columns[i], orders[i]
-        if c.is_string:
+        if c.is_string and hash_string_keys:    # K3: one word, 8 passes
+            passes = [(_RAW_U64, string_hash_key(
+                c, hash_chunks(longest[i])), 0)]
+        elif c.is_string:
             passes = _string_key_planes(c, longest[i])
         elif c.is_two_limb:     # K2: the low word, then the high word
             passes = [(_DEC128_LO, c.data, 0), (_DEC128_HI, c.data, 0)]
@@ -299,9 +392,13 @@ def _sort_indices_cuda(columns: Sequence[DeviceColumn],
 
 
 def sort_indices(batch: ColumnarBatch, key_cols: Sequence[int],
-                 orders: Sequence[SortOrder]) -> torch.Tensor:
+                 orders: Sequence[SortOrder],
+                 hash_string_keys: bool = False) -> torch.Tensor:
     """Stable argsort of the batch's rows by the given key columns (most
-    significant first): int32 row ids in sorted order."""
+    significant first): int32 row ids in sorted order.
+    ``hash_string_keys``: a string key sorts by its null key and its K3
+    word (``string_hash_key``), which keeps equal strings contiguous up to
+    a collision and does not give byte order (the reference's option)."""
     if not key_cols or len(key_cols) != len(orders):
         raise ValueError("sort_indices needs one SortOrder per key column, "
                          "and at least one key")
@@ -311,8 +408,8 @@ def sort_indices(batch: ColumnarBatch, key_cols: Sequence[int],
     if batch.num_rows >= 2**31:
         raise ValueError("sort_indices: int32 row ids need n < 2**31")
     if columns[0].device.type == "cpu":
-        return sort_indices_plain(columns, orders)
-    return _sort_indices_cuda(columns, orders)
+        return sort_indices_plain(columns, orders, hash_string_keys)
+    return _sort_indices_cuda(columns, orders, hash_string_keys)
 
 
 def sort_batch(batch: ColumnarBatch, key_cols: Sequence[int],
@@ -329,6 +426,10 @@ def _data_word_plain(col: DeviceColumn) -> torch.Tensor:
     kind = _kind(col.dtype)
     if kind == _INT32:
         return (col.data.to(torch.int64) & 0xFFFFFFFF) ^ 0x80000000
+    if kind == _INT8:
+        return (col.data.to(torch.int64) & 0xFF) ^ 0x80
+    if kind == _INT16:
+        return (col.data.to(torch.int64) & 0xFFFF) ^ 0x8000
     if kind == _INT64:
         return col.data ^ _SIGN64
     if kind == _F64:

@@ -40,7 +40,10 @@ its batch, whose halves' partials stand for the batch's.
 
 Grouped steps are sort-based (kernels/groupby.py): the keys and every
 aggregate input form one work batch, which is sorted by the keys and cut
-into groups; each buffer slot is then a segmented reduction over it, or
+into groups (the partial step lets a string key sort by its hash word and
+a group come out split, as the reference's :506-522 does; the merge,
+final and complete steps group by the exact bytes); each buffer slot is
+then a segmented reduction over it, or
 a pick (FIRST / LAST, MAX_BY / MIN_BY, string MIN / MAX) whose rows the
 gather moves.  A MAX_BY / MIN_BY value slot picks by the column of its
 second input when it updates, and by its ordering-key buffer
@@ -292,10 +295,14 @@ class GpuHashAggregateExec(GpuExec):
 
     def grouped_partial(self, work: ColumnarBatch) -> ColumnarBatch:
         """A work batch (``work_exprs``' columns, evaluated here or by a
-        fused segment's kernel) -> its partial batch."""
+        fused segment's kernel) -> its partial batch.  It groups with split
+        groups allowed (the reference's :506-522): its rows meet the merge
+        step, which groups exactly, as partials of other batches do, so a
+        string key sorts by its one hash word."""
         return self._grouped_step(
             work, *self._work_inputs(),
-            [slot.update_op for _, slot in self.slot_specs])
+            [slot.update_op for _, slot in self.slot_specs],
+            allow_split_groups=True)
 
     def global_work_partial(self, work: ColumnarBatch,
                             device: torch.device) -> ColumnarBatch:
@@ -406,14 +413,16 @@ class GpuHashAggregateExec(GpuExec):
     def _grouped_step(self, work: ColumnarBatch,
                       inputs: List[Optional[int]],
                       by: List[Optional[int]], ops: List[str],
-                      merge: bool = False) -> ColumnarBatch:
+                      merge: bool = False,
+                      allow_split_groups: bool = False) -> ColumnarBatch:
         """Group ``work`` by its leading key columns, then reduce slot i's
         work column ``inputs[i]`` (None: no input) with ``ops[i]``, a
         MAX_BY / MIN_BY value slot by the ordering column ``by[i]``;
         ``merge``: ``work`` holds partials (a SUM128 slot then reads its
-        COUNT_VALID companion)."""
+        COUNT_VALID companion); ``allow_split_groups``: see
+        ``kernels/groupby.py`` ``group_rows``."""
         nkeys = len(self.group_exprs)
-        layout = G.group_rows(work, list(range(nkeys)))
+        layout = G.group_rows(work, list(range(nkeys)), allow_split_groups)
         sums = G.SegmentSums(layout)
         cols = G.group_keys_output(layout, list(range(nkeys)))
         sorted_cols = layout.sorted_batch.columns

@@ -4,9 +4,10 @@ Counterpart of ``spark_rapids_tpu/plan/execs/join.py``
 (``_JoinKernel`` :52 with its conditional program ``_call_conditional``
 :244-323, ``TpuShuffledHashJoinExec`` :387 with ``_join_pair`` :430 and its
 streamed probe :449-528, ``TpuBroadcastHashJoinExec`` :627,
-``TpuAdaptiveJoinExec`` :713) for the inner, left, left semi and left
-anti joins on one or several keys, strings among them, each with an
-optional residual condition.
+``TpuAdaptiveJoinExec`` :713) for the inner, left, right, full, left semi
+and left anti joins on one or several keys, strings among them, each with
+an optional residual condition, and for the cross join and the keyless
+(nested-loop) joins.
 
 - A join without a condition probes, expands and gathers (the left join
   null-extends a stream row with no match; the semi and anti joins keep
@@ -18,11 +19,28 @@ optional residual condition.
   evaluated over that pair batch, and ``conditional_join_maps`` turns the
   candidates and the pass mask into the join type's maps, which the
   gather then applies to every column.
+- A right or full join (the shuffled exec only: it never broadcasts)
+  keeps one ``matched`` flag per build row across every stream group of a
+  partition or an out-of-core bucket: the expand (K1) flags each pair's
+  build row, and with a condition ``conditional_join_maps`` ORs the
+  passing pairs' right rows into the same flags and leaves the right rows
+  out.  After the last group the unmatched build rows are appended once,
+  their left columns null: so a build row that passes only in a later
+  group is not null-extended in an earlier one, and the rows come in the
+  reference's order (the left-driven pairs, then the unmatched right rows
+  in right-row order).
+- A cross join (no keys, no condition: the planner puts a condition in a
+  Filter over it) gathers K2's pairs; a keyless join with a condition takes
+  K2's pairs as its candidates and runs the conditional program.  Its
+  stream goes in chunks of at most max(1, batchSizeRows // build rows)
+  rows, so that a chunk's pairs stay near the batch target and under
+  2**31.
 - Empty sides follow the reference (``_join_pair`` :430-447, the
-  broadcast exec's :672-680): an inner or a semi join with an empty or
-  missing build emits nothing (its stream is still drained); a left join
-  emits its stream rows null-extended against an empty build, and an anti
-  join every stream row, null keys included.
+  broadcast exec's :672-680): an inner, right, cross or semi join with an
+  empty or missing build emits nothing (its stream is still drained); a
+  left or full join emits its stream rows null-extended against an empty
+  build, and an anti join every stream row, null keys included; a right or
+  full join with no stream row emits every build row null-extended.
 
 - The broadcast join materializes its build (right) side whole once per
   query, under a lock: every right partition's batches are concatenated
@@ -36,7 +54,8 @@ optional residual condition.
   Where a partition's build side holds at most ``batchSizeRows`` rows it
   is built whole once and the probe side streams against it in groups of
   at most ``batchSizeRows`` rows.  A larger build partition takes the
-  reference's out-of-core branch (``_execute_out_of_core`` :530): both
+  reference's out-of-core branch (``_execute_out_of_core`` :530; a keyless
+  join never takes it): both
   sides are hash-sub-partitioned on their keys into spillable co-buckets
   (``plan/execs/out_of_core.py``) of about ``batchSizeRows`` rows, and
   each pair is joined alone, its build whole and its stream in groups of
@@ -53,7 +72,7 @@ optional residual condition.
   exchanges read through coalesced readers that share one spec, under a
   shuffled join.  The reference's cluster-stats branch is not ported.
 
-The other join types raise NotImplementedError.
+The existence join raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -82,7 +101,7 @@ from spark_rapids_tpu_torch.plan.execs.scan import GpuInMemoryScanExec
 from spark_rapids_tpu_torch.shuffle.transport import slice_batch
 
 # the join types that emit nothing where the build side has no row
-_NOTHING_WITHOUT_BUILD = ("inner", "left_semi")
+_NOTHING_WITHOUT_BUILD = ("inner", "left_semi", "right", "cross")
 
 
 def _split_rows(batch: ColumnarBatch, rows: int) -> Iterator[ColumnarBatch]:
@@ -129,21 +148,33 @@ def empty_batch(schema: Schema, device: torch.device) -> ColumnarBatch:
 
 class _HashJoin(GpuExec):
     """What the broadcast and the shuffled join share: the key ordinals,
-    their type check, the condition's inputs, and the join of one stream
-    chunk against a build."""
+    their type check, the condition's inputs, the join of one stream
+    chunk against a build, and the appended build rows of a right or full
+    join."""
 
     def __init__(self, left: GpuExec, right: GpuExec,
                  left_keys: Sequence[Expression],
                  right_keys: Sequence[Expression], join_type: str,
                  schema: Schema, target_rows: int,
                  condition: Optional[Expression] = None):
-        J.require_probe_type(join_type)
-        if not left_keys or len(left_keys) != len(right_keys):
+        if join_type != "cross":
+            J.require_probe_type(join_type)
+        if len(left_keys) != len(right_keys):
             raise NotImplementedError(
-                "a hash join needs as many left keys as right keys, and at "
-                "least one (the cross join is not ported)")
+                "a hash join needs as many left keys as right keys")
+        if join_type == "cross" and (left_keys or condition is not None):
+            raise NotImplementedError(
+                "a cross join takes no keys and no condition (the planner "
+                "filters its product)")
+        if not left_keys and join_type != "cross" and condition is None:
+            raise NotImplementedError(
+                f"keyless {join_type} join without a condition (use cross "
+                "join)")
         super().__init__((left, right), schema)
         self.join_type = join_type
+        #: no keys: the cross join, or a nested-loop join with a condition
+        self.keyless = not left_keys
+        self.left_schema = left.schema
         self.left_keys = [_ordinal(k) for k in left_keys]
         self.right_keys = [_ordinal(k) for k in right_keys]
         for lk, rk in zip(self.left_keys, self.right_keys):
@@ -171,70 +202,130 @@ class _HashJoin(GpuExec):
     def num_partitions(self) -> int:
         return self.children[0].num_partitions()
 
-    def _chunks(self, stream) -> Iterator[List[ColumnarBatch]]:
+    def _stream_rows(self, build: Optional[J.JoinBuild]) -> int:
+        """The most stream rows of one chunk: ``target_rows``, or for a
+        keyless join as many as keep its pairs within it (at least one)."""
+        if not self.keyless:
+            return self.target_rows
+        return max(1, self.target_rows
+                   // max(build.num_rows if build is not None else 0, 1))
+
+    def _chunks(self, stream, rows_limit: int
+                ) -> Iterator[List[ColumnarBatch]]:
         """Consecutive stream batches grouped while their rows stay within
-        ``target_rows`` (a larger batch is a group of its own)."""
+        ``rows_limit`` (a larger batch is a group of its own; a keyless
+        join's is cut into views of at most ``rows_limit`` rows first)."""
         group: List[ColumnarBatch] = []
         rows = 0
         for b in stream:
-            if group and rows + b.num_rows > self.target_rows:
-                yield group
-                group, rows = [], 0
-            group.append(b)
-            rows += b.num_rows
+            for piece in (_split_rows(b, rows_limit) if self.keyless
+                          else (b,)):
+                if group and rows + piece.num_rows > rows_limit:
+                    yield group
+                    group, rows = [], 0
+                group.append(piece)
+                rows += piece.num_rows
         if group:
             yield group
 
-    def _join(self, group: List[ColumnarBatch],
-              build: J.JoinBuild) -> ColumnarBatch:
+    def _join(self, group: List[ColumnarBatch], build: J.JoinBuild,
+              matched: Optional[torch.Tensor] = None) -> ColumnarBatch:
         with timed(self.op_time):
-            out = with_retry_no_split(lambda: self._join_step(group, build))
+            out = with_retry_no_split(
+                lambda: self._join_step(group, build, matched))
         return self._count_out(out)
 
-    def _join_step(self, group: List[ColumnarBatch],
-                   build: J.JoinBuild) -> ColumnarBatch:
+    def _join_step(self, group: List[ColumnarBatch], build: J.JoinBuild,
+                   matched: Optional[torch.Tensor]) -> ColumnarBatch:
+        """One stream chunk's rows.  A retry repeats the flags' stores,
+        which set the same bits again."""
         left = coalesce_to_one(group)
-        if self.condition is None:
+        if self.condition is not None:
+            li, ri = self._conditional_maps(left, build, matched)
+        elif self.keyless:
+            li, ri = J.cross_join_maps(left.num_rows, build.num_rows,
+                                       left.device)
+        else:
             lo, offsets, total = J.join_probe(left, self.left_keys, build,
                                               self.join_type)
-            li, ri = J.join_expand(lo, offsets, total, build, self.join_type)
-        else:
-            li, ri = self._conditional_maps(left, build)
+            li, ri = J.join_expand(lo, offsets, total, build, self.join_type,
+                                   matched)
         return J.apply_gather_maps(left, build.batch, li, ri, self.schema,
                                    self.join_type)
 
     def _build_of(self, batches: List[ColumnarBatch],
                   keep_empty: bool = False) -> Optional[J.JoinBuild]:
         """The build of these right batches, under retry (None: no batch,
-        or, without ``keep_empty``, no row)."""
+        or, without ``keep_empty``, no row); a keyless join's is the
+        batch, unsorted."""
         def step():
             whole = coalesce_to_one(batches)
             if whole is None or not (whole.num_rows or keep_empty):
                 return None
+            if self.keyless:
+                return J.keyless_build(whole)
             return J.build_side(whole, self.right_keys)
         with timed(self.op_time):
             return with_retry_no_split(step)
 
     def _join_stream(self, stream, build: Optional[J.JoinBuild]
                      ) -> Iterator[ColumnarBatch]:
-        """Join a stream of left batches against a build, in groups; an
+        """Join a stream of left batches against a build, in chunks; an
         empty build still drains the stream, as the reference's does; a
-        left join emits the stream null-extended against it, an anti
-        join every stream row."""
-        for group in self._chunks(stream):
+        left or full join emits the stream null-extended against it, an
+        anti join every stream row.  A right or full join flags its build
+        rows through every chunk and then appends the unmatched ones."""
+        outer = self.join_type in J.OUTER
+        matched = None
+        for group in self._chunks(stream, self._stream_rows(build)):
             if build is None:
                 if self.join_type in _NOTHING_WITHOUT_BUILD:
                     continue
                 build = self._empty_build(group[0].device)
-            yield self._join(group, build)
+            if outer and matched is None:
+                matched = J.new_matched(build.num_rows, build.batch.device)
+            yield self._join(group, build, matched)
+        if outer and build is not None and build.num_rows:
+            out = self._unmatched(build, matched)
+            if out is not None:
+                yield out
 
-    def _conditional_maps(self, left: ColumnarBatch, build: J.JoinBuild):
+    def _unmatched(self, build: J.JoinBuild,
+                   matched: Optional[torch.Tensor]
+                   ) -> Optional[ColumnarBatch]:
+        """The build rows no chunk matched (every one where no stream row
+        came), their left columns null; None where there is none."""
+        dev = build.batch.device
+
+        def step():
+            flags = (matched if matched is not None
+                     else J.new_matched(build.num_rows, dev))
+            li, ri = J.unmatched_build_rows(flags)
+            if not li.shape[0]:
+                return None
+            return J.apply_gather_maps(empty_batch(self.left_schema, dev),
+                                       build.batch, li, ri, self.schema,
+                                       self.join_type)
+        with timed(self.op_time):
+            out = with_retry_no_split(step)
+        return None if out is None else self._count_out(out)
+
+    def _conditional_maps(self, left: ColumnarBatch, build: J.JoinBuild,
+                          matched: Optional[torch.Tensor]):
         """The reference's conditional program: candidates from the inner
-        probe and expand, the condition's inputs gathered for them, the
-        condition evaluated, then ``conditional_join_maps``."""
+        probe and expand (a keyless join's: every pair, K2), the
+        condition's inputs gathered for them, the condition evaluated,
+        then ``conditional_join_maps`` (a right or full join ORs its passing
+        right rows into ``matched`` and leaves the unmatched ones for
+        ``_unmatched``)."""
         right = build.batch
-        lo, offsets, total = J.join_probe(left, self.left_keys, build)
-        li, ri = J.join_expand(lo, offsets, total, build)
+        if self.keyless:
+            li, ri = J.cross_join_maps(left.num_rows, right.num_rows,
+                                       left.device)
+            total = li.shape[0]
+        else:
+            lo, offsets, total = J.join_probe(left, self.left_keys, build)
+            li, ri = J.join_expand(lo, offsets, total, build)
         gathered = {}
         for side, batch, idx in ((0, left, li), (1, right, ri)):
             ords = [o for s, o in self.cond_inputs if s == side]
@@ -250,13 +341,15 @@ class _HashJoin(GpuExec):
             li, ri, passed,
             torch.ones(left.num_rows, dtype=torch.bool, device=dev),
             torch.ones(right.num_rows, dtype=torch.bool, device=dev),
-            self.join_type)
+            self.join_type, rmatched=matched)
         return li2, ri2
 
     def _empty_build(self, device: torch.device) -> J.JoinBuild:
-        """The build of no rows a left or an anti join runs against."""
-        return J.build_side(empty_batch(self.children[1].schema, device),
-                            self.right_keys)
+        """The build of no rows a left, full or anti join runs against."""
+        empty = empty_batch(self.children[1].schema, device)
+        if self.keyless:
+            return J.keyless_build(empty)
+        return J.build_side(empty, self.right_keys)
 
     def _keys_string(self) -> str:
         cond = (f", condition={self.condition!r}"
@@ -273,6 +366,9 @@ class GpuBroadcastHashJoinExec(_HashJoin):
                  right_keys: Sequence[Expression], join_type: str,
                  schema: Schema, target_rows: int = 1 << 20,
                  condition: Optional[Expression] = None):
+        if join_type in J.OUTER:
+            raise ValueError(f"a {join_type} join never broadcasts: its "
+                             "build side is the side it null-extends")
         super().__init__(left, right, left_keys, right_keys, join_type,
                          schema, target_rows, condition)
         self._lock = threading.Lock()
@@ -298,7 +394,7 @@ class GpuBroadcastHashJoinExec(_HashJoin):
             if self.join_type in _NOTHING_WITHOUT_BUILD:
                 return    # no build row: no output row
             build = self._empty_build(stream[0].device)
-        for group in self._chunks(stream):
+        for group in self._chunks(stream, self._stream_rows(build)):
             yield self._join(group, build)
 
     def cleanup(self) -> None:
@@ -344,7 +440,7 @@ class GpuShuffledHashJoinExec(_HashJoin):
         right_rows = sum(b.num_rows for b in right_batches)
         self.build_rows.append(right_rows)
         self.largest_build_rows = max(self.largest_build_rows, right_rows)
-        if right_rows > self.target_rows:
+        if right_rows > self.target_rows and not self.keyless:
             self.branches["out_of_core"] += 1
             left_batches = [b for b in
                             self.children[0].execute_partition(idx)
@@ -375,8 +471,8 @@ class GpuShuffledHashJoinExec(_HashJoin):
                 self.target_rows)
         try:
             for lq, rq in zip(lbuckets, rbuckets):
-                if not lq:
-                    continue    # no stream row: no output of any type
+                if not lq and self.join_type not in J.OUTER:
+                    continue    # no stream row: no output but build rows
                 # the bucket's handles stay pinned through its join
                 pinned = []
                 try:

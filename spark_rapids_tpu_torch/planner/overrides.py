@@ -19,9 +19,15 @@ Union and Window.
   at most ``spark.rapids.sql.join.broadcastRowThreshold`` rows is a
   broadcast hash join, and one within 8x of it (with
   ``spark.rapids.sql.join.adaptive.enabled``) an adaptive join that
-  decides at run time.  Any other join is a shuffled hash join, with a
-  hash exchange on the keys under each side where either side has more
-  than one partition.
+  decides at run time; a right or full join never broadcasts (its build
+  is the side it null-extends).  Any other join is a shuffled hash join,
+  with a hash exchange on the keys under each side where either side has
+  more than one partition; a cross or keyless join that does not
+  broadcast collapses both sides to one partition
+  (``GpuSinglePartitionExec``, the reference's cartesian shape).  A cross
+  join with a condition is a Filter over the product; a keyless join of
+  another type without a condition raises with the reference's reason
+  (its tag, :633-637).
 - A union's partitions are its children's, one after another (its
   partition count is their sum); an expand runs each batch once per
   projection, and neither is a stage of a fused segment.
@@ -173,6 +179,11 @@ def _plan_partitions(node: GpuExec) -> int:
 
 def _convert_join(p: L.Join, conf: RapidsConf,
                   device: torch.device) -> GpuExec:
+    if not p.left_keys and p.join_type != "cross" and p.condition is None \
+            and p.join_type != "existence":
+        raise NotImplementedError(
+            f"keyless {p.join_type} join without a condition (use cross "
+            "join)")
     left = _convert(p.left, conf, device)
     right = _convert(p.right, conf, device)
     nparts = conf.shuffle_partitions
@@ -180,11 +191,14 @@ def _convert_join(p: L.Join, conf: RapidsConf,
     thr = conf.broadcast_row_threshold
     multi = _plan_partitions(left) > 1
     broadcastable = p.join_type in _BROADCASTABLE
+    # cross keeps Spark's Filter-over-product shape
+    cross_cond = p.join_type == "cross" and p.condition is not None
+    join_cond = None if cross_cond else p.condition
     if broadcastable and multi and est <= thr:
-        return GpuBroadcastHashJoinExec(left, right, p.left_keys,
-                                        p.right_keys, p.join_type, p.schema,
-                                        target_rows=conf.batch_size_rows,
-                                        condition=p.condition)
+        join: GpuExec = GpuBroadcastHashJoinExec(
+            left, right, p.left_keys, p.right_keys, p.join_type, p.schema,
+            target_rows=conf.batch_size_rows, condition=join_cond)
+        return GpuFilterExec(p.condition, join) if cross_cond else join
     if (broadcastable and multi and p.left_keys and p.join_type != "cross"
             and est <= thr * 8 and conf.join_adaptive_enabled):
         return GpuAdaptiveJoinExec(
@@ -193,16 +207,21 @@ def _convert_join(p: L.Join, conf: RapidsConf,
             target_rows=conf.batch_size_rows,
             aqe_coalesce=conf.aqe_coalesce_partitions, condition=p.condition)
     if p.join_type == "cross" or not p.left_keys:
-        raise NotImplementedError(
-            "the cross and nested-loop joins are not ported")
-    # co-partition both sides on the join keys
-    if _plan_partitions(left) > 1 or _plan_partitions(right) > 1:
+        # candidate pairs must see every right row: both sides collapse to
+        # one partition
+        if _plan_partitions(left) > 1:
+            left = GpuSinglePartitionExec(left)
+        if _plan_partitions(right) > 1:
+            right = GpuSinglePartitionExec(right)
+    elif _plan_partitions(left) > 1 or _plan_partitions(right) > 1:
+        # co-partition both sides on the join keys
         left = GpuShuffleExchangeExec(nparts, p.left_keys, left)
         right = GpuShuffleExchangeExec(nparts, p.right_keys, right)
-    return GpuShuffledHashJoinExec(left, right, p.left_keys, p.right_keys,
+    join = GpuShuffledHashJoinExec(left, right, p.left_keys, p.right_keys,
                                    p.join_type, p.schema,
                                    target_rows=conf.batch_size_rows,
-                                   condition=p.condition)
+                                   condition=join_cond)
+    return GpuFilterExec(p.condition, join) if cross_cond else join
 
 
 def _convert_aggregate(p: L.Aggregate, conf: RapidsConf,

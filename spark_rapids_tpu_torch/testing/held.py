@@ -27,7 +27,18 @@ vectorised, so ``tail_columns(700, 3)`` is ``_data()`` row for row; it
 returns ``s`` as its codes, which ``tail_strings`` turns into the
 column's bytes, so that an answer can be computed over the codes
 (``TAIL_RANK``: each code's rank in the strings' byte order) and never
-over millions of Python strings.
+over millions of Python strings.  ``tail_batches(..., with_short=True)``
+adds ``h`` SHORT, ``v`` narrowed (its values fit), for the BYTE and SHORT
+key queries (``TAIL_KEY_QUERIES``).
+
+The held joins (``join_columns``): the shapes of the reference's
+``tests/test_joins.py`` ``left_df`` :19 (``k`` INT, ``lv`` LONG, ``lx``
+DOUBLE) and ``right_df`` :35 (``k`` INT, ``rv`` LONG) at any size with its
+ratios: the left side n rows, keys uniform in [0, n / 15), lv in [-1000,
+1000), lx normal; the right side n / 2 rows, keys in [0, n / 12), rv in
+[-1000, 1000); n / 8 nulls in each column of each side.
+``JOIN_QUERIES`` are the right, full, cross and keyless joins over them,
+each followed by aggregates so that few rows come back.
 """
 from __future__ import annotations
 
@@ -182,15 +193,20 @@ def tail_strings(codes: np.ndarray, valid: np.ndarray
 
 def tail_batches(data: Dict[str, np.ndarray],
                  validity: Dict[str, np.ndarray], device,
-                 batch_rows: int = 1 << 20) -> List[ColumnarBatch]:
-    """``tail_columns``' columns as device batches of ``batch_rows``."""
+                 batch_rows: int = 1 << 20,
+                 with_short: bool = False) -> List[ColumnarBatch]:
+    """``tail_columns``' columns as device batches of ``batch_rows``;
+    ``with_short``: and ``h`` SHORT, ``v`` narrowed, with v's nulls."""
     n = len(data["k"])
+    schema = TAIL_SHORT_SCHEMA if with_short else TAIL_SCHEMA
     out = []
     for o in range(0, n, batch_rows):
         cut = {c: (data[c][o:o + batch_rows], validity[c][o:o + batch_rows])
                for c in TAIL_SCHEMA.names}
         cut["s"] = tail_strings(*cut["s"])
-        out.append(batch_from_numpy(cut, TAIL_SCHEMA, device))
+        if with_short:
+            cut["h"] = (cut["v"][0].astype(np.int16), cut["v"][1])
+        out.append(batch_from_numpy(cut, schema, device))
     return out
 
 
@@ -256,6 +272,54 @@ TAIL_QUERIES = {f.__name__: f for f in (
     grouped_first_last, global_first_last, grouped_max_min_by,
     grouped_by_string, global_by_string, grouped_string_extremes,
     grouped_bits, global_bits)}
+
+TAIL_SHORT_SCHEMA = Schema(TAIL_SCHEMA.names + ("h",),
+                           TAIL_SCHEMA.dtypes + (T.SHORT,))
+#: the BYTE dimension the tail joins on b: every BYTE value once, with
+#: ``d`` = its value + 1000
+BYTE_DIM_SCHEMA = Schema.of(db=T.BYTE, d=T.INT)
+
+
+def byte_dimension(device) -> ColumnarBatch:
+    """The 256-row BYTE dimension (-128..127)."""
+    b = np.arange(-128, 128).astype(np.int8)
+    ok = np.ones(256, np.bool_)
+    return batch_from_numpy({"db": (b, ok),
+                             "d": (b.astype(np.int32) + 1000, ok)},
+                            BYTE_DIM_SCHEMA, device)
+
+
+def group_by_byte(df, E=PE):
+    """GROUP BY b: COUNT and MIN(x), ordered by b."""
+    return df.group_by("b").agg(E.count().alias("n"),
+                                E.min_("x").alias("mx")).order_by("b")
+
+
+def byte_extremes(df, E=PE):
+    """GROUP BY k: MIN, MAX and VARIANCE of b."""
+    return df.group_by("k").agg(E.min_("b").alias("mn"),
+                                E.max_("b").alias("mx"),
+                                E.var_samp("b").alias("vb"))
+
+
+def group_by_short(df, E=PE):
+    """GROUP BY h: COUNT and MAX(b), ordered by h."""
+    return df.group_by("h").agg(E.count().alias("n"),
+                                E.max_("b").alias("mb")).order_by("h")
+
+
+def join_on_byte(df, dim, E=PE):
+    """An inner join on b against the BYTE dimension: COUNT, SUM(v) and
+    SUM(d)."""
+    return df.join(dim, on=([E.col("b")], [E.col("db")])).agg(
+        E.count().alias("n"), E.sum_("v").alias("sv"),
+        E.sum_("d").alias("sd"))
+
+
+#: the BYTE / SHORT key queries over the tail's table (``join_on_byte``
+#: also takes the dimension's dataframe)
+TAIL_KEY_QUERIES = {f.__name__: f for f in (
+    group_by_byte, byte_extremes, group_by_short, join_on_byte)}
 
 
 # -- the two-limb decimal shapes (tests/test_decimal128.py) ------------------
@@ -518,3 +582,100 @@ def window_global(df, E=PE):
 WINDOW_QUERIES = {f.__name__: f for f in (
     window_ranks, window_running, window_whole, window_offsets, window_rows,
     window_range, window_global)}
+
+
+# -- the held joins (tests/test_joins.py) ------------------------------------
+
+JOIN_LEFT_SCHEMA = Schema.of(k=T.INT, lv=T.LONG, lx=T.DOUBLE)
+JOIN_RIGHT_SCHEMA = Schema.of(k=T.INT, rv=T.LONG)
+#: the build of the cross and keyless joins: the right side's first rows
+JOIN_SMALL_BUILD = 16
+
+
+def _join_side(rng, cols: Dict[str, np.ndarray], n: int
+               ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    validity = {}
+    for name in cols:
+        ok = np.ones(n, np.bool_)
+        ok[rng.choice(n, n // 8, replace=False)] = False
+        validity[name] = ok
+        cols[name] = np.where(ok, cols[name], np.zeros((), cols[name].dtype))
+    return cols, validity
+
+
+def join_columns(n: int, seed: int = 5) -> tuple:
+    """((left values, left validity), (right values, right validity)):
+    ``left_df`` and ``right_df``'s shapes at n and n // 2 rows (see the
+    module's docstring); a null slot holds zero."""
+    rng = np.random.RandomState(seed)
+    nr = n // 2
+    left = {"k": rng.randint(0, max(n // 15, 1), n).astype(np.int32),
+            "lv": rng.randint(-1000, 1000, n).astype(np.int64),
+            "lx": rng.randn(n)}
+    right = {"k": rng.randint(0, max(n // 12, 1), nr).astype(np.int32),
+             "rv": rng.randint(-1000, 1000, nr).astype(np.int64)}
+    return _join_side(rng, left, n), _join_side(rng, right, nr)
+
+
+def join_batches(data: Dict[str, np.ndarray],
+                 validity: Dict[str, np.ndarray], schema: Schema, device,
+                 batch_rows: int = 1 << 20, rows: int = -1
+                 ) -> List[ColumnarBatch]:
+    """One side's columns (its first ``rows``; -1: all) as device batches
+    of ``batch_rows``."""
+    n = len(data[schema.names[0]]) if rows < 0 else rows
+    return [batch_from_numpy(
+        {c: (data[c][o:min(o + batch_rows, n)],
+             validity[c][o:min(o + batch_rows, n)]) for c in schema.names},
+        schema, device) for o in range(0, n, batch_rows)]
+
+
+def join_aggs(E) -> list:
+    return [E.count().alias("n"), E.count("lv").alias("nl"),
+            E.sum_("lv").alias("sl"), E.sum_("rv").alias("sr")]
+
+
+def right_join(left, right, E=PE):
+    """J1: the right join on k."""
+    return left.join(right, "k", how="right").agg(*join_aggs(E))
+
+
+def full_join(left, right, E=PE):
+    """J2: the full join on k."""
+    return left.join(right, "k", how="full").agg(*join_aggs(E))
+
+
+def full_join_by_rv(left, right, E=PE):
+    """J2 grouped: the full join on k, GROUP BY rv."""
+    return left.join(right, "k", how="full").group_by("rv").agg(
+        E.count().alias("n"), E.sum_("lv").alias("sl"))
+
+
+def full_join_condition(left, right, E=PE):
+    """J3: the full join on k with lv < rv."""
+    return left.join(right, "k", how="full",
+                     condition=E.col("lv") < E.col("rv")).agg(*join_aggs(E))
+
+
+def cross_join(left, small, E=PE):
+    """J4: the cross join with the small build."""
+    return left.join(small, ([], []), how="cross").agg(*join_aggs(E))
+
+
+def keyless_inner(left, small, E=PE):
+    """J5: the keyless inner join with lv < rv."""
+    return left.join(small, None, how="inner",
+                     condition=E.col("lv") < E.col("rv")).agg(*join_aggs(E))
+
+
+def keyless_right(left, small, E=PE):
+    """J5: the keyless right join with lv < rv."""
+    return left.join(small, None, how="right",
+                     condition=E.col("lv") < E.col("rv")).agg(*join_aggs(E))
+
+
+#: the held joins: name -> (query, whether its build is the small one)
+JOIN_QUERIES = {f.__name__: (f, small) for f, small in (
+    (right_join, False), (full_join, False), (full_join_by_rv, False),
+    (full_join_condition, False), (cross_join, True),
+    (keyless_inner, True), (keyless_right, True))}

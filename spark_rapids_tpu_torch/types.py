@@ -204,14 +204,5 @@ def numeric_promote(a: DataType, b: DataType) -> DataType:
 
 
 def key_type_not_ported(dtype: DataType, what: str) -> NotImplementedError:
-    """The error for a type the port holds as a value column only (BYTE,
-    SHORT, Decimal128) or not at all, used as a ``what`` key."""
-    if two_limbs(dtype):
-        return NotImplementedError(
-            f"{what} of {dtype!r} is not ported: Decimal128 is a value "
-            "column only; as a key it is ROADMAP queue 2 item 12a (rest)")
-    if isinstance(dtype, (ByteType, ShortType)):
-        return NotImplementedError(
-            f"{what} of {dtype!r} is not ported: BYTE and SHORT are value "
-            "columns only; as keys they are ROADMAP queue 2")
+    """The error for a type the port does not take as a ``what`` key."""
     return NotImplementedError(f"{what} of {dtype!r} is not ported")

@@ -188,8 +188,9 @@ def test_first_last_skip_an_emptied_partition(keep, oracle, device):
 @pytest.mark.parametrize("key", ["b", "h"])
 def test_byte_and_short_are_value_columns_only(key):
     """BYTE and SHORT cross the Arrow bridge and feed the tail's
-    aggregates; as a group, sort or join key they raise, naming their
-    queue."""
+    aggregates; they are group, sort and join keys too (the last key
+    kinds: tests/test_torch_key_kinds.py holds them against the
+    reference)."""
     table = pa.table({"b": pa.array([1, -2, 3], pa.int8()),
                       "h": pa.array([300, -2, 7], pa.int16()),
                       "k": pa.array([1, 1, 2], pa.int32())})
@@ -198,9 +199,10 @@ def test_byte_and_short_are_value_columns_only(key):
     assert df.group_by("k").agg(PE.bit_or(key).alias("o"),
                                 PE.first(key).alias("f")).collect() == (
         [(1, -1, 1), (2, 3, 3)] if key == "b" else [(1, -2, 300), (2, 7, 7)])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        df.group_by(key).agg(PE.count().alias("n")).collect()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        df.order_by(key).collect()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        df.join(sess.create_dataframe(table.select([key])), on=key).collect()
+    vals = table.column(key).to_pylist()
+    assert sorted(df.group_by(key).agg(PE.count().alias("n")).collect()) \
+        == sorted((v, 1) for v in vals)
+    assert [r[0] for r in df.order_by(key).select(key).collect()] == \
+        sorted(vals)
+    joined = df.join(sess.create_dataframe(table.select([key])), on=key)
+    assert sorted(r[0] for r in joined.select(key).collect()) == sorted(vals)

@@ -414,15 +414,14 @@ def test_global_extremes_after_a_filter_stay_one_segment():
 
 
 def test_string_and_unported_inputs_raise():
-    """MIN / MAX over BYTE names its queue; a variance of a string or of
-    a BYTE raises too: there is no fallback.  (MIN / MAX over STRING is
-    ported: tests/test_torch_agg_pick.py.)"""
+    """A variance of a string raises: there is no fallback.  MIN / MAX
+    and the variances over BYTE run (BYTE and DOUBLE results; held
+    against the reference in tests/test_torch_key_kinds.py), as MIN / MAX
+    over STRING do (tests/test_torch_agg_pick.py)."""
     sess = GpuSession(device="cpu")
     df = sess.create_dataframe(pa.table({"s": ["a", "b"], "k": [1, 2],
                                          "b": pa.array([1, 2], pa.int8())}))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        df.agg(PE.min_("b")).collect()
+    assert df.agg(PE.min_("b"), PE.max_("b")).collect() == [(1, 2)]
     with pytest.raises(NotImplementedError):
         df.agg(PE.var_samp("s")).collect()
-    with pytest.raises(NotImplementedError):
-        df.agg(PE.var_samp("b")).collect()
+    assert df.agg(PE.var_samp("b")).collect() == [(0.5,)]

@@ -11,13 +11,13 @@ another order).  q19 keeps few rows at this size, so its join chain and
 its substring filter, without its date and manager filters, are held
 grouped by brand: 3,705 rows through ``Substring`` and ``!=``.
 
-Each reference query runs once per process, on first use.  q42, q52,
-q55, q96 and q19 run through the JAX package's ``TpuSession`` with the
-two switches of tests/test_torch_q3.py; q7, q26 and q19's chain through
-its CPU oracle (``spark.rapids.sql.enabled=false``), whose rows the
-reference's own gauntlet holds its device path to: there, the device
-path compiles its string filters for minutes on this CPU (q7 162 s, q26
-153 s, the chain 65 s).
+Each reference query runs once per process, on first use, through the
+JAX package's CPU oracle (``spark.rapids.sql.enabled=false``), whose rows
+the reference's own gauntlet holds its device path to: the device path
+compiles its string filters for minutes on a CPU (q7 162 s, q26 153 s,
+the chain 65 s, q19 50 s).  On these tables the oracle's rows of q19,
+q42, q52, q55 and q96 equal the device path's exactly (its path with the
+two switches of tests/test_torch_q3.py), and the chain's within 1e-9.
 """
 import functools
 
@@ -41,19 +41,17 @@ N_FACT = 24_000
 BATCH = N_FACT // 3 + 1
 N_CUSTOMER, N_ADDRESS = 8_000, 4_000
 F64_RTOL = 1e-12
-JAX_CONF = {"spark.rapids.sql.fusion.acrossShuffle": "false",
-            "spark.rapids.sql.adaptive.coalescePartitions.enabled": "false"}
 ORACLE_CONF = {"spark.rapids.sql.enabled": "false"}
 FACTS = ("ss", "cs")
-# each query's tables, in argument order, and the reference's engine
+# each query's tables, in argument order
 QUERIES = {
-    "q7": (("ss", "cd", "dd", "item", "promo"), "oracle"),
-    "q19": (("ss", "dd", "item", "cust", "ca", "store"), "device"),
-    "q26": (("cs", "cd", "dd", "item", "promo"), "oracle"),
-    "q42": (("ss", "dd", "item"), "device"),
-    "q52": (("ss", "dd", "item"), "device"),
-    "q55": (("ss", "dd", "item"), "device"),
-    "q96": (("ss", "hd", "td", "store"), "device"),
+    "q7": ("ss", "cd", "dd", "item", "promo"),
+    "q19": ("ss", "dd", "item", "cust", "ca", "store"),
+    "q26": ("cs", "cd", "dd", "item", "promo"),
+    "q42": ("ss", "dd", "item"),
+    "q52": ("ss", "dd", "item"),
+    "q55": ("ss", "dd", "item"),
+    "q96": ("ss", "hd", "td", "store"),
 }
 
 
@@ -74,8 +72,8 @@ def _tables():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_dfs(engine: str):
-    sess = TpuSession(JAX_CONF if engine == "device" else ORACLE_CONF)
+def _jax_dfs():
+    sess = TpuSession(ORACLE_CONF)
     return {k: sess.create_dataframe([JaxBatch.from_arrow(b) for b in v],
                                      num_partitions=2 if k in FACTS else 1)
             for k, v in _tables().items()}
@@ -112,9 +110,9 @@ def _chain(E, order, d):
 def _reference(name: str):
     """The reference's rows of one query (``chain``: q19's chain)."""
     if name == "chain":
-        return _chain(RE, JaxOrder, _jax_dfs("oracle")).collect()
-    args, engine = QUERIES[name]
-    d = _jax_dfs(engine)
+        return _chain(RE, JaxOrder, _jax_dfs()).collect()
+    args = QUERIES[name]
+    d = _jax_dfs()
     return getattr(jax_tpcds, name)(*(d[k] for k in args)).collect()
 
 
@@ -165,7 +163,7 @@ def test_sf10_dimension_generators_match_reference():
 
 @pytest.mark.parametrize("query", list(QUERIES))
 def test_query_matches_reference_in_order(query):
-    args, _ = QUERIES[query]
+    args = QUERIES[query]
     d = _port_dfs()
     got = getattr(port_tpcds, query)(*(d[k] for k in args)).collect()
     want = _reference(query)
@@ -192,7 +190,7 @@ def test_q19_filter_stays_above_the_joins_and_q7_filters_promotion():
     store join, and customer_address is scanned for its key and zip only;
     q7's OR filters the promotion table under its join."""
     d = _port_dfs()
-    args, _ = QUERIES["q19"]
+    args = QUERIES["q19"]
     nodes = list(_nodes(port_tpcds.q19(*(d[k] for k in args))
                         .physical_plan()))
     zip_filter = [n for n in nodes if isinstance(n, GpuFilterExec)
@@ -202,7 +200,7 @@ def test_q19_filter_stays_above_the_joins_and_q7_filters_promotion():
     builds = [n.children[1].schema.names for n in nodes
               if isinstance(n, GpuBroadcastHashJoinExec)]
     assert ("ca_address_sk", "ca_zip") in builds
-    args, _ = QUERIES["q7"]
+    args = QUERIES["q7"]
     nodes = list(_nodes(port_tpcds.q7(*(d[k] for k in args))
                         .physical_plan()))
     promo = [n for n in nodes if isinstance(n, GpuFilterExec)

@@ -564,3 +564,122 @@ def test_memory_slice_wrappers_raise_off_the_cpu_without_cuda(call):
     with pytest.raises(ValueError, match="expected cuda"):
         call(P, S, H)
     assert dict(_lib.LAUNCHES) == before
+
+
+def test_join_slice_modules_are_covered():
+    """The right, full, cross and keyless joins (the join kernels, the
+    join exec, the planner), the last key kinds (the sort, hash, join
+    and reduction kernels) and the split-tolerant grouping (groupby, the
+    aggregate exec) are in the scans above and import nothing of JAX; K1
+    (the expand's flags), K2 (the cross expand) and K3 (the string hash
+    key) are in their built sources and bound, and the BYTE and SHORT
+    kinds are in each kernel's."""
+    names = ("spark_rapids_tpu_torch.kernels.join",
+             "spark_rapids_tpu_torch.kernels.sort",
+             "spark_rapids_tpu_torch.kernels.hash",
+             "spark_rapids_tpu_torch.kernels.groupby",
+             "spark_rapids_tpu_torch.kernels.reduction",
+             "spark_rapids_tpu_torch.plan.execs.join",
+             "spark_rapids_tpu_torch.plan.execs.aggregate",
+             "spark_rapids_tpu_torch.planner.overrides",
+             "spark_rapids_tpu_torch.testing.held")
+    for name in names:
+        assert name in PORT_MODULES
+        path = ROOT / (name.replace(".", "/") + ".py")
+        assert not {m for m in _imported_roots(path) if m in FORBIDDEN}
+    join_cu = (_lib.CSRC / "join.cu").read_text()
+    sort_cu = (_lib.CSRC / "sort.cu").read_text()
+    for entry, source in (("srt_join_expand_cross", join_cu),
+                          ("srt_join_expand", join_cu),
+                          ("srt_string_hash_key", sort_cu)):
+        assert entry in source and entry in _lib._SIGNATURES
+    assert "matched" in join_cu and "accumulate_right" in join_cu
+    for cu in ("join.cu", "sort.cu", "hash.cu"):
+        text = (_lib.CSRC / cu).read_text()
+        assert "kInt8" in text and "kInt16" in text, cu
+    assert "Bounds<int8_t>" in (_lib.CSRC / "reduction.cu").read_text()
+
+
+def _narrow_meta(dtype_name: str, n: int = 8):
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    dt = getattr(T, dtype_name)
+    return DeviceColumn(_meta(dt.torch_dtype, n), _meta(torch.bool, n), dt)
+
+
+def _narrow_meta_batch(dtype_name: str, n: int = 8):
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
+    c = _narrow_meta(dtype_name, n)
+    return ColumnarBatch((c,), n, Schema(("k",), (c.dtype,)))
+
+
+def _string_meta(n: int = 8):
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    return DeviceColumn(_meta(torch.uint8, 4 * n), _meta(torch.bool, n),
+                        T.STRING, _meta(torch.int32, n + 1))
+
+
+def _string_meta_batch(n: int = 8):
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
+    return ColumnarBatch((_string_meta(n),), n, Schema(("s",), (T.STRING,)))
+
+
+def _outer_expand_meta():
+    from spark_rapids_tpu_torch.kernels import join as J
+    build = J.JoinBuild(_narrow_meta_batch("INT"), 0, _meta(torch.int32, 8),
+                        _meta(torch.int64, 8), _meta(torch.bool, 8))
+    return J.join_expand(_meta(torch.int32, 8), _meta(torch.int32, 9), 12,
+                         build, "full", _meta(torch.bool, 8))
+
+
+def _cond_accumulate_meta():
+    from spark_rapids_tpu_torch.kernels import join as J
+    i32, ok = _meta(torch.int32, 8), _meta(torch.bool, 8)
+    return J.conditional_join_maps(i32, i32, ok, ok, ok, "right",
+                                   rmatched=_meta(torch.bool, 8))
+
+
+@pytest.mark.parametrize("call", [
+    lambda J, S, H, R: _outer_expand_meta(),
+    lambda J, S, H, R: J.cross_join_maps(4, 3, "meta"),
+    lambda J, S, H, R: S.string_hash_key(_string_meta(), 2),
+    lambda J, S, H, R: S.sort_indices(_string_meta_batch(), [0],
+                                      [S.SortOrder()],
+                                      hash_string_keys=True),
+    lambda J, S, H, R: _cond_accumulate_meta(),
+    lambda J, S, H, R: S.sort_indices(_narrow_meta_batch("BYTE"), [0],
+                                      [S.SortOrder()]),
+    lambda J, S, H, R: S.sort_indices(_narrow_meta_batch("SHORT"), [0],
+                                      [S.SortOrder(False)]),
+    lambda J, S, H, R: S.order_words(_narrow_meta("SHORT"), S.SortOrder()),
+    lambda J, S, H, R: H.murmur3_hash([_narrow_meta("BYTE")]),
+    lambda J, S, H, R: H.murmur3_partition([_narrow_meta("SHORT")], 16),
+    lambda J, S, H, R: J.build_side(_narrow_meta_batch("BYTE"), 0),
+    lambda J, S, H, R: R.segmented_extreme(
+        _meta(torch.int8, 8), _meta(torch.bool, 8), _meta(torch.int32, 2),
+        True),
+    lambda J, S, H, R: R.masked_extreme(_meta(torch.int16, 8),
+                                        _meta(torch.bool, 8), False),
+], ids=["join_expand_outer", "join_expand_cross", "string_hash_key",
+        "sort_hashed_string_key", "conditional_join_maps_accumulating",
+        "sort_byte", "sort_short", "order_words_short", "murmur3_byte",
+        "murmur3_partition_short", "join_build_byte",
+        "segmented_extreme_int8", "masked_extreme_int16"])
+def test_join_slice_wrappers_raise_off_the_cpu_without_cuda(call):
+    """As ``test_memory_slice_wrappers_raise_off_the_cpu_without_cuda``,
+    for K1 (the expand with a right or full join's flags), K2 (the cross
+    join's pairs), K3 (the string hash key, alone and in the hashed
+    sort), the accumulating conditional maps and the BYTE and SHORT
+    kinds of the sort, the order words, murmur3, the join's build and
+    the extremes: no plain version off the CPU, no launch counted."""
+    from spark_rapids_tpu_torch.kernels import hash as H
+    from spark_rapids_tpu_torch.kernels import join as J
+    from spark_rapids_tpu_torch.kernels import reduction as R
+    from spark_rapids_tpu_torch.kernels import sort as S
+    before = dict(_lib.LAUNCHES)
+    with pytest.raises(ValueError, match="expected cuda"):
+        call(J, S, H, R)
+    assert dict(_lib.LAUNCHES) == before
+

@@ -157,9 +157,10 @@ def test_build_side_sorts_nulls_last():
 
 @pytest.mark.parametrize("how", ["left", "left_semi", "left_anti", "full"])
 def test_other_join_types_raise(how):
-    """The left, semi and anti joins are ported and give the reference's
-    maps (the semi and anti joins: the kept stream rows, no right map);
-    the full join's probe still raises."""
+    """The left, semi, anti and full joins are ported and give the
+    reference's maps (the semi and anti joins: the kept stream rows, no
+    right map; the full join: the left-driven pairs, then the unmatched
+    build rows with left index -1); the existence join's probe raises."""
     left, right = _sides("int", 7, 20, 10, 5)
     pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
     if how == "left":
@@ -176,8 +177,21 @@ def test_other_join_types_raise(how):
         assert count == len(ref_li) == li.shape[0] > 0
         assert ri.shape == (0,)
         return
-    with pytest.raises(NotImplementedError, match=how):
-        J.join_gather_maps(pl, [0], pr, [0], how)
+    li, ri, count = J.join_gather_maps(pl, [0], pr, [0], how)
+    jl, jr = JaxBatch.from_arrow(left), JaxBatch.from_arrow(right)
+    ref_li, ref_ri, ref_count, _ = jjoin.join_gather_maps(
+        jl, [0], jr, [0], how, left.num_rows * right.num_rows
+        + left.num_rows + right.num_rows)
+    c = int(ref_count)
+    ref_li, ref_ri = (np.asarray(m)[:c].astype(np.int64)
+                      for m in (ref_li, ref_ri))
+    ref_li = np.where(ref_li >= left.num_rows, -1, ref_li)
+    ref_ri = np.where(ref_ri >= right.num_rows, -1, ref_ri)
+    np.testing.assert_array_equal(li.numpy(), ref_li)
+    np.testing.assert_array_equal(ri.numpy(), ref_ri)
+    assert count == c and (ri == -1).any()
+    with pytest.raises(NotImplementedError, match="existence"):
+        J.join_gather_maps(pl, [0], pr, [0], "existence")
 
 
 def _left_only_reference(left, right, keys, how):
@@ -433,8 +447,9 @@ def test_multi_key_join_edges_match_reference(case):
 
 
 def test_multi_key_string_key_cross_and_condition_raise():
-    """Several keys and a string key now join (as the reference does);
-    the cross join, a residual condition and an unknown type raise."""
+    """Several keys and a string key now join (as the reference does), and
+    the cross join gives every pair, left-major; a residual condition on
+    the cross join, mismatched maps and an unknown type raise."""
     left, right = _sides("int", 8, 20, 10, 5)
     pl, pr = arrow_to_batch(left, "cpu"), arrow_to_batch(right, "cpu")
     li, ri, count = J.join_gather_maps(pl, [0, 0], pr, [0, 0], "inner")
@@ -450,8 +465,11 @@ def test_multi_key_string_key_cross_and_condition_raise():
         if ls[a] == strings.column("rs")[b].as_py()]
     with pytest.raises(NotImplementedError, match="int.*string|string.*int"):
         J.join_gather_maps(pl, [0], ps, [0], "inner")
-    with pytest.raises(NotImplementedError, match="cross"):
-        J.join_gather_maps(pl, [], pr, [], "cross")
+    li, ri, count = J.join_gather_maps(pl, [], pr, [], "cross")
+    nl, nr = pl.num_rows, pr.num_rows
+    assert count == nl * nr
+    assert li.tolist() == [a for a in range(nl) for _ in range(nr)]
+    assert ri.tolist() == [b for _ in range(nl) for b in range(nr)]
     # conditional_join_maps is ported; it raises for a join type it has no
     # branch for and for maps that do not line up
     i32 = torch.zeros(3, dtype=torch.int32)

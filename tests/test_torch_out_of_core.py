@@ -12,7 +12,7 @@ below its inventory build partitions.  The injected-OOM cases of
 ``tests/test_agg_tail.py:192``, ``tests/test_decimal128.py:165`` and
 ``tests/test_window.py:128`` (and q72's chain) run through this file's
 ``inject_oom`` fixture, which arms the port's own injection.  The right and full joins
-of the reference's join case are not ported (ROADMAP queue 1 item 6).
+of the reference's join case are in tests/test_torch_outer_join.py.
 
 Tolerance: keys, counts and integer sums exact; floats within bench.py's
 rule, |a - b| <= 1e-6 * max(1, |b|) (sums run in another order); rows in

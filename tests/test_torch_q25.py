@@ -1,5 +1,7 @@
 """TPC-DS q25 through the port's GpuSession on the CPU, against the JAX
-package's TpuSession on the same tables: store_sales 24,000 rows,
+package's CPU oracle (``spark.rapids.sql.enabled=false``: its rows equal
+its device path's within 1e-9 on these tables) on the same tables:
+store_sales 24,000 rows,
 store_returns 8,000 (90% copied from sales), catalog_sales 12,000 (70%
 copied from the returns' (customer, item) pairs), 2 partitions each, as
 tests/test_tpcds_gauntlet.py:55 draws them; date_dim, store and item as
@@ -8,7 +10,8 @@ generated.
 The port's generators must give the reference's tables row for row, and
 q25's rows must be the reference's in order: keys exact, sums within
 1e-12 relative (the packages add in different orders).  The JAX query runs
-once per module.  The port runs it twice: with
+once per module, the tables drawn once for the generator cases (which do
+not wait for it).  The port runs it twice: with
 ``broadcastRowThreshold=1000`` and 4 shuffle partitions, where the
 store_sales x store_returns join is adaptive and goes shuffled, the
 catalog_sales join is a planned shuffled join whose sides are read
@@ -45,9 +48,8 @@ SHUFFLED_CONF = {THR: "1000", "spark.sql.shuffle.partitions": "4"}
 
 
 @pytest.fixture(scope="module")
-def reference():
-    """The reference's six tables as Arrow (facts as lists of batches) and
-    its q25 rows."""
+def tables():
+    """The reference's six tables as Arrow (facts as lists of batches)."""
     ss = jax_tpcds.gen_store_sales(N_SS, batch_rows=SS_BATCH)
     sr = jax_tpcds.gen_store_returns(N_SR, sales=ss, match_frac=0.9,
                                      batch_rows=SR_BATCH)
@@ -60,7 +62,13 @@ def reference():
               "dd": jax_tpcds.gen_date_dim().to_arrow(),
               "store": jax_tpcds.gen_store().to_arrow(),
               "item": jax_tpcds.gen_item().to_arrow()}
-    sess = TpuSession()
+    return tables
+
+
+@pytest.fixture(scope="module")
+def reference(tables):
+    """The reference's tables and its q25 rows (its CPU oracle)."""
+    sess = TpuSession({"spark.rapids.sql.enabled": "false"})
 
     def df(name, parts=1):
         t = tables[name]
@@ -115,11 +123,10 @@ def _right_names(join):
 
 @pytest.mark.parametrize("table", ["store_returns", "catalog_sales",
                                    "store"])
-def test_tpcds_generators_match_reference(reference, table):
+def test_tpcds_generators_match_reference(tables, table):
     """The pools come from the host chunks, their null slots zeroed as the
     reference's device read-back gives them; each fact chunk reseeds, so
     the same batch_rows."""
-    tables, _ = reference
     if table == "store":
         assert port_tpcds.gen_store("cpu").to_arrow().equals(tables["store"])
         return

@@ -168,12 +168,16 @@ def test_joins_that_do_not_broadcast_raise(reference, reference_join):
     8x of the threshold) or shuffled, on one partition too, and gives the
     reference's rows; a string key joins.  The left join and a residual
     condition run (every sale's item exists, so the left join gives the
-    inner join's rows); what is still not ported raises: the full join."""
+    inner join's rows); a full join never broadcasts (its build is the
+    side it null-extends); what is still not ported raises: the existence
+    join."""
     tables, _ = reference
     ss, dd, it = _port_dfs(tables)
     on = ([PE.col("ss_item_sk")], [PE.col("i_item_sk")])
-    with pytest.raises(NotImplementedError, match="the full join"):
-        ss.join(it, on=on, how="full").physical_plan()
+    assert isinstance(ss.join(it, on=on, how="full").physical_plan(),
+                      GpuShuffledHashJoinExec)
+    with pytest.raises(NotImplementedError, match="existence"):
+        ss.join(it, on=on, how="existence").physical_plan()
     left = ss.join(it, on=on, how="left").select(*JOIN_COLUMNS)
     assert isinstance(left.physical_plan().children[0],
                       GpuBroadcastHashJoinExec)

@@ -1,13 +1,17 @@
 """TPC-DS q72 through the port's GpuSession on the CPU, against the JAX
-package's TpuSession on the same tables: catalog_sales 8,000 rows,
+package's CPU oracle (``spark.rapids.sql.enabled=false``: on these tables
+its q72 and join-chain rows equal its device path's, exactly; the device
+path takes ~150 s here, the oracle under a second) on the same tables:
+catalog_sales 8,000 rows,
 catalog_returns 3,000 (60% copied from the sales' (item, order) pairs),
 inventory 20,000, 2 partitions each, as tests/test_tpcds_gauntlet.py:99
 draws them; warehouse, item, customer_demographics,
 household_demographics, date_dim and promotion as generated.
 
 The port's generators must give the reference's tables row for row, and
-q72's rows must be the reference's in order, every count exact.  The JAX
-queries run once per module.  The port runs q72 with
+q72's rows must be the reference's in order, every count exact.  The
+tables are drawn once per module for the generator cases, and the JAX
+queries run once per module beside.  The port runs q72 with
 ``broadcastRowThreshold=1000`` and 4 shuffle partitions, where the
 inventory join is a shuffled join with its condition, the catalog_returns
 left join is adaptive and goes shuffled and the promotion left join
@@ -45,7 +49,7 @@ SHUFFLED_CONF = {THR: "1000", "spark.sql.shuffle.partitions": "4"}
 # q72's arguments, in order; the facts are split into 2 partitions
 TABLES = ("cs", "inv", "warehouse", "item", "cd", "hd", "dd", "promo", "cr")
 FACTS = ("cs", "inv", "cr")
-JAX_CONF = {"spark.rapids.sql.fusion.acrossShuffle": "false", READER: "false"}
+ORACLE_CONF = {"spark.rapids.sql.enabled": "false"}
 
 
 def _chain(E, order, cs, inv, promo, cr):
@@ -71,9 +75,8 @@ def _chain(E, order, cs, inv, promo, cr):
 
 
 @pytest.fixture(scope="module")
-def reference():
-    """The reference's tables as Arrow (facts as lists of batches), its
-    q72 rows and its join chain's rows."""
+def tables():
+    """The reference's tables as Arrow (facts as lists of batches)."""
     cs = jax_tpcds.gen_catalog_sales(N_CS, batch_rows=CS_BATCH)
     pool = jax_tpcds.host_pool(cs, ORDER_POOL)
     cr = jax_tpcds.gen_catalog_returns(N_CR, order_pool=pool, match_frac=0.6,
@@ -86,8 +89,14 @@ def reference():
               "hd": [jax_tpcds.gen_household_demographics()],
               "dd": [jax_tpcds.gen_date_dim()],
               "promo": [jax_tpcds.gen_promotion()]}
-    tables = {k: [b.to_arrow() for b in v] for k, v in tables.items()}
-    sess = TpuSession(JAX_CONF)
+    return {k: [b.to_arrow() for b in v] for k, v in tables.items()}
+
+
+@pytest.fixture(scope="module")
+def reference(tables):
+    """The tables, the reference's q72 rows and its join chain's rows
+    (its CPU oracle)."""
+    sess = TpuSession(ORACLE_CONF)
     dfs = {k: sess.create_dataframe([JaxBatch.from_arrow(b) for b in v],
                                     num_partitions=2 if k in FACTS else 1)
            for k, v in tables.items()}
@@ -144,10 +153,9 @@ GENERATED = {"catalog_returns": "cr", "inventory": "inv",
 
 
 @pytest.mark.parametrize("table", list(GENERATORS))
-def test_tpcds_generators_match_reference(reference, table):
+def test_tpcds_generators_match_reference(tables, table):
     """The six generators of the slice, row for row; catalog_returns
     draws from the pool of the port's own catalog_sales chunks."""
-    tables, _, _ = reference
     pool = port_tpcds.host_pool(
         port_tpcds.iter_catalog_sales(N_CS, batch_rows=CS_BATCH),
         ORDER_POOL)
