@@ -215,14 +215,14 @@ Phases (any failure raises and the script exits non-zero):
      searchsorted, the return counts); the main-path run is traced for
      the card's busy time (no run of its own: q72 takes ~25 s), then
      timed by one more run (so is q14a's: the script's time limit);
- 10. q14a, q5 and the semi_anti path at TPC-DS SF10 in a session of 200
+ 10. q14a, q5 and the semi_anti path at TPC-DS SF10 in a session of 100
      shuffle partitions with the coalesced reader off: the channel sales (store 28,800,991 rows, catalog
      14,401,261, web 7,197,566) and returns (2,875,432, 1,439,749 and
      719,217), six and five columns, 4 partitions each, all on the card;
      item 102,000 rows, date_dim 2,190.  q14a runs with its scalar
      subquery live: the card's mean price must agree with numpy's within
      1e-12 relative with no price between the two; its nine semi joins
-     must be shuffled joins that took the streamed probe in all 200
+     must be shuffled joins that took the streamed probe in all 100
      partitions; its rows must equal an independent numpy evaluation
      (item triples packed into int64, the semi joins as np.isin, the
      rollup in integer cents) in order, counts exact, sums within 1e-9.
@@ -349,6 +349,7 @@ import contextlib
 import decimal
 import json
 import os
+import re
 import statistics
 from concurrent.futures import ThreadPoolExecutor
 import subprocess
@@ -390,6 +391,7 @@ from spark_rapids_tpu_torch.plan.execs.join import (  # noqa: E402
 from spark_rapids_tpu_torch.plan.fused import (  # noqa: E402
     GpuFusedSegmentExec)
 from spark_rapids_tpu_torch import types as T  # noqa: E402
+from spark_rapids_tpu_torch.regex import compile_regex  # noqa: E402
 from spark_rapids_tpu_torch.testing import held, tpcds, tpch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
@@ -511,6 +513,14 @@ KERNELS = {
                           "spark_rapids_tpu/kernels/join.py:260"),
     "string_hash_key": ("csrc/sort.cu",
                         "spark_rapids_tpu/kernels/sort.py:183"),
+    "string_row_scan": ("csrc/string_functions.cu",
+                        "spark_rapids_tpu/kernels/strings.py:101"),
+    "string_dfa_match": ("csrc/string_functions.cu",
+                         "spark_rapids_tpu/kernels/strings.py:302"),
+    "string_assemble": ("csrc/string_functions.cu",
+                        "spark_rapids_tpu/kernels/strings.py:191"),
+    "string_case_map": ("csrc/string_functions.cu",
+                        "spark_rapids_tpu/kernels/strings.py:114"),
 }
 FUSE_OFF = {"spark.rapids.sql.tpu.fuseStages": "false"}
 # fused (the default), q6's filter and partial sum are one kernel a batch:
@@ -2228,9 +2238,9 @@ def check_null_extend(rng, dev, summary) -> None:
 
 SEMI_TYPES = ("left_semi", "left_anti")
 MAXL = 2**63 - 1
-# q14a at SF10 in 200 shuffle partitions: one partition of the first
-# cross-channel semi join, the store channel's (brand, manufacturer,
-# category) triples against the catalog channel's
+# a two-hundredth of q14a's first cross-channel semi join at SF10, the
+# store channel's (brand, manufacturer, category) triples against the
+# catalog channel's (a partition of it at 200 shuffle partitions)
 Q14A_STREAM, Q14A_BUILD = SS_ROWS // 200, CS_ROWS // 200
 
 
@@ -3850,7 +3860,9 @@ def check_narrow_kinds(rng, dev, summary) -> None:
     join's build and probe and the extremes (and the M2 update over them,
     widened to int32), bit for bit at n = 0, 1, 1,048,576 and 1,000,003
     with the types' extremes; then the BYTE sort and the BYTE segmented
-    extreme timed at phase 13's partial shape beside INT's."""
+    extreme timed at phase 13's partial shape beside INT's, with
+    ``torch.sort(stable=True)`` and ``torch.segment_reduce`` (where it
+    takes the type) as their library calls."""
     asc, desc = [SK.SortOrder()], [SK.SortOrder(False)]
     for n in (0, 1, N, RAGGED):
         for kind in NARROW_EDGES:
@@ -3879,17 +3891,27 @@ def check_narrow_kinds(rng, dev, summary) -> None:
         # writing the key and the row id
         width = col.data.element_size()
         nbytes = (width + 1) * 2 * (width + 4) * N
+        # library: the stable sort of the key's values alone (no null
+        # key), as the sort_indices row's library
         emit({"kernel": "sort", "shape": f"phase13_{label}_key", "n": N,
               **measure(lambda: SK.sort_indices(batch, [0], asc),
-                        lambda: SK.sort_indices_plain([col], asc), None,
-                        nbytes)})
+                        lambda: SK.sort_indices_plain([col], asc),
+                        lambda: torch.sort(col.data, stable=True), nbytes)})
         nbytes = (col.data.element_size() + 1) * N + 4 * st.shape[0]
+        lengths = R.segment_rows(st, N)
+        try:   # segment_reduce's types on this card's PyTorch
+            torch.segment_reduce(col.data, "min", lengths=lengths)
+            library, refused = (lambda: torch.segment_reduce(
+                col.data, "min", lengths=lengths)), None
+        except RuntimeError as err:
+            library, refused = None, str(err).splitlines()[0]
         emit({"kernel": "segmented_extreme",
-              "shape": f"phase13_{label}_partial", "n": N, **measure(
+              "shape": f"phase13_{label}_partial", "n": N,
+              "library_refused": refused, **measure(
                   lambda: R.segmented_extreme(col.data, col.validity, st,
                                               True),
                   lambda: R.segmented_extreme_plain(col.data, col.validity,
-                                                    st, True), None,
+                                                    st, True), library,
                   nbytes)})
 
 
@@ -4028,6 +4050,244 @@ def check_join_slice(rng, dev, summary) -> None:
     check_narrow_kinds(rng, dev, summary)
 
 
+# -- phase 3: the string functions (phase 20's path) ------------------------
+
+#: the string functions' patterns and literals held on the card
+SF_PATTERNS = [b"", b"a", b" ", "é".encode(), b"\x80"]
+SF_EDGES = [b"x\xc3", b"\xa9b", b"\xc3", b"\x89z", b"", None, b"\x80\x80a",
+            b"   ", b" a b ", b"aaa", b"aaaa", "ÿ÷×".encode(),
+            b"Hello wORLD", "  été  ".encode()]
+
+
+def spaced_column(rng, n: int, dev) -> DeviceColumn:
+    """utf8_column's strings (0-16 characters of 1-4 bytes, at most 64
+    bytes, 10% nulls, 2% of the characters a lone continuation byte) with
+    runs of 0-3 spaces (0x20) added at both ends of a third of the rows."""
+    c = utf8_column(rng, n, dev)
+    if n == 0:
+        return c
+    off, data, valid = c.string_buffers()
+    pad = np.where(rng.rand(n) < 1 / 3, rng.randint(0, 4, n), 0)
+    pad[~valid] = 0
+    lengths = np.diff(off.astype(np.int64)) + 2 * pad
+    new_off = np.zeros(n + 1, np.int64)
+    np.cumsum(lengths, out=new_off[1:])
+    out = np.full(int(new_off[-1]), 0x20, np.uint8)
+    row = np.repeat(np.arange(n), np.diff(off.astype(np.int64)))
+    pos = np.arange(len(data)) - off[:-1][row]
+    out[new_off[:-1][row] + pad[row] + pos] = data
+    return DeviceColumn.from_string_buffers(new_off.astype(np.int32), out,
+                                            valid, dev)
+
+
+def long_rows(rng, dev) -> DeviceColumn:
+    """Rows of several KB (1- to 4-byte characters and spaces)."""
+    rows = []
+    for size in (2_048, 3_001, 4_096):
+        c = spaced_column(rng, size // 8, dev)
+        off, data, _ = c.string_buffers()
+        rows.append(data.tobytes()[:size])
+    return DeviceColumn.from_strings(rows, dev)
+
+
+def sf_columns(rng, dev) -> list:
+    """(label, column, a second column of the same rows, K2's patterns):
+    n = 1,048,576 with rows of several KB and the edges (K2 over one
+    pattern in search mode, REPLACE over one case: their plain versions
+    step a byte position of the longest row at a time), n = 1,000,003
+    whole (K2 over every pattern of tests/test_regex.py, both modes) and
+    sliced (offsets past 0), and n = 0."""
+    out = []
+    for n in (N, RAGGED, 0):
+        c = spaced_column(rng, n, dev)
+        if n == N:
+            c = S.concat_column_plain([c, long_rows(rng, dev),
+                                       DeviceColumn.from_strings(SF_EDGES,
+                                                                 dev)])
+        m = c.num_rows
+        other = spaced_column(rng, m, dev)
+        out.append((f"n={m}", c, other, {N: SF_DFA_LONG,
+                                         RAGGED: REGEX_PATTERNS}.get(
+                                             n, SF_DFA_SOME)))
+        if n == RAGGED:
+            lo, hi = 1_000, m - 777
+            part = c.slice_rows(lo, hi)
+            require(int(part.offsets[0]) > 0, "the slice starts at 0")
+            out.append((f"n={hi - lo} sliced", part,
+                        other.slice_rows(lo, hi), SF_DFA_SOME))
+    return out
+
+
+def hold_case(fn, plain, args, what: str, kernel: str = "string_case_map"):
+    """K4: the rows' bytes (the offsets are the input's)."""
+    got, want = fn(*args), plain(*args)
+    require(got.offsets is args[0].offsets, f"{kernel} changed the offsets")
+    hold(kernel, string_pairs(got, want), what)
+
+
+def check_string_scan(c, what: str) -> None:
+    hold("string_row_scan", [(SS.char_length(c), SS.char_length_plain(c))],
+         f"{what} char_length")
+    for pat in SF_PATTERNS:
+        for fn, plain in ((SS.contains_literal, SS.contains_literal_plain),
+                          (SS.startswith_literal, SS.startswith_literal_plain),
+                          (SS.endswith_literal, SS.endswith_literal_plain)):
+            hold("string_row_scan", [(fn(c, pat), plain(c, pat))],
+                 f"{what} {fn.__name__} {pat!r}")
+        for start in (1, 3):
+            hold("string_row_scan", [
+                (SS.first_occurrence_char(c, pat, start),
+                 SS.first_occurrence_char_plain(c, pat, start - 1))],
+                f"{what} first_occurrence_char {pat!r} from {start}")
+    for mode, fn in ((SS.TRIM, SS.trim_ws), (SS.LTRIM, SS.ltrim_ws),
+                     (SS.RTRIM, SS.rtrim_ws)):
+        got = fn(c)
+        require(int(got.offsets[0]) == 0, f"{fn.__name__} offsets")
+        hold("string_row_scan", string_pairs(got, SS.trim_plain(c, mode)),
+             f"{what} {fn.__name__}")
+
+
+def check_string_dfa(c, what: str, patterns, modes=("search", "full")
+                     ) -> None:
+    for pattern in patterns:
+        for mode in modes:
+            dfa = compile_regex(pattern, mode)
+            tables = SS.dfa_tables(dfa.table, dfa.accept, c.device)
+            hold("string_dfa_match", [
+                (SS.dfa_match(c, *tables, dfa.start),
+                 SS.dfa_match_plain(c, *tables, dfa.start))],
+                f"{what} {mode} {pattern!r}")
+
+
+#: REPLACE's cases (a plain step a byte position of the longest row: the
+#: column with rows of several KB takes the first alone)
+SF_REPLACES = ((b"a", b"XY"), (b"\x80", b""), (b"  ", b"_"))
+
+
+def check_string_assemble(rng, c, other, what: str,
+                          replaces=SF_REPLACES) -> None:
+    def held_(got, want, op):
+        require(int(got.offsets[0]) == 0, f"string_assemble {op} offsets")
+        hold("string_assemble", string_pairs(got, want), f"{what} {op}")
+
+    held_(SS.concat_strings([c, other]), SS.concat_strings_plain([c, other]),
+          "concat")
+    for sep in (b"--", b""):
+        cols = [c, other, c]
+        held_(SS.concat_ws(cols, sep), SS.concat_ws_plain(cols, sep),
+              f"concat_ws {sep!r}")
+    choice = torch.from_numpy(rng.randint(0, 3, c.num_rows).astype(
+        np.int32)).to(c.device)
+    held_(SS.select_strings(choice, [c, other]),
+          SS.select_strings_plain(choice, [c, other]), "select")
+    for target, pad, left in ((8, b"*", True), (3, b"xy", False),
+                              (20, b"abc", False), (5, b"", True),
+                              (-1, b"z", True)):
+        held_(SS.pad_chars(c, target, pad, left),
+              SS.pad_chars_plain(c, target, pad, left),
+              f"pad {target} {pad!r} {'left' if left else 'right'}")
+    for times in (3, 0):
+        held_(SS.repeat_string(c, times), SS.repeat_string_plain(c, times),
+              f"repeat {times}")
+    for search, rep in replaces:
+        held_(SS.replace_literal(c, search, rep),
+              SS.replace_literal_plain(c, search, rep),
+              f"replace {search!r} {rep!r}")
+    held_(SS.reverse_chars(c), SS.reverse_chars_plain(c), "reverse")
+    table, drop = SS._byte_tables("a Z", "b")
+    held_(SS.translate_bytes(c, table, drop),
+          SS.translate_bytes_plain(c, table, drop), "translate")
+
+
+def check_string_case(c, what: str) -> None:
+    for mode, fn in ((SS.UPPER, SS.upper_ascii), (SS.LOWER, SS.lower_ascii),
+                     (SS.INITCAP, SS.initcap_ascii)):
+        hold_case(fn, lambda col, m=mode: SS.case_map_plain(col, m), (c,),
+                  f"{what} {fn.__name__}")
+    table, drop = SS._byte_tables("aZ ", "Az_")
+    hold_case(lambda col: SS.translate_bytes(col, table, drop),
+              lambda col: SS.translate_bytes_plain(col, table, drop), (c,),
+              f"{what} translate")
+
+
+#: tests/test_regex.py PATTERNS (:29)
+REGEX_PATTERNS = [
+    "abc", "a.c", "^abc", "abc$", "^abc$", "a*", "a+b?", "[a-z]+",
+    "[^0-9]", r"\d{2,4}", "(ab|cd)+", "a(b|c)*d", r"\w+@\w+\.com",
+    "colou?r", "[abc]{3}", "a{0,2}b", r"\s*hello\s*", "(?:foo|bar)baz",
+    r"\.\*", "héllo", "[A-Fa-f0-9]+", "x|yz", r"[\d]x", "a[b-d]*e",
+    "^$", "()", "(a)(b)", r"\+?\d+",
+]
+#: K2's patterns over the columns that do not run all of PATTERNS
+SF_DFA_SOME = ["abc", "a.c", "(ab|cd)+", r"\w+@\w+\.com", "^$", "x|yz"]
+SF_DFA_LONG = ["(ab|cd)+"]
+
+
+def time_string_kernels(dev, summary) -> None:
+    """Each kernel at phase 20's one-batch shape (the held string table's
+    first 1,048,576 rows): K1 LENGTH(s), K2 r RLIKE '(ab|cd)+', K3
+    concat(s, t), K4 UPPER(s)."""
+    data, validity = held.string_columns(N, STRING_SEED)
+    b = held.string_batches(data, validity, dev, N)[0]
+    s, t, r = (b.column(name) for name in ("s", "t", "r"))
+
+    def nbytes(*cols):
+        return sum(4 * (c.num_rows + 1) + int(c.offsets[-1] - c.offsets[0])
+                   for c in cols)
+
+    dfa = compile_regex("(ab|cd)+", "search")
+    tables = SS.dfa_tables(dfa.table, dfa.accept, dev)
+    cat = SS.concat_strings([s, t])
+    cases = {
+        "string_row_scan": (lambda: SS.char_length(s),
+                            lambda: SS.char_length_plain(s),
+                            nbytes(s) + 4 * N, "length_s"),
+        "string_dfa_match": (lambda: SS.dfa_match(r, *tables),
+                             lambda: SS.dfa_match_plain(r, *tables),
+                             nbytes(r) + N, "rlike_r"),
+        "string_assemble": (lambda: SS.concat_strings([s, t]),
+                            lambda: SS.concat_strings_plain([s, t]),
+                            nbytes(s, t, cat) + 3 * N, "concat_s_t"),
+        "string_case_map": (lambda: SS.upper_ascii(s),
+                            lambda: SS.case_map_plain(s, SS.UPPER),
+                            nbytes(s) + int(s.offsets[-1]), "upper_s"),
+    }
+    for name, (kernel, plain, nb, shape) in cases.items():
+        got, want = kernel(), plain()
+        pairs = string_pairs(got, want) if isinstance(got, DeviceColumn) \
+            else [(got, want)]
+        hold(name, pairs, f"the timed {shape}")
+        line = {"kernel": name, "shape": shape, "n": N,
+                **measure(kernel, plain, None, nb)}
+        emit(line)
+        summary[name] = summarize(line, nb)
+
+
+def check_string_functions(rng, dev, summary) -> None:
+    """K1-K4 bit for bit against their plain versions (offsets, bytes,
+    validity; flags and counts) at n = 1,048,576 (with rows of several KB
+    and the edges: rows ending in 0xC3, the Latin-1 exceptions, lone
+    continuation bytes), 1,000,003 and 0, whole and sliced: K1 over every
+    literal of SF_PATTERNS, K2 over every pattern of tests/test_regex.py
+    PATTERNS at 1,000,003 in both modes (a subset elsewhere: its plain
+    version steps a byte position of the longest row), K3 over each
+    operation,
+    K4 over each map; then each timed at phase 20's one-batch shape."""
+    for what, c, other, patterns in sf_columns(rng, dev):
+        t = time.perf_counter()
+        long = patterns is SF_DFA_LONG
+        check_string_scan(c, what)
+        check_string_dfa(c, what, patterns,
+                         ("search",) if long else ("search", "full"))
+        check_string_assemble(rng, c, other, what,
+                              SF_REPLACES[:1] if long else SF_REPLACES)
+        check_string_case(c, what)
+        torch.cuda.synchronize()
+        emit({"phase": "string_checks", "column": what,
+              "seconds": time.perf_counter() - t})
+    time_string_kernels(dev, summary)
+
+
 def phase_kernels(dev, tables) -> dict:
     # the profiler itself must see the card
     device_profile(lambda: torch.ones(8, device=dev) + 1)
@@ -4063,6 +4323,7 @@ def phase_kernels(dev, tables) -> dict:
     check_window(rng, dev, summary)
     check_memory_kernels(rng, dev, summary)
     check_join_slice(rng, dev, summary)
+    check_string_functions(rng, dev, summary)
     torch.cuda.synchronize()
     return summary
 
@@ -5094,9 +5355,12 @@ CHANNEL_RETURNS_ROWS = {"store": SR_ROWS, "catalog": CR_ROWS,
                         "web": tpcds.SF10_WEB_RETURNS_ROWS}
 CHANNEL_SEEDS = {"store": (41, 19), "catalog": (43, 20), "web": (47, 21)}
 # q14a, q5 and semi_anti keep phase 9's former session
-Q14A_CONF = {"spark.sql.shuffle.partitions": "200",
+# 100 shuffle partitions: at 200 the phase took ~235 s of the script's
+# 1045 s on an H100 80GB HBM3 at 700 W (its host paces it: 528,723
+# device activities, 1,800 several-key builds a run)
+Q14A_PARTITIONS = 100
+Q14A_CONF = {"spark.sql.shuffle.partitions": str(Q14A_PARTITIONS),
              "spark.rapids.sql.adaptive.coalescePartitions.enabled": "false"}
-Q14A_PARTITIONS = 200
 Q14A_KERNELS = ("join_multi_probe_semi", "join_expand_left_only",
                 "join_multi_build", "join_build", "join_probe",
                 "join_expand", "murmur3", "hash_string", "partition", "sort",
@@ -5267,7 +5531,7 @@ def semi_anti_query(ss, ws, item, dd, month):
 
 def phase_channel_data(dev, tables):
     """The three channels' sales and returns on the card, 4 partitions of
-    1,048,576-row batches each, in a session of 200 shuffle partitions
+    1,048,576-row batches each, in a session of 100 shuffle partitions
     with the coalesced reader off; item and date_dim; the numpy
     results."""
     t0 = time.perf_counter()
@@ -5308,7 +5572,8 @@ def phase_channel_data(dev, tables):
 
 def check_q14a_plan(plan) -> dict:
     """Every semi join is a shuffled join that took the streamed probe in
-    all 200 partitions; the largest build partition of each."""
+    all Q14A_PARTITIONS partitions; the largest build partition of
+    each."""
     semi = [n for n in plan_nodes(plan)
             if getattr(n, "join_type", None) == "left_semi"]
     require(len(semi) == 9 and all(
@@ -7664,6 +7929,386 @@ def phase_joins(batches, want) -> dict:
     return by_path
 
 
+# -- phase 20 -----------------------------------------------------------------
+
+# the floor of phases 16, 18 and 19 (an eighth of SF10 lineitem's rows)
+STRING_ROWS = SF10_ROWS // 8     # 7,501,518
+STRING_SEED = 3                  # tests/test_strings.py's strings_df seed
+STRING_PARTITIONS = 16
+#: each held string query's string kernels that its main path must launch
+STRING_PHASE_KERNELS = {
+    "strings_select": ("string_row_scan", "string_case_map",
+                       "string_assemble", "substring"),
+    "strings_functions": ("string_row_scan", "string_assemble",
+                          "string_case_map"),
+    "strings_regex": ("string_dfa_match", "string_row_scan"),
+    "strings_filter_grouped": ("string_row_scan", "string_case_map",
+                               "substring"),
+    "strings_if_grouped": ("string_assemble",),
+    "strings_case_grouped": ("string_assemble",),
+}
+#: the port's four string kernels: ``plain_strings`` swaps each for its
+#: plain version
+STRING_FUNCTION_KERNELS = ("string_row_scan", "string_dfa_match",
+                           "string_assemble", "string_case_map")
+
+
+@contextlib.contextmanager
+def plain_strings():
+    """The four string kernels replaced by their plain versions (on the
+    card), for one comparison run: each wrapper's CUDA half answers with
+    its plain version."""
+    def row_scan(col, mode, pattern=b"", start0=0):
+        if mode >= SS.TRIM:
+            return SS.trim_plain(col, mode)
+        if mode == SS.LOCATE:
+            return SS.first_occurrence_char_plain(col, pattern, start0)
+        return {SS.CHAR_LENGTH: lambda: SS.char_length_plain(col),
+                SS.CONTAINS: lambda: SS.contains_literal_plain(col, pattern),
+                SS.STARTS_WITH:
+                    lambda: SS.startswith_literal_plain(col, pattern),
+                SS.ENDS_WITH:
+                    lambda: SS.endswith_literal_plain(col, pattern)}[mode]()
+
+    def assemble(op, cols, n, dev, choice=None, lit=b"", lit_len=None,
+                 lit2_len=0, arg=0, left=False):
+        c = cols[0]
+        return {
+            SS.CONCAT: lambda: SS.concat_strings_plain(cols),
+            SS.CONCAT_WS: lambda: SS.concat_ws_plain(cols, lit),
+            SS.SELECT: lambda: SS.select_strings_plain(choice, cols),
+            SS.PAD: lambda: SS.pad_chars_plain(c, arg, lit, left),
+            SS.REPEAT: lambda: SS.repeat_string_plain(c, arg),
+            SS.REPLACE: lambda: SS.replace_literal_plain(
+                c, lit[:lit_len], lit[lit_len:]),
+            SS.REVERSE: lambda: SS.reverse_chars_plain(c),
+            SS.TRANSLATE: lambda: SS.translate_bytes_plain(c, lit[:256],
+                                                           lit[256:]),
+        }[op]()
+
+    swaps = {"_row_scan_cuda": row_scan,
+             "_dfa_cuda": SS.dfa_match_plain,
+             "_assemble_cuda": assemble,
+             "_case_map_cuda": SS.case_map_plain}
+    saved = {nm: getattr(SS, nm) for nm in swaps}
+    for nm, fn in swaps.items():
+        setattr(SS, nm, fn)
+    try:
+        yield
+    finally:
+        for nm, fn in saved.items():
+            setattr(SS, nm, fn)
+
+
+# -- the answers, independently of both packages: each rule written out
+
+def py_upper(w: str) -> str:
+    """ASCII and Latin-1 letters (U+00E0-U+00FE but U+00F7) up."""
+    return "".join(chr(ord(c) - 32) if "a" <= c <= "z" or (
+        "à" <= c <= "þ" and c != "÷") else c for c in w)
+
+
+def py_lower(w: str) -> str:
+    return "".join(chr(ord(c) + 32) if "A" <= c <= "Z" or (
+        "À" <= c <= "Þ" and c != "×") else c for c in w)
+
+
+def py_initcap(w: str) -> str:
+    out, after = [], True
+    for c in w:
+        if after and "a" <= c <= "z":
+            out.append(c.upper())
+        elif not after and "A" <= c <= "Z":
+            out.append(c.lower())
+        else:
+            out.append(c)
+        after = c == " "
+    return "".join(out)
+
+
+def py_substring(w: str, pos: int, length: int) -> str:
+    n = len(w)
+    s0 = pos - 1 if pos > 0 else (n + pos if pos < 0 else 0)
+    e0 = s0 + max(length, 0)
+    s0, e0 = min(max(s0, 0), n), min(max(e0, 0), n)
+    return w[s0:e0] if s0 < e0 else ""
+
+
+def py_locate(sub: str, w: str, pos: int) -> int:
+    if pos < 1:
+        return 0
+    if not sub:
+        return pos if pos - 1 <= len(w) else 0
+    k = w.find(sub, pos - 1)
+    return k + 1 if k >= 0 else 0
+
+
+def py_pad(w: str, length: int, pad: str, left: bool) -> str:
+    n = max(length, 0)
+    if len(w) >= n or not pad:
+        return w[:n]
+    fill = (pad * n)[:n - len(w)]
+    return fill + w if left else w + fill
+
+
+def ws(sep: str, *parts) -> str:
+    return sep.join(p for p in parts if p is not None)
+
+
+def nulls(fn):
+    """fn over the non-null arguments; null if any is null."""
+    return lambda *a: None if any(x is None for x in a) else fn(*a)
+
+
+def b_lt(a: str, b: str) -> bool:
+    return a.encode() < b.encode()
+
+
+#: S1's columns r0..r18: (key, answer over the key's values)
+S1_ANSWERS = [
+    ("s", nulls(len)), ("s", nulls(py_upper)), ("s", nulls(py_lower)),
+    ("s", nulls(lambda w: py_substring(w, 2, 3))),
+    ("s", nulls(lambda w: py_substring(w, -3, 2))),
+    ("sn", nulls(lambda w, n: py_substring(w, n, 2))),
+    ("st", nulls(lambda a, b: a + b)), ("s", nulls(lambda w: w + "!")),
+    ("s", nulls(lambda w: w.strip(" "))),
+    ("s", nulls(lambda w: w.startswith("ap"))),
+    ("s", nulls(lambda w: w.endswith("y"))),
+    ("s", nulls(lambda w: "err" in w)), ("s", nulls(lambda w: "err" in w)),
+    ("s", nulls(lambda w: w.startswith("ap"))),
+    ("s", nulls(lambda w: w.endswith("pie"))),
+    ("s", nulls(lambda w: w == "apple")), ("st", nulls(lambda a, b: a == b)),
+    ("st", nulls(b_lt)), ("s", nulls(lambda w: not b_lt(w, "cherry")))]
+#: S2's columns f0..f21
+S2_ANSWERS = [
+    ("u", nulls(lambda w: w.lstrip(" "))),
+    ("u", nulls(lambda w: w.rstrip(" "))),
+    ("u", nulls(lambda w: w[::-1])), ("u", nulls(py_initcap)),
+    ("u", nulls(lambda w: ord(w[0]) if w else 0)),
+    ("u", nulls(lambda w: w.replace("a", "XY"))),
+    ("u", nulls(lambda w: w.replace("ab", ""))),
+    ("u", nulls(lambda w: w.replace(".", "--"))),
+    ("u", nulls(lambda w: w.replace("aa", "b"))),
+    ("u", nulls(lambda w: py_locate("b", w, 1))),
+    ("u", nulls(lambda w: py_locate("zzz", w, 1))),
+    ("u", nulls(lambda w: py_locate("", w, 1))),
+    ("u", nulls(lambda w: py_locate("a", w, 3))),
+    ("u", nulls(lambda w: py_locate("a", w, 0))),
+    ("u", nulls(lambda w: w * 3)), ("u", nulls(lambda w: "")),
+    ("u", nulls(lambda w: py_pad(w, 8, "*", True))),
+    ("u", nulls(lambda w: py_pad(w, 3, "xy", True))),
+    ("u", nulls(lambda w: py_pad(w, 8, "*", False))),
+    ("u", nulls(lambda w: py_pad(w, 0, "z", False))),
+    ("ut", lambda a, b: ws("-", a, b)), ("ut", lambda a, b: ws("", a, b, a))]
+# S3's patterns in Python's re, written out by hand: Java's \d and \w are
+# ASCII, '.' excludes the five line terminators, '$' also matches before
+# one final '\n' (the port's documented rule, ROADMAP queue 3), LIKE's
+# '_' and '%' take any character, newlines included
+_DOT = "[^\n\r\u0085\u2028\u2029]"
+S3_RLIKE = ["[a-z]+", "[0-9]{2,4}", "(ab|cd)+",
+            r"[A-Za-z0-9_]+@[A-Za-z0-9_]+\.com", r"\Aa", r"d\n?\Z",
+            "a" + _DOT + "c", "colou?r"]
+S3_LIKE = ["a.b.*c", ".*b.", ".", ".*", "a.*b.*c", "100%", "..", "a_b"]
+S3_ANSWERS = (
+    [("r", nulls(lambda w, p=p: re.search(p, w) is not None))
+     for p in S3_RLIKE]
+    + [("r", nulls(lambda w, p=p: re.fullmatch(p, w, re.DOTALL) is not None))
+       for p in S3_LIKE])
+STRING_ANSWERS = {"strings_select": S1_ANSWERS,
+                  "strings_functions": S2_ANSWERS,
+                  "strings_regex": S3_ANSWERS}
+
+
+class StringKeys:
+    """Each table row's key of the held string table on the card, by the
+    row index i: the strings' pool codes (a null one the pool's size) and
+    n + 3; a two-value key combines them."""
+
+    def __init__(self, data, validity, dev):
+        def code(c):
+            size = len(held.STRING_POOLS[c])
+            return np.where(validity[c], data[c].astype(np.int64), size)
+        self.host = {"s": code("s"), "t": code("t"), "u": code("u"),
+                     "r": code("r"), "n": data["n"].astype(np.int64) + 3}
+        self.values = {c: list(held.STRING_POOLS[c]) + [None]
+                       for c in "stur"}
+        self.values["n"] = list(range(-3, 12))
+        self.dev = {k: torch.from_numpy(v).to(dev)
+                    for k, v in self.host.items()}
+
+    def key(self, spec: str) -> tuple:
+        """(int64 key per table row on the card, the values each key
+        stands for)."""
+        k = self.dev[spec[0]]
+        vals = [(v,) for v in self.values[spec[0]]]
+        for c in spec[1:]:
+            size = len(self.values[c])
+            k = k * size + self.dev[c]
+            vals = [a + (v,) for a in vals for v in self.values[c]]
+        return k, vals
+
+
+def expected_column(key: torch.Tensor, answers: list, dtype: T.DataType):
+    """The expected output column by key, built on the card."""
+    dev = key.device
+    valid_k = torch.tensor([a is not None for a in answers], device=dev)
+    valid = valid_k[key]
+    if dtype != T.STRING:
+        vals = torch.tensor([0 if a is None else a for a in answers],
+                            dtype=dtype.torch_dtype, device=dev)
+        return DeviceColumn(zeroed(vals[key], valid), valid, dtype)
+    raw = [b"" if a is None else a.encode() for a in answers]
+    lens = torch.tensor([len(b) for b in raw], dtype=torch.int64, device=dev)
+    starts = torch.cumsum(lens, 0) - lens
+    pool = torch.tensor(list(b"".join(raw)) or [0], dtype=torch.uint8,
+                        device=dev)
+    row_len = lens[key]
+    offsets = torch.zeros(key.shape[0] + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(row_len, 0, out=offsets[1:])
+    row = torch.repeat_interleave(torch.arange(key.shape[0], device=dev),
+                                  row_len)
+    within = torch.arange(int(offsets[-1]), device=dev) - offsets[:-1][row]
+    return DeviceColumn(pool[starts[key][row] + within], valid, dtype,
+                        offsets.to(torch.int32))
+
+
+def zeroed(data: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    return torch.where(valid, data, torch.zeros((), dtype=data.dtype,
+                                                device=data.device))
+
+
+def column_equal(got: DeviceColumn, want: DeviceColumn) -> bool:
+    """Offsets (rebased), bytes and validity, or values where valid and
+    validity: exactly."""
+    if want.is_string:
+        return all(torch.equal(a, b) for a, b in string_pairs(got, want))
+    return torch.equal(got.validity, want.validity) and torch.equal(
+        zeroed(got.data, got.validity), want.data)
+
+
+def check_string_rows(name: str, cols, names, keys: StringKeys) -> None:
+    """Every output column of S1-S3 against the answers by key, in the
+    output's row order (its i)."""
+    by = dict(zip(names, cols))
+    i = by["i"].data
+    for c in ("s", "t", "u", "r", "n"):
+        if c in by:
+            k, vals = keys.key(c)
+            want = expected_column(k[i], [v[0] for v in vals], by[c].dtype)
+            require(column_equal(by[c], want), f"held_{name} {c} differs")
+    outs = [nm for nm in names if nm not in ("i", "s", "t", "u", "r", "n")]
+    require(len(outs) == len(STRING_ANSWERS[name]),
+            f"held_{name}: {len(outs)} outputs")
+    for nm, (spec, fn) in zip(outs, STRING_ANSWERS[name]):
+        k, vals = keys.key(spec)
+        want = expected_column(k[i], [fn(*v) for v in vals], by[nm].dtype)
+        require(column_equal(by[nm], want),
+                f"held_{name} {nm} differs from its answers")
+
+
+def string_group_rows(name: str, keys: StringKeys) -> list:
+    """S4 and S5's rows, counted over the codes with numpy."""
+    h = keys.host
+    words = keys.values["s"]
+    if name == "strings_filter_grouped":
+        count = np.bincount(h["s"], minlength=len(words))
+        out = {}
+        for code, w in enumerate(words):
+            if w is None or "e" not in w or not count[code]:
+                continue
+            pre = py_upper(py_substring(w, 1, 4))
+            c, sl = out.get(pre, (0, 0))
+            out[pre] = (c + int(count[code]), sl + int(count[code]) * len(w))
+        return sorted((k, c, sl) for k, (c, sl) in out.items())
+    n = h["n"] - 3
+    if name == "strings_if_grouped":
+        chosen = np.where(n > 5, h["s"], h["t"])
+        values = words
+    else:
+        chosen = np.where(n < 0, h["s"], np.where(n < 5, h["t"],
+                                                  len(words)))
+        values = words + ["z"]
+    count = np.bincount(chosen, minlength=len(values))
+    rows = {}
+    for code, v in enumerate(values):
+        if count[code]:
+            rows[v] = rows.get(v, 0) + int(count[code])
+    return sorted(rows.items(), key=lambda r: (r[0] is not None, r[0] or ""))
+
+
+def phase_string_data(dev):
+    """The held string table on the card: 7,501,518 rows in batches of
+    1,048,576, 16 partitions; the keys of the answers."""
+    t0 = time.perf_counter()
+    data, validity = held.string_columns(STRING_ROWS, STRING_SEED)
+    batches = held.string_batches(data, validity, dev, N)
+    keys = StringKeys(data, validity, dev)
+    torch.cuda.synchronize()
+    resident = sum(t.nbytes for b in batches for c in b.columns
+                   for t in (c.data, c.validity) + (
+                       (c.offsets,) if c.is_string else ()))
+    emit({"phase": "string_data", "rows": STRING_ROWS,
+          "batches": len(batches), "partitions": STRING_PARTITIONS,
+          "resident_bytes": resident,
+          "setup_seconds": time.perf_counter() - t0})
+    df = GpuSession().create_dataframe(batches,
+                                       num_partitions=STRING_PARTITIONS)
+    return df, keys
+
+
+def phase_strings(df, keys: StringKeys) -> dict:
+    """S1-S3 run to their device batches: every column against the
+    answers by key and against the same plan run with the four string
+    kernels' plain versions (bit for bit); S4 and S5's rows against numpy's
+    counts and the plain run's rows.  Each traced once (its launches),
+    then timed (median of 3)."""
+    by_path = {}
+    nbatches = -(-STRING_ROWS // N)
+    for name, build in held.STRING_ROW_QUERIES.items():
+        path = f"held_{name}"
+        query = lambda build=build: build(df)  # noqa: E731
+        cols, launches, first_wall, profile = run_rows_path(
+            path, query, STRING_PHASE_KERNELS[name])
+        names = query().schema.names
+        t = time.perf_counter()
+        check_string_rows(name, cols, names, keys)
+        check_s = time.perf_counter() - t
+        with plain_strings():
+            plain_cols = output_columns(run_batches(query()))
+        for nm, g, w in zip(names, cols, plain_cols, strict=True):
+            require(column_equal(g, w) if w.is_string else (
+                torch.equal(g.validity, w.validity)
+                and torch.equal(g.data, w.data)),
+                f"{path} {nm}: differs from the plain run")
+        timing = time_rows_path(path, query, profile, rows=STRING_ROWS)
+        emit({"phase": path, "rows": STRING_ROWS,
+              "output_columns": len(names), "check_s": check_s,
+              "plain_equal": True, "first_wall_s": first_wall,
+              "activities_per_batch": per_batch(timing, nbatches),
+              **timing})
+        by_path[path] = launches
+    for name, build in held.STRING_AGG_QUERIES.items():
+        path = f"held_{name}"
+        query = lambda _, build=build: build(df)  # noqa: E731
+        rows, plan, launches, first_wall, profile = run_phase_path(
+            path, query, STRING_PHASE_KERNELS[name])
+        key = (lambda r: (r[0] is not None, r[0] or ""))
+        rows = sorted(rows, key=key)
+        want = string_group_rows(name, keys)
+        if name == "strings_filter_grouped":
+            rows = sorted(rows)
+        require(rows == want, f"{path} gave {rows}, numpy {want}")
+        with plain_strings():
+            plain_rows = query(None).collect()
+        require(sorted(plain_rows, key=key) == sorted(rows, key=key),
+                f"{path}: differs from the plain run")
+        timing = time_path(path, query, None, STRING_ROWS, profile, runs=3)
+        emit({"phase": path, "rows": STRING_ROWS, "out_rows": len(rows),
+              "plain_equal": True, "first_wall_s": first_wall, **timing})
+        by_path[path] = launches
+    return by_path
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -7703,6 +8348,7 @@ def main() -> None:
     by_path.update(phase_q98(gauntlet_dfs, gauntlet))
     by_path.update(phase_memory(*phase_memory_data(dev)))
     by_path.update(phase_joins(*phase_join_data(dev)))
+    by_path.update(phase_strings(*phase_string_data(dev)))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         s = summary[name]

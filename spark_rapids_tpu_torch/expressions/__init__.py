@@ -22,9 +22,14 @@ from spark_rapids_tpu_torch.expressions.predicates import (
     Not,
     Or,
 )
-from spark_rapids_tpu_torch.expressions.strings import Substring
+from spark_rapids_tpu_torch.expressions.strings import (
+    Ascii, BitLength, Concat, ConcatStrings, ConcatWs, Contains, Empty2Null,
+    EndsWith, InitCap, Left, Length, Like, Lower, Lpad, LTrim, OctetLength,
+    Reverse, Right, RLike, Rpad, RTrim, StartsWith, StringInstr,
+    StringLocate, StringRepeat, StringReplace, Substring, Translate, Trim,
+    Upper)
 from spark_rapids_tpu_torch.expressions.casts import Cast
-from spark_rapids_tpu_torch.expressions.conditional import If
+from spark_rapids_tpu_torch.expressions.conditional import CaseWhen, If
 from spark_rapids_tpu_torch.expressions.aggregates import (
     Average, BitAndAgg, BitOrAgg, BitXorAgg, BoolAnd, BoolOr, Count, First,
     Last, Max, MaxBy, Min, MinBy, StddevPop, StddevSamp, Sum, VariancePop,
@@ -36,16 +41,21 @@ from spark_rapids_tpu_torch.expressions.window import (
     over)
 
 __all__ = [
-    "Add", "Alias", "And", "Average", "BitAndAgg", "BitOrAgg", "BitXorAgg",
-    "BoolAnd", "BoolOr", "BoundReference", "Cast", "Col", "Count", "CumeDist",
-    "DenseRank", "Divide", "EqualTo", "EvalContext", "Expression", "First",
-    "FirstValue", "GreaterThan", "GreaterThanOrEqual", "If", "IsNull", "Lag",
-    "Last", "LastValue", "Lead", "LessThan", "LessThanOrEqual", "Literal",
-    "Max", "MaxBy", "Min", "MinBy", "Multiply", "Not", "NthValue", "Ntile",
-    "Or", "PercentRank", "Rank", "RowNumber", "StddevPop", "StddevSamp",
-    "Substring", "Subtract", "Sum", "VariancePop", "VarianceSamp",
-    "WindowExpression", "WindowFrame", "WindowSpec", "avg", "bit_and",
-    "bit_or", "bit_xor", "col", "count", "first", "last", "lit", "max_",
-    "max_by", "min_", "min_by", "over", "stddev", "stddev_pop", "sum_",
-    "var_pop", "var_samp",
+    "Add", "Alias", "And", "Ascii", "Average", "BitAndAgg", "BitLength",
+    "BitOrAgg", "BitXorAgg", "BoolAnd", "BoolOr", "BoundReference",
+    "CaseWhen", "Cast", "Col", "Concat", "ConcatStrings", "ConcatWs",
+    "Contains", "Count", "CumeDist", "DenseRank", "Divide", "Empty2Null",
+    "EndsWith", "EqualTo", "EvalContext", "Expression", "First", "FirstValue",
+    "GreaterThan", "GreaterThanOrEqual", "If", "InitCap", "IsNull", "LTrim",
+    "Lag", "Last", "LastValue", "Lead", "Left", "Length", "LessThan",
+    "LessThanOrEqual", "Like", "Literal", "Lower", "Lpad", "Max", "MaxBy",
+    "Min", "MinBy", "Multiply", "Not", "NthValue", "Ntile", "OctetLength",
+    "Or", "PercentRank", "RLike", "RTrim", "Rank", "Reverse", "Right",
+    "RowNumber", "Rpad", "StartsWith", "StddevPop", "StddevSamp",
+    "StringInstr", "StringLocate", "StringRepeat", "StringReplace",
+    "Substring", "Subtract", "Sum", "Translate", "Trim", "Upper",
+    "VariancePop", "VarianceSamp", "WindowExpression", "WindowFrame",
+    "WindowSpec", "avg", "bit_and", "bit_or", "bit_xor", "col", "count",
+    "first", "last", "lit", "max_", "max_by", "min_", "min_by", "over",
+    "stddev", "stddev_pop", "sum_", "var_pop", "var_samp",
 ]

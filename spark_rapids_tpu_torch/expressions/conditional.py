@@ -1,20 +1,38 @@
-"""The conditional expression If.
+"""The conditional expressions If and CaseWhen.
 
 Counterpart of ``spark_rapids_tpu/expressions/conditional.py`` (``If``
-:26) for fixed-width branches: both branches are evaluated over the whole
-batch and selected elementwise.  The result takes the type of the true
-branch (the false branch is cast to it, as the reference does); a null
-predicate selects the false branch, and the result is null where the
-selected branch is.  A string If (the reference's ``select_strings``) is
-not ported.
+:26, ``CaseWhen`` :74): every branch is evaluated over the whole batch and
+selected row by row.  The result takes the type of the (first) value
+branch, the others cast to it as the reference does; a null predicate or
+condition does not take its branch, and the result is null where the
+selected value is (a CASE WHEN without ELSE: where no condition holds).
+Fixed-width values select with ``torch.where``; string values with the
+string assembly kernel (``kernels/strings.py`` ``select_strings``), which
+takes a whole CASE WHEN in one launch where the reference folds its
+branches from the right through ``select_strings`` (:49-50, :125-143),
+with the same rows.
 """
 from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expressions.core import (
     EvalContext, Expression, make_column)
+from spark_rapids_tpu_torch.kernels.strings import select_strings
+
+
+def _taken(c) -> torch.Tensor:
+    """Rows whose predicate is true (a null one is not)."""
+    return c.data & c.validity
+
+
+def _pick(take: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+          dt: T.DataType) -> torch.Tensor:
+    return torch.where(take[:, None] if T.two_limbs(dt) else take,
+                       a.to(dt.torch_dtype), b.to(dt.torch_dtype))
 
 
 class If(Expression):
@@ -34,17 +52,83 @@ class If(Expression):
 
     def eval(self, ctx: EvalContext):
         out_dt = self.dtype
-        if out_dt.variable_width:
-            raise NotImplementedError("a string If is not ported")
-        p = self.predicate.eval(ctx)
+        take_true = _taken(self.predicate.eval(ctx))
         t = self.if_true.eval(ctx)
         f = self.if_false.eval(ctx)
-        take_true = p.data & p.validity
-        pick = take_true[:, None] if T.two_limbs(out_dt) else take_true
-        vals = torch.where(pick, t.data.to(out_dt.torch_dtype),
-                           f.data.to(out_dt.torch_dtype))
+        if out_dt.variable_width:
+            choice = torch.where(take_true, 0, 1).to(torch.int32)
+            return select_strings(choice, [t, f])
         validity = torch.where(take_true, t.validity, f.validity)
-        return make_column(vals, validity, out_dt)
+        return make_column(_pick(take_true, t.data, f.data, out_dt),
+                           validity, out_dt)
 
     def __repr__(self):
         return f"if({self.predicate!r}, {self.if_true!r}, {self.if_false!r})"
+
+
+class CaseWhen(Expression):
+    """CASE WHEN c1 THEN v1 [WHEN c2 THEN v2]... [ELSE e] END: the first
+    branch whose condition is true wins."""
+
+    def __init__(self, branches: Sequence[Tuple[Expression, Expression]],
+                 else_value: Optional[Expression] = None):
+        self.branches = tuple((c, v) for c, v in branches)
+        self.else_value = else_value
+        kids: List[Expression] = []
+        for c, v in self.branches:
+            kids += [c, v]
+        if else_value is not None:
+            kids.append(else_value)
+        self.children = tuple(kids)
+
+    def with_children(self, children):
+        n = len(self.branches)
+        branches = [(children[2 * i], children[2 * i + 1]) for i in range(n)]
+        else_v = children[2 * n] if len(children) > 2 * n else None
+        return CaseWhen(branches, else_v)
+
+    @property
+    def dtype(self):
+        return self.branches[0][1].dtype
+
+    def eval(self, ctx: EvalContext):
+        out_dt = self.dtype
+        if out_dt.variable_width:
+            return self._eval_strings(ctx)
+        n, dev = ctx.num_rows, ctx.device
+        shape = (n, 2) if T.two_limbs(out_dt) else (n,)
+        vals = torch.zeros(shape, dtype=out_dt.torch_dtype, device=dev)
+        validity = torch.zeros(n, dtype=torch.bool, device=dev)
+        if self.else_value is not None:
+            e = self.else_value.eval(ctx)
+            vals = e.data.to(out_dt.torch_dtype)
+            validity = e.validity
+        decided = torch.zeros(n, dtype=torch.bool, device=dev)
+        for cond, value in self.branches:
+            c = _taken(cond.eval(ctx))
+            v = value.eval(ctx)
+            take = c & ~decided
+            vals = _pick(take, v.data, vals, out_dt)
+            validity = torch.where(take, v.validity, validity)
+            decided = decided | c
+        return make_column(vals, validity, out_dt)
+
+    def _eval_strings(self, ctx: EvalContext):
+        """One select over every value: each row's branch is its first
+        true condition's, else ELSE's (or none: null)."""
+        values = [v.eval(ctx) for _, v in self.branches]
+        if self.else_value is not None:
+            values.append(self.else_value.eval(ctx))
+        choice = torch.full((ctx.num_rows,), len(values)
+                            if self.else_value is None else len(values) - 1,
+                            dtype=torch.int32, device=ctx.device)
+        for i in reversed(range(len(self.branches))):
+            take = _taken(self.branches[i][0].eval(ctx))
+            choice = torch.where(take, i, choice).to(torch.int32)
+        return select_strings(choice, values)
+
+    def __repr__(self):
+        parts = " ".join(f"WHEN {c!r} THEN {v!r}" for c, v in self.branches)
+        tail = f" ELSE {self.else_value!r}" if self.else_value is not None \
+            else ""
+        return f"CASE {parts}{tail} END"

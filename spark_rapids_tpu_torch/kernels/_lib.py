@@ -26,7 +26,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("selection.cu", "reduction.cu", "hash.cu", "sort.cu",
-           "strings.cu", "join.cu", "fused.cu", "decimal.cu", "window.cu")
+           "strings.cu", "join.cu", "fused.cu", "decimal.cu", "window.cu",
+           "string_functions.cu")
 HEADERS = ("scan.cuh", "strings.cuh", "int128.cuh", "decimal.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -91,6 +92,14 @@ _SIGNATURES = {
     "srt_string_rows_equal_prev": [_P, _P, _P, _I64, _P, _P],
     "srt_substring_rows": [_P, _P, _P, _I64, _P, _I, _P, _I, _P, _P, _P, _P,
                            _P],
+    "srt_string_row_scan": [_I, _P, _P, _P, _I64, _P, _I, _I, _P, _P, _P,
+                            _P, _P, _P],
+    "srt_string_dfa_match": [_P, _P, _I64, _P, _P, _I, _I, _P, _P],
+    "srt_string_assemble_count": [_I, _I, _P, _I64, _P, _P, _I, _I, _I64,
+                                  _I, _P, _P, _P, _P, _P],
+    "srt_string_assemble_write": [_I, _I, _P, _I64, _P, _P, _I, _I, _I64,
+                                  _I, _P, _P, _P],
+    "srt_string_case_map": [_I, _P, _P, _I64, _P, _P, _P],
     "srt_join_scan_tile": [],
     "srt_join_build_keys": [_I, _P, _P, _P, _I64, _P, _P, _P],
     "srt_join_probe": [_I, _P, _P, _I64, _P, _P, _I64, _I, _P, _P, _P, _P,

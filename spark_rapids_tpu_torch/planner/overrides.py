@@ -59,6 +59,17 @@ Union and Window.
   segment (``plan/fused.py``, the reference's ``fuse_segments`` pass at
   :1163-1172).
 
+Before conversion, every expression of the plan is tagged as the
+reference's ``PlanMeta`` tags it (:357-415 and the signatures of
+``planner/typesig.py`` :204, :272-303) for the string functions and the
+conditionals: an input outside an op's signature, a pattern outside the
+regex dialect (``RegexUnsupported``), a non-literal STARTSWITH / ENDSWITH
+/ CONTAINS pattern, a non-ASCII pad string and CONCAT_WS over a
+non-string raise NotImplementedError with the reference's reason (its
+planner falls back to its CPU).  The tags that exist only for XLA's static
+buckets (``_regex_child_ok``, the repeat and pad bounds) are not ported:
+the string kernels size every output by count-then-allocate.
+
 Planning never asks an adaptive join or a coalesced reader for its
 partition count: that would run the build side or the map side.  The
 partition counts it needs come from ``_plan_partitions``, which answers
@@ -71,8 +82,10 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.config import RapidsConf
+from spark_rapids_tpu_torch.expressions import strings as S
 from spark_rapids_tpu_torch.expressions.aggregates import Count, Max, Min
-from spark_rapids_tpu_torch.expressions.core import BoundReference
+from spark_rapids_tpu_torch.expressions.conditional import CaseWhen, If
+from spark_rapids_tpu_torch.expressions.core import BoundReference, Literal
 from spark_rapids_tpu_torch.expressions.window import (FirstValue, LastValue,
                                                        NthValue,
                                                        WindowFunction)
@@ -318,6 +331,105 @@ def _convert_window(p: L.Window, conf: RapidsConf,
                          target_rows=conf.batch_size_rows)
 
 
+_NUMERIC = ("byte", "short", "int", "long", "float", "double", "decimal64")
+#: the reference's COMMON (ORDERED + null), and the two-limb decimals,
+#: which the port's If has selected since Decimal128 was ported
+_COMMON = _NUMERIC + ("date", "timestamp", "boolean", "string", "null",
+                      "decimal128")
+_STR = ("string",)
+_BOOL = ("boolean",)
+_INT = ("int",)
+#: (output, inputs) of each string op and conditional, as the reference's
+#: ``register`` calls give them; the last input repeats for the rest
+_SIGNATURES = {
+    **{cls: (_STR, (_STR,)) for cls in (
+        S.Upper, S.Lower, S.Trim, S.LTrim, S.RTrim, S.Reverse, S.InitCap,
+        S.Empty2Null, S.ConcatStrings, S.Concat, S.ConcatWs, S.Left, S.Right,
+        S.Lpad, S.Rpad, S.StringRepeat, S.StringReplace, S.Translate)},
+    **{cls: (_INT, (_STR,)) for cls in (
+        S.Length, S.Ascii, S.BitLength, S.OctetLength, S.StringInstr,
+        S.StringLocate)},
+    **{cls: (_BOOL, (_STR,)) for cls in (
+        S.StartsWith, S.EndsWith, S.Contains, S.Like, S.RLike)},
+    If: (_COMMON, ()),
+    CaseWhen: (_COMMON, ()),
+}
+
+
+def _atom(dt: T.DataType) -> str:
+    if isinstance(dt, T.DecimalType):
+        return "decimal128" if T.two_limbs(dt) else "decimal64"
+    return type(dt).__name__.removesuffix("Type").lower().replace(
+        "integer", "int")
+
+
+def _tag_expression(e) -> None:
+    """Raise NotImplementedError, with the reference's reason, for a
+    string op or conditional that the device path does not run."""
+    if isinstance(e, S.ConcatWs):
+        for c in e.children:
+            if not isinstance(c.dtype, T.StringType):
+                raise NotImplementedError(f"concat_ws over non-string {c!r}")
+    if isinstance(e, (S.StartsWith, S.EndsWith, S.Contains)) and \
+            not isinstance(e.right, Literal):
+        raise NotImplementedError(
+            "non-literal match patterns are not supported yet")
+    if isinstance(e, (S.Lpad, S.Rpad)) and any(ord(ch) > 0x7F
+                                               for ch in e.pad):
+        raise NotImplementedError(
+            "non-ASCII pad strings pad by bytes on device (character "
+            "padding needs the multi-byte kernel)")
+    if isinstance(e, S.RLike) or (isinstance(e, S.Like) and not e._fast):
+        from spark_rapids_tpu_torch.regex import RegexUnsupported
+        try:
+            e._compiled()
+        except RegexUnsupported as ex:
+            raise NotImplementedError(
+                f"pattern {e.pattern!r} outside the supported regex "
+                f"dialect: {ex}") from None
+    sig = _SIGNATURES.get(type(e))
+    if sig is None:
+        return
+    out, params = sig
+    if _atom(e.dtype) not in out:
+        raise NotImplementedError(
+            f"{type(e).__name__} produces {e.dtype!r}, outside the supported "
+            f"output signature [{'+'.join(sorted(out))}]")
+    for i, c in enumerate(e.children):
+        if not params:
+            break
+        p = params[min(i, len(params) - 1)]
+        if _atom(c.dtype) not in p:
+            raise NotImplementedError(
+                f"{type(e).__name__}: input {i} is {c.dtype!r}, outside "
+                f"the supported signature [{'+'.join(sorted(p))}]")
+
+
+def _plan_expressions(p: L.LogicalPlan) -> list:
+    """The bound expressions a logical node evaluates."""
+    out = []
+    for attr in ("exprs", "group_exprs", "agg_exprs", "left_keys",
+                 "right_keys", "window_exprs"):
+        out += list(getattr(p, attr, ()) or ())
+    if getattr(p, "condition", None) is not None:
+        out.append(p.condition)
+    out += [e for e, _ in getattr(p, "orders", ())]
+    for proj in getattr(p, "projections", ()):
+        out += list(proj)
+    return out
+
+
+def tag_plan(p: L.LogicalPlan) -> None:
+    """Tag every expression of the plan (``_tag_expression``)."""
+    stack = list(_plan_expressions(p))
+    while stack:
+        e = stack.pop()
+        _tag_expression(e)
+        stack.extend(e.children)
+    for c in p.children:
+        tag_plan(c)
+
+
 def _insert_aqe_readers(root: GpuExec, conf: RapidsConf) -> GpuExec:
     """Wrap the hash exchange under each final aggregate in a coalesced
     reader, and the two under each shuffled join in two readers sharing
@@ -353,6 +465,7 @@ def plan_query(plan: L.LogicalPlan, conf: RapidsConf,
         raise NotImplementedError(
             "spark.rapids.sql.enabled=false runs the CPU oracle engine, "
             "which is not ported")
+    tag_plan(plan)
     root = _convert(prune_columns(push_filters(plan)), conf, device)
     root = _insert_aqe_readers(root, conf)
     return fuse_segments(root) if conf.fuse_stages else root

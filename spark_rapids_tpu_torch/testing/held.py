@@ -39,6 +39,24 @@ ratios: the left side n rows, keys uniform in [0, n / 15), lv in [-1000,
 [-1000, 1000); n / 8 nulls in each column of each side.
 ``JOIN_QUERIES`` are the right, full, cross and keyless joins over them,
 each followed by aggregates so that few rows come back.
+
+The held string shapes (``string_columns``): ``s`` and ``t`` the pool of
+``tests/test_strings.py`` (``WORDS`` :30) at ``i % 12`` and ``(7i + 3) %
+12`` with a sixth of each null, ``n`` INT in [-3, 12) (``strings_df``
+:36-48; ``string_columns(120)`` is its s, t and n row for row), ``u``
+the pool of ``tests/test_string_functions.py`` (``VALS`` :20, with its
+two nulls) at ``i % 20``, ``r`` the pool of ``tests/test_regex.py``
+(``STRINGS`` :37, the LIKE extras of :156, two nulls) at ``i % 42``, and
+``i`` the row's index.  The strings come as codes into their pools
+(``STRING_POOLS``), so that an answer can be computed once a code.
+``STRING_QUERIES`` are S1 (the 19 ``EXPRS`` of tests/test_strings.py
+:53-73 in one select), S2 (the 20 functions of
+tests/test_string_functions.py :37-60 and both ``concat_ws`` of :67-72,
+over u and t), S3 (the RLIKE patterns of tests/test_regex.py :138-144
+and its LIKE patterns of :152-158, over r), S4 (the filter pipeline of
+tests/test_strings.py :99-104, then GROUP BY the upper-cased prefix with
+COUNT(*)) and S5 (a string IF and a string CASE WHEN, each grouped with
+COUNT(*)).
 """
 from __future__ import annotations
 
@@ -178,17 +196,7 @@ def tail_strings(codes: np.ndarray, valid: np.ndarray
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The STRING column of these codes: (int32 offsets, uint8 bytes,
     validity), a null row of length 0."""
-    width = max(len(t) for t in _TAIL_BYTES)
-    table = np.zeros((TAIL_CODES, width), np.uint8)
-    lengths = np.zeros(TAIL_CODES, np.int64)
-    for i, t in enumerate(_TAIL_BYTES):
-        table[i, :len(t)] = np.frombuffer(t, np.uint8)
-        lengths[i] = len(t)
-    row_len = np.where(valid, lengths[codes], 0)
-    offsets = np.zeros(len(codes) + 1, np.int64)
-    np.cumsum(row_len, out=offsets[1:])
-    keep = np.arange(width) < row_len[:, None]
-    return offsets.astype(np.int32), table[codes][keep], valid
+    return pool_strings(codes, valid, TAIL_STRINGS)
 
 
 def tail_batches(data: Dict[str, np.ndarray],
@@ -679,3 +687,180 @@ JOIN_QUERIES = {f.__name__: (f, small) for f, small in (
     (right_join, False), (full_join, False), (full_join_by_rv, False),
     (full_join_condition, False), (cross_join, True),
     (keyless_inner, True), (keyless_right, True))}
+
+
+# -- the held string shapes -------------------------------------------------
+
+STRING_SCHEMA = Schema.of(s=T.STRING, t=T.STRING, n=T.INT, u=T.STRING,
+                          r=T.STRING, i=T.LONG)
+#: tests/test_strings.py WORDS (:30)
+STRING_WORDS = ["apple", "Banana", "", "cherry pie", "  padded  ", "MiXeD",
+                "über", "日本語", "a", "zz top", "CHERRY", "ap%ple"]
+#: tests/test_string_functions.py VALS (:20), with its two nulls
+STRING_VALS = ["hello world", "  padded  ", "", "a", "ababab",
+               "The Quick brown", "x,y,z", "aaa", "Mixed CASE text", None,
+               "tab\there", "ünïcode", "ends with space ", " leading",
+               "a.b.c.d", "no-match", None, "ααβ", "repeatrepeat",
+               "...dots..."]
+#: tests/test_regex.py STRINGS (:37), the LIKE extras (:156), two nulls
+STRING_REGEX = ["", "a", "abc", "xabcx", "aaab", "ab", "acd", "abd", "12",
+                "12345", "user@site.com", "color", "colour", "  hello  ",
+                "foobaz", "barbaz", ".*", "héllo", "hello\nabc", "abc\r",
+                "aBc", "deadBEEF", "ααα", "abcd", "café", "zzz", "abcabc",
+                "cdcd", "aad", "+42", "0x1F", "abe", "ace", "bcd",
+                "a_b", "axbyc", "100%", "ab", "a%bxc", "xy", None, None]
+#: each string column's pool: its codes index it
+STRING_POOLS = {"s": STRING_WORDS, "t": STRING_WORDS, "u": STRING_VALS,
+                "r": STRING_REGEX}
+
+
+def string_columns(n: int, seed: int = 3
+                   ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """(values, validity) per column, the strings as int8 codes into
+    their pools: strings_df's streams in its order (n first, then the
+    nulls of s, then of t), so ``string_columns(120)`` is its s, t and n
+    row for row."""
+    rng = np.random.RandomState(seed)
+    i = np.arange(n, dtype=np.int64)
+    data = {"s": (i % 12).astype(np.int8),
+            "t": ((7 * i + 3) % 12).astype(np.int8),
+            "n": rng.randint(-3, 12, n).astype(np.int32),
+            "u": (i % len(STRING_VALS)).astype(np.int8),
+            "r": (i % len(STRING_REGEX)).astype(np.int8),
+            "i": i}
+    validity = {c: np.ones(n, np.bool_) for c in STRING_SCHEMA.names}
+    for c in ("s", "t"):
+        validity[c][rng.choice(n, n // 6, replace=False)] = False
+    for c in ("u", "r"):
+        present = np.array([v is not None for v in STRING_POOLS[c]])
+        validity[c] = present[data[c]]
+    return data, validity
+
+
+def pool_strings(codes: np.ndarray, valid: np.ndarray, pool: List
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The STRING column of these codes into ``pool``: (int32 offsets,
+    uint8 bytes, validity), a null row of length 0."""
+    raw = [b"" if v is None else v.encode() for v in pool]
+    width = max(max(len(b) for b in raw), 1)
+    table = np.zeros((len(raw), width), np.uint8)
+    lengths = np.array([len(b) for b in raw], np.int64)
+    for k, b in enumerate(raw):
+        table[k, :len(b)] = np.frombuffer(b, np.uint8)
+    row_len = np.where(valid, lengths[codes], 0)
+    offsets = np.zeros(len(codes) + 1, np.int64)
+    np.cumsum(row_len, out=offsets[1:])
+    keep = np.arange(width) < row_len[:, None]
+    return offsets.astype(np.int32), table[codes][keep], valid
+
+
+def string_batches(data: Dict[str, np.ndarray],
+                   validity: Dict[str, np.ndarray], device,
+                   batch_rows: int = 1 << 20) -> List[ColumnarBatch]:
+    """``string_columns``' columns as device batches of ``batch_rows``."""
+    n = len(data["i"])
+    out = []
+    for o in range(0, n, batch_rows):
+        cut = {}
+        for c in STRING_SCHEMA.names:
+            vals, ok = data[c][o:o + batch_rows], validity[c][o:o + batch_rows]
+            cut[c] = (pool_strings(vals, ok, STRING_POOLS[c])
+                      if c in STRING_POOLS else (vals, ok))
+        out.append(batch_from_numpy(cut, STRING_SCHEMA, device))
+    return out
+
+
+def string_exprs(E=PE) -> list:
+    """tests/test_strings.py EXPRS (:53-73), named r0..r18."""
+    col, lit = E.col, E.lit
+    s = col("s")
+    exprs = [
+        E.Length(s), E.Upper(s), E.Lower(s),
+        E.Substring(s, lit(2), lit(3)), E.Substring(s, lit(-3), lit(2)),
+        E.Substring(s, col("n"), lit(2)), E.ConcatStrings(s, col("t")),
+        E.ConcatStrings(s, lit("!")), E.Trim(s), E.StartsWith(s, lit("ap")),
+        E.EndsWith(s, lit("y")), E.Contains(s, lit("err")),
+        E.Like(s, "%err%"), E.Like(s, "ap%"), E.Like(s, "%pie"),
+        E.Like(s, "apple"), s == col("t"), s < col("t"),
+        s >= lit("cherry")]
+    return [e.alias(f"r{k}") for k, e in enumerate(exprs)]
+
+
+def string_functions(E=PE) -> list:
+    """tests/test_string_functions.py's 20 functions (:37-60) over u, and
+    its two concat_ws (:67-72) over u and t, named f0..f21."""
+    u, t = E.col("u"), E.col("t")
+    exprs = [
+        E.LTrim(u), E.RTrim(u), E.Reverse(u), E.InitCap(u), E.Ascii(u),
+        E.StringReplace(u, "a", "XY"), E.StringReplace(u, "ab", ""),
+        E.StringReplace(u, ".", "--"), E.StringReplace(u, "aa", "b"),
+        E.StringInstr(u, "b"), E.StringInstr(u, "zzz"), E.StringInstr(u, ""),
+        E.StringLocate("a", u, 3), E.StringLocate("a", u, 0),
+        E.StringRepeat(u, 3), E.StringRepeat(u, 0), E.Lpad(u, 8, "*"),
+        E.Lpad(u, 3, "xy"), E.Rpad(u, 8, "*"), E.Rpad(u, 0, "z"),
+        E.ConcatWs("-", u, t), E.ConcatWs("", u, t, u)]
+    return [e.alias(f"f{k}") for k, e in enumerate(exprs)]
+
+
+#: tests/test_regex.py's RLIKE (:138-140) and LIKE (:152-153) patterns
+RLIKE_PATTERNS = ["[a-z]+", r"\d{2,4}", "(ab|cd)+", r"\w+@\w+\.com", "^a",
+                  "d$", "a.c", "colou?r"]
+LIKE_PATTERNS = ["a_b%c", "%b_", "_", "%", "a%b%c", r"100\%", "__", "a\\_b"]
+
+
+def regex_exprs(E=PE) -> list:
+    r = E.col("r")
+    return ([E.RLike(r, p).alias(f"m{k}")
+             for k, p in enumerate(RLIKE_PATTERNS)]
+            + [E.Like(r, p).alias(f"l{k}")
+               for k, p in enumerate(LIKE_PATTERNS)])
+
+
+def strings_select(df, E=PE):
+    """S1."""
+    return df.select(E.col("i"), E.col("s"), E.col("t"), E.col("n"),
+                     *string_exprs(E))
+
+
+def strings_functions(df, E=PE):
+    """S2."""
+    return df.select(E.col("i"), E.col("u"), *string_functions(E))
+
+
+def strings_regex(df, E=PE):
+    """S3."""
+    return df.select(E.col("i"), E.col("r"), *regex_exprs(E))
+
+
+def strings_filter_grouped(df, E=PE):
+    """S4: tests/test_strings.py test_string_filter_pipeline (:99-104),
+    grouped by its upper-cased prefix."""
+    s = E.col("s")
+    return df.filter(E.Not(E.IsNull(s)) & E.Contains(s, E.lit("e"))).select(
+        s, E.Length(s).alias("len"),
+        E.Upper(E.Substring(s, E.lit(1), E.lit(4))).alias("pre")).group_by(
+        "pre").agg(E.count().alias("c"), E.sum_("len").alias("sl"))
+
+
+def strings_if_grouped(df, E=PE):
+    """S5a: IF(n > 5, s, t) grouped, COUNT(*)."""
+    return df.select(E.If(E.col("n") > 5, E.col("s"), E.col("t")).alias(
+        "v")).group_by("v").agg(E.count().alias("c"))
+
+
+def strings_case_grouped(df, E=PE):
+    """S5b: CASE WHEN n < 0 THEN s WHEN n < 5 THEN t ELSE 'z' END grouped,
+    COUNT(*)."""
+    n = E.col("n")
+    return df.select(E.CaseWhen([(n < 0, E.col("s")), (n < 5, E.col("t"))],
+                                E.lit("z")).alias("v")).group_by("v").agg(
+        E.count().alias("c"))
+
+
+#: the row queries (S1-S3: an output row per input row) and the grouped
+#: ones (S4, S5)
+STRING_ROW_QUERIES = {f.__name__: f for f in (
+    strings_select, strings_functions, strings_regex)}
+STRING_AGG_QUERIES = {f.__name__: f for f in (
+    strings_filter_grouped, strings_if_grouped, strings_case_grouped)}
+STRING_QUERIES = {**STRING_ROW_QUERIES, **STRING_AGG_QUERIES}

@@ -91,15 +91,17 @@ def test_expression_matches_reference(table, case):
 
 def test_if_result_type_and_string_if():
     """If takes the true branch's type (sum over an int If is a long, as
-    q72 sums them); a string If is not ported and raises."""
+    q72 sums them); a string If selects each row's branch (the string
+    assembly kernel's select, with the branch's nulls)."""
     from spark_rapids_tpu_torch import types as T
     t = pa.table({"a": pa.array([1, None, 3], pa.int32()),
                   "s": pa.array(["x", "y", None])})
     pb = arrow_to_batch(t, "cpu")
     e = PE.If(PE.IsNull(PE.col("a")), PE.lit(1), PE.lit(0)).bind(pb.schema)
     assert e.dtype == T.INT and PE.sum_(e).dtype == T.LONG
-    s = PE.If(PE.IsNull(PE.col("a")), PE.col("s"), PE.col("s"))
-    with pytest.raises(NotImplementedError, match="string If"):
-        s.bind(pb.schema).eval(EvalContext(pb))
+    s = PE.If(PE.IsNull(PE.col("a")), PE.lit("null a"), PE.col("s"))
+    out = s.bind(pb.schema).eval(EvalContext(pb))
+    assert s.bind(pb.schema).dtype == T.STRING
+    assert out.to_pylist() == ["x", "null a", None]
     with pytest.raises(TypeError, match="string with a string"):
         (PE.col("s") == PE.lit(1)).bind(pb.schema).eval(EvalContext(pb))

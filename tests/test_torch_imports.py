@@ -683,3 +683,96 @@ def test_join_slice_wrappers_raise_off_the_cpu_without_cuda(call):
         call(J, S, H, R)
     assert dict(_lib.LAUNCHES) == before
 
+
+
+def test_string_slice_modules_are_covered():
+    """The string slice's modules (the regex engine's copy, the kernels'
+    wrappers, the expressions, the conditionals, the planner's tags, the
+    fused program's refusal, the held string table) are in the scans
+    above and import nothing of JAX; K1-K4's entry points are in their
+    built source and bound, each kernel has its own launch counter, and
+    the DSL exports the string functions."""
+    names = ("spark_rapids_tpu_torch.regex",
+             "spark_rapids_tpu_torch.regex.parser",
+             "spark_rapids_tpu_torch.regex.automata",
+             "spark_rapids_tpu_torch.kernels.strings",
+             "spark_rapids_tpu_torch.expressions.strings",
+             "spark_rapids_tpu_torch.expressions.conditional",
+             "spark_rapids_tpu_torch.expressions.program",
+             "spark_rapids_tpu_torch.planner.overrides",
+             "spark_rapids_tpu_torch.testing.held")
+    for name in names:
+        assert name in PORT_MODULES
+        path = ROOT / (name.replace(".", "/")
+                       + ("/__init__.py" if name.endswith("regex") else ".py"))
+        assert not {m for m in _imported_roots(path) if m in FORBIDDEN}
+    assert "string_functions.cu" in _lib.SOURCES
+    source = (_lib.CSRC / "string_functions.cu").read_text()
+    for entry in ("srt_string_row_scan", "srt_string_dfa_match",
+                  "srt_string_assemble_count", "srt_string_assemble_write",
+                  "srt_string_case_map"):
+        assert entry in source and entry in _lib._SIGNATURES
+    for kernel in ("row_scan_kernel", "dfa_match_kernel",
+                   "assemble_count_kernel", "assemble_write_kernel",
+                   "case_map_kernel",
+                   "cudaFuncAttributeMaxDynamicSharedMemorySize"):
+        assert kernel in source
+    from spark_rapids_tpu_torch.kernels import strings as SS
+    assert len({SS.ROW_SCAN, SS.DFA_MATCH, SS.ASSEMBLE, SS.CASE_MAP,
+                SS.COUNTER}) == 5
+    from spark_rapids_tpu_torch import expressions as E
+    for fn in ("Length", "Upper", "Lower", "ConcatStrings", "StartsWith",
+               "EndsWith", "Contains", "Like", "RLike", "Trim", "LTrim",
+               "RTrim", "Reverse", "InitCap", "StringReplace", "StringLocate",
+               "StringInstr", "Ascii", "StringRepeat", "Lpad", "Rpad",
+               "ConcatWs", "Left", "Right", "OctetLength", "BitLength",
+               "Translate", "Empty2Null", "Concat", "CaseWhen", "If"):
+        assert hasattr(E, fn) and fn in E.__all__
+    from spark_rapids_tpu_torch.testing import held
+    assert len(held.STRING_QUERIES) == 6
+
+
+def _dfa_meta():
+    return (torch.empty((3, 256), dtype=torch.uint8, device="meta"),
+            torch.empty(3, dtype=torch.uint8, device="meta"))
+
+
+@pytest.mark.parametrize("call", [
+    lambda S: S.char_length(_string_meta()),
+    lambda S: S.contains_literal(_string_meta(), b"ab"),
+    lambda S: S.startswith_literal(_string_meta(), b"a"),
+    lambda S: S.endswith_literal(_string_meta(), b""),
+    lambda S: S.first_occurrence_char(_string_meta(), b"a", 2),
+    lambda S: S.trim_ws(_string_meta()),
+    lambda S: S.ltrim_ws(_string_meta()),
+    lambda S: S.rtrim_ws(_string_meta()),
+    lambda S: S.dfa_match(_string_meta(), *_dfa_meta()),
+    lambda S: S.concat_strings([_string_meta(), _string_meta()]),
+    lambda S: S.concat_ws([_string_meta(), _string_meta()], b"-"),
+    lambda S: S.select_strings(_meta(torch.int32),
+                               [_string_meta(), _string_meta()]),
+    lambda S: S.pad_chars(_string_meta(), 5, b"*", True),
+    lambda S: S.repeat_string(_string_meta(), 3),
+    lambda S: S.replace_literal(_string_meta(), b"a", b"bc"),
+    lambda S: S.reverse_chars(_string_meta()),
+    lambda S: S.translate_bytes(_string_meta(), *S._byte_tables("ab", "x")),
+    lambda S: S.translate_bytes(_string_meta(), *S._byte_tables("ab", "xy")),
+    lambda S: S.upper_ascii(_string_meta()),
+    lambda S: S.lower_ascii(_string_meta()),
+    lambda S: S.initcap_ascii(_string_meta()),
+], ids=["char_length", "contains", "startswith", "endswith",
+        "first_occurrence", "trim", "ltrim", "rtrim", "dfa_match",
+        "concat", "concat_ws", "select", "pad", "repeat", "replace",
+        "reverse", "translate_deleting", "translate_mapping", "upper",
+        "lower", "initcap"])
+def test_string_slice_wrappers_raise_off_the_cpu_without_cuda(call):
+    """As ``test_join_slice_wrappers_raise_off_the_cpu_without_cuda``, for
+    K1 (the row scan: LENGTH, the literal tests, LOCATE, the trims), K2
+    (the DFA match), K3 (the assembly: each operation) and K4 (the case
+    maps, TRANSLATE without deletions): no plain version off the CPU, no
+    launch counted."""
+    from spark_rapids_tpu_torch.kernels import strings as S
+    before = dict(_lib.LAUNCHES)
+    with pytest.raises(ValueError, match="expected cuda"):
+        call(S)
+    assert dict(_lib.LAUNCHES) == before
