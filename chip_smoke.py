@@ -340,12 +340,38 @@ Phases (any failure raises and the script exits non-zero):
      COUNT(*), COUNT(lv), SUM(lv), SUM(rv) and exact against numpy; then
      J2 again at batchSizeRows 131,072, where every partition must go out
      of core; each with its launches, timed once and profiled;
- 20. prints the kernels summary line, then the result line last.
+ 20. the held strings (``testing/held.py`` ``string_columns``: the
+     pools of tests/test_strings.py, test_string_functions.py and
+     test_regex.py as codes) at 7,501,518 rows in batches of 1,048,576,
+     16 partitions: S1-S3 run to their device batches, every column
+     against answers computed a code in Python and against the same
+     plan run with the four string kernels' plain versions
+     (``plain_strings``, bit for bit); S4 and S5's rows against numpy's
+     and the plain run's; each with its launches, timed and profiled;
+ 21. the held casts (``testing/held.py`` ``cast_columns``: the text
+     pools of tests/test_cast_strings.py with 4,096 generated integer
+     and double texts and every date of 1900-2100, numeric columns drawn
+     from pools of 65,536 values, ~10% nulls) at 7,501,518 rows in
+     batches of 1,048,576, 16 partitions: C1 the eight parse casts, C2
+     LONG, INT, DATE and BOOLEAN to STRING, C3 the numeric lattice with
+     BYTE / SHORT promotion, COALESCE and IN, run to their device
+     batches; C1 and C2's columns against answers computed a code in
+     Python (the reference oracle's rules; doubles within 1e-9 of
+     ``float()``), C3's against numpy, all against the same plan run
+     with C1 and C2's plain versions (``plain_casts``, bit for bit); C4
+     (filter on a parse, GROUP BY a parsed DATE, SUM of a parsed DOUBLE,
+     COUNT(*), LONG -> STRING -> LONG through ``<=>``) against numpy's
+     rows and the plain run's; each with its launches, timed and
+     profiled.  Phase 3 holds C1 (``string_parse``) and C2
+     (``string_format``) against their plain versions at n = 1,048,576,
+     1,000,003 and 0 and on a slice, rows of hundreds of bytes included;
+ 22. prints the kernels summary line, then the result line last.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import contextlib
+import datetime
 import decimal
 import json
 import os
@@ -372,6 +398,7 @@ from spark_rapids_tpu_torch.expressions.core import EvalContext  # noqa: E402
 from spark_rapids_tpu_torch import expressions as E  # noqa: E402
 from spark_rapids_tpu_torch.expressions import program as P  # noqa: E402
 from spark_rapids_tpu_torch.kernels import _lib  # noqa: E402
+from spark_rapids_tpu_torch.kernels import cast_strings as CS  # noqa: E402
 from spark_rapids_tpu_torch.kernels import decimal as DK  # noqa: E402
 from spark_rapids_tpu_torch.kernels import fused as FK  # noqa: E402
 from spark_rapids_tpu_torch.kernels import groupby as G  # noqa: E402
@@ -521,6 +548,10 @@ KERNELS = {
                         "spark_rapids_tpu/kernels/strings.py:191"),
     "string_case_map": ("csrc/string_functions.cu",
                         "spark_rapids_tpu/kernels/strings.py:114"),
+    "string_parse": ("csrc/cast_strings.cu",
+                     "spark_rapids_tpu/kernels/cast_strings.py:52"),
+    "string_format": ("csrc/cast_strings.cu",
+                      "spark_rapids_tpu/kernels/cast_strings.py:305"),
 }
 FUSE_OFF = {"spark.rapids.sql.tpu.fuseStages": "false"}
 # fused (the default), q6's filter and partial sum are one kernel a batch:
@@ -4288,6 +4319,118 @@ def check_string_functions(rng, dev, summary) -> None:
     time_string_kernels(dev, summary)
 
 
+#: C1's modes and C2's, as the lines name them
+PARSE_MODES = {CS.PARSE_INTEGRAL: "integral", CS.PARSE_DOUBLE: "double",
+               CS.PARSE_DATE: "date", CS.PARSE_BOOL: "bool"}
+FORMAT_MODES = {CS.FORMAT_LONG: "long", CS.FORMAT_DATE: "date",
+                CS.FORMAT_BOOL: "bool"}
+#: rows of hundreds of bytes: no byte window may be left
+CAST_LONG_ROWS = ["0" * 299 + "1", " " * 400,
+                  " " * 150 + "-" + "0" * 250 + "7", "1" * 300 + "e-300",
+                  "9" * 20 + "." + "9" * 300, "2020-01-0" + "1" * 200]
+
+
+def cast_text_pool() -> list:
+    """The texts of phase 21's pools (the first 4,096 dates), the long
+    rows and non-ASCII ones: every parse sees every kind of text."""
+    p = held.cast_pools()
+    return (p["si"] + p["sd"] + p["sdt"][:len(held.CAST_DATE_STRINGS) + 4096]
+            + p["sb"] + CAST_LONG_ROWS + ["\u00e9", "\u0661\u0662", "\xff7"])
+
+
+def text_column(rng, n: int, pool: list, dev) -> DeviceColumn:
+    """n rows drawn from ``pool`` (its None rows null) and 10% more
+    nulls."""
+    codes = rng.randint(0, len(pool), n)
+    present = np.array([v is not None for v in pool])
+    return DeviceColumn.from_string_buffers(*held.pool_strings(
+        codes, present[codes] & (rng.rand(n) >= 0.1), pool), dev)
+
+
+def hold_parse(c: DeviceColumn, what: str) -> None:
+    for mode, name in PARSE_MODES.items():
+        hold("string_parse", list(zip(CS._parse(mode, c),
+                                      CS._PARSE_PLAIN[mode](c))),
+             f"{what} {name}")
+
+
+def format_values(rng, n: int, mode: int, dev) -> tuple:
+    """LONG: the extremes, every digit count, the full range; DATE: years
+    1-9999 and past both ends; BOOL; 10% nulls."""
+    m = max(n, 16)
+    if mode == CS.FORMAT_LONG:
+        v = rng.randint(-2**63, 2**63 - 1, m, dtype=np.int64)
+        v[:8] = [-2**63, 2**63 - 1, 0, -1, 1, 9, -10, 10**18]
+        v[8:m // 2] //= 10 ** rng.randint(0, 19, m // 2 - 8)
+    elif mode == CS.FORMAT_DATE:
+        v = rng.randint(-800_000, 3_000_000, m).astype(np.int32)
+        v[:6] = [-719162, -719163, 2932896, 2932897, 0, -1]
+    else:
+        v = rng.rand(m) < 0.5
+    valid = rng.rand(m) >= 0.1
+    return (torch.from_numpy(v[:n]).to(dev),
+            torch.from_numpy(valid[:n]).to(dev))
+
+
+def hold_format(vals, valid, mode: int, what: str) -> None:
+    hold("string_format", string_pairs(CS._format(mode, vals, valid),
+                                       CS._FORMAT_PLAIN[mode](vals, valid)),
+         f"{what} {FORMAT_MODES[mode]}")
+
+
+def time_cast_kernels(dev, summary) -> None:
+    """C1 and C2 at phase 21's one-batch shape (the held cast table's
+    first 1,048,576 rows): C1 parsing sd as a double, C2 formatting l."""
+    data, validity = held.cast_columns(N, CAST_SEED)
+    b = held.cast_batches(data, validity, dev, N)[0]
+    sd, lc = b.column("sd"), b.column("l")
+    text = int(sd.offsets[-1] - sd.offsets[0])
+    out = CS.long_to_string(lc.data, lc.validity)
+    cases = {
+        "string_parse": (lambda: CS.parse_double(sd),
+                         lambda: CS.parse_double_plain(sd),
+                         4 * (N + 1) + text + 9 * N, "double_sd"),
+        "string_format": (lambda: CS.long_to_string(lc.data, lc.validity),
+                          lambda: CS.long_to_string_plain(lc.data,
+                                                          lc.validity),
+                          9 * N + 4 * (N + 1) + int(out.offsets[-1]) + N,
+                          "long_l"),
+    }
+    for name, (kernel, plain, nb, shape) in cases.items():
+        got, want = kernel(), plain()
+        pairs = string_pairs(got, want) if isinstance(got, DeviceColumn) \
+            else list(zip(got, want))
+        hold(name, pairs, f"the timed {shape}")
+        line = {"kernel": name, "shape": shape, "n": N,
+                **measure(kernel, plain, None, nb)}
+        emit(line)
+        summary[name] = summarize(line, nb)
+
+
+def check_cast_strings(rng, dev, summary) -> None:
+    """C1 (each parse) and C2 (each format) bit for bit against their plain
+    versions at n = 1,048,576, 1,000,003 and 0, C1 also on a slice whose
+    offsets start past 0: texts of phase 21's pools with rows of hundreds
+    of bytes and non-ASCII ones, 10% nulls; LONG's extremes and every
+    digit count, dates past years 1 and 9999; then each timed at phase
+    21's one-batch shape."""
+    pool = cast_text_pool()
+    for n in (N, RAGGED, 0):
+        t = time.perf_counter()
+        c = text_column(rng, n, pool, dev)
+        hold_parse(c, f"n={n}")
+        if n == RAGGED:
+            part = c.slice_rows(1_000, n - 777)
+            require(int(part.offsets[0]) > 0, "the slice starts at 0")
+            hold_parse(part, f"n={part.num_rows} sliced")
+        for mode in FORMAT_MODES:
+            hold_format(*format_values(rng, n, mode, dev), mode, f"n={n}")
+        torch.cuda.synchronize()
+        emit({"phase": "cast_checks", "n": n,
+              "seconds": time.perf_counter() - t})
+    time_cast_kernels(dev, summary)
+
+
 def phase_kernels(dev, tables) -> dict:
     # the profiler itself must see the card
     device_profile(lambda: torch.ones(8, device=dev) + 1)
@@ -4324,6 +4467,7 @@ def phase_kernels(dev, tables) -> dict:
     check_memory_kernels(rng, dev, summary)
     check_join_slice(rng, dev, summary)
     check_string_functions(rng, dev, summary)
+    check_cast_strings(rng, dev, summary)
     torch.cuda.synchronize()
     return summary
 
@@ -8309,6 +8453,352 @@ def phase_strings(df, keys: StringKeys) -> dict:
     return by_path
 
 
+# -- phase 21 -----------------------------------------------------------------
+
+# the floor of phases 16 and 18-20 (an eighth of SF10 lineitem's rows)
+CAST_ROWS = SF10_ROWS // 8       # 7,501,518
+CAST_SEED = 16
+CAST_PARTITIONS = 16
+#: each held cast query's cast kernels that its main path must launch
+CAST_PHASE_KERNELS = {"casts_parse": ("string_parse",),
+                      "casts_format": ("string_format",),
+                      "casts_numeric": ("string_parse",),
+                      "casts_ingest": ("string_parse", "string_format")}
+F64_RTOL_CAST = 1e-9             # the 15-digit rule against Python's float
+F32_RTOL_CAST = 2.0 ** -23       # one float ulp: a double rounded to float
+
+
+@contextlib.contextmanager
+def plain_casts():
+    """C1 and C2 replaced by their plain versions (on the card), for one
+    comparison run: each wrapper's CUDA half answers with its plain
+    version."""
+    saved = CS._parse_cuda, CS._format_cuda
+    CS._parse_cuda = lambda col, mode: CS._PARSE_PLAIN[mode](col)
+    CS._format_cuda = lambda mode, vals, valid: CS._FORMAT_PLAIN[mode](
+        vals, valid)
+    try:
+        yield
+    finally:
+        CS._parse_cuda, CS._format_cuda = saved
+
+
+# -- the answers, in Python: the reference's CPU oracle's rules written out
+
+_CAST_WS = "".join(chr(c) for c in range(0x21))
+_INT_TEXT = re.compile(r"[+-]?(\d+(\.\d*)?|\.\d+)", re.ASCII)
+_FLOAT_TEXT = re.compile(r"[+-]?(\d+\.?\d*|\.\d+)([eE][+-]?\d+)?", re.ASCII)
+_DATE_TEXT = re.compile(r"(\d{4})(?:-(\d{1,2})(?:-(\d{1,2}))?)?", re.ASCII)
+_FLOAT_WORDS = {"inf": np.inf, "+inf": np.inf, "-inf": -np.inf,
+                "infinity": np.inf, "+infinity": np.inf,
+                "-infinity": -np.inf, "nan": np.nan}
+_EPOCH = datetime.date(1970, 1, 1)
+INT_BOUNDS = {T.BYTE: (-2**7, 2**7 - 1), T.SHORT: (-2**15, 2**15 - 1),
+              T.INT: (-2**31, 2**31 - 1), T.LONG: (-2**63, 2**63 - 1)}
+
+
+def py_int(text, lo: int, hi: int):
+    """int() of the text's integer part, None outside [lo, hi]."""
+    tok = None if text is None else text.strip(_CAST_WS)
+    if not tok or not _INT_TEXT.fullmatch(tok):
+        return None
+    whole = tok.lstrip("+-").split(".")[0]
+    v = int(whole) if whole else 0
+    v = -v if tok[0] == "-" else v
+    return v if lo <= v <= hi else None
+
+
+def py_double(text):
+    tok = None if text is None else text.strip(_CAST_WS)
+    if not tok:
+        return None
+    if tok.lower() in _FLOAT_WORDS:
+        return float(_FLOAT_WORDS[tok.lower()])
+    return float(tok) if _FLOAT_TEXT.fullmatch(tok) else None
+
+
+def py_date(text):
+    """datetime.date's epoch days of yyyy[-m[m][-d[d]]], or None."""
+    tok = None if text is None else text.strip(_CAST_WS)
+    m = _DATE_TEXT.fullmatch(tok) if tok else None
+    if m is None:
+        return None
+    try:
+        return (datetime.date(int(m.group(1)), int(m.group(2) or 1),
+                              int(m.group(3) or 1)) - _EPOCH).days
+    except ValueError:
+        return None
+
+
+def py_bool(text):
+    tok = None if text is None else text.strip(_CAST_WS).lower()
+    return {"t": True, "true": True, "y": True, "yes": True, "1": True,
+            "f": False, "false": False, "n": False, "no": False,
+            "0": False}.get(tok)
+
+
+def py_iso(days: int):
+    try:
+        return (_EPOCH + datetime.timedelta(days=int(days))).isoformat()
+    except OverflowError:
+        return None
+
+
+class CastAnswers:
+    """The held cast table's keys (a coded column's code, a null one the
+    pool's size) on the card and on the host, its other columns on the
+    host, and each answer of C1 and C2 by code (the last: null)."""
+
+    def __init__(self, data, validity, dev):
+        pools = held.cast_pools()
+        self.pools = pools
+        self.data, self.validity = data, validity
+        self.host = {c: np.where(validity[c], data[c].astype(np.int64),
+                                 len(pools[c])) for c in held.CAST_CODED}
+        self.host["b"] = np.where(validity["b"], (~data["b"]).astype(
+            np.int64), 2)
+        self.dev = {c: torch.from_numpy(v).to(dev)
+                    for c, v in self.host.items()}
+        si, sd, sdt = pools["si"], pools["sd"], pools["sdt"]
+        self.parse = {
+            f"p_{name}": [py_int(t, *INT_BOUNDS[dt]) for t in si] + [None]
+            for name, dt in (("int", T.INT), ("long", T.LONG),
+                             ("short", T.SHORT), ("byte", T.BYTE))}
+        self.parse["p_double"] = [py_double(t) for t in sd] + [None]
+        self.parse["p_date"] = [py_date(t) for t in sdt] + [None]
+        self.parse["p_bool"] = [py_bool(t) for t in pools["sb"]] + [None]
+        self.format = {
+            "f_long": [str(int(v)) for v in pools["l"]] + [None],
+            "f_int": [str(int(v)) for v in pools["i"]] + [None],
+            "f_date": [py_iso(v) for v in pools["d"]] + [None],
+            "f_bool": ["true", "false", None]}
+
+    def column(self, name: str) -> np.ndarray:
+        """A coded numeric column's values on the host (0 where null)."""
+        vals = self.pools[name][self.data[name]]
+        return np.where(self.validity[name], vals, np.zeros((), vals.dtype))
+
+
+CAST_KEYS = {"p_int": "si", "p_long": "si", "p_short": "si", "p_byte": "si",
+             "p_double": "sd", "p_float": "sd", "p_date": "sdt",
+             "p_bool": "sb", "f_long": "l", "f_int": "i", "f_date": "d",
+             "f_bool": "b"}
+
+
+def floats_close(got: DeviceColumn, want: DeviceColumn, rtol: float) -> bool:
+    """Validity equal; valid values equal (NaN to NaN, inf to inf) or
+    within ``rtol`` relative."""
+    if not torch.equal(got.validity, want.validity):
+        return False
+    g = got.data.to(torch.float64)
+    w = want.data.to(torch.float64)
+    ok = (g == w) | (torch.isnan(g) & torch.isnan(w)) | (
+        (g - w).abs() <= rtol * w.abs())
+    return bool((ok | ~got.validity).all())
+
+
+def check_cast_rows(name: str, cols, names, ans: CastAnswers) -> None:
+    """C1 and C2's columns against the answers by code, in the output's
+    row order (its k)."""
+    by = dict(zip(names, cols))
+    k = by["k"].data
+    for nm in names[1:]:
+        key = ans.dev[CAST_KEYS[nm]][k]
+        if nm == "p_float":
+            want = expected_column(key, ans.parse["p_double"], T.DOUBLE)
+            want = DeviceColumn(want.data.to(torch.float32), want.validity,
+                                T.FLOAT)
+            ok = floats_close(by[nm], want, F32_RTOL_CAST)
+        elif nm == "p_double":
+            ok = floats_close(by[nm], expected_column(
+                key, ans.parse[nm], T.DOUBLE), F64_RTOL_CAST)
+        else:
+            answers = ans.parse.get(nm) or ans.format[nm]
+            ok = column_equal(by[nm], expected_column(key, answers,
+                                                      by[nm].dtype))
+        require(ok, f"held_{name} {nm} differs from its answers")
+
+
+def np_saturate(x: np.ndarray, dtype: T.DataType) -> np.ndarray:
+    """FLOAT / DOUBLE -> integral as Spark casts: truncate, NaN -> 0,
+    saturate."""
+    lo, hi = INT_BOUNDS[dtype]
+    with np.errstate(invalid="ignore"):
+        t = np.trunc(np.nan_to_num(x, nan=0.0, posinf=np.inf, neginf=-np.inf))
+        out = np.clip(t, lo, hi - 1024 if hi > 2**53 else hi).astype(
+            dtype.np_dtype)
+    out = np.where(t >= float(hi), hi, out)
+    return np.where(t <= float(lo), lo, out).astype(dtype.np_dtype)
+
+
+def numeric_answers(ans: CastAnswers, k: np.ndarray) -> dict:
+    """C3's columns by numpy, at the output's rows k: (values, validity)."""
+    v, d = ans.validity, ans.data
+    x, lv, i = ans.column("x"), ans.column("l"), ans.column("i")
+    y, h, b = d["y"], d["h"], d["b"]
+    si_int = np.array([0 if a is None else a for a in ans.parse["p_int"]],
+                      np.int32)[ans.host["si"]]
+    si_ok = np.array([a is not None for a in ans.parse["p_int"]])[
+        ans.host["si"]]
+    hit = (i == 1) | (i == 2)
+    with np.errstate(over="ignore", invalid="ignore"):
+        out = {
+            "x_int": (np_saturate(x, T.INT), v["x"]),
+            "x_long": (np_saturate(x, T.LONG), v["x"]),
+            "l_int": (lv.astype(np.int32), v["l"]),
+            "i_double": (i.astype(np.float64), v["i"]),
+            "b_int": (b.astype(np.int32), v["b"]),
+            "i_bool": (i != 0, v["i"]),
+            "y_plus_i": (y.astype(np.int32) + i, v["y"] & v["i"]),
+            "y_gt_1": (y > 1, v["y"]),
+            "h_times_x": (h.astype(np.float64) * x, v["h"] & v["x"]),
+            "si_or_0": (np.where(si_ok, si_int, 0), np.ones_like(si_ok)),
+            "i_in": (hit, v["i"] & hit)}
+    return {nm: (vals[k], ok[k]) for nm, (vals, ok) in out.items()}
+
+
+def check_numeric_rows(cols, names, ans: CastAnswers) -> None:
+    by = dict(zip(names, cols))
+    k = by["k"].data.cpu().numpy()
+    for nm, (vals, ok) in numeric_answers(ans, k).items():
+        got = by[nm]
+        gv, gok = got.data.cpu().numpy(), got.validity.cpu().numpy()
+        want = np.where(ok, vals, np.zeros((), vals.dtype)).astype(gv.dtype)
+        same = (gv.view(f"i{gv.itemsize}") == want.view(f"i{gv.itemsize}")
+                if gv.dtype.kind == "f" else gv == want)
+        require(np.array_equal(gok, ok) and bool(same.all()),
+                f"held_casts_numeric {nm} differs from numpy")
+
+
+def ingest_rows(ans: CastAnswers) -> tuple:
+    """C4 by numpy over the codes: (epoch days or None, sum or None,
+    count, 0), in key order, None first; and for each group whether its
+    sum's terms can overflow a double (the sum of their magnitudes does),
+    where the order of the additions decides between a finite sum, an
+    infinity and NaN."""
+    keep = np.array([a is not None for a in ans.parse["p_long"]])[
+        ans.host["si"]]
+    days = np.array([0 if a is None else a for a in ans.parse["p_date"]],
+                    np.int64)
+    has_day = np.array([a is not None for a in ans.parse["p_date"]])
+    dbl = np.array([0.0 if a is None else a for a in ans.parse["p_double"]])
+    has_dbl = np.array([a is not None for a in ans.parse["p_double"]])
+    kd, kv = ans.host["sdt"][keep], ans.host["sd"][keep]
+    key = np.where(has_day[kd], days[kd], np.iinfo(np.int64).min)
+    uniq, gid = np.unique(key, return_inverse=True)
+    valid_v = has_dbl[kv]
+    with np.errstate(invalid="ignore"):
+        sums = np.bincount(gid, weights=np.where(valid_v, dbl[kv], 0.0),
+                           minlength=len(uniq))
+        mags = np.bincount(gid, weights=np.where(
+            valid_v & np.isfinite(dbl[kv]), np.abs(dbl[kv]), 0.0),
+            minlength=len(uniq))
+    nsum = np.bincount(gid, weights=valid_v, minlength=len(uniq))
+    count = np.bincount(gid, minlength=len(uniq))
+    return [(None if u == np.iinfo(np.int64).min else int(u),
+             float(s) if ns else None, int(c), 0)
+            for u, s, ns, c in zip(uniq, sums, nsum, count)], np.isinf(mags)
+
+
+def rows_match(got: list, want: list, rtol=None) -> bool:
+    """Row by row: floats NaN to NaN, inf to inf, equal, or (``rtol``)
+    within rtol relative; everything else exactly."""
+    def same(a, b):
+        if isinstance(a, float) and isinstance(b, float):
+            return (a == b or (a != a and b != b) or (
+                rtol is not None and abs(a - b) <= rtol * abs(b)))
+        return a == b
+    return len(got) == len(want) and all(
+        len(r) == len(w) and all(same(a, b) for a, b in zip(r, w))
+        for r, w in zip(got, want))
+
+
+def day_rows(rows) -> list:
+    """C4's rows with the key as epoch days, None first."""
+    out = [((r[0] - _EPOCH).days if r[0] is not None else None,) + tuple(
+        r[1:]) for r in rows]
+    return sorted(out, key=lambda r: (r[0] is not None, r[0] or 0))
+
+
+def phase_cast_data(dev):
+    """The held cast table on the card: 7,501,518 rows in batches of
+    1,048,576, 16 partitions; the answers."""
+    t0 = time.perf_counter()
+    data, validity = held.cast_columns(CAST_ROWS, CAST_SEED)
+    batches = held.cast_batches(data, validity, dev, N)
+    ans = CastAnswers(data, validity, dev)
+    torch.cuda.synchronize()
+    resident = sum(t.nbytes for b in batches for c in b.columns
+                   for t in (c.data, c.validity) + (
+                       (c.offsets,) if c.is_string else ()))
+    emit({"phase": "cast_data", "rows": CAST_ROWS, "batches": len(batches),
+          "partitions": CAST_PARTITIONS, "resident_bytes": resident,
+          "setup_seconds": time.perf_counter() - t0})
+    df = GpuSession().create_dataframe(batches,
+                                       num_partitions=CAST_PARTITIONS)
+    return df, ans
+
+
+def phase_casts(df, ans: CastAnswers) -> dict:
+    """C1-C3 run to their device batches: C1 and C2's columns against the
+    answers by code (doubles within 1e-9 of Python's float), C3's against
+    numpy; every column against the same plan run with C1 and C2's plain
+    versions (bit for bit).  C4's rows against numpy's and the plain
+    run's.  Each traced once (its launches), then timed (median of 3)."""
+    by_path = {}
+    nbatches = -(-CAST_ROWS // N)
+    for name, build in held.CAST_ROW_QUERIES.items():
+        path = f"held_{name}"
+        query = lambda build=build: build(df)  # noqa: E731
+        cols, launches, first_wall, profile = run_rows_path(
+            path, query, CAST_PHASE_KERNELS[name])
+        names = query().schema.names
+        t = time.perf_counter()
+        if name == "casts_numeric":
+            check_numeric_rows(cols, names, ans)
+        else:
+            check_cast_rows(name, cols, names, ans)
+        check_s = time.perf_counter() - t
+        with plain_casts():
+            plain_cols = output_columns(run_batches(query()))
+        for nm, g, w in zip(names, cols, plain_cols, strict=True):
+            require(column_equal(g, w) if w.is_string else (
+                torch.equal(g.validity, w.validity)
+                and torch.equal(bits(g.data), bits(w.data))),
+                f"{path} {nm}: differs from the plain run")
+        timing = time_rows_path(path, query, profile, rows=CAST_ROWS)
+        emit({"phase": path, "rows": CAST_ROWS,
+              "output_columns": len(names), "check_s": check_s,
+              "plain_equal": True, "first_wall_s": first_wall,
+              "activities_per_batch": per_batch(timing, nbatches),
+              **timing})
+        by_path[path] = launches
+    for name, build in held.CAST_AGG_QUERIES.items():
+        path = f"held_{name}"
+        query = lambda _, build=build: build(df)  # noqa: E731
+        rows, plan, launches, first_wall, profile = run_phase_path(
+            path, query, CAST_PHASE_KERNELS[name])
+        rows = day_rows(rows)
+        want, overflow = ingest_rows(ans)
+        # a sum whose terms can overflow is held to the plain run only
+        require(rows_match([r[:1] + r[2:] if o else r for r, o in zip(
+            rows, overflow)], [w[:1] + w[2:] if o else w for w, o in zip(
+                want, overflow)], F64_RTOL_Q1),
+                f"{path}: {len(rows)} rows against numpy's {len(want)}")
+        with plain_casts():
+            plain_rows = day_rows(query(None).collect())
+        require(rows_match(rows, plain_rows), f"{path}: differs from the "
+                "plain run")
+        timing = time_path(path, query, None, CAST_ROWS, profile, runs=3)
+        emit({"phase": path, "rows": CAST_ROWS, "out_rows": len(rows),
+              "lost": sum(r[3] for r in rows),
+              "sums_that_can_overflow": int(overflow.sum()),
+              "plain_equal": True,
+              "first_wall_s": first_wall, **timing})
+        by_path[path] = launches
+    return by_path
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -8349,6 +8839,7 @@ def main() -> None:
     by_path.update(phase_memory(*phase_memory_data(dev)))
     by_path.update(phase_joins(*phase_join_data(dev)))
     by_path.update(phase_strings(*phase_string_data(dev)))
+    by_path.update(phase_casts(*phase_cast_data(dev)))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         s = summary[name]

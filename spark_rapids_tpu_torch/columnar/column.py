@@ -113,6 +113,9 @@ class DeviceColumn:
         rows)."""
         off = self.offsets.to(torch.int64)
         pos = torch.arange(width, device=off.device)
+        if self.data.shape[0] == 0:   # every row empty: nothing to read
+            return torch.zeros((off.shape[0] - 1, width), dtype=torch.uint8,
+                               device=off.device)
         idx = (off[:-1, None] + pos).clamp(max=max(self.data.shape[0] - 1, 0))
         inside = pos < (off[1:] - off[:-1])[:, None]
         return torch.where(inside, self.data[idx], 0)

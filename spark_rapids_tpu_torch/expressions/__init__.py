@@ -13,9 +13,13 @@ from spark_rapids_tpu_torch.expressions.arithmetic import (Add, Divide,
                                                         Multiply, Subtract)
 from spark_rapids_tpu_torch.expressions.predicates import (
     And,
+    Coalesce,
+    EqualNullSafe,
     EqualTo,
     GreaterThan,
     GreaterThanOrEqual,
+    In,
+    IsNotNull,
     IsNull,
     LessThan,
     LessThanOrEqual,
@@ -43,10 +47,11 @@ from spark_rapids_tpu_torch.expressions.window import (
 __all__ = [
     "Add", "Alias", "And", "Ascii", "Average", "BitAndAgg", "BitLength",
     "BitOrAgg", "BitXorAgg", "BoolAnd", "BoolOr", "BoundReference",
-    "CaseWhen", "Cast", "Col", "Concat", "ConcatStrings", "ConcatWs",
+    "CaseWhen", "Cast", "Coalesce", "Col", "Concat", "ConcatStrings", "ConcatWs",
     "Contains", "Count", "CumeDist", "DenseRank", "Divide", "Empty2Null",
-    "EndsWith", "EqualTo", "EvalContext", "Expression", "First", "FirstValue",
-    "GreaterThan", "GreaterThanOrEqual", "If", "InitCap", "IsNull", "LTrim",
+    "EndsWith", "EqualNullSafe", "EqualTo", "EvalContext", "Expression", "First", "FirstValue",
+    "GreaterThan", "GreaterThanOrEqual", "If", "In", "InitCap",
+    "IsNotNull", "IsNull", "LTrim",
     "Lag", "Last", "LastValue", "Lead", "Left", "Length", "LessThan",
     "LessThanOrEqual", "Like", "Literal", "Lower", "Lpad", "Max", "MaxBy",
     "Min", "MinBy", "Multiply", "Not", "NthValue", "Ntile", "OctetLength",

@@ -1,18 +1,45 @@
 """Cast expression.
 
-Counterpart of ``spark_rapids_tpu/expressions/casts.py`` (``Cast`` :41),
-cut to the identity cast and the decimal casts: decimal -> decimal,
-INT / LONG -> decimal, decimal -> INT / LONG and decimal -> DOUBLE.
-Spark's non-ANSI rules: a rescale up is exact, a rescale down rounds
-HALF_UP once, a value past the target precision is NULL, a decimal ->
-integral cast truncates toward zero and is NULL outside the type's range
-where the source is two limbs (``_decimal128_cast_eval`` :404; a Decimal64
-source truncates and wraps, as ``_decimal_cast`` :447 does).  Where both
-sides are Decimal64 the casts are int64 PyTorch; where either is two
-limbs, ``kernels/decimal.py``'s ``decimal128_binary`` rescales up and
-converts to double and ``decimal128_divide`` rescales down.  Decimal ->
-DOUBLE divides the unscaled value by 10**scale, exactly as the reference
-does at ``casts.py:467-469``: a multiply by 0.01 would round differently.
+Counterpart of ``spark_rapids_tpu/expressions/casts.py`` (``Cast`` :41,
+``Cast.supported`` :67-97, ``Cast.eval`` :99-143), Spark's non-ANSI
+legacy cast:
+
+- BOOLEAN to and from every number: a number is TRUE where it is not 0
+  (NaN too), a BOOLEAN is 0 / 1;
+- among BYTE, SHORT, INT and LONG: widening, or narrowing that wraps as
+  the JVM does; any integral type -> FLOAT or DOUBLE, FLOAT <-> DOUBLE
+  (round to nearest);
+- FLOAT or DOUBLE -> integral: truncated toward zero, NaN -> 0,
+  saturated at the type's bounds (:123-134).  The value is clipped first
+  (to ``hi - 1024`` for LONG: ``float(2**63 - 1)`` is 2**63) and only
+  then converted, then saturated with ``where``: a float -> int
+  conversion out of range is not defined on the card.  The work is in
+  double, which holds every float exactly;
+- the decimal casts: a rescale up is exact, a rescale down rounds HALF_UP
+  once, a value past the target precision is NULL; decimal -> integral
+  truncates toward zero and is NULL outside the type's range where the
+  source is two limbs (``_decimal128_cast_eval`` :404; a Decimal64 source
+  truncates and wraps, as ``_decimal_cast`` :447 does); decimal -> DOUBLE
+  divides the unscaled value by 10**scale (:467-469: a multiply by 0.01
+  would round differently), -> FLOAT rounds that double; BOOLEAN and
+  integral -> decimal.  Where both sides are Decimal64 the casts are
+  int64 PyTorch; where either is two limbs, ``kernels/decimal.py``'s
+  ``decimal128_binary`` rescales up and converts to double and
+  ``decimal128_divide`` rescales down;
+- STRING -> INT, LONG, SHORT, BYTE, DOUBLE, FLOAT, DATE and BOOLEAN
+  (``_eval_from_string`` :145) through ``kernels/cast_strings.py``'s
+  parses (C1 ``string_parse``): an invalid text, or a number outside the
+  target's range (``_int_key`` :227), is NULL; FLOAT is the parsed double
+  rounded;
+- INT, LONG, SHORT, BYTE, DATE and BOOLEAN -> STRING (``_eval_to_string``
+  :170) through its formats (C2 ``string_format``), integral types
+  widened to LONG first.
+
+Everything else raises NotImplementedError with the reference's reason,
+at plan time (``planner/overrides.py``) and here: FLOAT or DOUBLE ->
+STRING (the reference keeps it off the device: Java's Double.toString
+formats otherwise), and DATE <-> TIMESTAMP, which waits for the port's
+TIMESTAMP.  All but the string casts are plain PyTorch elementwise code.
 """
 from __future__ import annotations
 
@@ -22,7 +49,9 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expressions.core import (
     EvalContext, Expression, make_column)
 
-_INT_RANGE = {torch.int32: (-2**31, 2**31 - 1),
+_INT_RANGE = {torch.int8: (-2**7, 2**7 - 1),
+              torch.int16: (-2**15, 2**15 - 1),
+              torch.int32: (-2**31, 2**31 - 1),
               torch.int64: (-2**63, 2**63 - 1)}
 
 
@@ -34,8 +63,15 @@ def decimal_divisor(scale: int, device) -> torch.Tensor:
     return torch.full((), 10.0 ** scale, dtype=torch.float64, device=device)
 
 
-def _integral(dt: T.DataType) -> bool:
-    return isinstance(dt, (T.IntegerType, T.LongType))
+def _fixed(dt: T.DataType) -> bool:
+    """A number that is not a decimal, or a BOOLEAN."""
+    return (isinstance(dt, T.NumericType) and not isinstance(
+        dt, T.DecimalType)) or isinstance(dt, T.BooleanType)
+
+
+def not_supported(src: T.DataType, dst: T.DataType) -> NotImplementedError:
+    """The reference's reason (``planner/overrides.py:354-356``)."""
+    return NotImplementedError(f"cast {src!r} -> {dst!r} is not supported")
 
 
 class Cast(Expression):
@@ -54,29 +90,105 @@ class Cast(Expression):
     def __repr__(self):
         return f"cast({self.child!r} AS {self._dtype!r})"
 
+    @staticmethod
+    def supported(src: T.DataType, dst: T.DataType) -> bool:
+        """The reference's lattice (:67-97) without TIMESTAMP."""
+        if src == dst:
+            return True
+        dec = (isinstance(src, T.DecimalType), isinstance(dst, T.DecimalType))
+        if (_fixed(src) and _fixed(dst)) or all(dec):
+            return True
+        if dec[0] and (dst.is_integral or dst.is_floating):
+            return True
+        if (src.is_integral or isinstance(src, T.BooleanType)) and dec[1]:
+            return True
+        if isinstance(src, T.StringType):
+            return dst.is_integral or dst.is_floating or isinstance(
+                dst, (T.DateType, T.BooleanType))
+        if isinstance(dst, T.StringType):
+            return src.is_integral or isinstance(src, (T.DateType,
+                                                       T.BooleanType))
+        return False
+
     def eval(self, ctx: EvalContext):
         c = self.child.eval(ctx)
         src, dst = c.dtype, self._dtype
         if src == dst:
             return c
+        if not Cast.supported(src, dst):
+            raise not_supported(src, dst)
+        if isinstance(src, T.StringType):
+            return _from_string(c, dst)
+        if isinstance(dst, T.StringType):
+            return _to_string(c, src)
         src_dec = isinstance(src, T.DecimalType)
         dst_dec = isinstance(dst, T.DecimalType)
-        if src_dec and isinstance(dst, T.DoubleType):
+        if src_dec and dst.is_floating:
             if c.is_two_limb:
                 from spark_rapids_tpu_torch.kernels import decimal as DK
-                return make_column(*DK.decimal128_binary(
-                    DK.TO_DOUBLE, c.data, c.validity, ka=src.scale), dst)
-            return make_column(
-                c.data.to(torch.float64) / decimal_divisor(src.scale,
-                                                           c.device),
-                c.validity, dst)
+                vals, valid = DK.decimal128_binary(
+                    DK.TO_DOUBLE, c.data, c.validity, ka=src.scale)
+            else:
+                vals = c.data.to(torch.float64) / decimal_divisor(src.scale,
+                                                                  c.device)
+                valid = c.validity
+            return make_column(vals.to(dst.torch_dtype), valid, dst)
         if src_dec and dst_dec:
             return _rescale(c, src.scale, dst)
-        if src_dec and _integral(dst):
+        if src_dec:
             return _to_integral(c, dst)
-        if dst_dec and _integral(src):
+        if dst_dec:
             return _rescale(c, 0, dst)
-        raise NotImplementedError(f"cast {src!r} -> {dst!r} is not ported")
+        data = c.data
+        if isinstance(dst, T.BooleanType):
+            out = data != 0
+        elif src.is_floating and dst.is_integral:
+            out = _saturate(data, dst)
+        else:
+            out = data.to(dst.torch_dtype)
+        return make_column(out, c.validity, dst)
+
+
+def _saturate(data: torch.Tensor, dst: T.DataType) -> torch.Tensor:
+    """FLOAT / DOUBLE -> integral: truncate, NaN -> 0, clip to a bound
+    that converts exactly, convert, then saturate at the bounds."""
+    lo, hi = _INT_RANGE[dst.torch_dtype]
+    x = torch.trunc(torch.nan_to_num(data.to(torch.float64), nan=0.0,
+                                     posinf=float("inf"),
+                                     neginf=float("-inf")))
+    mid = x.clamp(float(lo), float(hi - 1024) if hi > 2**53 else float(hi))
+    out = mid.to(dst.torch_dtype)
+    out = torch.where(x >= float(hi), hi, out)
+    return torch.where(x <= float(lo), lo, out).to(dst.torch_dtype)
+
+
+def _from_string(c, dst: T.DataType):
+    """The parses of C1; NULL where the text does not parse, or where the
+    number is outside the target's range."""
+    from spark_rapids_tpu_torch.kernels import cast_strings as CS
+    if dst.is_integral:
+        vals, ok = CS.parse_integral(c)
+        lo, hi = _INT_RANGE[dst.torch_dtype]
+        ok = ok & (vals >= lo) & (vals <= hi)
+        vals = vals.to(dst.torch_dtype)
+    elif dst.is_floating:
+        vals, ok = CS.parse_double(c)
+        vals = vals.to(dst.torch_dtype)
+    elif isinstance(dst, T.DateType):
+        vals, ok = CS.parse_date(c)
+    else:
+        vals, ok = CS.parse_bool(c)
+    return make_column(vals, c.validity & ok, dst)
+
+
+def _to_string(c, src: T.DataType):
+    """The formats of C2; integral types widen to LONG first."""
+    from spark_rapids_tpu_torch.kernels import cast_strings as CS
+    if isinstance(src, T.BooleanType):
+        return CS.bool_to_string(c.data, c.validity)
+    if isinstance(src, T.DateType):
+        return CS.date_to_string(c.data, c.validity)
+    return CS.long_to_string(c.data.to(torch.int64), c.validity)
 
 
 def _rescale(c, from_scale: int, dst: T.DecimalType):
@@ -115,7 +227,7 @@ def _rescale64(data: torch.Tensor, validity: torch.Tensor, k: int,
 
 
 def _to_integral(c, dst: T.DataType):
-    """Decimal -> INT / LONG, truncating toward zero."""
+    """Decimal -> an integral type, truncating toward zero."""
     src = c.dtype
     f = 10 ** src.scale
     if not c.is_two_limb:

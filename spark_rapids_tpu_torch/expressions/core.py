@@ -1,7 +1,8 @@
 """Expression tree of the port: Catalyst-style nodes evaluated on tensors.
 
 Counterpart of ``spark_rapids_tpu/expressions/core.py`` (``Expression``
-:107, ``BoundReference`` :292, ``Literal`` :346, ``Alias`` :415).  ``eval``
+:107, with the DSL's ``cast`` :156, ``is_null`` :223 and ``is_not_null``
+:227; ``BoundReference`` :292, ``Literal`` :346, ``Alias`` :415).  ``eval``
 maps an ``EvalContext`` to a ``DeviceColumn`` of the batch's exact row
 count, on the batch's device.  Elementwise evaluation stays plain PyTorch:
 the row-moving and reducing work goes to the kernels in ``kernels/``.
@@ -73,6 +74,18 @@ class Expression:
 
     def alias(self, name: str) -> "Alias":
         return Alias(self, name)
+
+    def cast(self, dtype: T.DataType) -> "Expression":
+        from spark_rapids_tpu_torch.expressions.casts import Cast
+        return Cast(self, dtype)
+
+    def is_null(self) -> "Expression":
+        from spark_rapids_tpu_torch.expressions.predicates import IsNull
+        return IsNull(self)
+
+    def is_not_null(self) -> "Expression":
+        from spark_rapids_tpu_torch.expressions.predicates import IsNotNull
+        return IsNotNull(self)
 
     def _bin(self, other, cls):
         return cls(self, other if isinstance(other, Expression) else lit(other))

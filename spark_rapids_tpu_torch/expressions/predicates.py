@@ -3,12 +3,15 @@
 Counterpart of ``spark_rapids_tpu/expressions/predicates.py``
 (``EqualTo`` :160, ``LessThan`` :174, ``GreaterThan`` :190,
 ``LessThanOrEqual`` :201, ``GreaterThanOrEqual`` :213, ``And`` :262,
-``Or`` :290, ``Not`` :314, ``IsNull`` :328), numeric, date, decimal and
-string operands.  Spark semantics: NaN equals NaN and is larger than
-every other double; strings compare by their UTF-8 bytes
+``Or`` :290, ``Not`` :314, ``IsNull`` :328, ``EqualNullSafe`` :225,
+``IsNotNull`` :347, ``In`` :366, ``Coalesce`` :473), numeric, date,
+decimal and string operands.  Spark semantics: NaN equals NaN and is
+larger than every other double; strings compare by their UTF-8 bytes
 (``UTF8String.binaryCompare``, a proper prefix first); a comparison with a
 null operand is null; AND and OR are three-valued (FALSE AND null = FALSE,
-TRUE OR null = TRUE); NOT null is null; IS NULL is never null.
+TRUE OR null = TRUE); NOT null is null; IS NULL, IS NOT NULL and ``<=>``
+are never null.  Numeric operands of two types compare at their
+promotion (BYTE < SHORT < INT < LONG < FLOAT < DOUBLE).
 
 Two decimals compare at their common scale: int64 values where that
 scale's precision is at most 18, else two-limb values (:122-135): each
@@ -26,7 +29,8 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expressions.core import (
-    BinaryExpression, EvalContext, Expression, make_column, null_propagating)
+    BinaryExpression, EvalContext, Expression, lit, make_column,
+    null_propagating)
 
 _SIGN64 = -2**63
 
@@ -102,8 +106,11 @@ class BinaryComparison(BinaryExpression):
         raise NotImplementedError
 
     def eval(self, ctx: EvalContext):
-        lc = self.left.eval(ctx)
-        rc = self.right.eval(ctx)
+        return self.compare(self.left.eval(ctx), self.right.eval(ctx))
+
+    def compare(self, lc, rc):
+        """The comparison of two evaluated columns, null where either is
+        (a null slot false)."""
         if lc.is_string or rc.is_string:
             if not (lc.is_string and rc.is_string):
                 raise TypeError(f"{self.symbol} compares a string with a "
@@ -124,7 +131,6 @@ class BinaryComparison(BinaryExpression):
             is_float = cdt.is_floating
         return make_column(self._compare(lhs, rhs, is_float), validity,
                            T.BOOLEAN)
-
 
     def _from_rank(self, rank, lc, rc):
         vals = torch.zeros(lc.num_rows, dtype=torch.bool, device=lc.device)
@@ -155,6 +161,23 @@ class EqualTo(BinaryComparison):
 
     def _compare(self, lhs, rhs, is_float):
         return _eq(lhs, rhs, is_float)
+
+
+class EqualNullSafe(BinaryComparison):
+    """``<=>`` (:225): equality where both sides are valid, TRUE where both
+    are null, FALSE where one is; never null."""
+
+    symbol = "<=>"
+    string_ranks = (1,)
+
+    def _compare(self, lhs, rhs, is_float):
+        return _eq(lhs, rhs, is_float)
+
+    def compare(self, lc, rc):
+        eq = super().compare(lc, rc)
+        both_null = ~lc.validity & ~rc.validity
+        return make_column(eq.data | both_null, torch.ones_like(eq.validity),
+                           T.BOOLEAN)
 
 
 class LessThan(BinaryComparison):
@@ -264,3 +287,104 @@ class IsNull(Expression):
 
     def __repr__(self):
         return f"isnull({self.child!r})"
+
+
+class IsNotNull(Expression):
+    """True where the child is valid (:347); never null itself."""
+
+    def __init__(self, child: Expression):
+        self.child = child
+        self.children = (child,)
+
+    def with_children(self, children):
+        return IsNotNull(children[0])
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+    def eval(self, ctx: EvalContext):
+        c = self.child.eval(ctx)
+        return make_column(c.validity, torch.ones_like(c.validity),
+                           T.BOOLEAN)
+
+    def __repr__(self):
+        return f"isnotnull({self.child!r})"
+
+
+class In(Expression):
+    """``value IN (items...)`` (:366), three-valued: TRUE where an item
+    equals the value (as ``=`` compares them), null where the value is
+    null or where none does and an item is null, else FALSE.  An item that
+    is null in some rows counts as null in those rows only; the reference
+    takes every column item as null in every row (its ``nullable``), the
+    same where the items are literals, as they are here."""
+
+    def __init__(self, value: Expression, items, null_item: bool = False):
+        self.value = value
+        #: a Python None among the items: a null of the value's type
+        self.null_item = null_item or any(i is None for i in items)
+        self.items = tuple(i if isinstance(i, Expression) else lit(i)
+                           for i in items if i is not None)
+        self.children = (value,) + self.items
+
+    def with_children(self, children):
+        return In(children[0], children[1:], self.null_item)
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+    def eval(self, ctx: EvalContext):
+        vc = self.value.eval(ctx)
+        hit = torch.zeros_like(vc.validity)
+        null_item = torch.full_like(vc.validity, self.null_item)
+        eq = EqualTo(self.value, self.value)   # its compare of two columns
+        for item in self.items:
+            ic = item.eval(ctx)
+            hit = hit | eq.compare(vc, ic).data
+            null_item = null_item | ~ic.validity
+        return make_column(hit, vc.validity & (hit | ~null_item), T.BOOLEAN)
+
+    def __repr__(self):
+        items = [repr(i) for i in self.items] + ["NULL"] * self.null_item
+        return f"{self.value!r} IN ({', '.join(items)})"
+
+
+class Coalesce(Expression):
+    """The first valid argument (``nullExpressions.scala`` GpuCoalesce,
+    :473), of the first argument's type; null where every one is null.
+    Strings go through the string assembly kernel's select (one launch),
+    as a string IF does."""
+
+    def __init__(self, *exprs: Expression):
+        self.children = tuple(exprs)
+
+    def with_children(self, children):
+        return Coalesce(*children)
+
+    @property
+    def dtype(self):
+        return self.children[0].dtype
+
+    def eval(self, ctx: EvalContext):
+        out_dt = self.dtype
+        cols = [c.eval(ctx) for c in self.children]
+        if out_dt.variable_width:
+            from spark_rapids_tpu_torch.kernels.strings import select_strings
+            choice = torch.full((ctx.num_rows,), len(cols), dtype=torch.int32,
+                                device=ctx.device)
+            for i in reversed(range(len(cols))):
+                choice = torch.where(cols[i].validity, i, choice).to(
+                    torch.int32)
+            return select_strings(choice, cols)
+        vals = cols[-1].data.to(out_dt.torch_dtype)
+        validity = cols[-1].validity
+        for c in reversed(cols[:-1]):
+            take = c.validity[:, None] if T.two_limbs(out_dt) else c.validity
+            vals = torch.where(take, c.data.to(out_dt.torch_dtype), vals)
+            validity = validity | c.validity
+        return make_column(vals, validity, out_dt)
+
+    def __repr__(self):
+        return f"coalesce({', '.join(map(repr, self.children))})"

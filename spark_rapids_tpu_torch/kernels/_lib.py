@@ -27,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("selection.cu", "reduction.cu", "hash.cu", "sort.cu",
            "strings.cu", "join.cu", "fused.cu", "decimal.cu", "window.cu",
-           "string_functions.cu")
+           "string_functions.cu", "cast_strings.cu")
 HEADERS = ("scan.cuh", "strings.cuh", "int128.cuh", "decimal.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -100,6 +100,10 @@ _SIGNATURES = {
     "srt_string_assemble_write": [_I, _I, _P, _I64, _P, _P, _I, _I, _I64,
                                   _I, _P, _P, _P],
     "srt_string_case_map": [_I, _P, _P, _I64, _P, _P, _P],
+    "srt_cast_pow10_load": [_P],
+    "srt_string_parse": [_I, _P, _P, _I64, _P, _P, _P],
+    "srt_string_format_count": [_I, _P, _P, _I64, _P, _P, _P, _P, _P],
+    "srt_string_format_write": [_I, _P, _I64, _P, _P, _P],
     "srt_join_scan_tile": [],
     "srt_join_build_keys": [_I, _P, _P, _P, _I64, _P, _P, _P],
     "srt_join_probe": [_I, _P, _P, _I64, _P, _P, _I64, _I, _P, _P, _P, _P,

@@ -66,9 +66,13 @@ conditionals: an input outside an op's signature, a pattern outside the
 regex dialect (``RegexUnsupported``), a non-literal STARTSWITH / ENDSWITH
 / CONTAINS pattern, a non-ASCII pad string and CONCAT_WS over a
 non-string raise NotImplementedError with the reference's reason (its
-planner falls back to its CPU).  The tags that exist only for XLA's static
-buckets (``_regex_child_ok``, the repeat and pad bounds) are not ported:
-the string kernels size every output by count-then-allocate.
+planner falls back to its CPU), and so does a cast outside
+``Cast.supported`` (:354-356; FLOAT or DOUBLE -> STRING is one, which the
+reference gates behind ``castFloatToString``).  The tags that exist only
+for XLA's static buckets (``_regex_child_ok``, the repeat and pad bounds,
+the string cast over a growing string, :357-362) are not ported: the
+string kernels size every output by count-then-allocate, and a cast over
+``concat(...)`` runs on the card.
 
 Planning never asks an adaptive join or a coalesced reader for its
 partition count: that would run the build side or the map side.  The
@@ -84,6 +88,7 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.config import RapidsConf
 from spark_rapids_tpu_torch.expressions import strings as S
 from spark_rapids_tpu_torch.expressions.aggregates import Count, Max, Min
+from spark_rapids_tpu_torch.expressions.casts import Cast, not_supported
 from spark_rapids_tpu_torch.expressions.conditional import CaseWhen, If
 from spark_rapids_tpu_torch.expressions.core import BoundReference, Literal
 from spark_rapids_tpu_torch.expressions.window import (FirstValue, LastValue,
@@ -365,7 +370,9 @@ def _atom(dt: T.DataType) -> str:
 
 def _tag_expression(e) -> None:
     """Raise NotImplementedError, with the reference's reason, for a
-    string op or conditional that the device path does not run."""
+    string op, conditional or cast that the device path does not run."""
+    if isinstance(e, Cast) and not Cast.supported(e.child.dtype, e.dtype):
+        raise not_supported(e.child.dtype, e.dtype)
     if isinstance(e, S.ConcatWs):
         for c in e.children:
             if not isinstance(c.dtype, T.StringType):

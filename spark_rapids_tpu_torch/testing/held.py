@@ -57,9 +57,26 @@ and its LIKE patterns of :152-158, over r), S4 (the filter pipeline of
 tests/test_strings.py :99-104, then GROUP BY the upper-cased prefix with
 COUNT(*)) and S5 (a string IF and a string CASE WHEN, each grouped with
 COUNT(*)).
+
+The held casts (``cast_columns``): the text pools of the reference's
+``tests/test_cast_strings.py`` (:17-48) with generated texts after them
+(``cast_pools``: ``si`` 4,096 integer texts, ``sd`` 4,096 doubles in
+repr, exponent and fixed forms, ``sdt`` every date of 1900-2100 in one-
+and two-digit forms), and ``l`` LONG over the full range, ``i`` INT,
+``d`` DATE over years 1-9999 and past them, ``x`` DOUBLE with NaN,
++-inf, +-0.0 and +-1e19, each drawn as codes into a pool of 65,536
+values; ``b`` BOOLEAN, ``y`` BYTE, ``h`` SHORT, ``k`` the row's index;
+about 10% nulls in every column but ``k``.  ``CAST_QUERIES`` are C1 (the
+eight parse casts in one select), C2 (LONG, INT, DATE and BOOLEAN to
+STRING), C3 (the numeric lattice, BYTE / SHORT promotion, COALESCE over a
+parse, IN with a null) and C4 (the rows whose ``si`` parses, grouped by
+``sdt`` as a DATE: the sum of ``sd`` as a DOUBLE, COUNT(*), and the rows
+whose ``l`` does not come back through its text).  Each takes the DSL
+and the types module (``E``, ``T_``) to build it with.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -740,18 +757,19 @@ def string_columns(n: int, seed: int = 3
 def pool_strings(codes: np.ndarray, valid: np.ndarray, pool: List
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The STRING column of these codes into ``pool``: (int32 offsets,
-    uint8 bytes, validity), a null row of length 0."""
+    uint8 bytes, validity), a null row of length 0.  Each output byte is
+    gathered from the pool's bytes, so a long pool row costs only its
+    own rows."""
     raw = [b"" if v is None else v.encode() for v in pool]
-    width = max(max(len(b) for b in raw), 1)
-    table = np.zeros((len(raw), width), np.uint8)
     lengths = np.array([len(b) for b in raw], np.int64)
-    for k, b in enumerate(raw):
-        table[k, :len(b)] = np.frombuffer(b, np.uint8)
+    starts = np.cumsum(lengths) - lengths
+    flat = np.frombuffer(b"".join(raw), np.uint8)
     row_len = np.where(valid, lengths[codes], 0)
     offsets = np.zeros(len(codes) + 1, np.int64)
     np.cumsum(row_len, out=offsets[1:])
-    keep = np.arange(width) < row_len[:, None]
-    return offsets.astype(np.int32), table[codes][keep], valid
+    row = np.repeat(np.arange(len(codes)), row_len)
+    src = starts[codes][row] + np.arange(int(offsets[-1])) - offsets[:-1][row]
+    return offsets.astype(np.int32), flat[src], valid
 
 
 def string_batches(data: Dict[str, np.ndarray],
@@ -864,3 +882,254 @@ STRING_ROW_QUERIES = {f.__name__: f for f in (
 STRING_AGG_QUERIES = {f.__name__: f for f in (
     strings_filter_grouped, strings_if_grouped, strings_case_grouped)}
 STRING_QUERIES = {**STRING_ROW_QUERIES, **STRING_AGG_QUERIES}
+
+
+# -- the held casts -----------------------------------------------------------
+
+CAST_SCHEMA = Schema.of(si=T.STRING, sd=T.STRING, sdt=T.STRING, sb=T.STRING,
+                        l=T.LONG, i=T.INT, d=T.DATE, b=T.BOOLEAN,
+                        x=T.DOUBLE, y=T.BYTE, h=T.SHORT, k=T.LONG)
+#: tests/test_cast_strings.py INT_STRINGS (:17)
+CAST_INT_STRINGS = [
+    "0", "1", "-1", "+42", "  17  ", "2147483647", "2147483648",
+    "-2147483648", "-2147483649", "9223372036854775807",
+    "9223372036854775808", "-9223372036854775808", "-9223372036854775809",
+    "3.7", "-3.9", "3.", ".5", "-.5", "007", "", "  ", "abc", "12a", "a12",
+    "1 2", "+", "-", ".", "1.2.3", "--5", "1e3", None, "\t13\n", "127",
+    "128", "-128", "-129", "32767", "32768", "-32768", "-32769",
+]
+#: FLOAT_STRINGS (:25)
+CAST_FLOAT_STRINGS = [
+    "0", "1.5", "-2.25", "3", ".5", "5.", "1e3", "1E-3", "-1.25e2",
+    "+0.125", "1e308", "1e309", "-1e309", "1e-300", "12345678901234567890",
+    "0.0000000000000000001234", "Infinity", "-Infinity", "+infinity", "inf",
+    "-INF", "NaN", "nan", "-nan", "", "abc", "1e", "e3", "1e+", "1.2e3.4",
+    "  2.5  ", None, "1.7976931348623157e308", "0.001", "100.",
+]
+#: DATE_STRINGS (:33)
+CAST_DATE_STRINGS = [
+    "2020-01-01", "2020-1-1", "2020-12-31", "2020-02-29", "2021-02-29",
+    "1999-9-9", "2020", "2020-06", "0001-01-01", "9999-12-31",
+    "2020-13-01", "2020-00-10", "2020-01-32", "2020-01-00", "20-01-01",
+    "202O-01-01", "", "  2020-03-04  ", "2020-01-01x", None, "1970-01-01",
+]
+#: BOOL_STRINGS (:40)
+CAST_BOOL_STRINGS = ["true", "TRUE", "t", "y", "yes", "1", "false", "False",
+                     "f", "n", "no", "0", "maybe", "", "  true ", None, "10"]
+CAST_GENERATED = 4096
+#: the numeric columns' value pools' size
+CAST_VALUES = 1 << 16
+_LONG_EDGES = [-2**63, 2**63 - 1, -2**63 + 1, 2**63 - 2, 0, 1, -1, 2**31,
+               -2**31 - 1, 10**18, -10**18]
+_DAY_EDGES = [-719162, 2932896, -719163, 2932897, -10**6, 3 * 10**6, 0]
+_DOUBLE_EDGES = [float("nan"), float("inf"), float("-inf"), 0.0, -0.0, 1e19,
+                 -1e19, 2.0**31, -2.0**31 - 1, 2.0**63, -2.0**63,
+                 2147483647.5, -2147483648.5, 9.3e18, 1e300, -1e300, 0.5,
+                 -0.5, 127.9, -128.9, 32767.5]
+
+
+def _int_texts(rng, count: int) -> List[str]:
+    """Integer texts: signs, padding, leading zeros, fractions, the
+    bounds of every width and one past them, over-long digit runs,
+    non-digits and non-ASCII digits."""
+    edges = []
+    for lo, hi in ((-2**7, 2**7 - 1), (-2**15, 2**15 - 1),
+                   (-2**31, 2**31 - 1), (-2**63, 2**63 - 1)):
+        edges += [str(v) for v in (lo, hi, lo - 1, hi + 1)]
+    junk = ["1e3", "12a", "0x1F", "١٢", "１２", "+-1",
+            "1 2", "", " ", "-", ".", "1..2", "++1", "1-", "é"]
+    out = list(edges) + junk
+    while len(out) < count:
+        kind = rng.randint(8)
+        digits = "".join(map(str, rng.randint(0, 10, rng.randint(1, 20))))
+        sign = ["", "-", "+"][rng.randint(3)]
+        if kind <= 2:
+            out.append(sign + digits.lstrip("0") or "0")
+        elif kind == 3:
+            out.append(" \t"[rng.randint(2)] * rng.randint(1, 4) + sign
+                       + digits + " \n"[rng.randint(2)] * rng.randint(0, 3))
+        elif kind == 4:
+            out.append(sign + "0" * rng.randint(1, 12) + digits[:6])
+        elif kind == 5:
+            frac = "".join(map(str, rng.randint(0, 10, rng.randint(0, 6))))
+            out.append(sign + digits[:rng.randint(0, 8)] + "." + frac)
+        elif kind == 6:
+            out.append(sign + digits + "".join(
+                map(str, rng.randint(0, 10, rng.randint(1, 8)))))
+        else:
+            out.append(junk[rng.randint(len(junk))] + digits[:3])
+    return out[:count]
+
+
+def _double_texts(rng, count: int) -> List[str]:
+    """Double texts: Python's repr and exponent forms over 10**-300 to
+    10**300, fixed forms, more than 15 significant digits, padding."""
+    out = []
+    while len(out) < count:
+        v = float(10.0 ** rng.uniform(-300, 300)) * (-1) ** rng.randint(2)
+        kind = rng.randint(6)
+        if kind <= 1:
+            out.append(repr(v))
+        elif kind == 2:
+            out.append(f"{v:.{rng.randint(0, 21)}e}")
+        elif kind == 3:
+            w = float(rng.uniform(-1e6, 1e6))
+            out.append(f"{w:.{rng.randint(0, 12)}f}")
+        elif kind == 4:
+            out.append(f"{v:.{rng.randint(0, 21)}E}".replace("E+", "E"))
+        else:
+            out.append("  " + repr(float(rng.normal(0, 1e4))) + " ")
+    return out[:count]
+
+
+def _date_texts() -> List[str]:
+    """Every date of 1900-2100, as yyyy-mm-dd and as yyyy-m-d where that
+    differs."""
+    import datetime
+    out = []
+    day = datetime.date(1900, 1, 1)
+    one = datetime.timedelta(days=1)
+    while day.year <= 2100:
+        two = day.isoformat()
+        out.append(two)
+        short = f"{day.year:04d}-{day.month}-{day.day}"
+        if short != two:
+            out.append(short)
+        day += one
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def cast_pools() -> Dict[str, list]:
+    """Each column's pool (its codes index it): the text pools of
+    tests/test_cast_strings.py (:17-48), each but ``sb`` with generated
+    texts after them, and the numeric columns' values."""
+    pools = {}
+    rng = np.random.RandomState(16)
+    pools["si"] = CAST_INT_STRINGS + _int_texts(rng, CAST_GENERATED)
+    pools["sd"] = CAST_FLOAT_STRINGS + _double_texts(rng, CAST_GENERATED)
+    pools["sdt"] = CAST_DATE_STRINGS + _date_texts()
+    pools["sb"] = list(CAST_BOOL_STRINGS)
+    m = CAST_VALUES
+    small = np.arange(-32, 32)
+    longs = rng.randint(-2**63, 2**63 - 1, m, dtype=np.int64)
+    longs[:len(_LONG_EDGES)] = _LONG_EDGES
+    longs[64:128] = small
+    ints = rng.randint(-2**31, 2**31 - 1, m, dtype=np.int64)
+    ints[:4] = [-2**31, 2**31 - 1, 0, -1]
+    ints[64:128] = small
+    days = rng.randint(-719162, 2932897, m)
+    days[:len(_DAY_EDGES)] = _DAY_EDGES
+    xs = np.concatenate([_DOUBLE_EDGES, rng.uniform(-1e10, 1e10, m // 2),
+                         rng.normal(0, 1e3, m)])[:m]
+    pools["l"] = longs
+    pools["i"] = ints.astype(np.int32)
+    pools["d"] = days.astype(np.int32)
+    pools["x"] = xs.astype(np.float64)
+    return pools
+
+
+#: the columns drawn as codes into ``cast_pools``
+CAST_CODED = ("si", "sd", "sdt", "sb", "l", "i", "d", "x")
+
+
+def cast_columns(n: int, seed: int = 16
+                 ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """(values, validity) per column: the coded columns as int32 codes
+    into ``cast_pools``, ``b`` BOOLEAN, ``y`` BYTE, ``h`` SHORT and ``k``
+    the row's index; about 10% nulls in every column but ``k`` (and a
+    text pool's None)."""
+    rng = np.random.RandomState(seed)
+    pools = cast_pools()
+    data = {c: rng.randint(0, len(pools[c]), n).astype(np.int32)
+            for c in CAST_CODED}
+    data["b"] = rng.rand(n) < 0.5
+    data["y"] = rng.randint(-128, 128, n).astype(np.int8)
+    data["h"] = rng.randint(-2**15, 2**15, n).astype(np.int16)
+    data["k"] = np.arange(n, dtype=np.int64)
+    validity = {c: rng.rand(n) >= 0.1 for c in CAST_SCHEMA.names}
+    validity["k"][:] = True
+    for c in ("si", "sd", "sdt", "sb"):
+        present = np.array([v is not None for v in pools[c]])
+        validity[c] &= present[data[c]]
+    return data, validity
+
+
+def cast_batches(data: Dict[str, np.ndarray],
+                 validity: Dict[str, np.ndarray], device,
+                 batch_rows: int = 1 << 20) -> List[ColumnarBatch]:
+    """``cast_columns``' columns as device batches of ``batch_rows``."""
+    pools = cast_pools()
+    n = len(data["k"])
+    out = []
+    for o in range(0, n, batch_rows):
+        cut = {}
+        for c in CAST_SCHEMA.names:
+            vals, ok = data[c][o:o + batch_rows], validity[c][o:o + batch_rows]
+            if CAST_SCHEMA.dtype_of(c) == T.STRING:
+                cut[c] = pool_strings(vals, ok, pools[c])
+            elif c in CAST_CODED:
+                cut[c] = (pools[c][vals], ok)
+            else:
+                cut[c] = (vals, ok)
+        out.append(batch_from_numpy(cut, CAST_SCHEMA, device))
+    return out
+
+
+def casts_parse(df, E=PE, T_=T):
+    """C1: the eight parse casts in one select."""
+    C, c = E.Cast, E.col
+    return df.select(
+        c("k"), C(c("si"), T_.INT).alias("p_int"),
+        C(c("si"), T_.LONG).alias("p_long"),
+        C(c("si"), T_.SHORT).alias("p_short"),
+        C(c("si"), T_.BYTE).alias("p_byte"),
+        C(c("sd"), T_.DOUBLE).alias("p_double"),
+        C(c("sd"), T_.FLOAT).alias("p_float"),
+        C(c("sdt"), T_.DATE).alias("p_date"),
+        C(c("sb"), T_.BOOLEAN).alias("p_bool"))
+
+
+def casts_format(df, E=PE, T_=T):
+    """C2: LONG, INT, DATE and BOOLEAN to STRING."""
+    C, c = E.Cast, E.col
+    return df.select(c("k"), C(c("l"), T_.STRING).alias("f_long"),
+                     C(c("i"), T_.STRING).alias("f_int"),
+                     C(c("d"), T_.STRING).alias("f_date"),
+                     C(c("b"), T_.STRING).alias("f_bool"))
+
+
+def casts_numeric(df, E=PE, T_=T):
+    """C3: the numeric lattice, BYTE / SHORT promotion, COALESCE over a
+    parse and IN with a null in the list."""
+    C, c = E.Cast, E.col
+    return df.select(
+        c("k"), C(c("x"), T_.INT).alias("x_int"),
+        C(c("x"), T_.LONG).alias("x_long"), C(c("l"), T_.INT).alias("l_int"),
+        C(c("i"), T_.DOUBLE).alias("i_double"),
+        C(c("b"), T_.INT).alias("b_int"),
+        C(c("i"), T_.BOOLEAN).alias("i_bool"),
+        (c("y") + c("i")).alias("y_plus_i"), (c("y") > 1).alias("y_gt_1"),
+        (c("h") * c("x")).alias("h_times_x"),
+        E.Coalesce(C(c("si"), T_.INT), E.lit(0)).alias("si_or_0"),
+        E.In(c("i"), [1, 2, None]).alias("i_in"))
+
+
+def casts_ingest(df, E=PE, T_=T):
+    """C4: the rows whose si parses as LONG, grouped by sdt as a DATE: the
+    sum of sd as a DOUBLE, COUNT(*), and the rows where l does not come
+    back from its text (0)."""
+    C, c = E.Cast, E.col
+    back = E.EqualNullSafe(C(C(c("l"), T_.STRING), T_.LONG), c("l"))
+    return df.filter(C(c("si"), T_.LONG).is_not_null()).select(
+        C(c("sdt"), T_.DATE).alias("dt"), C(c("sd"), T_.DOUBLE).alias("v"),
+        E.If(back, E.lit(0), E.lit(1)).alias("lost")).group_by("dt").agg(
+        E.sum_("v").alias("sv"), E.count().alias("c"),
+        E.sum_("lost").alias("lost"))
+
+
+#: C1-C3 (an output row per input row) and C4 (grouped)
+CAST_ROW_QUERIES = {f.__name__: f for f in (
+    casts_parse, casts_format, casts_numeric)}
+CAST_AGG_QUERIES = {f.__name__: f for f in (casts_ingest,)}
+CAST_QUERIES = {**CAST_ROW_QUERIES, **CAST_AGG_QUERIES}

@@ -190,11 +190,14 @@ DOUBLE = DoubleType()
 DATE = DateType()
 STRING = StringType()
 
-_NUMERIC_WIDEN_ORDER = [INT, LONG, DOUBLE]
+#: the reference's widening order (``types.py:336``)
+_NUMERIC_WIDEN_ORDER = [BYTE, SHORT, INT, LONG, FLOAT, DOUBLE]
 
 
 def numeric_promote(a: DataType, b: DataType) -> DataType:
-    """Spark's binary-arithmetic promotion for non-decimal numeric types."""
+    """Spark's binary-arithmetic promotion for non-decimal numeric types
+    (``numeric_promote`` :354): the later of the two in BYTE, SHORT, INT,
+    LONG, FLOAT, DOUBLE."""
     if a == b:
         return a
     if a not in _NUMERIC_WIDEN_ORDER or b not in _NUMERIC_WIDEN_ORDER:

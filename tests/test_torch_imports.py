@@ -776,3 +776,66 @@ def test_string_slice_wrappers_raise_off_the_cpu_without_cuda(call):
     with pytest.raises(ValueError, match="expected cuda"):
         call(S)
     assert dict(_lib.LAUNCHES) == before
+
+
+def test_cast_slice_modules_are_covered():
+    """The cast slice's modules (the string cast kernels' wrappers, the
+    civil-date copy, the casts, the predicates, the planner's tag, the
+    held cast table) are in the scans above and import nothing of JAX; C1
+    and C2's entry points are in their built source and bound, each
+    kernel has its own launch counter, and the DSL exports the new
+    expressions."""
+    names = ("spark_rapids_tpu_torch.kernels.cast_strings",
+             "spark_rapids_tpu_torch.expressions.datetime",
+             "spark_rapids_tpu_torch.expressions.casts",
+             "spark_rapids_tpu_torch.expressions.predicates",
+             "spark_rapids_tpu_torch.planner.overrides",
+             "spark_rapids_tpu_torch.testing.held")
+    for name in names:
+        assert name in PORT_MODULES
+        path = ROOT / (name.replace(".", "/") + ".py")
+        assert not {m for m in _imported_roots(path) if m in FORBIDDEN}
+    assert "cast_strings.cu" in _lib.SOURCES
+    source = (_lib.CSRC / "cast_strings.cu").read_text()
+    for entry in ("srt_cast_pow10_load", "srt_string_parse",
+                  "srt_string_format_count", "srt_string_format_write"):
+        assert entry in source and entry in _lib._SIGNATURES
+    for kernel in ("parse_kernel", "format_count_kernel",
+                   "format_write_kernel", "__constant__ double kPow10",
+                   '#include "scan.cuh"'):
+        assert kernel in source
+    code = "\n".join(line.split("//")[0] for line in source.splitlines())
+    assert "pow(" not in code   # 10**e comes from the table
+    from spark_rapids_tpu_torch.kernels import cast_strings as CS
+    from spark_rapids_tpu_torch.kernels import strings as SS
+    assert len({CS.PARSE, CS.FORMAT, SS.ROW_SCAN, SS.DFA_MATCH, SS.ASSEMBLE,
+                SS.CASE_MAP, SS.COUNTER}) == 7
+    from spark_rapids_tpu_torch import expressions as E
+    for fn in ("Cast", "Coalesce", "EqualNullSafe", "In", "IsNotNull",
+               "IsNull"):
+        assert hasattr(E, fn) and fn in E.__all__
+    for sugar in ("cast", "is_null", "is_not_null"):
+        assert callable(getattr(E.col("x"), sugar))
+    from spark_rapids_tpu_torch.testing import held
+    assert len(held.CAST_QUERIES) == 4
+
+
+@pytest.mark.parametrize("call", [
+    lambda C: C.parse_integral(_string_meta()),
+    lambda C: C.parse_double(_string_meta()),
+    lambda C: C.parse_date(_string_meta()),
+    lambda C: C.parse_bool(_string_meta()),
+    lambda C: C.long_to_string(_meta(torch.int64), _meta(torch.bool)),
+    lambda C: C.date_to_string(_meta(torch.int32), _meta(torch.bool)),
+    lambda C: C.bool_to_string(_meta(torch.bool), _meta(torch.bool)),
+], ids=["parse_integral", "parse_double", "parse_date", "parse_bool",
+        "long_to_string", "date_to_string", "bool_to_string"])
+def test_cast_slice_wrappers_raise_off_the_cpu_without_cuda(call):
+    """As ``test_join_slice_wrappers_raise_off_the_cpu_without_cuda``, for
+    C1 (``string_parse``: each parse) and C2 (``string_format``: each
+    format): no plain version off the CPU, no launch counted."""
+    from spark_rapids_tpu_torch.kernels import cast_strings as C
+    before = dict(_lib.LAUNCHES)
+    with pytest.raises(ValueError, match="expected cuda"):
+        call(C)
+    assert dict(_lib.LAUNCHES) == before
