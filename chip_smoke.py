@@ -215,14 +215,15 @@ Phases (any failure raises and the script exits non-zero):
      searchsorted, the return counts); the main-path run is traced for
      the card's busy time (no run of its own: q72 takes ~25 s), then
      timed by one more run (so is q14a's: the script's time limit);
- 10. q14a, q5 and the semi_anti path at TPC-DS SF10 in a session of 100
-     shuffle partitions with the coalesced reader off: the channel sales (store 28,800,991 rows, catalog
+ 10. q14a, q5 and the semi_anti path at TPC-DS SF10 in a session of 64
+     shuffle partitions (100 until slice 17, 200 until 15) with the
+     coalesced reader off: the channel sales (store 28,800,991 rows, catalog
      14,401,261, web 7,197,566) and returns (2,875,432, 1,439,749 and
      719,217), six and five columns, 4 partitions each, all on the card;
      item 102,000 rows, date_dim 2,190.  q14a runs with its scalar
      subquery live: the card's mean price must agree with numpy's within
      1e-12 relative with no price between the two; its nine semi joins
-     must be shuffled joins that took the streamed probe in all 100
+     must be shuffled joins that took the streamed probe in all 64
      partitions; its rows must equal an independent numpy evaluation
      (item triples packed into int64, the semi joins as np.isin, the
      rollup in integer cents) in order, counts exact, sums within 1e-9.
@@ -365,7 +366,33 @@ Phases (any failure raises and the script exits non-zero):
      profiled.  Phase 3 holds C1 (``string_parse``) and C2
      (``string_format``) against their plain versions at n = 1,048,576,
      1,000,003 and 0 and on a slice, rows of hundreds of bytes included;
- 22. prints the kernels summary line, then the result line last.
+ 22. the held dates and hashes (``testing/held.py`` ``date_columns``:
+     tests/test_timezone.py's ts over 1950-2090, a quarter near its DST
+     edges, 10% null; tests/test_math_datetime.py's d, i and x;
+     tests/test_hashing_sketches.py's l and its word pool with rows of
+     33-200 bytes; f FLOAT with NaN and +-0.0; m INT; MIN beside -1 in
+     one row in 1,000) at 7,501,518 rows in batches of 1,048,576, 16
+     partitions, and a 65,536-row TIMESTAMP dimension: D1
+     from_utc_timestamp / to_utc_timestamp in America/Los_Angeles,
+     Asia/Kolkata and Australia/Lord_Howe; D2 year, month, hour and the
+     cast to DATE of ts, and GROUP BY the hour, in a session zoned
+     America/Los_Angeles; D3 the date functions; D4 xxhash64, hash and
+     hive_hash, GROUP BY and ORDER BY ts and the join on ts; D5 %, unary
+     minus, div, abs, nullif, nvl2, greatest and least.  Each run to its
+     device batches (the join collects its one row), its columns against
+     answers independent of the port (numpy's calendar and integer
+     arithmetic; zoneinfo a day at a time for whole columns, and per row
+     over a fixed sample of 65,536 rows; the Python hash oracles over the
+     sample) and against the same plan run with T1, T2, H1 and H2's plain
+     versions (``plain_dates``, bit for bit); with its launches, timed and
+     profiled.  Phase 3 holds T1 and T2 (``utc_to_local``,
+     ``local_to_utc``) in the three zones and UTC over every transition's
+     edges, and H1 and H2 (``xxhash64``, ``hive_hash``) and murmur3's
+     FLOAT / TIMESTAMP kinds over (INT, LONG, DOUBLE, FLOAT, TIMESTAMP,
+     STRING), at n = 1,048,576, 1,000,003 and 0 and on a slice, against
+     their plain versions, and times the sort's F64 kind (the port of
+     ``f64_injective_u64``) beside ``torch.sort``;
+ 23. prints the kernels summary line, then the result line last.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -409,6 +436,7 @@ from spark_rapids_tpu_torch.kernels import reduction as R  # noqa: E402
 from spark_rapids_tpu_torch.kernels import selection as S  # noqa: E402
 from spark_rapids_tpu_torch.kernels import sort as SK  # noqa: E402
 from spark_rapids_tpu_torch.kernels import strings as SS  # noqa: E402
+from spark_rapids_tpu_torch.kernels import timezone as TZ  # noqa: E402
 from spark_rapids_tpu_torch.kernels import window as WK  # noqa: E402
 from spark_rapids_tpu_torch.plan.engine import GpuEngine  # noqa: E402
 from spark_rapids_tpu_torch.plan.execs.exchange import (  # noqa: E402
@@ -420,6 +448,7 @@ from spark_rapids_tpu_torch.plan.fused import (  # noqa: E402
 from spark_rapids_tpu_torch import types as T  # noqa: E402
 from spark_rapids_tpu_torch.regex import compile_regex  # noqa: E402
 from spark_rapids_tpu_torch.testing import held, tpcds, tpch  # noqa: E402
+from spark_rapids_tpu_torch.testing import hashes as PH  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 # no integer peak is published beside the tensor-core rates: the f32 rate
@@ -552,6 +581,12 @@ KERNELS = {
                      "spark_rapids_tpu/kernels/cast_strings.py:52"),
     "string_format": ("csrc/cast_strings.cu",
                       "spark_rapids_tpu/kernels/cast_strings.py:305"),
+    "utc_to_local": ("csrc/timezone.cu",
+                     "spark_rapids_tpu/kernels/timezone.py:74"),
+    "local_to_utc": ("csrc/timezone.cu",
+                     "spark_rapids_tpu/kernels/timezone.py:84"),
+    "xxhash64": ("csrc/hash.cu", "spark_rapids_tpu/kernels/hash.py:529"),
+    "hive_hash": ("csrc/hash.cu", "spark_rapids_tpu/kernels/hash.py:696"),
 }
 FUSE_OFF = {"spark.rapids.sql.tpu.fuseStages": "false"}
 # fused (the default), q6's filter and partial sum are one kernel a batch:
@@ -1142,8 +1177,12 @@ def check_sort(rng, dev, shapes, summary) -> None:
               [SK.SortOrder(True, False), SK.SortOrder(False, True)],
               "two keys")
     long_col = key_column(rng, N, T.LONG, N, dev)
+    # the F64 kind (f64_injective_u64's port) at the q1 key's row count
+    f64_col = key_column(rng, shapes["key"].num_rows, T.DOUBLE,
+                         shapes["key"].num_rows, dev, null_frac=0.0)
     for label, col in (("n_long_nulls", long_col),
-                       ("q1_partial", shapes["key"])):
+                       ("q1_partial", shapes["key"]),
+                       ("f64_injective_u64", f64_col)):
         hold_sort([col], asc, f"the timed {label} key")
         n = col.num_rows
         batch = ColumnarBatch((col,), n, Schema(("k",), (col.dtype,)))
@@ -4468,6 +4507,7 @@ def phase_kernels(dev, tables) -> dict:
     check_join_slice(rng, dev, summary)
     check_string_functions(rng, dev, summary)
     check_cast_strings(rng, dev, summary)
+    check_date_kernels(rng, dev, summary)
     torch.cuda.synchronize()
     return summary
 
@@ -5499,10 +5539,11 @@ CHANNEL_RETURNS_ROWS = {"store": SR_ROWS, "catalog": CR_ROWS,
                         "web": tpcds.SF10_WEB_RETURNS_ROWS}
 CHANNEL_SEEDS = {"store": (41, 19), "catalog": (43, 20), "web": (47, 21)}
 # q14a, q5 and semi_anti keep phase 9's former session
-# 100 shuffle partitions: at 200 the phase took ~235 s of the script's
+# 64 shuffle partitions: at 200 the phase took ~235 s of the script's
 # 1045 s on an H100 80GB HBM3 at 700 W (its host paces it: 528,723
-# device activities, 1,800 several-key builds a run)
-Q14A_PARTITIONS = 100
+# device activities, 1,800 several-key builds a run); at 100 the script
+# took 927.3 s, before phase 22 was added
+Q14A_PARTITIONS = 64
 Q14A_CONF = {"spark.sql.shuffle.partitions": str(Q14A_PARTITIONS),
              "spark.rapids.sql.adaptive.coalescePartitions.enabled": "false"}
 Q14A_KERNELS = ("join_multi_probe_semi", "join_expand_left_only",
@@ -5675,8 +5716,8 @@ def semi_anti_query(ss, ws, item, dd, month):
 
 def phase_channel_data(dev, tables):
     """The three channels' sales and returns on the card, 4 partitions of
-    1,048,576-row batches each, in a session of 100 shuffle partitions
-    with the coalesced reader off; item and date_dim; the numpy
+    1,048,576-row batches each, in a session of Q14A_PARTITIONS shuffle
+    partitions with the coalesced reader off; item and date_dim; the numpy
     results."""
     t0 = time.perf_counter()
     ref = ChannelNumpy(tables)
@@ -8799,6 +8840,667 @@ def phase_casts(df, ans: CastAnswers) -> dict:
     return by_path
 
 
+# -- phase 3: the time-zone shifts (T1, T2) and the hashes (H1, H2) ---------
+
+TZ_EDGE_STEPS = (-3_600_000_000, -1_000_000, -1, 0, 1, 1_000_000,
+                 3_600_000_000)
+
+
+def tz_instants(rng, n: int, tz: str, dev) -> torch.Tensor:
+    """n int64 microseconds: the held table's ts, then every transition of
+    the zone's table and the steps around it (read as an instant and as a
+    wall time), the table's ends and the far past and future."""
+    data, _ = held.date_columns(n, DATE_SEED)
+    x = data["ts"].copy()
+    trans, offs = TZ.zone_table(tz)
+    edges = [(b + o * side) * 1_000_000 + d
+             for b, o in zip(trans[1:].tolist(), offs[1:].tolist())
+             for side in (0, 1) for d in TZ_EDGE_STEPS]
+    edges += [-2**62, 2**62, -1, 0, 1, -2208988800 * 10**6 - 1,
+              4102444800 * 10**6 + 1]
+    k = min(len(edges), n)
+    x[rng.choice(n, k, replace=False)] = np.array(edges[:k], np.int64)
+    return torch.from_numpy(x).to(dev)
+
+
+def hold_shift(name: str, x: torch.Tensor, tz: str, what: str) -> None:
+    fn = (TZ.utc_to_local_micros if name == TZ.UTC_TO_LOCAL
+          else TZ.local_to_utc_micros)
+    hold(name, [(fn(x, tz), TZ._PLAIN[name](x, TZ.device_table(tz,
+                                                                 x.device)))],
+         f"{what} {tz}")
+
+
+def hash_columns(rng, n: int, dev) -> list:
+    """(INT, LONG, DOUBLE, FLOAT, TIMESTAMP, STRING) with the types'
+    extremes, NaN, +-0.0 and +-inf, strings of 0-200 bytes, 10% nulls."""
+    def valid():
+        return rng.rand(n) >= 0.1
+    i32 = rng.randint(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    i64 = rng.randint(-2**63, 2**63 - 1, n, dtype=np.int64)
+    f64 = rng.randn(n) * 1e3
+    f32 = rng.randn(n).astype(np.float32)
+    m = min(n, 6)
+    i32[:m] = [-2**31, 2**31 - 1, 0, -1, 1, 7][:m]
+    i64[:m] = [-2**63, 2**63 - 1, 0, -1, 1, 7][:m]
+    f64[:m] = [np.nan, 0.0, -0.0, np.inf, -np.inf, 5e-324][:m]
+    f32[:m] = [np.nan, 0.0, -0.0, np.inf, -np.inf, 1e-45][:m]
+    codes = rng.randint(0, len(held.DATE_POOL), n)
+    present = np.array([w is not None for w in held.DATE_POOL])
+    s = DeviceColumn.from_string_buffers(*held.pool_strings(
+        codes, present[codes] & valid(), held.DATE_POOL), dev)
+    return [DeviceColumn.from_numpy(i32, T.INT, valid(), dev),
+            DeviceColumn.from_numpy(i64, T.LONG, valid(), dev),
+            DeviceColumn.from_numpy(f64, T.DOUBLE, valid(), dev),
+            DeviceColumn.from_numpy(f32, T.FLOAT, valid(), dev),
+            DeviceColumn.from_numpy(i64 // 1000, T.TIMESTAMP, valid(), dev),
+            s]
+
+
+def hold_hashes(cols, what: str) -> None:
+    hold(HK.XXHASH64, [(HK.xxhash64(cols), HK.xxhash64_plain(cols))], what)
+    hold(HK.HIVE_HASH, [(HK.hive_hash(cols), HK.hive_hash_plain(cols))],
+         what)
+    hold("murmur3", [(HK.murmur3_hash(cols), HK.murmur3_hash_plain(cols))],
+         what)
+
+
+def time_date_kernels(dev, summary) -> None:
+    """T1 and T2 over the first 1,048,576 rows of phase 22's ts in
+    America/Los_Angeles (library: torch.searchsorted, the search alone),
+    H1 as D4's xxhash64(i, l, x, s) and H2 as its hive_hash(i, l, x, s,
+    ts) on phase 22's first batch."""
+    data, validity = held.date_columns(N, DATE_SEED)
+    b = held.date_batches(data, validity, dev, N)[0]
+    ts = b.column("ts").data
+    tz = held.SESSION_ZONE
+    table = TZ.device_table(tz, dev)
+    secs = torch.div(ts, 1_000_000, rounding_mode="floor")
+    for name, fn, keys in (
+            (TZ.UTC_TO_LOCAL, TZ.utc_to_local_micros, table.transitions),
+            (TZ.LOCAL_TO_UTC, TZ.local_to_utc_micros, table.wall_old_end)):
+        hold_shift(name, ts, tz, "the timed ts")
+        nbytes = 16 * N + 24 * table.entries
+        line = {"kernel": name, "shape": "d2_ts_la", "n": N,
+                "entries": table.entries, **measure(
+                    lambda fn=fn: fn(ts, tz),
+                    lambda name=name: TZ._PLAIN[name](ts, table),
+                    lambda keys=keys: torch.searchsorted(keys, secs,
+                                                         right=True),
+                    nbytes)}
+        emit(line)
+        summary[name] = summarize(line, nbytes)
+    xx_cols = [b.column(c) for c in ("i", "l", "x", "s")]
+    hv_cols = xx_cols + [b.column("ts")]
+    for name, cols, fn, plain, out in (
+            (HK.XXHASH64, xx_cols, HK.xxhash64, HK.xxhash64_plain, 8),
+            (HK.HIVE_HASH, hv_cols, HK.hive_hash, HK.hive_hash_plain, 4)):
+        hold(name, [(fn(cols), plain(cols))], "the timed D4 columns")
+        nbytes = out * N + sum(
+            c.validity.numel() + (4 * (N + 1) + int(c.offsets[-1])
+                                  if c.is_string else c.data.nbytes)
+            for c in cols)
+        line = {"kernel": name, "shape": "d4_columns", "n": N,
+                "columns": len(cols), **measure(
+                    lambda fn=fn, cols=cols: fn(cols),
+                    lambda plain=plain, cols=cols: plain(cols), None, nbytes)}
+        emit(line)
+        summary[name] = summarize(line, nbytes)
+
+
+def check_date_kernels(rng, dev, summary) -> None:
+    """T1 and T2 in the three zones of phase 22 (and UTC) at n = 1,048,576,
+    1,000,003 and 0 over phase 22's ts with every transition's edges;
+    H1, H2 and murmur3's FLOAT and TIMESTAMP kinds over (INT, LONG,
+    DOUBLE, FLOAT, TIMESTAMP, STRING) at the same sizes, on a slice whose
+    string offsets start past 0, one column at a time and chained; all
+    bit for bit against their plain versions on the card.  Then each
+    timed at phase 22's one-batch shapes."""
+    for n in (N, RAGGED, 0):
+        t = time.perf_counter()
+        for tz in held.DATE_ZONES + ("UTC",):
+            x = tz_instants(rng, n, tz, dev) if n else torch.zeros(
+                0, dtype=torch.int64, device=dev)
+            for name in (TZ.UTC_TO_LOCAL, TZ.LOCAL_TO_UTC):
+                hold_shift(name, x, tz, f"n={n}")
+        cols = hash_columns(rng, max(n, 1), dev)
+        if n == 0:
+            cols = [c.slice_rows(0, 0) for c in cols]
+        hold_hashes(cols, f"n={n} chained")
+        for j, c in enumerate(cols):
+            hold_hashes([c], f"n={n} column {j} ({c.dtype!r})")
+        if n == RAGGED:
+            part = [c.slice_rows(1_000, n - 777) for c in cols]
+            require(int(part[-1].offsets[0]) > 0, "the slice starts at 0")
+            hold_hashes(part, f"n={part[0].num_rows} sliced")
+        torch.cuda.synchronize()
+        emit({"phase": "date_kernel_checks", "n": n,
+              "seconds": time.perf_counter() - t})
+    time_date_kernels(dev, summary)
+
+
+# -- phase 22: the held dates and hashes --------------------------------------
+
+DATE_ROWS = SF10_ROWS // 8       # 7,501,518
+DATE_SEED = 8                    # tests/test_timezone.py's df seed
+DATE_PARTITIONS = 16
+DATE_SAMPLE = 1 << 16            # rows held against per-row Python
+#: each held date query's kernels that its main path must launch
+DATE_PHASE_KERNELS = {
+    "dates_tz_shift": (TZ.UTC_TO_LOCAL, TZ.LOCAL_TO_UTC),
+    "dates_session": (TZ.UTC_TO_LOCAL,),
+    "dates_local_hour": (TZ.UTC_TO_LOCAL,),
+    "dates_functions": (),
+    "dates_hashes": (HK.XXHASH64, HK.HIVE_HASH, "murmur3", "hash_string"),
+    "dates_arith": (),
+    "dates_group_ts": ("murmur3", "sort"),
+    "dates_order_ts": ("sort",),
+    "dates_join_ts": ("join_probe",),
+}
+_MICROS_PER_DAY = 86_400_000_000
+_UTC = datetime.timezone.utc
+
+
+@contextlib.contextmanager
+def plain_dates():
+    """T1, T2, H1 and H2 replaced by their plain versions (on the card),
+    for one comparison run: each wrapper's CUDA half answers with its
+    plain version."""
+    saved = TZ._shift_cuda, HK._xxhash64_cuda, HK._hive_hash_cuda
+    TZ._shift_cuda = lambda name, micros, table: TZ._PLAIN[name](micros,
+                                                                  table)
+    HK._xxhash64_cuda = HK.xxhash64_plain
+    HK._hive_hash_cuda = HK.hive_hash_plain
+    try:
+        yield
+    finally:
+        TZ._shift_cuda, HK._xxhash64_cuda, HK._hive_hash_cuda = saved
+
+
+def py_offset(secs: int, zone) -> int:
+    """The zone's UTC offset (seconds) at the instant, by zoneinfo."""
+    dt = datetime.datetime.fromtimestamp(secs, _UTC).astimezone(zone)
+    return int(dt.utcoffset().total_seconds())
+
+
+def py_wall_to_utc(wall_secs: int, zone) -> int:
+    """A wall time's UTC second by zoneinfo with fold=0: the earlier
+    offset in an overlap, the offset before a gap (java.time's rules)."""
+    naive = datetime.datetime(1970, 1, 1) + datetime.timedelta(
+        seconds=wall_secs)
+    return int(naive.replace(tzinfo=zone).timestamp())
+
+
+def by_range(values: np.ndarray, fn):
+    """fn (a function of an int64 array, returning arrays) over every
+    integer between values' least and greatest, gathered at values: cheap
+    where values span a small range (days, months) but are many."""
+    lo = int(values.min()) if len(values) else 0
+    hi = int(values.max()) if len(values) else 0
+    out = fn(np.arange(lo, hi + 1, dtype=np.int64))
+    idx = values - lo
+    return tuple(a[idx] for a in out) if isinstance(out, tuple) else out[idx]
+
+
+def _civil_np(days: np.ndarray):
+    dd = days.astype("datetime64[D]")
+    month = dd.astype("datetime64[M]")
+    year = dd.astype("datetime64[Y]").astype(np.int64) + 1970
+    return (year, month.astype(np.int64) % 12 + 1,
+            (dd - month.astype("datetime64[D]")).astype(np.int64) + 1)
+
+
+def days_np(days: np.ndarray):
+    """(year, month, day of month) of epoch days, by numpy's calendar."""
+    return by_range(np.asarray(days, np.int64), _civil_np)
+
+
+def month_days_np(year, month) -> np.ndarray:
+    """Epoch days of the first of each (year, month)."""
+    months = (np.asarray(year, np.int64) - 1970) * 12 + np.asarray(
+        month, np.int64) - 1
+    return by_range(months, lambda m: m.astype("datetime64[M]").astype(
+        "datetime64[D]").astype(np.int64))
+
+
+def zone_shift_np(micros: np.ndarray, tz: str, to_local: bool) -> np.ndarray:
+    """The whole column's shift by zoneinfo, independent of the port: the
+    offset at the first and last second of each month the rows fall in,
+    then of each day of a month whose two differ, then of each second of a
+    day whose two differ (a transition day).  For to_local=False the
+    seconds are wall seconds and the offset is wall minus UTC."""
+    from zoneinfo import ZoneInfo
+    zone = ZoneInfo(tz)
+    secs = np.floor_divide(micros, 1_000_000)
+
+    def off_at(x: int) -> int:
+        return (py_offset(x, zone) if to_local
+                else x - py_wall_to_utc(x, zone))
+
+    days = np.floor_divide(secs, 86_400)
+    y, m, _ = days_np(days)
+    months = (y - 1970) * 12 + m - 1
+    off = np.empty(len(secs), np.int64)
+    todo = np.arange(len(secs))
+    for span in (months, days):
+        ids = span[todo]
+        lo = int(ids.min()) if len(ids) else 0
+        present = np.flatnonzero(np.bincount(ids - lo)) + lo
+        if span is months:
+            start = month_days_np(1970, present + 1) * 86_400
+            end = month_days_np(1970, present + 2) * 86_400 - 1
+        else:
+            start, end = present * 86_400, present * 86_400 + 86_399
+        first = np.array([off_at(int(a)) for a in start], np.int64)
+        last = np.array([off_at(int(b)) for b in end], np.int64)
+        lookup = np.zeros(int(present[-1]) - lo + 1 if len(present) else 1,
+                          np.int64)
+        lookup[present - lo] = np.arange(len(present))
+        slot = lookup[ids - lo]
+        flat = (first == last)[slot]
+        off[todo[flat]] = first[slot][flat]
+        todo = todo[~flat]
+    useconds, uinv = np.unique(secs[todo], return_inverse=True)
+    off[todo] = np.array([off_at(int(x)) for x in useconds], np.int64)[uinv]
+    return micros + off * 1_000_000 if to_local else micros - off * 1_000_000
+
+
+class DateAnswers:
+    """The held date table's answers, independent of the port: numpy's
+    calendar and integer arithmetic, zoneinfo (whole columns by day, and
+    per row over a fixed sample), the Python hash oracles over the
+    sample."""
+
+    def __init__(self, data, validity, dim):
+        self.d, self.v, self.dim = data, validity, dim
+        n = len(data["k"])
+        self.sample = np.random.RandomState(22).choice(
+            n, min(DATE_SAMPLE, n), replace=False)
+        t = time.perf_counter()
+        ts = data["ts"]
+        self.local = {tz: zone_shift_np(ts, tz, True)
+                      for tz in held.DATE_ZONES}
+        self.utc = {tz: zone_shift_np(ts, tz, False)
+                    for tz in held.DATE_ZONES}
+        self.seconds = time.perf_counter() - t
+
+    # -- D1 / D2 per row over the sample ---------------------------------
+
+    def check_sample_shifts(self, got: dict) -> None:
+        """got[(tz, to_local)]: the port's int64 values at the sample."""
+        from zoneinfo import ZoneInfo
+        ts, ok = self.d["ts"][self.sample], self.v["ts"][self.sample]
+        for tz in held.DATE_ZONES:
+            zone = ZoneInfo(tz)
+            for to_local in (True, False):
+                g = got[(tz, to_local)]
+                for r in np.flatnonzero(ok):
+                    x = int(ts[r])
+                    s, rem = divmod(x, 1_000_000)
+                    want = (x + py_offset(s, zone) * 1_000_000 if to_local
+                            else py_wall_to_utc(s, zone) * 1_000_000 + rem)
+                    require(int(g[r]) == want, f"dates_tz_shift {tz} "
+                            f"{'local' if to_local else 'utc'} row "
+                            f"{self.sample[r]}: {int(g[r])} != {want}")
+
+    def session_fields(self):
+        """D2's (year, month, hour, day) in the session zone, whole
+        column, and the sample's by zoneinfo per row."""
+        local = self.local[held.SESSION_ZONE]
+        day = np.floor_divide(local, _MICROS_PER_DAY)
+        y, m, _ = days_np(day)
+        hour = np.floor_divide(local, 3_600_000_000) % 24
+        return y, m, hour, day
+
+    def check_sample_session(self, y, m, h, day) -> None:
+        from zoneinfo import ZoneInfo
+        zone = ZoneInfo(held.SESSION_ZONE)
+        for r in self.sample[self.v["ts"][self.sample]]:
+            x = int(self.d["ts"][r])
+            dt = datetime.datetime.fromtimestamp(
+                x // 1_000_000, _UTC).astimezone(zone)
+            want = (dt.year, dt.month, dt.hour,
+                    (dt.date() - datetime.date(1970, 1, 1)).days)
+            require((int(y[r]), int(m[r]), int(h[r]), int(day[r])) == want,
+                    f"dates_session row {r}: {want}")
+
+    # -- D3 --------------------------------------------------------------
+
+    def functions(self) -> list:
+        """(values, validity) of each of held.date_exprs, in order."""
+        d = self.d["d"].astype(np.int64)
+        i = self.d["i"].astype(np.int64)
+        ts = self.d["ts"]
+        vd, vi, vt = self.v["d"], self.v["i"], self.v["ts"]
+        y, m, dom = days_np(d)
+        tday = np.floor_divide(ts, _MICROS_PER_DAY)
+        ty, tm, _ = days_np(tday)
+        doy = d - month_days_np(y, 1) + 1
+        # ISO week and make_date(y, m + 1, dom) by Python's calendar, once
+        # a distinct day
+        uniq, inv = np.unique(d, return_inverse=True)
+        epoch = datetime.date(1970, 1, 1)
+        week, made, made_ok = [], [], []
+        for x in uniq.tolist():
+            day = epoch + datetime.timedelta(days=x)
+            week.append(day.isocalendar()[1])
+            try:
+                made.append((datetime.date(day.year, day.month + 1, day.day)
+                             - epoch).days)
+                made_ok.append(True)
+            except ValueError:
+                made.append(0)
+                made_ok.append(False)
+        week = np.array(week)[inv]
+        made, made_ok = np.array(made)[inv], np.array(made_ok)[inv]
+        # add_months: the target month's first day plus the day, clamped
+        tgt = (y - 1970) * 12 + m - 1 + i
+        first = tgt.astype("datetime64[M]").astype("datetime64[D]")
+        nxt = (tgt + 1).astype("datetime64[M]").astype("datetime64[D]")
+        add_months = np.minimum(first.astype(np.int64) + dom - 1,
+                                nxt.astype(np.int64) - 1)
+        mfirst = month_days_np(y, m)
+        last_day = month_days_np(y + (m == 12), np.where(m == 12, 1, m + 1)) - 1
+        qm = ((m - 1) // 3) * 3 + 1
+        monday = d - (d + 3) % 7
+        delta = (1 - (d + 3) % 7) % 7
+        e = d + i
+        y2, m2, dom2 = days_np(e)
+
+        def month_len(yy, mm):
+            return month_days_np(yy + (mm == 12), np.where(mm == 12, 1,
+                                                           mm + 1)) - \
+                month_days_np(yy, mm)
+        whole = ((dom == month_len(y, m)) & (dom2 == month_len(y2, m2))) | \
+            (dom == dom2)
+        between = ((y - y2) * 12 + (m - m2)).astype(np.float64) + np.where(
+            whole, 0.0, (dom - dom2).astype(np.float64) / np.float64(31.0))
+        di = vd & vi
+        return [
+            (y, vd), (m, vd), (dom, vd), ((d + 4) % 7 + 1, vd), (doy, vd),
+            ((m + 2) // 3, vd), (ty, vt), (tm, vt),
+            (np.floor_divide(ts, 3_600_000_000) % 24, vt),
+            (np.floor_divide(ts, 60_000_000) % 60, vt),
+            (np.floor_divide(ts, 1_000_000) % 60, vt),
+            (d + i, di), (d - 30, vd), (d, vd), (add_months, di),
+            (last_day, vd), (week, vd), (made, vd & made_ok),
+            (month_days_np(y, 1), vd), (month_days_np(y, qm), vd),
+            (mfirst, vd), (monday, vd), (d + np.where(delta == 0, 7, delta),
+                                         vd),
+            (between, di),
+            (np.floor_divide(ts, 1_000_000), vt),
+            (np.floor_divide(ts, 1000), vt), (ts, vt),
+            (i * 1_000_000, vi), (i * 1000, vi), (ts, vt), (d, vd), (i, vi)]
+
+    # -- D5 --------------------------------------------------------------
+
+    def arith(self) -> list:
+        """(values, validity) of each of held.arith_exprs, in order."""
+        i, m, l, x, k = (self.d[c] for c in ("i", "m", "l", "x", "k"))
+        vi, vm, vl, vx = (self.v[c] for c in ("i", "m", "l", "x"))
+        i64, m64 = i.astype(np.int64), m.astype(np.int64)
+        neg1, zero = i64 == -1, i64 == 0
+        safe = np.where(neg1 | zero, 1, i64)
+        big = np.iinfo(np.int64).min
+        with np.errstate(all="ignore"):
+            rem_m = np.fmod(m64, safe)
+            la = np.where(l == big, 0, l)
+            rem_l = np.where(neg1, 0, np.sign(la) * (np.abs(la) % np.abs(safe)))
+            rem_x = x - np.trunc(x / 7.5) * 7.5
+            q_m = np.where(neg1, -m64, np.sign(m64) * np.sign(safe)
+                           * (np.abs(m64) // np.abs(safe)))
+            q_l = np.where(neg1, np.negative(l), np.sign(la) * np.sign(safe)
+                           * (np.abs(la) // np.abs(safe)))
+            neg_m = (-m64).astype(np.int32)
+            neg_l = np.negative(l)
+            abs_m = np.abs(m64).astype(np.int32)
+            abs_l = np.where(l == big, big, np.abs(l))
+
+        def extreme(a, va, b, vb, greater):
+            take = vb & (~va | ((b > a) if greater else (b < a)))
+            return np.where(take, b, a), va | vb
+
+        def fextreme(a, va, lit, greater):
+            nan = np.isnan(a)
+            if greater:
+                pick = np.where(nan | ~(lit > a), a, lit)
+            else:
+                pick = np.where(~nan & ~(lit < a), a, lit)
+            return np.where(va, pick, lit), np.ones_like(va)
+        ok = vi & vm
+        return [
+            (rem_m, ok & ~zero), (rem_l, vl & vi & ~zero), (rem_x, vx),
+            (neg_m, vm), (neg_l, vl), (-x, vx),
+            (q_m, ok & ~zero), (q_l, vl & vi & ~zero),
+            (abs_m, vm), (abs_l, vl), (np.abs(x), vx),
+            (i, vi & (i != 0)), (x, vx & (x != 0.0)),
+            (np.where(vx, i, m), np.where(vx, vi, vm)),
+            extreme(i, vi, m, vm, True), extreme(i, vi, m, vm, False),
+            extreme(l, vl, k, np.ones_like(vl), True),
+            extreme(l, vl, k, np.ones_like(vl), False),
+            fextreme(x, vx, 0.0, True), fextreme(x, vx, 1.5, False)]
+
+    # -- D4 --------------------------------------------------------------
+
+    def check_sample_hashes(self, xx, mm, hv, xf, xt) -> None:
+        """The port's hashes at the sample's rows (in the sample's order)
+        against the Python oracles."""
+        pool = held.DATE_POOL
+        for j, r in enumerate(self.sample):
+            def val(c, cast=int):
+                return cast(self.d[c][r]) if self.v[c][r] else None
+            s = pool[self.d["s"][r]] if self.v["s"][r] else None
+            i, l, x = val("i"), val("l"), val("x", float)
+            ts, f = val("ts"), val("f", float)
+            want = (PH.py_xxhash64_row([i, l, x, s], [T.INT, T.LONG, T.DOUBLE,
+                                                       T.STRING]),
+                    PH.py_murmur3_row([i, s], [T.INT, T.STRING]),
+                    PH.py_hive_hash_row([i, l, x, s, ts], [
+                        T.INT, T.LONG, T.DOUBLE, T.STRING, T.TIMESTAMP]),
+                    PH.py_xxhash64_row([f], [T.FLOAT]),
+                    PH.py_xxhash64_row([ts], [T.TIMESTAMP]))
+            got = tuple(int(a[j]) for a in (xx, mm, hv, xf, xt))
+            require(got == want, f"dates_hashes row {r}: {got} != {want}")
+
+    def ts_groups(self):
+        """(sorted distinct valid ts, their counts, the null count)."""
+        ok = self.v["ts"]
+        keys, counts = np.unique(self.d["ts"][ok], return_counts=True)
+        return keys, counts, int((~ok).sum())
+
+    def ts_order(self):
+        """ORDER BY ts, k with nulls first: (ts, validity, k)."""
+        ok = self.v["ts"]
+        order = np.lexsort((self.d["k"], np.where(ok, self.d["ts"], 0), ok))
+        return self.d["ts"][order], ok[order], self.d["k"][order]
+
+    def join(self) -> tuple:
+        keys = self.dim["ts"]
+        srt = np.argsort(keys)
+        skeys, sdv = keys[srt], self.dim["dv"][srt]
+        ts, ok = self.d["ts"], self.v["ts"]
+        pos = np.clip(np.searchsorted(skeys, ts), 0, len(skeys) - 1)
+        hit = ok & (skeys[pos] == ts)
+        return (int(hit.sum()), int(sdv[pos[hit]].sum()),
+                int(self.d["k"][hit].sum()))
+
+
+def host(col: DeviceColumn):
+    """(values, validity) of a fixed-width column on the host."""
+    return col.data.cpu().numpy(), col.validity.cpu().numpy()
+
+
+def check_against(name: str, col: DeviceColumn, k: np.ndarray, want,
+                  what: str) -> None:
+    """A column against (values, validity) over the input rows, in the
+    output's row order (its k): validity exactly, values where valid
+    bit for bit (NaN equal to NaN)."""
+    vals, ok = host(col)
+    wv, wok = want
+    wv = np.asarray(wv)[k]
+    wok = np.asarray(wok)[k]
+    require(np.array_equal(ok, wok), f"{name} {what}: validity differs "
+            f"at {np.flatnonzero(ok != wok)[:5]}")
+    a, b = vals[ok], wv[ok].astype(vals.dtype)
+    if a.dtype.kind == "f":
+        same = (a.view(np.int64 if a.itemsize == 8 else np.int32)
+                == b.view(np.int64 if b.itemsize == 8 else np.int32)) | (
+                    np.isnan(a) & np.isnan(b))
+    else:
+        same = a == b
+    require(bool(same.all()), f"{name} {what}: values differ at output "
+            f"rows {np.flatnonzero(ok)[~same][:5]}")
+
+
+def phase_date_data(dev):
+    """The held date table on the card (7,501,518 rows in batches of
+    1,048,576, 16 partitions), its dimension, two sessions (UTC and the
+    session zone), and the answers."""
+    t0 = time.perf_counter()
+    data, validity = held.date_columns(DATE_ROWS, DATE_SEED)
+    batches = held.date_batches(data, validity, dev, N)
+    dim = held.date_dimension(data, validity)
+    torch.cuda.synchronize()
+    upload = time.perf_counter() - t0
+    ans = DateAnswers(data, validity, dim)
+    resident = sum(t.nbytes for b in batches for c in b.columns
+                   for t in (c.data, c.validity) + (
+                       (c.offsets,) if c.is_string else ()))
+    emit({"phase": "date_data", "rows": DATE_ROWS, "batches": len(batches),
+          "partitions": DATE_PARTITIONS, "resident_bytes": resident,
+          "dimension_rows": len(dim["ts"]), "upload_seconds": upload,
+          "answer_seconds": ans.seconds,
+          "setup_seconds": time.perf_counter() - t0})
+    utc = GpuSession()
+    zoned = GpuSession({"spark.sql.session.timeZone": held.SESSION_ZONE})
+    dfs = {"utc": utc.create_dataframe(batches,
+                                       num_partitions=DATE_PARTITIONS),
+           "zoned": zoned.create_dataframe(batches,
+                                           num_partitions=DATE_PARTITIONS),
+           "dim": utc.create_dataframe([held.date_dimension_batch(dim,
+                                                                  dev)])}
+    return dfs, ans
+
+
+def check_date_rows(name: str, cols, names, ans: DateAnswers) -> None:
+    """D1-D5's row columns against the answers, by each row's k."""
+    by = dict(zip(names, cols))
+    k = by["k"].data.cpu().numpy()
+    pos = np.empty(len(k), np.int64)   # input row -> output row
+    pos[k] = np.arange(len(k))
+
+    def at_sample(nm):
+        return host(by[nm])[0][pos[ans.sample]]
+    if name == "dates_tz_shift":
+        got = {}
+        for j, tz in enumerate(held.DATE_ZONES):
+            for to_local, nm in ((True, f"local{j}"), (False, f"utc{j}")):
+                want = (ans.local if to_local else ans.utc)[tz]
+                check_against(name, by[nm], k, (want, ans.v["ts"]), nm)
+                got[(tz, to_local)] = at_sample(nm)
+        ans.check_sample_shifts(got)
+    elif name == "dates_session":
+        y, m, h, day = ans.session_fields()
+        for nm, vals in (("y", y), ("mo", m), ("h", h), ("day", day)):
+            check_against(name, by[nm], k, (vals, ans.v["ts"]), nm)
+        ans.check_sample_session(y, m, h, day)
+    elif name == "dates_functions":
+        for j, want in enumerate(ans.functions()):
+            check_against(name, by[f"r{j}"], k, want, f"r{j}")
+    elif name == "dates_arith":
+        for j, want in enumerate(ans.arith()):
+            check_against(name, by[f"a{j}"], k, want, f"a{j}")
+    elif name == "dates_hashes":
+        hashes = ("xx", "mm", "hv", "xf", "xt")
+        require(all(bool(by[nm].validity.all()) for nm in hashes),
+                "a hash is null")
+        ans.check_sample_hashes(*[at_sample(nm) for nm in hashes])
+
+
+def check_date_groups(name: str, cols, names, ans: DateAnswers) -> None:
+    """D2's hour counts, D4's ts groups and ts order against numpy."""
+    by = dict(zip(names, cols))
+    if name == "dates_order_ts":
+        ts, ok = host(by["ts"])
+        k = by["k"].data.cpu().numpy()
+        wts, wok, wk = ans.ts_order()
+        require(np.array_equal(ok, wok) and np.array_equal(k, wk)
+                and np.array_equal(ts[ok], wts[wok]),
+                "dates_order_ts: the order differs from numpy's")
+        return
+    if name == "dates_local_hour":
+        h, ok = host(by["h"])
+        n = by["n"].data.cpu().numpy()
+        _, _, hour, _ = ans.session_fields()
+        okt = ans.v["ts"]
+        want = np.bincount(hour[okt], minlength=24)
+        got = np.zeros(24, np.int64)
+        got[h[ok]] = n[ok]
+        require(np.array_equal(got, want) and int(n[~ok].sum())
+                == int((~okt).sum()) and int(ok.sum()) == 24,
+                "dates_local_hour: the hour counts differ from numpy's")
+        return
+    ts, ok = host(by["ts"])
+    n = by["n"].data.cpu().numpy()
+    keys, counts, nulls = ans.ts_groups()
+    order = np.argsort(ts[ok])
+    require(np.array_equal(ts[ok][order], keys)
+            and np.array_equal(n[ok][order], counts)
+            and int(n[~ok].sum()) == nulls and int((~ok).sum()) == 1,
+            "dates_group_ts: the groups differ from numpy's")
+
+
+def phase_dates(dfs, ans: DateAnswers) -> dict:
+    """D1-D5: each query's main path run to its device batches (traced,
+    its launches), its columns against the answers and against the same
+    plan run with T1, T2, H1 and H2's plain versions (bit for bit), then
+    timed (median of 3).  D4's join collects its one row."""
+    by_path = {}
+    nbatches = -(-DATE_ROWS // N)
+    queries = dict(held.DATE_ROW_QUERIES)
+    queries.update(held.DATE_AGG_QUERIES)
+    for name, build in queries.items():
+        path = f"held_{name}"
+        df = dfs["zoned" if name in ("dates_session", "dates_local_hour")
+                 else "utc"]
+        query = lambda build=build, df=df: build(df)  # noqa: E731
+        cols, launches, first_wall, profile = run_rows_path(
+            path, query, DATE_PHASE_KERNELS[name])
+        names = query().schema.names
+        t = time.perf_counter()
+        if name in held.DATE_ROW_QUERIES:
+            check_date_rows(name, cols, names, ans)
+        else:
+            check_date_groups(name, cols, names, ans)
+        check_s = time.perf_counter() - t
+        with plain_dates():
+            plain_cols = output_columns(run_batches(query()))
+        for nm, g, w in zip(names, cols, plain_cols, strict=True):
+            require(torch.equal(g.validity, w.validity)
+                    and torch.equal(bits(zeroed(g.data, g.validity)),
+                                    bits(zeroed(w.data, w.validity))),
+                    f"{path} {nm}: differs from the plain run")
+        timing = time_rows_path(path, query, profile, rows=DATE_ROWS)
+        emit({"phase": path, "rows": DATE_ROWS, "output_rows":
+              cols[0].num_rows, "output_columns": len(names),
+              "check_s": check_s, "plain_equal": True,
+              "first_wall_s": first_wall,
+              "activities_per_batch": per_batch(timing, nbatches),
+              **timing})
+        by_path[path] = launches
+    path = "held_dates_join_ts"
+    query = lambda _: held.dates_join_ts(dfs["utc"], dfs["dim"])  # noqa: E731
+    rows, plan, launches, first_wall, profile = run_phase_path(
+        path, query, DATE_PHASE_KERNELS["dates_join_ts"])
+    require(rows == [ans.join()], f"{path}: {rows} against numpy's "
+            f"{ans.join()}")
+    timing = time_path(path, query, None, DATE_ROWS, profile, runs=3)
+    emit({"phase": path, "rows": DATE_ROWS, "out": rows,
+          "first_wall_s": first_wall, **timing})
+    by_path[path] = launches
+    return by_path
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -8840,6 +9542,7 @@ def main() -> None:
     by_path.update(phase_joins(*phase_join_data(dev)))
     by_path.update(phase_strings(*phase_string_data(dev)))
     by_path.update(phase_casts(*phase_cast_data(dev)))
+    by_path.update(phase_dates(*phase_date_data(dev)))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         s = summary[name]

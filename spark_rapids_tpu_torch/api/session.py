@@ -5,6 +5,7 @@ Counterpart of ``spark_rapids_tpu/api/session.py`` (``TpuSession`` :95,
 ``_grouping_sets_agg`` :395-462, ``DataFrame`` :583, ``with_column`` :604,
 ``rollup`` :610, ``group_by`` :685, ``order_by`` :692, ``limit`` :704,
 ``union`` :707, ``join`` :744, ``collect`` :767, ``explain`` :824,
+``set_conf`` :124,
 ``_extract_windows`` :33), cut to the surface of the ported queries:
 filter, select and with_column (window expressions included), agg,
 group_by(...).agg, rollup(...).agg, join (inner, left, left semi and left
@@ -114,6 +115,11 @@ class GpuSession:
                 "which is not ported")
         self.device = resolve_device(device)
         initialize_memory(self.conf, self.device)
+
+    def set_conf(self, key: str, value) -> None:
+        """Set one key for the plans made after it (``set_conf`` :124);
+        ``spark.sql.session.timeZone`` is read by every later action."""
+        self.conf = self.conf.with_overrides(**{key: value})
 
     def create_dataframe(self, data, schema: Optional[Schema] = None,
                          num_partitions: int = 1) -> "DataFrame":

@@ -10,7 +10,12 @@ int64 unscaled value, read from and written to the low half of Arrow's
 ``columnar/arrow.py:163`` refuses precision > 18 there).  Strings cross as Arrow's
 offsets and bytes: ``utf8`` and ``large_utf8`` come in, ``utf8`` goes out,
 and a null slot that Arrow gave bytes loses them (the port's null row has
-length 0).
+length 0).  An Arrow ``timestamp`` of any unit and zone is a TIMESTAMP,
+cast to microseconds (:40-43, :82-83, :153-158; the nulls filled before
+``to_numpy``, since a conversion that carries nulls goes through float64
+and corrupts values past 2**53 microseconds, before 1684), and goes back
+out as ``timestamp("us", tz="UTC")``; Arrow's ``null`` type is the null
+type both ways.
 """
 from __future__ import annotations
 
@@ -36,9 +41,16 @@ _ARROW_TO_SQL = {
 }
 
 
+_TIMESTAMP_OUT = pa.timestamp("us", tz="UTC")
+
+
 def arrow_type_to_sql(at: pa.DataType) -> T.DataType:
     if at in _ARROW_TO_SQL:
         return _ARROW_TO_SQL[at]
+    if pa.types.is_timestamp(at):
+        return T.TIMESTAMP
+    if pa.types.is_null(at):
+        return T.NULL
     if pa.types.is_decimal128(at):
         return T.DecimalType(at.precision, at.scale)
     if pa.types.is_large_string(at):
@@ -49,6 +61,10 @@ def arrow_type_to_sql(at: pa.DataType) -> T.DataType:
 def sql_type_to_arrow(dt: T.DataType) -> pa.DataType:
     if isinstance(dt, T.DecimalType):
         return pa.decimal128(dt.precision, dt.scale)
+    if isinstance(dt, T.TimestampType):
+        return _TIMESTAMP_OUT
+    if isinstance(dt, T.NullType):
+        return pa.null()
     for at, sql in _ARROW_TO_SQL.items():
         if sql == dt:
             return at
@@ -76,6 +92,11 @@ def arrow_column_to_numpy(arr, dtype: T.DataType
                 else words[::2].copy())
     elif isinstance(dtype, T.BooleanType):
         vals = arr.fill_null(False).to_numpy(zero_copy_only=False)
+    elif isinstance(dtype, T.NullType):
+        vals = np.zeros(len(arr), np.int8)
+    elif isinstance(dtype, T.TimestampType):
+        vals = arr.cast(pa.timestamp("us")).cast(pa.int64()).fill_null(
+            0).to_numpy(zero_copy_only=False)
     else:
         if isinstance(dtype, T.DateType):
             arr = arr.cast(pa.int32())
@@ -159,8 +180,13 @@ def _column_to_arrow(col: DeviceColumn) -> pa.Array:
             mask_buf, pa.py_buffer(off), pa.py_buffer(data)])
     vals, valid = col.to_numpy()
     n = len(vals)
+    if isinstance(col.dtype, T.NullType):
+        return pa.nulls(n)
     mask_buf = (pa.array(valid).buffers()[1] if not valid.all() else None)
     at = sql_type_to_arrow(col.dtype)
+    if isinstance(col.dtype, T.TimestampType):
+        return pa.Array.from_buffers(at, n, [mask_buf, pa.py_buffer(
+            np.ascontiguousarray(vals))])
     if col.is_two_limb:
         return pa.Array.from_buffers(at, n, [mask_buf, pa.py_buffer(
             np.ascontiguousarray(vals))])

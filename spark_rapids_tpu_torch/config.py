@@ -2,8 +2,9 @@
 
 Counterpart of ``spark_rapids_tpu/config.py`` (``RapidsConf`` :927), cut to
 the keys the q6, q1, q3, q25 and q72 paths read, ``fuseStages``
-(``STAGE_FUSION`` :150-156, ``fuse_stages`` :1109) and the memory
-runtime's keys.  Keys keep the
+(``STAGE_FUSION`` :150-156, ``fuse_stages`` :1109), the memory
+runtime's keys and ``spark.sql.session.timeZone`` with its ambient
+(:1412-1445).  Keys keep the
 reference's names; a key the port does not know is kept and ignored, as
 Spark does with unknown confs.
 """
@@ -24,6 +25,7 @@ HOST_SPILL_STORAGE_SIZE = "spark.rapids.memory.host.spillStorageSize"
 SPILL_CHECKSUM_ENABLED = "spark.rapids.memory.spill.checksum.enabled"
 MEMORY_LEAK_AUDIT = "spark.rapids.memory.debug.leakAudit"
 DEVICE_MEMORY_LIMIT = "spark.rapids.memory.tpu.allocFraction"
+SESSION_TIMEZONE = "spark.sql.session.timeZone"
 
 _DEFAULTS = {
     SQL_ENABLED: True,
@@ -45,6 +47,7 @@ _DEFAULTS = {
     SPILL_CHECKSUM_ENABLED: True,
     MEMORY_LEAK_AUDIT: False,
     DEVICE_MEMORY_LIMIT: 0.85,
+    SESSION_TIMEZONE: "UTC",
 }
 
 
@@ -71,6 +74,11 @@ class RapidsConf:
 
     def _get(self, key: str):
         return self._map.get(key, _DEFAULTS[key])
+
+    def with_overrides(self, **kv) -> "RapidsConf":
+        """A new snapshot with ``kv`` set (``RapidsConf.with_overrides``
+        :1350 of the reference)."""
+        return RapidsConf({**self._map, **kv})
 
     @property
     def sql_enabled(self) -> bool:
@@ -143,3 +151,38 @@ class RapidsConf:
         """The share of the card's memory the arena's budget allows the
         spillable handles."""
         return float(self._get(DEVICE_MEMORY_LIMIT))
+
+    @property
+    def session_timezone(self) -> str:
+        """The zone in which a TIMESTAMP's fields are read and a TIMESTAMP
+        is cast to a DATE."""
+        return str(self._get(SESSION_TIMEZONE) or "UTC")
+
+
+# -- the session zone's ambient: expression evaluation has no conf channel,
+#    so the engine sets it around every run of a plan (Spark's SQLConf.get
+#    session-local lookup has the same shape)
+
+_SESSION_TZ = "UTC"
+
+
+def current_session_timezone() -> str:
+    return _SESSION_TZ
+
+
+class session_timezone:
+    """Context manager scoping the ambient session zone."""
+
+    def __init__(self, tz: str):
+        self.tz = tz or "UTC"
+
+    def __enter__(self):
+        global _SESSION_TZ
+        self._saved = _SESSION_TZ
+        _SESSION_TZ = self.tz
+        return self
+
+    def __exit__(self, *exc):
+        global _SESSION_TZ
+        _SESSION_TZ = self._saved
+        return False

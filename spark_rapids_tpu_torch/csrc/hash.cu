@@ -42,6 +42,38 @@
 //   takes fmix with the length.
 //   Bound: bytes: 16 bytes of limbs and a validity byte read, 4 bytes of
 //   hash written per row; ~60 integer operations per row.
+//
+// FLOAT columns <- spark_rapids_tpu/kernels/hash.py:77 _f32_bits
+//   One more kind (kF32), for the three hashes: the float's bits with
+//   -0.0 taken as 0.0 and every NaN as 0x7FC00000 (Java's
+//   floatToIntBits), hashed as an int.
+//
+// H1 xxhash64 <- spark_rapids_tpu/kernels/hash.py:409 xxhash64_fixed_width,
+//                :433 xxhash64_string, :529 xxhash64
+//   Spark's XxHash64 (XXH64 with seed 42), chained over the columns as
+//   murmur3 is: each valid value hashes with the running uint64 hash as
+//   its seed, a null passes it through.  BOOL, BYTE, SHORT, INT, DATE and
+//   FLOAT take hashInt (4 bytes), LONG, TIMESTAMP, DOUBLE and Decimal64
+//   hashLong (8 bytes), a string hashUnsafeBytes: 32-byte stripes into
+//   four accumulators while 32 bytes remain, their merge, the length, then
+//   8-byte words, one 4-byte word and single bytes.  The reference pads
+//   every row to a bucket of 32-byte stripes and masks; here a thread
+//   walks its row's bytes, read one at a time (a row starts at any byte,
+//   so no 8-byte load may assume alignment).  A Decimal128 is refused
+//   (the reference's :429).
+//   Bound: bytes: each column read once (a string's offsets and bytes),
+//   8 bytes of hash written a row; a 64-bit multiply every 8 bytes.
+//
+// H2 hive_hash <- spark_rapids_tpu/kernels/hash.py:696 hive_hash,
+//                 :668 _hive_col_hash
+//   Hive's bucketing hash: h = 31 * h + col_hash over the columns in
+//   int32 (uint32 arithmetic here, wrapping as Java's int does), a null
+//   adding 0.  INT, BYTE, SHORT and DATE hash as their value, BOOL as 1 /
+//   0, FLOAT as its normalized bits, LONG and TIMESTAMP as the low word of
+//   v ^ (v >>> 32), DOUBLE the same of its normalized bits, a string as
+//   the 31-polynomial over its bytes taken as SIGNED (a byte >= 0x80
+//   counts negative).  A decimal is refused (the reference's :692).
+//   Bound: bytes: each column read once, 4 bytes of hash written a row.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -60,6 +92,7 @@ constexpr int kDec128 = 5;  // two-limb decimal: hashUnsafeBytes of its
                             // minimal big-endian bytes
 constexpr int kInt8 = 6;    // byte: hashInt of the value sign-extended
 constexpr int kInt16 = 7;   // short: hashInt of the value sign-extended
+constexpr int kF32 = 8;     // float: hashInt of the normalized bits
 
 struct HashCols {
   const void* data[kMaxHashCols];
@@ -99,6 +132,20 @@ __device__ __forceinline__ uint32_t hash_long(uint64_t v, uint32_t seed) {
   uint32_t h1 = mix_h1(seed, static_cast<uint32_t>(v));
   h1 = mix_h1(h1, static_cast<uint32_t>(v >> 32));
   return fmix(h1, 8u);
+}
+
+// Java's floatToIntBits with -0.0 as 0.0
+__device__ __forceinline__ uint32_t f32_bits(float f) {
+  if (f != f) return 0x7FC00000u;        // canonical NaN
+  if (f == 0.0f) f = 0.0f;               // -0.0 -> 0.0
+  return __float_as_uint(f);
+}
+
+// Java's doubleToLongBits with -0.0 as 0.0
+__device__ __forceinline__ uint64_t f64_bits(double d) {
+  if (d != d) return 0x7FF8000000000000ull;
+  if (d == 0.0) d = 0.0;
+  return static_cast<uint64_t>(__double_as_longlong(d));
 }
 
 // Spark Murmur3_x86_32.hashUnsafeBytes
@@ -163,18 +210,14 @@ murmur3_kernel(HashCols cols, int ncols, int64_t n, uint32_t seed,
         h = hash_int(static_cast<uint32_t>(static_cast<int32_t>(
                          static_cast<const int16_t*>(cols.data[c])[r])), h);
         break;
-      case kF64: {
-        double d = static_cast<const double*>(cols.data[c])[r];
-        uint64_t bits;
-        if (d != d) {
-          bits = 0x7FF8000000000000ull;      // canonical NaN
-        } else {
-          if (d == 0.0) d = 0.0;             // -0.0 -> 0.0
-          bits = static_cast<uint64_t>(__double_as_longlong(d));
-        }
-        h = hash_long(bits, h);
+      case kF64:
+        h = hash_long(f64_bits(static_cast<const double*>(cols.data[c])[r]),
+                      h);
         break;
-      }
+      case kF32:
+        h = hash_int(f32_bits(static_cast<const float*>(cols.data[c])[r]),
+                     h);
+        break;
       case kDec128: {
         const int64_t* limbs = static_cast<const int64_t*>(cols.data[c]);
         h = hash_decimal128(limbs[2 * r], limbs[2 * r + 1], h);
@@ -197,6 +240,219 @@ murmur3_kernel(HashCols cols, int ncols, int64_t n, uint32_t seed,
     const int32_t m = hi % num_partitions;   // C++: sign of the dividend
     part[r] = m < 0 ? m + num_partitions : m;
   }
+}
+
+// -- H1: XXH64 -----------------------------------------------------------
+
+constexpr uint64_t kP1 = 0x9E3779B185EBCA87ull;
+constexpr uint64_t kP2 = 0xC2B2AE3D27D4EB4Full;
+constexpr uint64_t kP3 = 0x165667B19E3779F9ull;
+constexpr uint64_t kP4 = 0x85EBCA77C2B2AE63ull;
+constexpr uint64_t kP5 = 0x27D4EB2F165667C5ull;
+
+__device__ __forceinline__ uint64_t rotl64(uint64_t x, int r) {
+  return (x << r) | (x >> (64 - r));
+}
+
+__device__ __forceinline__ uint64_t xx_fmix(uint64_t h) {
+  h ^= h >> 33;
+  h *= kP2;
+  h ^= h >> 29;
+  h *= kP3;
+  h ^= h >> 32;
+  return h;
+}
+
+__device__ __forceinline__ uint64_t xx_hash_int(uint32_t v, uint64_t seed) {
+  uint64_t h = seed + kP5 + 4u;
+  h ^= static_cast<uint64_t>(v) * kP1;
+  h = rotl64(h, 23) * kP2 + kP3;
+  return xx_fmix(h);
+}
+
+__device__ __forceinline__ uint64_t xx_hash_long(uint64_t v, uint64_t seed) {
+  uint64_t h = seed + kP5 + 8u;
+  h ^= rotl64(v * kP2, 31) * kP1;
+  h = rotl64(h, 27) * kP1 + kP4;
+  return xx_fmix(h);
+}
+
+// little-endian loads a byte at a time: a string row starts at any byte
+__device__ __forceinline__ uint64_t le64(const uint8_t* p) {
+  uint64_t w = 0;
+#pragma unroll
+  for (int b = 7; b >= 0; --b) w = (w << 8) | p[b];
+  return w;
+}
+
+__device__ __forceinline__ uint32_t le32(const uint8_t* p) {
+  return static_cast<uint32_t>(p[0]) | (static_cast<uint32_t>(p[1]) << 8) |
+         (static_cast<uint32_t>(p[2]) << 16) |
+         (static_cast<uint32_t>(p[3]) << 24);
+}
+
+__device__ __forceinline__ uint64_t xx_round(uint64_t acc, uint64_t w) {
+  return rotl64(acc + w * kP2, 31) * kP1;
+}
+
+// Spark XXH64.hashUnsafeBytes
+__device__ uint64_t xx_hash_bytes(const uint8_t* p, int32_t len,
+                                  uint64_t seed) {
+  int32_t off = 0;
+  uint64_t h;
+  if (len >= 32) {
+    uint64_t v1 = seed + kP1 + kP2, v2 = seed + kP2, v3 = seed,
+             v4 = seed - kP1;
+    for (; off + 32 <= len; off += 32) {
+      v1 = xx_round(v1, le64(p + off));
+      v2 = xx_round(v2, le64(p + off + 8));
+      v3 = xx_round(v3, le64(p + off + 16));
+      v4 = xx_round(v4, le64(p + off + 24));
+    }
+    h = rotl64(v1, 1) + rotl64(v2, 7) + rotl64(v3, 12) + rotl64(v4, 18);
+    const uint64_t vs[4] = {v1, v2, v3, v4};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      h ^= xx_round(0, vs[i]);
+      h = h * kP1 + kP4;
+    }
+  } else {
+    h = seed + kP5;
+  }
+  h += static_cast<uint64_t>(len);
+  for (; off + 8 <= len; off += 8) {
+    h = rotl64(h ^ xx_round(0, le64(p + off)), 27) * kP1 + kP4;
+  }
+  if (off + 4 <= len) {
+    h = rotl64(h ^ (static_cast<uint64_t>(le32(p + off)) * kP1), 23) * kP2 +
+        kP3;
+    off += 4;
+  }
+  for (; off < len; ++off) {
+    h = rotl64(h ^ (static_cast<uint64_t>(p[off]) * kP5), 11) * kP1;
+  }
+  return xx_fmix(h);
+}
+
+__global__ void __launch_bounds__(kThreads)
+xxhash64_kernel(HashCols cols, int ncols, int64_t n, uint64_t seed,
+                int64_t* __restrict__ hashes) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (r >= n) return;
+  uint64_t h = seed;
+  for (int c = 0; c < ncols; ++c) {
+    if (cols.valid[c][r] == 0) continue;  // null: the seed passes through
+    const void* d = cols.data[c];
+    switch (cols.kind[c]) {
+      case kInt32:
+        h = xx_hash_int(static_cast<const uint32_t*>(d)[r], h);
+        break;
+      case kInt64:
+        h = xx_hash_long(static_cast<const uint64_t*>(d)[r], h);
+        break;
+      case kInt8:
+        h = xx_hash_int(static_cast<uint32_t>(static_cast<int32_t>(
+                            static_cast<const int8_t*>(d)[r])), h);
+        break;
+      case kInt16:
+        h = xx_hash_int(static_cast<uint32_t>(static_cast<int32_t>(
+                            static_cast<const int16_t*>(d)[r])), h);
+        break;
+      case kF64:
+        h = xx_hash_long(f64_bits(static_cast<const double*>(d)[r]), h);
+        break;
+      case kF32:
+        h = xx_hash_int(f32_bits(static_cast<const float*>(d)[r]), h);
+        break;
+      case kString: {
+        const int32_t b = cols.offsets[c][r];
+        h = xx_hash_bytes(static_cast<const uint8_t*>(d) + b,
+                          cols.offsets[c][r + 1] - b, h);
+        break;
+      }
+      default:   // kBool
+        h = xx_hash_int(static_cast<const uint8_t*>(d)[r] != 0, h);
+        break;
+    }
+  }
+  hashes[r] = static_cast<int64_t>(h);
+}
+
+// -- H2: Hive ------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t fold64(uint64_t v) {
+  return static_cast<uint32_t>(v ^ (v >> 32));
+}
+
+__global__ void __launch_bounds__(kThreads)
+hive_hash_kernel(HashCols cols, int ncols, int64_t n,
+                 int32_t* __restrict__ hashes) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (r >= n) return;
+  uint32_t h = 0;
+  for (int c = 0; c < ncols; ++c) {
+    uint32_t ch = 0;   // a null adds 0
+    if (cols.valid[c][r] != 0) {
+      const void* d = cols.data[c];
+      switch (cols.kind[c]) {
+        case kInt32:
+          ch = static_cast<const uint32_t*>(d)[r];
+          break;
+        case kInt64:
+          ch = fold64(static_cast<const uint64_t*>(d)[r]);
+          break;
+        case kInt8:
+          ch = static_cast<uint32_t>(static_cast<int32_t>(
+              static_cast<const int8_t*>(d)[r]));
+          break;
+        case kInt16:
+          ch = static_cast<uint32_t>(static_cast<int32_t>(
+              static_cast<const int16_t*>(d)[r]));
+          break;
+        case kF64:
+          ch = fold64(f64_bits(static_cast<const double*>(d)[r]));
+          break;
+        case kF32:
+          ch = f32_bits(static_cast<const float*>(d)[r]);
+          break;
+        case kString: {
+          const uint8_t* p =
+              static_cast<const uint8_t*>(d) + cols.offsets[c][r];
+          const int32_t len = cols.offsets[c][r + 1] - cols.offsets[c][r];
+          for (int32_t i = 0; i < len; ++i) {
+            ch = ch * 31u + static_cast<uint32_t>(
+                                static_cast<int32_t>(
+                                    static_cast<int8_t>(p[i])));
+          }
+          break;
+        }
+        default:   // kBool
+          ch = static_cast<const uint8_t*>(d)[r] != 0;
+          break;
+      }
+    }
+    h = h * 31u + ch;
+  }
+  hashes[r] = static_cast<int32_t>(h);
+}
+
+// the column table of an H1 / H2 launch; false on a kind it does not take
+// (Hive also refuses a Decimal64, which is kInt64 here: its wrapper does)
+bool fill_cols(HashCols* cols, int ncols, const void* const* data,
+               const uint8_t* const* valid, const int32_t* const* offsets,
+               const int* kinds) {
+  if (ncols < 1 || ncols > kMaxHashCols) return false;
+  for (int c = 0; c < ncols; ++c) {
+    cols->data[c] = data[c];
+    cols->valid[c] = valid[c];
+    cols->offsets[c] = offsets[c];
+    cols->kind[c] = kinds[c];
+    if (kinds[c] == kDec128 || kinds[c] < 0 || kinds[c] > kF32 ||
+        (kinds[c] == kString && offsets[c] == nullptr)) {
+      return false;
+    }
+  }
+  return true;
 }
 
 }  // namespace
@@ -230,6 +486,39 @@ int srt_murmur3(int ncols, const void* const* data,
     murmur3_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
                      kThreads, 0, stream>>>(cols, ncols, n, seed, hashes,
                                             num_partitions, part);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// H1.  The column arrays as srt_murmur3's; kinds other than kDec128.
+// hashes[n] int64 receives Spark's xxhash64 with the given seed.
+int srt_xxhash64(int ncols, const void* const* data,
+                 const uint8_t* const* valid, const int32_t* const* offsets,
+                 const int* kinds, int64_t n, uint64_t seed, int64_t* hashes,
+                 cudaStream_t stream) {
+  HashCols cols{};
+  if (!fill_cols(&cols, ncols, data, valid, offsets, kinds)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n > 0) {
+    xxhash64_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
+                      kThreads, 0, stream>>>(cols, ncols, n, seed, hashes);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// H2.  As srt_xxhash64; hashes[n] int32 receives Hive's hash.
+int srt_hive_hash(int ncols, const void* const* data,
+                  const uint8_t* const* valid, const int32_t* const* offsets,
+                  const int* kinds, int64_t n, int32_t* hashes,
+                  cudaStream_t stream) {
+  HashCols cols{};
+  if (!fill_cols(&cols, ncols, data, valid, offsets, kinds)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n > 0) {
+    hive_hash_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
+                       kThreads, 0, stream>>>(cols, ncols, n, hashes);
   }
   return static_cast<int>(cudaGetLastError());
 }

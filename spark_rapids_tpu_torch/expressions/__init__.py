@@ -9,8 +9,9 @@ from spark_rapids_tpu_torch.expressions.core import (
     col,
     lit,
 )
-from spark_rapids_tpu_torch.expressions.arithmetic import (Add, Divide,
-                                                        Multiply, Subtract)
+from spark_rapids_tpu_torch.expressions.arithmetic import (
+    Abs, Add, Divide, IntegralDivide, Multiply, Remainder, Subtract,
+    UnaryMinus)
 from spark_rapids_tpu_torch.expressions.predicates import (
     And,
     Coalesce,
@@ -33,7 +34,17 @@ from spark_rapids_tpu_torch.expressions.strings import (
     StringLocate, StringRepeat, StringReplace, Substring, Translate, Trim,
     Upper)
 from spark_rapids_tpu_torch.expressions.casts import Cast
-from spark_rapids_tpu_torch.expressions.conditional import CaseWhen, If
+from spark_rapids_tpu_torch.expressions.conditional import (
+    CaseWhen, Greatest, If, Least, NullIf, Nvl2)
+from spark_rapids_tpu_torch.expressions.datetime import (
+    AddMonths, DateAdd, DateDiff, DateFromUnixDate, DateSub, DayOfMonth,
+    DayOfWeek, DayOfYear, FromUtcTimestamp, Hour, LastDay, MakeDate,
+    MicrosToTimestamp, MillisToTimestamp, Minute, Month, MonthsBetween,
+    NextDay, Quarter, Second, SecondsToTimestamp, ToUtcTimestamp, TruncDate,
+    UnixDate, UnixMicros, UnixMillis, UnixSeconds, WeekOfYear, Year,
+    from_utc_timestamp, to_utc_timestamp)
+from spark_rapids_tpu_torch.expressions.hashing import (
+    HiveHash, Murmur3Hash, XxHash64, hash, hive_hash, xxhash64)
 from spark_rapids_tpu_torch.expressions.aggregates import (
     Average, BitAndAgg, BitOrAgg, BitXorAgg, BoolAnd, BoolOr, Count, First,
     Last, Max, MaxBy, Min, MinBy, StddevPop, StddevSamp, Sum, VariancePop,
@@ -45,6 +56,15 @@ from spark_rapids_tpu_torch.expressions.window import (
     over)
 
 __all__ = [
+    "Abs", "AddMonths", "DateAdd", "DateDiff", "DateFromUnixDate", "DateSub",
+    "DayOfMonth", "DayOfWeek", "DayOfYear", "FromUtcTimestamp", "Greatest",
+    "HiveHash", "Hour", "IntegralDivide", "LastDay", "Least", "MakeDate",
+    "MicrosToTimestamp", "MillisToTimestamp", "Minute", "Month",
+    "MonthsBetween", "Murmur3Hash", "NextDay", "NullIf", "Nvl2", "Quarter",
+    "Remainder", "Second", "SecondsToTimestamp", "ToUtcTimestamp",
+    "TruncDate", "UnaryMinus", "UnixDate", "UnixMicros", "UnixMillis",
+    "UnixSeconds", "WeekOfYear", "XxHash64", "Year", "from_utc_timestamp",
+    "hash", "hive_hash", "to_utc_timestamp", "xxhash64",
     "Add", "Alias", "And", "Ascii", "Average", "BitAndAgg", "BitLength",
     "BitOrAgg", "BitXorAgg", "BoolAnd", "BoolOr", "BoundReference",
     "CaseWhen", "Cast", "Coalesce", "Col", "Concat", "ConcatStrings", "ConcatWs",

@@ -18,6 +18,17 @@ past the result's scale then rounded HALF_UP by ``decimal128_divide``.
 The decimal ``Divide`` (:281-335) is ``decimal128_divide``: the 256-bit
 quotient with one HALF_UP rounding, NULL on a zero divisor.  Decimal and
 non-decimal operands do not mix: cast first, as the reference requires.
+
+``IntegralDivide`` (``div``, :350; always LONG), ``Remainder`` (``%``,
+:389; the operands' promotion), ``UnaryMinus`` (:432) and ``Abs`` (:448)
+follow Java: a zero divisor gives NULL, the quotient truncates toward
+zero, the remainder takes the dividend's sign, and ``MIN div -1``,
+``-MIN`` and ``abs(MIN)`` wrap to MIN (INT and LONG).  A divisor of -1 is
+taken as a wrapping negation (quotient) or 0 (remainder), never handed to
+an integer division: ``MIN / -1`` traps on the CPU (SIGFPE) and is
+undefined on the card.  Where the reference's ``sign * (|a| op |b|)``
+overflows (a dividend or divisor of MIN), it differs from Java and the
+port gives Java's answer (ROADMAP queue 3 pins it).
 """
 from __future__ import annotations
 
@@ -25,7 +36,8 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expressions.core import (
-    BinaryExpression, EvalContext, Literal, make_column, null_propagating)
+    BinaryExpression, EvalContext, Literal, UnaryExpression, make_column,
+    null_propagating)
 
 MAX_PRECISION = T.DecimalType.MAX_PRECISION
 MAX_LONG_DIGITS = T.DecimalType.MAX_LONG_DIGITS
@@ -199,3 +211,103 @@ class Divide(BinaryExpression):
         safe = torch.where(rhs == 0, torch.ones((), dtype=torch.float64,
                                                 device=lhs.device), rhs)
         return make_column(lhs / safe, validity, out_dt)
+
+
+def _java_div_rem(lhs: torch.Tensor, rhs: torch.Tensor):
+    """(quotient truncated toward zero, remainder with the dividend's
+    sign) of integer tensors of one dtype, 0 where ``rhs`` is 0; a divisor
+    of -1 never reaches the division."""
+    one = torch.ones((), dtype=rhs.dtype, device=rhs.device)
+    neg1 = rhs == -1
+    safe = torch.where((rhs == 0) | neg1, one, rhs)
+    q = torch.div(lhs, safe, rounding_mode="trunc")
+    r = torch.fmod(lhs, safe)
+    q = torch.where(neg1, torch.neg(lhs), q)    # MIN wraps to MIN
+    return q, torch.where(neg1, 0 * one, r)
+
+
+class IntegralDivide(BinaryExpression):
+    """Spark ``div``: a LONG, NULL on a zero divisor, truncated toward
+    zero."""
+
+    symbol = "div"
+
+    @property
+    def dtype(self):
+        return T.LONG
+
+    def eval(self, ctx: EvalContext):
+        for side in (self.left.dtype, self.right.dtype):
+            if not side.is_integral:
+                raise NotImplementedError(f"div of {side!r}")
+        lc, rc = self.left.eval(ctx), self.right.eval(ctx)
+        rhs = rc.data.to(torch.int64)
+        q, _ = _java_div_rem(lc.data.to(torch.int64), rhs)
+        validity = null_propagating([lc.validity, rc.validity]) & (rhs != 0)
+        return make_column(q, validity, T.LONG)
+
+
+class Remainder(BinaryArithmetic):
+    """Spark ``%``: Java's remainder at the operands' promotion, NULL on a
+    zero divisor; doubles as the reference computes them,
+    ``a - trunc(a / b) * b``."""
+
+    symbol = "%"
+
+    @property
+    def dtype(self) -> T.DataType:
+        l, r = self.left.dtype, self.right.dtype
+        if isinstance(l, T.DecimalType) or isinstance(r, T.DecimalType):
+            raise NotImplementedError(f"% of {l!r} and {r!r}")
+        return T.numeric_promote(l, r)
+
+    def eval(self, ctx: EvalContext):
+        out_dt = self.dtype
+        lc, rc = self.left.eval(ctx), self.right.eval(ctx)
+        lhs = lc.data.to(out_dt.torch_dtype)
+        rhs = rc.data.to(out_dt.torch_dtype)
+        validity = null_propagating([lc.validity, rc.validity]) & (rhs != 0)
+        if out_dt.is_floating:
+            safe = torch.where(rhs == 0, torch.ones((), dtype=rhs.dtype,
+                                                    device=rhs.device), rhs)
+            rem = lhs - torch.trunc(lhs / safe) * safe
+        else:
+            _, rem = _java_div_rem(lhs, rhs)
+        return make_column(rem, validity, out_dt)
+
+
+class _UnaryArithmetic(UnaryExpression):
+    @property
+    def dtype(self):
+        dt = self.child.dtype
+        if not isinstance(dt, T.NumericType) or T.two_limbs(dt):
+            raise NotImplementedError(f"{type(self).__name__} of {dt!r}")
+        return dt
+
+    def _op(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def eval(self, ctx: EvalContext):
+        out_dt = self.dtype
+        c = self.child.eval(ctx)
+        return make_column(self._op(c.data), c.validity, out_dt)
+
+
+class UnaryMinus(_UnaryArithmetic):
+    """-x: integers (and a Decimal64's unscaled value) wrap, -MIN is MIN."""
+
+    def _op(self, x):
+        return torch.neg(x)
+
+    def __repr__(self):
+        return f"(-{self.child!r})"
+
+
+class Abs(_UnaryArithmetic):
+    """abs(x): abs(MIN) wraps to MIN."""
+
+    def _op(self, x):
+        return torch.abs(x)
+
+    def __repr__(self):
+        return f"abs({self.child!r})"

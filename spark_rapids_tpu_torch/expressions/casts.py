@@ -35,11 +35,19 @@ legacy cast:
   :170) through its formats (C2 ``string_format``), integral types
   widened to LONG first.
 
+- DATE -> TIMESTAMP multiplies the days by the microseconds of a day:
+  midnight UTC, whatever the session zone, as both of the reference's
+  paths do (:116-117, :195-196; Spark takes the session zone's midnight,
+  ROADMAP queue 3 pins the difference); TIMESTAMP -> DATE floors the
+  session zone's wall clock (T1, ``kernels/timezone.py``) to its day
+  (:118-122).
+
 Everything else raises NotImplementedError with the reference's reason,
 at plan time (``planner/overrides.py``) and here: FLOAT or DOUBLE ->
 STRING (the reference keeps it off the device: Java's Double.toString
-formats otherwise), and DATE <-> TIMESTAMP, which waits for the port's
-TIMESTAMP.  All but the string casts are plain PyTorch elementwise code.
+formats otherwise), and any other cast to or from TIMESTAMP.  All but the
+string casts and the session zone's shift are plain PyTorch elementwise
+code.
 """
 from __future__ import annotations
 
@@ -92,8 +100,10 @@ class Cast(Expression):
 
     @staticmethod
     def supported(src: T.DataType, dst: T.DataType) -> bool:
-        """The reference's lattice (:67-97) without TIMESTAMP."""
+        """The reference's lattice (:67-97)."""
         if src == dst:
+            return True
+        if {type(src), type(dst)} == {T.DateType, T.TimestampType}:
             return True
         dec = (isinstance(src, T.DecimalType), isinstance(dst, T.DecimalType))
         if (_fixed(src) and _fixed(dst)) or all(dec):
@@ -121,6 +131,16 @@ class Cast(Expression):
             return _from_string(c, dst)
         if isinstance(dst, T.StringType):
             return _to_string(c, src)
+        if isinstance(dst, T.TimestampType):    # from a DATE
+            from spark_rapids_tpu_torch.expressions.datetime import (
+                MICROS_PER_DAY)
+            return make_column(c.data.to(torch.int64) * MICROS_PER_DAY,
+                               c.validity, dst)
+        if isinstance(src, T.TimestampType):    # to a DATE
+            from spark_rapids_tpu_torch.expressions.datetime import (
+                timestamp_days)
+            return make_column(timestamp_days(c.data).to(torch.int32),
+                               c.validity, dst)
         src_dec = isinstance(src, T.DecimalType)
         dst_dec = isinstance(dst, T.DecimalType)
         if src_dec and dst.is_floating:

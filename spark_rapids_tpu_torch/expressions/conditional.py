@@ -11,6 +11,15 @@ string assembly kernel (``kernels/strings.py`` ``select_strings``), which
 takes a whole CASE WHEN in one launch where the reference folds its
 branches from the right through ``select_strings`` (:49-50, :125-143),
 with the same rows.
+
+``NullIf`` (:175), ``Nvl2`` (:201) and ``Greatest`` / ``Least``
+(``_Extremum`` :232, :298, :302) follow the reference's device path:
+nullif(a, b) is null where both are valid and equal (NaN is not equal to
+NaN there, -0.0 equals 0.0), else a; nvl2(c, a, b) is IF(c IS NOT NULL,
+a, b); greatest / least skip nulls, are null only where every input is,
+take each input at the first child's type, order NaN above every number
+and keep the earlier input on a tie.  Over strings the three raise at
+planning, as the reference's tag sends them to its CPU.
 """
 from __future__ import annotations
 
@@ -132,3 +141,102 @@ class CaseWhen(Expression):
         tail = f" ELSE {self.else_value!r}" if self.else_value is not None \
             else ""
         return f"CASE {parts}{tail} END"
+
+
+class NullIf(Expression):
+    """nullif(a, b): NULL where a == b, else a."""
+
+    def __init__(self, left: Expression, right: Expression):
+        self.left, self.right = left, right
+        self.children = (left, right)
+
+    def with_children(self, children):
+        return NullIf(*children)
+
+    @property
+    def dtype(self):
+        return self.left.dtype
+
+    def eval(self, ctx: EvalContext):
+        l, r = self.left.eval(ctx), self.right.eval(ctx)
+        if l.is_string or l.is_two_limb or r.is_string or r.is_two_limb:
+            raise NotImplementedError(f"nullif over {l.dtype!r}")
+        eq = (l.data == r.data) & l.validity & r.validity
+        return make_column(l.data, l.validity & ~eq, self.dtype)
+
+    def __repr__(self):
+        return f"nullif({self.left!r}, {self.right!r})"
+
+
+class Nvl2(Expression):
+    """nvl2(c, a, b): a where c is not null, else b."""
+
+    def __init__(self, cond: Expression, if_notnull: Expression,
+                 if_null: Expression):
+        self.cond, self.if_notnull, self.if_null = cond, if_notnull, if_null
+        self.children = (cond, if_notnull, if_null)
+
+    def with_children(self, children):
+        return Nvl2(*children)
+
+    @property
+    def dtype(self):
+        return self.if_notnull.dtype
+
+    def eval(self, ctx: EvalContext):
+        from spark_rapids_tpu_torch.expressions.predicates import IsNotNull
+        return If(IsNotNull(self.cond), self.if_notnull,
+                  self.if_null).eval(ctx)
+
+    def __repr__(self):
+        return (f"nvl2({self.cond!r}, {self.if_notnull!r}, "
+                f"{self.if_null!r})")
+
+
+class _Extremum(Expression):
+    prefer_greater = True
+
+    def __init__(self, *children: Expression):
+        if len(children) < 2:
+            raise ValueError(f"{type(self).__name__.lower()} needs at least "
+                             "two inputs")
+        self.children = tuple(children)
+
+    def with_children(self, children):
+        return type(self)(*children)
+
+    @property
+    def dtype(self):
+        return self.children[0].dtype
+
+    def eval(self, ctx: EvalContext):
+        dt = self.dtype
+        cols = [c.eval(ctx) for c in self.children]
+        if dt.variable_width or T.two_limbs(dt):
+            raise NotImplementedError(
+                f"{type(self).__name__.lower()} over {dt!r}")
+        acc, acc_valid = cols[0].data.to(dt.torch_dtype), cols[0].validity
+        for c in cols[1:]:
+            v = c.data.to(dt.torch_dtype)
+            if dt.is_floating:
+                v_nan, a_nan = torch.isnan(v), torch.isnan(acc)
+                wins = (v_nan | (~a_nan & (v > acc)) if self.prefer_greater
+                        else ~v_nan & (a_nan | (v < acc)))
+            else:
+                wins = v > acc if self.prefer_greater else v < acc
+            take = c.validity & (~acc_valid | wins)
+            acc = torch.where(take, v, acc)
+            acc_valid = acc_valid | c.validity
+        return make_column(acc, acc_valid, dt)
+
+    def __repr__(self):
+        name = "greatest" if self.prefer_greater else "least"
+        return f"{name}({', '.join(map(repr, self.children))})"
+
+
+class Greatest(_Extremum):
+    prefer_greater = True
+
+
+class Least(_Extremum):
+    prefer_greater = False

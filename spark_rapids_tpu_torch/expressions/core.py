@@ -30,12 +30,6 @@ class EvalContext:
         self.device = batch.device
 
 
-def _not_ported(op: str):
-    def raise_(self, *args):
-        raise NotImplementedError(f"operator {op} is not ported")
-    return raise_
-
-
 class Expression:
     """Base class.  Subclasses are immutable."""
 
@@ -146,8 +140,13 @@ class Expression:
         from spark_rapids_tpu_torch.expressions.arithmetic import Divide
         return self._bin(other, Divide)
 
-    __mod__ = _not_ported("%")
-    __neg__ = _not_ported("unary -")
+    def __mod__(self, other):
+        from spark_rapids_tpu_torch.expressions.arithmetic import Remainder
+        return self._bin(other, Remainder)
+
+    def __neg__(self):
+        from spark_rapids_tpu_torch.expressions.arithmetic import UnaryMinus
+        return UnaryMinus(self)
 
 
 class BinaryExpression(Expression):
@@ -163,6 +162,18 @@ class BinaryExpression(Expression):
 
     def __repr__(self):
         return f"({self.left!r} {self.symbol} {self.right!r})"
+
+
+class UnaryExpression(Expression):
+    def __init__(self, child: Expression):
+        self.child = child
+        self.children = (child,)
+
+    def with_children(self, children):
+        return type(self)(children[0])
+
+    def __repr__(self):
+        return f"{type(self).__name__.lower()}({self.child!r})"
 
 
 class Col(Expression):
@@ -227,14 +238,13 @@ class Literal(Expression):
     two limbs in every row), a string literal its UTF-8 bytes in every row.  ``Literal(None, dtype)`` is a typed null:
     an all-invalid column of that type (null slots zero; a string's offsets
     all zero and no bytes), as the reference's ``Literal`` (:346) with its
-    expand's ``_coerce`` (``plan/execs/misc.py:72-82``) gives it.  A null
-    needs its type: the null type is not ported."""
+    expand's ``_coerce`` (``plan/execs/misc.py:72-82``) gives it.
+    ``Literal(None)`` without a type is of the null type (``NullType``)."""
 
     def __init__(self, value, dtype: Optional[T.DataType] = None):
-        if value is None and dtype is None:
-            raise NotImplementedError("a null literal needs its type: the "
-                                      "null type is not ported")
-        self._dtype = dtype if dtype is not None else _infer_literal_type(value)
+        if dtype is None:
+            dtype = T.NULL if value is None else _infer_literal_type(value)
+        self._dtype = dtype
         self.value = value
 
     @property

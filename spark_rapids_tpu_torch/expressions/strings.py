@@ -41,8 +41,8 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.expressions.core import (BinaryExpression,
                                                      EvalContext, Expression,
-                                                     Literal, lit,
-                                                     make_column)
+                                                     Literal, UnaryExpression,
+                                                     lit, make_column)
 from spark_rapids_tpu_torch.kernels import strings as SK
 from spark_rapids_tpu_torch.kernels.strings import NO_LENGTH, substring
 
@@ -59,18 +59,6 @@ def _int32_arg(e: Optional[Expression], ctx: EvalContext,
 
 def _with_validity(out: DeviceColumn, validity: torch.Tensor) -> DeviceColumn:
     return DeviceColumn(out.data, validity, T.STRING, out.offsets)
-
-
-class UnaryExpression(Expression):
-    def __init__(self, child: Expression):
-        self.child = child
-        self.children = (child,)
-
-    def with_children(self, children):
-        return type(self)(children[0])
-
-    def __repr__(self):
-        return f"{type(self).__name__.lower()}({self.child!r})"
 
 
 class _StringToString(UnaryExpression):

@@ -27,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("selection.cu", "reduction.cu", "hash.cu", "sort.cu",
            "strings.cu", "join.cu", "fused.cu", "decimal.cu", "window.cu",
-           "string_functions.cu", "cast_strings.cu")
+           "string_functions.cu", "cast_strings.cu", "timezone.cu")
 HEADERS = ("scan.cuh", "strings.cuh", "int128.cuh", "decimal.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -78,6 +78,10 @@ _SIGNATURES = {
     "srt_max_hash_cols": [],
     "srt_murmur3": [_I, _P, _P, _P, _P, _I64, ctypes.c_uint32, _P, _I, _P,
                     _P],
+    "srt_xxhash64": [_I, _P, _P, _P, _P, _I64, ctypes.c_uint64, _P, _P],
+    "srt_hive_hash": [_I, _P, _P, _P, _P, _I64, _P, _P],
+    "srt_tz_max_entries": [],
+    "srt_tz_shift": [_I, _P, _I64, _P, _P, _P, _P, _I, _P, _P],
     "srt_sort_tile": [],
     "srt_max_radix_bits": [],
     "srt_partition": [_P, _I64, _I, _P, _P, _P, _P, _P, _P, _P, _P],

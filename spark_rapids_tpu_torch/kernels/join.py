@@ -120,7 +120,7 @@ def _kind(dtype: T.DataType) -> int:
         return _DEC128
     if isinstance(dtype, (T.IntegerType, T.DateType)):
         return _INT32
-    if isinstance(dtype, (T.LongType, T.DecimalType)):
+    if isinstance(dtype, (T.LongType, T.DecimalType, T.TimestampType)):
         return _INT64
     if isinstance(dtype, T.DoubleType):
         return _F64

@@ -3,13 +3,17 @@
 Counterpart of ``spark_rapids_tpu/plan/engine.py`` (``TpuEngine.execute``
 / ``collect``).  Partitions run in order on the calling thread, so the
 reference's device semaphore and tenants are not needed yet (ROADMAP
-queue 1 item 9, with cancellation and the sanitizer).
+queue 1 item 9, with cancellation and the sanitizer).  A plan runs under
+the session zone it was planned in (``session_timezone``, set by
+``plan_query``), as the reference's ``_session_tz_scope`` runs every
+action (``api/session.py:831``).
 """
 from __future__ import annotations
 
 from typing import List
 
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.config import session_timezone
 from spark_rapids_tpu_torch.plan.execs.base import GpuExec
 
 
@@ -18,8 +22,9 @@ class GpuEngine:
         """Materialize all partitions (list of batches per partition), then
         let the execs release what they held for the query."""
         try:
-            return [list(plan.execute_partition(p))
-                    for p in range(plan.num_partitions())]
+            with session_timezone(getattr(plan, "session_timezone", "UTC")):
+                return [list(plan.execute_partition(p))
+                        for p in range(plan.num_partitions())]
         finally:
             plan.cleanup()
 

@@ -36,8 +36,9 @@ Union and Window.
   exchange where it has none), so that each task holds whole window
   partitions.  What the reference tags "will NOT work" and runs on its CPU
   raises NotImplementedError here with the same reason: a bounded RANGE
-  frame over anything but one ascending INT, LONG or DATE key, FIRST /
-  LAST / NTH_VALUE over strings, a function or input type not ported.
+  frame over anything but one ascending INT, LONG, DATE or TIMESTAMP key,
+  FIRST / LAST / NTH_VALUE over strings, a function or input type not
+  ported.
   One difference: the reference refuses a Window node whose expressions'
   specs differ by ``repr``, which holds the frame, so its frames of one
   (partition, order) pair run on its CPU; its exec reads each
@@ -62,7 +63,8 @@ Union and Window.
 Before conversion, every expression of the plan is tagged as the
 reference's ``PlanMeta`` tags it (:357-415 and the signatures of
 ``planner/typesig.py`` :204, :272-303) for the string functions and the
-conditionals: an input outside an op's signature, a pattern outside the
+conditionals: NULLIF, GREATEST and LEAST over strings (:371), an input
+outside an op's signature, a pattern outside the
 regex dialect (``RegexUnsupported``), a non-literal STARTSWITH / ENDSWITH
 / CONTAINS pattern, a non-ASCII pad string and CONCAT_WS over a
 non-string raise NotImplementedError with the reference's reason (its
@@ -72,7 +74,13 @@ reference gates behind ``castFloatToString``).  The tags that exist only
 for XLA's static buckets (``_regex_child_ok``, the repeat and pad bounds,
 the string cast over a growing string, :357-362) are not ported: the
 string kernels size every output by count-then-allocate, and a cast over
-``concat(...)`` runs on the card.
+``concat(...)`` runs on the card.  The reference's tag of a hash over a
+DOUBLE on the TPU (:433: no raw float64 bits there) has no counterpart:
+the card hashes a double's own bits.  The datetime functions, the hashes
+and the arithmetic and conditional rest (:100-126, :174-180) need no tag:
+a cast to or from TIMESTAMP other than DATE <-> TIMESTAMP raises through
+``Cast.supported``, a decimal input to a hash that takes none where its
+kernel's wrapper checks it.
 
 Planning never asks an adaptive join or a coalesced reader for its
 partition count: that would run the build side or the map side.  The
@@ -89,7 +97,8 @@ from spark_rapids_tpu_torch.config import RapidsConf
 from spark_rapids_tpu_torch.expressions import strings as S
 from spark_rapids_tpu_torch.expressions.aggregates import Count, Max, Min
 from spark_rapids_tpu_torch.expressions.casts import Cast, not_supported
-from spark_rapids_tpu_torch.expressions.conditional import CaseWhen, If
+from spark_rapids_tpu_torch.expressions.conditional import (
+    CaseWhen, Greatest, If, Least, NullIf)
 from spark_rapids_tpu_torch.expressions.core import BoundReference, Literal
 from spark_rapids_tpu_torch.expressions.window import (FirstValue, LastValue,
                                                        NthValue,
@@ -267,7 +276,8 @@ def _convert_aggregate(p: L.Aggregate, conf: RapidsConf,
 
 
 #: the order keys a bounded RANGE frame searches (csrc/window.cu)
-_RANGE_KEY_TYPES = (T.IntegerType, T.LongType, T.DateType)
+_RANGE_KEY_TYPES = (T.IntegerType, T.LongType, T.DateType,
+                    T.TimestampType)
 
 
 def _window_input_ok(fn, dt: T.DataType) -> bool:
@@ -373,6 +383,11 @@ def _tag_expression(e) -> None:
     string op, conditional or cast that the device path does not run."""
     if isinstance(e, Cast) and not Cast.supported(e.child.dtype, e.dtype):
         raise not_supported(e.child.dtype, e.dtype)
+    if isinstance(e, (NullIf, Greatest, Least)) and \
+            e.children[0].dtype.variable_width:
+        raise NotImplementedError(
+            f"{type(e).__name__} over strings needs the byte-comparator "
+            "kernel (CPU bridge covers it)")
     if isinstance(e, S.ConcatWs):
         for c in e.children:
             if not isinstance(c.dtype, T.StringType):
@@ -475,4 +490,6 @@ def plan_query(plan: L.LogicalPlan, conf: RapidsConf,
     tag_plan(plan)
     root = _convert(prune_columns(push_filters(plan)), conf, device)
     root = _insert_aqe_readers(root, conf)
-    return fuse_segments(root) if conf.fuse_stages else root
+    root = fuse_segments(root) if conf.fuse_stages else root
+    root.session_timezone = conf.session_timezone   # GpuEngine runs under it
+    return root

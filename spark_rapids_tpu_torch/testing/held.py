@@ -73,10 +73,35 @@ parse, IN with a null) and C4 (the rows whose ``si`` parses, grouped by
 ``sdt`` as a DATE: the sum of ``sd`` as a DOUBLE, COUNT(*), and the rows
 whose ``l`` does not come back through its text).  Each takes the DSL
 and the types module (``E``, ``T_``) to build it with.
+
+The held dates and hashes (``date_columns``): ``ts`` TIMESTAMP as the
+reference's ``tests/test_timezone.py`` ``df`` (:22-37) draws it, seconds
+in [-631152000, 3786912000) (1950-2090), a quarter of the rows within
+2 h of its four DST edges, random microseconds, 10% null; ``d`` DATE,
+``i`` INT and ``x`` DOUBLE as ``tests/test_math_datetime.py`` ``df``
+(:22-48) draws them (days in +-30000 with 2000-02-29, 1900-02-28 and
+1970-01-01 at rows 0-2; i in [-50, 50); x normal * 100 with NaN, +-inf,
+0.0 and -0.0 first); ``l`` LONG in [-2**60, 2**60) and ``s`` STRING as
+``tests/test_hashing_sketches.py`` ``_df`` (:23-36) draws them, its word
+pool for 3/4 of the rows and 64 rows of 33-200 bytes after it for the
+rest (``DATE_POOL``; ``s`` as codes into it); ``f`` FLOAT with NaN, +-0.0 and +-inf; ``m`` INT
+over int32's range; ``k`` the row's index.  One row in 1,000, and rows
+5 and 6, hold ``m`` = INT_MIN and ``l`` = LONG_MIN beside ``i`` = -1;
+n // 8 nulls in d, i, x, l, f and m.  ``DATE_QUERIES``: D1 ``from_utc_
+timestamp`` / ``to_utc_timestamp`` in three zones, D2 the session
+zone's fields and cast (``dates_session``) and GROUP BY its hour
+(``dates_local_hour``), D3 the date functions, D4 the hashes, GROUP BY,
+ORDER BY and an equi-join on ``ts`` (against ``date_dimension``), D5
+``%``, unary minus, ``div``, ``abs``, ``nullif``, ``nvl2``, ``greatest``
+and ``least``.  Each takes the DSL and the types module; the JAX
+package's DSL exports some of these names only from its ``datetime``
+and ``conditional`` modules, which ``_fns`` adds.
 """
 from __future__ import annotations
 
 import functools
+import importlib
+import types
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -1133,3 +1158,240 @@ CAST_ROW_QUERIES = {f.__name__: f for f in (
     casts_parse, casts_format, casts_numeric)}
 CAST_AGG_QUERIES = {f.__name__: f for f in (casts_ingest,)}
 CAST_QUERIES = {**CAST_ROW_QUERIES, **CAST_AGG_QUERIES}
+
+
+# ---------------------------------------------------------------------------
+# the held dates and hashes (phase 22)
+
+DATE_SCHEMA = Schema.of(ts=T.TIMESTAMP, d=T.DATE, i=T.INT, x=T.DOUBLE,
+                        l=T.LONG, s=T.STRING, f=T.FLOAT, m=T.INT, k=T.LONG)
+#: tests/test_timezone.py :27 and :39
+DST_EDGES = (1205056800, 1225612800, 1615712400, 1636276800)
+DATE_ZONES = ("America/Los_Angeles", "Asia/Kolkata", "Australia/Lord_Howe")
+SESSION_ZONE = "America/Los_Angeles"
+#: tests/test_hashing_sketches.py :25
+HASH_WORDS = ["", "a", "tpu", "hello world", "x" * 40, None,
+              "\u65e5\u672c\u8a9e\u30c6\u30ad\u30b9\u30c8"]
+DATE_DIM_ROWS = 1 << 16
+_INT_MIN, _LONG_MIN = -2**31, -2**63
+
+
+def _long_words() -> List[str]:
+    """64 rows of 33-200 UTF-8 bytes (ASCII, 2- and 3-byte characters)."""
+    rng = np.random.RandomState(17)
+    alphabet = [chr(c) for c in range(0x20, 0x7F)] + ["\u00e9", "\u65e5"]
+    out = []
+    for target in np.linspace(33, 200, 64).astype(int):
+        w = ""
+        while len(w.encode()) < target:
+            w += alphabet[rng.randint(len(alphabet))]
+        out.append(w)
+    return out
+
+
+DATE_POOL = HASH_WORDS + _long_words()
+
+
+def date_columns(n: int, seed: int = 8
+                 ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """(values, validity) per column, ``s`` as int32 codes into
+    ``DATE_POOL``; a null slot holds zero."""
+    rng = np.random.RandomState(seed)
+    secs = rng.randint(-631152000, 3786912000, n).astype(np.int64)
+    near = rng.rand(n) < 0.25
+    secs[near] = (np.array(DST_EDGES, np.int64)[rng.randint(0, 4, n)]
+                  + rng.randint(-7200, 7200, n))[near]
+    data = {
+        "ts": secs * 1_000_000 + rng.randint(0, 10**6, n),
+        "d": rng.randint(-30000, 30000, n).astype(np.int32),
+        "i": rng.randint(-50, 50, n).astype(np.int32),
+        "x": rng.randn(n) * 100,
+        "l": rng.randint(-2**60, 2**60, n, dtype=np.int64),
+        "s": np.where(rng.rand(n) < 0.25,
+                      len(HASH_WORDS) + rng.randint(0, 64, n),
+                      rng.randint(0, len(HASH_WORDS), n)).astype(np.int32),
+        "f": rng.randn(n).astype(np.float32),
+        "m": rng.randint(_INT_MIN, 2**31, n, dtype=np.int64).astype(np.int32),
+        "k": np.arange(n, dtype=np.int64),
+    }
+    data["d"][:3] = [11016, -25509, 0][:n]
+    data["x"][:5] = [np.nan, np.inf, -np.inf, 0.0, -0.0][:n]
+    data["f"][:5] = [np.nan, 0.0, -0.0, np.inf, -np.inf][:n]
+    mins = rng.rand(n) < 0.001
+    mins[5:7] = True
+    data["m"][mins], data["l"][mins], data["i"][mins] = _INT_MIN, _LONG_MIN, -1
+    validity = {c: np.ones(n, np.bool_) for c in DATE_SCHEMA.names}
+    validity["ts"] = rng.rand(n) >= 0.1
+    for c in ("d", "i", "x", "l", "f", "m"):
+        validity[c][rng.choice(n, n // 8, replace=False)] = False
+    present = np.array([w is not None for w in DATE_POOL])
+    validity["s"] = present[data["s"]]
+    for c in DATE_SCHEMA.names:
+        if c != "s":
+            data[c] = np.where(validity[c], data[c],
+                               np.zeros((), data[c].dtype))
+    return data, validity
+
+
+def date_batches(data: Dict[str, np.ndarray],
+                 validity: Dict[str, np.ndarray], device,
+                 batch_rows: int = 1 << 20) -> List[ColumnarBatch]:
+    """``date_columns``' columns as device batches of ``batch_rows``."""
+    out = []
+    for o in range(0, len(data["k"]), batch_rows):
+        cut = {c: (data[c][o:o + batch_rows], validity[c][o:o + batch_rows])
+               for c in DATE_SCHEMA.names}
+        cut["s"] = pool_strings(*cut["s"], DATE_POOL)
+        out.append(batch_from_numpy(cut, DATE_SCHEMA, device))
+    return out
+
+
+DATE_DIM_SCHEMA = Schema.of(ts=T.TIMESTAMP, dv=T.LONG)
+
+
+def date_dimension(data: Dict[str, np.ndarray],
+                   validity: Dict[str, np.ndarray],
+                   rows: int = DATE_DIM_ROWS, seed: int = 9
+                   ) -> Dict[str, np.ndarray]:
+    """A dimension of ``rows`` distinct timestamps, half drawn from the
+    table's valid ``ts``, half from its range; ``dv`` a LONG payload."""
+    rng = np.random.RandomState(seed)
+    have = np.unique(data["ts"][validity["ts"]])
+    take = have[rng.choice(len(have), min(rows // 2, len(have)),
+                           replace=False)]
+    other = rng.randint(-631152000, 3786912000, rows).astype(np.int64) \
+        * 1_000_000 + 7
+    ts = np.unique(np.concatenate([take, other]))[:rows]
+    rng.shuffle(ts)
+    return {"ts": ts, "dv": rng.randint(-10**6, 10**6, len(ts))}
+
+
+def date_dimension_batch(dim: Dict[str, np.ndarray],
+                         device) -> ColumnarBatch:
+    return batch_from_numpy(dim, DATE_DIM_SCHEMA, device)
+
+
+def _fns(E):
+    """The DSL module ``E`` with the names of its arithmetic, conditional,
+    datetime and hashing modules."""
+    ns = {}
+    for sub in ("arithmetic", "conditional", "datetime", "hashing"):
+        ns.update(vars(importlib.import_module(f"{E.__name__}.{sub}")))
+    ns.update(vars(E))
+    return types.SimpleNamespace(**ns)
+
+
+def dates_tz_shift(df, E=PE, T_=T):
+    """D1: from_utc_timestamp and to_utc_timestamp in three zones."""
+    F, c = _fns(E), E.col
+    out = [c("k")]
+    for j, tz in enumerate(DATE_ZONES):
+        out += [F.from_utc_timestamp(c("ts"), tz).alias(f"local{j}"),
+                F.to_utc_timestamp(c("ts"), tz).alias(f"utc{j}")]
+    return df.select(*out)
+
+
+def dates_session(df, E=PE, T_=T):
+    """D2: year, month and hour of ts and ts as a DATE, in the session
+    zone (the caller's session sets it)."""
+    F, c = _fns(E), E.col
+    return df.select(c("k"), F.Year(c("ts")).alias("y"),
+                     F.Month(c("ts")).alias("mo"),
+                     F.Hour(c("ts")).alias("h"),
+                     F.Cast(c("ts"), T_.DATE).alias("day"))
+
+
+def dates_local_hour(df, E=PE, T_=T):
+    """D2: GROUP BY the session zone's hour with COUNT(*)."""
+    F, c = _fns(E), E.col
+    return df.select(F.Hour(c("ts")).alias("h")).group_by("h").agg(
+        E.count().alias("n"))
+
+
+def date_exprs(E=PE, T_=T) -> list:
+    """D3: tests/test_math_datetime.py's DATE_EXPRS (:71-77), then the rest
+    of the datetime module."""
+    F, c = _fns(E), E.col
+    d, ts, i = c("d"), c("ts"), c("i")
+    return [
+        F.Year(d), F.Month(d), F.DayOfMonth(d), F.DayOfWeek(d),
+        F.DayOfYear(d), F.Quarter(d), F.Year(ts), F.Month(ts), F.Hour(ts),
+        F.Minute(ts), F.Second(ts), F.DateAdd(d, i),
+        F.DateSub(d, E.lit(30)), F.DateDiff(d, E.lit(0, T_.DATE)),
+        F.AddMonths(d, i), F.LastDay(d),
+        F.WeekOfYear(d),
+        F.MakeDate(F.Year(d), F.Month(d) + 1, F.DayOfMonth(d)),
+        F.TruncDate(d, "YEAR"), F.TruncDate(d, "QUARTER"),
+        F.TruncDate(d, "MONTH"), F.TruncDate(d, "WEEK"),
+        F.NextDay(d, "TUE"), F.MonthsBetween(d, F.DateAdd(d, i)),
+        F.UnixSeconds(ts), F.UnixMillis(ts), F.UnixMicros(ts),
+        F.SecondsToTimestamp(i), F.MillisToTimestamp(i),
+        F.MicrosToTimestamp(F.UnixMicros(ts)), F.UnixDate(d),
+        F.DateFromUnixDate(i)]
+
+
+def dates_functions(df, E=PE, T_=T):
+    """D3 in one select."""
+    return df.select(E.col("k"), *[e.alias(f"r{j}") for j, e in
+                                   enumerate(date_exprs(E, T_))])
+
+
+def dates_hashes(df, E=PE, T_=T):
+    """D4: xxhash64(i, l, x, s), hash(i, s), hive_hash(i, l, x, s, ts),
+    xxhash64 of the FLOAT and of the TIMESTAMP column."""
+    F, c = _fns(E), E.col
+    return df.select(
+        c("k"), F.XxHash64(c("i"), c("l"), c("x"), c("s")).alias("xx"),
+        F.Murmur3Hash(c("i"), c("s")).alias("mm"),
+        F.HiveHash(c("i"), c("l"), c("x"), c("s"), c("ts")).alias("hv"),
+        F.XxHash64(c("f")).alias("xf"), F.XxHash64(c("ts")).alias("xt"))
+
+
+def dates_group_ts(df, E=PE, T_=T):
+    """D4: GROUP BY ts with COUNT(*)."""
+    return df.group_by("ts").agg(E.count().alias("n"))
+
+
+def dates_order_ts(df, E=PE, T_=T):
+    """D4: ORDER BY ts, k (nulls first)."""
+    return df.select(E.col("ts"), E.col("k")).order_by("ts", "k")
+
+
+def dates_join_ts(df, dim, E=PE, T_=T):
+    """D4: the equi-join on ts against ``date_dimension``, then COUNT(*)
+    and the sums of dv and k."""
+    return df.join(dim, "ts").agg(E.count().alias("n"),
+                                  E.sum_("dv").alias("sdv"),
+                                  E.sum_("k").alias("sk"))
+
+
+def arith_exprs(E=PE, T_=T) -> list:
+    """D5: %, unary minus, div (zero divisors, MIN div -1), abs, nullif,
+    nvl2, greatest and least over INT, LONG and DOUBLE."""
+    F, c = _fns(E), E.col
+    i, m, l, x, k = c("i"), c("m"), c("l"), c("x"), c("k")
+    return [
+        F.Remainder(m, i), F.Remainder(l, i), F.Remainder(x, E.lit(7.5)),
+        F.UnaryMinus(m), F.UnaryMinus(l), F.UnaryMinus(x),
+        F.IntegralDivide(m, i), F.IntegralDivide(l, i),
+        F.Abs(m), F.Abs(l), F.Abs(x),
+        F.NullIf(i, E.lit(0)), F.NullIf(x, E.lit(0.0)), F.Nvl2(x, i, m),
+        F.Greatest(i, m), F.Least(i, m), F.Greatest(l, k), F.Least(l, k),
+        F.Greatest(x, E.lit(0.0)), F.Least(x, E.lit(1.5))]
+
+
+def dates_arith(df, E=PE, T_=T):
+    """D5 in one select."""
+    return df.select(E.col("k"), *[e.alias(f"a{j}") for j, e in
+                                   enumerate(arith_exprs(E, T_))])
+
+
+#: D1-D5: an output row per input row (in the session zone: D2's), the
+#: grouped ones, and the join (which also takes the dimension)
+DATE_ROW_QUERIES = {f.__name__: f for f in (
+    dates_tz_shift, dates_session, dates_functions, dates_hashes,
+    dates_arith)}
+DATE_AGG_QUERIES = {f.__name__: f for f in (
+    dates_local_hour, dates_group_ts, dates_order_ts)}
+DATE_QUERIES = {**DATE_ROW_QUERIES, **DATE_AGG_QUERIES,
+                "dates_join_ts": dates_join_ts}

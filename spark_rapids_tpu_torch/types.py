@@ -2,9 +2,11 @@
 
 Counterpart of ``spark_rapids_tpu/types.py:72-188``, cut to the types the
 TPC-H lineitem table, q6, q1 and TPC-DS q3 use: BOOLEAN, BYTE and SHORT
-(``tinyint`` / ``smallint``, :78-92; value columns only: as a group,
-join or sort key they raise), INT, LONG, FLOAT (the held aggregate
-shapes' float32 column), DOUBLE, DATE, DECIMAL (``DecimalType`` :167:
+(``tinyint`` / ``smallint``, :78-92), INT, LONG, FLOAT (the held
+aggregate shapes' float32 column), DOUBLE, DATE, TIMESTAMP
+(``TimestampType`` :129: int64 microseconds since the epoch, UTC), the
+null type of an untyped ``NULL`` literal (``NullType`` :156), DECIMAL
+(``DecimalType`` :167:
 Decimal64, precision <= 18, held as its int64 unscaled value, and
 Decimal128, precision 19-38, held as two int64 limbs; a Decimal128 is a
 value column only) and STRING (UTF-8 bytes, variable width;
@@ -117,6 +119,25 @@ class DateType(DataType):
     byte_width = 4
 
 
+class TimestampType(DataType):
+    """Microseconds since 1970-01-01 00:00:00 UTC, int64 on the device
+    (Spark's TimestampType)."""
+
+    torch_dtype = torch.int64
+    np_dtype = np.int64
+    sql_name = "timestamp"
+    byte_width = 8
+
+
+class NullType(DataType):
+    """The type of an untyped ``NULL`` literal: an all-null int8 column."""
+
+    torch_dtype = torch.int8
+    np_dtype = np.int8
+    sql_name = "void"
+    byte_width = 1
+
+
 class StringType(DataType):
     """UTF-8 bytes in the Arrow layout: int32 offsets[n + 1] + uint8 data
     (see columnar/column.py)."""
@@ -188,6 +209,8 @@ LONG = LongType()
 FLOAT = FloatType()
 DOUBLE = DoubleType()
 DATE = DateType()
+TIMESTAMP = TimestampType()
+NULL = NullType()
 STRING = StringType()
 
 #: the reference's widening order (``types.py:336``)

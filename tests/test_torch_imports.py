@@ -839,3 +839,92 @@ def test_cast_slice_wrappers_raise_off_the_cpu_without_cuda(call):
     with pytest.raises(ValueError, match="expected cuda"):
         call(C)
     assert dict(_lib.LAUNCHES) == before
+
+
+def test_date_and_hash_slice_modules_are_covered():
+    """The date and hash slice's modules (the time-zone kernels' wrappers,
+    the hashes, the datetime, hashing, arithmetic and conditional
+    expressions, the config's session zone, the held date table and the
+    copied hash oracles) are in the scans above and import nothing of
+    JAX; T1 / T2 (``csrc/timezone.cu``) and H1 / H2 (``csrc/hash.cu``) are
+    in their built sources and bound, each kernel has its own launch
+    counter, and the DSL exports the new expressions."""
+    names = ("spark_rapids_tpu_torch.kernels.timezone",
+             "spark_rapids_tpu_torch.kernels.hash",
+             "spark_rapids_tpu_torch.expressions.datetime",
+             "spark_rapids_tpu_torch.expressions.hashing",
+             "spark_rapids_tpu_torch.expressions.arithmetic",
+             "spark_rapids_tpu_torch.expressions.conditional",
+             "spark_rapids_tpu_torch.config",
+             "spark_rapids_tpu_torch.testing.held",
+             "spark_rapids_tpu_torch.testing.hashes")
+    for name in names:
+        assert name in PORT_MODULES
+        path = ROOT / (name.replace(".", "/") + ".py")
+        assert not {m for m in _imported_roots(path) if m in FORBIDDEN}
+    assert "timezone.cu" in _lib.SOURCES
+    sources = {name: (_lib.CSRC / name).read_text()
+               for name in ("timezone.cu", "hash.cu")}
+    for name, entries, kernels in (
+            ("timezone.cu", ("srt_tz_max_entries", "srt_tz_shift"),
+             ("tz_shift_kernel", "extern __shared__")),
+            ("hash.cu", ("srt_xxhash64", "srt_hive_hash"),
+             ("xxhash64_kernel", "hive_hash_kernel", "kF32"))):
+        for entry in entries:
+            assert entry in sources[name] and entry in _lib._SIGNATURES
+        for kernel in kernels:
+            assert kernel in sources[name]
+    from spark_rapids_tpu_torch.kernels import hash as HK
+    from spark_rapids_tpu_torch.kernels import timezone as TZ
+    assert len({TZ.UTC_TO_LOCAL, TZ.LOCAL_TO_UTC, HK.XXHASH64,
+                HK.HIVE_HASH, "murmur3"}) == 5
+    from spark_rapids_tpu_torch import expressions as E
+    for fn in ("Year", "Hour", "DateAdd", "MonthsBetween", "UnixSeconds",
+               "FromUtcTimestamp", "ToUtcTimestamp", "XxHash64", "HiveHash",
+               "Murmur3Hash", "IntegralDivide", "Remainder", "UnaryMinus",
+               "Abs", "NullIf", "Nvl2", "Greatest", "Least", "hash",
+               "xxhash64", "hive_hash", "from_utc_timestamp"):
+        assert hasattr(E, fn) and fn in E.__all__
+    x = E.col("x")
+    assert type(x % 2).__name__ == "Remainder"
+    assert type(-x).__name__ == "UnaryMinus"
+    from spark_rapids_tpu_torch.testing import held
+    assert len(held.DATE_QUERIES) == 9
+
+
+def _micros_meta(n: int = 8):
+    return _meta(torch.int64, n)
+
+
+def _hash_meta_columns():
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    return [DeviceColumn(_meta(torch.int64), _meta(torch.bool), T.TIMESTAMP),
+            DeviceColumn(_meta(torch.float32), _meta(torch.bool), T.FLOAT),
+            _string_meta()]
+
+
+@pytest.mark.parametrize("call", [
+    lambda: __import__("spark_rapids_tpu_torch.kernels.timezone",
+                       fromlist=["x"]).utc_to_local_micros(
+        _micros_meta(), "America/Los_Angeles"),
+    lambda: __import__("spark_rapids_tpu_torch.kernels.timezone",
+                       fromlist=["x"]).local_to_utc_micros(
+        _micros_meta(), "Asia/Kolkata"),
+    lambda: __import__("spark_rapids_tpu_torch.kernels.hash",
+                       fromlist=["x"]).xxhash64(_hash_meta_columns()),
+    lambda: __import__("spark_rapids_tpu_torch.kernels.hash",
+                       fromlist=["x"]).hive_hash(_hash_meta_columns()),
+    lambda: __import__("spark_rapids_tpu_torch.kernels.hash",
+                       fromlist=["x"]).murmur3_hash(_hash_meta_columns()),
+], ids=["utc_to_local", "local_to_utc", "xxhash64", "hive_hash",
+        "murmur3_float_timestamp"])
+def test_date_and_hash_slice_wrappers_raise_off_the_cpu_without_cuda(call):
+    """As ``test_cast_slice_wrappers_raise_off_the_cpu_without_cuda``, for
+    T1 and T2 (the zone shifts), H1 (``xxhash64``), H2 (``hive_hash``) and
+    murmur3's new FLOAT and TIMESTAMP kinds: no plain version off the
+    CPU, no launch counted."""
+    before = dict(_lib.LAUNCHES)
+    with pytest.raises(ValueError, match="expected cuda"):
+        call()
+    assert dict(_lib.LAUNCHES) == before

@@ -127,8 +127,10 @@ def test_null_literal_is_a_typed_all_null_column():
     s = Literal(None, T.STRING).eval(ctx)
     assert s.offsets.tolist() == [0, 0, 0, 0] and s.data.numel() == 0
     assert s.to_pylist() == [None] * 3
-    with pytest.raises(NotImplementedError, match="null type"):
-        Literal(None)
+    untyped = Literal(None)
+    assert untyped.dtype == T.NULL
+    c = untyped.eval(ctx)
+    assert c.data.dtype == torch.int8 and c.to_pylist() == [None] * 3
 
 
 def test_string_null_literal_concats_and_hashes_as_null():
