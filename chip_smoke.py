@@ -392,11 +392,34 @@ Phases (any failure raises and the script exits non-zero):
      STRING), at n = 1,048,576, 1,000,003 and 0 and on a slice, against
      their plain versions, and times the sort's F64 kind (the port of
      ``f64_injective_u64``) beside ``torch.sort``;
- 23. prints the kernels summary line, then the result line last.
+ 23. repartition and the sketches over phase 22's resident table
+     (7,501,518 rows, 16 partitions): E1 ``repartition(64)`` (round robin,
+     the start rotating per map batch) and ``repartition(64, l)``, each
+     partition's count against the closed form / numpy's murmur3 and
+     pmod, and its exact sum of l against numpy; E2 ``build_bloom`` over
+     1,000,000 distinct LONGs (half of them l's) at fpp 0.03 (7,298,496
+     bits, k = 5), its bits against a numpy walk of Spark's putLong bit
+     for bit, then ``might_contain(l)`` over every row (nulls null, no
+     false negative, PyBloomFilter's answer over a 65,536-row sample, the
+     false-positive share printed), the filter's count and its join to
+     the build side against numpy; E3 ``approx_count_distinct(l)``
+     global and grouped by k % 1,000 at batchSizeRows 131,072 (the
+     largest the 2^26 cap allows at p = 9): the registers against numpy's
+     xxhash64 bit for bit, the estimates exactly equal to ``estimate_np``
+     of numpy's registers, the rows equal to the plain versions'
+     (``plain_sketches``).  Each with its launches, timed.  Phase 3 holds
+     R1 (``round_robin_order``), B1 / B2 (``bloom_put`` /
+     ``bloom_probe``) and L1 / L2 (``hll_update`` / ``hll_merge``)
+     against their plain versions bit for bit at n = 1,048,576,
+     1,000,003 and 0 and on a slice, the gather and concat of an
+     [n, 512] int8 column and a spill round trip of a batch holding one,
+     and times the five at phase 23's shapes;
+ 24. prints the kernels summary line, then the result line last.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import datetime
 import decimal
@@ -425,11 +448,13 @@ from spark_rapids_tpu_torch.expressions.core import EvalContext  # noqa: E402
 from spark_rapids_tpu_torch import expressions as E  # noqa: E402
 from spark_rapids_tpu_torch.expressions import program as P  # noqa: E402
 from spark_rapids_tpu_torch.kernels import _lib  # noqa: E402
+from spark_rapids_tpu_torch.kernels import bloom as BK  # noqa: E402
 from spark_rapids_tpu_torch.kernels import cast_strings as CS  # noqa: E402
 from spark_rapids_tpu_torch.kernels import decimal as DK  # noqa: E402
 from spark_rapids_tpu_torch.kernels import fused as FK  # noqa: E402
 from spark_rapids_tpu_torch.kernels import groupby as G  # noqa: E402
 from spark_rapids_tpu_torch.kernels import hash as HK  # noqa: E402
+from spark_rapids_tpu_torch.kernels import hll as HL  # noqa: E402
 from spark_rapids_tpu_torch.kernels import join as JK  # noqa: E402
 from spark_rapids_tpu_torch.kernels import partition as PK  # noqa: E402
 from spark_rapids_tpu_torch.kernels import reduction as R  # noqa: E402
@@ -439,6 +464,7 @@ from spark_rapids_tpu_torch.kernels import strings as SS  # noqa: E402
 from spark_rapids_tpu_torch.kernels import timezone as TZ  # noqa: E402
 from spark_rapids_tpu_torch.kernels import window as WK  # noqa: E402
 from spark_rapids_tpu_torch.plan.engine import GpuEngine  # noqa: E402
+from spark_rapids_tpu_torch.plan.execs import aggregate as AGG  # noqa: E402
 from spark_rapids_tpu_torch.plan.execs.exchange import (  # noqa: E402
     GpuCoalescedShuffleReaderExec, GpuShuffleExchangeExec)
 from spark_rapids_tpu_torch.plan.execs.join import (  # noqa: E402
@@ -587,6 +613,13 @@ KERNELS = {
                      "spark_rapids_tpu/kernels/timezone.py:84"),
     "xxhash64": ("csrc/hash.cu", "spark_rapids_tpu/kernels/hash.py:529"),
     "hive_hash": ("csrc/hash.cu", "spark_rapids_tpu/kernels/hash.py:696"),
+    "round_robin_order": ("csrc/sort.cu",
+                          "spark_rapids_tpu/kernels/partition.py:67"),
+    "bloom_put": ("csrc/sketch.cu", "spark_rapids_tpu/kernels/bloom.py:71"),
+    "bloom_probe": ("csrc/sketch.cu",
+                    "spark_rapids_tpu/kernels/bloom.py:87"),
+    "hll_update": ("csrc/sketch.cu", "spark_rapids_tpu/kernels/hll.py:96"),
+    "hll_merge": ("csrc/sketch.cu", "spark_rapids_tpu/kernels/hll.py:119"),
 }
 FUSE_OFF = {"spark.rapids.sql.tpu.fuseStages": "false"}
 # fused (the default), q6's filter and partial sum are one kernel a batch:
@@ -644,25 +677,104 @@ def cuda_ms(fn) -> float:
 #: of device_profile launches after fn to show that the trace saw the card
 SENTINEL = "spin_kernel"
 
-#: device_profile calls whose traces never saw the card (not even the
-#: sentinel), timed with CUDA events instead: (fn's name, ms per call)
+#: device_profile calls whose traces never held the card's whole work
+#: (not both sentinels), timed with CUDA events instead: (fn's name, ms
+#: per call)
 PROFILER_LOST: list = []
+
+#: main-path runs whose trace lost a sentinel, so their device time is not
+#: measured: (name, device records kept, ms from the trace's start to its
+#: first kept record)
+TRACES_CUT: list = []
+
+#: traces (of every kind) that lost their head / tail sentinel.  A trace
+#: can lose the device records of the first milliseconds after its first
+#: launch and keep its later ones, so only a trace that holds both
+#: sentinels is a measurement.
+SENTINELS_LOST = {"head": 0, "tail": 0}
+
+#: seconds between a trace's first launch (a short spin, then a
+#: synchronize) and its head sentinel: the records of that first launch's
+#: moments may be lost, the head's then are not
+WAKE_S = 0.05
+
+#: the head sentinel's spin (~10 us, told from the ~1 us waking and tail
+#: spins by its length)
+HEAD_CYCLES = 20_000
+HEAD_MIN_MS = 0.005
+
+
+def _sentinels_kept(records) -> tuple:
+    """(head kept, tail kept) of a trace's (name, ms, start) records: the
+    head sentinel is the long spin, starting before every other record;
+    the tail one the last spin, starting after every other record."""
+    spins = sorted((r[2], r[1]) for r in records if SENTINEL in r[0])
+    others = [r[2] for r in records if SENTINEL not in r[0]]
+    first = min(others, default=float("inf"))
+    last = max(others, default=float("-inf"))
+    head = any(ms > HEAD_MIN_MS and t <= first for t, ms in spins)
+    tail = bool(spins) and spins[-1][0] >= last and spins[-1][1] <= HEAD_MIN_MS
+    return head, tail
+
+
+def traced_run(fn) -> tuple:
+    """fn() under torch.profiler, a spin launched to wake the trace, then
+    the sentinel spin launched first and last around fn: (fn's result, its
+    device activities (name, ms) without the spins, None if the trace
+    holds both sentinels (else its kept records and the ms from its start
+    to the first of them), fn's wall with the card synchronized)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(WAKE_S)
+        torch.cuda._sleep(HEAD_CYCLES)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    records = device_records(prof)
+    kept = _sentinels_kept(records)
+    cut = None
+    if not all(kept):
+        for side, ok in zip(("head", "tail"), kept):
+            SENTINELS_LOST[side] += not ok
+        raw = getattr(getattr(prof, "profiler", None), "kineto_results",
+                      None)
+        begin = raw.trace_start_ns() if hasattr(raw, "trace_start_ns") \
+            else None
+        first = min((r[2] for r in records), default=None)
+        cut = (len(records), None if begin is None or first is None
+               else (first - begin) / 1e6)
+    mine = [(r[0], r[1]) for r in records if SENTINEL not in r[0]]
+    return out, mine, cut, wall
 
 
 def traced_events(fn, calls: int) -> tuple:
     """(name, ms) of the device activities of ``calls`` calls of fn, and
-    whether the trace saw the card: the sentinel spin, launched after the
-    calls inside the same trace, is in it (and taken out of the list)."""
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-    events = device_events(prof)
-    mine = [e for e in events if SENTINEL not in e[0]]
-    return mine, len(mine) < len(events)
+    whether the trace holds them all (both sentinels)."""
+    _, events, cut, _ = traced_run(lambda: [fn() for _ in range(calls)])
+    return events, cut is None
+
+
+#: a main-path profile whose trace lost a sentinel: not measured
+NOT_MEASURED = (None, None, {})
+
+
+def path_profile(name: str, events, cut):
+    """(busy ms, activities, ms by name) of a main-path run's trace: None
+    where it saw no device activity (``time_path`` then traces another
+    run), NOT_MEASURED where it lost a sentinel (noted in TRACES_CUT)."""
+    if cut is not None:
+        TRACES_CUT.append((name, *cut))
+        return NOT_MEASURED
+    by_name: dict = {}
+    for event, ms in events:
+        by_name[event] = by_name.get(event, 0.0) + ms
+    return (sum(by_name.values()), len(events), by_name) if events else None
 
 
 def events_ms(fn, calls: int) -> float:
@@ -684,22 +796,26 @@ def device_profile(fn, calls: int = ITERS, idle_ok: bool = False,
     Device activities are kernels, copies and memsets; their summed
     durations are the time the card worked, whatever the host did.  A
     trace without fn's activity is taken again, three times at most, with
-    a growing pause.  If the sentinel is in the last one, fn launched
-    nothing: that fails, unless the caller declares (``idle_ok``) that fn
-    may launch nothing, as an empty gather does.  If no trace saw even the
-    sentinel, CUPTI delivered nothing for a while (it has happened after
-    hundreds of traces): fn is then timed between CUDA events, which also
-    holds the host's share, and the call returns (that ms, None, {}),
-    noted in PROFILER_LOST and on stderr.  ``warm``: one call first,
-    outside the trace (a caller that has just run fn passes False)."""
+    a growing pause; one without both sentinels once more.  If the last
+    one holds both sentinels, fn launched nothing: that fails,
+    unless the caller declares (``idle_ok``) that fn may launch nothing,
+    as an empty gather does.  If no trace held both sentinels, CUPTI lost
+    records (it has delivered nothing for a while after hundreds of
+    traces, and dropped a trace's first records): fn is then timed
+    between CUDA events, which also holds the host's share, and the call
+    returns (that ms, None, {}), noted in PROFILER_LOST and on stderr.
+    ``warm``: one call first, outside the trace (a caller that has just
+    run fn passes False)."""
     if warm:
         fn()
     torch.cuda.synchronize()
+    cuts = 0
     for attempt in range(4):
         if attempt:
             time.sleep(0.1 * attempt)
         events, seen = traced_events(fn, calls)
-        if seen and (events or idle_ok):
+        cuts += not seen
+        if (seen and (events or idle_ok)) or cuts == 2:
             break
     if not seen:
         ms = events_ms(fn, calls)
@@ -716,22 +832,25 @@ def device_profile(fn, calls: int = ITERS, idle_ok: bool = False,
     return sum(by_name.values()), len(events) / calls, by_name
 
 
-def device_events(prof):
-    """(name, ms) of each device activity of a finished trace, read from
-    the raw CUPTI records: building the profiler's Python event tree
-    takes minutes for a query of ~200,000 kernels (q72)."""
+def device_records(prof) -> list:
+    """(name, ms, start ns) of each device activity of a finished trace,
+    read from the raw CUPTI records: building the profiler's Python event
+    tree takes minutes for a query of ~200,000 kernels (q72)."""
     cuda = torch.autograd.DeviceType.CUDA
     raw = getattr(getattr(prof, "profiler", None), "kineto_results", None)
     if raw is None:
-        return [(e.name, e.time_range.elapsed_us() / 1e3)
+        return [(e.name, e.time_range.elapsed_us() / 1e3,
+                 e.time_range.start * 1000)
                 for e in prof.events() if e.device_type == cuda]
     out = []
     for e in raw.events():
         if e.device_type() != cuda:
             continue
-        ms = (e.duration_ns() / 1e6 if hasattr(e, "duration_ns")
-              else e.duration_us() / 1e3)
-        out.append((e.name(), ms))
+        if hasattr(e, "duration_ns"):
+            ms, start = e.duration_ns() / 1e6, e.start_ns()
+        else:
+            ms, start = e.duration_us() / 1e3, e.start_us() * 1000
+        out.append((e.name(), ms, start))
     return out
 
 
@@ -4508,6 +4627,7 @@ def phase_kernels(dev, tables) -> dict:
     check_string_functions(rng, dev, summary)
     check_cast_strings(rng, dev, summary)
     check_date_kernels(rng, dev, summary)
+    check_sketch_kernels(rng, dev, summary)
     torch.cuda.synchronize()
     return summary
 
@@ -4601,28 +4721,18 @@ def run_phase_path(name: str, query, kernels) -> tuple:
     set to 0 just before, read just after; each of ``kernels`` must have
     launched.  Returns the rows, the plan, the launches, the run's wall
     (the trace's cost in it) and its device profile for ``time_path``
-    (None where the trace saw no device activity)."""
+    (see ``path_profile``)."""
+    def run():
+        plan = query(None).physical_plan()
+        return GpuEngine().collect(plan), plan
+
     _lib.reset_launch_counts()
-    t = time.perf_counter()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
-        df = query(None)
-        plan = df.physical_plan()
-        rows = GpuEngine().collect(plan)
-        torch.cuda.synchronize()
-    first_wall = time.perf_counter() - t
+    (rows, plan), events, cut, first_wall = traced_run(run)
     launches = dict(_lib.LAUNCHES)
     emit({"phase": f"{name}_launches", "launches": launches})
     for k in kernels:
         require(launches.get(k, 0) > 0, f"{name} never launched {k}")
-    events = device_events(prof)
-    by_name: dict = {}
-    for event, ms in events:
-        by_name[event] = by_name.get(event, 0.0) + ms
-    profile = (sum(by_name.values()), len(events), by_name) if events \
-        else None
-    return rows, plan, launches, first_wall, profile
+    return rows, plan, launches, first_wall, path_profile(name, events, cut)
 
 
 def time_path(name: str, query, df, rows: int = SF10_ROWS,
@@ -7012,7 +7122,7 @@ def time_rows_path(name: str, query, profile, runs: int = 3,
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
     wall = statistics.median(walls)
-    busy_ms, activities, by_name = profile or (None, None, {})
+    busy_ms, activities, by_name = profile or NOT_MEASURED
     idle = None if activities is None else 1.0 - busy_ms / (wall * 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     emit({"phase": f"{name}_profile", "device_busy_ms": busy_ms,
@@ -7027,24 +7137,14 @@ def run_rows_path(name: str, query, kernels) -> tuple:
     """run_phase_path for a query run to its device batches: the counts
     set to 0 just before, read just after."""
     _lib.reset_launch_counts()
-    t = time.perf_counter()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
-        batches = run_batches(query())
-        torch.cuda.synchronize()
-    first_wall = time.perf_counter() - t
+    batches, events, cut, first_wall = traced_run(
+        lambda: run_batches(query()))
     launches = dict(_lib.LAUNCHES)
     emit({"phase": f"{name}_launches", "launches": launches})
     for k in kernels:
         require(launches.get(k, 0) > 0, f"{name} never launched {k}")
-    by_name: dict = {}
-    events = device_events(prof)
-    for event, ms in events:
-        by_name[event] = by_name.get(event, 0.0) + ms
-    profile = (sum(by_name.values()), len(events), by_name) if events \
-        else None
-    return output_columns(batches), launches, first_wall, profile
+    return (output_columns(batches), launches, first_wall,
+            path_profile(name, events, cut))
 
 
 def phase_decimal(df, ref: DecimalNumpy) -> dict:
@@ -9378,7 +9478,8 @@ def phase_date_data(dev):
            "zoned": zoned.create_dataframe(batches,
                                            num_partitions=DATE_PARTITIONS),
            "dim": utc.create_dataframe([held.date_dimension_batch(dim,
-                                                                  dev)])}
+                                                                  dev)]),
+           "batches": batches}
     return dfs, ans
 
 
@@ -9501,6 +9602,703 @@ def phase_dates(dfs, ans: DateAnswers) -> dict:
     return by_path
 
 
+# -- phase 23: repartition and the sketches -----------------------------------
+
+SKETCH_PARTITIONS = 64           # E1's repartition(64)
+SKETCH_BUILD_ROWS = 1_000_000    # E2's build side: distinct LONGs
+SKETCH_FPP = 0.03
+SKETCH_GROUPS = 1_000            # E3's grouped key: k % 1,000
+SKETCH_BATCH_ROWS = 131_072      # the most the 2^26 cap allows at p = 9
+SKETCH_P = 9                     # approx_count_distinct's default rsd 0.05
+SKETCH_SAMPLE = 1 << 16          # rows held against PyBloomFilter
+SKETCH_KERNELS = ("round_robin_order", "bloom_put", "bloom_probe",
+                  "hll_update", "hll_merge")
+_U32 = np.uint32
+_U64 = np.uint64
+
+
+def np_rotl32(x, r: int):
+    return (x << _U32(r)) | (x >> _U32(32 - r))
+
+
+def np_mix_h1(h1, k1):
+    k1 = np_rotl32(k1 * _U32(0xCC9E2D51), 15) * _U32(0x1B873593)
+    return np_rotl32(h1 ^ k1, 13) * _U32(5) + _U32(0xE6546B64)
+
+
+def np_murmur3_long(v: np.ndarray, seed) -> np.ndarray:
+    """Spark's Murmur3_x86_32.hashLong of int64 values, uint32 lanes."""
+    with np.errstate(over="ignore"):
+        u = v.view(np.uint64)
+        h = np_mix_h1(np.broadcast_to(_U32(seed) if np.isscalar(seed)
+                                      else seed, v.shape).astype(np.uint32),
+                      (u & _U64(0xFFFFFFFF)).astype(np.uint32))
+        h = np_mix_h1(h, (u >> _U64(32)).astype(np.uint32))
+        h = h ^ _U32(8)
+        h = (h ^ (h >> _U32(16))) * _U32(0x85EBCA6B)
+        h = (h ^ (h >> _U32(13))) * _U32(0xC2B2AE35)
+        return h ^ (h >> _U32(16))
+
+
+def np_bloom_bits(values: np.ndarray, num_bits: int, k: int) -> np.ndarray:
+    """Spark's putLong walk over int64 values -> bool [num_bits]."""
+    h1 = np_murmur3_long(values, 0)
+    h2 = np_murmur3_long(values, h1)
+    bits = np.zeros(num_bits, np.bool_)
+    with np.errstate(over="ignore"):
+        for i in range(1, k + 1):
+            c = (h1 + _U32(i) * h2).view(np.int32).astype(np.int64)
+            bits[np.where(c < 0, ~c, c) % num_bits] = True
+    return bits
+
+
+def np_rotl64(x, r: int):
+    return (x << _U64(r)) | (x >> _U64(64 - r))
+
+
+def np_xxhash64_long(v: np.ndarray, seed: int = 42) -> np.ndarray:
+    """Spark's XXH64.hashLong of int64 values, uint64 lanes."""
+    p1, p2, p3, p4, p5 = (_U64(0x9E3779B185EBCA87), _U64(0xC2B2AE3D27D4EB4F),
+                          _U64(0x165667B19E3779F9), _U64(0x85EBCA77C2B2AE63),
+                          0x27D4EB2F165667C5)
+    with np.errstate(over="ignore"):
+        u = v.view(np.uint64)
+        h = _U64((seed + p5 + 8) % 2**64) ^ (np_rotl64(u * p2, 31) * p1)
+        h = np_rotl64(h, 27) * p1 + p4
+        h = (h ^ (h >> _U64(33))) * p2
+        h = (h ^ (h >> _U64(29))) * p3
+        return h ^ (h >> _U64(32))
+
+
+def np_idx_rho(v: np.ndarray, p: int):
+    """HLL++'s (register, rho) of int64 values: xxhash64 seed 42, the top p
+    bits, leading zeros of the rest by a six-step search."""
+    h = np_xxhash64_long(v)
+    idx = (h >> _U64(64 - p)).astype(np.int64)
+    rest = h << _U64(p)
+    nz = np.zeros(len(v), np.int64)
+    for s in (32, 16, 8, 4, 2, 1):
+        top = (rest >> _U64(64 - s)) == 0
+        nz += np.where(top, s, 0)
+        rest = np.where(top, rest << _U64(s), rest)
+    nz += rest == 0
+    return idx, np.minimum(nz + 1, 64 - p + 1)
+
+
+def np_registers(v, ok, groups, ngroups: int, p: int) -> np.ndarray:
+    """int8 [ngroups, 2^p]: each group's registers (numpy, independent of
+    the port)."""
+    m = 1 << p
+    idx, rho = np_idx_rho(v[ok], p)
+    regs = np.zeros(ngroups * m, np.int64)
+    np.maximum.at(regs, groups[ok] * m + idx, rho)
+    return regs.astype(np.int8).reshape(ngroups, m)
+
+
+def exact_sum(v: np.ndarray) -> int:
+    """The exact (Python int) sum of int64 values, by 32-bit halves."""
+    return (int(np.sum(v >> 32)) << 32) + int(np.sum(v & 0xFFFFFFFF))
+
+
+def bloom_build_values(l: np.ndarray, ok: np.ndarray, rows: int,
+                       seed: int = 23) -> np.ndarray:
+    """``rows`` distinct LONGs: half drawn from the valid l, half never in
+    it; shuffled."""
+    rng = np.random.RandomState(seed)
+    have = np.unique(l[ok])
+    take = have[rng.choice(len(have), rows // 2, replace=False)]
+    other = np.unique(rng.randint(-2**62, 2**62, rows, dtype=np.int64))
+    other = other[~np.isin(other, have)]
+    out = np.concatenate([take, other[rng.choice(len(other),
+                                                 rows - rows // 2,
+                                                 replace=False)]])
+    rng.shuffle(out)
+    return out
+
+
+def long_column(v: np.ndarray, ok, dev) -> DeviceColumn:
+    return DeviceColumn.from_numpy(v, T.LONG, ok, dev)
+
+
+def segment_starts(rng, n: int, segments: int, dev) -> torch.Tensor:
+    cuts = {0} | set(rng.randint(0, max(n, 1), segments).tolist())
+    return torch.tensor(sorted(c for c in cuts if c < max(n, 1)),
+                        dtype=torch.int32, device=dev)
+
+
+def hold_round_robin(n: int, nparts: int, start: int, dev, what: str):
+    hold(PK.ROUND_ROBIN, [(PK.round_robin_order(n, nparts, start, dev),
+                           PK.round_robin_order_plain(n, nparts, start,
+                                                      dev))], what)
+
+
+def hold_bloom(col: DeviceColumn, probe: DeviceColumn, num_bits: int, k: int,
+               what: str) -> None:
+    w = torch.zeros(num_bits // 64, dtype=torch.int64, device=col.device)
+    wp = w.clone()
+    BK.bloom_put(w, col, k)
+    BK.bloom_put_plain(wp, col, k)
+    hold(BK.BLOOM_PUT, [(w, wp)], what)
+    BK.bloom_put(w, probe, k)            # a second batch ORs into the words
+    BK.bloom_put_plain(wp, probe, k)
+    hold(BK.BLOOM_PUT, [(w, wp)], f"{what}, a second batch")
+    for c in (col, probe):
+        hold(BK.BLOOM_PROBE, [(BK.bloom_probe(w, c, k),
+                               BK.bloom_probe_plain(w, c, k))], what)
+
+
+def hold_hll(col: DeviceColumn, starts, p: int, what: str) -> torch.Tensor:
+    got = HL.hll_update(col, p, starts)
+    hold(HL.HLL_UPDATE, [(got, HL.hll_update_plain(
+        col.data.to(torch.int64), col.validity, p, starts))], what)
+    return got
+
+
+def hold_merge(regs, valid, starts, what: str) -> None:
+    hold(HL.HLL_MERGE, [(HL.hll_merge(regs, valid, starts),
+                         HL.hll_merge_plain(regs, valid, starts))], what)
+
+
+WIDE_TYPE = T.ArrayType(T.ByteType(), contains_null=False, length=512)
+
+
+def wide_column(rng, n: int, dev) -> DeviceColumn:
+    """[n, 512] int8 rows drawn on the card (a seed from ``rng``), 10%
+    null."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.randint(0, 2**31)))
+    regs = torch.randint(-128, 128, (n, 512), dtype=torch.int8, device=dev,
+                         generator=gen)
+    valid = torch.rand(n, device=dev, generator=gen) >= 0.1
+    return DeviceColumn(regs, valid, WIDE_TYPE)
+
+
+def check_wide_rows(rng, dev) -> None:
+    """The gather and concat of an [n, 512] int8 column (HLL's register
+    rows, 16-byte chunks) bit for bit, and a spill round trip of a batch
+    holding one (device -> pinned host -> disk -> device)."""
+    from spark_rapids_tpu_torch.memory import make_spillable
+    for n in (N, RAGGED, 0):
+        c = wide_column(rng, n, dev)
+        ix = torch.from_numpy(rng.randint(-3, max(n, 1) + 3, 700_001)
+                              .astype(np.int32)).to(dev)
+        hold("gather", column_pairs(S.gather_columns([c], ix),
+                                    S.gather_columns_plain([c], ix)),
+             f"wide n={n}")
+        pieces = [c.slice_rows(0, n // 3), wide_column(rng, 0, dev),
+                  c.slice_rows(n // 3, n), c.slice_rows(5 * n // 7, n)]
+        hold("concat", column_pairs([S.concat_column(pieces)],
+                                    [S.concat_column_plain(pieces)]),
+             f"wide n={n}")
+    n = 200_003
+    v = rng.randint(-2**63, 2**63 - 1, n, dtype=np.int64)
+    regs = wide_column(rng, n, dev)
+    want = [t.clone() for t in (regs.data, regs.validity)]
+    batch = ColumnarBatch((regs, long_column(v, rng.rand(n) >= 0.1, dev)), n,
+                          Schema(("r", "l"), (WIDE_TYPE, T.LONG)))
+    del regs
+    h = make_spillable(batch)
+    del batch
+    require(h.spill_to_host() == h.size_bytes and h.tier() == "host"
+            and h.spill_to_disk() > 0 and h.tier() == "disk",
+            "the wide batch did not spill to host and disk")
+    with h.borrowed() as back:
+        require(torch.equal(back.columns[0].data, want[0])
+                and torch.equal(back.columns[0].validity, want[1]),
+                "the wide batch's registers changed through the spill")
+    h.close()
+
+
+def check_sketch_kernels(rng, dev, summary) -> None:
+    """R1, B1, B2, L1 and L2 bit for bit against their plain versions on
+    the card at n = 1,048,576, 1,000,003 and 0 and on a slice: R1 into 1,
+    7, 16, 64 and 300 partitions from several starts; B1 and B2 over LONGs
+    with both ends, -1, 0 and 10% nulls at phase 23's 7,298,496 bits (k =
+    5) and at 64 bits (every bit set), a second batch ORed in; L1 global
+    at p = 4, 9 and 13 and grouped over one-row segments, ~1,000 random
+    ones and one of all rows (the global kernel again); L2 over register
+    rows with nulls per segment and as one.  Then the wide rows' gather,
+    concat and spill, and each kernel timed at phase 23's shapes."""
+    nb = BK.optimal_num_bits(SKETCH_BUILD_ROWS, SKETCH_FPP)
+    kb = BK.optimal_num_hashes(SKETCH_BUILD_ROWS, nb)
+    for n in (N, RAGGED, 0):
+        t = time.perf_counter()
+        for nparts, start in ((1, 0), (7, 3), (16, 15), (64, 5), (300, 299)):
+            hold_round_robin(n, nparts, start, dev, f"n={n} {nparts} parts")
+        v = rng.randint(-2**63, 2**63 - 1, max(n, 4), dtype=np.int64)
+        v[:4] = [-2**63, 2**63 - 1, -1, 0]
+        ok = rng.rand(len(v)) >= 0.1
+        col = long_column(v, ok, dev).slice_rows(0, n)
+        probe = long_column(rng.randint(-2**63, 2**63 - 1, max(n, 4),
+                                        dtype=np.int64), None, dev)
+        probe = probe.slice_rows(0, n)
+        parts = [(col, f"n={n}")]
+        if n == RAGGED:
+            parts.append((col.slice_rows(1_000, n - 777), "sliced"))
+        for c, what in parts:
+            hold_bloom(c, probe.slice_rows(0, c.num_rows), nb, kb, what)
+            hold_bloom(c, probe.slice_rows(0, c.num_rows), 64, 3,
+                       f"{what} 64 bits")
+            for p in (4, SKETCH_P, 13):
+                hold_hll(c, None, p, f"{what} global p={p}")
+            m = c.num_rows
+            few = c.slice_rows(0, min(m, 65_536))   # one-row segments
+            cases = [("one", c, torch.zeros(1, dtype=torch.int32,
+                                            device=dev))]
+            if m:
+                cases += [("one-row", few, torch.arange(
+                    few.num_rows, dtype=torch.int32, device=dev)),
+                    ("~1,000", c, segment_starts(rng, m, 1_000, dev))]
+            for label, cc, starts in cases:
+                regs = hold_hll(cc, starts, SKETCH_P, f"{what} {label}")
+                valid = torch.from_numpy(rng.rand(regs.shape[0]) >= 0.1).to(
+                    dev)
+                for mst in (segment_starts(rng, regs.shape[0], 50, dev),
+                            torch.zeros(1, dtype=torch.int32, device=dev)):
+                    hold_merge(regs, valid, mst, f"{what} {label}")
+        torch.cuda.synchronize()
+        emit({"phase": "sketch_kernel_checks", "n": n,
+              "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    check_wide_rows(rng, dev)
+    torch.cuda.synchronize()
+    emit({"phase": "wide_row_checks", "seconds": time.perf_counter() - t})
+    time_sketch_kernels(dev, summary)
+
+
+def time_sketch_kernels(dev, summary) -> None:
+    """Each kernel at phase 23's shapes: R1 as one map batch of E1's
+    repartition(64) (1,048,576 rows; library: a stable torch.sort of the
+    partition ids and bincount); B1 over E2's 1,000,000 build LONGs into
+    7,298,496 bits (library: index_fill_ of a bool vector at the
+    positions); B2 over phase 22's first 1,048,576 l (library:
+    index_select of the k bits and all); L1 over the same l, global and
+    grouped into E3's ~1,000 groups (library: scatter_reduce amax at the
+    positions); L2 over 8 partials of 1,000 groups, E3's grouped final
+    (library: segment_reduce max over the registers as float32)."""
+    data, validity = held.date_columns(N, DATE_SEED)
+    b = held.date_batches(data, validity, dev, N)[0]
+    l = b.column("l")
+    nb = BK.optimal_num_bits(SKETCH_BUILD_ROWS, SKETCH_FPP)
+    kb = BK.optimal_num_hashes(SKETCH_BUILD_ROWS, nb)
+    lines = {}
+
+    def run(name, shape, kernel, plain, library, nbytes, **extra):
+        line = {"kernel": name, "shape": shape, **extra,
+                **measure(kernel, plain, library, nbytes)}
+        emit(line)
+        lines[name] = summarize(line, nbytes)
+
+    # R1
+    start = 5
+    part = ((torch.arange(N, device=dev) + start) % SKETCH_PARTITIONS).to(
+        torch.int32)
+    hold_round_robin(N, SKETCH_PARTITIONS, start, dev, "the timed map batch")
+    run(PK.ROUND_ROBIN, "e1_map_batch", lambda: PK.round_robin_order(
+        N, SKETCH_PARTITIONS, start, dev),
+        lambda: PK.round_robin_order_plain(N, SKETCH_PARTITIONS, start, dev),
+        lambda: (torch.sort(part, stable=True),
+                 torch.bincount(part, minlength=SKETCH_PARTITIONS)),
+        4 * N, n=N, partitions=SKETCH_PARTITIONS)
+    # B1 over the build side, B2 over a batch of l
+    build = long_column(bloom_build_values(data["l"], validity["l"],
+                                           SKETCH_BUILD_ROWS), None,
+                        dev)
+    words = torch.zeros(nb // 64, dtype=torch.int64, device=dev)
+    plain_words = words.clone()
+    bits = torch.zeros(nb, dtype=torch.bool, device=dev)
+    pos = BK.bit_positions_plain(build.data, nb, kb).reshape(-1)
+    run(BK.BLOOM_PUT, "e2_build", lambda: BK.bloom_put(words, build, kb),
+        lambda: BK.bloom_put_plain(plain_words, build, kb),
+        lambda: bits.index_fill_(0, pos, True),
+        9 * SKETCH_BUILD_ROWS + 8 * (nb // 64), n=SKETCH_BUILD_ROWS,
+        num_bits=nb, k=kb)
+    hold(BK.BLOOM_PUT, [(words, plain_words)], "the timed build")
+    bits = torch.from_numpy(BK.words_to_bits(words.cpu().numpy())).to(dev)
+    ppos = BK.bit_positions_plain(l.data, nb, kb).reshape(-1)
+    hold(BK.BLOOM_PROBE, [(BK.bloom_probe(words, l, kb),
+                           BK.bloom_probe_plain(words, l, kb))],
+         "the timed probe")
+    run(BK.BLOOM_PROBE, "e2_probe_batch", lambda: BK.bloom_probe(words, l, kb),
+        lambda: BK.bloom_probe_plain(words, l, kb),
+        lambda: bits.index_select(0, ppos).view(kb, N).all(0),
+        10 * N + 8 * (nb // 64), n=N, num_bits=nb, k=kb)
+    # L1 global and grouped, L2
+    m = 1 << SKETCH_P
+    idx, rho = HL.idx_rho_plain(l.data, l.validity, SKETCH_P)
+    gkey = b.column("k").data % SKETCH_GROUPS
+    order = torch.argsort(gkey, stable=True)
+    sl = DeviceColumn(l.data[order], l.validity[order], T.LONG)
+    sg = gkey[order]
+    starts = torch.nonzero(torch.cat([torch.ones(1, dtype=torch.bool,
+                                                 device=dev),
+                                      sg[1:] != sg[:-1]])).flatten().to(
+        torch.int32)
+    sidx, srho = HL.idx_rho_plain(sl.data, sl.validity, SKETCH_P)
+    flat = sg * m + sidx
+    hold_hll(l, None, SKETCH_P, "the timed batch")
+    regs_g = hold_hll(sl, starts, SKETCH_P, "the timed grouped batch")
+    run("hll_update_global", "e3_global_batch",
+        lambda: HL.hll_update(l, SKETCH_P),
+        lambda: HL.hll_update_plain(l.data, l.validity, SKETCH_P, None),
+        lambda: torch.zeros(m, dtype=torch.int64, device=dev).scatter_reduce_(
+            0, idx, rho, "amax"), 9 * N + m, n=N, p=SKETCH_P)
+    run(HL.HLL_UPDATE, "e3_grouped_batch",
+        lambda: HL.hll_update(sl, SKETCH_P, starts),
+        lambda: HL.hll_update_plain(sl.data, sl.validity, SKETCH_P, starts),
+        lambda: torch.zeros(SKETCH_GROUPS * m, dtype=torch.int64,
+                            device=dev).scatter_reduce_(0, flat, srho, "amax"),
+        9 * N + 4 * starts.numel() + SKETCH_GROUPS * m, n=N, p=SKETCH_P,
+        groups=int(starts.numel()))
+    partials = torch.cat([regs_g] * 8)
+    pg = torch.arange(partials.shape[0], device=dev) % regs_g.shape[0]
+    porder = torch.argsort(pg, stable=True)
+    merged_in = partials[porder].contiguous()
+    pvalid = torch.ones(merged_in.shape[0], dtype=torch.bool, device=dev)
+    mstarts = torch.arange(0, merged_in.shape[0], 8, dtype=torch.int32,
+                           device=dev)
+    as_float = merged_in.to(torch.float32)
+    lengths = torch.full((mstarts.numel(),), 8, dtype=torch.int64,
+                         device=dev)
+    hold_merge(merged_in, pvalid, mstarts, "the timed final merge")
+    run(HL.HLL_MERGE, "e3_grouped_final",
+        lambda: HL.hll_merge(merged_in, pvalid, mstarts),
+        lambda: HL.hll_merge_plain(merged_in, pvalid, mstarts),
+        lambda: torch.segment_reduce(as_float, "max", lengths=lengths,
+                                     axis=0),
+        merged_in.numel() + merged_in.shape[0] + 4 * mstarts.numel()
+        + mstarts.numel() * m, rows=int(merged_in.shape[0]),
+        groups=int(mstarts.numel()))
+    summary.update({name: lines[name] for name in SKETCH_KERNELS})
+
+
+def phase_sketch_data(dfs, ans: DateAnswers):
+    """Phase 22's resident held table, its l / k as numpy, a session at
+    batchSizeRows 131,072 over the same batches, and E2's build side on
+    the card."""
+    t0 = time.perf_counter()
+    batches = dfs["batches"]
+    sess = dfs["utc"].session
+    small = GpuSession({"spark.rapids.sql.batchSizeRows":
+                        str(SKETCH_BATCH_ROWS)}, device=sess.device)
+    out = {"df": dfs["utc"], "batches": batches,
+           "small": small.create_dataframe(batches,
+                                           num_partitions=DATE_PARTITIONS),
+           "sizes": [b.num_rows for b in batches]}
+    l, ok = ans.d["l"], ans.v["l"]
+    build = bloom_build_values(l, ok, SKETCH_BUILD_ROWS)
+    out["build"] = build
+    out["build_df"] = sess.create_dataframe([ColumnarBatch(
+        (long_column(build, None, sess.device),), len(build),
+        Schema(("b",), (T.LONG,)))])
+    emit({"phase": "sketch_data", "rows": DATE_ROWS,
+          "build_rows": len(build), "setup_seconds":
+          time.perf_counter() - t0})
+    return out
+
+
+def run_partitions(name: str, query, kernels) -> tuple:
+    """A query's main path run to its device batches by partition, traced:
+    the counts set to 0 just before, read just after; each of ``kernels``
+    must have launched.  (partitions, launches, wall, profile)."""
+    def run():
+        return GpuEngine().execute(query().physical_plan())
+
+    _lib.reset_launch_counts()
+    parts, events, cut, wall = traced_run(run)
+    launches = dict(_lib.LAUNCHES)
+    emit({"phase": f"{name}_launches", "launches": launches})
+    for k in kernels:
+        require(launches.get(k, 0) > 0, f"{name} never launched {k}")
+    return parts, launches, wall, path_profile(name, events, cut)
+
+
+def partition_l(parts) -> list:
+    """Each partition's l values (valid rows) on the host."""
+    out = []
+    for part in parts:
+        vals = [(b.column("l").data, b.column("l").validity) for b in part]
+        if not vals:
+            out.append(np.zeros(0, np.int64))
+            continue
+        d = torch.cat([v for v, _ in vals]).cpu().numpy()
+        m = torch.cat([ok for _, ok in vals]).cpu().numpy()
+        out.append(d[m])
+    return out
+
+
+def check_e1(name: str, parts, want_counts, want_part, l, ok) -> None:
+    """Per-partition counts and exact sums of l against numpy's."""
+    got_counts = [sum(b.num_rows for b in p) for p in parts]
+    require(got_counts == list(want_counts),
+            f"{name}: partition counts {got_counts[:8]}... against "
+            f"{list(want_counts)[:8]}...")
+    got = partition_l(parts)
+    for p in range(SKETCH_PARTITIONS):
+        want = exact_sum(l[ok & (want_part == p)])
+        require(exact_sum(got[p]) == want,
+                f"{name}: partition {p}'s sum of l differs from numpy's")
+
+
+def time_rows(name: str, fn, runs: int = 3) -> dict:
+    walls = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    return {"wall_s": statistics.median(walls), "wall_s_runs": walls}
+
+
+@contextlib.contextmanager
+def plain_sketches():
+    """R1, B1, B2, L1 and L2 replaced by their plain versions (on the
+    card), for one comparison run."""
+    saved = (PK._round_robin_order_cuda, BK._bloom_put_cuda,
+             BK._bloom_probe_cuda, HL._hll_update_cuda, HL._hll_merge_cuda)
+    PK._round_robin_order_cuda = lambda rows, n, start, dev: \
+        PK.round_robin_order_plain(rows, n, start, dev)
+    BK._bloom_put_cuda = BK.bloom_put_plain
+    BK._bloom_probe_cuda = BK.bloom_probe_plain
+    HL._hll_update_cuda = HL.hll_update_plain
+    HL._hll_merge_cuda = HL.hll_merge_plain
+    try:
+        yield
+    finally:
+        (PK._round_robin_order_cuda, BK._bloom_put_cuda,
+         BK._bloom_probe_cuda, HL._hll_update_cuda,
+         HL._hll_merge_cuda) = saved
+
+
+def phase_sketches(data, ans: DateAnswers) -> dict:
+    """E1 repartition(64) and repartition(64, l); E2 build_bloom over
+    1,000,000 LONGs, might_contain over the 7,501,518 rows and the join
+    to the build side; E3 approx_count_distinct(l) global and grouped by
+    k % 1,000 at batchSizeRows 131,072.  Each against numpy answers
+    independent of the port, with its launches, timed."""
+    by_path = {}
+    df = data["df"]
+    l, ok, k = ans.d["l"], ans.v["l"], ans.d["k"]
+    sizes = data["sizes"]
+    # -- E1: round robin (the start rotates per map batch) and hash
+    t = time.perf_counter()
+    rr_part = np.concatenate([(np.arange(n) + j % SKETCH_PARTITIONS)
+                              % SKETCH_PARTITIONS
+                              for j, n in enumerate(sizes)])
+    rr_counts = [sum(-(-(n - r0) // SKETCH_PARTITIONS) if r0 < n else 0
+                     for j, n in enumerate(sizes)
+                     for r0 in [(p - j) % SKETCH_PARTITIONS])
+                 for p in range(SKETCH_PARTITIONS)]
+    h = np_murmur3_long(l, 42).view(np.int32).astype(np.int64)
+    h = np.where(ok, h, 42)          # a null key passes the seed through
+    hash_part = np.mod(h, SKETCH_PARTITIONS)
+    hash_counts = np.bincount(hash_part, minlength=SKETCH_PARTITIONS)
+    answer_s = time.perf_counter() - t
+    for name, query, want_counts, want_part, kernels in (
+            ("sketch_repartition_rr",
+             lambda: df.repartition(SKETCH_PARTITIONS), rr_counts, rr_part,
+             ("round_robin_order", "gather", "gather_strings")),
+            ("sketch_repartition_l",
+             lambda: df.repartition(SKETCH_PARTITIONS, E.col("l")),
+             hash_counts, hash_part, ("murmur3", "partition", "gather"))):
+        parts, launches, first_wall, profile = run_partitions(
+            name, query, kernels)
+        t = time.perf_counter()
+        check_e1(name, parts, want_counts, want_part, l, ok)
+        check_s = time.perf_counter() - t
+        del parts
+        timing = time_rows(name, lambda q=query: GpuEngine().execute(
+            q().physical_plan()))
+        busy = profile[0] if profile else None
+        emit({"phase": name, "rows": DATE_ROWS, "partitions":
+              SKETCH_PARTITIONS, "answer_s": answer_s, "check_s": check_s,
+              "first_wall_s": first_wall, "device_busy_ms": busy,
+              "device_activities": profile[1] if profile else None,
+              "idle_share": None if busy is None else
+              1.0 - busy / (timing["wall_s"] * 1e3), **timing})
+        by_path[name] = launches
+    # -- E2: the runtime filter
+    build, build_df = data["build"], data["build_df"]
+    nb = BK.optimal_num_bits(SKETCH_BUILD_ROWS, SKETCH_FPP)
+    kb = BK.optimal_num_hashes(SKETCH_BUILD_ROWS, nb)
+    _lib.reset_launch_counts()
+    t = time.perf_counter()
+    bloom = build_df.build_bloom(E.col("b"), expected_items=SKETCH_BUILD_ROWS,
+                                 fpp=SKETCH_FPP)
+    torch.cuda.synchronize()
+    build_wall = time.perf_counter() - t
+    launches = dict(_lib.LAUNCHES)
+    emit({"phase": "sketch_build_bloom_launches", "launches": launches})
+    require(launches.get("bloom_put", 0) > 0, "build_bloom never launched "
+            "bloom_put")
+    by_path["sketch_build_bloom"] = launches
+    t = time.perf_counter()
+    want_bits = np_bloom_bits(build, nb, kb)
+    require(np.array_equal(bloom.bits, want_bits),
+            f"the bloom filter's bits differ from numpy's walk: "
+            f"{int((bloom.bits != want_bits).sum())} bits")
+    member = ok & np.isin(l, build)
+    build_timing = time_rows("sketch_build_bloom", lambda: build_df.build_bloom(
+        E.col("b"), expected_items=SKETCH_BUILD_ROWS, fpp=SKETCH_FPP))
+    emit({"phase": "sketch_build_bloom", "build_rows": len(build),
+          "num_bits": nb, "k": kb, "bits_set": int(want_bits.sum()),
+          "first_wall_s": build_wall, "check_s": time.perf_counter() - t,
+          **build_timing})
+    might = E.BloomFilterMightContain(E.col("l"), bloom)
+    probe = lambda: df.select(E.col("k"), might.alias("m"))  # noqa: E731
+    cols, launches, first_wall, profile = run_rows_path(
+        "sketch_might_contain", probe, ("bloom_probe",))
+    by_path["sketch_might_contain"] = launches
+    by = dict(zip(probe().schema.names, cols))
+    t = time.perf_counter()
+    kk = by["k"].data.cpu().numpy()
+    m, mok = by["m"].data.cpu().numpy(), by["m"].validity.cpu().numpy()
+    pos = np.empty(len(kk), np.int64)
+    pos[kk] = np.arange(len(kk))
+    m, mok = m[pos], mok[pos]        # back in row order
+    require(np.array_equal(mok, ok), "might_contain: a null is not null")
+    require(bool(m[member].all()), "might_contain: a false negative")
+    sample = np.random.RandomState(23).choice(DATE_ROWS, SKETCH_SAMPLE,
+                                              replace=False)
+    for r in sample:
+        if ok[r]:
+            require(bool(m[r]) == bloom.might_contain(int(l[r])),
+                    f"might_contain row {r} differs from PyBloomFilter")
+    nonmember = ok & ~member
+    fp = float(m[nonmember].sum()) / max(int(nonmember.sum()), 1)
+    check_s = time.perf_counter() - t
+    timing = time_rows_path("sketch_might_contain", probe, profile,
+                            rows=DATE_ROWS)
+    emit({"phase": "sketch_might_contain", "rows": DATE_ROWS,
+          "members": int(member.sum()), "kept": int(m.sum()),
+          "false_positive_share": fp, "check_s": check_s,
+          "first_wall_s": first_wall, **timing})
+    filt = df.filter(might)
+    for name, query, want in (
+            ("sketch_filter_count",
+             lambda _: filt.agg(E.count().alias("n")), int(m.sum())),
+            ("sketch_filter_join",
+             lambda _: filt.join(build_df, on=([E.col("l")], [E.col("b")]))
+             .agg(E.count().alias("n")), int(member.sum()))):
+        rows, plan, launches, first_wall, profile = run_phase_path(
+            name, query, ("bloom_probe",))
+        require(rows == [(want,)], f"{name}: {rows} against numpy's {want}")
+        timing = time_path(name, query, None, DATE_ROWS, profile, runs=3)
+        emit({"phase": name, "rows": DATE_ROWS, "out": rows,
+              "first_wall_s": first_wall, **timing})
+        by_path[name] = launches
+    # -- E3: HyperLogLog++
+    t = time.perf_counter()
+    m_regs = 1 << SKETCH_P
+    want_global = np_registers(l, ok, np.zeros(len(l), np.int64), 1,
+                               SKETCH_P)
+    g = k % SKETCH_GROUPS
+    want_groups = np_registers(l, ok, g, SKETCH_GROUPS, SKETCH_P)
+    answer_s = time.perf_counter() - t
+    # the registers themselves: L1 per batch, L2 over the batches' rows
+    per_batch = [HL.hll_update(b.column("l"), SKETCH_P)
+                 for b in data["batches"]]
+    merged = HL.hll_merge(torch.cat(per_batch), torch.ones(
+        len(per_batch), dtype=torch.bool, device=per_batch[0].device),
+        torch.zeros(1, dtype=torch.int32, device=per_batch[0].device))
+    require(np.array_equal(merged.cpu().numpy(), want_global),
+            "the global registers differ from numpy's xxhash64")
+    require(want_global.shape == (1, m_regs), "register shape")
+    want_est = [(HL.estimate_np(want_global[0]),)]
+    want_rows = sorted((gi, HL.estimate_np(want_groups[gi]))
+                       for gi in range(SKETCH_GROUPS))
+    for name, query, want, on in (
+            ("sketch_acd_global",
+             lambda _: df.agg(E.approx_count_distinct("l").alias("a")),
+             want_est, ("hll_update", "hll_merge")),
+            ("sketch_acd_grouped",
+             lambda _: data["small"].group_by(
+                 (E.col("k") % SKETCH_GROUPS).alias("g")).agg(
+                 E.approx_count_distinct("l").alias("a")),
+             want_rows, ("hll_update", "hll_merge", "gather"))):
+        rows, plan, launches, first_wall, profile = run_phase_path(
+            name, query, on)
+        with entry_calls() as calls:       # the same run, its L1 entries
+            query(None).collect()
+        one, other = ((HLL_GLOBAL, HLL_GROUPED) if name == "sketch_acd_global"
+                      else (HLL_GROUPED, HLL_GLOBAL))
+        require(calls[one] == launches["hll_update"] and not calls[other],
+                f"{name}: L1 took {calls[HLL_GLOBAL]} global and "
+                f"{calls[HLL_GROUPED]} grouped launches, not "
+                f"{launches['hll_update']} of {one}")
+        require(sorted(rows) == want, f"{name}: the estimates differ from "
+                f"estimate_np of numpy's registers: {sorted(rows)[:3]} "
+                f"against {want[:3]}")
+        with plain_sketches():
+            plain_rows = query(None).collect()
+        require(sorted(plain_rows) == sorted(rows),
+                f"{name}: differs from the plain versions' rows")
+        timing = time_path(name, query, None, DATE_ROWS, profile, runs=3)
+        emit({"phase": name, "rows": DATE_ROWS, "out_rows": len(rows),
+              "estimate": rows[0] if len(rows) == 1 else None,
+              "answer_s": answer_s, "plain_equal": True,
+              "l1_entries": {k: calls[k] for k in (HLL_GLOBAL, HLL_GROUPED)},
+              "first_wall_s": first_wall, **timing})
+        by_path[name] = launches
+    time_global_update(data["batches"][0].column("l"))
+    return by_path
+
+
+#: L1's entry points in the built library: one sketch over the whole
+#: grid, or a block a segment
+HLL_GLOBAL, HLL_GROUPED = "srt_hll_global", "srt_hll_grouped"
+
+
+@contextlib.contextmanager
+def entry_calls():
+    """Counts of the built library's entry points called inside the block
+    (a proxy stands for ``_lib.lib()``): which kernel a wrapper chose,
+    whatever a trace kept."""
+    real = _lib.lib
+    calls: collections.Counter = collections.Counter()
+
+    class Spy:
+        def __getattr__(self, name):
+            fn = getattr(real(), name)
+
+            def call(*args):
+                calls[name] += 1
+                return fn(*args)
+            return call
+
+    spy = Spy()
+    _lib.lib = lambda: spy
+    try:
+        yield calls
+    finally:
+        _lib.lib = real
+
+
+def time_global_update(l: DeviceColumn) -> None:
+    """L1 through the aggregate's own call: the global partial's update of
+    one of phase 23's batches (``_global_update``, what
+    approx_count_distinct's main path runs a batch), held bit for bit
+    against the plain version, shown to call the global entry point, and
+    timed."""
+    def update():
+        return AGG._global_update(HL.HLL_UPDATE, l, l.num_rows, WIDE_TYPE,
+                                  l.device)
+
+    with entry_calls() as calls:
+        got = update().data
+    require(calls[HLL_GLOBAL] == 1 and not calls[HLL_GROUPED],
+            f"the aggregate's update called {dict(calls)}")
+    hold(HL.HLL_UPDATE, [(got, HL.hll_update_plain(
+        l.data, l.validity, SKETCH_P, None))], "the aggregate's update")
+    ms, activities, by_name = device_profile(update)
+    nbytes = 9 * l.num_rows + (1 << SKETCH_P)
+    emit({"phase": "sketch_acd_global_update", "rows": l.num_rows,
+          "call_ms": cuda_ms(update), "device_ms": ms,
+          "device_ms_from": "profiler" if activities is not None
+          else "cuda_events", "device_activities": activities,
+          "device_ms_by_name": by_name, "bound_ms": bound_ms(nbytes)})
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -9542,7 +10340,10 @@ def main() -> None:
     by_path.update(phase_joins(*phase_join_data(dev)))
     by_path.update(phase_strings(*phase_string_data(dev)))
     by_path.update(phase_casts(*phase_cast_data(dev)))
-    by_path.update(phase_dates(*phase_date_data(dev)))
+    date_dfs, date_ans = phase_date_data(dev)
+    by_path.update(phase_dates(date_dfs, date_ans))
+    by_path.update(phase_sketches(phase_sketch_data(date_dfs, date_ans),
+                                  date_ans))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         s = summary[name]
@@ -9556,7 +10357,9 @@ def main() -> None:
             "call_ms": s["call_ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": s["library_ms"]})
-    emit({"phase": "profiler", "traces_without_the_card": PROFILER_LOST})
+    emit({"phase": "profiler", "traces_without_the_card": PROFILER_LOST,
+          "main_path_traces_cut": TRACES_CUT,
+          "sentinels_lost": SENTINELS_LOST})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -5,13 +5,18 @@ Counterpart of ``spark_rapids_tpu/api/session.py`` (``TpuSession`` :95,
 ``_grouping_sets_agg`` :395-462, ``DataFrame`` :583, ``with_column`` :604,
 ``rollup`` :610, ``group_by`` :685, ``order_by`` :692, ``limit`` :704,
 ``union`` :707, ``join`` :744, ``collect`` :767, ``explain`` :824,
-``set_conf`` :124,
+``set_conf`` :124, ``range`` :177, ``build_bloom`` :635, ``repartition``
+:710, ``collect_partitions`` :848 (its device branch),
 ``_extract_windows`` :33), cut to the surface of the ported queries:
 filter, select and with_column (window expressions included), agg,
 group_by(...).agg, rollup(...).agg, join (inner, left, left semi and left
-anti, with a residual condition), union, order_by, limit, collect, count
-and explain (the physical plan's tree).  ``cube`` and ``grouping_id()``
-are not ported.
+anti, with a residual condition), union, order_by, limit, repartition,
+collect, collect_partitions (the device batches of each partition),
+count, explain (the physical plan's tree), the session's range, and
+build_bloom, the build half of the runtime filter (a ``PyBloomFilter``
+whose bits the card set with B1; probe with
+``expressions.BloomFilterMightContain``).  ``cube`` and
+``grouping_id()`` are not ported.
 
 A session runs on the card unless the caller names another device:
 ``GpuSession(device=None)`` takes ``cuda`` and raises where there is none.
@@ -120,6 +125,13 @@ class GpuSession:
         """Set one key for the plans made after it (``set_conf`` :124);
         ``spark.sql.session.timeZone`` is read by every later action."""
         self.conf = self.conf.with_overrides(**{key: value})
+
+    def range(self, start: int, end: Optional[int] = None, step: int = 1,
+              num_partitions: int = 1) -> "DataFrame":
+        """spark.range: LONG ids ``id`` made on the device."""
+        if end is None:
+            start, end = 0, start
+        return DataFrame(L.Range(start, end, step, num_partitions), self)
 
     def create_dataframe(self, data, schema: Optional[Schema] = None,
                          num_partitions: int = 1) -> "DataFrame":
@@ -263,6 +275,30 @@ class DataFrame:
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(L.Limit(n, self.plan), self.session)
 
+    def repartition(self, num_partitions: int, *keys) -> "DataFrame":
+        """A hash exchange on ``keys`` into ``num_partitions``; with no
+        keys, round robin."""
+        return DataFrame(
+            L.Repartition(num_partitions, [_to_expr(k) for k in keys],
+                          self.plan), self.session)
+
+    def build_bloom(self, expr, expected_items: int, fpp: float = 0.03):
+        """A Spark-wire-compatible bloom filter over a LONG expression
+        (BloomFilterAggregate's build; GpuBloomFilter.scala): every
+        partition's batches OR their bits into one word array on the
+        device (B1), unpacked to the host once at the end."""
+        from spark_rapids_tpu_torch.kernels import bloom as BK
+        num_bits = BK.optimal_num_bits(expected_items, fpp)
+        k = BK.optimal_num_hashes(expected_items, num_bits)
+        words = torch.zeros(num_bits // 64, dtype=torch.int64,
+                            device=self.session.device)
+        for part in self.select(Alias(_to_expr(expr), "_b")) \
+                .collect_partitions():
+            for b in part:
+                BK.bloom_put(words, b.columns[0], k)
+        return BK.PyBloomFilter(num_bits, k,
+                                BK.words_to_bits(words.cpu().numpy()))
+
     def join(self, other: "DataFrame", on=None, how: str = "inner",
              condition=None) -> "DataFrame":
         """Equi-join on ``on``: a column name, a list of names common to
@@ -295,6 +331,10 @@ class DataFrame:
 
     def collect(self) -> List[tuple]:
         return GpuEngine().collect(self.physical_plan())
+
+    def collect_partitions(self) -> List[List[ColumnarBatch]]:
+        """The device batches of each output partition."""
+        return GpuEngine().execute(self.physical_plan())
 
     def count(self) -> int:
         from spark_rapids_tpu_torch.expressions.aggregates import count

@@ -14,6 +14,10 @@ host values are Python ints (the unscaled value): ``from_pylist`` and
 ``to_pylist`` carry them exactly (``const128`` / ``to_python``, the
 reference's ``kernels/decimal.py:33`` and ``:45``).
 
+A fixed-length array column (``T.ArrayType``, array<tinyint>:
+HyperLogLog++'s registers) holds ``data`` as int8 ``[n, length]`` in the
+same way: a fixed-stride row, no offsets.
+
 A STRING column is ``offsets`` (int32 ``[n + 1]``), ``data`` (uint8 bytes)
 and ``validity[n]``: row i is ``data[offsets[i]:offsets[i + 1]]`` and a
 null row has length 0.  The offsets need not start at 0, so a slice of
@@ -77,6 +81,11 @@ class DeviceColumn:
             if self.data.dim() != 2 or self.data.shape[1] != 2:
                 raise ValueError(f"{self.dtype!r} data must be [n, 2], got "
                                  f"{tuple(self.data.shape)}")
+        elif isinstance(self.dtype, T.ArrayType):
+            length = self.dtype.length
+            if self.data.dim() != 2 or self.data.shape[1] != length:
+                raise ValueError(f"{self.dtype!r} data must be [n, "
+                                 f"{length}], got {tuple(self.data.shape)}")
         elif self.data.dim() != 1:
             raise ValueError(f"data must be 1-d, got {tuple(self.data.shape)}")
         if self.dtype.variable_width:
@@ -105,6 +114,12 @@ class DeviceColumn:
 
     @property
     def is_two_limb(self) -> bool:
+        return T.two_limbs(self.dtype)
+
+    @property
+    def is_wide(self) -> bool:
+        """A fixed-stride row of several elements: a Decimal128's two
+        limbs or a fixed-length array's elements (``data`` [n, w])."""
         return self.data.dim() == 2
 
     def byte_tile(self, width: int) -> torch.Tensor:

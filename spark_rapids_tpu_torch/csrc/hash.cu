@@ -3,6 +3,8 @@
 // kernels/_lib.py and called through ctypes from kernels/hash.py.  The entry
 // point launches on the caller's stream, allocates nothing, and returns the
 // cudaError_t of its launch.
+// The hashes of one value (hash_int, hash_long, xx_hash_int, xx_hash_long)
+// are in csrc/hash.cuh, shared with csrc/sketch.cu.
 //
 // murmur3     <- spark_rapids_tpu/kernels/hash.py:99 hash_fixed_width,
 //                :237 murmur3_hash, :258 pmod
@@ -77,6 +79,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hash.cuh"
+
 namespace {
 
 constexpr int kMaxHashCols = 16;
@@ -100,39 +104,6 @@ struct HashCols {
   const int32_t* offsets[kMaxHashCols];   // strings only
   int kind[kMaxHashCols];
 };
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-__device__ __forceinline__ uint32_t mix_h1(uint32_t h1, uint32_t k1) {
-  k1 *= 0xCC9E2D51u;
-  k1 = rotl32(k1, 15);
-  k1 *= 0x1B873593u;
-  h1 ^= k1;
-  h1 = rotl32(h1, 13);
-  return h1 * 5u + 0xE6546B64u;
-}
-
-__device__ __forceinline__ uint32_t fmix(uint32_t h1, uint32_t len) {
-  h1 ^= len;
-  h1 ^= h1 >> 16;
-  h1 *= 0x85EBCA6Bu;
-  h1 ^= h1 >> 13;
-  h1 *= 0xC2B2AE35u;
-  h1 ^= h1 >> 16;
-  return h1;
-}
-
-__device__ __forceinline__ uint32_t hash_int(uint32_t v, uint32_t seed) {
-  return fmix(mix_h1(seed, v), 4u);
-}
-
-__device__ __forceinline__ uint32_t hash_long(uint64_t v, uint32_t seed) {
-  uint32_t h1 = mix_h1(seed, static_cast<uint32_t>(v));
-  h1 = mix_h1(h1, static_cast<uint32_t>(v >> 32));
-  return fmix(h1, 8u);
-}
 
 // Java's floatToIntBits with -0.0 as 0.0
 __device__ __forceinline__ uint32_t f32_bits(float f) {
@@ -244,39 +215,6 @@ murmur3_kernel(HashCols cols, int ncols, int64_t n, uint32_t seed,
 
 // -- H1: XXH64 -----------------------------------------------------------
 
-constexpr uint64_t kP1 = 0x9E3779B185EBCA87ull;
-constexpr uint64_t kP2 = 0xC2B2AE3D27D4EB4Full;
-constexpr uint64_t kP3 = 0x165667B19E3779F9ull;
-constexpr uint64_t kP4 = 0x85EBCA77C2B2AE63ull;
-constexpr uint64_t kP5 = 0x27D4EB2F165667C5ull;
-
-__device__ __forceinline__ uint64_t rotl64(uint64_t x, int r) {
-  return (x << r) | (x >> (64 - r));
-}
-
-__device__ __forceinline__ uint64_t xx_fmix(uint64_t h) {
-  h ^= h >> 33;
-  h *= kP2;
-  h ^= h >> 29;
-  h *= kP3;
-  h ^= h >> 32;
-  return h;
-}
-
-__device__ __forceinline__ uint64_t xx_hash_int(uint32_t v, uint64_t seed) {
-  uint64_t h = seed + kP5 + 4u;
-  h ^= static_cast<uint64_t>(v) * kP1;
-  h = rotl64(h, 23) * kP2 + kP3;
-  return xx_fmix(h);
-}
-
-__device__ __forceinline__ uint64_t xx_hash_long(uint64_t v, uint64_t seed) {
-  uint64_t h = seed + kP5 + 8u;
-  h ^= rotl64(v * kP2, 31) * kP1;
-  h = rotl64(h, 27) * kP1 + kP4;
-  return xx_fmix(h);
-}
-
 // little-endian loads a byte at a time: a string row starts at any byte
 __device__ __forceinline__ uint64_t le64(const uint8_t* p) {
   uint64_t w = 0;
@@ -289,10 +227,6 @@ __device__ __forceinline__ uint32_t le32(const uint8_t* p) {
   return static_cast<uint32_t>(p[0]) | (static_cast<uint32_t>(p[1]) << 8) |
          (static_cast<uint32_t>(p[2]) << 16) |
          (static_cast<uint32_t>(p[3]) << 24);
-}
-
-__device__ __forceinline__ uint64_t xx_round(uint64_t acc, uint64_t w) {
-  return rotl64(acc + w * kP2, 31) * kP1;
 }
 
 // Spark XXH64.hashUnsafeBytes

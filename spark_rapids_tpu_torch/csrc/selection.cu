@@ -18,7 +18,10 @@
 //                :191 gather_batch
 //   Bound: bytes: 4 bytes of index plus (width + 1) bytes read and written
 //   per output row and column; a width is 1, 2, 4, 8 or 16 bytes (a
-//   Decimal128 row's two limbs).  Design: one launch for up to kMaxGatherCols
+//   Decimal128 row's two limbs) or a multiple of 16 (a fixed-length array
+//   row: HyperLogLog's 512 registers), moved as 16-byte chunks by the row's
+//   thread; the entry points refuse any other width, which the wrapper
+//   (kernels/selection.py _row_bytes) refuses first.  Design: one launch for up to kMaxGatherCols
 //   columns, passed by value as a parameter struct; each thread reads its
 //   row index once and moves that row of every column, so the index map is
 //   read once per batch and not once per column.  Reads are random (the
@@ -166,6 +169,18 @@ struct Limbs2 {
   __device__ explicit Limbs2(int) : lo(0), hi(0) {}
 };
 
+// a wider fixed-stride row (a multiple of 16 bytes: a fixed-length array,
+// HyperLogLog's registers) as 16-byte chunks; nothing read when !valid
+__device__ __forceinline__ void move_wide_row(int chunks, const void* src,
+                                              void* dst, int32_t s, int64_t r,
+                                              bool valid) {
+  const Limbs2* from = static_cast<const Limbs2*>(src) +
+                       static_cast<int64_t>(s) * chunks;
+  Limbs2* to = static_cast<Limbs2*>(dst) + r * chunks;
+  for (int c = 0; c < chunks; ++c) to[c] = valid ? from[c] : Limbs2(0);
+}
+
+// the widths the row moves take (width_ok); a string plane is width 0
 __device__ __forceinline__ void move_row_width(int width, const void* src,
                                                void* dst, int32_t s, int64_t r,
                                                bool valid) {
@@ -174,8 +189,14 @@ __device__ __forceinline__ void move_row_width(int width, const void* src,
     case 8: move_row<uint64_t>(src, dst, s, r, valid); break;
     case 4: move_row<uint32_t>(src, dst, s, r, valid); break;
     case 2: move_row<uint16_t>(src, dst, s, r, valid); break;
-    default: move_row<uint8_t>(src, dst, s, r, valid); break;
+    case 1: move_row<uint8_t>(src, dst, s, r, valid); break;
+    default: move_wide_row(width / 16, src, dst, s, r, valid); break;
   }
+}
+
+bool width_ok(int width) {
+  return width == 1 || width == 2 || width == 4 || width == 8 ||
+         (width >= 16 && width % 16 == 0);
 }
 
 __global__ void __launch_bounds__(kRowThreads)
@@ -372,7 +393,11 @@ int srt_gather(int ncols, const void* const* src,
     cols.dst[c] = dst[c];
     cols.dst_valid[c] = dst_valid[c];
     cols.width[c] = widths[c];
-    if (widths[c] == 0) strings.v[nstr++] = static_cast<int32_t*>(dst[c]);
+    if (widths[c] == 0) {
+      strings.v[nstr++] = static_cast<int32_t*>(dst[c]);
+    } else if (!width_ok(widths[c])) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   if (nstr > 0 && (tile_sums == nullptr || totals == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -429,7 +454,9 @@ int srt_gather_bytes(int nstr, const int32_t* const* src_off,
 int srt_concat(const uint64_t* desc, const int64_t* offsets, int k, int width,
                void* dst, uint8_t* dst_valid, int64_t total,
                cudaStream_t stream) {
-  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (k < 1 || !width_ok(width)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (total > 0) {
     concat_kernel<<<static_cast<unsigned>(cdiv(total, kRowThreads)), kRowThreads,
                     0, stream>>>(desc, offsets, k, width, dst, dst_valid, total);

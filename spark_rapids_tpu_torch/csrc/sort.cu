@@ -30,6 +30,22 @@
 //   Bound: bytes: 4 bytes of id read and 4 of row id written per row (the
 //   histogram re-reads the ids once more).
 //
+// R1 round_robin_order <- spark_rapids_tpu/kernels/partition.py:67
+//                         round_robin_partition
+//   Row i goes to partition (i + start) % n.  The reference lexsorts the
+//   partition ids; here partition p holds the rows r0 + q * n in order,
+//   r0 = (p - start) mod n, so the stable order has a closed form: with
+//   s = (-start) mod n, rows = n * Q + R and g(x) = (x / n) * R + min(x %
+//   n, R) (the integers below x whose residue is < R), partition p starts
+//   at p * Q + g(s + p) - g(s); s + p < 2n, so g takes no division.  One
+//   thread per output row binary-searches its partition over those starts
+//   (no table in memory) and writes its source row; the gather then moves
+//   the columns.  The counts are host
+//   arithmetic (kernels/partition.py), so a round-robin map batch takes no
+//   radix pass and no read of its counts.
+//   Bound: bytes: 4 bytes of row id written per row; ~2 log2(n) integer
+//   operations a row.
+//
 // sort       <- spark_rapids_tpu/kernels/sort.py:200 sort_indices, :241
 //               sort_batch, with the key builders _data_key_fixed :101,
 //               _null_key :117 and f64_total_order_u64 :52 (the non-TPU
@@ -378,6 +394,35 @@ unsigned grid_rows(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
+// R1: the integers in [0, x) whose residue mod nparts is below rem, for
+// 0 <= x < 2 * nparts (so no division)
+__device__ __forceinline__ int64_t rr_below(int64_t x, int64_t nparts,
+                                           int64_t rem) {
+  return x >= nparts ? rem + min(x - nparts, rem) : min(x, rem);
+}
+
+// R1: the first output row of partition p (see the comment at the top)
+__device__ __forceinline__ int64_t rr_start_of(int64_t p, int64_t nparts,
+                                              int64_t q, int64_t rem,
+                                              int64_t s) {
+  return p * q + rr_below(s + p, nparts, rem) - min(s, rem);
+}
+
+__global__ void __launch_bounds__(kThreads)
+round_robin_order_kernel(int64_t n, int nparts, int64_t s, int64_t q,
+                         int64_t rem, int32_t* __restrict__ order) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (j >= n) return;
+  int lo = 0, hi = nparts - 1;   // the last partition starting at or before j
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (rr_start_of(mid, nparts, q, rem, s) <= j) lo = mid; else hi = mid - 1;
+  }
+  const int64_t r0 = lo + s >= nparts ? lo + s - nparts : lo + s;
+  order[j] = static_cast<int32_t>(
+      r0 + (j - rr_start_of(lo, nparts, q, rem, s)) * nparts);
+}
+
 // The data passes of one key column (its low key_bytes bytes; 0: all), then
 // its null pass; the row ids end in ids_out.  The passes alternate between
 // ids_out and ids_tmp so that the last one writes ids_out; ids_in
@@ -563,6 +608,22 @@ int srt_string_hash_key(const int32_t* offsets, const uint8_t* bytes,
 }
 
 int srt_max_radix_bits() { return kMaxBits; }
+
+// R1: order[n] (int32), the stable order of n rows by round-robin
+// partition (i + start) % num_partitions; 0 <= start < num_partitions.
+int srt_round_robin_order(int64_t n, int num_partitions, int start,
+                          int32_t* order, cudaStream_t stream) {
+  if (num_partitions < 1 || start < 0 || start >= num_partitions ||
+      n >= (1ll << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n > 0) {
+    const int64_t s = (num_partitions - start) % num_partitions;
+    round_robin_order_kernel<<<grid_rows(n), kThreads, 0, stream>>>(
+        n, num_partitions, s, n / num_partitions, n % num_partitions, order);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // The stable order of n rows by their partition ids part[n], in
 // [0, num_partitions), and counts[num_partitions], the rows of each

@@ -44,18 +44,22 @@ from spark_rapids_tpu_torch.expressions.datetime import (
     UnixDate, UnixMicros, UnixMillis, UnixSeconds, WeekOfYear, Year,
     from_utc_timestamp, to_utc_timestamp)
 from spark_rapids_tpu_torch.expressions.hashing import (
-    HiveHash, Murmur3Hash, XxHash64, hash, hive_hash, xxhash64)
+    BloomFilterMightContain, HiveHash, Murmur3Hash, XxHash64, hash, hive_hash,
+    xxhash64)
 from spark_rapids_tpu_torch.expressions.aggregates import (
-    Average, BitAndAgg, BitOrAgg, BitXorAgg, BoolAnd, BoolOr, Count, First,
-    Last, Max, MaxBy, Min, MinBy, StddevPop, StddevSamp, Sum, VariancePop,
-    VarianceSamp, avg, bit_and, bit_or, bit_xor, count, first, last, max_,
-    max_by, min_, min_by, stddev, stddev_pop, sum_, var_pop, var_samp)
+    ApproximateCountDistinct, Average, BitAndAgg, BitOrAgg, BitXorAgg,
+    BoolAnd, BoolOr, Count, First, Last, Max, MaxBy, Min, MinBy, StddevPop,
+    StddevSamp, Sum, VariancePop, VarianceSamp, approx_count_distinct, avg,
+    bit_and, bit_or, bit_xor, count, first, last, max_, max_by, min_, min_by,
+    stddev, stddev_pop, sum_, var_pop, var_samp)
 from spark_rapids_tpu_torch.expressions.window import (
     CumeDist, DenseRank, FirstValue, Lag, LastValue, Lead, NthValue, Ntile,
     PercentRank, Rank, RowNumber, WindowExpression, WindowFrame, WindowSpec,
     over)
 
 __all__ = [
+    "ApproximateCountDistinct", "BloomFilterMightContain",
+    "approx_count_distinct",
     "Abs", "AddMonths", "DateAdd", "DateDiff", "DateFromUnixDate", "DateSub",
     "DayOfMonth", "DayOfWeek", "DayOfYear", "FromUtcTimestamp", "Greatest",
     "HiveHash", "Hour", "IntegralDivide", "LastDay", "Least", "MakeDate",

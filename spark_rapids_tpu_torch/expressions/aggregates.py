@@ -1,6 +1,7 @@
 """Declarative aggregate functions: SUM, COUNT, AVG, MIN, MAX, the
 variances and standard deviations, BOOL_AND and BOOL_OR, FIRST and LAST,
-MAX_BY and MIN_BY, and BIT_AND, BIT_OR and BIT_XOR.
+MAX_BY and MIN_BY, BIT_AND, BIT_OR and BIT_XOR, and
+APPROX_COUNT_DISTINCT.
 
 Counterpart of ``spark_rapids_tpu/expressions/aggregates.py`` (``Sum`` :91,
 ``Count`` :134, ``Min`` :172, ``Max`` :204, ``Average`` :236,
@@ -8,7 +9,8 @@ Counterpart of ``spark_rapids_tpu/expressions/aggregates.py`` (``Sum`` :91,
 ``VariancePop``, ``StddevSamp``, ``StddevPop`` :434-454, ``BoolAnd`` /
 ``BoolOr`` :476-490, ``First`` :1069, ``Last`` :1113, ``_ExtremeBy`` /
 ``MaxBy`` / ``MinBy`` :1118-1171, ``_BitAggBase`` and the bit aggregates
-:1176-1216), decimals included: SUM and AVG over any decimal use
+:1176-1216, ``ApproximateCountDistinct`` :492 with ``HLL_UPDATE`` /
+``HLL_MERGE`` :488-489), decimals included: SUM and AVG over any decimal use
 the two-limb SUM128 buffer, MIN / MAX over a Decimal128 the MIN128 /
 MAX128 buffers (:91-130, :172-235, :290-345).
 Each function declares its buffer slots: the slot's type, how raw rows
@@ -34,6 +36,10 @@ multi-input aggregate (MAX_BY, MIN_BY) lists its ``inputs``, and each
 buffer slot names the input it folds (``input_index``).  MIN / MAX over
 BYTE and SHORT reduce at their own width (BYTE and SHORT results); their
 variances update from the values widened to int32 (DOUBLE results).
+APPROX_COUNT_DISTINCT is HyperLogLog++ over m = 2^p registers (p from
+the relative standard deviation, 9 at the default 0.05): its one buffer
+is the fixed-length array<tinyint> of a group's registers, updated by L1
+and merged by L2 (``kernels/hll.py``), its LONG result never null.
 """
 from __future__ import annotations
 
@@ -69,6 +75,8 @@ SUM128 = "sum128"            # exact two-limb decimal sum (merge: poisoned
                              # by a null partial of a nonzero count)
 MIN128 = "min128"
 MAX128 = "max128"
+HLL_UPDATE = "hll_update"    # HyperLogLog++ registers of the raw rows
+HLL_MERGE = "hll_merge"      # their elementwise max across partials
 
 
 @dataclasses.dataclass(frozen=True)
@@ -495,6 +503,57 @@ class BitXorAgg(_BitAggBase):
     _op = BIT_XOR
 
 
+class ApproximateCountDistinct(AggregateFunction):
+    """approx_count_distinct through HyperLogLog++'s dense registers
+    (aggregate/GpuHyperLogLogPlusPlus.scala).  ``finalize`` is the
+    reference's ``finalize_jnp`` (:543-556) in torch: the raw estimate
+    alpha m^2 / sum(2^-r), linear counting m log(m / zeros) where it is at
+    most 2.5 m and a register is empty, rounded half to even.  Each 2^-r
+    is exact in float64, and so is their sum over 512 registers in any
+    order while every r <= 43 (exponents -43..0 and a total below 2^10
+    take at most 53 bits), so the card's sum equals the reference's
+    numpy sum; Spark's empirical bias tables are not applied (the
+    reference omits them too)."""
+
+    name = "approx_count_distinct"
+
+    def __init__(self, child: Expression, rsd: float = 0.05):
+        from spark_rapids_tpu_torch.kernels.hll import p_from_rsd
+        self.children = (child,)
+        self.rsd = float(rsd)
+        self.p = p_from_rsd(self.rsd)
+
+    def with_children(self, children):
+        return ApproximateCountDistinct(children[0], self.rsd)
+
+    @property
+    def dtype(self):
+        return T.LONG
+
+    @property
+    def m(self) -> int:
+        return 1 << self.p
+
+    @property
+    def buffers(self):
+        return (BufferSlot(T.ArrayType(T.ByteType(), contains_null=False,
+                                       length=self.m),
+                           HLL_UPDATE, HLL_MERGE),)
+
+    def finalize(self, bufs):
+        from spark_rapids_tpu_torch.kernels.hll import _alpha
+        regs = bufs[0][0]    # int8 [groups, m]
+        m = self.m
+        inv = torch.pow(2.0, -regs.to(torch.float64))
+        est = _alpha(m) * m * m / inv.sum(1)
+        zeros = (regs == 0).sum(1)
+        lc = m * torch.log(m / zeros.clamp(min=1).to(torch.float64))
+        est = torch.where((est <= 2.5 * m) & (zeros != 0), lc, est)
+        out = torch.round(est).to(torch.int64)
+        return out, torch.ones(out.shape, dtype=torch.bool,
+                               device=out.device)
+
+
 def find_aggregates(e: Expression) -> List[AggregateFunction]:
     """All aggregate calls inside an output expression tree."""
     if isinstance(e, AggregateFunction):
@@ -573,3 +632,7 @@ def bit_or(e) -> BitOrAgg:
 
 def bit_xor(e) -> BitXorAgg:
     return BitXorAgg(_arg(e))
+
+
+def approx_count_distinct(e, rsd: float = 0.05) -> ApproximateCountDistinct:
+    return ApproximateCountDistinct(_arg(e), rsd)

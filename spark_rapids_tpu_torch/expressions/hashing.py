@@ -8,18 +8,22 @@ given; ``hive_hash`` has no seed.  Each runs one kernel of
 ``kernels/hash.py`` over all of its columns (murmur3, H1 ``xxhash64``, H2
 ``hive_hash``).  A Decimal128 input to ``xxhash64`` and any decimal input
 to ``hive_hash`` raise, as the reference's kernels do.
-``BloomFilterMightContain`` (:104) comes with the sketches (ROADMAP queue
-2 item 12j).
+``BloomFilterMightContain`` (:104) is the probe half of the runtime
+filter: its filter is a host ``PyBloomFilter`` (``DataFrame.build_bloom``,
+or ``kernels/bloom.py`` ``deserialize`` of Spark's wire bytes), packed
+into int64 words and uploaded once per expression and device; each batch
+runs B2 ``bloom_probe``.  A null input gives null (:135-137).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expressions.core import (
-    EvalContext, Expression, col, make_column)
+    EvalContext, Expression, UnaryExpression, col, make_column)
+from spark_rapids_tpu_torch.kernels import bloom as BK
 from spark_rapids_tpu_torch.kernels import hash as HK
 
 
@@ -84,6 +88,40 @@ class HiveHash(_HashBase):
 
     def __repr__(self):
         return f"hive_hash({', '.join(map(repr, self.children))})"
+
+
+class BloomFilterMightContain(UnaryExpression):
+    """might_contain(<built filter>, value): the probe half of the
+    runtime-filter pair (GpuBloomFilterMightContain.scala)."""
+
+    def __init__(self, child: Expression, bloom: BK.PyBloomFilter):
+        super().__init__(child)
+        self.bloom = bloom
+        #: the filter's words, uploaded once per device
+        self._words: Dict[torch.device, torch.Tensor] = {}
+
+    def with_children(self, children):
+        out = BloomFilterMightContain(children[0], self.bloom)
+        out._words = self._words     # the same filter: share its uploads
+        return out
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+    def words(self, device: torch.device) -> torch.Tensor:
+        if device not in self._words:
+            self._words[device] = torch.from_numpy(
+                self.bloom.words()).to(device)
+        return self._words[device]
+
+    def eval(self, ctx: EvalContext):
+        c = self.child.eval(ctx)
+        hit = BK.bloom_probe(self.words(c.device), c, self.bloom.k)
+        return make_column(hit, c.validity, T.BOOLEAN)
+
+    def __repr__(self):
+        return f"might_contain({self.child!r})"
 
 
 def _cols(cols):

@@ -27,8 +27,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("selection.cu", "reduction.cu", "hash.cu", "sort.cu",
            "strings.cu", "join.cu", "fused.cu", "decimal.cu", "window.cu",
-           "string_functions.cu", "cast_strings.cu", "timezone.cu")
-HEADERS = ("scan.cuh", "strings.cuh", "int128.cuh", "decimal.cuh")
+           "string_functions.cu", "cast_strings.cu", "timezone.cu",
+           "sketch.cu")
+HEADERS = ("scan.cuh", "strings.cuh", "int128.cuh", "decimal.cuh",
+           "hash.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -85,6 +87,13 @@ _SIGNATURES = {
     "srt_sort_tile": [],
     "srt_max_radix_bits": [],
     "srt_partition": [_P, _I64, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "srt_round_robin_order": [_I64, _I, _I, _P, _P],
+    "srt_bloom_put": [_P, _P, _I64, _I64, _I, _P, _P],
+    "srt_bloom_probe": [_P, _P, _I64, _I64, _I, _P, _P, _P],
+    "srt_hll_max_registers": [],
+    "srt_hll_global": [_P, _P, _I64, _I, _P, _P, _P],
+    "srt_hll_grouped": [_P, _P, _I64, _P, _I64, _I, _P, _P],
+    "srt_hll_merge": [_P, _P, _I64, _P, _I64, _I, _P, _P],
     "srt_null_counts": [_I, _P, _I64, _P, _P],
     "srt_order_words": [_I, _P, _P, _I, _I, _I64, _P, _P, _P],
     "srt_range_route": [_P, _I64, _I, _P, _I, _P, _P],

@@ -177,7 +177,7 @@ class ReductionCache:
         entry = self._by_col.get(id(col), (col, {}))[1]
         if entry:
             return next(iter(entry.values()))
-        if col.is_string or col.is_two_limb:
+        if col.is_string or col.is_wide:
             # no int64 values to sum: sum the validity itself
             entry = self._by_col.setdefault(id(col), (col, {}))[1]
             entry[torch.int64] = self._reduce(

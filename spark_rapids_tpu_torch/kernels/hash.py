@@ -30,7 +30,10 @@ hashUnsafeBytes (32-byte stripes into four accumulators, then 8-, 4- and
 Hive's ``h = 31 * h + col_hash`` in int32, a null adding 0: LONG,
 TIMESTAMP and DOUBLE fold ``v ^ (v >>> 32)``, a string is the
 31-polynomial over its bytes taken as signed; a decimal raises (:692).
-``py_xxhash64_row`` and ``py_hive_hash_row`` live in ``testing/hashes.py``.
+``py_xxhash64_row`` and ``py_hive_hash_row`` live in ``testing/hashes.py``;
+the scalar ``py_hash_long`` and ``py_xxhash64_long`` they build on, which
+the bloom filter's and HyperLogLog++'s host helpers also take, are at the
+end of this module.
 
 On CUDA tensors ``murmur3_hash``, ``murmur3_partition``, ``xxhash64`` and
 ``hive_hash`` launch a kernel of ``csrc/hash.cu`` (all columns in one
@@ -530,3 +533,69 @@ def hive_hash(columns: Sequence[DeviceColumn]) -> torch.Tensor:
     if columns[0].device.type == "cpu":
         return hive_hash_plain(columns)
     return _hive_hash_cuda(columns)
+
+
+# ---------------------------------------------------------------------------
+# host scalar hashes: one Python int at a time (the bloom filter's and
+# HyperLogLog++'s host helpers; testing/hashes.py's row oracles build on
+# them)
+
+
+def _py_rotl(x: int, r: int) -> int:
+    x &= 0xFFFFFFFF
+    return ((x << r) | (x >> (32 - r))) & 0xFFFFFFFF
+
+
+def _py_mix_k1(k1: int) -> int:
+    k1 = (k1 * 0xCC9E2D51) & 0xFFFFFFFF
+    k1 = _py_rotl(k1, 15)
+    k1 = (k1 * 0x1B873593) & 0xFFFFFFFF
+    return k1
+
+
+def _py_mix_h1(h1: int, k1: int) -> int:
+    h1 = (h1 ^ _py_mix_k1(k1)) & 0xFFFFFFFF
+    h1 = _py_rotl(h1, 13)
+    h1 = (h1 * 5 + 0xE6546B64) & 0xFFFFFFFF
+    return h1
+
+
+def _py_fmix(h1: int, length: int) -> int:
+    h1 ^= length
+    h1 ^= h1 >> 16
+    h1 = (h1 * 0x85EBCA6B) & 0xFFFFFFFF
+    h1 ^= h1 >> 13
+    h1 = (h1 * 0xC2B2AE35) & 0xFFFFFFFF
+    h1 ^= h1 >> 16
+    return h1
+
+
+def py_hash_long(value: int, seed: int) -> int:
+    value &= 0xFFFFFFFFFFFFFFFF
+    h1 = _py_mix_h1(seed, value & 0xFFFFFFFF)
+    h1 = _py_mix_h1(h1, value >> 32)
+    return _py_fmix(h1, 8)
+
+
+def _py_rotl64(x, r):
+    x &= _M64
+    return ((x << r) | (x >> (64 - r))) & _M64
+
+
+def _py_xx_fmix(h):
+    h &= _M64
+    h ^= h >> 33
+    h = (h * 0xC2B2AE3D27D4EB4F) & _M64
+    h ^= h >> 29
+    h = (h * 0x165667B19E3779F9) & _M64
+    h ^= h >> 32
+    return h
+
+
+def py_xxhash64_long(value, seed):
+    h = (seed + 0x27D4EB2F165667C5 + 8) & _M64
+    k1 = (_py_rotl64((value & _M64) * 0xC2B2AE3D27D4EB4F, 31)
+          * 0x9E3779B185EBCA87) & _M64
+    h = (_py_rotl64(h ^ k1, 27) * 0x9E3779B185EBCA87
+         + 0x85EBCA77C2B2AE63) & _M64
+    return _py_xx_fmix(h)

@@ -11,7 +11,16 @@ On CUDA tensors ``partition_order`` runs the stable radix passes of
 ``csrc/sort.cu`` over the partition ids (one pass up to 256 partitions, one
 more for every further 8 bits) and counts the launch; on CPU
 tensors it runs the plain version (a stable ``torch.sort`` and a
-``torch.bincount``).  ``round_robin_partition`` (:67) is not ported.
+``torch.bincount``).
+
+``round_robin_partition`` (:67) sends row i to partition ``(i + start) %
+n``.  Its order has a closed form (partition p holds the rows r0 + q * n
+in order, r0 = (p - start) mod n), which R1 ``round_robin_order`` writes
+on the card, a thread per output row (``srt_round_robin_order``,
+``csrc/sort.cu``); its plain version is the reference's: a stable sort of
+the partition ids.  The counts, ceil((rows - r0) / n) where r0 < rows
+and else 0, are host arithmetic: no radix pass, and no read of the counts
+from the card.
 
 ``range_partition`` (K1) is the range sort's router
 (``spark_rapids_tpu/plan/execs/range_sort.py`` ``make_router.route``
@@ -24,7 +33,7 @@ searches the boundaries' ranks.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -82,6 +91,68 @@ def partition_order(part: torch.Tensor, num_partitions: int
     if part.device.type == "cpu":
         return partition_order_plain(part, num_partitions)
     return _partition_order_cuda(part, num_partitions)
+
+
+ROUND_ROBIN = "round_robin_order"
+
+
+def round_robin_counts(rows: int, num_partitions: int,
+                       start: int) -> List[int]:
+    """Rows of each round-robin partition: partition p's first row is
+    r0 = (p - start) mod n, so it holds ceil((rows - r0) / n) rows."""
+    out = []
+    for p in range(num_partitions):
+        r0 = (p - start) % num_partitions
+        out.append(-(-(rows - r0) // num_partitions) if r0 < rows else 0)
+    return out
+
+
+def round_robin_order_plain(rows: int, num_partitions: int, start: int,
+                            device) -> torch.Tensor:
+    """The reference's way: a stable sort of the partition ids."""
+    part = ((torch.arange(rows, dtype=torch.int64, device=device) + start)
+            % num_partitions).to(torch.int32)
+    return partition_order_plain(part, num_partitions)[0]
+
+
+def _round_robin_order_cuda(rows: int, num_partitions: int, start: int,
+                            device: torch.device) -> torch.Tensor:
+    order = torch.empty(rows, dtype=torch.int32, device=device)
+    _lib.check(_lib.lib().srt_round_robin_order(
+        rows, num_partitions, start, _lib.ptr(order), _lib.stream(device)),
+        ROUND_ROBIN)
+    if rows:
+        _lib.LAUNCHES[ROUND_ROBIN] += 1
+    return order
+
+
+def round_robin_order(rows: int, num_partitions: int, start: int,
+                      device) -> torch.Tensor:
+    """R1: int32 [rows], the stable order of the rows by round-robin
+    partition (i + start) % num_partitions, on ``device``."""
+    if num_partitions < 1:
+        raise ValueError(f"round robin: {num_partitions} partitions")
+    if rows >= 2**31:
+        raise ValueError("round robin: int32 row ids need rows < 2**31")
+    start %= num_partitions
+    device = torch.device(device)
+    if device.type == "cpu":
+        return round_robin_order_plain(rows, num_partitions, start, device)
+    if device.type != "cuda":
+        raise ValueError(f"{ROUND_ROBIN}: device {device}, expected cuda")
+    return _round_robin_order_cuda(rows, num_partitions, start, device)
+
+
+def round_robin_partition(batch: ColumnarBatch, num_partitions: int,
+                          start_partition: int = 0
+                          ) -> Tuple[ColumnarBatch, List[int]]:
+    """(batch reordered by round-robin partition, host counts): row i goes
+    to partition (i + start_partition) % num_partitions."""
+    order = round_robin_order(batch.num_rows, num_partitions,
+                              start_partition, batch.device)
+    return (gather_batch(batch, order),
+            round_robin_counts(batch.num_rows, num_partitions,
+                               start_partition % num_partitions))
 
 
 def hash_partition(batch: ColumnarBatch, key_cols: Sequence[int],

@@ -4,7 +4,9 @@ Counterpart of ``spark_rapids_tpu/kernels/selection.py`` (``compaction_map``
 :65, ``gather_column`` :84 with its string branch :160-186,
 ``gather_batch`` :191, ``gather_batch_checked`` :308 as a join's
 null-extending gather, ``concat_batches_device`` :429), fixed-width and
-string columns.  Each function here is a wrapper: on CUDA tensors it
+string columns; a fixed-width row is 1, 2, 4, 8 or 16 bytes or a multiple
+of 16 (a fixed-length array: HyperLogLog's registers), and any other
+width raises.  Each function here is a wrapper: on CUDA tensors it
 launches the hand-written kernel in ``csrc/selection.cu`` and counts the
 launch; on CPU tensors it runs the plain PyTorch version beside it, which
 the tests hold against the reference.  Outputs have exact sizes: a
@@ -124,7 +126,7 @@ def gather_columns_plain(cols: Sequence[DeviceColumn],
         else:
             safe = torch.where(inb, indices, 0).long()
             valid = inb & c.validity[safe]
-            data = torch.where(valid[:, None] if c.is_two_limb else valid,
+            data = torch.where(valid[:, None] if c.is_wide else valid,
                                c.data[safe],
                                torch.zeros((), dtype=c.data.dtype,
                                            device=c.device))
@@ -133,9 +135,15 @@ def gather_columns_plain(cols: Sequence[DeviceColumn],
 
 
 def _row_bytes(data: torch.Tensor) -> int:
-    """Bytes of one row of a fixed-width plane (16 for a Decimal128's
-    limbs)."""
-    return data.element_size() * (data.shape[1] if data.dim() == 2 else 1)
+    """Bytes of one row of a fixed-width plane: 1, 2, 4, 8, 16 (a
+    Decimal128's limbs) or a multiple of 16 (a fixed-length array's row,
+    moved as 16-byte chunks).  Any other width raises: the kernels would
+    not move it."""
+    width = data.element_size() * (data.shape[1] if data.dim() == 2 else 1)
+    if width not in (1, 2, 4, 8) and (width < 16 or width % 16):
+        raise ValueError(f"a row of {width} bytes: the gather and concat "
+                         "move 1, 2, 4 or 8 bytes or a multiple of 16")
+    return width
 
 
 def _ptr_array(tensors: Sequence[torch.Tensor]) -> ctypes.c_void_p:
@@ -232,6 +240,9 @@ def gather_columns(cols: Sequence[DeviceColumn], indices: torch.Tensor,
         return []
     if len({c.num_rows for c in cols}) != 1:
         raise ValueError("gather: columns differ in length")
+    for c in cols:
+        if not c.is_string:
+            _row_bytes(c.data)
     if indices.device.type == "cpu":
         return gather_columns_plain(cols, indices)
     return _gather_columns_cuda(cols, indices, "gather_null_extend"
@@ -347,6 +358,8 @@ def concat_column(pieces: Sequence[DeviceColumn]) -> DeviceColumn:
         raise ValueError("concat needs at least one piece")
     if len({p.dtype for p in pieces}) != 1:
         raise TypeError("concat: pieces differ in type")
+    if not pieces[0].is_string:
+        _row_bytes(pieces[0].data)
     if pieces[0].device.type == "cpu":
         return concat_column_plain(pieces)
     if pieces[0].is_string:

@@ -5,7 +5,9 @@ Counterpart of ``spark_rapids_tpu/plan/execs/aggregate.py``
 pick-by, string-extreme and bitwise branches (global :476-497, grouped
 :553-575), ``_merge_step`` :657-735 with the same branches (global
 :622-643, grouped :701-722) and its M2_MERGE dispatch :644 and :724,
-``_finalize`` :736; ``_seg_update`` :91, ``_global_update`` :274,
+``_finalize`` :736 (its HLL registers :745-747); ``_seg_update`` :91,
+``_global_update`` :274, the HLL slots of the partial (global :452-456,
+grouped :529-533) and of the merge (:591-598, :663-675),
 ``_global_m2_merge`` :318, ``_m2_companions`` :374, ``_by_companion``
 :412, ``_identity_partial`` :881) in the three modes Spark plans:
   * partial:  raw rows -> one partial batch per input batch: with no keys
@@ -47,7 +49,12 @@ then a segmented reduction over it, or
 a pick (FIRST / LAST, MAX_BY / MIN_BY, string MIN / MAX) whose rows the
 gather moves.  A MAX_BY / MIN_BY value slot picks by the column of its
 second input when it updates, and by its ordering-key buffer
-(``by_companion``) when it merges.
+(``by_companion``) when it merges.  An APPROX_COUNT_DISTINCT slot is a
+group's HyperLogLog++ registers, a fixed-length array row ([groups, m]
+int8): L1 (``kernels/hll.py`` ``hll_update``) over the whole batch or
+per group of the sorted work batch, L2 (``hll_merge``) over the partial
+rows (one segment for a global merge); the rows ride the gather, the
+concat, the exchange and spill as any fixed-width row.
 """
 from __future__ import annotations
 
@@ -61,11 +68,13 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.expressions.aggregates import (
-    BIT_OPS, BY_OPS, COUNT_STAR, COUNT_VALID, M2, M2_MERGE, MAX, MAX128, MIN,
-    MIN128, MINBY_VAL, PICK_OPS, SUM, SUM128, AggregateFunction)
+    BIT_OPS, BY_OPS, COUNT_STAR, COUNT_VALID, HLL_MERGE, HLL_UPDATE, M2,
+    M2_MERGE, MAX, MAX128, MIN, MIN128, MINBY_VAL, PICK_OPS, SUM, SUM128,
+    AggregateFunction)
 from spark_rapids_tpu_torch.expressions.core import (
     EvalContext, Expression, make_column)
 from spark_rapids_tpu_torch.kernels import groupby as G
+from spark_rapids_tpu_torch.kernels.hll import hll_merge, hll_update
 from spark_rapids_tpu_torch.kernels.reduction import (
     masked_extreme, masked_extreme128, masked_m2, masked_sum, masked_sum128,
     segmented_extreme128, segmented_sum128)
@@ -119,6 +128,21 @@ def _seg_tail_op(op: str, col: DeviceColumn, ycol: Optional[DeviceColumn],
     return None
 
 
+def _hll_slot(op: str, col: DeviceColumn, out_dtype: T.DataType,
+              starts: Optional[torch.Tensor]) -> DeviceColumn:
+    """An HLL_UPDATE / HLL_MERGE slot over the segments that ``starts``
+    opens (None: the whole batch, one sketch); the buffer's length is
+    m = 2^p."""
+    if op == HLL_UPDATE:
+        regs = hll_update(col, out_dtype.length.bit_length() - 1, starts)
+    else:
+        if starts is None:       # the global merge: one segment
+            starts = torch.zeros(1, dtype=torch.int32, device=col.device)
+        regs = hll_merge(col.data, col.validity, starts)
+    return DeviceColumn(regs, torch.ones(regs.shape[0], dtype=torch.bool,
+                                         device=regs.device), out_dtype)
+
+
 def _global_update(op: str, col: DeviceColumn, num_rows: int,
                    out_dtype: T.DataType, device,
                    sums: Optional[_Sums] = None,
@@ -129,6 +153,8 @@ def _global_update(op: str, col: DeviceColumn, num_rows: int,
     picked = _global_tail_op(op, col, ycol) if col is not None else None
     if picked is not None:
         return picked
+    if op in (HLL_UPDATE, HLL_MERGE):
+        return _hll_slot(op, col, out_dtype, None)
     if op == SUM128:     # _global_sum128, aggregate.py:160
         out, ok, _ = masked_sum128(col.data, col.validity,
                                    out_dtype.precision,
@@ -176,6 +202,8 @@ def _seg_update(op: str, col: DeviceColumn, out_dtype: T.DataType,
     """Segmented reduction of one slot to a [num_groups] column; ``ncol``:
     a SUM128 merge's COUNT_VALID partials."""
     starts = sums.layout.starts
+    if op in (HLL_UPDATE, HLL_MERGE):
+        return _hll_slot(op, col, out_dtype, starts)
     if op == SUM128:     # _seg_sum128, aggregate.py:108
         out, ok, _ = segmented_sum128(col.data, col.validity, starts,
                                       out_dtype.precision,

@@ -1,5 +1,5 @@
-"""Exchange execs: single-partition and hash shuffle, and the AQE
-coalesced reader.
+"""Exchange execs: single-partition, hash and round-robin shuffle, and the
+AQE coalesced reader.
 
 Counterpart of ``spark_rapids_tpu/plan/execs/exchange.py``
 (``TpuSinglePartitionExec`` :524, ``TpuShuffleExchangeExec`` :57 with
@@ -13,6 +13,12 @@ reordered by ``hash_partition`` (Spark's murmur3 and pmod, so the routing
 is Spark's), loses the key columns again and goes, with its host row
 counts (one device->host read per map batch), into a device-resident
 store whose map batches are spillable handles (``shuffle/transport.py``).
+With no keys (``repartition(n)``) each batch is reordered by
+``round_robin_partition`` instead: row i to partition (i + start) % n,
+the start rotating per map batch as ``ordinal % n`` over every batch of
+every input partition (the reference's unfused exchange, :157-166), so
+that the batches' remainder rows do not all land in partition 0; its
+counts are host arithmetic, so such a map batch reads nothing back.
 Each map batch's step runs under ``with_retry_no_split`` (the
 reference's :164). A reduce partition yields its blocks as views of the
 stored batches, each materialized where the spill framework moved it;
@@ -35,7 +41,8 @@ import numpy as np
 
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
 from spark_rapids_tpu_torch.expressions.core import EvalContext, Expression
-from spark_rapids_tpu_torch.kernels.partition import hash_partition
+from spark_rapids_tpu_torch.kernels.partition import (hash_partition,
+                                                      round_robin_partition)
 from spark_rapids_tpu_torch.memory.retry import with_retry_no_split
 from spark_rapids_tpu_torch.plan.execs.base import GpuExec, timed
 from spark_rapids_tpu_torch.shuffle.transport import (DeviceShuffleStore,
@@ -91,16 +98,21 @@ class GpuShuffleExchangeExec(GpuExec):
         store = DeviceShuffleStore(self.out_partitions)
         child = self.children[0]
         nfields = len(child.schema)
+        ordinal = 0     # rotates the round-robin start across map batches
         for in_part in range(child.num_partitions()):
             for batch in child.execute_partition(in_part):
+                start = ordinal % self.out_partitions
                 with timed(self.op_time):
                     out, counts = with_retry_no_split(
-                        lambda: self._map_step(batch, nfields))
+                        lambda: self._map_step(batch, nfields, start))
                     store.write_partitioned(out, counts)
+                ordinal += 1
         self._store = store
         return store
 
-    def _map_step(self, batch: ColumnarBatch, nfields: int):
+    def _map_step(self, batch: ColumnarBatch, nfields: int, start: int):
+        if not self.keys:
+            return round_robin_partition(batch, self.out_partitions, start)
         work, key_idx = append_key_columns(batch, self.keys)
         reordered, counts = hash_partition(work, key_idx, self.out_partitions)
         return (ColumnarBatch(reordered.columns[:nfields],
@@ -131,6 +143,8 @@ class GpuShuffleExchangeExec(GpuExec):
         super().cleanup()
 
     def describe(self):
+        if not self.keys:
+            return f"GpuShuffleExchange[round_robin, {self.out_partitions}]"
         return (f"GpuShuffleExchange[hash, {self.out_partitions}, "
                 f"{', '.join(map(repr, self.keys))}]")
 

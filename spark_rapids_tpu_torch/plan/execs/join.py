@@ -138,8 +138,8 @@ def empty_batch(schema: Schema, device: torch.device) -> ColumnarBatch:
     cols = []
     for dt in schema.dtypes:
         valid = torch.empty(0, dtype=torch.bool, device=device)
-        data = torch.empty((0, 2) if T.two_limbs(dt) else 0,
-                           dtype=dt.torch_dtype, device=device)
+        data = torch.empty((0,) + T.row_shape(dt), dtype=dt.torch_dtype,
+                           device=device)
         offsets = (torch.zeros(1, dtype=torch.int32, device=device)
                    if dt.variable_width else None)
         cols.append(DeviceColumn(data, valid, dt, offsets))

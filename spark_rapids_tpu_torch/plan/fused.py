@@ -38,7 +38,9 @@ makes a string).  Not
 ported: a broadcast join inside a segment with the dim-build fold, the
 shuffled join as a segment's tail and stream pieces across a shuffle, the
 exchange's map-side fold into the segment (``execute_partition_sliced``),
-string-producing expressions, and a cache of programs across plans (the
+string-producing expressions, ``might_contain`` (no instruction: it
+raises ``NotLowerable``) and HyperLogLog++ slots, and a cache of programs
+across plans (the
 reference keys its compiled programs by ``signature`` :394): a chain is
 lowered again each time its query is planned, at every ``collect``.
 """
@@ -54,7 +56,7 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, Schema
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.expressions import program as P
 from spark_rapids_tpu_torch.expressions.aggregates import (
-    COUNT_STAR, COUNT_VALID, MAX128, MIN128, SUM, SUM128)
+    COUNT_STAR, COUNT_VALID, HLL_UPDATE, MAX128, MIN128, SUM, SUM128)
 from spark_rapids_tpu_torch.kernels.fused import fused_compact, fused_global
 from spark_rapids_tpu_torch.kernels.selection import gather_columns
 from spark_rapids_tpu_torch.plan.execs.coalesce import retry_per_batch
@@ -76,9 +78,10 @@ _SHUFFLE_BOUNDARY = (GpuShuffleExchangeExec, GpuCoalescedShuffleReaderExec,
                      GpuAdaptiveJoinExec)
 
 
-# Decimal128 buffers: the program has no two-limb registers (ROADMAP queue
-# 1 item 5 (rest)), so a partial aggregate holding one runs op by op
-_TWO_LIMB_OPS = (SUM128, MIN128, MAX128)
+# Decimal128 buffers: the program has no two-limb registers, and an HLL
+# slot has no instruction (ROADMAP queue 1 item 5 (rest)), so a partial
+# aggregate holding one runs op by op
+_UNLOWERED_OPS = (SUM128, MIN128, MAX128, HLL_UPDATE)
 
 
 def _fusable(node: GpuExec) -> bool:
@@ -90,8 +93,9 @@ def _fusable(node: GpuExec) -> bool:
     if isinstance(node, GpuFilterExec):
         return P.lowerable(node.condition, dtypes, value=True)
     if isinstance(node, GpuHashAggregateExec) and node.mode == "partial":
-        if any(slot.update_op in _TWO_LIMB_OPS for _, slot in node.slot_specs):
-            return False     # see _TWO_LIMB_OPS
+        if any(slot.update_op in _UNLOWERED_OPS
+               for _, slot in node.slot_specs):
+            return False     # see _UNLOWERED_OPS
         if _global_sums(node):
             return all(P.lowerable(agg.input, dtypes, value=True)
                        for agg in node.aggregates if agg.input is not None)

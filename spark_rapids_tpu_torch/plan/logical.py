@@ -2,8 +2,8 @@
 
 Counterpart of ``spark_rapids_tpu/plan/logical.py`` (``InMemoryRelation``
 :45, ``Project`` :189, ``Filter`` :205, ``Aggregate`` :222, ``Sort`` :251,
-``Limit`` :269, ``Join`` :287, ``Expand`` :387, ``Union`` :464,
-``Window`` :509).  Schemas resolve eagerly, so binding
+``Limit`` :269, ``Join`` :287, ``Expand`` :387, ``Range`` :420,
+``Union`` :464, ``Window`` :509, ``Repartition`` :541).  Schemas resolve eagerly, so binding
 errors surface when the plan is built.
 """
 from __future__ import annotations
@@ -244,3 +244,40 @@ class Window(LogicalPlan):
     @property
     def schema(self):
         return self._schema
+
+
+class Range(LogicalPlan):
+    """LONG ids ``id`` from ``start`` to ``end`` (exclusive) by ``step``,
+    made on the device in ``num_partitions`` partitions (Spark's RangeExec,
+    GpuRangeExec)."""
+
+    def __init__(self, start: int, end: int, step: int = 1,
+                 num_partitions: int = 1):
+        if step == 0:
+            raise ValueError("a range needs a nonzero step")
+        self.start, self.end, self.step = int(start), int(end), int(step)
+        self.num_partitions = max(int(num_partitions), 1)
+        self.children = ()
+        self._schema = Schema(("id",), (T.LONG,))
+
+    @property
+    def schema(self):
+        return self._schema
+
+
+class Repartition(LogicalPlan):
+    """An exchange into ``num_partitions``: hash-partitioned by ``keys``,
+    round-robin when there are none."""
+
+    def __init__(self, num_partitions: int, keys: Sequence[Expression],
+                 child: LogicalPlan):
+        if num_partitions < 1:
+            raise ValueError(f"repartition into {num_partitions} partitions")
+        self.num_partitions = int(num_partitions)
+        self.keys = tuple(e.bind(child.schema) for e in keys)
+        self.child = child
+        self.children = (child,)
+
+    @property
+    def schema(self):
+        return self.child.schema

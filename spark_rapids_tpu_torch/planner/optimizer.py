@@ -3,9 +3,10 @@ column pruning.
 
 Counterpart of ``spark_rapids_tpu/planner/optimizer.py`` (``push_filters``
 :67-191 with the union branch :142-154, ``_rebuild`` :189, ``prune_columns``
-:38 with the union at :271 and the window at :281-290) for
-InMemoryRelation, Project, Filter, Aggregate, Join, Sort, Limit, Expand,
-Union and Window.  ``push_filters`` moves
+:38 with the union at :271, the repartition at :275-279 and the window at
+:281-290) for InMemoryRelation, Project, Filter, Aggregate, Join, Sort,
+Limit, Expand, Union, Window, Range and Repartition (a filter stays above
+a repartition; a repartition keeps what its parent needs and its keys).  ``push_filters`` moves
 each conjunct of a filter over an inner join into the side whose columns
 it references (so q3's ``i_manufact_id = 28`` and ``d_moy = 11`` filter
 the dimension tables before the joins), below a Project of pass-through
@@ -177,8 +178,15 @@ def _rebuild(plan: L.LogicalPlan, children) -> L.LogicalPlan:
         return _expand(plan.projections, plan.schema.names, children[0])
     if isinstance(plan, L.Window):
         return L.Window([_unbind(e) for e in plan.window_exprs], children[0])
+    if isinstance(plan, L.Repartition):
+        return _repartition(plan, children[0])
     raise NotImplementedError(f"logical node {type(plan).__name__} is not "
                               "ported")
+
+
+def _repartition(p: L.Repartition, child: L.LogicalPlan) -> L.Repartition:
+    return L.Repartition(p.num_partitions, [_unbind(k) for k in p.keys],
+                         child)
 
 
 def _expand(projections, names, child) -> L.Expand:
@@ -202,6 +210,11 @@ def prune_columns(plan: L.LogicalPlan) -> L.LogicalPlan:
 
 
 def _prune(p: L.LogicalPlan, required: Set[str]) -> L.LogicalPlan:
+    if isinstance(p, L.Range):
+        return p
+    if isinstance(p, L.Repartition):
+        return _repartition(p, _prune(p.child, set(required)
+                                      | _exprs_refs(p.keys)))
     if isinstance(p, L.InMemoryRelation):
         have = list(p.schema.names)
         keep = [n for n in have if n in required]

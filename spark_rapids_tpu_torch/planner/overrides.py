@@ -5,9 +5,10 @@ Counterpart of ``spark_rapids_tpu/planner/overrides.py`` (``plan_query``
 ``Limit`` :826, ``_convert_join`` :945-1020, ``_convert_aggregate``
 :1022-1042, ``_exchange`` :1044, ``_estimate_rows`` :1063,
 ``_plan_partitions`` :1090-1135, ``_insert_aqe_readers`` :1218,
-``_tag_window`` :861-931, ``_convert_window`` :933-943) for
-InMemoryRelation, Project, Filter, Aggregate, Join, Sort, Limit, Expand,
-Union and Window.
+``_tag_window`` :861-931, ``_convert_window`` :933-943, ``Range`` :815,
+``Repartition`` :828-830) for InMemoryRelation, Project, Filter,
+Aggregate, Join, Sort, Limit, Expand, Union, Window, Range and
+Repartition.
 
 - Over more than one partition an aggregate is split in two: a partial
   aggregate, an exchange (one partition for a global aggregate; a hash
@@ -44,6 +45,11 @@ Union and Window.
   (partition, order) pair run on its CPU; its exec reads each
   expression's own frame, and the port, which has no CPU fallback,
   compares only (partition_by, order_by).
+- ``repartition(n, keys...)`` is a hash exchange on the keys (a key the
+  hash does not take raises "partition key ... not supported yet", the
+  reference's tag :720-724), ``repartition(n)`` a round-robin exchange;
+  neither gets a coalesced reader.  ``range`` is ``GpuRangeExec``, in
+  batches of ``batchSizeRows``.
 - A global sort over more than one partition is a range sort
   (``GpuRangeSortExec``, the reference's :831-840) into
   min(``spark.sql.shuffle.partitions``, the child's partitions)
@@ -76,7 +82,12 @@ the string cast over a growing string, :357-362) are not ported: the
 string kernels size every output by count-then-allocate, and a cast over
 ``concat(...)`` runs on the card.  The reference's tag of a hash over a
 DOUBLE on the TPU (:433: no raw float64 bits there) has no counterpart:
-the card hashes a double's own bits.  The datetime functions, the hashes
+the card hashes a double's own bits.  ``might_contain`` probes a LONG
+only (:425-431); ``approx_count_distinct`` takes integral, DATE,
+TIMESTAMP and BOOLEAN input only (:660-668: a STRING or float input
+raises with the reference's reason, since the port has no CPU to fall
+back to), and grouped it needs ``batchSizeRows * 2^p <= 2^26`` register
+slots (:669-675).  The datetime functions, the hashes
 and the arithmetic and conditional rest (:100-126, :174-180) need no tag:
 a cast to or from TIMESTAMP other than DATE <-> TIMESTAMP raises through
 ``Cast.supported``, a decimal input to a hash that takes none where its
@@ -95,14 +106,17 @@ import torch
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.config import RapidsConf
 from spark_rapids_tpu_torch.expressions import strings as S
-from spark_rapids_tpu_torch.expressions.aggregates import Count, Max, Min
+from spark_rapids_tpu_torch.expressions.aggregates import (
+    ApproximateCountDistinct, Count, Max, Min)
 from spark_rapids_tpu_torch.expressions.casts import Cast, not_supported
 from spark_rapids_tpu_torch.expressions.conditional import (
     CaseWhen, Greatest, If, Least, NullIf)
 from spark_rapids_tpu_torch.expressions.core import BoundReference, Literal
+from spark_rapids_tpu_torch.expressions.hashing import BloomFilterMightContain
 from spark_rapids_tpu_torch.expressions.window import (FirstValue, LastValue,
                                                        NthValue,
                                                        WindowFunction)
+from spark_rapids_tpu_torch.kernels import hash as HK
 from spark_rapids_tpu_torch.kernels.sort import _kind
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.execs.aggregate import GpuHashAggregateExec
@@ -115,7 +129,8 @@ from spark_rapids_tpu_torch.plan.execs.exchange import (
     GpuSinglePartitionExec, SharedCoalesceSpec)
 from spark_rapids_tpu_torch.plan.execs.join import (
     GpuAdaptiveJoinExec, GpuBroadcastHashJoinExec, GpuShuffledHashJoinExec)
-from spark_rapids_tpu_torch.plan.execs.misc import GpuExpandExec
+from spark_rapids_tpu_torch.plan.execs.misc import (GpuExpandExec,
+                                                    GpuRangeExec)
 from spark_rapids_tpu_torch.plan.execs.range_sort import GpuRangeSortExec
 from spark_rapids_tpu_torch.plan.execs.scan import GpuInMemoryScanExec
 from spark_rapids_tpu_torch.plan.execs.sort import GpuLimitExec, GpuSortExec
@@ -160,6 +175,12 @@ def _convert(p: L.LogicalPlan, conf: RapidsConf,
                                   for c in p.children), p.schema)
     if isinstance(p, L.Window):
         return _convert_window(p, conf, device)
+    if isinstance(p, L.Range):
+        return GpuRangeExec(p.start, p.end, p.step, p.num_partitions,
+                            p.schema, device, conf.batch_size_rows)
+    if isinstance(p, L.Repartition):
+        return GpuShuffleExchangeExec(p.num_partitions, p.keys,
+                                      _convert(p.child, conf, device))
     raise NotImplementedError(f"no exec for {type(p).__name__} in the port")
 
 
@@ -383,6 +404,11 @@ def _tag_expression(e) -> None:
     string op, conditional or cast that the device path does not run."""
     if isinstance(e, Cast) and not Cast.supported(e.child.dtype, e.dtype):
         raise not_supported(e.child.dtype, e.dtype)
+    if isinstance(e, BloomFilterMightContain) and \
+            not isinstance(e.child.dtype, T.LongType):
+        raise NotImplementedError(
+            "might_contain probes LONG values (Spark BloomFilterImpl putLong "
+            "semantics)")
     if isinstance(e, (NullIf, Greatest, Least)) and \
             e.children[0].dtype.variable_width:
         raise NotImplementedError(
@@ -431,7 +457,7 @@ def _plan_expressions(p: L.LogicalPlan) -> list:
     """The bound expressions a logical node evaluates."""
     out = []
     for attr in ("exprs", "group_exprs", "agg_exprs", "left_keys",
-                 "right_keys", "window_exprs"):
+                 "right_keys", "window_exprs", "keys"):
         out += list(getattr(p, attr, ()) or ())
     if getattr(p, "condition", None) is not None:
         out.append(p.condition)
@@ -441,15 +467,47 @@ def _plan_expressions(p: L.LogicalPlan) -> list:
     return out
 
 
-def tag_plan(p: L.LogicalPlan) -> None:
-    """Tag every expression of the plan (``_tag_expression``)."""
+def _tag_node(p: L.LogicalPlan, conf: RapidsConf) -> None:
+    """Raise NotImplementedError, with the reference's reason, for a
+    partition key the hash does not take and for an approx_count_distinct
+    the device HLL does not run."""
+    if isinstance(p, L.Repartition):
+        for e in p.keys:
+            try:
+                HK._kind(e.dtype)
+            except (TypeError, NotImplementedError):
+                raise NotImplementedError(
+                    f"partition key {e!r} not supported yet") from None
+    if isinstance(p, L.Aggregate):
+        for agg in p.aggregates:
+            if not isinstance(agg, ApproximateCountDistinct):
+                continue
+            dt = agg.input.dtype
+            if not (dt.is_integral or isinstance(
+                    dt, (T.DateType, T.TimestampType, T.BooleanType))):
+                raise NotImplementedError(
+                    f"approx_count_distinct over {agg.input!r}: device HLL "
+                    "hashes long-representable values (strings/floats fall "
+                    "back)")
+            if p.group_exprs and conf.batch_size_rows * agg.m > (1 << 26):
+                raise NotImplementedError(
+                    "grouped approx_count_distinct needs batchSizeRows * 2^p "
+                    "<= 64M register slots (have "
+                    f"{conf.batch_size_rows} * {agg.m}); lower "
+                    "spark.rapids.sql.batchSizeBytes/rows")
+
+
+def tag_plan(p: L.LogicalPlan, conf: RapidsConf) -> None:
+    """Tag every node (``_tag_node``) and expression (``_tag_expression``)
+    of the plan."""
+    _tag_node(p, conf)
     stack = list(_plan_expressions(p))
     while stack:
         e = stack.pop()
         _tag_expression(e)
         stack.extend(e.children)
     for c in p.children:
-        tag_plan(c)
+        tag_plan(c, conf)
 
 
 def _insert_aqe_readers(root: GpuExec, conf: RapidsConf) -> GpuExec:
@@ -487,7 +545,7 @@ def plan_query(plan: L.LogicalPlan, conf: RapidsConf,
         raise NotImplementedError(
             "spark.rapids.sql.enabled=false runs the CPU oracle engine, "
             "which is not ported")
-    tag_plan(plan)
+    tag_plan(plan, conf)
     root = _convert(prune_columns(push_filters(plan)), conf, device)
     root = _insert_aqe_readers(root, conf)
     root = fuse_segments(root) if conf.fuse_stages else root

@@ -13,49 +13,17 @@ from __future__ import annotations
 import numpy as np
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.kernels.hash import (_M64, _py_fmix, _py_mix_h1,
+                                                 _py_rotl64, _py_xx_fmix,
+                                                 py_hash_long,
+                                                 py_xxhash64_long)
 
 DEFAULT_SEED = 42
 XXHASH64_DEFAULT_SEED = 42
 
 
-def _py_rotl(x: int, r: int) -> int:
-    x &= 0xFFFFFFFF
-    return ((x << r) | (x >> (32 - r))) & 0xFFFFFFFF
-
-
-def _py_mix_k1(k1: int) -> int:
-    k1 = (k1 * 0xCC9E2D51) & 0xFFFFFFFF
-    k1 = _py_rotl(k1, 15)
-    k1 = (k1 * 0x1B873593) & 0xFFFFFFFF
-    return k1
-
-
-def _py_mix_h1(h1: int, k1: int) -> int:
-    h1 = (h1 ^ _py_mix_k1(k1)) & 0xFFFFFFFF
-    h1 = _py_rotl(h1, 13)
-    h1 = (h1 * 5 + 0xE6546B64) & 0xFFFFFFFF
-    return h1
-
-
-def _py_fmix(h1: int, length: int) -> int:
-    h1 ^= length
-    h1 ^= h1 >> 16
-    h1 = (h1 * 0x85EBCA6B) & 0xFFFFFFFF
-    h1 ^= h1 >> 13
-    h1 = (h1 * 0xC2B2AE35) & 0xFFFFFFFF
-    h1 ^= h1 >> 16
-    return h1
-
-
 def py_hash_int(value: int, seed: int) -> int:
     return _py_fmix(_py_mix_h1(seed, value & 0xFFFFFFFF), 4)
-
-
-def py_hash_long(value: int, seed: int) -> int:
-    value &= 0xFFFFFFFFFFFFFFFF
-    h1 = _py_mix_h1(seed, value & 0xFFFFFFFF)
-    h1 = _py_mix_h1(h1, value >> 32)
-    return _py_fmix(h1, 8)
 
 
 def py_hash_bytes(data: bytes, seed: int) -> int:
@@ -109,37 +77,10 @@ def py_murmur3_row(values, dtypes, seed: int = DEFAULT_SEED) -> int:
     return res - (1 << 32) if res >= (1 << 31) else res
 
 
-_M64 = (1 << 64) - 1
-
-
-def _py_rotl64(x, r):
-    x &= _M64
-    return ((x << r) | (x >> (64 - r))) & _M64
-
-
-def _py_xx_fmix(h):
-    h &= _M64
-    h ^= h >> 33
-    h = (h * 0xC2B2AE3D27D4EB4F) & _M64
-    h ^= h >> 29
-    h = (h * 0x165667B19E3779F9) & _M64
-    h ^= h >> 32
-    return h
-
-
 def py_xxhash64_int(value, seed):
     h = (seed + 0x27D4EB2F165667C5 + 4) & _M64
     h ^= ((value & 0xFFFFFFFF) * 0x9E3779B185EBCA87) & _M64
     h = (_py_rotl64(h, 23) * 0xC2B2AE3D27D4EB4F + 0x165667B19E3779F9) & _M64
-    return _py_xx_fmix(h)
-
-
-def py_xxhash64_long(value, seed):
-    h = (seed + 0x27D4EB2F165667C5 + 8) & _M64
-    k1 = (_py_rotl64((value & _M64) * 0xC2B2AE3D27D4EB4F, 31)
-          * 0x9E3779B185EBCA87) & _M64
-    h = (_py_rotl64(h ^ k1, 27) * 0x9E3779B185EBCA87
-         + 0x85EBCA77C2B2AE63) & _M64
     return _py_xx_fmix(h)
 
 

@@ -9,8 +9,9 @@ null type of an untyped ``NULL`` literal (``NullType`` :156), DECIMAL
 (``DecimalType`` :167:
 Decimal64, precision <= 18, held as its int64 unscaled value, and
 Decimal128, precision 19-38, held as two int64 limbs; a Decimal128 is a
-value column only) and STRING (UTF-8 bytes, variable width;
-``StringType`` :138).  Every type
+value column only), STRING (UTF-8 bytes, variable width;
+``StringType`` :138) and one array, array<tinyint> of a fixed length
+(``ArrayType`` :217, HyperLogLog++'s registers).  Every type
 carries the torch dtype of its device buffer and the numpy dtype used for
 host staging.
 """
@@ -196,9 +197,59 @@ class DecimalType(FractionalType):
         return f"decimal({self.precision},{self.scale})"
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class ArrayType(DataType):
+    """array<tinyint> without null elements, the one array the port holds
+    (``ArrayType`` :217 in the form HyperLogLog++'s buffer takes,
+    ``expressions/aggregates.py:531`` of the reference).  Every row holds
+    the same number of elements, so the column is fixed-stride: ``data``
+    int8 ``[n, length]``, the way a Decimal128 is int64 ``[n, 2]``, with
+    no offsets (the reference packs an offsets-based array,
+    ``_hll_array_col`` :250, and reads it back as ``[n, m]``,
+    ``_hll_regs2d`` :264).  ``length`` (required, at least 1) is every
+    row's number of elements.  Any other array raises: nested types are
+    not ported (ROADMAP queue 1, item 11 (rest))."""
+
+    element_type: DataType = None  # type: ignore[assignment]
+    contains_null: bool = True
+    length: int = 0
+    sql_name = "array"
+    torch_dtype = torch.int8
+    np_dtype = np.int8
+    byte_width = 1
+
+    def __post_init__(self):
+        if not isinstance(self.element_type, ByteType) or self.contains_null:
+            raise NotImplementedError(
+                f"array<{self.element_type!r}> (contains_null="
+                f"{self.contains_null}): nested types are not ported")
+        if not isinstance(self.length, int) or self.length < 1:
+            raise ValueError(f"a fixed-length array of {self.length} "
+                             "elements")
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, ArrayType) and other.length == self.length
+
+    def __hash__(self) -> int:
+        return hash((ArrayType, self.length))
+
+    def __repr__(self) -> str:
+        return f"array<{self.element_type!r}>"
+
+
 def two_limbs(dtype: DataType) -> bool:
     """A Decimal128: its column's data is int64 [n, 2]."""
     return isinstance(dtype, DecimalType) and dtype.uses_two_limbs
+
+
+def row_shape(dtype: DataType) -> tuple:
+    """The trailing shape of a fixed-width column's ``data``: (2,) for a
+    Decimal128's limbs, (length,) for a fixed-length array, () otherwise."""
+    if two_limbs(dtype):
+        return (2,)
+    if isinstance(dtype, ArrayType):
+        return (dtype.length,)
+    return ()
 
 
 BOOLEAN = BooleanType()

@@ -928,3 +928,118 @@ def test_date_and_hash_slice_wrappers_raise_off_the_cpu_without_cuda(call):
     with pytest.raises(ValueError, match="expected cuda"):
         call()
     assert dict(_lib.LAUNCHES) == before
+
+
+def test_sketch_slice_modules_are_covered():
+    """The sketch slice's modules (the bloom and HLL wrappers, the
+    round-robin partition, the range and exchange execs, the sketch
+    expressions and the fixed-length array type) are in the scans above
+    and import nothing of JAX; R1 (``csrc/sort.cu``), B1 / B2 and L1 / L2
+    (``csrc/sketch.cu``) are in built sources and bound, the hashes they
+    share are in ``csrc/hash.cuh`` (in the library's content hash), each
+    kernel has its own launch counter, and the DSL exports the new
+    expressions and calls."""
+    names = ("spark_rapids_tpu_torch.kernels.bloom",
+             "spark_rapids_tpu_torch.kernels.hll",
+             "spark_rapids_tpu_torch.kernels.partition",
+             "spark_rapids_tpu_torch.plan.execs.exchange",
+             "spark_rapids_tpu_torch.plan.execs.misc",
+             "spark_rapids_tpu_torch.expressions.hashing",
+             "spark_rapids_tpu_torch.expressions.aggregates",
+             "spark_rapids_tpu_torch.types")
+    for name in names:
+        assert name in PORT_MODULES
+        path = ROOT / (name.replace(".", "/") + ".py")
+        assert not {m for m in _imported_roots(path) if m in FORBIDDEN}
+    assert "sketch.cu" in _lib.SOURCES and "hash.cuh" in _lib.HEADERS
+    sources = {name: (_lib.CSRC / name).read_text()
+               for name in ("sketch.cu", "sort.cu", "hash.cu", "hash.cuh",
+                            "selection.cu")}
+    for name, entries, kernels in (
+            ("sketch.cu", ("srt_bloom_put", "srt_bloom_probe",
+                           "srt_hll_max_registers", "srt_hll_global",
+                           "srt_hll_grouped", "srt_hll_merge"),
+             ("bloom_put_kernel", "bloom_probe_kernel", "hll_global_kernel",
+              "hll_grouped_kernel", "hll_merge_kernel", '#include "hash.cuh"',
+              "atomicOr", "__clzll")),
+            ("sort.cu", ("srt_round_robin_order",),
+             ("round_robin_order_kernel",))):
+        for entry in entries:
+            assert entry in sources[name] and entry in _lib._SIGNATURES
+        for kernel in kernels:
+            assert kernel in sources[name]
+    # one copy of each device hash, in the shared header
+    for fn in ("uint32_t hash_long(", "uint64_t xx_hash_long("):
+        assert fn in sources["hash.cuh"] and fn not in sources["hash.cu"]
+    assert '#include "hash.cuh"' in sources["hash.cu"]
+    assert "move_wide_row" in sources["selection.cu"]
+    from spark_rapids_tpu_torch.kernels import bloom as BK
+    from spark_rapids_tpu_torch.kernels import hll as HL
+    from spark_rapids_tpu_torch.kernels import partition as PK
+    assert len({PK.ROUND_ROBIN, BK.BLOOM_PUT, BK.BLOOM_PROBE, HL.HLL_UPDATE,
+                HL.HLL_MERGE, "partition", "gather"}) == 7
+    from spark_rapids_tpu_torch import expressions as E
+    for fn in ("BloomFilterMightContain", "ApproximateCountDistinct",
+               "approx_count_distinct"):
+        assert hasattr(E, fn) and fn in E.__all__
+    from spark_rapids_tpu_torch.api.session import DataFrame, GpuSession
+    for fn in ("repartition", "build_bloom", "collect_partitions"):
+        assert callable(getattr(DataFrame, fn))
+    assert callable(GpuSession.range)
+    from spark_rapids_tpu_torch import types as T
+    with pytest.raises(NotImplementedError, match="nested types"):
+        T.ArrayType(T.IntegerType(), contains_null=False)
+    with pytest.raises(NotImplementedError, match="nested types"):
+        T.ArrayType(T.ByteType())
+    assert T.row_shape(T.ArrayType(T.ByteType(), False, 512)) == (512,)
+
+
+def _long_meta_column(n: int = 8):
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    return DeviceColumn(_meta(torch.int64, n), _meta(torch.bool, n), T.LONG)
+
+
+def _wide_meta_column(n: int = 8):
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    return DeviceColumn(torch.empty((n, 512), dtype=torch.int8,
+                                    device="meta"), _meta(torch.bool, n),
+                        T.ArrayType(T.ByteType(), False, 512))
+
+
+@pytest.mark.parametrize("call", [
+    lambda: __import__("spark_rapids_tpu_torch.kernels.partition",
+                       fromlist=["x"]).round_robin_order(8, 3, 1, "meta"),
+    lambda: __import__("spark_rapids_tpu_torch.kernels.bloom",
+                       fromlist=["x"]).bloom_put(
+        _meta(torch.int64, 4), _long_meta_column(), 3),
+    lambda: __import__("spark_rapids_tpu_torch.kernels.bloom",
+                       fromlist=["x"]).bloom_probe(
+        _meta(torch.int64, 4), _long_meta_column(), 3),
+    lambda: __import__("spark_rapids_tpu_torch.kernels.hll",
+                       fromlist=["x"]).hll_update(_long_meta_column(), 9),
+    lambda: __import__("spark_rapids_tpu_torch.kernels.hll",
+                       fromlist=["x"]).hll_update(
+        _long_meta_column(), 9, _meta(torch.int32, 2)),
+    lambda: __import__("spark_rapids_tpu_torch.kernels.hll",
+                       fromlist=["x"]).hll_merge(
+        torch.empty((8, 512), dtype=torch.int8, device="meta"),
+        _meta(torch.bool), _meta(torch.int32, 2)),
+    lambda: __import__("spark_rapids_tpu_torch.kernels.selection",
+                       fromlist=["x"]).gather_columns(
+        [_wide_meta_column()], _meta(torch.int32, 4)),
+    lambda: __import__("spark_rapids_tpu_torch.kernels.selection",
+                       fromlist=["x"]).concat_column(
+        [_wide_meta_column(), _wide_meta_column(3)]),
+], ids=["round_robin_order", "bloom_put", "bloom_probe", "hll_global",
+        "hll_grouped", "hll_merge", "gather_wide", "concat_wide"])
+def test_sketch_slice_wrappers_raise_off_the_cpu_without_cuda(call):
+    """As ``test_date_and_hash_slice_wrappers_raise_off_the_cpu_without_
+    cuda``, for R1, B1, B2, L1 (global and grouped), L2 and the gather and
+    concat of a wide row: no plain version off the CPU, no launch
+    counted."""
+    before = dict(_lib.LAUNCHES)
+    with pytest.raises(ValueError, match="expected cuda"):
+        call()
+    assert dict(_lib.LAUNCHES) == before
